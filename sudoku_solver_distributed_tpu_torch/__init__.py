@@ -1,0 +1,24 @@
+"""sudoku_solver_distributed_tpu_torch — the PyTorch/CUDA port of
+``sudoku_solver_distributed_tpu``.
+
+The same ``/solve`` / ``/stats`` / ``/network`` HTTP surface and the same
+per-board search as the JAX package, with the device solver a CUDA kernel
+written for NVIDIA Hopper (csrc/dfs_solver.cu) instead of a Pallas kernel
+for the TPU. The JAX package stays the reference: this package imports
+neither ``jax`` nor anything of it, and its tests hold it against it.
+
+Layout (mirrors the JAX package):
+  ops/       board encoding, validation, propagation, the plain solver and
+             the CUDA kernel's wrapper (ops/cuda_solver.py)
+  csrc/      the CUDA C++ kernel sources, built at first use
+  engine.py  SolverEngine: bucketed batch solving behind the kernel
+  models/    the trusted host-side oracle solver
+  net/       wire protocol, membership, stats gossip, node, HTTP API, CLI
+  utils/     handicap rate limiter
+
+Entry points run on the GPU unless the caller asks for the CPU
+(``SolverEngine(device="cpu")``, the CLI's ``--platform cpu``, or a CPU
+tensor handed to the solver); with no GPU and no such request they raise.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,152 @@
+"""A single-node P2P node: the object the HTTP API serves from.
+
+The port of the single-node part of ``sudoku_solver_distributed_tpu/net/
+node.py``: the constructor and counters, the ``/stats`` and ``/network``
+bodies, the no-peers branch of ``peer_sudoku_solve(_info)`` (the request
+goes straight to the engine), and the graceful ``shutdown``. ``run`` binds
+the UDP socket like the original and then waits for shutdown: the UDP
+event loop, the anchor join and the per-cell task farm come with the P2P
+slice, so a node here never has peers.
+"""
+
+from __future__ import annotations
+
+import logging
+import socket
+import threading
+from typing import Optional
+
+from ..engine import SolverEngine
+from ..utils import HandicapLimiter
+from . import wire
+from .membership import Membership
+from .stats import StatsGossip
+
+logger = logging.getLogger(__name__)
+
+FAILURE_TIMEOUT_S = 5.0     # the JAX node's crash-detector default
+
+
+class P2PNode:
+    def __init__(
+        self,
+        host: str,
+        port: int,
+        anchor_node: Optional[str] = None,
+        handicap: float = 0.001,
+        engine: Optional[SolverEngine] = None,
+        failure_timeout: float = FAILURE_TIMEOUT_S,
+        tombstone_ttl_s: Optional[float] = None,
+    ):
+        if anchor_node is not None:
+            raise NotImplementedError(
+                "joining a network (anchor_node) comes with the P2P slice"
+            )
+        self.host = host
+        self.port = port
+        self.id = f"{host}:{port}"
+        self.handicap = handicap
+
+        self.engine = engine if engine is not None else SolverEngine()
+        # ticks once per farmed task, as in the JAX node: the task farm
+        # comes with the P2P slice, so a single node never ticks it
+        self.limiter = HandicapLimiter(base_delay=handicap)
+        self._solved_count = 0
+        if tombstone_ttl_s is None:
+            # the JAX node's derived default: tombstones outlive flood
+            # convergence but not a few failure-detection periods
+            tombstone_ttl_s = (
+                max(6.0 * failure_timeout, 12.0) if failure_timeout else 30.0
+            )
+        self.failure_timeout = failure_timeout
+        self.membership = Membership(self.id, tombstone_ttl_s=tombstone_ttl_s)
+        self.stats = StatsGossip(self.id, self._own_counters)
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self._shutdown = threading.Event()
+        self._state_lock = threading.Lock()
+
+    # -- counters ----------------------------------------------------------
+    # `solved` counts one per successful solve; `validations` is the
+    # engine's sweep count
+    def _own_counters(self) -> tuple:
+        return self._solved_count, self.engine.validations
+
+    @property
+    def validations(self) -> int:
+        return self.engine.validations
+
+    @property
+    def solved_puzzles(self) -> int:
+        return self._solved_count
+
+    # -- transport ---------------------------------------------------------
+    def send(self, address, msg: wire.Msg) -> None:
+        try:
+            self.sock.sendto(wire.encode_msg(msg), address)
+        except OSError as e:
+            logger.error("send to %s failed: %s", address, e)
+
+    def send_to(self, peer_id: str, msg: wire.Msg) -> None:
+        if not wire.valid_address(peer_id):
+            logger.warning("refusing send to invalid peer id %r", peer_id)
+            return
+        self.send(wire.parse_address(peer_id), msg)
+
+    # -- gossip ------------------------------------------------------------
+    def broadcast_stats(self) -> None:
+        peers = self.membership.neighbors()
+        if not peers:
+            return
+        msg = wire.stats_msg(
+            self.id, self._solved_count, self.engine.validations,
+            self.stats.snapshot(),
+        )
+        for peer in peers:
+            self.send_to(peer, msg)
+
+    def get_stats(self) -> wire.Msg:
+        return self.stats.snapshot()
+
+    def network_view(self) -> wire.Msg:
+        return self.membership.network_view()
+
+    # -- solving -----------------------------------------------------------
+    def peer_sudoku_solve(self, sudoku, deadline_s=None) -> Optional[list]:
+        """Solve a request board; returns the solved grid or None."""
+        solution, _ = self.peer_sudoku_solve_info(sudoku, deadline_s=deadline_s)
+        return solution
+
+    def peer_sudoku_solve_info(self, sudoku, deadline_s=None):
+        """Solve a request board; returns (solution | None, info). With no
+        peers (always, in this slice) the engine answers it."""
+        if deadline_s is not None:
+            raise NotImplementedError(
+                "request deadlines come with the admission slice"
+            )
+        if self.membership.total_peers():
+            raise NotImplementedError("the task farm comes with the P2P slice")
+        solution, info = self.engine.solve_one(sudoku)
+        if solution is not None:
+            with self._state_lock:
+                self._solved_count += 1
+        self.broadcast_stats()
+        return solution, info
+
+    # -- lifecycle ---------------------------------------------------------
+    def run(self) -> None:
+        """Bind the UDP socket, then block until ``shutdown``."""
+        self.sock.bind((self.host, self.port))
+        logger.info("P2P node %s listening on %s:%s", self.id, self.host, self.port)
+        self._shutdown.wait()
+
+    def shutdown(self) -> None:
+        """Graceful departure: final stats gossip, disconnect to every
+        neighbor, then release ``run``."""
+        self.broadcast_stats()
+        for peer in self.membership.neighbors():
+            self.send_to(peer, wire.disconnect_msg(self.id))
+            logger.info("sent disconnect message to %s", peer)
+        logger.info("shutting down P2P node %s", self.id)
+        self._shutdown.set()
+        self.sock.close()

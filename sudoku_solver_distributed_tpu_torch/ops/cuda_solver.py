@@ -1,0 +1,237 @@
+"""The DFS solver kernel for NVIDIA Hopper: build, wrapper, staging glue.
+
+The port of ``sudoku_solver_distributed_tpu/ops/pallas_solver.py``. The
+kernel (csrc/dfs_solver.cu, CUDA C++ for ``sm_90a``) runs a board's whole
+DFS in one thread; ``dfs_solver`` is its wrapper and ``solve_batch_cuda``
+the staged-depth glue around it, with the semantics of
+``solve_batch_pallas`` and its ``_retry_overflow_deep``.
+
+Differences from the Pallas path, all by design:
+
+* The guess stack lives in a device-memory scratch slab the wrapper
+  allocates, not in on-chip memory, so there is no on-chip stack budget:
+  every depth stage runs the kernel (the Pallas path handed over-budget
+  stages to the XLA solver).
+* ``iters`` is the largest per-board step count (boards no longer step
+  together) and ``idle_lane_steps`` is 0; ``lane_steps`` sums the boards'
+  own steps. Per-board grid, status, guesses and validations are those of
+  the lockstep solvers. ``iters`` stays on the device as a 0-dim tensor,
+  so a solve syncs only for the OVERFLOW check between depth stages and
+  for whatever the caller copies back.
+
+The kernel is built from csrc/ at first use with ``nvcc`` into
+``_build/`` beside this package and loaded with ctypes (a plain C
+interface, so the build takes seconds, not PyTorch-header minutes).
+
+``dfs_solver`` runs the plain PyTorch version (ops/solver.py) for a CPU
+tensor, and only then; for a CUDA tensor it launches the kernel or raises.
+``dfs_solver.launches`` counts kernel launches (under a lock: the HTTP
+server's handler threads launch concurrently).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .solver import (
+    SolveResult,
+    LoopStats,
+    SOLVED,
+    solve_flat,
+    solve_staged,
+    staged_depths,
+)
+from .spec import BoardSpec
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "dfs_solver.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+META_COLS = 4  # status, guesses, validations, steps
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "DFS kernel is built from csrc/ on a machine with the CUDA toolkit"
+    )
+
+
+def build() -> Path:
+    """Compile csrc/dfs_solver.cu into ``_build/`` (keyed by the source's
+    hash and flags, so an edited source rebuilds) and return the library
+    path. The compiler's register/spill report is kept beside it as
+    ``<lib>.log``."""
+    src = SOURCE.read_bytes()
+    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    lib = BUILD_DIR / f"libdfs_solver_{key}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = lib.with_suffix(".log")
+    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
+            + proc.stderr[-4000:]
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    lib = ctypes.CDLL(str(build()))
+    lib.dfs_solver_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.dfs_solver_launch.restype = ctypes.c_int
+    lib.dfs_solver_meta_cols.restype = ctypes.c_int
+    if lib.dfs_solver_meta_cols() != META_COLS:
+        raise RuntimeError("dfs_solver library disagrees on the meta layout")
+    return lib
+
+
+def _dfs_solver_plain(boards: torch.Tensor, spec: BoardSpec, depth: int,
+                      max_iters: int):
+    """The plain PyTorch version of the kernel on the same (B, C) layout:
+    ops/solver.solve_flat. Returns (grid, meta) like the kernel, with every
+    board's step count set to the batch's."""
+    B = boards.shape[0]
+    N = spec.size
+    res, _ = solve_flat(boards.reshape(B, N, N), spec, depth, max_iters)
+    steps = torch.full_like(res.status, res.iters)
+    meta = torch.stack([res.status, res.guesses, res.validations, steps], dim=1)
+    return res.grid.reshape(B, spec.cells), meta
+
+
+def dfs_solver(boards: torch.Tensor, spec: BoardSpec, depth: int,
+               max_iters: int):
+    """Solve (B, C) int32 boards with a guess stack of ``depth`` frames and
+    at most ``max_iters`` steps per board. Returns ``(grid, meta)``: the
+    (B, C) int32 final grids and the (B, 4) int32 [status, guesses,
+    validations, steps] per board.
+
+    A CUDA tensor launches the kernel on the current stream (no sync);
+    a CPU tensor runs the plain version. Nothing else is accepted."""
+    if not isinstance(boards, torch.Tensor):
+        raise TypeError("dfs_solver takes a torch.Tensor")
+    if boards.dtype != torch.int32:
+        raise TypeError(f"dfs_solver takes int32 boards, got {boards.dtype}")
+    if boards.dim() != 2 or boards.shape[1] != spec.cells:
+        raise ValueError(
+            f"dfs_solver takes (B, {spec.cells}) boards, got "
+            f"{tuple(boards.shape)}"
+        )
+    if depth < 1 or max_iters < 0:
+        raise ValueError(f"bad depth {depth} / max_iters {max_iters}")
+    if boards.device.type == "cpu":
+        return _dfs_solver_plain(boards, spec, depth, max_iters)
+    if boards.device.type != "cuda":
+        raise ValueError(f"dfs_solver runs on cuda or cpu, not {boards.device}")
+    if not boards.is_contiguous():
+        raise ValueError("dfs_solver takes contiguous boards")
+    B, C = boards.shape
+    dev = boards.device
+    grid = torch.empty((B, C), dtype=torch.int32, device=dev)
+    meta = torch.empty((B, META_COLS), dtype=torch.int32, device=dev)
+    if B == 0:
+        return grid, meta
+    stack_grid = torch.empty((B, depth, C), dtype=torch.int8, device=dev)
+    stack_cell = torch.empty((B, depth), dtype=torch.int32, device=dev)
+    stack_mask = torch.empty((B, depth), dtype=torch.int32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dfs_solver_launch(
+            boards.data_ptr(), grid.data_ptr(), meta.data_ptr(),
+            stack_grid.data_ptr(), stack_cell.data_ptr(),
+            stack_mask.data_ptr(), B, spec.box, depth, max_iters, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dfs_solver launch failed: cudaError {err}")
+    with _LAUNCHES_LOCK:
+        dfs_solver.launches += 1
+    return grid, meta
+
+
+dfs_solver.launches = 0
+
+
+def _solve_stage(grid: torch.Tensor, spec: BoardSpec, depth: int,
+                 max_iters: int):
+    """One flat-depth stage through ``dfs_solver``. The step counters stay
+    on the device (0-dim tensors): reading them is left to the caller."""
+    B = grid.shape[0]
+    N = spec.size
+    out, meta = dfs_solver(
+        grid.reshape(B, spec.cells).contiguous(), spec, depth, max_iters
+    )
+    status = meta[:, 0]
+    steps = meta[:, 3]
+    res = SolveResult(
+        grid=out.reshape(B, N, N),
+        solved=status == SOLVED,
+        status=status,
+        guesses=meta[:, 1],
+        validations=meta[:, 2],
+        iters=steps.amax() if B else steps.new_zeros(()),
+    )
+    return res, LoopStats(steps.sum(), 0)
+
+
+def solve_batch_cuda(
+    grid,
+    spec: BoardSpec,
+    *,
+    max_depth=None,
+    max_iters: int = 4096,
+    return_stats: bool = False,
+):
+    """Solve a (B, N, N) batch with the DFS kernel.
+
+    ``grid`` is a tensor, which is solved on its own device (the plain
+    version runs for a CPU tensor), or an array, which goes to CUDA: with
+    no GPU that raises. ``max_depth`` stages the stack depth exactly as ``ops.solver.
+    solve_batch`` does (None → the spec's full depth; a tuple → OVERFLOW
+    boards rerun deeper, with every other lane a pad board, and their
+    counters accumulate). Results agree with the plain ``solve_batch``
+    board for board in grid, status, guesses and validations. ``iters``
+    is a 0-dim tensor; the LoopStats of ``return_stats`` are ints."""
+    if not isinstance(grid, torch.Tensor):
+        grid = torch.as_tensor(np.asarray(grid), device="cuda")
+    res, stats = solve_staged(
+        grid.to(torch.int32),
+        spec,
+        staged_depths(max_depth, spec),
+        lambda g, d: _solve_stage(g, spec, d, max_iters),
+    )
+    if not return_stats:
+        return res
+    return res, LoopStats(int(stats.lane_steps), int(stats.idle_lane_steps))

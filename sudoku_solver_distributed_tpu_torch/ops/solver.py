@@ -1,0 +1,367 @@
+"""Batched DFS sudoku solver in plain PyTorch — the kernel's reference.
+
+The port of the closed loop of ``sudoku_solver_distributed_tpu/ops/solver.py``
+in the configuration the device kernel runs: singles-only analysis
+(``locked_candidates=False``) and one sweep per step (``waves=1``). It is
+the plain version of the CUDA kernel in csrc/dfs_solver.cu: the same
+inputs give the same grid, status, guesses and validations per board. The
+kernel wrapper (ops/cuda_solver.py) runs it for CPU tensors only; tests
+and ``chip_smoke.py`` hold the kernel against it.
+
+Every board runs the same step each iteration: one fused analysis, then
+one of {assign every forced single, branch on the minimum-remaining-values
+cell, backtrack}. Recursion is an explicit guess stack of fixed depth D
+(OVERFLOW when a branch would exceed it); per-board status lanes
+(RUNNING / SOLVED / UNSAT / OVERFLOW) mask finished boards out.
+
+The JAX loop shrinks the batch as boards finish (its compaction ladder);
+that changes the schedule and nothing a board computes, because a board's
+step depends only on its own row and a finished row is a fixed point. So
+this module runs one flat loop.
+
+``_step`` updates the stack tensors of the state it is given in place (a
+(B, D, C) int8 stack copied every step would be D× the step's traffic), so
+a state is consumed by stepping it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .encode import mask_to_value, popcount
+from .propagate import analyze
+from .spec import BoardSpec
+
+RUNNING = 0
+SOLVED = 1
+UNSAT = 2
+OVERFLOW = 3  # guess stack exhausted (fixed depth; see BoardSpec.max_depth)
+
+_INT32_MAX = 2**31 - 1
+
+
+class SolveResult(NamedTuple):
+    grid: torch.Tensor         # (B, N, N) int32 — solution where solved
+    solved: torch.Tensor       # (B,) bool
+    status: torch.Tensor       # (B,) int32 — SOLVED / UNSAT / OVERFLOW / RUNNING
+    guesses: torch.Tensor      # (B,) int32 — speculative branches taken
+    validations: torch.Tensor  # (B,) int32 — analysis sweeps while RUNNING
+    # steps of the loop (summed over depth stages); the kernel route keeps
+    # it on the device as a 0-dim tensor, read with int()
+    iters: int | torch.Tensor
+
+
+class LoopStats(NamedTuple):
+    """Work counters of a solve: ``lane_steps`` counts board-lanes swept
+    (each step adds the batch width), ``idle_lane_steps`` the subset that
+    were already finished when the step ran."""
+
+    lane_steps: int
+    idle_lane_steps: int
+
+
+class _State(NamedTuple):
+    grid: torch.Tensor         # (B, C) int32, flattened boards
+    stack_grid: torch.Tensor   # (B, D, C) int8 — snapshot at each guess
+    stack_cell: torch.Tensor   # (B, D) int32 — flat cell index guessed at
+    stack_mask: torch.Tensor   # (B, D) int32 — candidate bits not yet tried
+    depth: torch.Tensor        # (B,) int32
+    status: torch.Tensor       # (B,) int32
+    guesses: torch.Tensor      # (B,) int32
+    validations: torch.Tensor  # (B,) int32
+    iters: int                 # steps taken
+
+
+def init_state(
+    grid: torch.Tensor, spec: BoardSpec, max_depth: int | None = None
+) -> _State:
+    """Fresh solver state for a (B, N, N) batch, on the batch's device."""
+    B = grid.shape[0]
+    C = spec.cells
+    D = max_depth if max_depth is not None else spec.max_depth
+    dev = grid.device
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return _State(
+        grid=grid.to(torch.int32).reshape(B, C).clone(),
+        stack_grid=zeros(B, D, C, dtype=torch.int8),
+        stack_cell=zeros(B, D),
+        stack_mask=zeros(B, D),
+        depth=zeros(B),
+        status=zeros(B),
+        guesses=zeros(B),
+        validations=zeros(B),
+        iters=0,
+    )
+
+
+def state_from_numpy(fields, device="cpu") -> _State:
+    """A port ``_State`` from the fields of a JAX ``_State`` held as numpy
+    arrays (a NamedTuple or a mapping with the same field names), so a
+    search stopped mid-way in the JAX package continues here — stack and
+    counters included."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    dtypes = {"stack_grid": torch.int8}
+    out = {}
+    for name in _State._fields:
+        if name == "iters":
+            out[name] = int(fields[name])
+            continue
+        arr = torch.as_tensor(fields[name].copy())
+        out[name] = arr.to(device=device, dtype=dtypes.get(name, torch.int32))
+    return _State(**out)
+
+
+def _mrv_cell(grid: torch.Tensor, cand: torch.Tensor, spec: BoardSpec):
+    """Minimum-remaining-values branching cell per board: the empty cell
+    with the fewest candidates, lowest flat index on ties. Returns (cell,
+    mask) — (B,) int64 indices and that cell's candidate bitmask."""
+    C = grid.shape[1]
+    key = torch.where(
+        grid == 0, popcount(cand, spec), torch.full_like(grid, _INT32_MAX)
+    )
+    min_key = key.min(dim=1, keepdim=True).values
+    iota = torch.arange(C, device=grid.device).expand_as(key)
+    cell = torch.where(key == min_key, iota, C).min(dim=1).values
+    b = torch.arange(grid.shape[0], device=grid.device)
+    return cell, cand[b, cell]
+
+
+def _step(state: _State, spec: BoardSpec) -> _State:
+    B, C = state.grid.shape
+    D = state.stack_mask.shape[1]
+    N = spec.size
+    dev = state.grid.device
+    b = torch.arange(B, device=dev)
+    grid = state.grid
+
+    a = analyze(grid.reshape(B, N, N), spec)
+    cand = a.cand.reshape(B, C)
+    assign = a.assign.reshape(B, C)
+    contra, solved = a.contradiction, a.solved
+    running = state.status == RUNNING
+
+    new_status = torch.where(running & solved, SOLVED, state.status)
+    act = running & ~solved  # boards that still need work this step
+
+    # path 1: assign all singles (≥1 forced cell, no contradiction)
+    has_single = (assign != 0).any(dim=1)
+    do_assign = act & ~contra & has_single
+    assigned_grid = torch.where(assign != 0, mask_to_value(assign, spec), grid)
+
+    # path 2: branch on the MRV cell (no contradiction, no singles)
+    do_branch = act & ~contra & ~has_single
+    mrv_cell, mrv_mask = _mrv_cell(grid, cand, spec)
+    guess_bit = mrv_mask & -mrv_mask
+    overflow = do_branch & (state.depth >= D)
+    do_branch = do_branch & (state.depth < D)
+    new_status = torch.where(overflow, OVERFLOW, new_status)
+    iota_c = torch.arange(C, device=dev)
+    branched_grid = torch.where(
+        iota_c[None, :] == mrv_cell[:, None],
+        mask_to_value(guess_bit, spec)[:, None],
+        grid,
+    )
+
+    # path 3: backtrack (contradiction)
+    do_bt = act & contra
+    top = (state.depth - 1).clamp(0, D - 1).long()
+    top_mask = state.stack_mask[b, top]
+    top_cell = state.stack_cell[b, top]
+    top_grid = state.stack_grid[b, top].to(torch.int32)  # (B, C)
+    empty_stack = state.depth == 0
+    exhausted = top_mask == 0
+    # pop: the top frame has no untried candidate → drop it; the grid stays
+    # contradictory and the next step backtracks again
+    bt_pop = do_bt & ~empty_stack & exhausted
+    # retry: restore the snapshot, take the next untried bit at the same cell
+    bt_retry = do_bt & ~empty_stack & ~exhausted
+    retry_bit = top_mask & -top_mask
+    retry_grid = torch.where(
+        iota_c[None, :] == top_cell[:, None].long(),
+        mask_to_value(retry_bit, spec)[:, None],
+        top_grid,
+    )
+    new_status = torch.where(do_bt & empty_stack, UNSAT, new_status)
+
+    new_grid = grid
+    new_grid = torch.where(do_assign[:, None], assigned_grid, new_grid)
+    new_grid = torch.where(do_branch[:, None], branched_grid, new_grid)
+    new_grid = torch.where(bt_retry[:, None], retry_grid, new_grid)
+
+    # stack updates, in place: one frame per board
+    push_slot = state.depth.clamp(0, D - 1).long()
+    state.stack_grid[b, push_slot] = torch.where(
+        do_branch[:, None], grid.to(torch.int8), state.stack_grid[b, push_slot]
+    )
+    state.stack_cell[b, push_slot] = torch.where(
+        do_branch, mrv_cell.to(torch.int32), state.stack_cell[b, push_slot]
+    )
+    state.stack_mask[b, push_slot] = torch.where(
+        do_branch, mrv_mask & ~guess_bit, state.stack_mask[b, push_slot]
+    )
+    state.stack_mask[b, top] = torch.where(
+        bt_retry, top_mask & ~retry_bit, state.stack_mask[b, top]
+    )
+
+    one = torch.ones_like(state.depth)
+    zero = torch.zeros_like(state.depth)
+    return _State(
+        grid=new_grid,
+        stack_grid=state.stack_grid,
+        stack_cell=state.stack_cell,
+        stack_mask=state.stack_mask,
+        depth=state.depth
+        + torch.where(do_branch, one, zero)
+        - torch.where(bt_pop, one, zero),
+        status=new_status,
+        guesses=state.guesses + torch.where(do_branch, one, zero),
+        validations=state.validations + torch.where(running, one, zero),
+        iters=state.iters + 1,
+    )
+
+
+def step(state: _State, spec: BoardSpec) -> _State:
+    """One solver step over the batch (consumes ``state``'s stack)."""
+    return _step(state, spec)
+
+
+def finalize_status(state: _State, spec: BoardSpec) -> _State:
+    """Flip RUNNING → SOLVED for boards completed on the very last step.
+
+    ``_step`` judges solved-ness from the grid before that step's
+    assignments, so a board finished exactly at the step cap would read
+    RUNNING while holding a complete valid grid; one more analysis closes
+    the gap."""
+    B = state.grid.shape[0]
+    N = spec.size
+    a = analyze(state.grid.reshape(B, N, N), spec)
+    status = torch.where(
+        (state.status == RUNNING) & a.solved, SOLVED, state.status
+    )
+    return state._replace(status=status)
+
+
+def run_loop(state: _State, spec: BoardSpec, max_iters: int):
+    """Step until no board is RUNNING or the state has taken ``max_iters``
+    steps, then finalize. Returns (state, LoopStats)."""
+    lane = 0
+    idle = torch.zeros((), dtype=torch.int64, device=state.grid.device)
+    while state.iters < max_iters:
+        running = state.status == RUNNING
+        if not bool(running.any()):
+            break
+        lane += state.grid.shape[0]
+        idle = idle + (~running).sum()
+        state = _step(state, spec)
+    return finalize_status(state, spec), LoopStats(lane, int(idle))
+
+
+def pad_board(spec: BoardSpec, device=None) -> torch.Tensor:
+    """An instantly-UNSAT (N, N) board (two equal clues in one row): the
+    stand-in for lanes a staged retry must not re-solve. It dies in one
+    step without pushing a frame."""
+    g = torch.zeros((spec.size, spec.size), dtype=torch.int32, device=device)
+    g[0, 0] = 1
+    g[0, 1] = 1
+    return g
+
+
+def merge_retry_result(
+    need: torch.Tensor, res: SolveResult, r2: SolveResult
+) -> SolveResult:
+    """Merge a deeper-stage rerun ``r2`` over the lanes ``need`` of ``res``:
+    retried lanes take the rerun's grid/status, work counters accumulate
+    across stages, and ``iters`` always sums."""
+    return SolveResult(
+        grid=torch.where(need[:, None, None], r2.grid, res.grid),
+        solved=torch.where(need, r2.solved, res.solved),
+        status=torch.where(need, r2.status, res.status),
+        guesses=torch.where(need, res.guesses + r2.guesses, res.guesses),
+        validations=torch.where(
+            need, res.validations + r2.validations, res.validations
+        ),
+        iters=res.iters + r2.iters,
+    )
+
+
+def staged_depths(max_depth, spec: BoardSpec) -> tuple:
+    """``max_depth`` as a tuple of stage depths: None → the spec's full
+    depth, an int → one stage, a tuple → itself."""
+    if max_depth is None:
+        return (spec.max_depth,)
+    if isinstance(max_depth, (tuple, list)):
+        return tuple(int(d) for d in max_depth)
+    return (int(max_depth),)
+
+
+def solve_staged(grid, spec: BoardSpec, depths, solve_stage):
+    """The staged-depth contract shared by the plain solver and the kernel
+    wrapper: the batch runs at ``depths[0]``; after each stage, if any board
+    hit OVERFLOW, the batch reruns at the next depth with every other lane
+    replaced by the instantly-UNSAT pad board, and the rerun is merged over
+    the OVERFLOW lanes (``merge_retry_result``). ``solve_stage(grid,
+    depth)`` returns (SolveResult, LoopStats) for one flat depth."""
+    grid = grid.to(torch.int32)
+    res, stats = solve_stage(grid, depths[0])
+    for d in depths[1:]:
+        need = res.status == OVERFLOW
+        if not bool(need.any()):
+            continue
+        g2 = torch.where(
+            need[:, None, None], grid, pad_board(spec, grid.device)
+        )
+        r2, s2 = solve_stage(g2, d)
+        res = merge_retry_result(need, res, r2)
+        stats = LoopStats(
+            stats.lane_steps + s2.lane_steps,
+            stats.idle_lane_steps + s2.idle_lane_steps,
+        )
+    return res, stats
+
+
+def solve_flat(grid, spec: BoardSpec, depth: int, max_iters: int):
+    """One flat-depth stage: a (B, N, N) batch stepped to the end from a
+    fresh state with a ``depth``-frame stack. Returns (SolveResult,
+    LoopStats)."""
+    B = grid.shape[0]
+    N = spec.size
+    state, stats = run_loop(init_state(grid, spec, depth), spec, max_iters)
+    return SolveResult(
+        grid=state.grid.reshape(B, N, N),
+        solved=state.status == SOLVED,
+        status=state.status,
+        guesses=state.guesses,
+        validations=state.validations,
+        iters=state.iters,
+    ), stats
+
+
+def solve_batch(
+    grid: torch.Tensor,
+    spec: BoardSpec,
+    *,
+    max_iters: int = 4096,
+    max_depth=None,
+    return_stats: bool = False,
+):
+    """Solve a (B, N, N) batch to completion, proven unsatisfiability, the
+    stack's depth (OVERFLOW) or ``max_iters`` steps (RUNNING).
+
+    ``max_depth`` may be a tuple to stage the stack depth (see
+    ``solve_staged``): e.g. ``(32, 81)`` runs the common case with a
+    shallow stack and keeps the full-depth guarantee. Runs on the batch's
+    device with plain tensor operations; matches the JAX package's
+    ``solve_batch(locked_candidates=False, waves=1)`` per board."""
+    res, stats = solve_staged(
+        grid,
+        spec,
+        staged_depths(max_depth, spec),
+        lambda g, d: solve_flat(g, spec, d, max_iters),
+    )
+    return (res, stats) if return_stats else res

@@ -1,0 +1,122 @@
+"""The port stands alone: it imports neither ``jax`` nor the JAX package, its
+entry points default to the GPU and raise without one, and the kernel's
+wrapper refuses what the kernel does not take. The one test that needs the
+card (kernel against its plain version) is marked ``cuda`` and skips
+without one; ``python3 chip_smoke.py`` runs the full comparison there.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from sudoku_solver_distributed_tpu_torch.ops import spec_for_size
+from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+    dfs_solver,
+    solve_batch_cuda,
+)
+from sudoku_solver_distributed_tpu_torch.ops.solver import solve_batch
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PKG = os.path.join(ROOT, "sudoku_solver_distributed_tpu_torch")
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import sudoku_solver_distributed_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = [n for n in sys.modules
+          if n.split(".")[0] == "sudoku_solver_distributed_tpu"]
+assert not leaked, leaked
+assert sys.modules["jax"] is None
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20  # every module of the port
+
+
+def test_no_import_line_names_jax_or_the_jax_package():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|sudoku_solver_distributed_tpu)(\.|\s|$)"
+    )
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    hits = [
+        f"{path}:{i}"
+        for path in files
+        for i, line in enumerate(open(path, encoding="utf-8"), 1)
+        if pattern.match(line)
+    ]
+    assert not hits
+
+
+def test_solve_batch_cuda_defaults_to_the_gpu(monkeypatch):
+    """An array (no device given) goes to CUDA; with no card that raises
+    rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default would succeed")
+    boards = np.zeros((1, 9, 9), np.int32)
+    with pytest.raises((RuntimeError, AssertionError)):
+        solve_batch_cuda(boards, spec_for_size(9))
+
+
+@pytest.mark.parametrize(
+    "boards, error",
+    [
+        (np.zeros((2, 81), np.int32), TypeError),            # not a tensor
+        (torch.zeros((2, 81), dtype=torch.int64), TypeError),  # wrong dtype
+        (torch.zeros((2, 80), dtype=torch.int32), ValueError),  # wrong cells
+        (torch.zeros((2, 9, 9), dtype=torch.int32), ValueError),  # not flat
+        (torch.zeros((2, 81), dtype=torch.int32, device="meta"), ValueError),
+    ],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(boards, error):
+    before = dfs_solver.launches
+    with pytest.raises(error):
+        dfs_solver(boards, spec_for_size(9), 32, 4096)
+    assert dfs_solver.launches == before
+
+
+def test_wrapper_rejects_bad_depth():
+    with pytest.raises(ValueError):
+        dfs_solver(torch.zeros((1, 81), dtype=torch.int32), spec_for_size(9), 0, 8)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_the_card():
+    """Build the kernel, launch it on 256 hard boards and the degenerate
+    shapes, and hold it against the plain version on the same CUDA
+    tensors (the full set runs in chip_smoke.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    with np.load(os.path.join(ROOT, "benchmarks", "corpus_9x9_hard_4096.npz")) as d:
+        boards = d["boards"][:256].astype(np.int32)
+    boards[0] = 0                        # empty: overflows the 32-frame stage
+    boards[1, 0, 0] = boards[1, 0, 1] = 0
+    boards[1, 0, 0] = boards[1, 0, 2] = 5
+    boards[2, 4, 4] = 36                 # out of range
+    spec = spec_for_size(9)
+    g = torch.as_tensor(boards, device="cuda")
+    before = dfs_solver.launches
+    k = solve_batch_cuda(g, spec, max_depth=(32, 81))
+    p = solve_batch(g, spec, max_depth=(32, 81))
+    torch.cuda.synchronize()
+    assert dfs_solver.launches >= before + 2  # both stages launched
+    for f in ("grid", "status", "guesses", "validations"):
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
