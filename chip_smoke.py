@@ -4,21 +4,31 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. Build the DFS kernel library from sudoku_solver_distributed_tpu_torch/csrc/.
+1. Build the DFS kernel library from sudoku_solver_distributed_tpu_torch/csrc/
+   and print ``ptxas -v``'s registers, stack and spills per instance; the
+   9x9 instance must use no stack.
 2. Hold the kernel (ops/cuda_solver.solve_batch_cuda) against its plain
    PyTorch version (ops/solver.solve_batch), both on CUDA tensors, on the
-   committed corpora and on degenerate boards: grid, status, guesses and
-   validations must be equal per board, and every SOLVED grid must pass the
-   host oracle and keep its clues.
+   committed corpora, on seeded symmetry transforms of them (which move MRV
+   ties and singles across the kernel's lane boundaries), on degenerate
+   boards and on the README board alone (width 1, both depth stages):
+   grid, status, guesses and validations must be equal per board,
+   and every SOLVED grid must pass the host oracle and keep its clues.
 3. Engine: SolverEngine over the (1, 8, 64, 512, 4096) buckets, warmed,
    solves the 4096-board hard corpus; prints boards/s.
 4. The main path: a node and its HTTP server built by the CLI's
    construction function answer POST /solve (README puzzle + corpus
    boards, an unsolvable board, a malformed body), GET /stats, GET
    /network and an unknown path. The kernel's launch counter is set to 0
-   just before and must have grown just after.
-5. Timing with CUDA events after warm-up: the kernel and the plain version
-   on the 4096-board corpus at the main path's first depth stage.
+   just before and must have grown just after. Then the README board's
+   /solve p50 over 20 requests, and the same board through
+   ``engine.solve_one`` alone (no HTTP, no node).
+5. Timing with CUDA events: the kernel at bucket widths 1 (the README
+   board, both depth stages), 64, 512 and 4096 (the hard corpus, first
+   depth stage), each beside its bound and the plain version on the same
+   inputs. At every width the kernel's first launch is held against the
+   plain version: grid, status, guesses and validations per board, and the
+   largest step count against the plain version's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -29,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -52,16 +63,17 @@ README_PUZZLE = [
 
 # H100 SXM rates: HBM3 at 3.35 TB/s (NVIDIA data sheet); int32 ALU rate
 # = 132 SMs × 64 INT32 lanes × 1.98 GHz boost (Hopper white paper).
+SM_CLOCK_HZ = 1.98e9
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# Integer operations per cell per solver step, counted from the three cell
-# sweeps of csrc/dfs_solver.cu along the cheapest path a cell takes (a
-# filled cell: load, zero and range compares, shift, box index, three
-# once/twice unit updates = 21 in the value-mask sweep, then load + compare
-# in each of the other two sweeps); an empty cell costs about twice that,
-# so this floor keeps bound_ms a lower bound. Loop and address arithmetic
-# are not counted.
+INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
+# Integer operations per cell per solver step: the cheapest path a cell
+# takes through one step's analysis (a filled cell: load, zero and range
+# compares, shift, box index and three once/twice unit updates = 21 for
+# the value masks, then a load and a compare each for the candidates and
+# the singles). An empty cell costs about twice that, so this floor keeps
+# bound_ms a lower bound. Loop and address arithmetic are not counted.
 OPS_PER_CELL_STEP = 25
+SYMMETRY_SEED = 20261016
 
 
 def check(cond, msg: str) -> None:
@@ -80,14 +92,41 @@ def load_corpus(name: str):
         return d["boards"].astype(np.int32)
 
 
+def symmetry_transforms(boards, count: int, seed: int):
+    """``count`` boards, board i a random symmetry of ``boards[i % len]``:
+    digit relabelling, transposition, band and stack order, and the order of
+    rows within each band and of columns within each stack. Each keeps its
+    source's solvability, and moves its cells (so its MRV ties and singles)
+    to other flat indices. Values must lie in 0..N."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    boards = np.asarray(boards, np.int32)
+    n_src, N, _ = boards.shape
+    box = round(N ** 0.5)
+
+    def line_order():
+        bands = rng.permutation(box)[:, None] * box
+        return (bands + np.stack([rng.permutation(box) for _ in range(box)])).ravel()
+
+    out = np.empty((count, N, N), np.int32)
+    for i in range(count):
+        b = np.concatenate([[0], rng.permutation(N) + 1])[boards[i % n_src]]
+        if rng.random() < 0.5:
+            b = b.T
+        out[i] = b[line_order()][:, line_order()]
+    return out
+
+
 def degenerate_boards():
     """Clue conflict, empty board (overflows the 32-frame stage), an
-    out-of-range value, all 5s, and a solved board with one hole."""
+    out-of-range value, all 5s, a solved board with one hole, and a
+    negative value."""
     import numpy as np
 
     from sudoku_solver_distributed_tpu_torch.models import oracle_solve
 
-    out = np.zeros((5, 9, 9), np.int32)
+    out = np.zeros((6, 9, 9), np.int32)
     out[0, 0, 0] = out[0, 0, 1] = 4
     out[2] = load_corpus("corpus_9x9_hard_4096.npz")[0]
     out[2, 4, 4] = 36
@@ -95,6 +134,8 @@ def degenerate_boards():
     solved = np.asarray(oracle_solve(README_PUZZLE), np.int32)
     solved[3, 3] = 0
     out[4] = solved
+    out[5] = load_corpus("corpus_9x9_hard_4096.npz")[1]
+    out[5, 8, 0] = -3
     return out
 
 
@@ -102,12 +143,20 @@ def phase_parity(cs, ts, spec_for_size, SERVING_CONFIG, oracle_ok):
     import numpy as np
     import torch
 
+    hard = load_corpus("corpus_9x9_hard_4096.npz")
+    hexa = load_corpus("corpus_16x16_hard_2048.npz")
+    giant = load_corpus("corpus_25x25_hard_512.npz")
+    seed = SYMMETRY_SEED
     cases = [
-        ("9x9 hard 4096", load_corpus("corpus_9x9_hard_4096.npz"), 9, True),
+        ("9x9 hard 4096", hard, 9, True),
+        ("9x9 hard symmetry 4096", symmetry_transforms(hard, 4096, seed), 9, True),
         ("9x9 deep 128", load_corpus("corpus_9x9_deep_128.npz"), 9, True),
-        ("16x16 hard 256", load_corpus("corpus_16x16_hard_2048.npz")[:256], 16, True),
-        ("25x25 hard 4", load_corpus("corpus_25x25_hard_512.npz")[:4], 25, True),
+        ("16x16 hard 256", hexa[:256], 16, True),
+        ("16x16 symmetry 64", symmetry_transforms(hexa[:64], 64, seed), 16, True),
+        ("25x25 hard 4", giant[:4], 25, True),
+        ("25x25 symmetry 128", symmetry_transforms(giant[:64], 128, seed), 25, True),
         ("9x9 degenerate", degenerate_boards(), 9, False),
+        ("9x9 README 1", np.asarray(README_PUZZLE, np.int32)[None], 9, True),
     ]
     mismatches = 0
     max_abs_err = 0
@@ -278,6 +327,18 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
             f"max {lat_ms[-1]:.3f} ms"
         )
         launches = cs.dfs_solver.launches
+        # the same board through the engine alone, without HTTP and the node
+        eng_ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            sol, _ = node.engine.solve_one(README_PUZZLE)
+            eng_ms.append((time.perf_counter() - t0) * 1e3)
+            check(sol is not None and oracle_ok(sol), "engine.solve_one failed")
+        eng_ms.sort()
+        log(
+            f"engine.solve_one README puzzle x20 (host clock, no HTTP): p50 "
+            f"{eng_ms[10]:.3f} ms, min {eng_ms[0]:.3f} ms, max {eng_ms[-1]:.3f} ms"
+        )
     finally:
         node.shutdown()
         httpd.shutdown()
@@ -290,11 +351,17 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
 
 
 def _cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``reps`` back-to-back calls of ``fn``, by CUDA
+    events. A spin of the device (``torch.cuda._sleep``) ahead of the
+    first call lets the host enqueue all of them before the device reaches
+    them, so a short launch is timed without the host's gaps between
+    launches (~200 us of host time a call is allowed for)."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(reps * 200e-6 * SM_CLOCK_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -303,50 +370,111 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound_ms(boards, grid, meta, cells):
+    """The least time for one launch: the larger of its bytes (boards in,
+    grid and meta out) over the HBM rate and its integer operations (steps
+    taken x cells x OPS_PER_CELL_STEP) over the int32 rate."""
+    bytes_ms = (boards.numel() + grid.numel() + meta.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = int(meta[:, 2].sum()) * cells * OPS_PER_CELL_STEP / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def timing_widths():
+    """(name, boards, depth) at the widths the engine's buckets give the
+    kernel: the README board alone (width 1) at both depth stages, and the
+    first 64, 512 and 4096 hard boards at the first stage (32 frames)."""
+    import numpy as np
+
+    hard = load_corpus("corpus_9x9_hard_4096.npz")
+    readme = np.asarray(README_PUZZLE, np.int32)[None]
+    return [
+        ("1@32", readme, 32),
+        ("1@81", readme, 81),
+        ("64", hard[:64], 32),
+        ("512", hard[:512], 32),
+        ("4096", hard, 32),
+    ]
+
+
 def phase_timing(cs, spec_for_size):
-    """Kernel vs plain on the 4096-board corpus at the main path's first
-    depth stage (32 frames, 4096 steps)."""
+    """Times the kernel (4096 steps a board at most) and its plain version
+    at every width of ``timing_widths`` and holds the kernel's first launch
+    there against the plain version's result. Returns the times and the
+    mismatching boards and largest difference of those comparisons."""
     import torch
 
     spec = spec_for_size(9)
-    boards = load_corpus("corpus_9x9_hard_4096.npz")
-    B = boards.shape[0]
-    flat = torch.as_tensor(boards.reshape(B, -1), device="cuda").contiguous()
     n0 = cs.dfs_solver.launches
-    grid, meta = cs.dfs_solver(flat, spec, 32, 4096)  # warm-up
-    torch.cuda.synchronize()
-    kernel_ms = _cuda_ms(lambda: cs.dfs_solver(flat, spec, 32, 4096), 10)
-    plain_ms = _cuda_ms(lambda: cs._dfs_solver_plain(flat, spec, 32, 4096), 1)
-    # the README /solve's two device stages alone (bucket 1: one board)
-    readme = torch.tensor(README_PUZZLE, dtype=torch.int32, device="cuda").reshape(1, -1)
-    readme_ms = [
-        _cuda_ms(lambda d=d: cs.dfs_solver(readme, spec, d, 4096), 10)
-        for d in (32, 81)
-    ]
+    out = {"ms_by_width": {}, "plain_ms_by_width": {}, "bound_ms_by_width": {},
+           "mismatches": 0, "max_abs_err": 0}
+    for name, boards, depth in timing_widths():
+        flat = torch.as_tensor(boards.reshape(len(boards), -1), device="cuda").contiguous()
+        reps = 50 if len(boards) < 512 else 10
+        grid, meta = cs.dfs_solver(flat, spec, depth, 4096)
+        plain = {}
+        plain_ms = _cuda_ms(
+            lambda: plain.update(r=cs._dfs_solver_plain(flat, spec, depth, 4096)), 1
+        )
+        pgrid, pmeta = plain["r"]
+        bad = (grid != pgrid).any(dim=1) | (meta[:, :3] != pmeta[:, :3]).any(dim=1)
+        n_bad = int(bad.sum())
+        steps, plain_steps = int(meta[:, 3].max()), int(pmeta[0, 3])
+        out["mismatches"] += n_bad
+        out["max_abs_err"] = max(
+            out["max_abs_err"],
+            int((grid.long() - pgrid.long()).abs().max()),
+            int((meta[:, :3].long() - pmeta[:, :3].long()).abs().max()),
+            abs(steps - plain_steps),
+        )
+        this_ms = _cuda_ms(lambda: cs.dfs_solver(flat, spec, depth, 4096), reps)
+        bound, by = _bound_ms(flat, grid, meta, spec.cells)
+        out["ms_by_width"][name] = this_ms
+        out["plain_ms_by_width"][name] = plain_ms
+        out["bound_ms_by_width"][name] = bound
+        log(
+            f"timing width {name} (depth {depth}): kernel {this_ms:.4f} ms (CUDA "
+            f"events, mean of {reps}); plain {plain_ms:.1f} ms (1 run); bound "
+            f"{bound:.5f} ms by {by} ({bound / this_ms:.2%} of the kernel); "
+            f"slowest board {steps} steps (plain {plain_steps}), "
+            f"{this_ms / steps * 1e3:.3f} us per step; validations "
+            f"{int(meta[:, 2].sum())}; {n_bad} boards differ from the plain version"
+        )
+        check(n_bad == 0 and steps == plain_steps,
+              f"width {name}: kernel and plain version disagree")
+        if name == "4096":
+            out.update(ms=this_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     cs.dfs_solver.launches = n0  # timing launches are not main-path launches
-    validations = int(meta[:, 2].sum())
-    bytes_moved = flat.numel() * 4 + grid.numel() * 4 + meta.numel() * 4
-    ops = validations * spec.cells * OPS_PER_CELL_STEP
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(
-        f"timing 4096 hard boards, depth 32: kernel {kernel_ms:.3f} ms "
-        f"(CUDA events, mean of 10), plain {plain_ms:.1f} ms (1 run); "
-        f"validations {validations}, bytes {bytes_moved} -> {bytes_ms:.5f} "
-        f"ms, int32 ops {ops} -> {ops_ms:.5f} ms"
-    )
-    log(
-        f"timing README board alone: depth-32 stage {readme_ms[0]:.3f} ms, "
-        f"depth-81 stage {readme_ms[1]:.3f} ms (CUDA events, mean of 10)"
-    )
-    return {
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "validations": validations,
-    }
+    return out
+
+
+def card_name_and_power_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def ptxas_report(build_log, label: str = "ptxas"):
+    """Registers, stack and spill bytes per kernel instance, from the
+    ``-Xptxas -v`` report in ``build_log``, keyed "9x9" etc."""
+    report, size = {}, None
+    for line in build_log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '\S*dfs_solver_kernelILi(\d)E", line)
+        if m:
+            size = int(m.group(1)) ** 2
+            continue
+        if size is None:
+            continue
+        inst = report.setdefault(f"{size}x{size}", {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            inst.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            inst["registers"] = int(m[1])
+    for name, inst in sorted(report.items()):
+        log(f"{label} {name}: {inst}")
+    return report
 
 
 def main() -> int:
@@ -372,9 +500,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cs.load_library()
     log(f"build: dfs_solver library built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in cs.build().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "stack frame" in line:
-            log(line.strip())
+    ptxas = ptxas_report(cs.build().with_suffix(".log"))
+    nine = ptxas.get("9x9", {})
+    check(nine.get("stack") == 0 and nine.get("spill_stores") == 0,
+          f"the 9x9 instance uses local memory: {nine}")
 
     mismatches, max_abs_err = phase_parity(
         cs, ts, spec_for_size, SERVING_CONFIG, oracle_is_valid_solution
@@ -385,12 +514,8 @@ def main() -> int:
     )
     timing = phase_timing(cs, spec_for_size)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(smi)
+    log(card_name_and_power_limit())
     kernel = {
         "name": "dfs_solver",
         "route": "cuda",
@@ -398,14 +523,18 @@ def main() -> int:
         "replaces": "sudoku_solver_distributed_tpu/ops/pallas_solver.py:98",
         "launches": launches,
         "launches_per_readme_solve": per_readme,
-        "mismatches": mismatches,
-        "max_abs_err": max_abs_err,
+        "mismatches": mismatches + timing["mismatches"],
+        "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
         "ms": timing["ms"],
         "kernel_ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
+        "ms_by_width": timing["ms_by_width"],
+        "plain_ms_by_width": timing["plain_ms_by_width"],
+        "bound_ms_by_width": timing["bound_ms_by_width"],
+        "ptxas": ptxas,
     }
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(

@@ -2,9 +2,10 @@
 
 The port of ``sudoku_solver_distributed_tpu/ops/pallas_solver.py``. The
 kernel (csrc/dfs_solver.cu, CUDA C++ for ``sm_90a``) runs a board's whole
-DFS in one thread; ``dfs_solver`` is its wrapper and ``solve_batch_cuda``
-the staged-depth glue around it, with the semantics of
-``solve_batch_pallas`` and its ``_retry_overflow_deep``.
+DFS in one warp, the board's cells and units spread across the lanes;
+``dfs_solver`` is its wrapper and ``solve_batch_cuda`` the staged-depth
+glue around it, with the semantics of ``solve_batch_pallas`` and its
+``_retry_overflow_deep``.
 
 Differences from the Pallas path, all by design:
 
@@ -157,16 +158,23 @@ def dfs_solver(boards: torch.Tensor, spec: BoardSpec, depth: int,
         raise ValueError(f"dfs_solver runs on cuda or cpu, not {boards.device}")
     if not boards.is_contiguous():
         raise ValueError("dfs_solver takes contiguous boards")
+    if boards.shape[0] == 0:
+        return boards.clone(), boards.new_empty((0, META_COLS))
+    return _launch(load_library(), boards, spec, depth, max_iters)
+
+
+def _launch(lib: ctypes.CDLL, boards: torch.Tensor, spec: BoardSpec,
+            depth: int, max_iters: int):
+    """Allocate the outputs and the guess-stack slab for (B, C) boards on a
+    CUDA device, launch ``lib``'s kernel on the current stream and count
+    the launch in ``dfs_solver.launches``."""
     B, C = boards.shape
     dev = boards.device
     grid = torch.empty((B, C), dtype=torch.int32, device=dev)
     meta = torch.empty((B, META_COLS), dtype=torch.int32, device=dev)
-    if B == 0:
-        return grid, meta
     stack_grid = torch.empty((B, depth, C), dtype=torch.int8, device=dev)
     stack_cell = torch.empty((B, depth), dtype=torch.int32, device=dev)
     stack_mask = torch.empty((B, depth), dtype=torch.int32, device=dev)
-    lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dfs_solver_launch(

@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither ``jax`` nor the JAX package, its
 entry points default to the GPU and raise without one, and the kernel's
-wrapper refuses what the kernel does not take. The one test that needs the
-card (kernel against its plain version) is marked ``cuda`` and skips
-without one; ``python3 chip_smoke.py`` runs the full comparison there.
+wrapper refuses what the kernel does not take. The tests that need the card
+(kernel against its plain version) are marked ``cuda`` and skip without
+one; on the card, ``python -m pytest --noconftest -m cuda
+tests/test_torch_isolation.py`` runs them (the suite's conftest imports
+JAX) and ``python3 chip_smoke.py`` runs the full comparison.
 """
 
 import os
@@ -16,6 +18,7 @@ import torch
 
 from sudoku_solver_distributed_tpu_torch.ops import spec_for_size
 from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+    _dfs_solver_plain,
     dfs_solver,
     solve_batch_cuda,
 )
@@ -54,7 +57,8 @@ def test_no_import_line_names_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|sudoku_solver_distributed_tpu)(\.|\s|$)"
     )
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tools", "dfs_solver_ab.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     hits = [
@@ -64,6 +68,22 @@ def test_no_import_line_names_jax_or_the_jax_package():
         if pattern.match(line)
     ]
     assert not hits
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [["chip_smoke.py"], ["tools/dfs_solver_ab.py", "_archive/parent_dfs_solver.cu"]],
+)
+def test_chip_scripts_fail_without_a_card_and_print_no_result(argv):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the script would run")
+    proc = subprocess.run(
+        [sys.executable, *argv], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "no CUDA device" in proc.stderr
 
 
 def test_solve_batch_cuda_defaults_to_the_gpu(monkeypatch):
@@ -120,3 +140,30 @@ def test_kernel_matches_plain_on_the_card():
     assert dfs_solver.launches >= before + 2  # both stages launched
     for f in ("grid", "status", "guesses", "validations"):
         assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 33])
+def test_kernel_matches_plain_at_partial_block_widths(width):
+    """The kernel runs one board per warp, four warps per block: B = 1 (the
+    /solve bucket) leaves three warps of its block idle, and B = 33 ends in
+    a block with one board. Both depth stages equal the plain version,
+    the per-board step counts' maximum included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from chip_smoke import README_PUZZLE
+
+    with np.load(os.path.join(ROOT, "benchmarks", "corpus_9x9_hard_4096.npz")) as d:
+        boards = d["boards"][:width].astype(np.int32)
+    boards[0] = README_PUZZLE
+    spec = spec_for_size(9)
+    flat = torch.as_tensor(boards.reshape(width, -1), device="cuda").contiguous()
+    for depth in (32, 81):
+        before = dfs_solver.launches
+        grid, meta = dfs_solver(flat, spec, depth, 4096)
+        pgrid, pmeta = _dfs_solver_plain(flat, spec, depth, 4096)
+        torch.cuda.synchronize()
+        assert dfs_solver.launches == before + 1
+        assert torch.equal(grid, pgrid)
+        assert torch.equal(meta[:, :3], pmeta[:, :3])  # status, guesses, validations
+        assert int(meta[:, 3].max()) == int(pmeta[0, 3])

@@ -5,6 +5,7 @@ status, guesses and validations must be equal per board. ``iters`` is a
 schedule counter and is compared only where both loops are flat.
 """
 
+import functools
 import importlib
 import os
 
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import SYMMETRY_SEED, symmetry_transforms
 from sudoku_solver_distributed_tpu.ops import spec_for_size as jspec_for_size
 from sudoku_solver_distributed_tpu.ops.pallas_solver import solve_batch_pallas
 from sudoku_solver_distributed_tpu_torch.ops import spec_for_size as tspec_for_size
@@ -64,13 +66,30 @@ CASES = {
     "hard64": (corpus("corpus_9x9_hard_4096.npz", 64), 9, (32, 81), 4096),
     "deep16": (corpus("corpus_9x9_deep_128.npz", 16), 9, (32, 81), 4096),
     "hex4": (corpus("corpus_16x16_hard_2048.npz", 4), 16, (64, 256), 16384),
+    # symmetry transforms move MRV ties and singles to other cells, and so
+    # across the kernel's lane boundaries (cells 31/32, 63/64)
+    "hard64_sym": (
+        symmetry_transforms(corpus("corpus_9x9_hard_4096.npz", 64), 64, SYMMETRY_SEED),
+        9, (32, 81), 4096,
+    ),
+    "hex4_sym": (
+        symmetry_transforms(corpus("corpus_16x16_hard_2048.npz", 4), 4, SYMMETRY_SEED),
+        16, (64, 256), 16384,
+    ),
 }
+SYMMETRY_CASES = ["hard64_sym", "hex4_sym"]
+
+
+@functools.cache
+def jax_case(case):
+    boards, size, depth, iters = CASES[case]
+    return jax_solve(boards, size, max_depth=depth, max_iters=iters)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_solve_batch_matches_jax(case):
     boards, size, depth, iters = CASES[case]
-    ref = jax_solve(boards, size, max_depth=depth, max_iters=iters)
+    ref = jax_case(case)
     port = tsolver.solve_batch(
         torch.as_tensor(boards), tspec_for_size(size), max_depth=depth,
         max_iters=iters,
@@ -134,6 +153,19 @@ def test_kernel_wrapper_on_cpu_matches_jax_and_plain():
                                 max_depth=(32, 81))
     assert int(res.iters) == plain.iters
     assert stats.idle_lane_steps == 0
+
+
+@pytest.mark.parametrize("case", SYMMETRY_CASES)
+def test_kernel_wrapper_on_cpu_matches_jax_on_symmetry_transforms(case):
+    """``dfs_solver`` on a CPU tensor, through the staged glue, against the
+    JAX solver on seeded symmetry transforms of hard boards."""
+    boards, size, depth, iters = CASES[case]
+    before = dfs_solver.launches
+    port = solve_batch_cuda(torch.as_tensor(boards), tspec_for_size(size),
+                            max_depth=depth, max_iters=iters)
+    assert dfs_solver.launches == before
+    assert_same(port, jax_case(case))
+    assert bool(port.solved.all())
 
 
 def test_matches_pallas_kernel_interpret():
