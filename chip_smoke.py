@@ -6,28 +6,43 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. Build the DFS kernel library from sudoku_solver_distributed_tpu_torch/csrc/
    and print ``ptxas -v``'s registers, stack and spills per instance; the
-   9x9 instance must use no stack.
+   9x9 instance must use no stack and spill nothing.
 2. Hold the kernel (ops/cuda_solver.solve_batch_cuda) against its plain
-   PyTorch version (ops/solver.solve_batch), both on CUDA tensors, on the
-   committed corpora, on seeded symmetry transforms of them (which move MRV
-   ties and singles across the kernel's lane boundaries), on degenerate
-   boards and on the README board alone (width 1, both depth stages):
-   grid, status, guesses and validations must be equal per board,
-   and every SOLVED grid must pass the host oracle and keep its clues.
-3. Engine: SolverEngine over the (1, 8, 64, 512, 4096) buckets, warmed,
+   PyTorch version (ops/solver.solve_batch), both on CUDA tensors, under
+   each board size's serving configuration (``serving_config(n)``: locked
+   candidates, and three sweeps a step on 9x9), on the committed corpora,
+   on seeded symmetry transforms of them (which move MRV ties and singles
+   across the kernel's lane boundaries), on degenerate boards and on the
+   README board alone (width 1, both depth stages); and on the 9x9 hard
+   corpus also with naked pairs, with ``waves`` 1 and 2, and in the
+   singles configuration. Grid, status, guesses and validations must be
+   equal per board, and every SOLVED grid must pass the host oracle and
+   keep its clues.
+3. Golden counters: the kernel under ``serving_config(9)`` with a 65,536
+   step budget on benchmarks/corpus_9x9_deep_union.npz must meet
+   tests/golden_counters.json exactly.
+4. Engine: SolverEngine over the (1, 8, 64, 512, 4096) buckets, warmed,
    solves the 4096-board hard corpus; prints boards/s.
-4. The main path: a node and its HTTP server built by the CLI's
-   construction function answer POST /solve (README puzzle + corpus
-   boards, an unsolvable board, a malformed body), GET /stats, GET
-   /network and an unknown path. The kernel's launch counter is set to 0
-   just before and must have grown just after. Then the README board's
-   /solve p50 over 20 requests, and the same board through
-   ``engine.solve_one`` alone (no HTTP, no node).
-5. Timing with CUDA events: the kernel at bucket widths 1 (the README
-   board, both depth stages), 64, 512 and 4096 (the hard corpus, first
-   depth stage), each beside its bound and the plain version on the same
-   inputs. At every width the kernel's first launch is held against the
-   plain version: grid, status, guesses and validations per board, and the
+5. The main path, with the kernel's launch counter set to 0 just before
+   and read just after: a node and its HTTP server built by the CLI's
+   construction function (the coalescer on, as by default) answer POST
+   /solve (README puzzle + corpus boards, an unsolvable board, a malformed
+   body), GET /stats, GET /network and an unknown path; 16 client threads
+   then send concurrent /solve requests, which must coalesce (the /stats
+   serving block's ``batch_fill_max`` above 1) and all pass the oracle,
+   and 16 more through the node's solve entry point, whose answers'
+   validations must add up to the /stats delta. The README board's /solve
+   p50 over 20 requests, and through ``engine.solve_one`` alone. A node
+   built with ``--admission-capacity`` answers ``X-Deadline-Ms: 0`` with
+   429 and ``Retry-After``; a node built with ``--no-coalesce`` gives the
+   README p50 without the coalescer.
+6. Timing with CUDA events: the kernel at bucket widths 1 (the README
+   board, both depth stages, one sweep a step), 64, 512 and 4096 (the hard
+   corpus, first depth stage, three sweeps a step) in the serving
+   configuration, and in the singles configuration at the same widths,
+   each beside its bound and the plain version on the same inputs. At
+   every width the kernel's first launch is held against the plain
+   version: grid, status, guesses and validations per board, and the
    largest step count against the plain version's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -66,13 +81,20 @@ README_PUZZLE = [
 SM_CLOCK_HZ = 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
-# Integer operations per cell per solver step: the cheapest path a cell
-# takes through one step's analysis (a filled cell: load, zero and range
-# compares, shift, box index and three once/twice unit updates = 21 for
-# the value masks, then a load and a compare each for the candidates and
-# the singles). An empty cell costs about twice that, so this floor keeps
-# bound_ms a lower bound. Loop and address arithmetic are not counted.
-OPS_PER_CELL_STEP = 25
+# Integer operations per cell per analysis sweep: the cheapest path a cell
+# takes through one sweep's singles analysis (a filled cell: load, zero and
+# range compares, shift, box index and three once/twice unit updates = 21
+# for the value masks, then a load and a compare each for the candidates
+# and the singles). An empty cell costs about twice that, so this floor
+# keeps bound_ms a lower bound. Loop and address arithmetic are not
+# counted. A sweep with the locked-candidate pass adds OPS_PER_CELL_LOCKED:
+# each cell's OR into its row and its column segment (2), the pointing and
+# claiming masks of those two segments shared by the segment's BOX cells
+# (two leave-one-out ORs and two and-nots per segment, done with prefix
+# and suffix ORs: ~10 per segment, so ~7 per cell on 9x9), and the cell's
+# own elimination (2 loads' OR and an and-not: 3).
+OPS_PER_CELL_SWEEP = 25
+OPS_PER_CELL_LOCKED = 12
 SYMMETRY_SEED = 20261016
 
 
@@ -139,15 +161,24 @@ def degenerate_boards():
     return out
 
 
-def phase_parity(cs, ts, spec_for_size, SERVING_CONFIG, oracle_ok):
+def sweeps_of(cfg) -> dict:
+    """The sweep knobs of a ``serving_config(n)`` (or any solver config)."""
+    return {k: cfg[k] for k in ("locked_candidates", "waves", "naked_pairs")}
+
+
+SINGLES = dict(locked_candidates=False, waves=1, naked_pairs=False)
+
+
+def parity_cases(serving_config):
+    """(name, boards, size, solvable, sweeps): every set under its size's
+    serving configuration, and the 9x9 hard corpus under four more."""
     import numpy as np
-    import torch
 
     hard = load_corpus("corpus_9x9_hard_4096.npz")
     hexa = load_corpus("corpus_16x16_hard_2048.npz")
     giant = load_corpus("corpus_25x25_hard_512.npz")
     seed = SYMMETRY_SEED
-    cases = [
+    sets = [
         ("9x9 hard 4096", hard, 9, True),
         ("9x9 hard symmetry 4096", symmetry_transforms(hard, 4096, seed), 9, True),
         ("9x9 deep 128", load_corpus("corpus_9x9_deep_128.npz"), 9, True),
@@ -158,21 +189,40 @@ def phase_parity(cs, ts, spec_for_size, SERVING_CONFIG, oracle_ok):
         ("9x9 degenerate", degenerate_boards(), 9, False),
         ("9x9 README 1", np.asarray(README_PUZZLE, np.int32)[None], 9, True),
     ]
+    cases = [
+        (f"{name} [serving]", boards, size, solvable,
+         sweeps_of(serving_config(size)))
+        for name, boards, size, solvable in sets
+    ]
+    serving9 = sweeps_of(serving_config(9))
+    for label, sweeps in [
+        ("naked pairs", dict(serving9, naked_pairs=True)),
+        ("waves 1", dict(serving9, waves=1)),
+        ("waves 2", dict(serving9, waves=2)),
+        ("singles", SINGLES),
+    ]:
+        cases.append((f"9x9 hard 4096 [{label}]", hard, 9, True, sweeps))
+    return cases
+
+
+def phase_parity(cs, ts, spec_for_size, serving_config, oracle_ok):
+    import numpy as np
+    import torch
+
     mismatches = 0
     max_abs_err = 0
     before = cs.dfs_solver.launches
-    for name, boards, size, solvable in cases:
+    for name, boards, size, solvable, sweeps in parity_cases(serving_config):
         spec = spec_for_size(size)
-        cfg = SERVING_CONFIG[size]
-        depth = (32, 81) if size == 9 else cfg["max_depth"]
-        iters = 4096 if size == 9 else cfg["max_iters"]
+        cfg = serving_config(size)
+        depth, iters = cfg["max_depth"], cfg["max_iters"]
         g = torch.as_tensor(boards, device="cuda")
         t0 = time.perf_counter()
-        k = cs.solve_batch_cuda(g, spec, max_depth=depth, max_iters=iters)
+        k = cs.solve_batch_cuda(g, spec, max_depth=depth, max_iters=iters, **sweeps)
         torch.cuda.synchronize()
         tk = time.perf_counter() - t0
         t0 = time.perf_counter()
-        p = ts.solve_batch(g, spec, max_depth=depth, max_iters=iters)
+        p = ts.solve_batch(g, spec, max_depth=depth, max_iters=iters, **sweeps)
         torch.cuda.synchronize()
         tp = time.perf_counter() - t0
         B = boards.shape[0]
@@ -201,13 +251,40 @@ def phase_parity(cs, ts, spec_for_size, SERVING_CONFIG, oracle_ok):
             )
         log(
             f"parity {name}: {n_bad} mismatching boards, kernel iters "
-            f"{int(k.iters)} plain iters {p.iters}, statuses "
+            f"{int(k.iters)} plain iters {p.iters}, validations "
+            f"{int(k.validations.sum())}, statuses "
             f"{np.bincount(status, minlength=4).tolist()}, kernel "
             f"{tk * 1e3:.1f} ms, plain {tp * 1e3:.1f} ms (host clock)"
         )
         check(n_bad == 0, f"{name}: kernel and plain version disagree")
     check(cs.dfs_solver.launches > before, "parity phase launched no kernel")
     return mismatches, max_abs_err
+
+
+def phase_golden(cs, spec_for_size, serving_config):
+    """The kernel on the deep-union corpus against the committed goldens."""
+    import torch
+
+    with open(os.path.join(ROOT, "tests", "golden_counters.json")) as f:
+        golden = json.load(f)
+    boards = load_corpus(golden["corpus"])
+    cfg = {**serving_config(9), "max_iters": golden["config"]["max_iters"]}
+    t0 = time.perf_counter()
+    res = cs.solve_batch_cuda(
+        torch.as_tensor(boards, device="cuda"), spec_for_size(9), **cfg
+    )
+    got = {
+        "boards": len(boards),
+        "solved": int(res.solved.sum()),
+        "iters": int(res.iters),
+        "guesses": int(res.guesses.sum()),
+        "validations": int(res.validations.sum()),
+    }
+    dt = time.perf_counter() - t0
+    log(f"golden counters {golden['corpus']}: {got} in {dt * 1e3:.1f} ms (host clock)")
+    want = {key: golden[key] for key in got}
+    check(got == want, f"golden counters differ: {got} vs {want}")
+    return got
 
 
 def phase_engine(SolverEngine, oracle_ok):
@@ -239,115 +316,240 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _http(base: str, path: str, body=None):
+def _http(base: str, path: str, body=None, headers=None):
+    """(status, body bytes, response headers) of one request."""
     req = urllib.request.Request(
         base + path,
         data=body,
-        headers={"Content-Type": "application/json"} if body is not None else {},
+        headers={
+            **({"Content-Type": "application/json"} if body is not None else {}),
+            **(headers or {}),
+        },
     )
     try:
         with urllib.request.urlopen(req, timeout=120) as r:
-            return r.status, r.read()
+            return r.status, r.read(), r.headers
     except urllib.error.HTTPError as e:
-        return e.code, e.read()
+        return e.code, e.read(), e.headers
+
+
+class _Node:
+    """A node and its HTTP server built by the CLI's construction function
+    from ``argv``, serving on free localhost ports until ``stop()``."""
+
+    def __init__(self, build_parser, build_node, argv):
+        http_port, udp_port = _free_port(), _free_port()
+        args = build_parser().parse_args(
+            ["-p", str(http_port), "-s", str(udp_port), "-h", "1", *argv]
+        )
+        self.node, self.httpd = build_node(args)
+        self.threads = [
+            threading.Thread(target=self.httpd.serve_forever, daemon=True),
+            threading.Thread(target=self.node.run, daemon=True),
+        ]
+        for t in self.threads:
+            t.start()
+        self.base = f"http://127.0.0.1:{http_port}"
+
+    def stop(self) -> None:
+        self.node.shutdown()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.node.engine.close()
+        for t in self.threads:
+            t.join(timeout=10)
+
+    def readme_p50(self, label: str, oracle_ok) -> float:
+        """The README /solve over 20 requests, host clock; prints and
+        returns the p50 in ms."""
+        body = json.dumps({"sudoku": README_PUZZLE}).encode()
+        lat_ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            status, answer, _ = _http(self.base, "/solve", body)
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200 and oracle_ok(json.loads(answer)),
+                  f"/solve answered {status}")
+        lat_ms.sort()
+        log(
+            f"/solve README puzzle x20, {label} (host clock, HTTP/1.0 on "
+            f"localhost): p50 {lat_ms[10]:.3f} ms, min {lat_ms[0]:.3f} ms, "
+            f"max {lat_ms[-1]:.3f} ms"
+        )
+        return lat_ms[10]
+
+
+def _concurrent(n: int, fn):
+    """Run ``fn(i)`` for i < n in n threads released together; returns
+    the results in order (an exception in a thread is re-raised)."""
+    results = [None] * n
+    start = threading.Barrier(n)
+
+    def run(i):
+        start.wait()
+        try:
+            results[i] = fn(i)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            results[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    for r in results:
+        if isinstance(r, BaseException):
+            raise r
+    return results
+
+
+def _check_answer(board, sol, oracle_ok, what: str) -> None:
+    import numpy as np
+
+    clues = np.asarray(board) != 0
+    check(
+        sol is not None and oracle_ok(sol)
+        and (np.asarray(sol)[clues] == np.asarray(board)[clues]).all(),
+        f"{what} is not a solution of its board",
+    )
+
+
+def _engine_p50(engine, label: str, oracle_ok) -> float:
+    """The README board through ``engine.solve_one`` alone (no HTTP, no
+    node) 20 times, host clock; prints and returns the p50 in ms."""
+    eng_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        sol, _ = engine.solve_one(README_PUZZLE)
+        eng_ms.append((time.perf_counter() - t0) * 1e3)
+        check(sol is not None and oracle_ok(sol), "engine.solve_one failed")
+    eng_ms.sort()
+    log(
+        f"engine.solve_one README puzzle x20, {label} (host clock, no HTTP): "
+        f"p50 {eng_ms[10]:.3f} ms, min {eng_ms[0]:.3f} ms, max {eng_ms[-1]:.3f} ms"
+    )
+    return eng_ms[10]
 
 
 def phase_solve_http(cs, build_parser, build_node, oracle_ok):
-    """The main path: returns the kernel launches it made and the launches
-    of the README /solve alone."""
-    import numpy as np
-
-    http_port, udp_port = _free_port(), _free_port()
-    args = build_parser().parse_args(
-        ["-p", str(http_port), "-s", str(udp_port), "-h", "1"]
-    )
-    node, httpd = build_node(args)
-    threads = [
-        threading.Thread(target=httpd.serve_forever, daemon=True),
-        threading.Thread(target=node.run, daemon=True),
-    ]
-    for t in threads:
-        t.start()
-    base = f"http://127.0.0.1:{http_port}"
+    """The main path. Returns the kernel launches it made, the launches of
+    the README /solve alone and the p50s it read."""
+    corpus = load_corpus("corpus_9x9_hard_4096.npz")
+    cs.dfs_solver.launches = 0
+    main = _Node(build_parser, build_node, ["--serving-stats"])
+    out = {}
     try:
-        cs.dfs_solver.launches = 0
-        boards = [README_PUZZLE] + [
-            b.tolist() for b in load_corpus("corpus_9x9_hard_4096.npz")[:4]
-        ]
+        base = main.base
+        boards = [README_PUZZLE] + [b.tolist() for b in corpus[:4]]
         per_solve = []
         for board in boards:
             n0 = cs.dfs_solver.launches
-            status, body = _http(base, "/solve", json.dumps({"sudoku": board}).encode())
+            status, body, _ = _http(base, "/solve", json.dumps({"sudoku": board}).encode())
             per_solve.append(cs.dfs_solver.launches - n0)
             check(status == 200, f"/solve answered {status}: {body[:200]!r}")
-            sol = json.loads(body)
-            clues = np.asarray(board) != 0
-            check(
-                oracle_ok(sol) and (np.asarray(sol)[clues] == np.asarray(board)[clues]).all(),
-                "/solve answer is not a solution of its board",
-            )
+            _check_answer(board, json.loads(body), oracle_ok, "/solve answer")
         bad = [[0] * 9 for _ in range(9)]
         bad[0][0] = bad[0][1] = 5
-        status, body = _http(base, "/solve", json.dumps({"sudoku": bad}).encode())
+        status, body, _ = _http(base, "/solve", json.dumps({"sudoku": bad}).encode())
         check(
             status == 400
             and json.loads(body) == {"error": "No solution found", "solution": None},
             f"unsolvable /solve answered {status} {body!r}",
         )
-        status, body = _http(base, "/solve", b"{not json")
+        status, body, _ = _http(base, "/solve", b"{not json")
         check(status == 400, f"malformed /solve answered {status}")
-        status, body = _http(base, "/stats")
+        status, body, _ = _http(base, "/stats")
         stats = json.loads(body)
         check(
             status == 200 and stats["all"]["solved"] >= 5,
             f"/stats answered {status} {body!r}",
         )
-        status, body = _http(base, "/network")
+        status, body, _ = _http(base, "/network")
         check(
-            status == 200 and json.loads(body) == {node.id: []},
+            status == 200 and json.loads(body) == {main.node.id: []},
             f"/network answered {status} {body!r}",
         )
-        status, body = _http(base, "/nope")
+        status, body, _ = _http(base, "/nope")
         check(
             status == 404 and json.loads(body) == {"error": "Invalid endpoint"},
             f"GET /nope answered {status} {body!r}",
         )
-        # end-to-end latency of the README /solve (host clock, warm node)
+
+        # 16 concurrent clients over HTTP: the coalescer must batch them
+        clients = [b.tolist() for b in corpus[16:32]]
+
+        def post(i):
+            status, body, _ = _http(
+                base, "/solve", json.dumps({"sudoku": clients[i]}).encode()
+            )
+            check(status == 200, f"concurrent /solve answered {status}")
+            return json.loads(body)
+
+        for i, sol in enumerate(_concurrent(16, post)):
+            _check_answer(clients[i], sol, oracle_ok, "concurrent /solve answer")
+        serving = json.loads(_http(base, "/stats")[1])["serving"]
+        log(f"/stats serving block after 16 concurrent clients: {serving}")
+        check(serving["batch_fill_max"] > 1,
+              f"16 concurrent /solve requests never shared a launch: {serving}")
+        out["batch_fill_max"] = serving["batch_fill_max"]
+
+        # 16 more through the node's solve entry point: their validations
+        # must add up to what /stats reports
+        before = json.loads(_http(base, "/stats")[1])["all"]["validations"]
+        more = [b.tolist() for b in corpus[32:48]]
+        answers = _concurrent(16, lambda i: main.node.peer_sudoku_solve_info(more[i]))
+        for board, (sol, _) in zip(more, answers):
+            _check_answer(board, sol, oracle_ok, "peer_sudoku_solve_info answer")
+        after = json.loads(_http(base, "/stats")[1])["all"]["validations"]
+        summed = sum(info["validations"] for _, info in answers)
+        log(f"/stats validations grew by {after - before}; the 16 answers' "
+            f"info validations sum to {summed}")
+        check(after - before == summed, "/stats validations disagree with the answers")
+
+        out["p50_coalesce"] = main.readme_p50("coalescer on", oracle_ok)
+        co = main.node.engine.coalescer.stats()
+        out["engine_p50_coalesce"] = _engine_p50(main.node.engine, "coalescer on", oracle_ok)
+        co2 = main.node.engine.coalescer.stats()
+        # the 20 requests' mean wait in the coalescer queue, from the
+        # counters' running mean before and after them
+        queued_ms = (co2["avg_wait_ms"] * co2["boards"]
+                     - co["avg_wait_ms"] * co["boards"]) / (co2["boards"] - co["boards"])
+        log(f"  of which the coalescer queue wait: mean {queued_ms:.3f} ms "
+            f"({co2['batches'] - co['batches']} batches of {co2['boards'] - co['boards']} boards)")
+    finally:
+        main.stop()
+
+    # admission: X-Deadline-Ms 0 is already expired at arrival
+    adm = _Node(build_parser, build_node, ["--admission-capacity", "64", "--no-warmup"])
+    try:
         body = json.dumps({"sudoku": README_PUZZLE}).encode()
-        lat_ms = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            status, _ = _http(base, "/solve", body)
-            lat_ms.append((time.perf_counter() - t0) * 1e3)
-            check(status == 200, f"/solve answered {status}")
-        lat_ms.sort()
-        log(
-            f"/solve README puzzle x20 (host clock, HTTP/1.0 on localhost): "
-            f"p50 {lat_ms[10]:.3f} ms, min {lat_ms[0]:.3f} ms, "
-            f"max {lat_ms[-1]:.3f} ms"
-        )
-        launches = cs.dfs_solver.launches
-        # the same board through the engine alone, without HTTP and the node
-        eng_ms = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            sol, _ = node.engine.solve_one(README_PUZZLE)
-            eng_ms.append((time.perf_counter() - t0) * 1e3)
-            check(sol is not None and oracle_ok(sol), "engine.solve_one failed")
-        eng_ms.sort()
-        log(
-            f"engine.solve_one README puzzle x20 (host clock, no HTTP): p50 "
-            f"{eng_ms[10]:.3f} ms, min {eng_ms[0]:.3f} ms, max {eng_ms[-1]:.3f} ms"
+        status, answer, _ = _http(adm.base, "/solve", body)
+        check(status == 200, f"/solve through admission answered {status}")
+        status, answer, headers = _http(adm.base, "/solve", body, {"X-Deadline-Ms": "0"})
+        retry = headers.get("Retry-After")
+        log(f"/solve with X-Deadline-Ms: 0 on --admission-capacity 64: {status} "
+            f"{answer!r} Retry-After {retry}")
+        check(
+            status == 429 and retry is not None and int(retry) >= 1
+            and json.loads(answer)["error"] == "Overloaded",
+            "the admission node did not shed an expired request with 429",
         )
     finally:
-        node.shutdown()
-        httpd.shutdown()
-        httpd.server_close()
-        for t in threads:
-            t.join(timeout=10)
+        adm.stop()
+
+    direct = _Node(build_parser, build_node, ["--no-coalesce"])
+    try:
+        out["p50_no_coalesce"] = direct.readme_p50("--no-coalesce", oracle_ok)
+        out["engine_p50_no_coalesce"] = _engine_p50(
+            direct.node.engine, "--no-coalesce", oracle_ok
+        )
+    finally:
+        direct.stop()
+    launches = cs.dfs_solver.launches
     check(launches > 0, "the /solve main path launched no kernel")
     log(f"/solve main path: {launches} kernel launches, per /solve {per_solve}")
-    return launches, per_solve[0]
+    out.update(launches=launches, per_readme=per_solve[0])
+    return out
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -370,12 +572,14 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound_ms(boards, grid, meta, cells):
+def _bound_ms(boards, grid, meta, cells, locked: bool):
     """The least time for one launch: the larger of its bytes (boards in,
-    grid and meta out) over the HBM rate and its integer operations (steps
-    taken x cells x OPS_PER_CELL_STEP) over the int32 rate."""
+    grid and meta out) over the HBM rate and its integer operations
+    (sweeps run x cells x the operations per cell of a sweep) over the
+    int32 rate. ``meta[:, 2]`` counts each board's sweeps."""
+    per_cell = OPS_PER_CELL_SWEEP + (OPS_PER_CELL_LOCKED if locked else 0)
     bytes_ms = (boards.numel() + grid.numel() + meta.numel()) * 4 / HBM_BYTES_PER_S * 1e3
-    ops_ms = int(meta[:, 2].sum()) * cells * OPS_PER_CELL_STEP / INT32_OPS_PER_S * 1e3
+    ops_ms = int(meta[:, 2].sum()) * cells * per_cell / INT32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
@@ -396,53 +600,70 @@ def timing_widths():
     ]
 
 
-def phase_timing(cs, spec_for_size):
+def phase_timing(cs, spec_for_size, serving_config):
     """Times the kernel (4096 steps a board at most) and its plain version
-    at every width of ``timing_widths`` and holds the kernel's first launch
-    there against the plain version's result. Returns the times and the
-    mismatching boards and largest difference of those comparisons."""
+    at every width of ``timing_widths``, in the serving configuration (the
+    engine's: one sweep a step at width 1, ``waves`` of serving_config(9)
+    above) and in the singles configuration, and holds the kernel's first
+    launch at each against the plain version's result. Returns, per
+    configuration, the times and step counts by width, and the mismatching
+    boards and largest difference of those comparisons."""
     import torch
 
     spec = spec_for_size(9)
+    serving = sweeps_of(serving_config(9))
     n0 = cs.dfs_solver.launches
-    out = {"ms_by_width": {}, "plain_ms_by_width": {}, "bound_ms_by_width": {},
-           "mismatches": 0, "max_abs_err": 0}
-    for name, boards, depth in timing_widths():
-        flat = torch.as_tensor(boards.reshape(len(boards), -1), device="cuda").contiguous()
-        reps = 50 if len(boards) < 512 else 10
-        grid, meta = cs.dfs_solver(flat, spec, depth, 4096)
-        plain = {}
-        plain_ms = _cuda_ms(
-            lambda: plain.update(r=cs._dfs_solver_plain(flat, spec, depth, 4096)), 1
-        )
-        pgrid, pmeta = plain["r"]
-        bad = (grid != pgrid).any(dim=1) | (meta[:, :3] != pmeta[:, :3]).any(dim=1)
-        n_bad = int(bad.sum())
-        steps, plain_steps = int(meta[:, 3].max()), int(pmeta[0, 3])
-        out["mismatches"] += n_bad
-        out["max_abs_err"] = max(
-            out["max_abs_err"],
-            int((grid.long() - pgrid.long()).abs().max()),
-            int((meta[:, :3].long() - pmeta[:, :3].long()).abs().max()),
-            abs(steps - plain_steps),
-        )
-        this_ms = _cuda_ms(lambda: cs.dfs_solver(flat, spec, depth, 4096), reps)
-        bound, by = _bound_ms(flat, grid, meta, spec.cells)
-        out["ms_by_width"][name] = this_ms
-        out["plain_ms_by_width"][name] = plain_ms
-        out["bound_ms_by_width"][name] = bound
-        log(
-            f"timing width {name} (depth {depth}): kernel {this_ms:.4f} ms (CUDA "
-            f"events, mean of {reps}); plain {plain_ms:.1f} ms (1 run); bound "
-            f"{bound:.5f} ms by {by} ({bound / this_ms:.2%} of the kernel); "
-            f"slowest board {steps} steps (plain {plain_steps}), "
-            f"{this_ms / steps * 1e3:.3f} us per step; validations "
-            f"{int(meta[:, 2].sum())}; {n_bad} boards differ from the plain version"
-        )
-        check(n_bad == 0 and steps == plain_steps,
-              f"width {name}: kernel and plain version disagree")
-        if name == "4096":
-            out.update(ms=this_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    out = {"mismatches": 0, "max_abs_err": 0}
+    for config in ("serving", "singles"):
+        res = out[config] = {"ms": {}, "plain_ms": {}, "bound_ms": {}, "steps": {}}
+        for name, boards, depth in timing_widths():
+            if config == "singles":
+                sweeps = SINGLES
+            else:
+                sweeps = dict(serving, waves=1 if len(boards) == 1 else serving["waves"])
+            flat = torch.as_tensor(boards.reshape(len(boards), -1), device="cuda").contiguous()
+            reps = 50 if len(boards) < 512 else 10
+            grid, meta = cs.dfs_solver(flat, spec, depth, 4096, **sweeps)
+            plain = {}
+            plain_ms = _cuda_ms(
+                lambda: plain.update(
+                    r=cs._dfs_solver_plain(flat, spec, depth, 4096, **sweeps)
+                ), 1,
+            )
+            pgrid, pmeta = plain["r"]
+            bad = (grid != pgrid).any(dim=1) | (meta[:, :3] != pmeta[:, :3]).any(dim=1)
+            n_bad = int(bad.sum())
+            steps, plain_steps = int(meta[:, 3].max()), int(pmeta[0, 3])
+            out["mismatches"] += n_bad
+            out["max_abs_err"] = max(
+                out["max_abs_err"],
+                int((grid.long() - pgrid.long()).abs().max()),
+                int((meta[:, :3].long() - pmeta[:, :3].long()).abs().max()),
+                abs(steps - plain_steps),
+            )
+            this_ms = _cuda_ms(
+                lambda: cs.dfs_solver(flat, spec, depth, 4096, **sweeps), reps
+            )
+            bound, by = _bound_ms(flat, grid, meta, spec.cells,
+                                  sweeps["locked_candidates"])
+            res["ms"][name] = this_ms
+            res["plain_ms"][name] = plain_ms
+            res["bound_ms"][name] = bound
+            res["steps"][name] = steps
+            log(
+                f"timing {config} (waves {sweeps['waves']}) width {name} "
+                f"(depth {depth}): kernel {this_ms:.4f} ms (CUDA events, mean "
+                f"of {reps}); plain {plain_ms:.1f} ms (1 run); bound "
+                f"{bound:.5f} ms by {by} ({bound / this_ms:.2%} of the "
+                f"kernel); slowest board {steps} steps (plain {plain_steps}), "
+                f"{this_ms / steps * 1e3:.3f} us per step; validations "
+                f"{int(meta[:, 2].sum())}; {n_bad} boards differ from the "
+                f"plain version"
+            )
+            check(n_bad == 0 and steps == plain_steps,
+                  f"{config} width {name}: kernel and plain version disagree")
+            if name == "4096":
+                res["bound_by"] = by
     cs.dfs_solver.launches = n0  # timing launches are not main-path launches
     return out
 
@@ -489,7 +710,7 @@ def main() -> int:
     from sudoku_solver_distributed_tpu_torch.net.cli import build_node, build_parser
     from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs
     from sudoku_solver_distributed_tpu_torch.ops import solver as ts
-    from sudoku_solver_distributed_tpu_torch.ops.config import SERVING_CONFIG
+    from sudoku_solver_distributed_tpu_torch.ops.config import serving_config
     from sudoku_solver_distributed_tpu_torch.ops.spec import spec_for_size
 
     t_start = time.perf_counter()
@@ -506,34 +727,49 @@ def main() -> int:
           f"the 9x9 instance uses local memory: {nine}")
 
     mismatches, max_abs_err = phase_parity(
-        cs, ts, spec_for_size, SERVING_CONFIG, oracle_is_valid_solution
+        cs, ts, spec_for_size, serving_config, oracle_is_valid_solution
     )
+    golden = phase_golden(cs, spec_for_size, serving_config)
     phase_engine(SolverEngine, oracle_is_valid_solution)
-    launches, per_readme = phase_solve_http(
+    main_path = phase_solve_http(
         cs, build_parser, build_node, oracle_is_valid_solution
     )
-    timing = phase_timing(cs, spec_for_size)
+    timing = phase_timing(cs, spec_for_size, serving_config)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_name_and_power_limit())
+    serving, singles = timing["serving"], timing["singles"]
     kernel = {
         "name": "dfs_solver",
         "route": "cuda",
         "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
         "replaces": "sudoku_solver_distributed_tpu/ops/pallas_solver.py:98",
-        "launches": launches,
-        "launches_per_readme_solve": per_readme,
+        "launches": main_path["launches"],
+        "launches_per_readme_solve": main_path["per_readme"],
         "mismatches": mismatches + timing["mismatches"],
         "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
-        "ms": timing["ms"],
-        "kernel_ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
+        # the serving configuration (the main path's) at width 4096
+        "ms": serving["ms"]["4096"],
+        "plain_ms": serving["plain_ms"]["4096"],
+        "bound_ms": serving["bound_ms"]["4096"],
+        "bound_by": serving["bound_by"],
         "library_ms": None,
-        "ms_by_width": timing["ms_by_width"],
-        "plain_ms_by_width": timing["plain_ms_by_width"],
-        "bound_ms_by_width": timing["bound_ms_by_width"],
+        "ms_by_width": serving["ms"],
+        "plain_ms_by_width": serving["plain_ms"],
+        "bound_ms_by_width": serving["bound_ms"],
+        "steps_by_width": serving["steps"],
+        "singles_ms_by_width": singles["ms"],
+        "singles_plain_ms_by_width": singles["plain_ms"],
+        "singles_bound_ms_by_width": singles["bound_ms"],
+        "singles_steps_by_width": singles["steps"],
+        "golden": golden,
+        "readme_p50_ms": {
+            "coalesce": main_path["p50_coalesce"],
+            "no_coalesce": main_path["p50_no_coalesce"],
+            "engine_coalesce": main_path["engine_p50_coalesce"],
+            "engine_no_coalesce": main_path["engine_p50_no_coalesce"],
+        },
+        "batch_fill_max": main_path["batch_fill_max"],
         "ptxas": ptxas,
     }
     print(json.dumps({"kernels": [kernel]}), flush=True)

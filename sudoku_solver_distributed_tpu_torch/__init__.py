@@ -12,9 +12,11 @@ Layout (mirrors the JAX package):
              the CUDA kernel's wrapper (ops/cuda_solver.py)
   csrc/      the CUDA C++ kernel sources, built at first use
   engine.py  SolverEngine: bucketed batch solving behind the kernel
+  parallel/  the request coalescer (closed loop)
+  serving/   admission control, deadlines and load estimation
   models/    the trusted host-side oracle solver
   net/       wire protocol, membership, stats gossip, node, HTTP API, CLI
-  utils/     handicap rate limiter
+  utils/     handicap rate limiter, profiler spans
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``SolverEngine(device="cpu")``, the CLI's ``--platform cpu``, or a CPU

@@ -2,18 +2,24 @@
 //
 // Replaces the TPU kernel sudoku_solver_distributed_tpu/ops/pallas_solver.py
 // ::_make_kernel (pallas_solver.py:98, launched by solve_batch_pallas through
-// pl.pallas_call). It computes what that kernel computes, board for board:
-// each step runs the fused singles analysis (unit once/twice value masks,
-// candidates, naked and hidden singles, duplicate / dead-cell / out-of-range
-// / solved verdicts), then takes one action — assign every forced single; or
-// branch on the minimum-remaining-values cell (lowest cell index on ties,
-// lowest candidate bit guessed, OVERFLOW when the stack is full); or
-// backtrack (UNSAT on an empty stack, pop an exhausted frame without
-// restoring the grid, or restore the frame's snapshot and try its next
-// candidate bit). A board is RUNNING until one of those ends it or it has
-// taken max_iters steps; a closing analysis then flips a board completed on
-// the capped step to SOLVED. Counters per board: guesses (+1 per branch),
-// validations (+1 per step, every step is taken while RUNNING), steps.
+// pl.pallas_call), and carries what that kernel refused and the JAX xla
+// solver runs in its serving configuration (ops/solver.py::_step): locked-set
+// eliminations and extra propagation sweeps. Board for board it computes:
+// each step runs one fused sweep analysis (unit once/twice value masks,
+// candidates, optionally narrowed by locked candidates — pointing and
+// claiming — and naked pairs, then naked and hidden singles, duplicate /
+// dead-cell / out-of-range / solved verdicts), then takes one action —
+// assign every forced single; or branch on the minimum-remaining-values cell
+// (lowest cell index on ties, lowest candidate bit guessed, OVERFLOW when
+// the stack is full); or backtrack (UNSAT on an empty stack, pop an
+// exhausted frame without restoring the grid, or restore the frame's
+// snapshot and try its next candidate bit). A board still RUNNING after the
+// action then runs `waves - 1` extra sweeps, each assigning its singles
+// unless it finds a contradiction or a solved board (under `light` they
+// skip the eliminations). A board is RUNNING until an action ends it or it
+// has taken max_iters steps; a closing analysis then flips a board completed
+// on the capped step to SOLVED. Counters per board: guesses (+1 per branch),
+// validations (+1 per sweep: every sweep runs while RUNNING), steps.
 //
 // What is not carried over is the TPU layout: the Pallas kernel puts 128
 // boards on the lanes and finds unit counts as matmuls against a
@@ -25,21 +31,33 @@
 //     indexed only by unrolled compile-time loops;
 //   * units: lane l owns units l, l+32, l+64 (rows 0..N-1, columns N..2N-1,
 //     boxes 2N..3N-1): 27 lanes on 9x9, 48 units on 16x16, 75 on 25x25. A
-//     unit's N cells are an arithmetic walk base + (k/BOX)*sa + (k%BOX)*sb.
+//     unit's N cells are an arithmetic walk base + (k/BOX)*sa + (k%BOX)*sb;
+//   * line segments (the BOX cells a row or a column shares with a box):
+//     lane l owns segments l, l+32, ... of the N*BOX row segments followed by
+//     the N*BOX column segments (54 on 9x9, 128 on 16x16, 250 on 25x25).
 //
-// One step is five passes over the warp's slice of shared memory, each a
+// A sweep is a few passes over the warp's slice of shared memory, each a
 // handful of instructions per lane between __syncwarp()s: (A) cell lanes
 // write their value masks; (B) unit lanes fold their N cells into once/twice
-// masks (a pairwise tree, log2(N) deep) and write the unit's value mask;
-// the empty / out-of-range / duplicate verdicts are one __reduce_or_sync;
-// (C) cell lanes form candidates from three unit masks and write them, and
-// `dead` is one vote; (D) unit lanes fold the candidates into the unit's
-// hidden-single mask (once & ~twice); (E) cell lanes assign their singles.
-// Every single of a step is taken from the same pre-step analysis, as in
-// the lockstep solvers, so assigning them in parallel is exact. With no
-// single, MRV is one __reduce_min_sync of the key (popcount << 10 | cell):
-// lowest popcount, ties to the lowest flat cell, as the plain version's
-// explicit min-index does; the winning cell's mask is one __reduce_or_sync.
+// masks (a pairwise tree, log2(N) deep) and write the unit's value mask; the
+// empty / out-of-range / duplicate verdicts are one __reduce_or_sync; (C)
+// cell lanes form candidates from three unit masks and write them. With the
+// eliminations on, (L) segment lanes OR their segments' candidates, then
+// form each segment's "only here in its box" (pointing) and "only in this
+// box on its line" (claiming) masks from the other segments of its band and
+// line, then each segment's elimination from those of its neighbours; when
+// naked pairs are on, unit lanes compare their unit's two-candidate cells
+// and OR each cell's pair elimination into it with a shared atomic; cell
+// lanes then drop their row segment's, column segment's and pair
+// eliminations. All eliminations come from the candidates before any of
+// them, as in the plain version. `dead` is then one vote. (D) unit lanes
+// fold the candidates into the unit's hidden-single mask (once & ~twice);
+// (E) cell lanes assign their singles. Every single of a sweep is taken
+// from the same analysis, as in the lockstep solvers, so assigning them in
+// parallel is exact. With no single, MRV is one __reduce_min_sync of the key
+// (popcount << 10 | cell): lowest popcount, ties to the lowest flat cell, as
+// the plain version's explicit min-index does; the winning cell's mask is
+// one __reduce_or_sync.
 //
 // The guess stack stays in the device-memory scratch slab the wrapper
 // allocates — (B, D, C) int8 snapshots plus the (B, D) cell and
@@ -53,18 +71,17 @@
 // A block is kWarps independent warps (one board each) with no block-wide
 // barrier: a warp leaves as soon as its board finishes, and B boards take
 // ceil(B / kWarps) blocks, so the one-board /solve bucket is one warp and
-// the 4096-board bucket is 4096 warps, ~31 per SM, all resident.
+// the 4096-board bucket is 4096 warps, all resident.
 //
 // What bounds it on an H100: neither bytes (C ints in and out per board)
-// nor the integer rate, but the latency of one step's dependent chain —
-// four shared-memory round trips between __syncwarp()s, two or three warp
-// votes and reductions, a few dozen dependent integer operations, and on a
-// backtrack one load of the snapshot from L1/L2 — times the slowest
-// board's step count. Boards overlap across warps; the steps of one board
-// cannot (PERF.md has the per-step time). Locked-candidate sweeps (the
-// serving config's K2, not in this kernel) would slot in as one more pass
-// over the units between (D) and (E), with the box/line intersections as
-// further arithmetic walks.
+// nor the integer rate, but the latency of one sweep's dependent chain —
+// shared-memory round trips between __syncwarp()s (four without the
+// eliminations, seven with them), two or three warp votes and reductions,
+// a few dozen dependent integer operations, and on a backtrack one load of
+// the snapshot from L1/L2 — times the slowest board's sweep count. Boards
+// overlap across warps; the sweeps of one board cannot (PERF.md has the
+// per-step time). The eliminations make each sweep longer and the search
+// shorter.
 //
 // Interface: plain C, for ctypes. The launch uses the caller's stream, does
 // not synchronize and allocates nothing; it returns cudaGetLastError().
@@ -90,6 +107,17 @@ constexpr int kEmpty = 1;  // some cell is 0
 constexpr int kBad = 2;    // some value lies outside 1..N
 constexpr int kDup = 4;    // some unit holds a value twice
 
+// option bits of the launch
+constexpr int kOptLocked = 1;  // locked-candidate eliminations in every sweep
+constexpr int kOptPairs = 2;   // naked pairs with them
+constexpr int kOptLight = 4;   // the extra sweeps without eliminations
+
+// outcome of one sweep (warp-uniform)
+constexpr int kSweepSolved = 0;    // every unit a permutation of 1..N
+constexpr int kSweepContra = 1;    // duplicate, out-of-range value or dead cell
+constexpr int kSweepAssigned = 2;  // its singles were assigned
+constexpr int kSweepStuck = 3;     // no single: the key holds the MRV candidates
+
 template <int BOX>
 struct Geometry {
   static constexpr int N = BOX * BOX;
@@ -98,8 +126,23 @@ struct Geometry {
   static constexpr int FULL = (1 << N) - 1;
   static constexpr int CPL = (C + kLanes - 1) / kLanes;  // cells per lane
   static constexpr int UPL = (U + kLanes - 1) / kLanes;  // units per lane
-  static constexpr int WORDS = C + 2 * U;                // shared int32 per warp
+  static constexpr int NB = N * BOX;                     // segments per direction
+  static constexpr int S = 2 * NB;                       // row, then column segments
+  static constexpr int SPL = (S + kLanes - 1) / kLanes;  // segments per lane
+  static constexpr int WORDS = 2 * C + 2 * U + 3 * S;    // shared int32 per warp
   static_assert(C <= (1 << kCellBits), "MRV key packs the cell in kCellBits");
+  static_assert(N <= 32, "a unit's pair flags fit one word");
+};
+
+// The warp's slice of shared memory.
+struct Smem {
+  int32_t* cm;   // per cell: value mask (A-B), then candidates (C-D)
+  int32_t* uo;   // per unit: values present
+  int32_t* hid;  // per unit: candidates with one admitting cell
+  int32_t* seg;  // per segment: candidates' OR, then its elimination
+  int32_t* os;   // per segment: candidates found nowhere else in its box
+  int32_t* ob;   // per segment: candidates found nowhere else on its line
+  int32_t* pe;   // per cell: naked-pair eliminations
 };
 
 // Slot j of a lane holds cell lane + 32 j; the last slot may run off the board.
@@ -123,6 +166,21 @@ __device__ __forceinline__ UnitWalk unit_walk(int unit) {
   return {unit, (idx / BOX) * BOX * N + (idx % BOX) * BOX, N, 1};         // box
 }
 
+template <int BOX>
+__device__ __forceinline__ int walk_cell(const UnitWalk& w, int k) {
+  return w.base + (k / BOX) * w.sa + (k % BOX) * w.sb;
+}
+
+// Segment i = dir * NB + line * BOX + part: the BOX cells of row `line` in
+// box column `part` (dir 0), or of column `line` in box row `part` (dir 1).
+template <int BOX>
+__device__ __forceinline__ int segment_cell(int i, int t) {
+  constexpr int N = Geometry<BOX>::N;
+  constexpr int NB = Geometry<BOX>::NB;
+  const int line = (i % NB) / BOX, part = i % BOX;
+  return i < NB ? line * N + part * BOX + t : (part * BOX + t) * N + line;
+}
+
 // Bits set in >= 1 / >= 2 of the unit's N cell masks, folded as a pairwise
 // tree so the dependent chain is log2(N) combines deep.
 template <int BOX>
@@ -132,7 +190,7 @@ __device__ __forceinline__ void unit_once_twice(const int32_t* cm, const UnitWal
   int o[N], t[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    o[k] = cm[w.base + (k / BOX) * w.sa + (k % BOX) * w.sb];
+    o[k] = cm[walk_cell<BOX>(w, k)];
     t[k] = 0;
   }
 #pragma unroll
@@ -176,12 +234,193 @@ __device__ __forceinline__ int value_pass(const int (&g)[Geometry<BOX>::CPL],
   return (int)__reduce_or_sync(kAll, (unsigned)flags);
 }
 
+// Naked pairs of the lane's units, from the candidates in cm: two cells of a
+// unit with the same two candidates take them from every other cell of the
+// unit. Cells of several units collect theirs with atomicOr into pe (zeroed
+// in pass C). Quadratic in N per unit, from shared memory.
+template <int BOX>
+__device__ __forceinline__ void pair_pass(const UnitWalk (&uw)[Geometry<BOX>::UPL],
+                                          const Smem& sh) {
+  using Geo = Geometry<BOX>;
+#pragma unroll
+  for (int s = 0; s < Geo::UPL; ++s) {
+    const UnitWalk& w = uw[s];
+    if (w.unit >= Geo::U) continue;
+    unsigned twins = 0;
+    int pairs = 0;
+#pragma unroll 1
+    for (int k = 0; k < Geo::N; ++k) {
+      const int ck = sh.cm[walk_cell<BOX>(w, k)];
+      if (__popc(ck) != 2) continue;
+#pragma unroll 1
+      for (int k2 = 0; k2 < Geo::N; ++k2) {
+        if (k2 != k && sh.cm[walk_cell<BOX>(w, k2)] == ck) {
+          twins |= 1u << k;
+          pairs |= ck;
+          break;
+        }
+      }
+    }
+    if (pairs == 0) continue;
+#pragma unroll 1
+    for (int k = 0; k < Geo::N; ++k) {
+      const int cell = walk_cell<BOX>(w, k);
+      const int ck = sh.cm[cell];
+      const int e = pairs & ~(((twins >> k) & 1u) ? ck : 0);
+      if (e & ck) atomicOr(&sh.pe[cell], e);
+    }
+  }
+}
+
+// Pass L: the elimination of every line segment from locked candidates, into
+// seg[] (and the naked pairs into pe[] when asked). Starts after a
+// __syncwarp() that published the candidates in cm; ends with one.
+template <int BOX>
+__device__ __forceinline__ void locked_pass(const UnitWalk (&uw)[Geometry<BOX>::UPL],
+                                            const Smem& sh, int lane, bool pairs) {
+  using Geo = Geometry<BOX>;
+  constexpr int NB = Geo::NB;
+  if (pairs) pair_pass<BOX>(uw, sh);
+#pragma unroll
+  for (int k = 0; k < Geo::SPL; ++k) {
+    const int i = lane + k * kLanes;
+    if (i >= Geo::S) continue;
+    int m = 0;
+#pragma unroll
+    for (int t = 0; t < BOX; ++t) m |= sh.cm[segment_cell<BOX>(i, t)];
+    sh.seg[i] = m;
+  }
+  __syncwarp();
+  // leave-one-out ORs: over the band's other lines in the same box
+  // (pointing), and over the line's other boxes (claiming)
+#pragma unroll
+  for (int k = 0; k < Geo::SPL; ++k) {
+    const int i = lane + k * kLanes;
+    if (i >= Geo::S) continue;
+    const int* dir = sh.seg + (i < NB ? 0 : NB);
+    const int line = (i % NB) / BOX, part = i % BOX, band0 = line - line % BOX;
+    int seg_other = 0, box_other = 0;
+#pragma unroll
+    for (int t = 0; t < BOX; ++t) {
+      if (band0 + t != line) seg_other |= dir[(band0 + t) * BOX + part];
+      if (t != part) box_other |= dir[line * BOX + t];
+    }
+    const int m = sh.seg[i];
+    sh.os[i] = m & ~seg_other;
+    sh.ob[i] = m & ~box_other;
+  }
+  __syncwarp();
+  // a value confined to this line in another box of the line leaves this
+  // segment; so does one confined to this box on another line of the band
+#pragma unroll
+  for (int k = 0; k < Geo::SPL; ++k) {
+    const int i = lane + k * kLanes;
+    if (i >= Geo::S) continue;
+    const int off = i < NB ? 0 : NB;
+    const int line = (i % NB) / BOX, part = i % BOX, band0 = line - line % BOX;
+    int e = 0;
+#pragma unroll
+    for (int t = 0; t < BOX; ++t) {
+      if (t != part) e |= sh.os[off + line * BOX + t];
+      if (band0 + t != line) e |= sh.ob[off + (band0 + t) * BOX + part];
+    }
+    sh.seg[i] = e;
+  }
+  __syncwarp();
+}
+
+// One sweep analysis of the board in g: its outcome, with cand[] holding the
+// candidates. Assigns the sweep's singles into g (kSweepAssigned) unless the
+// board is solved or contradictory; with none, leaves the lane's MRV key.
+template <int BOX>
+__device__ __forceinline__ int sweep(int (&g)[Geometry<BOX>::CPL],
+                                     int (&cand)[Geometry<BOX>::CPL],
+                                     const int (&pk)[Geometry<BOX>::CPL],
+                                     const UnitWalk (&uw)[Geometry<BOX>::UPL],
+                                     const Smem& sh, int lane, bool locked, bool pairs,
+                                     unsigned& key) {
+  using Geo = Geometry<BOX>;
+  constexpr int N = Geo::N;
+  const int flags = value_pass<BOX>(g, uw, sh.cm, sh.uo, lane);
+  if (flags == 0) return kSweepSolved;
+  if (flags & (kDup | kBad)) return kSweepContra;
+
+  // Pass C: candidates of the empty cells.
+#pragma unroll
+  for (int j = 0; j < Geo::CPL; ++j) {
+    int c = 0;
+    if (owns<BOX>(lane, j)) {
+      if (g[j] == 0) {
+        const int p = pk[j];
+        c = ~(sh.uo[p & 0xff] | sh.uo[(p >> 8) & 0xff] | sh.uo[p >> 16]) & Geo::FULL;
+      }
+      sh.cm[lane + j * kLanes] = c;
+      if (pairs) sh.pe[lane + j * kLanes] = 0;
+    }
+    cand[j] = c;
+  }
+
+  if (locked) {
+    __syncwarp();
+    locked_pass<BOX>(uw, sh, lane, pairs);
+#pragma unroll
+    for (int j = 0; j < Geo::CPL; ++j) {
+      if (cand[j] == 0) continue;
+      const int cell = lane + j * kLanes;
+      const int r = pk[j] & 0xff, c = ((pk[j] >> 8) & 0xff) - N;
+      int e = sh.seg[r * BOX + c / BOX] | sh.seg[Geo::NB + c * BOX + r / BOX];
+      if (pairs) e |= sh.pe[cell];
+      cand[j] &= ~e;
+      sh.cm[cell] = cand[j];
+    }
+  }
+
+  bool dead = false;
+#pragma unroll
+  for (int j = 0; j < Geo::CPL; ++j) {
+    dead |= owns<BOX>(lane, j) && g[j] == 0 && cand[j] == 0;
+  }
+  if (__any_sync(kAll, dead)) return kSweepContra;
+
+  // Pass D: per-unit hidden-single masks from the candidates.
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < Geo::UPL; ++s) {
+    if (uw[s].unit >= Geo::U) continue;
+    int once, twice;
+    unit_once_twice<BOX>(sh.cm, uw[s], once, twice);
+    sh.hid[uw[s].unit] = once & ~twice;
+  }
+  __syncwarp();
+
+  // Pass E: assign every forced single; otherwise key the MRV candidates.
+  bool assigned = false;
+  key = kNoKey;
+#pragma unroll
+  for (int j = 0; j < Geo::CPL; ++j) {
+    const int c = cand[j];
+    if (c == 0) continue;
+    const int p = pk[j];
+    const int exact1 = sh.hid[p & 0xff] | sh.hid[(p >> 8) & 0xff] | sh.hid[p >> 16];
+    const int pc = __popc(c);
+    int a = pc == 1 ? c : (c & exact1);
+    a &= -a;
+    if (a != 0) {
+      g[j] = __ffs(a);
+      assigned = true;
+    } else {
+      key = min(key, (unsigned)(pc << kCellBits | (lane + j * kLanes)));
+    }
+  }
+  return __any_sync(kAll, assigned) ? kSweepAssigned : kSweepStuck;
+}
+
 template <int BOX>
 __global__ void __launch_bounds__(kWarps * kLanes)
 dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid_out,
                   int32_t* __restrict__ meta, int8_t* __restrict__ stack_grid,
                   int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
-                  int B, int D, int max_iters) {
+                  int B, int D, int max_iters, int waves, int options) {
   using Geo = Geometry<BOX>;
   constexpr int N = Geo::N;
   constexpr int C = Geo::C;
@@ -192,9 +431,14 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
   const int warp = threadIdx.x / kLanes;
   const int board = blockIdx.x * kWarps + warp;
   if (board >= B) return;  // the whole warp leaves; no block-wide barrier follows
-  int32_t* cm = smem[warp];  // per cell: value mask (A-B), then candidates (C-D)
-  int32_t* uo = cm + C;      // per unit: values present
-  int32_t* hid = uo + Geo::U;  // per unit: candidates with one admitting cell
+  Smem sh;
+  sh.cm = smem[warp];
+  sh.uo = sh.cm + C;
+  sh.hid = sh.uo + Geo::U;
+  sh.seg = sh.hid + Geo::U;
+  sh.os = sh.seg + Geo::S;
+  sh.ob = sh.os + Geo::S;
+  sh.pe = sh.ob + Geo::S;
 
   // per cell slot: its value, its candidates, and its row / column / box
   // unit ids packed a byte each
@@ -214,35 +458,31 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
   int8_t* sg = stack_grid + (size_t)board * D * C;
   int32_t* sc = stack_cell + (size_t)board * D;
   int32_t* sm = stack_mask + (size_t)board * D;
+  const bool locked = options & kOptLocked;
+  const bool pairs = locked && (options & kOptPairs);
+  const bool wave_locked = locked && !(options & kOptLight);
+  const bool wave_pairs = wave_locked && pairs;
   // every value below is warp-uniform
-  int status = kRunning, depth = 0, guesses = 0, steps = 0;
+  int status = kRunning, depth = 0, guesses = 0, steps = 0, validations = 0;
   int top_cell = 0, top_mask = 0;  // frame depth-1, kept out of the slab
 
-  while (steps < max_iters) {
-    ++steps;
-    const int flags = value_pass<BOX>(g, uw, cm, uo, lane);
-    if (flags == 0) {
+  // One sweep per iteration: sweep 0 of a step takes the step's action,
+  // sweeps 1..waves-1 only assign their singles.
+  for (int wave = 0;; wave = wave + 1 == waves ? 0 : wave + 1) {
+    if (wave == 0) {
+      if (steps >= max_iters) break;
+      ++steps;
+    }
+    ++validations;
+    unsigned key;
+    const int v = sweep<BOX>(g, cand, pk, uw, sh, lane, wave ? wave_locked : locked,
+                             wave ? wave_pairs : pairs, key);
+    if (wave) continue;
+    if (v == kSweepSolved) {
       status = kSolved;
       break;
     }
-
-    // Pass C: candidates of the empty cells, and dead cells.
-    bool dead = false;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      int c = 0;
-      if (owns<BOX>(lane, j)) {
-        if (g[j] == 0) {
-          const int p = pk[j];
-          c = ~(uo[p & 0xff] | uo[(p >> 8) & 0xff] | uo[p >> 16]) & Geo::FULL;
-          dead |= c == 0;
-        }
-        cm[lane + j * kLanes] = c;
-      }
-      cand[j] = c;
-    }
-
-    if ((flags & (kDup | kBad)) || __any_sync(kAll, dead)) {
+    if (v == kSweepContra) {
       // backtrack
       if (depth == 0) {
         status = kUnsat;
@@ -266,38 +506,7 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
       top_mask &= ~bit;
       continue;
     }
-
-    // Pass D: per-unit hidden-single masks from the candidates.
-    __syncwarp();
-#pragma unroll
-    for (int s = 0; s < UPL; ++s) {
-      if (uw[s].unit >= Geo::U) continue;
-      int once, twice;
-      unit_once_twice<BOX>(cm, uw[s], once, twice);
-      hid[uw[s].unit] = once & ~twice;
-    }
-    __syncwarp();
-
-    // Pass E: assign every forced single; otherwise key the MRV candidates.
-    bool assigned = false;
-    unsigned key = kNoKey;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int c = cand[j];
-      if (c == 0) continue;
-      const int p = pk[j];
-      const int exact1 = hid[p & 0xff] | hid[(p >> 8) & 0xff] | hid[p >> 16];
-      const int pc = __popc(c);
-      int a = pc == 1 ? c : (c & exact1);
-      a &= -a;
-      if (a != 0) {
-        g[j] = __ffs(a);
-        assigned = true;
-      } else {
-        key = min(key, (unsigned)(pc << kCellBits | (lane + j * kLanes)));
-      }
-    }
-    if (__any_sync(kAll, assigned)) continue;
+    if (v == kSweepAssigned) continue;
 
     // branch on the MRV cell
     if (depth >= D) {
@@ -331,7 +540,7 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
   }
 
   // the step cap stopped a board that its last step may have completed
-  if (status == kRunning && value_pass<BOX>(g, uw, cm, uo, lane) == 0) status = kSolved;
+  if (status == kRunning && value_pass<BOX>(g, uw, sh.cm, sh.uo, lane) == 0) status = kSolved;
 
   int32_t* out = grid_out + (size_t)board * C;
 #pragma unroll
@@ -342,21 +551,21 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
     int32_t* m = meta + (size_t)board * kMetaCols;
     m[0] = status;
     m[1] = guesses;
-    m[2] = steps;  // validations: every step is taken while RUNNING
+    m[2] = validations;
     m[3] = steps;
   }
 }
 
 template <int BOX>
 int launch(const void* boards, void* grid_out, void* meta, void* stack_grid,
-           void* stack_cell, void* stack_mask, int B, int D, int max_iters,
-           cudaStream_t stream) {
+           void* stack_cell, void* stack_mask, int B, int D, int max_iters, int waves,
+           int options, cudaStream_t stream) {
   const int blocks = (B + kWarps - 1) / kWarps;
   dfs_solver_kernel<BOX><<<blocks, kWarps * kLanes, 0, stream>>>(
       static_cast<const int32_t*>(boards), static_cast<int32_t*>(grid_out),
       static_cast<int32_t*>(meta), static_cast<int8_t*>(stack_grid),
       static_cast<int32_t*>(stack_cell), static_cast<int32_t*>(stack_mask), B, D,
-      max_iters);
+      max_iters, waves, options);
   return (int)cudaGetLastError();
 }
 
@@ -369,25 +578,29 @@ int dfs_solver_meta_cols() { return kMetaCols; }
 
 // boards (B, C) int32 in, grid_out (B, C) int32 and meta (B, 4) int32 out,
 // scratch stack_grid (B, D, C) int8, stack_cell and stack_mask (B, D) int32.
-// box is the board's box edge (2..5). Returns a cudaError_t.
+// box is the board's box edge (2..5); waves >= 1 sweeps a step; options is
+// a mask of 1 (locked candidates), 2 (naked pairs, with 1) and 4 (the extra
+// sweeps without eliminations). Returns a cudaError_t.
 int dfs_solver_launch(const void* boards, void* grid_out, void* meta,
                       void* stack_grid, void* stack_cell, void* stack_mask, int B,
-                      int box, int D, int max_iters, void* stream) {
-  if (B <= 0 || D <= 0 || max_iters < 0) return (int)cudaErrorInvalidValue;
+                      int box, int D, int max_iters, int waves, int options,
+                      void* stream) {
+  if (B <= 0 || D <= 0 || max_iters < 0 || waves < 1 || (options & ~7))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (box) {
     case 2:
       return launch<2>(boards, grid_out, meta, stack_grid, stack_cell, stack_mask, B,
-                       D, max_iters, s);
+                       D, max_iters, waves, options, s);
     case 3:
       return launch<3>(boards, grid_out, meta, stack_grid, stack_cell, stack_mask, B,
-                       D, max_iters, s);
+                       D, max_iters, waves, options, s);
     case 4:
       return launch<4>(boards, grid_out, meta, stack_grid, stack_cell, stack_mask, B,
-                       D, max_iters, s);
+                       D, max_iters, waves, options, s);
     case 5:
       return launch<5>(boards, grid_out, meta, stack_grid, stack_cell, stack_mask, B,
-                       D, max_iters, s);
+                       D, max_iters, waves, options, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

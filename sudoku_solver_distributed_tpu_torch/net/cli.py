@@ -16,6 +16,25 @@ Extensions:
   --platform    gpu (default: the DFS kernel on the CUDA device) or cpu (the
                 plain PyTorch solver); gpu with no CUDA device fails
   --no-warmup   skip the warm-up pass over every bucket width
+  --no-coalesce / --coalesce-max-wait-ms / --coalesce-max-batch
+                disable or tune the request coalescer
+                (parallel/coalescer.py) that merges concurrent /solve
+                requests into one bucketed kernel launch (default on, 2 ms
+                max-wait, batches up to the largest bucket)
+  --adaptive-coalesce
+                scale the coalescer's wait budgets with the measured
+                arrival rate (near zero when idle, the configured caps
+                under load — serving/load.py)
+  --admission-capacity / --default-deadline-ms
+                overload control (serving/admission.py): a bounded pending
+                budget and per-request deadlines (the X-Deadline-Ms
+                header); overload answers 429 + Retry-After, and requests
+                that expire while queued are dropped before the kernel
+                runs them. Both default off
+  --serving-stats
+                add a "serving" block (coalescer batch-fill, queue depth,
+                wait times) to GET /stats; off by default so the
+                reference's {"all", "nodes"} body stays byte-identical
 """
 
 from __future__ import annotations
@@ -25,6 +44,7 @@ import logging
 import threading
 
 from ..engine import SolverEngine
+from ..serving.admission import AdmissionController
 from .http_api import make_http_server
 from .node import P2PNode
 
@@ -53,6 +73,57 @@ def build_parser() -> argparse.ArgumentParser:
         help="run the solver on the CUDA device (default) or the CPU",
     )
     parser.add_argument("--no-warmup", action="store_true")
+    parser.add_argument(
+        "--serving-stats",
+        action="store_true",
+        help="add a 'serving' block (coalescer batch-fill / queue-depth / "
+        "wait-time) to GET /stats; off keeps the reference stats body "
+        "byte-identical",
+    )
+    parser.add_argument(
+        "--no-coalesce",
+        action="store_true",
+        help="disable the request coalescer: every /solve pays its own "
+        "width-1 kernel launch (for A/B measurement)",
+    )
+    parser.add_argument(
+        "--coalesce-max-wait-ms",
+        type=float,
+        default=2.0,
+        help="longest a lone request waits for batch co-riders before its "
+        "bucket dispatches anyway (default 2 ms)",
+    )
+    parser.add_argument(
+        "--coalesce-max-batch",
+        type=int,
+        default=None,
+        help="cap boards per coalesced kernel launch (default: the largest "
+        "bucket)",
+    )
+    parser.add_argument(
+        "--adaptive-coalesce",
+        action="store_true",
+        help="scale the coalescer wait budgets with the measured arrival "
+        "rate: near-zero wait when idle, the configured budgets under "
+        "load. Off by default: fixed budgets",
+    )
+    parser.add_argument(
+        "--admission-capacity",
+        type=int,
+        default=0,
+        help="max admitted /solve requests in flight; arrivals past it "
+        "answer 429 + Retry-After instead of queueing without bound. 0 "
+        "(default) disables the pending bound",
+    )
+    parser.add_argument(
+        "--default-deadline-ms",
+        type=float,
+        default=0.0,
+        help="latency budget for /solve requests without an X-Deadline-Ms "
+        "header: requests whose projected queue wait exceeds it are shed "
+        "429 at arrival, and admitted requests that expire waiting are "
+        "dropped before the kernel runs them. 0 (default) = no deadline",
+    )
     return parser
 
 
@@ -60,14 +131,31 @@ def build_node(args: argparse.Namespace):
     """Construct the engine (warmed unless --no-warmup), the node and its
     HTTP server from parsed CLI arguments. Returns (node, httpd); the
     caller starts ``httpd.serve_forever`` and ``node.run``."""
-    kwargs = {"device": "cuda" if args.platform == "gpu" else "cpu"}
+    kwargs = {
+        "device": "cuda" if args.platform == "gpu" else "cpu",
+        "coalesce": not args.no_coalesce,
+        "coalesce_max_wait_s": args.coalesce_max_wait_ms / 1e3,
+        "coalesce_max_batch": args.coalesce_max_batch,
+        "coalesce_adaptive": args.adaptive_coalesce,
+    }
     if args.buckets:
         kwargs["buckets"] = tuple(int(b) for b in args.buckets.split(","))
     engine = SolverEngine(**kwargs)
     if not args.no_warmup:
         engine.warmup()
-    node = P2PNode(args.host, args.s, handicap=args.h / 100, engine=engine)
-    httpd = make_http_server(node, args.host, args.p)
+    admission = None
+    if args.admission_capacity > 0 or args.default_deadline_ms > 0:
+        admission = AdmissionController(
+            capacity=args.admission_capacity,
+            default_deadline_ms=args.default_deadline_ms,
+        )
+    node = P2PNode(
+        args.host, args.s, handicap=args.h / 100, engine=engine,
+        admission=admission,
+    )
+    httpd = make_http_server(
+        node, args.host, args.p, expose_serving=args.serving_stats
+    )
     return node, httpd
 
 
@@ -93,6 +181,7 @@ def main(argv=None) -> None:
     finally:
         httpd.shutdown()
         httpd.server_close()
+        node.engine.close()  # drain the coalescer (in-flight futures resolve)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 The port of the single-node part of ``sudoku_solver_distributed_tpu/net/
 node.py``: the constructor and counters, the ``/stats`` and ``/network``
 bodies, the no-peers branch of ``peer_sudoku_solve(_info)`` (the request
-goes straight to the engine), and the graceful ``shutdown``. ``run`` binds
+goes straight to the engine's coalesced path, with its admission
+deadline), and the graceful ``shutdown``. ``run`` binds
 the UDP socket like the original and then waits for shutdown: the UDP
 event loop, the anchor join and the per-cell task farm come with the P2P
 slice, so a node here never has peers.
@@ -37,6 +38,7 @@ class P2PNode:
         engine: Optional[SolverEngine] = None,
         failure_timeout: float = FAILURE_TIMEOUT_S,
         tombstone_ttl_s: Optional[float] = None,
+        admission=None,
     ):
         if anchor_node is not None:
             raise NotImplementedError(
@@ -48,6 +50,10 @@ class P2PNode:
         self.handicap = handicap
 
         self.engine = engine if engine is not None else SolverEngine()
+        # overload control (serving/admission.py): when set, /solve sheds
+        # 429 at arrival and expired queued requests answer 429
+        # (net/http_api.solve_route); None serves every request
+        self.admission = admission
         # ticks once per farmed task, as in the JAX node: the task farm
         # comes with the P2P slice, so a single node never ticks it
         self.limiter = HandicapLimiter(base_delay=handicap)
@@ -119,14 +125,18 @@ class P2PNode:
 
     def peer_sudoku_solve_info(self, sudoku, deadline_s=None):
         """Solve a request board; returns (solution | None, info). With no
-        peers (always, in this slice) the engine answers it."""
-        if deadline_s is not None:
-            raise NotImplementedError(
-                "request deadlines come with the admission slice"
-            )
+        peers (always, in this slice) the engine answers it.
+
+        ``deadline_s`` (absolute monotonic, from the admission layer) rides
+        into the engine's coalescer, where a request still queued past it
+        is dropped at batch formation (DeadlineExceeded propagates to the
+        HTTP layer's 429). Concurrent requests do not serialize here: each
+        handler thread enqueues on the engine and awaits its future."""
         if self.membership.total_peers():
             raise NotImplementedError("the task farm comes with the P2P slice")
-        solution, info = self.engine.solve_one(sudoku)
+        solution, info = self.engine.solve_one_async(
+            sudoku, deadline_s=deadline_s
+        ).result()
         if solution is not None:
             with self._state_lock:
                 self._solved_count += 1

@@ -1,9 +1,9 @@
 """Stats gossip: eventually-consistent max-merge counters (CRDT-style).
 
-A copy of ``StatsGossip`` from ``sudoku_solver_distributed_tpu/net/stats.py``:
-the port imports nothing from the JAX package. (The opt-in ``serving`` block
-of GET /stats reads the request coalescer, which the port does not have yet;
-the per-peer health and telemetry maps come with the P2P slice.)
+A copy of ``StatsGossip`` and ``serving_snapshot`` from
+``sudoku_solver_distributed_tpu/net/stats.py``: the port imports nothing from
+the JAX package. (The per-peer health and telemetry maps come with the P2P
+slice.)
 
 Reproduces the reference's stats plane exactly (reference node.py:264-331,
 580-620): every node carries ``all_stats`` = {"all": {"solved",
@@ -124,3 +124,19 @@ class StatsGossip:
     # their validations happened and the totals stay monotone. This matches
     # the reference's observed behavior (SURVEY.md §3.5).
 
+
+def serving_snapshot(engine) -> Msg:
+    """The opt-in ``serving`` block of GET /stats (CLI ``--serving-stats``):
+    the request coalescer's realized batch-fill, queue depth and wait
+    times (parallel/coalescer.py). Off by default so the reference's
+    /stats body stays byte-identical."""
+    out = {
+        "coalesce": bool(getattr(engine, "coalesce", False)),
+        "batches": 0,
+        "boards": 0,
+        "batch_fill_avg": 0.0,
+    }
+    co = getattr(engine, "_coalescer", None)
+    if co is not None:
+        out.update(co.stats())
+    return out

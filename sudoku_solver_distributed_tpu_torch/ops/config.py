@@ -5,11 +5,10 @@ this package reads, kept here so the port imports nothing from the JAX
 package. The values are the JAX package's; they are kept equal so the two
 packages run the same searches.
 
-The port's device kernel (ops/cuda_solver.py) runs singles-only analysis
-with one sweep per step, so of these knobs it reads ``max_depth`` (the
-staged guess-stack depth) and ``max_iters`` (the per-call step budget).
-``locked_candidates``/``waves``/``naked_pairs`` are the JAX serving
-solver's sweeps; the port raises where a caller asks for them.
+The device kernel (ops/cuda_solver.py) and the plain solver
+(ops/solver.py) run every knob here: the staged guess-stack depth, the
+per-call step budget, locked-candidate eliminations, the extra
+propagation sweeps per step (``waves``) and naked pairs.
 """
 
 from __future__ import annotations
@@ -47,3 +46,14 @@ def serving_config(size: int) -> dict:
         raise ValueError(
             f"no serving config for size {size}; have {sorted(SERVING_CONFIG)}"
         ) from None
+
+
+# The plain locked-candidate pass (ops/propagate.py) runs its row and column
+# passes as two 16-bit bitplanes of one int32 lane where a value mask fits a
+# plane (N <= 16). Exact either way: only the plain version's speed differs.
+PACKED_DEFAULT = {9: True, 16: True, 25: False}
+
+
+def packed_default(size: int) -> bool:
+    """Whether the packed bitplane locked pass is on by default for N×N."""
+    return bool(PACKED_DEFAULT.get(size, size <= 16))

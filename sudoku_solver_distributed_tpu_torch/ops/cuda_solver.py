@@ -5,7 +5,9 @@ kernel (csrc/dfs_solver.cu, CUDA C++ for ``sm_90a``) runs a board's whole
 DFS in one warp, the board's cells and units spread across the lanes;
 ``dfs_solver`` is its wrapper and ``solve_batch_cuda`` the staged-depth
 glue around it, with the semantics of ``solve_batch_pallas`` and its
-``_retry_overflow_deep``.
+``_retry_overflow_deep``. Beyond the Pallas kernel it runs the JAX xla
+solver's sweep knobs (``locked_candidates``, ``naked_pairs``, ``waves``,
+``light_waves``), so the serving configuration runs on the card.
 
 Differences from the Pallas path, all by design:
 
@@ -51,6 +53,7 @@ from .solver import (
     solve_flat,
     solve_staged,
     staged_depths,
+    sweep_knobs,
 )
 from .spec import BoardSpec
 
@@ -62,6 +65,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 META_COLS = 4  # status, guesses, validations, steps
+# the launch's option bits (csrc/dfs_solver.cu kOpt*)
+OPT_LOCKED, OPT_PAIRS, OPT_LIGHT = 1, 2, 4
 _LAUNCHES_LOCK = threading.Lock()
 
 
@@ -110,7 +115,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.dfs_solver_launch.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.dfs_solver_launch.restype = ctypes.c_int
     lib.dfs_solver_meta_cols.restype = ctypes.c_int
@@ -120,27 +125,40 @@ def load_library() -> ctypes.CDLL:
 
 
 def _dfs_solver_plain(boards: torch.Tensor, spec: BoardSpec, depth: int,
-                      max_iters: int):
+                      max_iters: int, **sweeps):
     """The plain PyTorch version of the kernel on the same (B, C) layout:
-    ops/solver.solve_flat. Returns (grid, meta) like the kernel, with every
-    board's step count set to the batch's."""
+    ops/solver.solve_flat under the same ``sweeps`` knobs. Returns (grid,
+    meta) like the kernel, with every board's step count set to the
+    batch's."""
     B = boards.shape[0]
     N = spec.size
-    res, _ = solve_flat(boards.reshape(B, N, N), spec, depth, max_iters)
+    res, _ = solve_flat(
+        boards.reshape(B, N, N), spec, depth, max_iters,
+        **sweep_knobs(spec, **sweeps),
+    )
     steps = torch.full_like(res.status, res.iters)
     meta = torch.stack([res.status, res.guesses, res.validations, steps], dim=1)
     return res.grid.reshape(B, spec.cells), meta
 
 
 def dfs_solver(boards: torch.Tensor, spec: BoardSpec, depth: int,
-               max_iters: int):
+               max_iters: int, *, locked_candidates: bool = False,
+               waves: int = 1, light_waves: bool = False,
+               naked_pairs: bool | None = None, packed: bool | None = None):
     """Solve (B, C) int32 boards with a guess stack of ``depth`` frames and
-    at most ``max_iters`` steps per board. Returns ``(grid, meta)``: the
-    (B, C) int32 final grids and the (B, 4) int32 [status, guesses,
-    validations, steps] per board.
+    at most ``max_iters`` steps per board, under ``ops.solver.solve_batch``'s
+    sweep knobs. Returns ``(grid, meta)``: the (B, C) int32 final grids
+    and the (B, 4) int32 [status, guesses, validations, steps] per board.
+    ``packed`` selects only the plain version's form of the locked pass
+    (the results are the same); it is checked, not sent to the kernel.
 
     A CUDA tensor launches the kernel on the current stream (no sync);
     a CPU tensor runs the plain version. Nothing else is accepted."""
+    sweeps = dict(
+        locked_candidates=locked_candidates, waves=waves,
+        light_waves=light_waves, naked_pairs=naked_pairs, packed=packed,
+    )
+    knobs = sweep_knobs(spec, **sweeps)
     if not isinstance(boards, torch.Tensor):
         raise TypeError("dfs_solver takes a torch.Tensor")
     if boards.dtype != torch.int32:
@@ -153,20 +171,30 @@ def dfs_solver(boards: torch.Tensor, spec: BoardSpec, depth: int,
     if depth < 1 or max_iters < 0:
         raise ValueError(f"bad depth {depth} / max_iters {max_iters}")
     if boards.device.type == "cpu":
-        return _dfs_solver_plain(boards, spec, depth, max_iters)
+        return _dfs_solver_plain(boards, spec, depth, max_iters, **sweeps)
     if boards.device.type != "cuda":
         raise ValueError(f"dfs_solver runs on cuda or cpu, not {boards.device}")
     if not boards.is_contiguous():
         raise ValueError("dfs_solver takes contiguous boards")
     if boards.shape[0] == 0:
         return boards.clone(), boards.new_empty((0, META_COLS))
-    return _launch(load_library(), boards, spec, depth, max_iters)
+    locked, pairs = knobs["locked"], knobs["naked_pairs"]
+    pairs = pairs or pairs is None  # None follows locked, as in analyze
+    options = (
+        (OPT_LOCKED if locked else 0)
+        | (OPT_PAIRS if locked and pairs else 0)
+        | (OPT_LIGHT if knobs["light_waves"] else 0)
+    )
+    return _launch(
+        load_library(), boards, spec, depth, max_iters, knobs["waves"], options
+    )
 
 
 def _launch(lib: ctypes.CDLL, boards: torch.Tensor, spec: BoardSpec,
-            depth: int, max_iters: int):
+            depth: int, max_iters: int, waves: int = 1, options: int = 0):
     """Allocate the outputs and the guess-stack slab for (B, C) boards on a
-    CUDA device, launch ``lib``'s kernel on the current stream and count
+    CUDA device, launch ``lib``'s kernel on the current stream with
+    ``waves`` sweeps a step and the ``OPT_*`` bits ``options``, and count
     the launch in ``dfs_solver.launches``."""
     B, C = boards.shape
     dev = boards.device
@@ -180,7 +208,8 @@ def _launch(lib: ctypes.CDLL, boards: torch.Tensor, spec: BoardSpec,
         err = lib.dfs_solver_launch(
             boards.data_ptr(), grid.data_ptr(), meta.data_ptr(),
             stack_grid.data_ptr(), stack_cell.data_ptr(),
-            stack_mask.data_ptr(), B, spec.box, depth, max_iters, stream,
+            stack_mask.data_ptr(), B, spec.box, depth, max_iters, waves,
+            options, stream,
         )
     if err != 0:
         raise RuntimeError(f"dfs_solver launch failed: cudaError {err}")
@@ -192,14 +221,16 @@ def _launch(lib: ctypes.CDLL, boards: torch.Tensor, spec: BoardSpec,
 dfs_solver.launches = 0
 
 
-def _solve_stage(grid: torch.Tensor, spec: BoardSpec, depth: int,
-                 max_iters: int):
-    """One flat-depth stage through ``dfs_solver``. The step counters stay
-    on the device (0-dim tensors): reading them is left to the caller."""
+def solve_stage(grid: torch.Tensor, spec: BoardSpec, depth: int,
+                max_iters: int, **sweeps):
+    """One flat-depth stage of a (B, N, N) batch through ``dfs_solver``
+    (``sweeps``: its sweep knobs). Nothing is read back: the step counters
+    stay on the device as 0-dim tensors."""
     B = grid.shape[0]
     N = spec.size
     out, meta = dfs_solver(
-        grid.reshape(B, spec.cells).contiguous(), spec, depth, max_iters
+        grid.reshape(B, spec.cells).contiguous(), spec, depth, max_iters,
+        **sweeps,
     )
     status = meta[:, 0]
     steps = meta[:, 3]
@@ -221,6 +252,7 @@ def solve_batch_cuda(
     max_depth=None,
     max_iters: int = 4096,
     return_stats: bool = False,
+    **sweeps,
 ):
     """Solve a (B, N, N) batch with the DFS kernel.
 
@@ -229,16 +261,18 @@ def solve_batch_cuda(
     no GPU that raises. ``max_depth`` stages the stack depth exactly as ``ops.solver.
     solve_batch`` does (None → the spec's full depth; a tuple → OVERFLOW
     boards rerun deeper, with every other lane a pad board, and their
-    counters accumulate). Results agree with the plain ``solve_batch``
-    board for board in grid, status, guesses and validations. ``iters``
-    is a 0-dim tensor; the LoopStats of ``return_stats`` are ints."""
+    counters accumulate). ``sweeps`` are ``solve_batch``'s sweep knobs
+    (``locked_candidates``, ``waves``, ``light_waves``, ``naked_pairs``,
+    ``packed``). Results agree with the plain ``solve_batch`` board for
+    board in grid, status, guesses and validations. ``iters`` is a 0-dim
+    tensor; the LoopStats of ``return_stats`` are ints."""
     if not isinstance(grid, torch.Tensor):
         grid = torch.as_tensor(np.asarray(grid), device="cuda")
     res, stats = solve_staged(
         grid.to(torch.int32),
         spec,
         staged_depths(max_depth, spec),
-        lambda g, d: _solve_stage(g, spec, d, max_iters),
+        lambda g, d: solve_stage(g, spec, d, max_iters, **sweeps),
     )
     if not return_stats:
         return res

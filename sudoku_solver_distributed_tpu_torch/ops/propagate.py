@@ -9,9 +9,9 @@ a batch of grids it derives the candidate masks, the forced-assignment mask
   * naked single  — an empty cell whose candidate set has exactly one value;
   * hidden single — a (unit, value) pair with exactly one admitting cell.
 
-Only the singles analysis is ported so far: the locked-candidate and
-naked-pair eliminations (``analyze(locked=True)``) come with the kernel's
-serving-config sweeps, and raise ``NotImplementedError`` until then.
+``analyze(locked=True)`` first narrows the candidates with locked-set
+eliminations (pointing and claiming, and optionally naked pairs), as the
+serving configuration does.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from .config import packed_default
 from .encode import box_index, mask_to_value, popcount, value_bitmask
 from .spec import BoardSpec
 
@@ -56,21 +57,154 @@ def _once_twice(x: torch.Tensor):
     return once, twice
 
 
+def _or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise OR over ``dim`` (torch has no bitwise reduction)."""
+    parts = x.unbind(dim)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out | p
+    return out
+
+
+def _or_others(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """OR over the other n-1 entries along ``dim`` (size n), per entry:
+    leave-one-out from prefix and suffix ORs."""
+    parts = x.unbind(dim)
+    n = len(parts)
+    fwd = [parts[0]]
+    for k in range(1, n):
+        fwd.append(fwd[-1] | parts[k])
+    bwd = [None] * n
+    bwd[n - 1] = parts[n - 1]
+    for k in range(n - 2, -1, -1):
+        bwd[k] = bwd[k + 1] | parts[k]
+    outs = [bwd[1]]
+    for k in range(1, n - 1):
+        outs.append(fwd[k - 1] | bwd[k + 1])
+    outs.append(fwd[n - 2])
+    return torch.stack(outs, dim)
+
+
+def _segment_elims(m: torch.Tensor) -> torch.Tensor:
+    """Pointing and claiming from the (B, band, s, bc) segment ORs ``m`` of
+    one line direction: the elimination mask of every line segment."""
+    # pointing: a value confined to segment s of box (band, bc) leaves the
+    # other boxes' cells of line (band, s)
+    only_seg = m & ~_or_others(m, 2)
+    row_other_boxes = _or_others(only_seg, 3)
+    # claiming: a value confined to box bc within line (band, s) leaves
+    # that box's other segments
+    only_box = m & ~_or_others(m, 3)
+    box_other_rows = _or_others(only_box, 2)
+    return row_other_boxes | box_other_rows
+
+
+def _broadcast_segments(elim: torch.Tensor, spec: BoardSpec) -> torch.Tensor:
+    """(B, band, s, bc) per-segment masks → (B, N, N) per cell."""
+    n, N = spec.box, spec.size
+    B = elim.shape[0]
+    return elim[..., None].expand(B, n, n, n, n).reshape(B, N, N)
+
+
+def _locked_candidate_elims(cand: torch.Tensor, spec: BoardSpec) -> torch.Tensor:
+    """(B, N, N) candidate-bit elimination masks from locked candidates
+    (pointing and claiming), rows then columns via transpose."""
+    n = spec.box
+    B = cand.shape[0]
+    out = torch.zeros_like(cand)
+    for transpose in (False, True):
+        c = cand.transpose(1, 2) if transpose else cand
+        m = _or_reduce(c.reshape(B, n, n, n, n), 4)  # (B, band, s, bc)
+        elim = _broadcast_segments(_segment_elims(m), spec)
+        out = out | (elim.transpose(1, 2) if transpose else elim)
+    return out
+
+
+_PLANE_MASK = 0xFFFF  # low half of an int32 lane: one 16-bit bitplane
+
+
+def _lsr16(p: torch.Tensor) -> torch.Tensor:
+    """Logical (zero-fill) right shift by one plane width. ``>>`` on int32
+    is arithmetic and would smear a set bit 31 (N=16's value bit 15 in the
+    high plane) across the result, so the shifted value is masked."""
+    return (p >> 16) & _PLANE_MASK
+
+
+def _locked_candidate_elims_packed(
+    cand: torch.Tensor, spec: BoardSpec
+) -> torch.Tensor:
+    """``_locked_candidate_elims`` with the row pass and the transposed
+    column pass packed as two 16-bit bitplanes of one int32 lane: every
+    operation is bitwise, so both planes ride one reduction. Bit-identical
+    to the unpacked pass; needs N <= 16."""
+    n = spec.box
+    B = cand.shape[0]
+    c2 = cand | (cand.transpose(1, 2) << 16)
+    m = _or_reduce(c2.reshape(B, n, n, n, n), 4)
+    elim = _broadcast_segments(_segment_elims(m), spec)
+    return (elim & _PLANE_MASK) | _lsr16(elim).transpose(1, 2)
+
+
+def _naked_pair_elims(cand: torch.Tensor, spec: BoardSpec) -> torch.Tensor:
+    """(B, N, N) candidate-bit elimination masks from naked pairs: two cells
+    of a unit with the same 2-value candidate set take those values from
+    every other cell of the unit (a cell of a pair keeps its own set)."""
+    N = spec.size
+    pc2 = popcount(cand, spec) == 2
+    eye = torch.eye(N, dtype=torch.bool, device=cand.device)[None, None]
+    out = torch.zeros_like(cand)
+    for mode in ("row", "col", "box"):
+        if mode == "row":
+            c, p2 = cand, pc2
+        elif mode == "col":
+            c, p2 = cand.transpose(1, 2), pc2.transpose(1, 2)
+        else:
+            c, p2 = _box_major(cand, spec), _box_major(pc2, spec)
+        eqm = (
+            (c[:, :, :, None] == c[:, :, None, :])
+            & p2[:, :, :, None]
+            & p2[:, :, None, :]
+            & ~eye
+        )
+        paired = torch.where(eqm.any(-1), c, torch.zeros_like(c))
+        elim = _or_reduce(paired, 2)[:, :, None] & ~paired  # (B, U, N)
+        if mode == "col":
+            elim = elim.transpose(1, 2)
+        elif mode == "box":
+            elim = _box_major(elim, spec)  # an involution: maps back
+        out = out | elim
+    return out
+
+
 def analyze(
-    grid: torch.Tensor, spec: BoardSpec, locked: bool = False
+    grid: torch.Tensor,
+    spec: BoardSpec,
+    locked: bool = False,
+    naked_pairs: bool | None = None,
+    packed: bool | None = None,
 ) -> Analysis:
-    """Fused singles analysis of a (B, N, N) batch.
+    """Fused sweep analysis of a (B, N, N) batch.
+
+    ``locked=True`` applies locked-set eliminations to the candidates
+    before single detection: locked candidates (pointing and claiming)
+    and, unless ``naked_pairs`` is False, naked pairs (None follows
+    ``locked``). ``packed`` picks the bitplane form of the locked pass
+    (None → ``ops.config.packed_default``); it needs N <= 16 and raises
+    ValueError otherwise. Every elimination is computed from the
+    candidates before any of them.
 
     Contradiction covers: a duplicated value in a unit, an empty cell with
-    an empty candidate set, and out-of-range cell values (anything outside
-    0..N). Solved is the strict criterion — every row/col/box a
-    permutation of 1..N."""
-    if locked:
-        raise NotImplementedError(
-            "locked-candidate / naked-pair analysis is not ported yet; "
-            "the port runs singles-only sweeps"
-        )
+    an empty candidate set (after the eliminations), and out-of-range cell
+    values (anything outside 0..N). Solved is the strict criterion —
+    every row/col/box a permutation of 1..N."""
     N = spec.size
+    if packed is None:
+        packed = packed_default(N)
+    if packed and N > 16:
+        raise ValueError(
+            f"packed bitplane analysis needs N <= 16 (a value mask must fit "
+            f"one 16-bit plane); got N={N}"
+        )
     g = grid.to(torch.int32)
     vmask = value_bitmask(g, spec)  # out-of-range cells contribute nothing
 
@@ -88,6 +222,15 @@ def analyze(
     empty = g == 0
     zero = torch.zeros_like(g)
     cand = torch.where(empty, ~used & spec.full_mask, zero)
+    if locked:
+        elim = (
+            _locked_candidate_elims_packed(cand, spec)
+            if packed
+            else _locked_candidate_elims(cand, spec)
+        )
+        if naked_pairs or naked_pairs is None:
+            elim = elim | _naked_pair_elims(cand, spec)
+        cand = cand & ~elim
 
     # Hidden singles: "this cell admits v AND v has one admitting cell in
     # one of my units" identifies them without per-(unit, value) counts.

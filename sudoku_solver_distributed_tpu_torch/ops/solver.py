@@ -1,18 +1,20 @@
 """Batched DFS sudoku solver in plain PyTorch — the kernel's reference.
 
 The port of the closed loop of ``sudoku_solver_distributed_tpu/ops/solver.py``
-in the configuration the device kernel runs: singles-only analysis
-(``locked_candidates=False``) and one sweep per step (``waves=1``). It is
-the plain version of the CUDA kernel in csrc/dfs_solver.cu: the same
-inputs give the same grid, status, guesses and validations per board. The
-kernel wrapper (ops/cuda_solver.py) runs it for CPU tensors only; tests
-and ``chip_smoke.py`` hold the kernel against it.
+with its sweep knobs: locked-candidate eliminations (``locked_candidates``,
+``naked_pairs``, ``packed``) and ``waves - 1`` extra propagation sweeps per
+step (``waves``, ``light_waves``). It is the plain version of the CUDA
+kernel in csrc/dfs_solver.cu: the same inputs and knobs give the same
+grid, status, guesses and validations per board. The kernel wrapper
+(ops/cuda_solver.py) runs it for CPU tensors only; tests and
+``chip_smoke.py`` hold the kernel against it.
 
 Every board runs the same step each iteration: one fused analysis, then
 one of {assign every forced single, branch on the minimum-remaining-values
-cell, backtrack}. Recursion is an explicit guess stack of fixed depth D
-(OVERFLOW when a branch would exceed it); per-board status lanes
-(RUNNING / SOLVED / UNSAT / OVERFLOW) mask finished boards out.
+cell, backtrack}, then the extra sweeps. Recursion is an explicit guess
+stack of fixed depth D (OVERFLOW when a branch would exceed it); per-board
+status lanes (RUNNING / SOLVED / UNSAT / OVERFLOW) mask finished boards
+out.
 
 The JAX loop shrinks the batch as boards finish (its compaction ladder);
 that changes the schedule and nothing a board computes, because a board's
@@ -132,7 +134,15 @@ def _mrv_cell(grid: torch.Tensor, cand: torch.Tensor, spec: BoardSpec):
     return cell, cand[b, cell]
 
 
-def _step(state: _State, spec: BoardSpec) -> _State:
+def _step(
+    state: _State,
+    spec: BoardSpec,
+    locked: bool = False,
+    waves: int = 1,
+    light_waves: bool = False,
+    naked_pairs: bool | None = None,
+    packed: bool | None = None,
+) -> _State:
     B, C = state.grid.shape
     D = state.stack_mask.shape[1]
     N = spec.size
@@ -140,7 +150,10 @@ def _step(state: _State, spec: BoardSpec) -> _State:
     b = torch.arange(B, device=dev)
     grid = state.grid
 
-    a = analyze(grid.reshape(B, N, N), spec)
+    a = analyze(
+        grid.reshape(B, N, N), spec, locked=locked, naked_pairs=naked_pairs,
+        packed=packed,
+    )
     cand = a.cand.reshape(B, C)
     assign = a.assign.reshape(B, C)
     contra, solved = a.contradiction, a.solved
@@ -211,6 +224,33 @@ def _step(state: _State, spec: BoardSpec) -> _State:
 
     one = torch.ones_like(state.depth)
     zero = torch.zeros_like(state.depth)
+    validations = state.validations + torch.where(running, one, zero)
+
+    # Extra propagation sweeps: re-analyze the merged grid and assign its
+    # forced singles, ``waves - 1`` times. Forced moves only, so the DFS
+    # tree is unchanged. A board that contradicted, solved or has no
+    # single passes through; every board still RUNNING pays the sweep's
+    # validation whether it assigns or not.
+    still_running = new_status == RUNNING
+    for _ in range(waves - 1):
+        aw = analyze(
+            new_grid.reshape(B, N, N), spec, locked=locked and not light_waves,
+            naked_pairs=naked_pairs, packed=packed,
+        )
+        assign_w = aw.assign.reshape(B, C)
+        w = (
+            still_running
+            & ~aw.contradiction
+            & ~aw.solved
+            & (assign_w != 0).any(dim=1)
+        )
+        new_grid = torch.where(
+            w[:, None] & (assign_w != 0),
+            mask_to_value(assign_w, spec),
+            new_grid,
+        )
+        validations = validations + torch.where(still_running, one, zero)
+
     return _State(
         grid=new_grid,
         stack_grid=state.stack_grid,
@@ -221,14 +261,16 @@ def _step(state: _State, spec: BoardSpec) -> _State:
         - torch.where(bt_pop, one, zero),
         status=new_status,
         guesses=state.guesses + torch.where(do_branch, one, zero),
-        validations=state.validations + torch.where(running, one, zero),
+        validations=validations,
         iters=state.iters + 1,
     )
 
 
-def step(state: _State, spec: BoardSpec) -> _State:
-    """One solver step over the batch (consumes ``state``'s stack)."""
-    return _step(state, spec)
+def step(state: _State, spec: BoardSpec, **sweeps) -> _State:
+    """One solver step over the batch (consumes ``state``'s stack).
+    ``sweeps`` are ``_step``'s knobs: locked, waves, light_waves,
+    naked_pairs, packed."""
+    return _step(state, spec, **sweeps)
 
 
 def finalize_status(state: _State, spec: BoardSpec) -> _State:
@@ -247,9 +289,10 @@ def finalize_status(state: _State, spec: BoardSpec) -> _State:
     return state._replace(status=status)
 
 
-def run_loop(state: _State, spec: BoardSpec, max_iters: int):
+def run_loop(state: _State, spec: BoardSpec, max_iters: int, **sweeps):
     """Step until no board is RUNNING or the state has taken ``max_iters``
-    steps, then finalize. Returns (state, LoopStats)."""
+    steps, then finalize. ``sweeps`` are ``_step``'s knobs. Returns
+    (state, LoopStats)."""
     lane = 0
     idle = torch.zeros((), dtype=torch.int64, device=state.grid.device)
     while state.iters < max_iters:
@@ -258,8 +301,26 @@ def run_loop(state: _State, spec: BoardSpec, max_iters: int):
             break
         lane += state.grid.shape[0]
         idle = idle + (~running).sum()
-        state = _step(state, spec)
+        state = _step(state, spec, **sweeps)
     return finalize_status(state, spec), LoopStats(lane, int(idle))
+
+
+def sweep_knobs(spec: BoardSpec, locked_candidates=False, waves=1,
+                light_waves=False, naked_pairs=None, packed=None) -> dict:
+    """``solve_batch``'s sweep knobs as ``_step`` keywords, checked: waves
+    >= 1, and the packed locked pass only for N <= 16 (``analyze``
+    raises the same ValueError)."""
+    if int(waves) < 1:
+        raise ValueError(f"waves must be >= 1, got {waves}")
+    if packed and spec.size > 16:
+        raise ValueError(
+            f"packed bitplane analysis needs N <= 16 (a value mask must fit "
+            f"one 16-bit plane); got N={spec.size}"
+        )
+    return dict(
+        locked=bool(locked_candidates), waves=int(waves),
+        light_waves=bool(light_waves), naked_pairs=naked_pairs, packed=packed,
+    )
 
 
 def pad_board(spec: BoardSpec, device=None) -> torch.Tensor:
@@ -325,13 +386,15 @@ def solve_staged(grid, spec: BoardSpec, depths, solve_stage):
     return res, stats
 
 
-def solve_flat(grid, spec: BoardSpec, depth: int, max_iters: int):
+def solve_flat(grid, spec: BoardSpec, depth: int, max_iters: int, **sweeps):
     """One flat-depth stage: a (B, N, N) batch stepped to the end from a
-    fresh state with a ``depth``-frame stack. Returns (SolveResult,
-    LoopStats)."""
+    fresh state with a ``depth``-frame stack, under ``_step``'s ``sweeps``
+    knobs. Returns (SolveResult, LoopStats)."""
     B = grid.shape[0]
     N = spec.size
-    state, stats = run_loop(init_state(grid, spec, depth), spec, max_iters)
+    state, stats = run_loop(
+        init_state(grid, spec, depth), spec, max_iters, **sweeps
+    )
     return SolveResult(
         grid=state.grid.reshape(B, N, N),
         solved=state.status == SOLVED,
@@ -348,6 +411,11 @@ def solve_batch(
     *,
     max_iters: int = 4096,
     max_depth=None,
+    locked_candidates: bool = False,
+    waves: int = 1,
+    light_waves: bool = False,
+    naked_pairs: bool | None = None,
+    packed: bool | None = None,
     return_stats: bool = False,
 ):
     """Solve a (B, N, N) batch to completion, proven unsatisfiability, the
@@ -355,13 +423,22 @@ def solve_batch(
 
     ``max_depth`` may be a tuple to stage the stack depth (see
     ``solve_staged``): e.g. ``(32, 81)`` runs the common case with a
-    shallow stack and keeps the full-depth guarantee. Runs on the batch's
-    device with plain tensor operations; matches the JAX package's
-    ``solve_batch(locked_candidates=False, waves=1)`` per board."""
+    shallow stack and keeps the full-depth guarantee. The sweep knobs have
+    the JAX package's meanings: ``locked_candidates`` adds locked-set
+    eliminations to every analysis (``naked_pairs`` None follows it;
+    ``packed`` picks the plain bitplane form), ``waves`` runs ``waves -
+    1`` extra propagation sweeps per step (``light_waves``: without the
+    eliminations). ``max_iters`` caps steps, not sweeps; ``validations``
+    counts sweeps. Runs on the batch's device with plain tensor
+    operations; matches the JAX package's ``solve_batch`` with the same
+    knobs per board."""
+    sweeps = sweep_knobs(
+        spec, locked_candidates, waves, light_waves, naked_pairs, packed
+    )
     res, stats = solve_staged(
         grid,
         spec,
         staged_depths(max_depth, spec),
-        lambda g, d: solve_flat(g, spec, d, max_iters),
+        lambda g, d: solve_flat(g, spec, d, max_iters, **sweeps),
     )
     return (res, stats) if return_stats else res

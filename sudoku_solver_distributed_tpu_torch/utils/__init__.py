@@ -1,4 +1,5 @@
-"""Host-side utilities: the handicap rate limiter."""
+"""Host-side utilities: the handicap rate limiter; profiler spans live in
+``utils/profiling.py``."""
 
 from .ratelimit import HandicapLimiter
 

@@ -1,8 +1,8 @@
 """The port's SolverEngine on the CPU held against the JAX package's engine
-in the kernel's configuration (xla backend, singles-only, one wave, no
-coalescer — per board the same as the Pallas backend, see
-tests/test_ops_pallas.py): solutions, solved masks, info counters, the
-deep retry, and the engine counters must be equal.
+with the serving configuration of both (locked candidates, ``waves=3`` on
+9×9 buckets wider than 1) and the JAX engine's coalescer off: solutions,
+solved masks, info counters, the deep retry, and the engine counters must be
+equal. One case runs both in the kernel's singles configuration.
 """
 
 import os
@@ -35,12 +35,32 @@ def corpus(name, n):
         return d["boards"][:n].astype(np.int32)
 
 
+_OPEN = []
+
+
+@pytest.fixture(autouse=True)
+def _close_engines():
+    yield
+    while _OPEN:
+        _OPEN.pop().close()
+
+
 def engines(**kw):
-    jax_eng = JaxEngine(
-        backend="xla", locked_candidates=False, waves=1, naked_pairs=False,
-        coalesce=False, buckets=BUCKETS, **kw,
-    )
-    return jax_eng, SolverEngine(device="cpu", buckets=BUCKETS, **kw)
+    """The JAX engine (its coalescer off) and the port's default engine,
+    both with ``kw``. The port's coalescer, on by default, serves
+    ``solve_one``; its threads stop when the test ends."""
+    jax_kw = {k: v for k, v in kw.items() if k != "coalesce"}
+    jax_eng = JaxEngine(coalesce=False, buckets=BUCKETS, **jax_kw)
+    eng = SolverEngine(device="cpu", buckets=BUCKETS, **kw)
+    _OPEN.append(eng)
+    return jax_eng, eng
+
+
+def solve_one(eng, board):
+    """``eng.solve_one`` without the coalescer's ``routed`` tag (the JAX
+    reference engine runs without its coalescer)."""
+    solution, info = eng.solve_one(board)
+    return solution, {k: v for k, v in info.items() if k != "routed"}
 
 
 def assert_batch_equal(a, b):
@@ -75,7 +95,7 @@ def test_solve_one_matches_jax():
     bad = [[0] * 9 for _ in range(9)]
     bad[4][4] = bad[4][5] = 9
     for board in (README_PUZZLE, bad):
-        assert eng.solve_one(board) == jax_eng.solve_one(board)
+        assert solve_one(eng, board) == jax_eng.solve_one(board)
     assert eng.validations == jax_eng.validations
     assert eng.solved_puzzles == jax_eng.solved_puzzles == 1
 
@@ -102,6 +122,19 @@ def test_capped_after_deep_retry_matches_jax():
     assert sol is None and info["capped"] == 1
 
 
+def test_singles_config_matches_jax():
+    """Both engines in the kernel's singles configuration (no locked
+    candidates, one sweep a step), as the port served before K2."""
+    singles = dict(locked_candidates=False, waves=1, naked_pairs=False)
+    jax_eng, eng = engines(**singles)
+    boards = mixed_batch(12)
+    assert_batch_equal(eng.solve_batch_np(boards), jax_eng.solve_batch_np(boards))
+    got = solve_one(eng, README_PUZZLE)
+    assert got == jax_eng.solve_one(README_PUZZLE)
+    assert got[1]["validations"] == 109  # 49 steps at depth 32, then 60
+    assert eng.validations == jax_eng.validations
+
+
 def test_warmup_and_ready():
     _, eng = engines()
     assert not eng.ready()
@@ -117,6 +150,22 @@ def test_warmup_and_ready():
         {"waves": 3},
         {"naked_pairs": True},
         {"coalesce": True},
+    ],
+)
+def test_serving_knobs_match_jax(kw):
+    """The knobs the port refused before K2 and the coalescer: each one
+    set explicitly gives the JAX engine's answers and counters."""
+    jax_eng, eng = engines(**kw)
+    boards = mixed_batch(5)
+    assert_batch_equal(eng.solve_batch_np(boards), jax_eng.solve_batch_np(boards))
+    for board in (README_PUZZLE, boards[4]):
+        assert solve_one(eng, board) == jax_eng.solve_one(board)
+    assert eng.validations == jax_eng.validations
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
         {"mesh": "auto"},
         {"continuous": True},
         {"frontier_mesh": object()},

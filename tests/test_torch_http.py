@@ -1,7 +1,9 @@
 """The port's single node over HTTP held against the JAX package's node: both
-get the same request sequence on localhost, and the /solve bodies (200, 400
-and 404 included) must be byte-identical, /stats equal once the node
-address is normalized, and /network ``{id: []}``.
+get the same request sequence on localhost, and the /solve bodies (200, 400,
+404 and 429 included) must be byte-identical, /stats equal once the node
+address is normalized, and /network ``{id: []}``. Both nodes run their
+default serving configuration (the JAX engine's coalescer off); one case
+runs both in the kernel's singles configuration.
 """
 
 import json
@@ -81,29 +83,36 @@ def requests_sequence():
     ]
 
 
-@pytest.fixture
-def nodes():
+def _make_nodes(sweeps):
     jax_node = JaxNode(
         "127.0.0.1", free_port(socket.SOCK_DGRAM),
-        engine=JaxEngine(
-            backend="xla", locked_candidates=False, waves=1,
-            naked_pairs=False, coalesce=False, buckets=(1,),
-        ),
+        engine=JaxEngine(coalesce=False, buckets=(1,), **sweeps),
     )
     port_node = P2PNode(
         "127.0.0.1", free_port(socket.SOCK_DGRAM),
-        engine=SolverEngine(device="cpu", buckets=(1,)),
+        engine=SolverEngine(device="cpu", buckets=(1,), **sweeps),
     )
     servers = [
         jax_make_http_server(jax_node, "127.0.0.1", 0, legacy_transport=True),
         make_http_server(port_node, "127.0.0.1", 0),
     ]
     bases = [serve(s)[0] for s in servers]
+    return (jax_node, port_node), bases, servers
+
+
+@pytest.fixture(params=["serving", "singles"])
+def nodes(request):
+    sweeps = (
+        {} if request.param == "serving"
+        else dict(locked_candidates=False, waves=1, naked_pairs=False)
+    )
+    (jax_node, port_node), bases, servers = _make_nodes(sweeps)
     yield (jax_node, port_node), bases
     for s in servers:
         s.shutdown()
         s.server_close()
     port_node.shutdown()
+    port_node.engine.close()
 
 
 def test_http_bodies_match_jax_node(nodes):

@@ -167,3 +167,92 @@ def test_kernel_matches_plain_at_partial_block_widths(width):
         assert torch.equal(grid, pgrid)
         assert torch.equal(meta[:, :3], pmeta[:, :3])  # status, guesses, validations
         assert int(meta[:, 3].max()) == int(pmeta[0, 3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 33])
+@pytest.mark.parametrize(
+    "sweeps",
+    [
+        dict(locked_candidates=True, waves=3, naked_pairs=False),
+        dict(locked_candidates=True, waves=3, naked_pairs=True),
+        dict(locked_candidates=True, waves=3, light_waves=True,
+             naked_pairs=False),
+    ],
+    ids=["serving", "pairs", "light"],
+)
+def test_serving_sweeps_match_plain_on_the_card(width, sweeps):
+    """The kernel's locked-candidate pass, naked pairs and extra sweeps at
+    the /solve width and at a partial block, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from chip_smoke import README_PUZZLE
+
+    with np.load(os.path.join(ROOT, "benchmarks", "corpus_9x9_hard_4096.npz")) as d:
+        boards = d["boards"][:width].astype(np.int32)
+    boards[0] = README_PUZZLE
+    spec = spec_for_size(9)
+    flat = torch.as_tensor(boards.reshape(width, -1), device="cuda").contiguous()
+    for depth in (32, 81):
+        grid, meta = dfs_solver(flat, spec, depth, 4096, **sweeps)
+        pgrid, pmeta = _dfs_solver_plain(flat, spec, depth, 4096, **sweeps)
+        torch.cuda.synchronize()
+        assert torch.equal(grid, pgrid)
+        assert torch.equal(meta[:, :3], pmeta[:, :3])
+        assert int(meta[:, 3].max()) == int(pmeta[0, 3])
+
+
+@pytest.mark.cuda
+def test_golden_counters_on_the_card():
+    """The kernel under ``serving_config(9)`` on all 256 deep-union boards
+    meets tests/golden_counters.json exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import json
+
+    from sudoku_solver_distributed_tpu_torch.ops.config import serving_config
+
+    with open(os.path.join(ROOT, "tests", "golden_counters.json")) as f:
+        golden = json.load(f)
+    with np.load(os.path.join(ROOT, "benchmarks", golden["corpus"])) as d:
+        boards = d["boards"].astype(np.int32)
+    cfg = {**serving_config(9), "max_iters": golden["config"]["max_iters"]}
+    res = solve_batch_cuda(torch.as_tensor(boards, device="cuda"), spec_for_size(9), **cfg)
+    assert int(res.solved.sum()) == golden["solved"] == len(boards)
+    assert int(res.guesses.sum()) == golden["guesses"]
+    assert int(res.validations.sum()) == golden["validations"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iters", [None, 6])
+def test_engine_on_the_card_matches_the_cpu_engine(max_iters):
+    """The engine's CUDA path — dispatch without a host sync, the OVERFLOW
+    stage and (with ``max_iters=6``) the deep retry on the side stream,
+    and a coalesced batch of fixed composition — gives the CPU engine's
+    answers and counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+
+    with np.load(os.path.join(ROOT, "benchmarks", "corpus_9x9_hard_4096.npz")) as d:
+        boards = d["boards"][:14].astype(np.int32)
+    boards[0] = 0                        # empty: overflows the 32-frame stage
+    boards[1] = 0
+    boards[1, 0, 0] = boards[1, 0, 1] = 4  # conflict
+    kw = dict(buckets=(1, 8, 64), max_iters=max_iters, coalesce_max_wait_s=5.0,
+              coalesce_max_batch=8)
+    gpu = SolverEngine(device="cuda", **kw)
+    cpu = SolverEngine(device="cpu", **kw)
+    try:
+        want, got = cpu.solve_batch_np(boards), gpu.solve_batch_np(boards)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert got[2] == want[2]
+        want = [f.result(timeout=300) for f in [cpu.coalescer.submit(b) for b in boards[:8]]]
+        got = [f.result(timeout=300) for f in [gpu.coalescer.submit(b) for b in boards[:8]]]
+        assert got == want
+        assert gpu.coalescer.stats()["batch_fill_max"] == 8
+        assert gpu.validations == cpu.validations
+    finally:
+        gpu.close()
+        cpu.close()

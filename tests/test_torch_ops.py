@@ -168,7 +168,17 @@ def test_is_valid_move_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_locked_analysis_is_not_ported_yet():
-    _, tspec, boards = both("hard9")
-    with pytest.raises(NotImplementedError):
-        tprop.analyze(torch.as_tensor(boards), tspec, locked=True)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_locked_analysis_matches_jax(case):
+    """``analyze(locked=True)`` with its default arms (naked pairs follow
+    ``locked``; the packed form by board size). Every arm is held apart in
+    tests/test_torch_serving_config.py."""
+    jspec, tspec, boards = both(case)
+    ja = jax.jit(lambda g: jprop.analyze(g, jspec, locked=True))(
+        jnp.asarray(boards)
+    )
+    ta = tprop.analyze(torch.as_tensor(boards), tspec, locked=True)
+    for field in ("cand", "assign", "contradiction", "solved"):
+        np.testing.assert_array_equal(
+            getattr(ta, field).numpy(), np.asarray(getattr(ja, field)), field
+        )

@@ -2,13 +2,15 @@
 
     python3 tools/dfs_solver_ab.py OTHER_dfs_solver.cu
 
-OTHER is a source of the same C interface (``dfs_solver_launch``,
+OTHER is a source of the same C interface (``dfs_solver_launch`` with the
+same arguments, sweep count and option bits included, and
 ``dfs_solver_meta_cols``) inside this checkout: for example a commit's
 ``csrc/dfs_solver.cu`` unpacked with ``git archive`` into a gitignored
 directory such as ``_archive/``. Both sources are built with
 ``cuda_solver.NVCC_FLAGS``, and ``ptxas -v``'s registers and stack are
 printed for each. At every width of ``chip_smoke.timing_widths`` the two
-builds must return the same grid and meta; then each is timed with CUDA
+builds must return the same grid and meta (singles configuration: one
+sweep a step, no option bits); then each is timed with CUDA
 events in turns: other, this, this, other. Prints one line per width, the
 card's name and power limit, and last one JSON object with the times.
 Exits non-zero without a result when no CUDA device is available.
