@@ -4,46 +4,67 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. Build the DFS kernel library from sudoku_solver_distributed_tpu_torch/csrc/
-   and print ``ptxas -v``'s registers, stack and spills per instance; the
-   9x9 instance must use no stack and spill nothing.
-2. Hold the kernel (ops/cuda_solver.solve_batch_cuda) against its plain
-   PyTorch version (ops/solver.solve_batch), both on CUDA tensors, under
-   each board size's serving configuration (``serving_config(n)``: locked
-   candidates, and three sweeps a step on 9x9), on the committed corpora,
-   on seeded symmetry transforms of them (which move MRV ties and singles
-   across the kernel's lane boundaries), on degenerate boards and on the
-   README board alone (width 1, both depth stages); and on the 9x9 hard
-   corpus also with naked pairs, with ``waves`` 1 and 2, and in the
+1. Build the kernel library from sudoku_solver_distributed_tpu_torch/csrc/
+   and print ``ptxas -v``'s registers, stack and spills per instance of
+   every kernel (dfs_solver_kernel, dfs_segment_kernel, segment_digest_
+   kernel); the 9x9 instances and the digest kernel must use no stack and
+   spill nothing.
+2. Hold the DFS kernel (ops/cuda_solver.solve_batch_cuda) against its
+   plain PyTorch version (ops/solver.solve_batch), both on CUDA tensors,
+   under each board size's serving configuration (``serving_config(n)``:
+   locked candidates, and three sweeps a step on 9x9), on the committed
+   corpora (the deep 9x9 one to a 512-step budget), on seeded symmetry
+   transforms of them (which move MRV ties and
+   singles across the kernel's lane boundaries), on degenerate boards and
+   on the README board alone (width 1, both depth stages); and on the 9x9
+   hard corpus also with naked pairs, with ``waves`` 1 and 2, and in the
    singles configuration. Grid, status, guesses and validations must be
    equal per board, and every SOLVED grid must pass the host oracle and
    keep its clues.
-3. Golden counters: the kernel under ``serving_config(9)`` with a 65,536
-   step budget on benchmarks/corpus_9x9_deep_union.npz must meet
+3. Golden counters: the DFS kernel under ``serving_config(9)`` with a
+   65,536 step budget on benchmarks/corpus_9x9_deep_union.npz must meet
    tests/golden_counters.json exactly.
-4. Engine: SolverEngine over the (1, 8, 64, 512, 4096) buckets, warmed,
+4. The segment kernels (ops/cuda_solver.dfs_segment: K3 and its digest
+   kernel K3b) against their plain version, segment by segment: the 9x9
+   hard corpus over a 4096-lane pool under budgets (3, 7, 1, 13), seeded
+   rotations of new boards into freed and running lanes (pad re-seeds
+   included) at pools of 512 and 64, the 16x16 and 25x25 corpora in their
+   serving configs, the degenerate boards and the README board in a
+   one-lane pool. State, stack frames below each lane's depth, digest and
+   solution block must be equal in every lane. Then a chain of segments
+   over the 4096 hard boards must equal one flat DFS launch at the flat
+   depth, and the deep-union corpus through the engine's segment seam
+   under budgets (997, 251), in both boundary arms, must equal the flat
+   launch and stay inside the golden counters' +5% envelope.
+5. Engine: SolverEngine over the (1, 8, 64, 512, 4096) buckets, warmed,
    solves the 4096-board hard corpus; prints boards/s.
-5. The main path, with the kernel's launch counter set to 0 just before
-   and read just after: a node and its HTTP server built by the CLI's
-   construction function (the coalescer on, as by default) answer POST
-   /solve (README puzzle + corpus boards, an unsolvable board, a malformed
-   body), GET /stats, GET /network and an unknown path; 16 client threads
-   then send concurrent /solve requests, which must coalesce (the /stats
-   serving block's ``batch_fill_max`` above 1) and all pass the oracle,
-   and 16 more through the node's solve entry point, whose answers'
-   validations must add up to the /stats delta. The README board's /solve
-   p50 over 20 requests, and through ``engine.solve_one`` alone. A node
-   built with ``--admission-capacity`` answers ``X-Deadline-Ms: 0`` with
-   429 and ``Retry-After``; a node built with ``--no-coalesce`` gives the
-   README p50 without the coalescer.
-6. Timing with CUDA events: the kernel at bucket widths 1 (the README
+6. The main path, with the segment kernels' launch counter set to 0 just
+   before and read just after: a node and its HTTP server built by the
+   CLI's construction function (continuous batching over a 4096-lane pool,
+   pipelined, as by default) answer POST /solve (README puzzle + corpus
+   boards, an unsolvable board, a malformed body), GET /stats, GET
+   /network and an unknown path; 16 client threads send concurrent /solve
+   requests, which must all board the pool (``refills``) and share
+   segments (``batch_fill_max`` above 1), and 16 more go through the
+   node's solve entry point, whose answers' validations must add up to the
+   /stats delta. The README /solve 20 times, each growing /stats by 109
+   validations, with its p50, segments per request and the boundary host
+   time; ``engine.solve_one`` alone 20 times, each 109 validations and 35
+   guesses. A ``--no-segment-pipeline`` node must give the same answers. A
+   node built with ``--admission-capacity`` answers ``X-Deadline-Ms: 0``
+   with 429 and ``Retry-After``. Then, with the DFS kernel's counter set
+   to 0, the closed loop: a ``--no-continuous`` node (105 validations, 67
+   guesses per README answer) and a ``--no-coalesce`` node give their
+   README p50s.
+7. Timing with CUDA events: the DFS kernel at bucket widths 1 (the README
    board, both depth stages, one sweep a step), 64, 512 and 4096 (the hard
    corpus, first depth stage, three sweeps a step) in the serving
    configuration, and in the singles configuration at the same widths,
-   each beside its bound and the plain version on the same inputs. At
-   every width the kernel's first launch is held against the plain
-   version: grid, status, guesses and validations per board, and the
-   largest step count against the plain version's.
+   each beside its bound and the plain version on the same inputs; and one
+   segment (k = 8) of the segment kernels over pools of 8, 64, 512 and
+   4096 lanes all injected from the hard corpus, over a 4096 pool with one
+   live lane, and each at k = 0. The first launch of each is held against
+   the plain version.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -170,8 +191,11 @@ SINGLES = dict(locked_candidates=False, waves=1, naked_pairs=False)
 
 
 def parity_cases(serving_config):
-    """(name, boards, size, solvable, sweeps): every set under its size's
-    serving configuration, and the 9x9 hard corpus under four more."""
+    """(name, boards, size, solvable, sweeps, step budget): every set under
+    its size's serving configuration, and the 9x9 hard corpus under four
+    more. The deep set stops at 512 steps (its boards take 2,199, and the
+    plain version's steps dominate the run); the golden-counter phase
+    runs deep boards to the end."""
     import numpy as np
 
     hard = load_corpus("corpus_9x9_hard_4096.npz")
@@ -179,20 +203,23 @@ def parity_cases(serving_config):
     giant = load_corpus("corpus_25x25_hard_512.npz")
     seed = SYMMETRY_SEED
     sets = [
-        ("9x9 hard 4096", hard, 9, True),
-        ("9x9 hard symmetry 4096", symmetry_transforms(hard, 4096, seed), 9, True),
-        ("9x9 deep 128", load_corpus("corpus_9x9_deep_128.npz"), 9, True),
-        ("16x16 hard 256", hexa[:256], 16, True),
-        ("16x16 symmetry 64", symmetry_transforms(hexa[:64], 64, seed), 16, True),
-        ("25x25 hard 4", giant[:4], 25, True),
-        ("25x25 symmetry 128", symmetry_transforms(giant[:64], 128, seed), 25, True),
-        ("9x9 degenerate", degenerate_boards(), 9, False),
-        ("9x9 README 1", np.asarray(README_PUZZLE, np.int32)[None], 9, True),
+        ("9x9 hard 4096", hard, 9, True, None),
+        ("9x9 hard symmetry 4096", symmetry_transforms(hard, 4096, seed), 9, True,
+         None),
+        ("9x9 deep 128", load_corpus("corpus_9x9_deep_128.npz"), 9, False, 512),
+        ("16x16 hard 256", hexa[:256], 16, True, None),
+        ("16x16 symmetry 64", symmetry_transforms(hexa[:64], 64, seed), 16, True,
+         None),
+        ("25x25 hard 4", giant[:4], 25, True, None),
+        ("25x25 symmetry 128", symmetry_transforms(giant[:64], 128, seed), 25, True,
+         None),
+        ("9x9 degenerate", degenerate_boards(), 9, False, None),
+        ("9x9 README 1", np.asarray(README_PUZZLE, np.int32)[None], 9, True, None),
     ]
     cases = [
         (f"{name} [serving]", boards, size, solvable,
-         sweeps_of(serving_config(size)))
-        for name, boards, size, solvable in sets
+         sweeps_of(serving_config(size)), iters)
+        for name, boards, size, solvable, iters in sets
     ]
     serving9 = sweeps_of(serving_config(9))
     for label, sweeps in [
@@ -201,7 +228,7 @@ def parity_cases(serving_config):
         ("waves 2", dict(serving9, waves=2)),
         ("singles", SINGLES),
     ]:
-        cases.append((f"9x9 hard 4096 [{label}]", hard, 9, True, sweeps))
+        cases.append((f"9x9 hard 4096 [{label}]", hard, 9, True, sweeps, None))
     return cases
 
 
@@ -212,10 +239,10 @@ def phase_parity(cs, ts, spec_for_size, serving_config, oracle_ok):
     mismatches = 0
     max_abs_err = 0
     before = cs.dfs_solver.launches
-    for name, boards, size, solvable, sweeps in parity_cases(serving_config):
+    for name, boards, size, solvable, sweeps, budget in parity_cases(serving_config):
         spec = spec_for_size(size)
         cfg = serving_config(size)
-        depth, iters = cfg["max_depth"], cfg["max_iters"]
+        depth, iters = cfg["max_depth"], budget or cfg["max_iters"]
         g = torch.as_tensor(boards, device="cuda")
         t0 = time.perf_counter()
         k = cs.solve_batch_cuda(g, spec, max_depth=depth, max_iters=iters, **sweeps)
@@ -359,17 +386,27 @@ class _Node:
         for t in self.threads:
             t.join(timeout=10)
 
-    def readme_p50(self, label: str, oracle_ok) -> float:
+    def validations(self) -> int:
+        return json.loads(_http(self.base, "/stats")[1])["all"]["validations"]
+
+    def readme_p50(self, label: str, oracle_ok, per_answer=None) -> float:
         """The README /solve over 20 requests, host clock; prints and
-        returns the p50 in ms."""
+        returns the p50 in ms. With ``per_answer``, each request must grow
+        /stats validations by exactly that (read between requests, off the
+        clock)."""
         body = json.dumps({"sudoku": README_PUZZLE}).encode()
         lat_ms = []
         for _ in range(20):
+            before = self.validations() if per_answer is not None else 0
             t0 = time.perf_counter()
             status, answer, _ = _http(self.base, "/solve", body)
             lat_ms.append((time.perf_counter() - t0) * 1e3)
             check(status == 200 and oracle_ok(json.loads(answer)),
                   f"/solve answered {status}")
+            if per_answer is not None:
+                grew = self.validations() - before
+                check(grew == per_answer,
+                      f"a README /solve counted {grew} validations, not {per_answer}")
         lat_ms.sort()
         log(
             f"/solve README puzzle x20, {label} (host clock, HTTP/1.0 on "
@@ -414,15 +451,19 @@ def _check_answer(board, sol, oracle_ok, what: str) -> None:
     )
 
 
-def _engine_p50(engine, label: str, oracle_ok) -> float:
+def _engine_p50(engine, label: str, oracle_ok, want=None) -> float:
     """The README board through ``engine.solve_one`` alone (no HTTP, no
-    node) 20 times, host clock; prints and returns the p50 in ms."""
+    node) 20 times, host clock; prints and returns the p50 in ms. With
+    ``want`` = (validations, guesses), every answer must count those."""
     eng_ms = []
     for _ in range(20):
         t0 = time.perf_counter()
-        sol, _ = engine.solve_one(README_PUZZLE)
+        sol, info = engine.solve_one(README_PUZZLE)
         eng_ms.append((time.perf_counter() - t0) * 1e3)
         check(sol is not None and oracle_ok(sol), "engine.solve_one failed")
+        if want is not None:
+            got = (info["validations"], info["guesses"])
+            check(got == want, f"engine.solve_one README counted {got}, not {want}")
     eng_ms.sort()
     log(
         f"engine.solve_one README puzzle x20, {label} (host clock, no HTTP): "
@@ -431,21 +472,57 @@ def _engine_p50(engine, label: str, oracle_ok) -> float:
     return eng_ms[10]
 
 
+def _boundary_recorder(engine):
+    """Wrap ``engine.dispatch_segment`` to record each boundary's host
+    time: the gap since the previous digest arrived (the segment loop passes it
+    as ``boundary_host_s``) plus the dispatch call itself, i.e. digest
+    ready to next segment enqueued. Speculative and first dispatches have
+    no gap and are not boundaries. Returns the list it fills."""
+    real = engine.dispatch_segment
+    record = []
+
+    def dispatch(*args, **kw):
+        t0 = time.perf_counter()
+        handle = real(*args, **kw)
+        gap = kw.get("boundary_host_s", 0.0)
+        if gap > 0:
+            record.append((gap + time.perf_counter() - t0) * 1e3)
+        return handle
+
+    engine.dispatch_segment = dispatch
+    return record
+
+
+def _ms_summary(values) -> dict:
+    v = sorted(values)
+    if not v:
+        return {"n": 0}
+    return {"n": len(v), "mean": sum(v) / len(v), "p50": v[len(v) // 2],
+            "max": v[-1]}
+
+
 def phase_solve_http(cs, build_parser, build_node, oracle_ok):
-    """The main path. Returns the kernel launches it made, the launches of
-    the README /solve alone and the p50s it read."""
+    """The main path and the closed-loop paths beside it. Returns the
+    launches each made, the p50s it read and the segment numbers."""
     corpus = load_corpus("corpus_9x9_hard_4096.npz")
+    out = {}
+    # -- this slice's main path: the default node, continuous, pipelined --
+    cs.dfs_segment.launches = 0
     cs.dfs_solver.launches = 0
     main = _Node(build_parser, build_node, ["--serving-stats"])
-    out = {}
+    eng = main.node.engine
     try:
+        check(eng.continuous and eng.segment_pipeline
+              and eng.segment_pool_width() == 4096,
+              "the default node does not serve continuous batching on 4096 lanes")
+        boundary_ms = _boundary_recorder(eng)
         base = main.base
         boards = [README_PUZZLE] + [b.tolist() for b in corpus[:4]]
         per_solve = []
         for board in boards:
-            n0 = cs.dfs_solver.launches
+            n0 = cs.dfs_segment.launches
             status, body, _ = _http(base, "/solve", json.dumps({"sudoku": board}).encode())
-            per_solve.append(cs.dfs_solver.launches - n0)
+            per_solve.append(cs.dfs_segment.launches - n0)
             check(status == 200, f"/solve answered {status}: {body[:200]!r}")
             _check_answer(board, json.loads(body), oracle_ok, "/solve answer")
         bad = [[0] * 9 for _ in range(9)]
@@ -475,8 +552,9 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
             f"GET /nope answered {status} {body!r}",
         )
 
-        # 16 concurrent clients over HTTP: the coalescer must batch them
+        # 16 concurrent clients over HTTP: their boards share segments
         clients = [b.tolist() for b in corpus[16:32]]
+        refills0 = eng.coalescer.stats()["refills"]
 
         def post(i):
             status, body, _ = _http(
@@ -489,35 +567,57 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
             _check_answer(clients[i], sol, oracle_ok, "concurrent /solve answer")
         serving = json.loads(_http(base, "/stats")[1])["serving"]
         log(f"/stats serving block after 16 concurrent clients: {serving}")
+        check(serving["continuous"] and serving["refills"] - refills0 >= 16,
+              f"16 concurrent /solve requests did not all board the pool: {serving}")
         check(serving["batch_fill_max"] > 1,
-              f"16 concurrent /solve requests never shared a launch: {serving}")
+              f"16 concurrent /solve requests never shared a segment: {serving}")
         out["batch_fill_max"] = serving["batch_fill_max"]
 
         # 16 more through the node's solve entry point: their validations
         # must add up to what /stats reports
-        before = json.loads(_http(base, "/stats")[1])["all"]["validations"]
+        before = main.validations()
         more = [b.tolist() for b in corpus[32:48]]
         answers = _concurrent(16, lambda i: main.node.peer_sudoku_solve_info(more[i]))
         for board, (sol, _) in zip(more, answers):
             _check_answer(board, sol, oracle_ok, "peer_sudoku_solve_info answer")
-        after = json.loads(_http(base, "/stats")[1])["all"]["validations"]
+        after = main.validations()
         summed = sum(info["validations"] for _, info in answers)
         log(f"/stats validations grew by {after - before}; the 16 answers' "
-            f"info validations sum to {summed}")
+            f"info validations sum to {summed}; refills "
+            f"{eng.coalescer.stats()['refills'] - refills0}")
         check(after - before == summed, "/stats validations disagree with the answers")
 
-        out["p50_coalesce"] = main.readme_p50("coalescer on", oracle_ok)
-        co = main.node.engine.coalescer.stats()
-        out["engine_p50_coalesce"] = _engine_p50(main.node.engine, "coalescer on", oracle_ok)
-        co2 = main.node.engine.coalescer.stats()
-        # the 20 requests' mean wait in the coalescer queue, from the
-        # counters' running mean before and after them
-        queued_ms = (co2["avg_wait_ms"] * co2["boards"]
-                     - co["avg_wait_ms"] * co["boards"]) / (co2["boards"] - co["boards"])
-        log(f"  of which the coalescer queue wait: mean {queued_ms:.3f} ms "
-            f"({co2['batches'] - co['batches']} batches of {co2['boards'] - co['boards']} boards)")
+        n0 = cs.dfs_segment.launches
+        out["p50_continuous"] = main.readme_p50("continuous (default)", oracle_ok,
+                                                per_answer=109)
+        out["segments_per_readme"] = (cs.dfs_segment.launches - n0) / 20
+        out["engine_p50_continuous"] = _engine_p50(eng, "continuous (default)",
+                                                   oracle_ok, want=(109, 35))
+        reference = [main.node.peer_sudoku_solve_info(b)
+                     for b in [README_PUZZLE] + more[:8]]
+        out["boundary_host_ms"] = _ms_summary(boundary_ms)
+        log(f"README /solve: {out['segments_per_readme']:.2f} segments each; "
+            f"boundary host time, digest ready to next dispatch enqueued "
+            f"(host clock): {out['boundary_host_ms']}")
+        log(f"coalescer after the main path: {eng.coalescer.stats()}")
     finally:
         main.stop()
+    out["segment_launches"] = cs.dfs_segment.launches
+    out["solver_launches_continuous"] = cs.dfs_solver.launches
+    check(out["segment_launches"] > 0, "the continuous main path launched no segment kernel")
+    log(f"continuous main path: {out['segment_launches']} segment launches "
+        f"({per_solve} per sequential /solve), {out['solver_launches_continuous']} "
+        f"dfs_solver launches (warm-up and deep retries)")
+
+    # the full-row boundary arm answers the same, counters included
+    nopipe = _Node(build_parser, build_node, ["--no-segment-pipeline"])
+    try:
+        got = [nopipe.node.peer_sudoku_solve_info(b) for b in [README_PUZZLE] + more[:8]]
+        check(got == reference, "--no-segment-pipeline answers differ from the default node's")
+        out["p50_nopipe"] = nopipe.readme_p50("--no-segment-pipeline", oracle_ok,
+                                              per_answer=109)
+    finally:
+        nopipe.stop()
 
     # admission: X-Deadline-Ms 0 is already expired at arrival
     adm = _Node(build_parser, build_node, ["--admission-capacity", "64", "--no-warmup"])
@@ -537,6 +637,18 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
     finally:
         adm.stop()
 
+    # the closed-loop paths: --no-continuous (the coalescer's closed loop)
+    # and --no-coalesce, both through dfs_solver
+    cs.dfs_solver.launches = 0
+    closed = _Node(build_parser, build_node, ["--no-continuous"])
+    try:
+        n0 = cs.dfs_solver.launches
+        out["p50_closed"] = closed.readme_p50("--no-continuous", oracle_ok, per_answer=105)
+        out["per_readme_closed"] = (cs.dfs_solver.launches - n0) / 20
+        out["engine_p50_closed"] = _engine_p50(closed.node.engine, "--no-continuous",
+                                               oracle_ok, want=(105, 67))
+    finally:
+        closed.stop()
     direct = _Node(build_parser, build_node, ["--no-coalesce"])
     try:
         out["p50_no_coalesce"] = direct.readme_p50("--no-coalesce", oracle_ok)
@@ -545,10 +657,10 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
         )
     finally:
         direct.stop()
-    launches = cs.dfs_solver.launches
-    check(launches > 0, "the /solve main path launched no kernel")
-    log(f"/solve main path: {launches} kernel launches, per /solve {per_solve}")
-    out.update(launches=launches, per_readme=per_solve[0])
+    out["solver_launches_closed"] = cs.dfs_solver.launches
+    check(out["solver_launches_closed"] > 0, "the closed-loop paths launched no kernel")
+    log(f"closed-loop paths: {out['solver_launches_closed']} dfs_solver launches, "
+        f"{out['per_readme_closed']:.2f} per README /solve")
     return out
 
 
@@ -668,6 +780,319 @@ def phase_timing(cs, spec_for_size, serving_config):
     return out
 
 
+def flat_depth(ts, spec, serving_config):
+    """The depth a lane pool runs: the largest stage of the serving config's."""
+    return max(ts.staged_depths(serving_config(spec.size)["max_depth"], spec))
+
+
+def segment_parity_sets():
+    """(name, stock, size, width, budgets, rotation seed or None, sweeps
+    override): the 9x9 hard corpus over a 4096-lane pool under ragged
+    budgets; seeded rotations (new boards into random freed lanes at
+    random boundaries, pad re-seeds and strangers over running lanes
+    included) at widths 512 (prefix-gathered block) and 64 (masked block);
+    the 16x16 and 25x25 corpora in their serving configs; the degenerate
+    boards; the README board in a one-lane pool (one sweep a step)."""
+    import numpy as np
+
+    hard = load_corpus("corpus_9x9_hard_4096.npz")
+    return [
+        ("9x9 hard 4096 ragged", hard, 9, 4096, (3, 7, 1, 13), None, {}),
+        ("9x9 rotation 512", hard, 9, 512, (2, 5, 3), 1, {}),
+        ("9x9 rotation 64", hard[2048:], 9, 64, (8, 3), 2, {}),
+        ("16x16 hard 256", load_corpus("corpus_16x16_hard_2048.npz")[:256], 16,
+         256, (16,), None, {}),
+        ("25x25 hard 4", load_corpus("corpus_25x25_hard_512.npz")[:4], 25, 4,
+         (32,), None, {}),
+        ("9x9 degenerate", degenerate_boards(), 9, 6, (8, 3), None, {}),
+        ("9x9 README pool 1", np.asarray(README_PUZZLE, np.int32)[None], 9, 1,
+         (8,), None, {"waves": 1}),
+    ]
+
+
+def _segment_lane_diffs(pool, plain, kd, pd, kb, pb):
+    """Lanes whose kernel state (stack frames below the lane's depth
+    included), digest row or block row differ from the plain version's,
+    and the largest absolute difference."""
+    import torch
+
+    W = plain.grid.shape[0]
+    bad = torch.zeros(W, dtype=torch.bool, device=plain.grid.device)
+    err = 0
+    for f in ("grid", "depth", "status", "guesses", "validations", "board_iters"):
+        a, b = getattr(pool.state, f), getattr(plain, f)
+        bad |= (a != b).reshape(W, -1).any(dim=1)
+        err = max(err, int((a.long() - b.long()).abs().max()))
+    D = plain.stack_mask.shape[1]
+    live = torch.arange(D, device=bad.device)[None, :] < plain.depth.long()[:, None]
+    for f in ("stack_grid", "stack_cell", "stack_mask"):
+        a, b = getattr(pool.state, f), getattr(plain, f)
+        diff = (a.long() - b.long()).reshape(W, D, -1).abs().amax(dim=2) * live
+        bad |= (diff > 0).any(dim=1)
+        err = max(err, int(diff.max()))
+    for a, b in ((kd, pd), (kb, pb)):
+        bad |= (a != b).any(dim=1)
+        err = max(err, int((a.long() - b.long()).abs().max()))
+    return int(bad.sum()), err
+
+
+def phase_segment_parity(cs, ts, spec_for_size, serving_config, oracle_ok):
+    """K3/K3b against the plain version of ops/cuda_solver.dfs_segment,
+    segment by segment, on every ``segment_parity_sets`` set under its
+    size's serving config: state, frames below each lane's depth, digest
+    and solution block. Returns (mismatching lanes, largest difference)."""
+    import numpy as np
+    import torch
+
+    from sudoku_solver_distributed_tpu_torch.ops.config import segment_prefix_gather
+
+    total_bad = total_err = 0
+    for name, stock, size, W, ks, seed, over in segment_parity_sets():
+        spec = spec_for_size(size)
+        sweeps = dict(sweeps_of(serving_config(size)), **over)
+        rng = np.random.default_rng(seed)
+        pad = ts.pad_board(spec, "cuda").expand(W, size, size)
+        pool = cs.SegmentPool.fresh(pad, spec, flat_depth(ts, spec, serving_config))
+        plain = ts.SegmentState(*(t.clone() for t in pool.state))
+        boards = torch.as_tensor(stock.reshape(len(stock), -1), device="cuda")
+        src_np = np.arange(W, dtype=np.int32) % len(stock)
+        prefix = segment_prefix_gather(W, spec.cells)
+        t0 = time.perf_counter()
+        bad = err = 0
+        for seg in range(400):
+            src = torch.as_tensor(src_np, device="cuda")
+            k = ks[seg % len(ks)]
+            pool, kd, kb = cs.dfs_segment(pool, boards, src, k,
+                                          prefix_gather=prefix, **sweeps)
+            plain, pd, pb = cs._dfs_segment_plain(plain, boards, src, k, spec,
+                                                  prefix, **sweeps)
+            n_bad, e = _segment_lane_diffs(pool, plain, kd, pd, kb, pb)
+            bad, err = bad + n_bad, max(err, e)
+            status = plain.status.cpu().numpy()
+            src_np = np.full(W, -1, np.int32)
+            if seed is not None and seg < 24:
+                free = np.flatnonzero(status != ts.RUNNING)
+                pick = free[rng.random(free.size) < 0.5]
+                src_np[pick] = rng.integers(0, len(stock), pick.size)
+                src_np[free[rng.random(free.size) < 0.1]] = -2
+                over_running = rng.integers(0, W, max(1, W // 32))
+                src_np[over_running] = rng.choice([-2, 0, len(stock) - 1],
+                                                  over_running.size)
+            elif not (status == ts.RUNNING).any():
+                break
+        grids = plain.grid.cpu().numpy()
+        for i in np.flatnonzero(status == ts.SOLVED)[:64]:
+            check(oracle_ok(grids[i].reshape(size, size).tolist()),
+                  f"{name}: lane {i} SOLVED with an invalid grid")
+        log(
+            f"segment parity {name} (pool {W}, budgets {ks}, prefix gather "
+            f"{prefix}): {seg + 1} segments, {bad} mismatching lanes, "
+            f"statuses {np.bincount(status, minlength=4).tolist()}, "
+            f"{time.perf_counter() - t0:.1f} s (host clock)"
+        )
+        check(bad == 0, f"{name}: the segment kernels and the plain version disagree")
+        total_bad += bad
+        total_err = max(total_err, err)
+    return total_bad, total_err
+
+
+def segment_chain(cs, pool, boards, ks, *, prefix_gather, sweeps):
+    """Run ``pool`` (every lane injected from ``boards`` in the first
+    segment) to the end with the cycled budgets ``ks``; returns the last
+    pool handle, digest and the number of segments."""
+    import torch
+
+    W = pool.width
+    src = torch.arange(W, dtype=torch.int32, device="cuda")
+    idle = torch.full((W,), -1, dtype=torch.int32, device="cuda")
+    for seg in range(100_000):
+        pool, digest, _ = cs.dfs_segment(pool, boards, src if seg == 0 else idle,
+                                         ks[seg % len(ks)],
+                                         prefix_gather=prefix_gather, **sweeps)
+        if not bool((digest[:, 0] == 0).any()):
+            return pool, digest, seg + 1
+    raise RuntimeError("segment chain did not finish")
+
+
+def phase_chain_vs_flat(cs, ts, spec_for_size, serving_config):
+    """A chain of K3 segments (k = 8) over the 4096 hard boards equals one
+    flat dfs_solver launch at the flat depth: grid, status, guesses and
+    validations per board, and the largest board_iters its step count."""
+    import torch
+
+    spec = spec_for_size(9)
+    sweeps = sweeps_of(serving_config(9))
+    depth = flat_depth(ts, spec, serving_config)
+    hard = load_corpus("corpus_9x9_hard_4096.npz")
+    flat = torch.as_tensor(hard.reshape(len(hard), -1), device="cuda")
+    grid, meta = cs.dfs_solver(flat, spec, depth, 4096, **sweeps)
+    pool = cs.SegmentPool.fresh(ts.pad_board(spec, "cuda").expand(4096, 9, 9),
+                                spec, depth)
+    pool, digest, n = segment_chain(cs, pool, flat, (8,), prefix_gather=True,
+                                    sweeps=sweeps)
+    same = {
+        "grid": bool(torch.equal(pool.state.grid, grid)),
+        "status": bool(torch.equal(digest[:, 0], meta[:, 0])),
+        "guesses": bool(torch.equal(digest[:, 2], meta[:, 1])),
+        "validations": bool(torch.equal(digest[:, 3], meta[:, 2])),
+        "iters": int(digest[:, 4].max()) == int(meta[:, 3].max()),
+    }
+    log(f"segment chain vs flat dfs_solver (4096 hard boards, depth {depth}, "
+        f"k 8): {n} segments, equal {same}, slowest board "
+        f"{int(meta[:, 3].max())} steps")
+    check(all(same.values()), f"the segment chain differs from the flat launch: {same}")
+
+
+def phase_golden_segments(cs, ts, SolverEngine, spec_for_size, serving_config, oracle_ok):
+    """The deep-union corpus through the engine's segment seam under
+    budgets (997, 251), in both boundary arms: every board solved, its
+    grid, status, guesses and validations those of one flat dfs_solver
+    launch at the flat depth, the largest board_iters its step count, and
+    the sums within tests/golden_counters.json's +5% envelope (as
+    tests/test_continuous.py holds the JAX package)."""
+    import numpy as np
+    import torch
+
+    with open(os.path.join(ROOT, "tests", "golden_counters.json")) as f:
+        golden = json.load(f)
+    boards = load_corpus(golden["corpus"])
+    B = len(boards)
+    spec = spec_for_size(9)
+    sweeps = sweeps_of(serving_config(9))
+    depth = flat_depth(ts, spec, serving_config)
+    flat = torch.as_tensor(boards.reshape(B, -1), device="cuda")
+    ref_grid, ref_meta = cs.dfs_solver(flat, spec, depth, golden["config"]["max_iters"],
+                                       **sweeps)
+    ref_grid, ref_meta = ref_grid.cpu().numpy(), ref_meta.cpu().numpy()
+    out = {}
+    for pipeline in (True, False):
+        eng = SolverEngine(buckets=(B,), segment_pipeline=pipeline)
+        try:
+            state = eng.new_segment_pool(B)
+            src = np.arange(B, dtype=np.int32)
+            grids = np.zeros((B, spec.cells), np.int32)
+            t0 = time.perf_counter()
+            for seg in range(100_000):
+                h = eng.dispatch_segment(state, boards, src=src,
+                                         seg_iters=(997, 251)[seg % 2])
+                rows, _ = eng.finalize_segment(h, active=np.ones(B, bool))
+                state = h.state
+                newly = (rows[:, spec.cells] == 1) & (grids.sum(axis=1) == 0)
+                grids[newly] = rows[newly, : spec.cells]
+                src = np.full(B, -1, np.int32)
+                if not (rows[:, spec.cells + 1] == ts.RUNNING).any():
+                    break
+            dt = time.perf_counter() - t0
+        finally:
+            eng.close()
+        C = spec.cells
+        got = {
+            "solved": int(rows[:, C].sum()),
+            "iters": int(rows[:, C + 4].max()),
+            "guesses": int(rows[:, C + 2].sum()),
+            "validations": int(rows[:, C + 3].sum()),
+        }
+        arm = "pipelined" if pipeline else "full rows"
+        same = (np.array_equal(grids, ref_grid)
+                and np.array_equal(rows[:, C + 1], ref_meta[:, 0])
+                and np.array_equal(rows[:, C + 2], ref_meta[:, 1])
+                and np.array_equal(rows[:, C + 3], ref_meta[:, 2])
+                and got["iters"] == int(ref_meta[:, 3].max()))
+        log(f"golden counters under segmentation ({arm} arm, {seg + 1} "
+            f"segments, {dt * 1e3:.1f} ms host clock): {got}; golden "
+            f"{ {k: golden[k] for k in got} }; equal to the flat launch: {same}")
+        check(same, f"{arm}: segments differ from the flat launch")
+        check(got["solved"] == golden["solved"], f"{arm}: solved {got['solved']}")
+        for key in ("iters", "guesses", "validations"):
+            check(got[key] <= golden[key] * 1.05,
+                  f"{arm}: {key} {got[key]} above the golden envelope")
+        for i in range(0, B, 17):
+            check(oracle_ok(grids[i].reshape(9, 9).tolist()), f"{arm}: board {i}")
+        out[arm] = got
+    return out
+
+
+def _segment_bound_ms(W, cells, injected, sweeps_run, locked: bool):
+    """The least time for one segment: the larger of its bytes (per lane
+    the state's five scalars and grid in and out, the source map entry
+    and an injected lane's board in, the digest row and block row out)
+    over the HBM rate, and its integer operations (the sweeps the segment
+    ran x cells x operations per cell of a sweep) over the int32 rate."""
+    per_cell = OPS_PER_CELL_SWEEP + (OPS_PER_CELL_LOCKED if locked else 0)
+    words = W * (2 * (5 + cells) + 1 + 8 + cells) + injected * cells
+    bytes_ms = words * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = sweeps_run * cells * per_cell / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def phase_segment_timing(cs, ts, spec_for_size, serving_config):
+    """Times one segment of the segment kernels (K3 then K3b, k = 8, the
+    serving sweeps) with CUDA events after a device spin: every lane of a
+    pool of 8, 64, 512 and 4096 injected from the hard corpus at entry;
+    one lane injected into a 4096 pool whose other lanes are finished (an
+    almost idle pool's cost); and each pool at k = 0 (load, store and
+    digest only). Beside each: the plain version's time on the same
+    inputs (one run) and the bound. The first launch of each shape is
+    held against the plain version."""
+    import numpy as np
+    import torch
+
+    from sudoku_solver_distributed_tpu_torch.ops.config import segment_prefix_gather
+
+    spec = spec_for_size(9)
+    sweeps = sweeps_of(serving_config(9))
+    depth = flat_depth(ts, spec, serving_config)
+    hard = torch.as_tensor(load_corpus("corpus_9x9_hard_4096.npz").reshape(4096, -1),
+                           device="cuda")
+    out = {"ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}, "k0_ms": {},
+           "mismatches": 0, "max_abs_err": 0}
+    cases = [(str(W), W, torch.arange(W, dtype=torch.int32, device="cuda"))
+             for W in (8, 64, 512, 4096)]
+    one = torch.full((4096,), -1, dtype=torch.int32, device="cuda")
+    one[0] = 0
+    cases.append(("4096, 1 live", 4096, one))
+    for name, W, src in cases:
+        pad = ts.pad_board(spec, "cuda").expand(W, 9, 9)
+        pool = cs.SegmentPool.fresh(pad, spec, depth)
+        if name.endswith("live"):
+            # finish every pad lane first: one step each
+            pool, _, _ = cs.dfs_segment(pool, hard, torch.full_like(src, -1), 1,
+                                        prefix_gather=True, **sweeps)
+        prefix = segment_prefix_gather(W, spec.cells)
+        plain_in = ts.SegmentState(*(t.clone() for t in pool.state))
+        pool, kd, kb = cs.dfs_segment(pool, hard, src, 8, prefix_gather=prefix, **sweeps)
+        plain = {}
+        plain_ms = _cuda_ms(lambda: plain.update(r=cs._dfs_segment_plain(
+            plain_in, hard, src, 8, spec, prefix, **sweeps)), 1)
+        pst, pd, pb = plain["r"]
+        n_bad, err = _segment_lane_diffs(pool, pst, kd, pd, kb, pb)
+        out["mismatches"] += n_bad
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        reps = 50 if W < 4096 else 20
+        handle = [pool]
+
+        def seg(k):
+            handle[0], _, _ = cs.dfs_segment(handle[0], hard, src, k,
+                                             prefix_gather=prefix, **sweeps)
+
+        ms = _cuda_ms(lambda: seg(8), reps)
+        k0 = _cuda_ms(lambda: seg(0), reps)
+        sweeps_run = int(kd[:, 3].sum()) - int(plain_in.validations[src < 0].sum())
+        bound, by = _segment_bound_ms(W, spec.cells, int((src >= 0).sum()),
+                                      sweeps_run, sweeps["locked_candidates"])
+        out["ms"][name], out["plain_ms"][name], out["k0_ms"][name] = ms, plain_ms, k0
+        out["bound_ms"][name], out["bound_by"][name] = bound, by
+        log(
+            f"timing segment pool {name} (k 8, waves {sweeps['waves']}): kernels "
+            f"{ms:.4f} ms (CUDA events, mean of {reps}), k 0 {k0:.4f} ms; plain "
+            f"{plain_ms:.1f} ms (1 run); bound {bound:.6f} ms by {by} "
+            f"({bound / ms:.2%} of the kernels); {sweeps_run} sweeps, lockstep "
+            f"steps {int(kd[0, 6]) // W}; {n_bad} lanes differ from the plain version"
+        )
+        check(n_bad == 0, f"segment timing pool {name}: kernels and plain version disagree")
+    return out
+
+
 def card_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -677,16 +1102,21 @@ def card_name_and_power_limit() -> str:
 
 def ptxas_report(build_log, label: str = "ptxas"):
     """Registers, stack and spill bytes per kernel instance, from the
-    ``-Xptxas -v`` report in ``build_log``, keyed "9x9" etc."""
-    report, size = {}, None
+    ``-Xptxas -v`` report in ``build_log``, keyed "dfs_solver_kernel 9x9",
+    "dfs_segment_kernel 9x9", ..., "segment_digest_kernel"."""
+    report, key = {}, None
     for line in build_log.read_text().splitlines():
-        m = re.search(r"Compiling entry function '\S*dfs_solver_kernelILi(\d)E", line)
+        m = re.search(
+            r"Compiling entry function '\S*?(dfs_solver_kernel|dfs_segment_kernel|"
+            r"segment_digest_kernel)(?:ILi(\d)E)?", line
+        )
         if m:
-            size = int(m.group(1)) ** 2
+            key = m.group(1) + (f" {int(m.group(2)) ** 2}x{int(m.group(2)) ** 2}"
+                                if m.group(2) else "")
             continue
-        if size is None:
+        if key is None:
             continue
-        inst = report.setdefault(f"{size}x{size}", {})
+        inst = report.setdefault(key, {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             inst.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
@@ -722,33 +1152,55 @@ def main() -> int:
     cs.load_library()
     log(f"build: dfs_solver library built and loaded in {time.perf_counter() - t0:.2f} s")
     ptxas = ptxas_report(cs.build().with_suffix(".log"))
-    nine = ptxas.get("9x9", {})
-    check(nine.get("stack") == 0 and nine.get("spill_stores") == 0,
-          f"the 9x9 instance uses local memory: {nine}")
+    for key in ("dfs_solver_kernel 9x9", "dfs_segment_kernel 9x9",
+                "segment_digest_kernel"):
+        inst = ptxas.get(key, {})
+        check(inst.get("stack") == 0 and inst.get("spill_stores") == 0,
+              f"{key} uses local memory: {inst}")
 
     mismatches, max_abs_err = phase_parity(
         cs, ts, spec_for_size, serving_config, oracle_is_valid_solution
     )
     golden = phase_golden(cs, spec_for_size, serving_config)
+    seg_bad, seg_err = phase_segment_parity(
+        cs, ts, spec_for_size, serving_config, oracle_is_valid_solution
+    )
+    phase_chain_vs_flat(cs, ts, spec_for_size, serving_config)
+    seg_golden = phase_golden_segments(
+        cs, ts, SolverEngine, spec_for_size, serving_config, oracle_is_valid_solution
+    )
     phase_engine(SolverEngine, oracle_is_valid_solution)
     main_path = phase_solve_http(
         cs, build_parser, build_node, oracle_is_valid_solution
     )
     timing = phase_timing(cs, spec_for_size, serving_config)
+    seg_timing = phase_segment_timing(cs, ts, spec_for_size, serving_config)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_name_and_power_limit())
     serving, singles = timing["serving"], timing["singles"]
+    readme_p50 = {
+        "continuous": main_path["p50_continuous"],
+        "continuous_no_segment_pipeline": main_path["p50_nopipe"],
+        "no_continuous": main_path["p50_closed"],
+        "no_coalesce": main_path["p50_no_coalesce"],
+        "engine_continuous": main_path["engine_p50_continuous"],
+        "engine_no_continuous": main_path["engine_p50_closed"],
+        "engine_no_coalesce": main_path["engine_p50_no_coalesce"],
+    }
     kernel = {
         "name": "dfs_solver",
         "route": "cuda",
         "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
         "replaces": "sudoku_solver_distributed_tpu/ops/pallas_solver.py:98",
-        "launches": main_path["launches"],
-        "launches_per_readme_solve": main_path["per_readme"],
+        # the closed-loop paths (--no-continuous, --no-coalesce); on the
+        # continuous path it runs the warm-up and the deep retries
+        "launches": main_path["solver_launches_closed"],
+        "launches_continuous_path": main_path["solver_launches_continuous"],
+        "launches_per_readme_solve": main_path["per_readme_closed"],
         "mismatches": mismatches + timing["mismatches"],
         "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
-        # the serving configuration (the main path's) at width 4096
+        # the serving configuration at width 4096
         "ms": serving["ms"]["4096"],
         "plain_ms": serving["plain_ms"]["4096"],
         "bound_ms": serving["bound_ms"]["4096"],
@@ -763,16 +1215,36 @@ def main() -> int:
         "singles_bound_ms_by_width": singles["bound_ms"],
         "singles_steps_by_width": singles["steps"],
         "golden": golden,
-        "readme_p50_ms": {
-            "coalesce": main_path["p50_coalesce"],
-            "no_coalesce": main_path["p50_no_coalesce"],
-            "engine_coalesce": main_path["engine_p50_coalesce"],
-            "engine_no_coalesce": main_path["engine_p50_no_coalesce"],
-        },
-        "batch_fill_max": main_path["batch_fill_max"],
-        "ptxas": ptxas,
+        "readme_p50_ms": readme_p50,
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith("dfs_solver_kernel")},
     }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    segment = {
+        "name": "dfs_segment",
+        "route": "cuda",
+        "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
+        # no Pallas kernel: the JAX package runs segments as XLA code
+        "replaces": "sudoku_solver_distributed_tpu/engine.py:873",
+        "kernels": ["dfs_segment_kernel", "segment_digest_kernel"],
+        "launches": main_path["segment_launches"],
+        "segments_per_readme_solve": main_path["segments_per_readme"],
+        "mismatches": seg_bad + seg_timing["mismatches"],
+        "max_abs_err": max(seg_err, seg_timing["max_abs_err"]),
+        # one segment (k = 8) over a 4096-lane pool, every lane injected
+        "ms": seg_timing["ms"]["4096"],
+        "plain_ms": seg_timing["plain_ms"]["4096"],
+        "bound_ms": seg_timing["bound_ms"]["4096"],
+        "bound_by": seg_timing["bound_by"]["4096"],
+        "library_ms": None,
+        "ms_by_pool": seg_timing["ms"],
+        "k0_ms_by_pool": seg_timing["k0_ms"],
+        "plain_ms_by_pool": seg_timing["plain_ms"],
+        "bound_ms_by_pool": seg_timing["bound_ms"],
+        "boundary_host_ms": main_path["boundary_host_ms"],
+        "golden_segmented": seg_golden,
+        "batch_fill_max": main_path["batch_fill_max"],
+        "ptxas": {k: v for k, v in ptxas.items() if not k.startswith("dfs_solver_kernel")},
+    }
+    print(json.dumps({"kernels": [kernel, segment]}), flush=True)
     print(
         json.dumps(
             {

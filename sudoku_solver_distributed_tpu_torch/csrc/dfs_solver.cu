@@ -83,7 +83,19 @@
 // per-step time). The eliminations make each sweep longer and the search
 // shorter.
 //
-// Interface: plain C, for ctypes. The launch uses the caller's stream, does
+// The same step body (`search`) also runs continuous batching's segments:
+// dfs_segment_kernel (K3) resumes a lane pool whose whole state — grid,
+// counters, the guess-stack slab and its top frame — lives in device memory,
+// injects new boards into freed lanes, steps each lane at most seg_iters
+// steps and writes the state back in place; segment_digest_kernel (K3b)
+// then builds the per-lane digest and the solution block the host reads at
+// the boundary. They replace no Pallas kernel: the JAX package runs this as
+// XLA code (engine.py's segment program: inject_lanes_src, run_segment,
+// segment_digest), and its Pallas backend refuses continuous batching. A
+// segment at k = 8 steps is ~25 sweeps of its slowest lane, so it is bound
+// like the whole solve: by the latency of a lane's sweep chain, not bytes.
+//
+// Interface: plain C, for ctypes. A launch uses the caller's stream, does
 // not synchronize and allocates nothing; it returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -98,6 +110,8 @@ constexpr int kOverflow = 3;
 constexpr int kLanes = 32;
 constexpr int kWarps = 4;     // boards per block, one per warp
 constexpr int kMetaCols = 4;  // status, guesses, validations, steps
+constexpr int kDigestCols = 8;  // a segment's digest row per lane (ops/solver.py)
+constexpr int kDigestThreads = 256;  // lanes per block of the digest kernel
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kCellBits = 10;  // MRV key: popcount << kCellBits | cell
 constexpr unsigned kNoKey = 0xffffffffu;
@@ -415,102 +429,108 @@ __device__ __forceinline__ int sweep(int (&g)[Geometry<BOX>::CPL],
   return __any_sync(kAll, assigned) ? kSweepAssigned : kSweepStuck;
 }
 
+// The warp's slice of shared memory, carved from its block's array.
 template <int BOX>
-__global__ void __launch_bounds__(kWarps * kLanes)
-dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid_out,
-                  int32_t* __restrict__ meta, int8_t* __restrict__ stack_grid,
-                  int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
-                  int B, int D, int max_iters, int waves, int options) {
+__device__ __forceinline__ Smem warp_smem(int32_t* base) {
   using Geo = Geometry<BOX>;
-  constexpr int N = Geo::N;
-  constexpr int C = Geo::C;
-  constexpr int CPL = Geo::CPL;
-  constexpr int UPL = Geo::UPL;
-  __shared__ int32_t smem[kWarps][Geo::WORDS];
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-  const int board = blockIdx.x * kWarps + warp;
-  if (board >= B) return;  // the whole warp leaves; no block-wide barrier follows
   Smem sh;
-  sh.cm = smem[warp];
-  sh.uo = sh.cm + C;
+  sh.cm = base;
+  sh.uo = sh.cm + Geo::C;
   sh.hid = sh.uo + Geo::U;
   sh.seg = sh.hid + Geo::U;
   sh.os = sh.seg + Geo::S;
   sh.ob = sh.os + Geo::S;
   sh.pe = sh.ob + Geo::S;
+  return sh;
+}
 
-  // per cell slot: its value, its candidates, and its row / column / box
-  // unit ids packed a byte each
-  int g[CPL], cand[CPL], pk[CPL];
-  const int32_t* in = boards + (size_t)board * C;
+// Per cell slot, its row / column / box unit ids packed a byte each; per
+// unit slot, the unit's walk.
+template <int BOX>
+__device__ __forceinline__ void lane_layout(int lane, int (&pk)[Geometry<BOX>::CPL],
+                                            UnitWalk (&uw)[Geometry<BOX>::UPL]) {
+  using Geo = Geometry<BOX>;
+  constexpr int N = Geo::N;
 #pragma unroll
-  for (int j = 0; j < CPL; ++j) {
+  for (int j = 0; j < Geo::CPL; ++j) {
     const int cell = lane + j * kLanes;
     const int r = cell / N, c = cell % N;
     pk[j] = r | (N + c) << 8 | (2 * N + (r / BOX) * BOX + c / BOX) << 16;
-    g[j] = owns<BOX>(lane, j) ? in[cell] : 0;
   }
-  UnitWalk uw[UPL];
 #pragma unroll
-  for (int s = 0; s < UPL; ++s) uw[s] = unit_walk<BOX>(lane + s * kLanes);
+  for (int s = 0; s < Geo::UPL; ++s) uw[s] = unit_walk<BOX>(lane + s * kLanes);
+}
 
-  int8_t* sg = stack_grid + (size_t)board * D * C;
-  int32_t* sc = stack_cell + (size_t)board * D;
-  int32_t* sm = stack_mask + (size_t)board * D;
+// A board's search state between steps; every field is warp-uniform.
+struct Search {
+  int status, depth, guesses, validations, steps;
+  int top_cell, top_mask;  // frame depth-1, kept out of the slab
+};
+
+// Run a RUNNING board's steps until its status changes or it has taken
+// `max_steps` steps in all: the step body shared by both kernels. The slab
+// holds frames 0..depth-2; frame depth-1 is in s.top_cell / s.top_mask.
+template <int BOX>
+__device__ __forceinline__ void search(int (&g)[Geometry<BOX>::CPL],
+                                       const int (&pk)[Geometry<BOX>::CPL],
+                                       const UnitWalk (&uw)[Geometry<BOX>::UPL],
+                                       const Smem& sh, int lane, int8_t* sg, int32_t* sc,
+                                       int32_t* sm, int D, int max_steps, int waves,
+                                       int options, Search& s) {
+  using Geo = Geometry<BOX>;
+  constexpr int C = Geo::C;
+  constexpr int CPL = Geo::CPL;
   const bool locked = options & kOptLocked;
   const bool pairs = locked && (options & kOptPairs);
   const bool wave_locked = locked && !(options & kOptLight);
   const bool wave_pairs = wave_locked && pairs;
-  // every value below is warp-uniform
-  int status = kRunning, depth = 0, guesses = 0, steps = 0, validations = 0;
-  int top_cell = 0, top_mask = 0;  // frame depth-1, kept out of the slab
+  int cand[CPL];
 
   // One sweep per iteration: sweep 0 of a step takes the step's action,
   // sweeps 1..waves-1 only assign their singles.
   for (int wave = 0;; wave = wave + 1 == waves ? 0 : wave + 1) {
     if (wave == 0) {
-      if (steps >= max_iters) break;
-      ++steps;
+      if (s.steps >= max_steps) break;
+      ++s.steps;
     }
-    ++validations;
+    ++s.validations;
     unsigned key;
     const int v = sweep<BOX>(g, cand, pk, uw, sh, lane, wave ? wave_locked : locked,
                              wave ? wave_pairs : pairs, key);
     if (wave) continue;
     if (v == kSweepSolved) {
-      status = kSolved;
+      s.status = kSolved;
       break;
     }
     if (v == kSweepContra) {
       // backtrack
-      if (depth == 0) {
-        status = kUnsat;
+      if (s.depth == 0) {
+        s.status = kUnsat;
         break;
       }
-      if (top_mask == 0) {
+      if (s.top_mask == 0) {
         // exhausted frame: pop; the grid stays contradictory
-        if (--depth) {
-          top_cell = sc[depth - 1];
-          top_mask = sm[depth - 1];
+        if (--s.depth) {
+          s.top_cell = sc[s.depth - 1];
+          s.top_mask = sm[s.depth - 1];
         }
         continue;
       }
-      const int bit = top_mask & -top_mask;
-      const int8_t* f = sg + (size_t)(depth - 1) * C;
+      const int bit = s.top_mask & -s.top_mask;
+      const int8_t* f = sg + (size_t)(s.depth - 1) * C;
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
         const int cell = lane + j * kLanes;
-        if (owns<BOX>(lane, j)) g[j] = cell == top_cell ? __ffs(bit) : f[cell];
+        if (owns<BOX>(lane, j)) g[j] = cell == s.top_cell ? __ffs(bit) : f[cell];
       }
-      top_mask &= ~bit;
+      s.top_mask &= ~bit;
       continue;
     }
     if (v == kSweepAssigned) continue;
 
     // branch on the MRV cell
-    if (depth >= D) {
-      status = kOverflow;
+    if (s.depth >= D) {
+      s.status = kOverflow;
       break;
     }
     const int cell = (int)(__reduce_min_sync(kAll, key) & ((1u << kCellBits) - 1));
@@ -521,7 +541,7 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
     }
     const int mask = (int)__reduce_or_sync(kAll, (unsigned)mine);
     const int bit = mask & -mask;
-    int8_t* f = sg + (size_t)depth * C;
+    int8_t* f = sg + (size_t)s.depth * C;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
       const int c = lane + j * kLanes;
@@ -529,18 +549,47 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
       f[c] = (int8_t)g[j];
       if (c == cell) g[j] = __ffs(bit);
     }
-    if (depth > 0 && lane == 0) {
-      sc[depth - 1] = top_cell;
-      sm[depth - 1] = top_mask;
+    if (s.depth > 0 && lane == 0) {
+      sc[s.depth - 1] = s.top_cell;
+      sm[s.depth - 1] = s.top_mask;
     }
-    top_cell = cell;
-    top_mask = mask & ~bit;
-    ++depth;
-    ++guesses;
+    s.top_cell = cell;
+    s.top_mask = mask & ~bit;
+    ++s.depth;
+    ++s.guesses;
   }
+}
+
+template <int BOX>
+__global__ void __launch_bounds__(kWarps * kLanes)
+dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid_out,
+                  int32_t* __restrict__ meta, int8_t* __restrict__ stack_grid,
+                  int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
+                  int B, int D, int max_iters, int waves, int options) {
+  using Geo = Geometry<BOX>;
+  constexpr int C = Geo::C;
+  constexpr int CPL = Geo::CPL;
+  __shared__ int32_t smem[kWarps][Geo::WORDS];
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int board = blockIdx.x * kWarps + warp;
+  if (board >= B) return;  // the whole warp leaves; no block-wide barrier follows
+  const Smem sh = warp_smem<BOX>(smem[warp]);
+  int g[CPL], pk[CPL];
+  UnitWalk uw[Geo::UPL];
+  lane_layout<BOX>(lane, pk, uw);
+  const int32_t* in = boards + (size_t)board * C;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) g[j] = owns<BOX>(lane, j) ? in[lane + j * kLanes] : 0;
+
+  Search s{kRunning, 0, 0, 0, 0, 0, 0};
+  search<BOX>(g, pk, uw, sh, lane, stack_grid + (size_t)board * D * C,
+              stack_cell + (size_t)board * D, stack_mask + (size_t)board * D, D, max_iters,
+              waves, options, s);
 
   // the step cap stopped a board that its last step may have completed
-  if (status == kRunning && value_pass<BOX>(g, uw, sh.cm, sh.uo, lane) == 0) status = kSolved;
+  if (s.status == kRunning && value_pass<BOX>(g, uw, sh.cm, sh.uo, lane) == 0)
+    s.status = kSolved;
 
   int32_t* out = grid_out + (size_t)board * C;
 #pragma unroll
@@ -549,10 +598,193 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
   }
   if (lane == 0) {
     int32_t* m = meta + (size_t)board * kMetaCols;
-    m[0] = status;
-    m[1] = guesses;
-    m[2] = validations;
-    m[3] = steps;
+    m[0] = s.status;
+    m[1] = s.guesses;
+    m[2] = s.validations;
+    m[3] = s.steps;
+  }
+}
+
+// The segment kernel (K3): one bounded segment of continuous batching over a
+// lane pool whose whole state lives in device memory and is updated in
+// place. Per lane (one warp, as in dfs_solver_kernel):
+//   * injection: src >= 0 restarts the lane from boards[src], -2 from the
+//     instantly-UNSAT pad board (two 1s in row 0), with depth, guesses,
+//     validations and board_iters 0 and status RUNNING; -1 resumes it. The
+//     slab rows of an injected lane are not cleared: rows at or above its
+//     depth are never read;
+//   * resume: the grid, the counters and the top frame (from the slab) are
+//     loaded, the lane steps while RUNNING for at most seg_iters steps, and
+//     everything is written back, the top frame into the slab included, so
+//     the next segment resumes exactly where this one stopped;
+//   * no closing analysis: a lane completed on its last step stays RUNNING
+//     and pays its discovery sweep in the next segment, as the closed loop
+//     does, so validations do not depend on where segments are cut;
+//   * out: digest columns 0-4, the lane's step count and its "solved in this
+//     segment" bit for the digest kernel (lane_steps), and, when the
+//     solution block is not prefix-gathered, the lane's block row (its grid
+//     if it solved in this segment, else zeros).
+template <int BOX>
+__global__ void __launch_bounds__(kWarps * kLanes)
+dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
+                   const int32_t* __restrict__ src, int32_t* __restrict__ grid,
+                   int8_t* __restrict__ stack_grid, int32_t* __restrict__ stack_cell,
+                   int32_t* __restrict__ stack_mask, int32_t* __restrict__ depth,
+                   int32_t* __restrict__ status, int32_t* __restrict__ guesses,
+                   int32_t* __restrict__ validations, int32_t* __restrict__ board_iters,
+                   int32_t* __restrict__ digest, int32_t* __restrict__ gathered,
+                   int32_t* __restrict__ lane_steps, int W, int D, int seg_iters,
+                   int waves, int options, int prefix_gather) {
+  using Geo = Geometry<BOX>;
+  constexpr int C = Geo::C;
+  constexpr int CPL = Geo::CPL;
+  __shared__ int32_t smem[kWarps][Geo::WORDS];
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= W) return;  // the whole warp leaves; no block-wide barrier follows
+  const Smem sh = warp_smem<BOX>(smem[warp]);
+  int g[CPL], pk[CPL];
+  UnitWalk uw[Geo::UPL];
+  lane_layout<BOX>(lane, pk, uw);
+
+  int32_t* row = grid + (size_t)b * C;
+  int8_t* sg = stack_grid + (size_t)b * D * C;
+  int32_t* sc = stack_cell + (size_t)b * D;
+  int32_t* sm = stack_mask + (size_t)b * D;
+  const int from = src[b];
+  Search s;
+  if (from == -1) {
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) g[j] = owns<BOX>(lane, j) ? row[lane + j * kLanes] : 0;
+    s = Search{status[b], depth[b], guesses[b], validations[b], 0, 0, 0};
+    if (s.depth > 0) {
+      s.top_cell = sc[s.depth - 1];
+      s.top_mask = sm[s.depth - 1];
+    }
+  } else {
+    const int32_t* in =
+        boards + (size_t)min(max(from, 0), n_boards - 1) * C;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int cell = lane + j * kLanes;
+      g[j] = !owns<BOX>(lane, j) ? 0 : from == -2 ? (cell < 2 ? 1 : 0) : in[cell];
+    }
+    s = Search{kRunning, 0, 0, 0, 0, 0, 0};
+  }
+  const int iters0 = from == -1 ? board_iters[b] : 0;
+  const bool entry_running = s.status == kRunning;
+  if (entry_running)
+    search<BOX>(g, pk, uw, sh, lane, sg, sc, sm, D, seg_iters, waves, options, s);
+  const bool newly = entry_running && s.status == kSolved;
+
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int cell = lane + j * kLanes;
+    if (!owns<BOX>(lane, j)) continue;
+    row[cell] = g[j];
+    if (!prefix_gather) gathered[(size_t)b * C + cell] = newly ? g[j] : 0;
+  }
+  if (lane == 0) {
+    if (s.depth > 0) {
+      sc[s.depth - 1] = s.top_cell;
+      sm[s.depth - 1] = s.top_mask;
+    }
+    depth[b] = s.depth;
+    status[b] = s.status;
+    guesses[b] = s.guesses;
+    validations[b] = s.validations;
+    board_iters[b] = iters0 + s.steps;
+    int32_t* d = digest + (size_t)b * kDigestCols;
+    d[0] = s.status;
+    d[1] = s.status == kSolved;
+    d[2] = s.guesses;
+    d[3] = s.validations;
+    d[4] = iters0 + s.steps;
+    lane_steps[b] = s.steps << 1 | (newly ? 1 : 0);
+  }
+}
+
+// The digest kernel (K3b), after the segment kernel on the same stream.
+// The pool's lockstep work counters come from the lanes' own step counts
+// r_i: the segment ran I = max r_i lockstep steps, so lane_steps = I * W and
+// idle_lane_steps = I * W - sum r_i. With prefix_gather the solution block
+// is the pool's grid with the lanes solved in this segment first, in lane
+// order, then the others in lane order (a stable partition), and fetch_slot
+// is a solved lane's row in it; without, fetch_slot is the lane index (the
+// segment kernel wrote the block). Block k handles lanes [k * 256, k * 256 +
+// 256): every block first reads all W step words (16 KB at W = 4096, from
+// L2) to get the totals and the count of solved lanes ahead of its range
+// itself, so blocks need no cross-block scan or atomics; then a block-wide
+// exclusive scan places its lanes and it copies their rows.
+__global__ void __launch_bounds__(kDigestThreads)
+segment_digest_kernel(const int32_t* __restrict__ lane_steps,
+                      const int32_t* __restrict__ grid, int32_t* __restrict__ digest,
+                      int32_t* __restrict__ gathered, int W, int C, int prefix_gather) {
+  constexpr int kWarpsHere = kDigestThreads / kLanes;
+  __shared__ int red[3][kWarpsHere];
+  __shared__ int scan[kWarpsHere];
+  __shared__ int dest[kDigestThreads];
+  const int t = threadIdx.x, lane = t % kLanes, warp = t / kLanes;
+  const int first = blockIdx.x * kDigestThreads;
+  int r_max = 0, r_sum = 0, solved = 0, solved_before = 0;
+  for (int i = t; i < W; i += kDigestThreads) {
+    const int v = lane_steps[i];
+    r_max = max(r_max, v >> 1);
+    r_sum += v >> 1;
+    solved += v & 1;
+    if (i < first) solved_before += v & 1;
+  }
+  r_max = __reduce_max_sync(kAll, r_max);
+  r_sum = __reduce_add_sync(kAll, r_sum);
+  solved = __reduce_add_sync(kAll, solved);
+  solved_before = __reduce_add_sync(kAll, solved_before);
+  if (lane == 0) {
+    red[0][warp] = r_max;
+    red[1][warp] = r_sum;
+    red[2][warp] = solved;
+    scan[warp] = solved_before;
+  }
+  __syncthreads();
+  r_max = r_sum = solved = solved_before = 0;
+#pragma unroll
+  for (int w = 0; w < kWarpsHere; ++w) {
+    r_max = max(r_max, red[0][w]);
+    r_sum += red[1][w];
+    solved += red[2][w];
+    solved_before += scan[w];
+  }
+  __syncthreads();  // scan[] is reused below
+
+  // exclusive scan of the "solved in this segment" bits over this block's
+  // lanes, in lane order
+  const int i = first + t;
+  const int mine = i < W ? lane_steps[i] & 1 : 0;
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) {
+    const int n = __shfl_up_sync(kAll, incl, o);
+    if (lane >= o) incl += n;
+  }
+  if (lane == kLanes - 1) scan[warp] = incl;
+  __syncthreads();
+  int ahead = solved_before;
+  for (int w = 0; w < warp; ++w) ahead += scan[w];
+  ahead += incl - mine;  // solved lanes before lane i
+  if (i < W) {
+    const int lockstep = r_max * W;
+    int32_t* d = digest + (size_t)i * kDigestCols;
+    d[5] = mine ? (prefix_gather ? ahead : i) : -1;
+    d[6] = lockstep;
+    d[7] = lockstep - r_sum;
+    dest[t] = mine ? ahead : solved + (i - ahead);
+  }
+  if (!prefix_gather) return;  // uniform over the block
+  __syncthreads();
+  const int n = min(kDigestThreads, W - first);
+  for (int k = t; k < n * C; k += kDigestThreads) {
+    const int l = k / C;
+    gathered[(size_t)dest[l] * C + (k - l * C)] = grid[(size_t)first * C + k];
   }
 }
 
@@ -569,12 +801,46 @@ int launch(const void* boards, void* grid_out, void* meta, void* stack_grid,
   return (int)cudaGetLastError();
 }
 
+// The state pointers of a lane pool, in the order of dfs_segment_launch.
+struct Pool {
+  void *grid, *stack_grid, *stack_cell, *stack_mask, *depth, *status, *guesses,
+      *validations, *board_iters;
+};
+
+template <int BOX>
+int launch_segment(const void* boards, int n_boards, const void* src, const Pool& p,
+                   void* digest, void* gathered, void* lane_steps, int W, int D,
+                   int seg_iters, int waves, int options, int prefix_gather,
+                   cudaStream_t stream) {
+  const int blocks = (W + kWarps - 1) / kWarps;
+  dfs_segment_kernel<BOX><<<blocks, kWarps * kLanes, 0, stream>>>(
+      static_cast<const int32_t*>(boards), n_boards, static_cast<const int32_t*>(src),
+      static_cast<int32_t*>(p.grid), static_cast<int8_t*>(p.stack_grid),
+      static_cast<int32_t*>(p.stack_cell), static_cast<int32_t*>(p.stack_mask),
+      static_cast<int32_t*>(p.depth), static_cast<int32_t*>(p.status),
+      static_cast<int32_t*>(p.guesses), static_cast<int32_t*>(p.validations),
+      static_cast<int32_t*>(p.board_iters), static_cast<int32_t*>(digest),
+      static_cast<int32_t*>(gathered), static_cast<int32_t*>(lane_steps), W, D,
+      seg_iters, waves, options, prefix_gather);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  segment_digest_kernel<<<(W + kDigestThreads - 1) / kDigestThreads, kDigestThreads, 0,
+                          stream>>>(
+      static_cast<const int32_t*>(lane_steps), static_cast<const int32_t*>(p.grid),
+      static_cast<int32_t*>(digest), static_cast<int32_t*>(gathered), W,
+      Geometry<BOX>::C, prefix_gather);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Meta columns per board, so the wrapper can check its layout.
 int dfs_solver_meta_cols() { return kMetaCols; }
+
+// Digest columns per lane of a segment, likewise.
+int dfs_segment_digest_cols() { return kDigestCols; }
 
 // boards (B, C) int32 in, grid_out (B, C) int32 and meta (B, 4) int32 out,
 // scratch stack_grid (B, D, C) int8, stack_cell and stack_mask (B, D) int32.
@@ -601,6 +867,44 @@ int dfs_solver_launch(const void* boards, void* grid_out, void* meta,
     case 5:
       return launch<5>(boards, grid_out, meta, stack_grid, stack_cell, stack_mask, B,
                        D, max_iters, waves, options, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One segment over a pool of W lanes: the segment kernel, then the digest
+// kernel, on `stream`. boards (n_boards, C) int32 and src (W,) int32 in; the
+// pool's grid (W, C), stack_grid (W, D, C) int8, stack_cell and stack_mask
+// (W, D), and depth, status, guesses, validations and board_iters (W,) int32
+// are read and updated in place; digest (W, 8) and gathered (W, C) int32
+// out; lane_steps (W,) int32 scratch. box, waves and options as for
+// dfs_solver_launch; seg_iters >= 0 steps a lane at most; prefix_gather
+// picks the solution block's form. Returns a cudaError_t.
+int dfs_segment_launch(const void* boards, int n_boards, const void* src, void* grid,
+                       void* stack_grid, void* stack_cell, void* stack_mask,
+                       void* depth, void* status, void* guesses, void* validations,
+                       void* board_iters, void* digest, void* gathered,
+                       void* lane_steps, int W, int box, int D, int seg_iters,
+                       int waves, int options, int prefix_gather, void* stream) {
+  if (W <= 0 || n_boards <= 0 || D <= 0 || seg_iters < 0 || waves < 1 ||
+      (options & ~7))
+    return (int)cudaErrorInvalidValue;
+  const Pool p{grid, stack_grid, stack_cell, stack_mask, depth, status,
+               guesses, validations, board_iters};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (box) {
+    case 2:
+      return launch_segment<2>(boards, n_boards, src, p, digest, gathered, lane_steps,
+                               W, D, seg_iters, waves, options, prefix_gather, s);
+    case 3:
+      return launch_segment<3>(boards, n_boards, src, p, digest, gathered, lane_steps,
+                               W, D, seg_iters, waves, options, prefix_gather, s);
+    case 4:
+      return launch_segment<4>(boards, n_boards, src, p, digest, gathered, lane_steps,
+                               W, D, seg_iters, waves, options, prefix_gather, s);
+    case 5:
+      return launch_segment<5>(boards, n_boards, src, p, digest, gathered, lane_steps,
+                               W, D, seg_iters, waves, options, prefix_gather, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

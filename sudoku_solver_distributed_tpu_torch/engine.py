@@ -15,22 +15,29 @@ wider buckets), as in the JAX engine, so one request's work counters
 depend on how many requests shared its device call.
 
 Single-board solves go through the request coalescer
-(parallel/coalescer.py, closed loop) by default, so concurrent requests
-share one bucketed call. A dispatch enqueues the first depth stage and
-the copy of its rows into pinned host memory and returns without waiting
-for the device; finalizing waits on that copy's CUDA event, then runs
-whatever the rows ask for — a deeper depth stage for OVERFLOW boards, the
-deep retry for RUNNING ones — on a stream of its own, so it never waits
-for a later batch's launch.
+(parallel/coalescer.py) by default, and it serves them open loop, as the
+JAX engine does: continuous batching over a lane pool as wide as the
+largest bucket, in bounded segments of the segment kernel
+(``dispatch_segment`` / ``finalize_segment``, ops/cuda_solver.dfs_segment),
+with finished lanes answered and freed lanes refilled at every segment
+boundary. The pool runs the flat (largest) depth, and a pool wider than
+one lane sweeps ``waves`` times a step, so a board's counters are those
+of the flat solve at that depth. ``continuous=False`` keeps the
+closed-loop coalescer, where concurrent requests share one bucketed call:
+a dispatch enqueues the first depth stage and the copy of its rows into
+pinned host memory and returns without waiting for the device;
+finalizing waits on that copy's CUDA event, then runs whatever the rows
+ask for — a deeper depth stage for OVERFLOW boards, the deep retry for
+RUNNING ones — on a stream of its own, so it never waits for a later
+batch's launch.
 
 The engine runs on the GPU unless the caller passes ``device="cpu"``; with
 no GPU and no such request the constructor raises. On the CPU the kernel
-wrapper runs its plain PyTorch version (the tests' configuration).
+wrappers run their plain PyTorch versions (the tests' configuration).
 
 Not in this slice (each raises ``NotImplementedError`` when asked for):
-a choice of backend (the engine always runs the kernel), continuous
-batching, the mesh and the frontier race, AOT/compile caches and
-supervision.
+a choice of backend (the engine always runs the kernel), the mesh and the
+frontier race, AOT/compile caches and supervision.
 """
 
 from __future__ import annotations
@@ -45,8 +52,14 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .ops.config import SERVING_CONFIG
-from .ops.cuda_solver import solve_stage
+from .ops.config import (
+    CONTINUOUS_SERVING,
+    SEGMENT_PIPELINE,
+    SERVING_CONFIG,
+    resolved_segment_shape,
+    segment_prefix_gather,
+)
+from .ops.cuda_solver import SegmentPool, dfs_segment, solve_stage
 from .ops.solver import OVERFLOW, RUNNING, pad_board, staged_depths
 from .ops.spec import SPEC_9, BoardSpec
 from .serving.admission import DeadlineExceeded
@@ -61,13 +74,11 @@ _AUTO = object()
 
 # SolverEngine knobs of the JAX package that this port does not have yet.
 # Passing one with a value other than None/False raises instead of being
-# ignored (``continuous=None`` and ``continuous=False`` both mean the
-# closed loop this engine runs).
+# ignored.
 _UNPORTED = frozenset((
     "backend", "mesh", "bucket_multiple", "sharding", "frontier_mesh",
     "frontier_states_per_device", "frontier_route",
-    "frontier_escalate_iters", "frontier_handoff", "continuous",
-    "segment_iters", "segment_pipeline", "deep_lane_cap",
+    "frontier_escalate_iters", "frontier_handoff",
     "compile_cache_dir", "aot_artifacts", "solver_config",
 ))
 
@@ -97,6 +108,25 @@ class _Inflight(NamedTuple):
     sweeps: dict                       # the call's sweep knobs
 
 
+class _SegmentHandle(NamedTuple):
+    """A dispatched segment: the pool's next handle (available at dispatch,
+    so the segment loop can chain segment N+1 before reading N), the device
+    outputs and their host copies, and the accounting ``finalize_segment``
+    needs. On the pipelined arm ``host`` holds the digest and ``block`` is
+    the device solution block fetched in phase 2; on the full-row arm
+    ``host`` holds the (W, C+7) rows and ``block`` is None."""
+
+    state: SegmentPool
+    host: torch.Tensor                 # pinned on CUDA
+    ready: Optional[torch.cuda.Event]  # recorded after the copy; None on CPU
+    block: Optional[torch.Tensor]
+    t0: float
+    width: int
+    injected: int
+    pipelined: bool
+    boundary_host_s: float
+
+
 class SolverEngine:
     """Batched sudoku solving in fixed-width buckets through the DFS kernel.
 
@@ -124,6 +154,21 @@ class SolverEngine:
       coalesce_adaptive: scale the three wait budgets with the measured
         arrival rate (serving/load.AdaptiveWaitPolicy); the configured
         values become caps.
+      continuous: serve the coalesced path open loop (continuous
+        batching, the segment kernel over a lane pool). None → on when
+        ``coalesce`` is (ops.config.CONTINUOUS_SERVING); True needs
+        ``coalesce``; False keeps the closed-loop coalescer. Answers are
+        the same boards either way; the counters are those of the flat
+        depth (and, above one lane, ``waves`` sweeps a step).
+      segment_iters: steps per segment (None → ops.config.SEGMENT per
+        board size).
+      segment_pipeline: the pipelined segment boundary (None → on with
+        ``continuous``): the host reads a digest per boundary and the
+        segment loop overlaps boundary work with the next segment; False reads
+        the full rows every segment, strictly serially.
+      deep_lane_cap: with continuous batching, the most lanes boards
+        resident past a few boundaries may hold while requests queue; the
+        overage is evicted to the deep retry. 0 = no cap.
     """
 
     def __init__(
@@ -145,6 +190,10 @@ class SolverEngine:
         coalesce_inflight_depth: int = 2,
         coalesce_max_batch: Optional[int] = None,
         coalesce_adaptive: bool = False,
+        continuous: Optional[bool] = None,
+        segment_iters: Optional[int] = None,
+        segment_pipeline: Optional[bool] = None,
+        deep_lane_cap: int = 0,
         **unported,
     ):
         for name, value in unported.items():
@@ -184,6 +233,28 @@ class SolverEngine:
         self.coalesce_inflight_depth = coalesce_inflight_depth
         self.coalesce_max_batch = coalesce_max_batch
         self.coalesce_adaptive = coalesce_adaptive
+        self.segment_shape = resolved_segment_shape(spec.size, segment_iters)
+        self.segment_iters = self.segment_shape["k"]
+        if continuous is None:
+            continuous = CONTINUOUS_SERVING["default_on"] and coalesce
+        elif continuous and not coalesce:
+            raise ValueError(
+                "continuous batching rides the coalesced serving path — it "
+                "cannot be enabled with coalesce=False"
+            )
+        self.continuous = bool(continuous)
+        if segment_pipeline is None:
+            segment_pipeline = SEGMENT_PIPELINE["default_on"] and self.continuous
+        elif segment_pipeline and not self.continuous:
+            raise ValueError(
+                "segment_pipeline=True needs continuous batching — the "
+                "pipelined boundary is the continuous path's segment seam"
+            )
+        self.segment_pipeline = bool(segment_pipeline)
+        self.deep_lane_cap = int(deep_lane_cap)
+        # segments resume mid-search, so the pool runs the largest stage's
+        # depth: a staged depth's shallow first stage cannot apply
+        self._depth_flat = max(self._depths)
         self._coalescer = None
         self._coalescer_init_lock = threading.Lock()
         # the stream finalizing runs later depth stages and deep retries
@@ -192,6 +263,19 @@ class SolverEngine:
         self._side_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
+        # the streams a segment's solution block is fetched on and the
+        # refill stack is pre-staged on: off the segment stream, so neither
+        # waits for a segment queued after the one it serves
+        self._fetch_stream = (
+            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        )
+        self._stage_stream = (
+            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        )
+        # the digest columns of the full-row arm's rows, made once: a list
+        # index on a CUDA tensor would copy it from pageable memory and
+        # wait for the stream at every segment
+        self._row_cols = torch.tensor([1, 0, 2, 3, 4, 6, 7], device=self.device)
         self._lock = threading.Lock()
         # cumulative engine effort, the analog of the reference's
         # `validations` counter: one unit per analysis sweep per board
@@ -225,6 +309,8 @@ class SolverEngine:
                         inflight_depth=self.coalesce_inflight_depth,
                         max_batch=self.coalesce_max_batch,
                         wait_policy=wait_policy,
+                        continuous=self.continuous,
+                        deep_lane_cap=self.deep_lane_cap,
                     )
         return self._coalescer
 
@@ -283,13 +369,21 @@ class SolverEngine:
         dev = self._device_batch(boards)
         sweeps = self._sweeps(boards.shape[0])
         rows = self._stage_rows(dev, self._depths[0], iters, sweeps)
-        if rows.device.type == "cpu":
-            return _Inflight(rows, None, dev, boards, n, iters, sweeps)
-        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-        host.copy_(rows, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(rows.device))
+        host, ready = self._to_host(rows)
         return _Inflight(host, ready, dev, boards, n, iters, sweeps)
+
+    @staticmethod
+    def _to_host(t: torch.Tensor):
+        """``(host, ready)``: a device tensor's copy into pinned host memory
+        enqueued on the current stream with the event recorded after it,
+        without a host sync; a CPU tensor as it is, with no event."""
+        if t.device.type == "cpu":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(t.device))
+        return host, ready
 
     def _follow_up(self):
         """Context for finalizing's device work: the engine's side stream
@@ -377,6 +471,227 @@ class SolverEngine:
     def _solve_padded(self, boards: np.ndarray) -> np.ndarray:
         return self._finalize_padded(self._dispatch_padded(boards))
 
+    # -- continuous batching: the segment seam ---------------------------------
+    @property
+    def continuous_active(self) -> bool:
+        """Whether the coalesced path serves open loop (this engine always
+        has its segment kernel, so the flag decides)."""
+        return self.continuous
+
+    def segment_pool_width(self) -> int:
+        """The lane pool's width: the bucket covering the coalescer's
+        batch cap (the largest bucket by default)."""
+        cap = min(self.coalesce_max_batch or self.buckets[-1], self.buckets[-1])
+        return self._bucket_for(cap)
+
+    def new_segment_pool(self, width: int) -> SegmentPool:
+        """A fresh pool on the engine's device, every lane on the
+        instantly-UNSAT pad board (dead after one sweep, then free), with
+        the flat depth's stack. Its state stays on the device; segments
+        update it in place."""
+        N = self.spec.size
+        boards = pad_board(self.spec, self.device).expand(width, N, N)
+        return SegmentPool.fresh(boards, self.spec, self._depth_flat)
+
+    def dispatch_segment(
+        self,
+        state: SegmentPool,
+        boards,
+        inject=None,
+        *,
+        src=None,
+        seg_iters: Optional[int] = None,
+        injected: Optional[int] = None,
+        pipelined: bool = False,
+        boundary_host_s: float = 0.0,
+    ) -> _SegmentHandle:
+        """Enqueue one segment over the pool ``state`` and the copy of its
+        boundary bytes to pinned host memory, without a host sync; return
+        the handle ``finalize_segment`` takes. The handle's ``state`` is the
+        pool's next handle: ``state`` is consumed (its tensors are updated
+        in place), and dispatching it again raises RuntimeError.
+
+        Injection: ``src`` is the per-lane source map into ``boards`` of
+        ``ops.solver.inject_lanes_src`` (-1 keep, -2 pad re-seed, else a
+        row); a row-aligned ``inject`` mask (row i into lane i) converts to
+        it, on both arms. ``boards`` is a host array or a device tensor
+        (the segment loop reuses an idle pair and the prestager places refills
+        ahead). ``seg_iters`` overrides the segment's step budget;
+        ``injected`` counts the real requests boarding (None: the lanes
+        with ``src >= 0``). ``pipelined`` marks a speculative dispatch
+        issued before the previous segment's digest was read;
+        ``boundary_host_s`` is the host gap since that digest arrived. The
+        pipelined arm copies the (W, 8) digest and keeps the solution
+        block on the device for ``finalize_segment``'s phase 2; the other
+        arm copies the full (W, C+7) rows."""
+        state.check_live()
+        width = state.width
+        t0 = time.monotonic()
+        if not isinstance(boards, torch.Tensor):
+            boards = self._device_batch(boards)
+        boards = boards.reshape(boards.shape[0], -1)
+        if src is None:
+            if inject is None:
+                raise ValueError("dispatch_segment takes an inject mask or src")
+            mask = np.asarray(
+                inject.cpu() if isinstance(inject, torch.Tensor) else inject
+            ).astype(bool)
+            src = np.where(mask, np.arange(width, dtype=np.int32), np.int32(-1))
+        if isinstance(src, torch.Tensor):
+            src_dev = src.to(self.device, torch.int32)
+            if injected is None:
+                injected = int((src_dev >= 0).sum())
+        else:
+            src_np = np.asarray(src, np.int32)
+            if injected is None:
+                # real requests only: -2 pad re-seeds are not injections
+                injected = int((src_np >= 0).sum())
+            src_dev = self._device_batch(src_np)
+        prefix = self.segment_pipeline and segment_prefix_gather(
+            width, self.spec.cells
+        )
+        nxt, digest, block = dfs_segment(
+            state, boards, src_dev,
+            int(seg_iters) if seg_iters else self.segment_iters,
+            prefix_gather=prefix, **self._sweeps(width),
+        )
+        if self.segment_pipeline:
+            out = digest
+        else:
+            # [grid | solved | status | guesses | validations | board_iters
+            #  | lane_steps | idle_lane_steps], the JAX full-row layout
+            out = torch.cat(
+                [nxt.state.grid, digest.index_select(1, self._row_cols)], 1
+            )
+            block = None
+        host, ready = self._to_host(out)
+        return _SegmentHandle(
+            state=nxt, host=host, ready=ready, block=block, t0=t0,
+            width=width, injected=int(injected), pipelined=bool(pipelined),
+            boundary_host_s=float(boundary_host_s),
+        )
+
+    def finalize_segment(self, handle: _SegmentHandle, *, active):
+        """Wait for a dispatched segment's boundary bytes and return
+        ``(rows, device_s)``: the (W, C+7) packed host rows and the
+        dispatch-to-fetch wall time.
+
+        Pipelined arm, the two-phase fetch: phase 1 is the digest; when a
+        lane's ``fetch_slot`` is set (it solved in this segment), phase 2
+        reads the solution block — its prefix up to the largest slot when
+        the block is prefix-gathered, else the whole (small) block — on a
+        stream of its own, so it does not wait for a segment queued after
+        this one. Grid columns of the other lanes are zero (the segment loop
+        reads grids only of lanes that solved). ``active`` (the lanes
+        holding a request at fetch time) is the accounting hook of the JAX
+        seam's cost plane, which this package does not have yet."""
+        del active
+        if handle.ready is not None:
+            handle.ready.synchronize()
+        host = handle.host.numpy()
+        if handle.block is None:
+            return host.copy(), time.monotonic() - handle.t0
+        C = self.spec.cells
+        width = handle.width
+        rows = np.zeros((width, C + 7), np.int32)
+        rows[:, C] = host[:, 1]        # solved
+        rows[:, C + 1] = host[:, 0]    # status
+        rows[:, C + 2] = host[:, 2]    # guesses
+        rows[:, C + 3] = host[:, 3]    # validations
+        rows[:, C + 4] = host[:, 4]    # board_iters
+        rows[:, C + 5] = host[:, 6]    # lane_steps
+        rows[:, C + 6] = host[:, 7]    # idle_lane_steps
+        slots = host[:, 5]
+        lanes = np.nonzero(slots >= 0)[0]
+        if lanes.size:
+            n = (
+                int(slots[lanes].max()) + 1
+                if segment_prefix_gather(width, C) else width
+            )
+            rows[lanes, :C] = self._fetch_rows(handle.block, n)[slots[lanes]]
+        return rows, time.monotonic() - handle.t0
+
+    def _fetch_rows(self, block: torch.Tensor, n: int) -> np.ndarray:
+        """The first ``n`` rows of a finished segment's solution block, read
+        on the fetch stream (the caller has waited for the segment)."""
+        if self._fetch_stream is None:
+            return block[:n].numpy()
+        with torch.cuda.stream(self._fetch_stream):
+            host = torch.empty((n, block.shape[1]), dtype=block.dtype,
+                               pin_memory=True)
+            host.copy_(block[:n], non_blocking=True)
+        self._fetch_stream.synchronize()
+        return host.numpy()
+
+    def abandon_segment(self, handle: _SegmentHandle) -> None:
+        """Discard a dispatched segment that will never be fetched (the
+        pipelined segment loop drops its speculative dispatch when the segment
+        ahead failed; the pool is rebuilt either way). The JAX seam closes
+        the segment's supervision token here; this package has no
+        supervisor yet, so nothing is held."""
+        del handle
+
+    def run_segment_supervised(
+        self,
+        state: SegmentPool,
+        boards,
+        inject,
+        *,
+        active,
+        seg_iters: Optional[int] = None,
+        injected: Optional[int] = None,
+        boundary_host_s: float = 0.0,
+    ):
+        """One segment, dispatched and fetched: ``dispatch_segment`` then
+        ``finalize_segment``, on either arm (``inject`` is the row-aligned
+        mask). Returns ``(state, rows, device_s)``: the pool's next
+        handle, the (W, C+7) host rows and the dispatch-to-fetch wall
+        time. The name is the JAX seam's, where a supervisor watches the
+        span; supervision is not ported yet."""
+        handle = self.dispatch_segment(
+            state, boards, inject, seg_iters=seg_iters, injected=injected,
+            boundary_host_s=boundary_host_s,
+        )
+        rows, device_s = self.finalize_segment(handle, active=active)
+        return handle.state, rows, device_s
+
+    def _stage_boards(self, boards: np.ndarray):
+        """``(tensor, ready)``: host boards copied to the device on the
+        staging stream, with the event after the copy (None on the CPU).
+        The injection prestager's placement, off the segment stream."""
+        if self._stage_stream is None:
+            return self._device_batch(boards), None
+        with torch.cuda.stream(self._stage_stream):
+            t = self._device_batch(boards)
+            ready = torch.cuda.Event()
+            ready.record(self._stage_stream)
+        return t, ready
+
+    def _claim_staged(self, staged) -> torch.Tensor:
+        """A ``_stage_boards`` result made safe for the current stream: the
+        stream waits for the copy, and the allocator learns the tensor is
+        used there."""
+        t, ready = staged
+        if ready is not None:
+            stream = torch.cuda.current_stream(t.device)
+            stream.wait_event(ready)
+            t.record_stream(stream)
+        return t
+
+    def _warm_segment_program(self) -> None:
+        """Before serving: one trivial segment over a fresh all-pad pool at
+        the serving width, so the first request pays neither the kernel
+        build nor its first launch at that width."""
+        if not self.continuous_active:
+            return
+        w = self.segment_pool_width()
+        N = self.spec.size
+        handle = self.dispatch_segment(
+            self.new_segment_pool(w), np.zeros((w, N, N), np.int32),
+            np.zeros((w,), np.int32),
+        )
+        self.finalize_segment(handle, active=np.zeros(w, bool))
+
     def _account_coalesced(self, rows: np.ndarray) -> None:
         """Fold one coalesced batch's work into the engine counters — the
         same accounting ``solve_batch_np`` does for its callers."""
@@ -413,6 +728,7 @@ class SolverEngine:
         N = self.spec.size
         for b in self.buckets:
             self._solve_padded(np.zeros((b, N, N), np.int32))
+        self._warm_segment_program()
         self.warmed = True
 
     def solve_batch_np(

@@ -25,6 +25,13 @@ Extensions:
                 scale the coalescer's wait budgets with the measured
                 arrival rate (near zero when idle, the configured caps
                 under load — serving/load.py)
+  --no-continuous / --segment-iters / --no-segment-pipeline / --deep-lane-cap
+                continuous batching, on by default with the coalescer: the
+                segment kernel over a lane pool, finished lanes answered
+                and refilled at every segment boundary. The first flag
+                restores the closed-loop coalescer; the others set the
+                segment's step budget, the serial boundary and the cap on
+                lanes held by deep boards while requests queue
   --admission-capacity / --default-deadline-ms
                 overload control (serving/admission.py): a bounded pending
                 budget and per-request deadlines (the X-Deadline-Ms
@@ -108,6 +115,41 @@ def build_parser() -> argparse.ArgumentParser:
         "load. Off by default: fixed budgets",
     )
     parser.add_argument(
+        "--no-continuous",
+        action="store_true",
+        help="disable continuous batching: the coalesced serving path "
+        "falls back to the closed-loop run-to-completion dispatcher "
+        "instead of the open-loop segmented lane pool with mid-flight "
+        "refill (parallel/coalescer.py). Answers are the same boards",
+    )
+    parser.add_argument(
+        "--segment-iters",
+        type=int,
+        default=None,
+        help="lockstep iterations per continuous-batching segment (the "
+        "sweepable k; default: ops.config.SEGMENT per board size). "
+        "Smaller = finished lanes refill sooner, larger amortizes "
+        "segment dispatch overhead",
+    )
+    parser.add_argument(
+        "--no-segment-pipeline",
+        action="store_true",
+        help="disable the pipelined segment boundary: the continuous "
+        "segment loop reads the full packed rows every segment and runs its "
+        "boundaries strictly serially. Answers are bit-identical either "
+        "way",
+    )
+    parser.add_argument(
+        "--deep-lane-cap",
+        type=int,
+        default=0,
+        help="with continuous batching: max lanes boards resident past "
+        "a few segment boundaries may hold while fresh demand queues — "
+        "overage evicts to the deep-retry net so deep-heavy overload "
+        "stops squeezing refill goodput (parallel/coalescer.py). "
+        "0 (default) = no cap",
+    )
+    parser.add_argument(
         "--admission-capacity",
         type=int,
         default=0,
@@ -137,6 +179,12 @@ def build_node(args: argparse.Namespace):
         "coalesce_max_wait_s": args.coalesce_max_wait_ms / 1e3,
         "coalesce_max_batch": args.coalesce_max_batch,
         "coalesce_adaptive": args.adaptive_coalesce,
+        # continuous batching: None resolves ops.config.CONTINUOUS_SERVING
+        # (on with the coalescer); the flag is the closed-loop escape hatch
+        "continuous": False if args.no_continuous else None,
+        "segment_iters": args.segment_iters,
+        "segment_pipeline": False if args.no_segment_pipeline else None,
+        "deep_lane_cap": args.deep_lane_cap,
     }
     if args.buckets:
         kwargs["buckets"] = tuple(int(b) for b in args.buckets.split(","))

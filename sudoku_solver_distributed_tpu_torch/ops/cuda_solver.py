@@ -30,6 +30,14 @@ interface, so the build takes seconds, not PyTorch-header minutes).
 tensor, and only then; for a CUDA tensor it launches the kernel or raises.
 ``dfs_solver.launches`` counts kernel launches (under a lock: the HTTP
 server's handler threads launch concurrently).
+
+``dfs_segment`` is the same for one segment of continuous batching over a
+``SegmentPool``: the segment kernel and its digest kernel (K3, K3b) on a
+CUDA pool, ``inject_lanes_src`` + ``run_segment`` + ``segment_digest`` of
+ops/solver.py on a CPU one; ``dfs_segment.launches`` counts its launches.
+The pool's state tensors are updated in place, which takes the place of
+the JAX program's buffer donation: each call consumes the handle it was
+given and returns the pool's next one.
 """
 
 from __future__ import annotations
@@ -47,9 +55,16 @@ import numpy as np
 import torch
 
 from .solver import (
+    RUNNING,
+    SEGMENT_DIGEST_COLS,
+    SegmentState,
     SolveResult,
     LoopStats,
     SOLVED,
+    init_segment_state,
+    inject_lanes_src,
+    run_segment,
+    segment_digest,
     solve_flat,
     solve_staged,
     staged_depths,
@@ -121,6 +136,12 @@ def load_library() -> ctypes.CDLL:
     lib.dfs_solver_meta_cols.restype = ctypes.c_int
     if lib.dfs_solver_meta_cols() != META_COLS:
         raise RuntimeError("dfs_solver library disagrees on the meta layout")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dfs_segment_launch.argtypes = [p, i] + [p] * 13 + [i] * 7 + [p]
+    lib.dfs_segment_launch.restype = i
+    lib.dfs_segment_digest_cols.restype = i
+    if lib.dfs_segment_digest_cols() != SEGMENT_DIGEST_COLS:
+        raise RuntimeError("dfs_solver library disagrees on the digest layout")
     return lib
 
 
@@ -178,15 +199,20 @@ def dfs_solver(boards: torch.Tensor, spec: BoardSpec, depth: int,
         raise ValueError("dfs_solver takes contiguous boards")
     if boards.shape[0] == 0:
         return boards.clone(), boards.new_empty((0, META_COLS))
+    return _launch(
+        load_library(), boards, spec, depth, max_iters, knobs["waves"],
+        _options(knobs),
+    )
+
+
+def _options(knobs: dict) -> int:
+    """The launch's ``OPT_*`` bits for ``sweep_knobs``' output."""
     locked, pairs = knobs["locked"], knobs["naked_pairs"]
     pairs = pairs or pairs is None  # None follows locked, as in analyze
-    options = (
+    return (
         (OPT_LOCKED if locked else 0)
         | (OPT_PAIRS if locked and pairs else 0)
         | (OPT_LIGHT if knobs["light_waves"] else 0)
-    )
-    return _launch(
-        load_library(), boards, spec, depth, max_iters, knobs["waves"], options
     )
 
 
@@ -219,6 +245,161 @@ def _launch(lib: ctypes.CDLL, boards: torch.Tensor, spec: BoardSpec,
 
 
 dfs_solver.launches = 0
+
+
+class SegmentPool:
+    """A handle on a lane pool: the ``SegmentState`` tensors of W lanes of
+    one board size, on the CPU or a CUDA device. A segment
+    (``dfs_segment``) updates a CUDA pool's tensors in place and consumes
+    the handle it is given: it returns the pool's next handle (the
+    generation after), and any later use of the old one raises, as a
+    donated state's buffers are dead after a JAX call."""
+
+    def __init__(self, state: SegmentState, spec: BoardSpec, *, _shared=None):
+        self.state = state
+        self.spec = spec
+        # shared by every handle of the pool: its current generation and
+        # the segment kernel's per-lane scratch
+        self._shared = _shared if _shared is not None else {
+            "generation": 0, "lane_steps": None,
+        }
+        self.generation = self._shared["generation"]
+
+    @classmethod
+    def fresh(cls, boards: torch.Tensor, spec: BoardSpec, depth) -> "SegmentPool":
+        """A pool with lane i starting on ``boards[i]`` ((W, N, N), on
+        their device) and a ``depth``-frame stack (a staged depth
+        collapses to its largest stage)."""
+        return cls(init_segment_state(boards, spec, depth), spec)
+
+    @property
+    def width(self) -> int:
+        return self.state.grid.shape[0]
+
+    @property
+    def donated(self) -> bool:
+        return self.generation != self._shared["generation"]
+
+    def check_live(self) -> None:
+        if self.donated:
+            raise RuntimeError(
+                "segment pool state was already donated to an earlier "
+                "dispatch — a failed or superseded segment must rebuild the "
+                "pool (new_segment_pool), never reuse a donated handle"
+            )
+
+    def _next(self, state: SegmentState) -> "SegmentPool":
+        self._shared["generation"] += 1
+        return SegmentPool(state, self.spec, _shared=self._shared)
+
+
+def _dfs_segment_plain(state: SegmentState, boards: torch.Tensor,
+                       src: torch.Tensor, seg_iters: int, spec: BoardSpec,
+                       prefix_gather: bool, **sweeps):
+    """The plain PyTorch version of the segment kernels: ops/solver's
+    ``inject_lanes_src``, ``run_segment`` and ``segment_digest`` on
+    (n, C) boards. Returns (state, digest, block)."""
+    N = spec.size
+    state = inject_lanes_src(
+        state, boards.reshape(-1, N, N), src.to(torch.int32), spec
+    )
+    entry_running = state.status == RUNNING
+    state, stats = run_segment(state, seg_iters, spec, **sweeps)
+    digest, block = segment_digest(state, entry_running, stats, prefix_gather)
+    return state, digest, block
+
+
+def dfs_segment(pool: SegmentPool, boards: torch.Tensor, src: torch.Tensor,
+                seg_iters: int, *, prefix_gather: bool,
+                locked_candidates: bool = False, waves: int = 1,
+                light_waves: bool = False, naked_pairs: bool | None = None,
+                packed: bool | None = None):
+    """One segment of continuous batching over ``pool``: lanes restart from
+    rows of the (n, C) int32 ``boards`` or from the pad board as the (W,)
+    int32 source map ``src`` says (``ops.solver.align_src_boards``), every
+    lane steps while RUNNING for at most ``seg_iters`` steps under
+    ``ops.solver.solve_batch``'s sweep knobs, and the segment's digest and
+    solution block are built (``ops.solver.segment_digest``, in the form
+    ``prefix_gather`` picks). Returns ``(pool', digest, block)``: the
+    pool's next handle (``pool`` is consumed), the (W, 8) int32 digest and
+    the (W, C) int32 block, tensors of their own.
+
+    A CUDA pool launches the segment kernel and its digest kernel on the
+    current stream (no sync); a CPU pool runs the plain version. Nothing
+    else is accepted."""
+    pool.check_live()
+    spec = pool.spec
+    sweeps = dict(
+        locked_candidates=locked_candidates, waves=waves,
+        light_waves=light_waves, naked_pairs=naked_pairs, packed=packed,
+    )
+    knobs = sweep_knobs(spec, **sweeps)
+    state = pool.state
+    W, C = state.grid.shape
+    dev = state.grid.device
+    for name, t in (("boards", boards), ("src", src)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError(f"dfs_segment takes {name} as an int32 tensor")
+        if t.device != dev:
+            raise ValueError(f"dfs_segment: {name} lies on {t.device}, the pool on {dev}")
+    if boards.dim() != 2 or boards.shape[1] != C or boards.shape[0] < 1:
+        raise ValueError(
+            f"dfs_segment takes (n >= 1, {C}) boards, got {tuple(boards.shape)}"
+        )
+    if tuple(src.shape) != (W,):
+        raise ValueError(f"dfs_segment takes a ({W},) source map, got {tuple(src.shape)}")
+    if seg_iters < 0:
+        raise ValueError(f"bad seg_iters {seg_iters}")
+    if dev.type == "cpu":
+        state, digest, block = _dfs_segment_plain(
+            state, boards, src, seg_iters, spec, prefix_gather, **sweeps
+        )
+        return pool._next(state), digest, block
+    if dev.type != "cuda":
+        raise ValueError(f"dfs_segment runs on cuda or cpu, not {dev}")
+    digest, block = _launch_segment(
+        load_library(), pool, boards, src, seg_iters, knobs["waves"],
+        _options(knobs), prefix_gather,
+    )
+    return pool._next(state), digest, block
+
+
+def _launch_segment(lib: ctypes.CDLL, pool: SegmentPool, boards: torch.Tensor,
+                    src: torch.Tensor, seg_iters: int, waves: int,
+                    options: int, prefix_gather: bool):
+    """Allocate the digest and the solution block, launch ``lib``'s segment
+    kernels over the CUDA ``pool`` on the current stream, and count the
+    launch in ``dfs_segment.launches``."""
+    st = pool.state
+    W, C = st.grid.shape
+    D = st.stack_mask.shape[1]
+    dev = st.grid.device
+    tensors = (boards, src, *st)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("dfs_segment takes contiguous tensors")
+    scratch = pool._shared["lane_steps"]
+    if scratch is None:
+        scratch = pool._shared["lane_steps"] = torch.empty(
+            (W,), dtype=torch.int32, device=dev
+        )
+    digest = torch.empty((W, SEGMENT_DIGEST_COLS), dtype=torch.int32, device=dev)
+    block = torch.empty((W, C), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dfs_segment_launch(
+            boards.data_ptr(), boards.shape[0], src.data_ptr(),
+            *(t.data_ptr() for t in st), digest.data_ptr(), block.data_ptr(),
+            scratch.data_ptr(), W, pool.spec.box, D, int(seg_iters), waves,
+            options, int(bool(prefix_gather)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dfs_segment launch failed: cudaError {err}")
+    with _LAUNCHES_LOCK:
+        dfs_segment.launches += 1
+    return digest, block
+
+
+dfs_segment.launches = 0
 
 
 def solve_stage(grid: torch.Tensor, spec: BoardSpec, depth: int,

@@ -24,6 +24,15 @@ this module runs one flat loop.
 ``_step`` updates the stack tensors of the state it is given in place (a
 (B, D, C) int8 stack copied every step would be D× the step's traffic), so
 a state is consumed by stepping it.
+
+The segment API at the end (``SegmentState``, ``inject_lanes_src``,
+``run_segment``, ``segment_digest``) is the open loop of continuous
+batching: a lane pool advanced in bounded segments, with new boards
+injected into freed lanes between them. It is the plain version of the
+segment kernel (csrc/dfs_solver.cu ``dfs_segment_kernel``). A board's
+trajectory and counters do not depend on how its steps are cut into
+segments or on what runs in the other lanes, since a step is
+elementwise over the board axis and a finished row is a fixed point.
 """
 
 from __future__ import annotations
@@ -442,3 +451,171 @@ def solve_batch(
         lambda g, d: solve_flat(g, spec, d, max_iters, **sweeps),
     )
     return (res, stats) if return_stats else res
+
+
+# -- segments: the open loop of continuous batching ---------------------------
+
+
+class SegmentState(NamedTuple):
+    """A lane pool's resumable solver state: the per-board fields of
+    ``_State`` plus ``board_iters``, the steps each lane has taken while
+    RUNNING since it was injected (the segment loop caps a lane's budget from
+    it; the closed loop's batch-wide ``iters`` means nothing once lanes
+    enter mid-flight)."""
+
+    grid: torch.Tensor         # (B, C) int32
+    stack_grid: torch.Tensor   # (B, D, C) int8
+    stack_cell: torch.Tensor   # (B, D) int32
+    stack_mask: torch.Tensor   # (B, D) int32
+    depth: torch.Tensor        # (B,) int32
+    status: torch.Tensor       # (B,) int32
+    guesses: torch.Tensor      # (B,) int32
+    validations: torch.Tensor  # (B,) int32
+    board_iters: torch.Tensor  # (B,) int32
+
+
+def init_segment_state(grid: torch.Tensor, spec: BoardSpec,
+                       max_depth=None) -> SegmentState:
+    """A fresh lane pool for a (B, N, N) batch on its device. A staged
+    depth collapses to its largest stage: segments resume mid-search, so
+    only the full-depth stack is meaningful."""
+    if isinstance(max_depth, (tuple, list)):
+        max_depth = max(max_depth)
+    st = init_state(grid, spec, max_depth)
+    return SegmentState(
+        *st[:-1], board_iters=torch.zeros_like(st.guesses)
+    )
+
+
+def segment_state_from_numpy(fields, device="cpu") -> SegmentState:
+    """A port ``SegmentState`` from the fields of a JAX ``SegmentState``
+    held as numpy arrays (a NamedTuple or a mapping), so a pool stopped
+    mid-search in the JAX package resumes here."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    return SegmentState(**{
+        name: torch.as_tensor(fields[name].copy()).to(
+            device=device,
+            dtype=torch.int8 if name == "stack_grid" else torch.int32,
+        )
+        for name in SegmentState._fields
+    })
+
+
+def inject_lanes(state: SegmentState, boards: torch.Tensor,
+                 inject: torch.Tensor, spec: BoardSpec) -> SegmentState:
+    """Lanes where ``inject`` is nonzero restart from the same row of the
+    (B, N, N) ``boards`` (fresh state, zeroed stack); the others pass
+    through with their search intact."""
+    fresh = init_segment_state(boards, spec, state.stack_mask.shape[1])
+    m = inject.to(torch.bool)
+
+    def merge(f, s):
+        return torch.where(m.reshape(-1, *([1] * (s.dim() - 1))), f, s)
+
+    return SegmentState(*(merge(f, s) for f, s in zip(fresh, state)))
+
+
+def align_src_boards(boards: torch.Tensor, src: torch.Tensor,
+                     spec: BoardSpec) -> tuple:
+    """A per-lane source map as lane-aligned injection: ``(aligned,
+    inject)``, the (B, N, N) board each lane would restart from and the
+    (B,) int32 mask of lanes that do. ``src[i] >= 0`` takes row
+    ``src[i]`` of ``boards`` (clamped to its rows), ``-1`` leaves the lane
+    alone, ``-2`` restarts it from the instantly-UNSAT pad board."""
+    src = src.to(torch.int64)
+    aligned = boards[src.clamp(0, boards.shape[0] - 1)]
+    aligned = torch.where(
+        (src == -2)[:, None, None], pad_board(spec, boards.device), aligned
+    )
+    return aligned, (src != -1).to(torch.int32)
+
+
+def inject_lanes_src(state: SegmentState, boards: torch.Tensor,
+                     src: torch.Tensor, spec: BoardSpec) -> SegmentState:
+    """``inject_lanes`` driven by a per-lane source map into a stack of
+    boards (``align_src_boards``): which queued board lands in which
+    freed lane is known only at the boundary, so the stack can be placed
+    on the device ahead of it and only ``src`` is sent then."""
+    aligned, inject = align_src_boards(boards, src, spec)
+    return inject_lanes(state, aligned, inject, spec)
+
+
+def run_segment(state: SegmentState, seg_iters: int, spec: BoardSpec, *,
+                locked_candidates: bool = False, waves: int = 1,
+                light_waves: bool = False, naked_pairs: bool | None = None,
+                packed: bool | None = None) -> tuple:
+    """Advance the pool by at most ``seg_iters`` lockstep steps of the
+    flat loop, stopping early when no lane is RUNNING. Finished lanes are
+    stepped as fixed points and billed as idle in the returned
+    ``LoopStats``. There is no ``finalize_status`` at the end: a lane
+    completed on the last step reads RUNNING and pays its discovery sweep
+    at the top of the next segment, as the closed loop pays it, which is
+    what keeps per-board validations the same however the steps are cut.
+    Consumes ``state``'s stack. Returns (state, LoopStats)."""
+    sweeps = sweep_knobs(spec, locked_candidates, waves, light_waves,
+                         naked_pairs, packed)
+    lane = idle = 0
+    for _ in range(int(seg_iters)):
+        running = state.status == RUNNING
+        n_running = int(running.sum())
+        if n_running == 0:
+            break
+        lane += state.grid.shape[0]
+        idle += state.grid.shape[0] - n_running
+        core = _step(_State(*state[:-1], iters=0), spec, **sweeps)
+        state = SegmentState(
+            *core[:-1], board_iters=state.board_iters + running.to(torch.int32)
+        )
+    return state, LoopStats(lane, idle)
+
+
+# Columns of the per-lane segment digest, the (B, 8) int32 block the host
+# reads at every boundary in place of the full rows: status, solved,
+# guesses, validations, board_iters, fetch_slot (the lane's row in the
+# solution block if it solved in this segment, else -1), and the
+# segment's lane_steps and idle_lane_steps on every row.
+SEGMENT_DIGEST_COLS = 8
+
+
+def segment_digest(state: SegmentState, entry_running: torch.Tensor,
+                   stats: LoopStats, prefix_gather: bool = True) -> tuple:
+    """The digest and the solution block of a finished segment.
+
+    ``entry_running`` is the RUNNING mask at segment entry, after
+    injection, so a lane's solution is fetched once, at the boundary
+    after the segment it solved in. With ``prefix_gather`` the block is
+    the grid with newly solved rows first, in lane order, then the rest
+    (a stable sort on ``~newly_solved``) and ``fetch_slot`` is a lane's
+    row there: the host reads ``block[:max(fetch_slot) + 1]``. Without it
+    the block is the grid with every other row zeroed and ``fetch_slot``
+    is the lane index. Both outputs are new tensors, never views of the
+    pool's grid, since a later segment updates the pool while the host
+    has yet to read this block. Returns (digest, block)."""
+    B = state.grid.shape[0]
+    dev = state.grid.device
+    newly = (state.status == SOLVED) & entry_running
+    lanes = torch.arange(B, dtype=torch.int32, device=dev)
+    if prefix_gather:
+        order = torch.argsort((~newly).to(torch.int32), stable=True)
+        gathered = state.grid[order]
+        pos = torch.empty_like(lanes)
+        pos[order] = lanes
+        fetch_slot = torch.where(newly, pos, -1)
+    else:
+        gathered = torch.where(newly[:, None], state.grid, 0)
+        fetch_slot = torch.where(newly, lanes, -1)
+    digest = torch.stack(
+        [
+            state.status,
+            (state.status == SOLVED).to(torch.int32),
+            state.guesses,
+            state.validations,
+            state.board_iters,
+            fetch_slot.to(torch.int32),
+            torch.full_like(lanes, int(stats.lane_steps)),
+            torch.full_like(lanes, int(stats.idle_lane_steps)),
+        ],
+        dim=1,
+    )
+    return digest, gathered

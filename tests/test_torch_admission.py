@@ -1,6 +1,7 @@
 """The port's overload control (serving/admission.py, serving/load.py) on the
 CPU: the cases of tests/test_admission.py run on the port's classes, its
-coalescer and its stdlib HTTP node, and the 429 surface (body bytes and
+closed-loop coalescer (``continuous=False``; the open loop's deadline cases
+are in tests/test_torch_continuous.py) and its stdlib HTTP node, and the 429 surface (body bytes and
 ``Retry-After``) held byte for byte against the JAX node's.
 """
 
@@ -42,7 +43,7 @@ def free_port(kind=socket.SOCK_DGRAM):
 
 @pytest.fixture(scope="module")
 def engine():
-    eng = SolverEngine(device="cpu", buckets=(1, 8))
+    eng = SolverEngine(device="cpu", buckets=(1, 8), continuous=False)
     eng.warmup()
     yield eng
     eng.close()
@@ -221,7 +222,7 @@ def test_adaptive_lone_request_dispatch_wait_beats_fixed_budget(boards):
     waits = {}
     for adaptive in (False, True):
         eng = SolverEngine(device="cpu", buckets=(1, 8),
-                           coalesce_adaptive=adaptive)
+                           coalesce_adaptive=adaptive, continuous=False)
         eng.warmup()
         try:
             for i in range(8):
@@ -408,7 +409,7 @@ def test_cli_flags_build_admission_and_coalescer():
          "--buckets", "1,8", "--no-warmup", "--admission-capacity", "3",
          "--default-deadline-ms", "250", "--coalesce-max-wait-ms", "4",
          "--coalesce-max-batch", "8", "--adaptive-coalesce",
-         "--serving-stats"]
+         "--serving-stats", "--no-continuous"]
     )
     node, httpd = cli.build_node(args)
     try:
@@ -418,6 +419,7 @@ def test_cli_flags_build_admission_and_coalescer():
         assert eng.coalesce and eng.coalesce_adaptive
         assert eng.coalesce_max_wait_s == pytest.approx(0.004)
         assert eng.coalesce_max_batch == 8
+        assert not eng.continuous
         threading.Thread(target=httpd.serve_forever, daemon=True).start()
         status, body, _ = _post_raw(httpd.server_address[1], {"sudoku": EMPTY})
         assert status == 200
@@ -436,6 +438,8 @@ def test_cli_flags_build_admission_and_coalescer():
     assert not defaults.no_coalesce and defaults.coalesce_max_wait_ms == 2.0
     assert defaults.admission_capacity == 0 and defaults.default_deadline_ms == 0
     assert not defaults.serving_stats and not defaults.adaptive_coalesce
+    assert not defaults.no_continuous and not defaults.no_segment_pipeline
+    assert defaults.segment_iters is None and defaults.deep_lane_cap == 0
     off = cli.build_parser().parse_args(
         ["-s", str(free_port()), "--platform", "cpu", "--no-coalesce",
          "--no-warmup", "-p", "0"]

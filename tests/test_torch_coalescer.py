@@ -1,5 +1,6 @@
 """The port's closed-loop request coalescer (parallel/coalescer.py) on the
-CPU, held against the JAX package's closed-loop coalescer where the batch
+CPU — engines built with ``continuous=False``, since the coalesced path
+serves open loop by default (tests/test_torch_continuous.py) — held against the JAX package's closed-loop coalescer where the batch
 composition is fixed (a long ``max_wait_s`` and ``max_batch=K``: the batch
 dispatches when its K-th request arrives), plus its own contract: a lone
 request dispatches, an expired deadline raises ``DeadlineExceeded`` without
@@ -63,7 +64,7 @@ def batch_of(k):
 
 @pytest.fixture
 def engine():
-    eng = SolverEngine(device="cpu", buckets=(1, 8))
+    eng = SolverEngine(device="cpu", buckets=(1, 8), continuous=False)
     yield eng
     eng.close()
 
@@ -75,7 +76,7 @@ def test_fixed_batch_matches_jax_coalescer(k):
     boards = batch_of(k)
     knobs = dict(buckets=(1, 8), coalesce_max_wait_s=5.0, coalesce_max_batch=k)
     jax_eng = JaxEngine(continuous=False, **knobs)
-    eng = SolverEngine(device="cpu", **knobs)
+    eng = SolverEngine(device="cpu", continuous=False, **knobs)
     try:
         want = [f.result(timeout=120) for f in
                 [jax_eng.coalescer.submit(b) for b in boards]]
@@ -183,7 +184,8 @@ def test_failed_launch_fails_its_batch_only(engine, side):
 def test_concurrent_clients_share_launches():
     """16 client threads at once: batches of more than one board, every
     answer right, and the engine's validations are the answers' sum."""
-    eng = SolverEngine(device="cpu", buckets=(1, 8, 64), coalesce_max_wait_s=0.05)
+    eng = SolverEngine(device="cpu", buckets=(1, 8, 64), coalesce_max_wait_s=0.05,
+                       continuous=False)
     boards = batch_of(16)
     results = [None] * 16
     start = threading.Barrier(16)
@@ -220,7 +222,8 @@ def test_stress_more_threads_than_cores():
     n = min(64, 2 * (len(os.sched_getaffinity(0)) or 1) + 8)
     boards = corpus(n)
     results = [None] * n
-    eng = SolverEngine(device="cpu", buckets=(1, 8, 64), coalesce_max_wait_s=0.005)
+    eng = SolverEngine(device="cpu", buckets=(1, 8, 64), coalesce_max_wait_s=0.005,
+                       continuous=False)
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
     try:

@@ -1,6 +1,7 @@
 """The port's SolverEngine on the CPU held against the JAX package's engine
 with the serving configuration of both (locked candidates, ``waves=3`` on
-9×9 buckets wider than 1) and the JAX engine's coalescer off: solutions,
+9×9 buckets wider than 1), the JAX engine's coalescer off and the port's
+closed loop (the open loop is tests/test_torch_continuous.py's): solutions,
 solved masks, info counters, the deep retry, and the engine counters must be
 equal. One case runs both in the kernel's singles configuration.
 """
@@ -46,12 +47,12 @@ def _close_engines():
 
 
 def engines(**kw):
-    """The JAX engine (its coalescer off) and the port's default engine,
-    both with ``kw``. The port's coalescer, on by default, serves
-    ``solve_one``; its threads stop when the test ends."""
+    """The JAX engine (its coalescer off) and the port's default engine in
+    the closed loop, both with ``kw``. The port's coalescer, on by default,
+    serves ``solve_one``; its threads stop when the test ends."""
     jax_kw = {k: v for k, v in kw.items() if k != "coalesce"}
     jax_eng = JaxEngine(coalesce=False, buckets=BUCKETS, **jax_kw)
-    eng = SolverEngine(device="cpu", buckets=BUCKETS, **kw)
+    eng = SolverEngine(device="cpu", buckets=BUCKETS, continuous=False, **kw)
     _OPEN.append(eng)
     return jax_eng, eng
 
@@ -167,7 +168,7 @@ def test_serving_knobs_match_jax(kw):
     "kw",
     [
         {"mesh": "auto"},
-        {"continuous": True},
+        {"solver_config": "legacy"},
         {"frontier_mesh": object()},
     ],
 )

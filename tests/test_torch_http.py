@@ -2,8 +2,9 @@
 get the same request sequence on localhost, and the /solve bodies (200, 400,
 404 and 429 included) must be byte-identical, /stats equal once the node
 address is normalized, and /network ``{id: []}``. Both nodes run their
-default serving configuration (the JAX engine's coalescer off); one case
-runs both in the kernel's singles configuration.
+default serving configuration (the JAX engine's coalescer off, the port's
+closed loop, since the open loop's flat depth counts other validations);
+one case runs both in the kernel's singles configuration.
 """
 
 import json
@@ -90,7 +91,8 @@ def _make_nodes(sweeps):
     )
     port_node = P2PNode(
         "127.0.0.1", free_port(socket.SOCK_DGRAM),
-        engine=SolverEngine(device="cpu", buckets=(1,), **sweeps),
+        engine=SolverEngine(device="cpu", buckets=(1,), continuous=False,
+                            **sweeps),
     )
     servers = [
         jax_make_http_server(jax_node, "127.0.0.1", 0, legacy_transport=True),

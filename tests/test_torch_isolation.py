@@ -58,7 +58,8 @@ def test_no_import_line_names_jax_or_the_jax_package():
         r"^\s*(import|from)\s+(jax|sudoku_solver_distributed_tpu)(\.|\s|$)"
     )
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tools", "dfs_solver_ab.py")]
+             os.path.join(ROOT, "tools", "dfs_solver_ab.py"),
+             os.path.join(ROOT, "tools", "serving_ab.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     hits = [
@@ -72,7 +73,8 @@ def test_no_import_line_names_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "argv",
-    [["chip_smoke.py"], ["tools/dfs_solver_ab.py", "_archive/parent_dfs_solver.cu"]],
+    [["chip_smoke.py"], ["tools/dfs_solver_ab.py", "_archive/parent_dfs_solver.cu"],
+     ["tools/serving_ab.py", "_archive/parent"]],
 )
 def test_chip_scripts_fail_without_a_card_and_print_no_result(argv):
     if torch.cuda.is_available():
@@ -240,7 +242,7 @@ def test_engine_on_the_card_matches_the_cpu_engine(max_iters):
     boards[1] = 0
     boards[1, 0, 0] = boards[1, 0, 1] = 4  # conflict
     kw = dict(buckets=(1, 8, 64), max_iters=max_iters, coalesce_max_wait_s=5.0,
-              coalesce_max_batch=8)
+              coalesce_max_batch=8, continuous=False)
     gpu = SolverEngine(device="cuda", **kw)
     cpu = SolverEngine(device="cpu", **kw)
     try:
@@ -256,3 +258,74 @@ def test_engine_on_the_card_matches_the_cpu_engine(max_iters):
     finally:
         gpu.close()
         cpu.close()
+
+
+def _hard(n):
+    with np.load(os.path.join(ROOT, "benchmarks", "corpus_9x9_hard_4096.npz")) as d:
+        return d["boards"][:n].astype(np.int32)
+
+
+@pytest.mark.cuda
+def test_segment_kernels_match_plain_on_the_card():
+    """The segment kernels (K3, K3b) against their plain version segment by
+    segment on 64 lanes of hard boards, ragged budgets and seeded
+    rotations, both block forms: state (stack frames below each lane's
+    depth), digest and block. The full sets run in chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops import solver as ts
+    from sudoku_solver_distributed_tpu_torch.ops.config import serving_config
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        SegmentPool, _dfs_segment_plain, dfs_segment,
+    )
+
+    spec = spec_for_size(9)
+    sweeps = {k: serving_config(9)[k]
+              for k in ("locked_candidates", "waves", "naked_pairs")}
+    rng = np.random.default_rng(11)
+    stock = torch.as_tensor(_hard(96).reshape(96, -1), device="cuda")
+    for prefix in (True, False):
+        pool = SegmentPool.fresh(ts.pad_board(spec, "cuda").expand(64, 9, 9), spec, 81)
+        plain = ts.SegmentState(*(t.clone() for t in pool.state))
+        src = torch.arange(64, dtype=torch.int32, device="cuda")
+        before = dfs_segment.launches
+        for seg in range(40):
+            k = (3, 7, 1, 13)[seg % 4]
+            pool, kd, kb = dfs_segment(pool, stock, src, k, prefix_gather=prefix, **sweeps)
+            plain, pd, pb = _dfs_segment_plain(plain, stock, src, k, spec, prefix, **sweeps)
+            torch.cuda.synchronize()
+            for f in ("grid", "depth", "status", "guesses", "validations", "board_iters"):
+                assert torch.equal(getattr(pool.state, f), getattr(plain, f)), f
+            live = torch.arange(81, device="cuda")[None, :] < plain.depth.long()[:, None]
+            for f in ("stack_grid", "stack_cell", "stack_mask"):
+                assert torch.equal(getattr(pool.state, f)[live], getattr(plain, f)[live]), f
+            assert torch.equal(kd, pd) and torch.equal(kb, pb)
+            src = torch.as_tensor(
+                rng.choice([-1, -1, -1, -2, 5, 50, 90], size=64).astype(np.int32),
+                device="cuda",
+            )
+        assert dfs_segment.launches == before + 40
+
+
+@pytest.mark.cuda
+def test_continuous_engine_on_the_card_matches_the_cpu_engine():
+    """The default engine on the card (continuous, pool 64, pipelined and
+    full-row arms) answers as the CPU engine does, counters included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from chip_smoke import README_PUZZLE
+    from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+
+    boards = np.concatenate([_hard(14), np.asarray(README_PUZZLE, np.int32)[None]])
+    for pipeline in (True, False):
+        kw = dict(buckets=(1, 8, 64), segment_pipeline=pipeline)
+        gpu = SolverEngine(device="cuda", **kw)
+        cpu = SolverEngine(device="cpu", **kw)
+        try:
+            got = [f.result(timeout=300) for f in [gpu.solve_one_async(b) for b in boards]]
+            want = [f.result(timeout=300) for f in [cpu.solve_one_async(b) for b in boards]]
+            assert got == want
+            assert gpu.validations == cpu.validations
+        finally:
+            gpu.close()
+            cpu.close()
