@@ -38,10 +38,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launch and stay inside the golden counters' +5% envelope.
 5. Engine: SolverEngine over the (1, 8, 64, 512, 4096) buckets, warmed,
    solves the 4096-board hard corpus; prints boards/s.
-6. The main path, with the segment kernels' launch counter set to 0 just
-   before and read just after: a node and its HTTP server built by the
-   CLI's construction function (continuous batching over a 4096-lane pool,
-   pipelined, as by default) answer POST /solve (README puzzle + corpus
+6. The serving path without the answer cache (every node arm here runs
+   with ``--no-answer-cache``, so each README /solve reaches the kernels),
+   with the segment kernels' launch counter set to 0 just before and read
+   just after: a node and its HTTP server built by the CLI's construction
+   function (continuous batching over a 4096-lane pool, pipelined, as by
+   default) answer POST /solve (README puzzle + corpus
    boards, an unsolvable board, a malformed body), GET /stats, GET
    /network and an unknown path; 16 client threads send concurrent /solve
    requests, which must all board the pool (``refills``) and share
@@ -56,6 +58,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    to 0, the closed loop: a ``--no-continuous`` node (105 validations, 67
    guesses per README answer) and a ``--no-coalesce`` node give their
    README p50s.
+6b. The front door and supervision, each arm with both kernels' counters
+   set to 0 before it and read after. (a) The default node, answer cache
+   on: a README miss (109 validations) then a byte-identical
+   ``X-Cache: hit`` that counts nothing; a hard-corpus board, then its
+   seeded ``random_symmetry`` twin as a hit that launches no segment; the
+   p50 of 20 README hits beside 20 corpus misses, and of 50 in-process
+   lookups of each hit board. (b) A node with
+   ``--no-answer-cache --supervise-engine --chaos-injector
+   --watchdog-budget-s 0.5 --probe-interval-s 0.2``: README at 109/35 and
+   its p50 beside phase 6's unsupervised one; ``poison_bucket`` at the
+   pool width answers correctly with ``X-Degraded: true`` and leaves the
+   node degraded; ``clear`` lets a probe (a DFS kernel launch) re-admit
+   it, timed; ``fail_next 3`` drives it LOST (``/readyz`` 503), then a
+   rebuild and a probe bring it back healthy, timed; a 1 s fetch delay is
+   declared a hang. The oracle checks every answer.
 7. Timing with CUDA events: the DFS kernel at bucket widths 1 (the README
    board, both depth stages, one sweep a step), 64, 512 and 4096 (the hard
    corpus, first depth stage, three sweeps a step) in the serving
@@ -66,8 +83,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    live lane, and each at k = 0. The first launch of each is held against
    the plain version.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``. Exits non-zero without a
+Prints a ``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
+card's name and power limit, one ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``. Exits non-zero without a
 result when no CUDA device is available. Imports nothing of JAX.
 """
 
@@ -117,6 +135,11 @@ INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 OPS_PER_CELL_SWEEP = 25
 OPS_PER_CELL_LOCKED = 12
 SYMMETRY_SEED = 20261016
+# phase 6b's supervised node: the watchdog budget, the half-open probe
+# interval and the injected fetch delay that must read as a hang
+WATCHDOG_BUDGET_S = 0.5
+PROBE_INTERVAL_S = 0.2
+HANG_DELAY_S = 1.0
 
 
 def check(cond, msg: str) -> None:
@@ -509,7 +532,7 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
     # -- this slice's main path: the default node, continuous, pipelined --
     cs.dfs_segment.launches = 0
     cs.dfs_solver.launches = 0
-    main = _Node(build_parser, build_node, ["--serving-stats"])
+    main = _Node(build_parser, build_node, ["--serving-stats", "--no-answer-cache"])
     eng = main.node.engine
     try:
         check(eng.continuous and eng.segment_pipeline
@@ -610,7 +633,7 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
         f"dfs_solver launches (warm-up and deep retries)")
 
     # the full-row boundary arm answers the same, counters included
-    nopipe = _Node(build_parser, build_node, ["--no-segment-pipeline"])
+    nopipe = _Node(build_parser, build_node, ["--no-segment-pipeline", "--no-answer-cache"])
     try:
         got = [nopipe.node.peer_sudoku_solve_info(b) for b in [README_PUZZLE] + more[:8]]
         check(got == reference, "--no-segment-pipeline answers differ from the default node's")
@@ -620,7 +643,8 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
         nopipe.stop()
 
     # admission: X-Deadline-Ms 0 is already expired at arrival
-    adm = _Node(build_parser, build_node, ["--admission-capacity", "64", "--no-warmup"])
+    adm = _Node(build_parser, build_node, ["--admission-capacity", "64", "--no-warmup",
+                                           "--no-answer-cache"])
     try:
         body = json.dumps({"sudoku": README_PUZZLE}).encode()
         status, answer, _ = _http(adm.base, "/solve", body)
@@ -640,7 +664,7 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
     # the closed-loop paths: --no-continuous (the coalescer's closed loop)
     # and --no-coalesce, both through dfs_solver
     cs.dfs_solver.launches = 0
-    closed = _Node(build_parser, build_node, ["--no-continuous"])
+    closed = _Node(build_parser, build_node, ["--no-continuous", "--no-answer-cache"])
     try:
         n0 = cs.dfs_solver.launches
         out["p50_closed"] = closed.readme_p50("--no-continuous", oracle_ok, per_answer=105)
@@ -649,7 +673,7 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
                                                oracle_ok, want=(105, 67))
     finally:
         closed.stop()
-    direct = _Node(build_parser, build_node, ["--no-coalesce"])
+    direct = _Node(build_parser, build_node, ["--no-coalesce", "--no-answer-cache"])
     try:
         out["p50_no_coalesce"] = direct.readme_p50("--no-coalesce", oracle_ok)
         out["engine_p50_no_coalesce"] = _engine_p50(
@@ -661,6 +685,205 @@ def phase_solve_http(cs, build_parser, build_node, oracle_ok):
     check(out["solver_launches_closed"] > 0, "the closed-loop paths launched no kernel")
     log(f"closed-loop paths: {out['solver_launches_closed']} dfs_solver launches, "
         f"{out['per_readme_closed']:.2f} per README /solve")
+    return out
+
+
+def _faults(base: str, cmd: dict) -> dict:
+    status, body, _ = _http(base, "/debug/faults", json.dumps(cmd).encode())
+    check(status == 200, f"POST /debug/faults {cmd} answered {status} {body!r}")
+    return json.loads(body)["counts"]
+
+
+def _wait(pred, timeout_s: float, what: str) -> float:
+    """Poll ``pred`` until it holds; returns the seconds it took, fails the
+    run past ``timeout_s``."""
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout_s, f"timed out waiting for {what}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _p50_ms(samples) -> float:
+    return sorted(samples)[len(samples) // 2]
+
+
+def phase_cache_and_supervision(cs, build_parser, build_node, oracle_ok, random_symmetry):
+    """The slice's front door and supervision on the card. (a) a default
+    node, answer cache on; (b) a supervised node with the fault injector,
+    driven through every state over HTTP. Every answer is held against the
+    host oracle. Returns the launches, p50s and supervisor numbers."""
+    import numpy as np
+
+    corpus = load_corpus("corpus_9x9_hard_4096.npz")
+    readme = json.dumps({"sudoku": README_PUZZLE}).encode()
+    out = {}
+
+    # -- (a) the default node: cache on -------------------------------------
+    cs.dfs_segment.launches = 0
+    cs.dfs_solver.launches = 0
+    node = _Node(build_parser, build_node, [])
+    try:
+        check(node.node.answer_cache is not None, "the default node has no answer cache")
+        before = node.validations()
+        status, miss, headers = _http(node.base, "/solve", readme)
+        check(status == 200 and headers.get("X-Cache") is None,
+              f"README miss answered {status}, X-Cache {headers.get('X-Cache')}")
+        _check_answer(README_PUZZLE, json.loads(miss), oracle_ok, "README miss")
+        grew = node.validations() - before
+        check(grew == 109, f"the README miss counted {grew} validations, not 109")
+        status, hit, headers = _http(node.base, "/solve", readme)
+        check(status == 200 and headers.get("X-Cache") == "hit" and hit == miss,
+              "the repeated README board was not a byte-identical X-Cache hit")
+        check(node.validations() - before == 109, "a cache hit counted validations")
+        board = corpus[100]
+        twin = random_symmetry(board, np.random.default_rng(SYMMETRY_SEED))
+        status, body, headers = _http(
+            node.base, "/solve", json.dumps({"sudoku": board.tolist()}).encode())
+        check(status == 200 and headers.get("X-Cache") is None, "corpus miss failed")
+        _check_answer(board, json.loads(body), oracle_ok, "corpus miss")
+        n0 = cs.dfs_segment.launches
+        status, body, headers = _http(node.base, "/solve", json.dumps({"sudoku": twin}).encode())
+        check(status == 200 and headers.get("X-Cache") == "hit",
+              f"the symmetric twin was not a hit: {status} {headers.get('X-Cache')}")
+        _check_answer(twin, json.loads(body), oracle_ok, "symmetric twin hit")
+        check(cs.dfs_segment.launches == n0, "a cache hit launched a segment")
+        hits, misses = [], []
+        for i in range(20):
+            t0 = time.perf_counter()
+            status, body, headers = _http(node.base, "/solve", readme)
+            hits.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200 and headers.get("X-Cache") == "hit" and body == miss,
+                  "a README repeat was not a hit")
+            b = corpus[200 + i]
+            t0 = time.perf_counter()
+            status, body, headers = _http(
+                node.base, "/solve", json.dumps({"sudoku": b.tolist()}).encode())
+            misses.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200 and headers.get("X-Cache") is None, "a fresh board hit")
+            _check_answer(b, json.loads(body), oracle_ok, "corpus miss")
+        out["hit_p50_ms"] = _p50_ms(hits)
+        out["corpus_miss_p50_ms"] = _p50_ms(misses)
+        out["cache"] = node.node.answer_cache.snapshot()
+        log(f"answer cache: {out['cache']}")
+        # the hit's own cost, in process (canonicalize, lookup, the
+        # symmetry proof, invert, the rule check): the rest of a hit's
+        # /solve is HTTP and JSON
+        cache = node.node.answer_cache
+        for key, b in (("readme", README_PUZZLE), ("corpus_twin", twin)):
+            lookups = []
+            for _ in range(50):
+                t0 = time.perf_counter()
+                answer, _ = cache.lookup(b)
+                lookups.append((time.perf_counter() - t0) * 1e3)
+                check(answer is not None, f"in-process lookup of {key} missed")
+            out[f"lookup_p50_ms_{key}"] = _p50_ms(lookups)
+    finally:
+        node.stop()
+    out["segment_launches_cache"] = cs.dfs_segment.launches
+    out["solver_launches_cache"] = cs.dfs_solver.launches
+    check(out["segment_launches_cache"] > 0, "the cached node's misses launched no segment")
+
+    # -- (b) supervised, fault injector armed -------------------------------
+    cs.dfs_segment.launches = 0
+    cs.dfs_solver.launches = 0
+    node = _Node(build_parser, build_node, [
+        "--no-answer-cache", "--supervise-engine", "--chaos-injector",
+        "--watchdog-budget-s", str(WATCHDOG_BUDGET_S),
+        "--probe-interval-s", str(PROBE_INTERVAL_S),
+    ])
+    eng = node.node.engine
+    sup = eng.supervisor
+    width = eng.segment_pool_width()
+
+    def solve(label, want_degraded=None):
+        status, body, headers = _http(node.base, "/solve", readme)
+        check(status == 200, f"{label}: /solve answered {status} {body[:200]!r}")
+        _check_answer(README_PUZZLE, json.loads(body), oracle_ok, label)
+        degraded = headers.get("X-Degraded") == "true"
+        if want_degraded is not None:
+            check(degraded == want_degraded, f"{label}: X-Degraded {degraded}")
+        return degraded
+
+    try:
+        check(sup.state == "healthy", f"a warmed supervised node reads {sup.state}")
+        sol, info = node.node.peer_sudoku_solve_info(README_PUZZLE)
+        _check_answer(README_PUZZLE, sol, oracle_ok, "supervised README")
+        check((info["validations"], info["guesses"]) == (109, 35) and not info.get("degraded"),
+              f"the supervised README counted {info}")
+        out["p50_supervised"] = node.readme_p50(
+            "--supervise-engine --no-answer-cache", oracle_ok, per_answer=109)
+
+        # a poisoned segment at the pool width: served from the oracle
+        _faults(node.base, {"poison_bucket": width})
+        solve("poisoned", want_degraded=True)
+        check(sup.state == "degraded", f"poison left the node {sup.state}")
+        k1 = cs.dfs_solver.launches
+        _faults(node.base, {"clear": True})
+        out["readmit_after_clear_s"] = _wait(
+            lambda: sup.state == "healthy", 10.0, "a probe to re-admit the device")
+        check(cs.dfs_solver.launches > k1, "re-admission launched no probe")
+        solve("after clear", want_degraded=False)
+
+        # three failed device calls: LOST, then a rebuild and a probe
+        rebuilds = sup.rebuilds
+        _faults(node.base, {"fail_next": 3})
+        solve("fail_next", want_degraded=True)
+        _wait(lambda: sup.state == "lost", 10.0, "LOST")
+        ready_lost = _http(node.base, "/readyz")[0]
+        check(ready_lost == 503, f"/readyz answered {ready_lost} while LOST")
+        out["relost_to_healthy_s"] = _wait(
+            lambda: sup.state == "healthy", 60.0, "the rebuild and probe after LOST")
+        check(sup.rebuilds == rebuilds + 1, "LOST did not rebuild the engine")
+        status, _, _ = _http(node.base, "/readyz")
+        check(status == 200, f"/readyz answered {status} after recovery")
+        solve("after rebuild", want_degraded=False)
+
+        # a fetch delayed past the watchdog budget: declared hung
+        hangs = sup.hangs
+        _faults(node.base, {"delay_s": HANG_DELAY_S})
+        result = {}
+        t = threading.Thread(target=lambda: result.update(d=solve("hung")), daemon=True)
+        t.start()
+        _wait(lambda: sup.hangs > hangs, 10.0, "the watchdog to declare a hang")
+        check(sup.state == "degraded", f"a hang left the node {sup.state}")
+        _faults(node.base, {"clear": True})
+        t.join(timeout=60)
+        check("d" in result, "the hung request never answered")
+        _wait(lambda: sup.state == "healthy", 10.0, "re-admission after the hang")
+        solve("after hang", want_degraded=False)
+        snap = sup.snapshot()
+        snap.pop("transitions")
+        out["supervisor"] = snap
+        out["transitions"] = [(t["from"], t["to"], t["reason"])
+                              for t in sup.snapshot()["transitions"]]
+        out["faults"] = eng.fault_injector.counts()
+        log(f"supervisor: {snap}")
+        log(f"transitions: {out['transitions']}")
+        log(f"injector: {out['faults']}")
+        states = [t[1] for t in out["transitions"]]
+        check("lost" in states and states[-1] == "healthy",
+              f"the supervisor never went LOST and back: {states}")
+        check(snap["hangs"] >= 1 and snap["bad_results"] >= 1 and snap["rebuilds"] >= 1,
+              f"the fault script missed a detection: {snap}")
+    finally:
+        node.stop()
+    out["segment_launches_supervised"] = cs.dfs_segment.launches
+    out["solver_launches_supervised"] = cs.dfs_solver.launches
+    check(out["solver_launches_supervised"] > 0, "the supervised node launched no probe")
+    log(
+        f"cache and supervision: README hit p50 {out['hit_p50_ms']:.3f} ms, "
+        f"corpus miss p50 {out['corpus_miss_p50_ms']:.3f} ms (cache on); "
+        f"in-process lookup p50 README {out['lookup_p50_ms_readme']:.3f} ms, "
+        f"corpus twin {out['lookup_p50_ms_corpus_twin']:.3f} ms; "
+        f"supervised README p50 {out['p50_supervised']:.3f} ms; re-admit after "
+        f"clear {out['readmit_after_clear_s']:.3f} s; LOST to healthy "
+        f"{out['relost_to_healthy_s']:.3f} s; launches: cache phase "
+        f"dfs_segment {out['segment_launches_cache']} dfs_solver "
+        f"{out['solver_launches_cache']}, supervised phase dfs_segment "
+        f"{out['segment_launches_supervised']} dfs_solver "
+        f"{out['solver_launches_supervised']}"
+    )
     return out
 
 
@@ -1135,6 +1358,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from sudoku_solver_distributed_tpu_torch.cache.canonical import random_symmetry
     from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
     from sudoku_solver_distributed_tpu_torch.models import oracle_is_valid_solution
     from sudoku_solver_distributed_tpu_torch.net.cli import build_node, build_parser
@@ -1173,10 +1397,35 @@ def main() -> int:
     main_path = phase_solve_http(
         cs, build_parser, build_node, oracle_is_valid_solution
     )
+    front = phase_cache_and_supervision(
+        cs, build_parser, build_node, oracle_is_valid_solution, random_symmetry
+    )
+    log(
+        f"README /solve p50 side by side (host clock): cache hit "
+        f"{front['hit_p50_ms']:.3f} ms vs miss (--no-answer-cache) "
+        f"{main_path['p50_continuous']:.3f} ms; supervised "
+        f"{front['p50_supervised']:.3f} ms vs unsupervised "
+        f"{main_path['p50_continuous']:.3f} ms"
+    )
     timing = phase_timing(cs, spec_for_size, serving_config)
     seg_timing = phase_segment_timing(cs, ts, spec_for_size, serving_config)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"cache_supervision": {
+        "readme_hit_p50_ms": front["hit_p50_ms"],
+        "readme_miss_p50_ms_no_answer_cache": main_path["p50_continuous"],
+        "corpus_miss_p50_ms": front["corpus_miss_p50_ms"],
+        "lookup_p50_ms_readme": front["lookup_p50_ms_readme"],
+        "lookup_p50_ms_corpus_twin": front["lookup_p50_ms_corpus_twin"],
+        "readme_supervised_p50_ms": front["p50_supervised"],
+        "readme_unsupervised_p50_ms": main_path["p50_continuous"],
+        "readmit_after_clear_s": front["readmit_after_clear_s"],
+        "lost_to_healthy_s": front["relost_to_healthy_s"],
+        "cache": front["cache"],
+        "supervisor": front["supervisor"],
+        "transitions": front["transitions"],
+        "faults": front["faults"],
+    }}), flush=True)
     log(card_name_and_power_limit())
     serving, singles = timing["serving"], timing["singles"]
     readme_p50 = {
@@ -1187,6 +1436,8 @@ def main() -> int:
         "engine_continuous": main_path["engine_p50_continuous"],
         "engine_no_continuous": main_path["engine_p50_closed"],
         "engine_no_coalesce": main_path["engine_p50_no_coalesce"],
+        "cache_hit": front["hit_p50_ms"],
+        "supervised": front["p50_supervised"],
     }
     kernel = {
         "name": "dfs_solver",
@@ -1197,6 +1448,10 @@ def main() -> int:
         # continuous path it runs the warm-up and the deep retries
         "launches": main_path["solver_launches_closed"],
         "launches_continuous_path": main_path["solver_launches_continuous"],
+        # the cached default node (warm-up) and the supervised node
+        # (warm-up, half-open probes and the LOST rebuild)
+        "launches_cache_path": front["solver_launches_cache"],
+        "launches_supervised_path": front["solver_launches_supervised"],
         "launches_per_readme_solve": main_path["per_readme_closed"],
         "mismatches": mismatches + timing["mismatches"],
         "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
@@ -1227,6 +1482,8 @@ def main() -> int:
         "kernels": ["dfs_segment_kernel", "segment_digest_kernel"],
         "launches": main_path["segment_launches"],
         "segments_per_readme_solve": main_path["segments_per_readme"],
+        "launches_cache_path": front["segment_launches_cache"],
+        "launches_supervised_path": front["segment_launches_supervised"],
         "mismatches": seg_bad + seg_timing["mismatches"],
         "max_abs_err": max(seg_err, seg_timing["max_abs_err"]),
         # one segment (k = 8) over a 4096-lane pool, every lane injected

@@ -12,11 +12,13 @@ Layout (mirrors the JAX package):
              the CUDA kernel's wrapper (ops/cuda_solver.py)
   csrc/      the CUDA C++ kernel sources, built at first use
   engine.py  SolverEngine: bucketed batch solving behind the kernel
-  parallel/  the request coalescer (closed loop)
-  serving/   admission control, deadlines and load estimation
+  parallel/  the request coalescer (closed loop and continuous segments)
+  cache/     the canonical-form answer cache of the /solve front door
+  serving/   admission control, deadlines, load estimation and engine
+             supervision (watchdog, breaker, oracle fallback)
   models/    the trusted host-side oracle solver
   net/       wire protocol, membership, stats gossip, node, HTTP API, CLI
-  utils/     handicap rate limiter, profiler spans
+  utils/     handicap rate limiter, fault injectors, profiler spans
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``SolverEngine(device="cpu")``, the CLI's ``--platform cpu``, or a CPU

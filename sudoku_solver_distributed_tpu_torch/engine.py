@@ -35,9 +35,18 @@ The engine runs on the GPU unless the caller passes ``device="cpu"``; with
 no GPU and no such request the constructor raises. On the CPU the kernel
 wrappers run their plain PyTorch versions (the tests' configuration).
 
+Supervision (serving/health.py) and the engine-seam fault injector
+(utils/faults.py) attach as ``supervisor`` and ``fault_injector``, both
+None by default. Every device call — a bucket call of the DFS kernel
+(``_dispatch_padded``/``_finalize_padded``) and a segment
+(``dispatch_segment``/``finalize_segment``) — then runs inside a watchdog
+token, with the injector's hooks at the launch and at the fetch, and
+``solve_one``/``solve_one_supervised`` answer from the host oracle while
+the breaker is open and verify every device answer host-side.
+
 Not in this slice (each raises ``NotImplementedError`` when asked for):
 a choice of backend (the engine always runs the kernel), the mesh and the
-frontier race, AOT/compile caches and supervision.
+frontier race, AOT/compile caches.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import logging
 import threading
 import time
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -106,6 +116,7 @@ class _Inflight(NamedTuple):
     n: int                             # real (unpadded) rows
     iters: int                         # the call's step budget
     sweeps: dict                       # the call's sweep knobs
+    token: Optional[int] = None        # the supervisor's token, if any
 
 
 class _SegmentHandle(NamedTuple):
@@ -125,6 +136,7 @@ class _SegmentHandle(NamedTuple):
     injected: int
     pipelined: bool
     boundary_host_s: float
+    token: Optional[int] = None        # the supervisor's token, if any
 
 
 class SolverEngine:
@@ -282,6 +294,14 @@ class SolverEngine:
         self.validations = 0
         self.solved_puzzles = 0
         self.warmed = False
+        # the widths warmup has run (buckets, then the segment pool): the
+        # supervisor's watchdog declares hangs only at widths that ran
+        self._warm: set = set()
+        # failure-domain supervision (serving/health.EngineSupervisor sets
+        # itself here) and the engine-seam fault injector
+        # (utils/faults.EngineFaultInjector); None costs nothing
+        self.supervisor = None
+        self.fault_injector = None
 
     @property
     def coalescer(self):
@@ -315,13 +335,35 @@ class SolverEngine:
         return self._coalescer
 
     def close(self) -> None:
-        """Drain and stop the coalescer (futures resolve before return).
-        Safe on an engine that never coalesced; idempotent."""
+        """Drain and stop the coalescer (futures resolve before return)
+        and the supervisor's watchdog when one is attached. Safe on an
+        engine that never coalesced; idempotent."""
         if self._coalescer is not None:
             self._coalescer.close()
+        if self.supervisor is not None:
+            self.supervisor.close()
 
     # -- internals ---------------------------------------------------------
+    def _warm_widths(self) -> list:
+        """The widths warmup has run: every bucket, and the segment pool's
+        width once its warm segment ran. A width not listed has not had
+        its first launch, which the watchdog excuses."""
+        with self._lock:
+            return sorted(self._warm)
+
     def _bucket_for(self, n: int) -> int:
+        # widths the supervisor quarantined (hung/failed calls) are routed
+        # around — the next covering width serves instead; if EVERY
+        # covering width is quarantined the original choice stands (the
+        # caller's failure handling / fallback is the backstop)
+        quarantined = (
+            self.supervisor.quarantined_widths()
+            if self.supervisor is not None
+            else ()
+        )
+        for b in self.buckets:
+            if n <= b and b not in quarantined:
+                return b
         for b in self.buckets:
             if n <= b:
                 return b
@@ -363,14 +405,15 @@ class SolverEngine:
             dim=1,
         )
 
-    def _launch(self, boards: np.ndarray, n: int, iters: int) -> _Inflight:
+    def _launch(self, boards: np.ndarray, n: int, iters: int,
+                token: Optional[int] = None) -> _Inflight:
         """Enqueue the first depth stage of the padded ``boards`` and the
         copy of its rows to the host; no host sync."""
         dev = self._device_batch(boards)
         sweeps = self._sweeps(boards.shape[0])
         rows = self._stage_rows(dev, self._depths[0], iters, sweeps)
         host, ready = self._to_host(rows)
-        return _Inflight(host, ready, dev, boards, n, iters, sweeps)
+        return _Inflight(host, ready, dev, boards, n, iters, sweeps, token)
 
     @staticmethod
     def _to_host(t: torch.Tensor):
@@ -421,27 +464,63 @@ class SolverEngine:
         """Pad ≤bucket boards into their bucket and enqueue one device call.
         Returns as soon as the work is enqueued (no host sync), so a caller
         (the coalescer's dispatcher thread) can stack batch N+1 while batch
-        N runs; ``_finalize_padded`` takes the handle."""
+        N runs; ``_finalize_padded`` takes the handle.
+
+        The supervised seam (serving/health.py): a watchdog token opens
+        here and closes in ``_finalize_padded``, so the supervisor bounds
+        the wall time of the whole dispatch→fetch span; the engine-seam
+        fault injector (utils/faults.py) plugs in at the same two points."""
         n = boards.shape[0]
         bucket = self._bucket_for(n)
-        if n < bucket:
-            # Pad with COPIES of a real row, not empty boards: a block of
-            # boards runs until its slowest board finishes, and a copy of
-            # boards[0] adds no step to the call by construction.
-            pad = np.broadcast_to(boards[0], (bucket - n, *boards.shape[1:]))
-            boards = np.concatenate([boards, pad], axis=0)
-        return self._launch(boards, n, self.max_iters)
+        sup = self.supervisor
+        token = sup.call_started(bucket) if sup is not None else None
+        try:
+            inj = self.fault_injector
+            if inj is not None:
+                inj.on_device_call(bucket)  # may raise (fail-next-N)
+            if n < bucket:
+                # Pad with COPIES of a real row, not empty boards: a block
+                # of boards runs until its slowest board finishes, and a
+                # copy of boards[0] adds no step to the call by
+                # construction.
+                pad = np.broadcast_to(boards[0], (bucket - n, *boards.shape[1:]))
+                boards = np.concatenate([boards, pad], axis=0)
+            return self._launch(boards, n, self.max_iters, token)
+        except BaseException:
+            if sup is not None:
+                sup.call_finished(token, ok=False)
+            raise
 
     def _finalize_padded(self, call: _Inflight) -> np.ndarray:
         """Wait for a ``_dispatch_padded`` call (its later depth stages
         included) and rerun the boards still RUNNING at the budget once at
         ``deep_retry_factor ×`` it, in the smallest covering bucket,
         accumulating their guesses and validations. Returns the packed
-        (n, C+4) host rows."""
+        (n, C+4) host rows. The dispatch's supervision token closes here
+        however the fetch ends."""
+        sup = self.supervisor
+        try:
+            rows = self._finalize_padded_inner(call)
+        except BaseException:
+            if sup is not None:
+                sup.call_finished(call.token, ok=False)
+            raise
+        if sup is not None:
+            sup.call_finished(call.token, ok=True)
+        return rows
+
+    def _finalize_padded_inner(self, call: _Inflight) -> np.ndarray:
         C = self.spec.cells
         n = call.n
+        inj = self.fault_injector
+        if inj is not None:
+            # before the event wait: an injected delay reads as a hang,
+            # not as slow device time
+            inj.on_fetch(call.boards.shape[0])
         with self._follow_up():
             rows = self._wait_rows(call)
+            if inj is not None:
+                rows = inj.corrupt(call.boards.shape[0], rows)
             running = rows[:, C + 1] == RUNNING
             if running[:n].any():
                 capped = np.flatnonzero(running[:n])
@@ -523,52 +602,70 @@ class SolverEngine:
         ``boundary_host_s`` is the host gap since that digest arrived. The
         pipelined arm copies the (W, 8) digest and keeps the solution
         block on the device for ``finalize_segment``'s phase 2; the other
-        arm copies the full (W, C+7) rows."""
+        arm copies the full (W, C+7) rows.
+
+        The supervised seam, as ``_dispatch_padded``: a watchdog token opens
+        here (at ``budget_scale=2.0`` for a speculative dispatch, whose
+        dispatch-to-fetch span covers the segment ahead of it) and closes
+        in ``finalize_segment`` or ``abandon_segment``."""
         state.check_live()
         width = state.width
-        t0 = time.monotonic()
-        if not isinstance(boards, torch.Tensor):
-            boards = self._device_batch(boards)
-        boards = boards.reshape(boards.shape[0], -1)
-        if src is None:
-            if inject is None:
-                raise ValueError("dispatch_segment takes an inject mask or src")
-            mask = np.asarray(
-                inject.cpu() if isinstance(inject, torch.Tensor) else inject
-            ).astype(bool)
-            src = np.where(mask, np.arange(width, dtype=np.int32), np.int32(-1))
-        if isinstance(src, torch.Tensor):
-            src_dev = src.to(self.device, torch.int32)
-            if injected is None:
-                injected = int((src_dev >= 0).sum())
-        else:
-            src_np = np.asarray(src, np.int32)
-            if injected is None:
-                # real requests only: -2 pad re-seeds are not injections
-                injected = int((src_np >= 0).sum())
-            src_dev = self._device_batch(src_np)
-        prefix = self.segment_pipeline and segment_prefix_gather(
-            width, self.spec.cells
+        sup = self.supervisor
+        token = (
+            sup.call_started(width, budget_scale=2.0 if pipelined else 1.0)
+            if sup is not None else None
         )
-        nxt, digest, block = dfs_segment(
-            state, boards, src_dev,
-            int(seg_iters) if seg_iters else self.segment_iters,
-            prefix_gather=prefix, **self._sweeps(width),
-        )
-        if self.segment_pipeline:
-            out = digest
-        else:
-            # [grid | solved | status | guesses | validations | board_iters
-            #  | lane_steps | idle_lane_steps], the JAX full-row layout
-            out = torch.cat(
-                [nxt.state.grid, digest.index_select(1, self._row_cols)], 1
+        try:
+            t0 = time.monotonic()
+            inj = self.fault_injector
+            if inj is not None:
+                inj.on_device_call(width)  # may raise (fail-next-N)
+            if not isinstance(boards, torch.Tensor):
+                boards = self._device_batch(boards)
+            boards = boards.reshape(boards.shape[0], -1)
+            if src is None:
+                if inject is None:
+                    raise ValueError("dispatch_segment takes an inject mask or src")
+                mask = np.asarray(
+                    inject.cpu() if isinstance(inject, torch.Tensor) else inject
+                ).astype(bool)
+                src = np.where(mask, np.arange(width, dtype=np.int32), np.int32(-1))
+            if isinstance(src, torch.Tensor):
+                src_dev = src.to(self.device, torch.int32)
+                if injected is None:
+                    injected = int((src_dev >= 0).sum())
+            else:
+                src_np = np.asarray(src, np.int32)
+                if injected is None:
+                    # real requests only: -2 pad re-seeds are not injections
+                    injected = int((src_np >= 0).sum())
+                src_dev = self._device_batch(src_np)
+            prefix = self.segment_pipeline and segment_prefix_gather(
+                width, self.spec.cells
             )
-            block = None
-        host, ready = self._to_host(out)
+            nxt, digest, block = dfs_segment(
+                state, boards, src_dev,
+                int(seg_iters) if seg_iters else self.segment_iters,
+                prefix_gather=prefix, **self._sweeps(width),
+            )
+            if self.segment_pipeline:
+                out = digest
+            else:
+                # [grid | solved | status | guesses | validations | board_iters
+                #  | lane_steps | idle_lane_steps], the JAX full-row layout
+                out = torch.cat(
+                    [nxt.state.grid, digest.index_select(1, self._row_cols)], 1
+                )
+                block = None
+            host, ready = self._to_host(out)
+        except BaseException:
+            if sup is not None:
+                sup.call_finished(token, ok=False)
+            raise
         return _SegmentHandle(
             state=nxt, host=host, ready=ready, block=block, t0=t0,
             width=width, injected=int(injected), pipelined=bool(pipelined),
-            boundary_host_s=float(boundary_host_s),
+            boundary_host_s=float(boundary_host_s), token=token,
         )
 
     def finalize_segment(self, handle: _SegmentHandle, *, active):
@@ -584,13 +681,36 @@ class SolverEngine:
         this one. Grid columns of the other lanes are zero (the segment loop
         reads grids only of lanes that solved). ``active`` (the lanes
         holding a request at fetch time) is the accounting hook of the JAX
-        seam's cost plane, which this package does not have yet."""
+        seam's cost plane, which this package does not have yet.
+
+        The dispatch's supervision token closes here; the fault injector's
+        delay runs before the event wait and its poison applies to the
+        assembled rows, so a lane that solved carries the poisoned grid."""
         del active
+        sup = self.supervisor
+        try:
+            inj = self.fault_injector
+            if inj is not None:
+                inj.on_fetch(handle.width)  # may sleep (watchdog food)
+            rows = self._segment_rows(handle)
+            if inj is not None:
+                rows = inj.corrupt(handle.width, rows)
+        except BaseException:
+            if sup is not None:
+                sup.call_finished(handle.token, ok=False)
+            raise
+        if sup is not None:
+            sup.call_finished(handle.token, ok=True)
+        return rows, time.monotonic() - handle.t0
+
+    def _segment_rows(self, handle: _SegmentHandle) -> np.ndarray:
+        """Wait for a segment's boundary bytes and assemble its (W, C+7)
+        host rows (``finalize_segment``'s fetch)."""
         if handle.ready is not None:
             handle.ready.synchronize()
         host = handle.host.numpy()
         if handle.block is None:
-            return host.copy(), time.monotonic() - handle.t0
+            return host.copy()
         C = self.spec.cells
         width = handle.width
         rows = np.zeros((width, C + 7), np.int32)
@@ -609,7 +729,7 @@ class SolverEngine:
                 if segment_prefix_gather(width, C) else width
             )
             rows[lanes, :C] = self._fetch_rows(handle.block, n)[slots[lanes]]
-        return rows, time.monotonic() - handle.t0
+        return rows
 
     def _fetch_rows(self, block: torch.Tensor, n: int) -> np.ndarray:
         """The first ``n`` rows of a finished segment's solution block, read
@@ -625,11 +745,14 @@ class SolverEngine:
 
     def abandon_segment(self, handle: _SegmentHandle) -> None:
         """Discard a dispatched segment that will never be fetched (the
-        pipelined segment loop drops its speculative dispatch when the segment
-        ahead failed; the pool is rebuilt either way). The JAX seam closes
-        the segment's supervision token here; this package has no
-        supervisor yet, so nothing is held."""
-        del handle
+        pipelined segment loop drops its speculative dispatch when the
+        segment ahead failed; the pool is rebuilt either way). Closes the
+        supervision token WITHOUT feeding the breaker in either direction:
+        an unfetched segment proves nothing about the device, and counting
+        the failure that caused the abandonment again would double-step
+        the breaker toward LOST."""
+        if self.supervisor is not None:
+            self.supervisor.call_abandoned(handle.token)
 
     def run_segment_supervised(
         self,
@@ -646,8 +769,7 @@ class SolverEngine:
         ``finalize_segment``, on either arm (``inject`` is the row-aligned
         mask). Returns ``(state, rows, device_s)``: the pool's next
         handle, the (W, C+7) host rows and the dispatch-to-fetch wall
-        time. The name is the JAX seam's, where a supervisor watches the
-        span; supervision is not ported yet."""
+        time. The supervisor's token spans the dispatch and the fetch."""
         handle = self.dispatch_segment(
             state, boards, inject, seg_iters=seg_iters, injected=injected,
             boundary_host_s=boundary_host_s,
@@ -691,6 +813,8 @@ class SolverEngine:
             np.zeros((w,), np.int32),
         )
         self.finalize_segment(handle, active=np.zeros(w, bool))
+        with self._lock:
+            self._warm.add(w)
 
     def _account_coalesced(self, rows: np.ndarray) -> None:
         """Fold one coalesced batch's work into the engine counters — the
@@ -718,16 +842,23 @@ class SolverEngine:
 
     # -- public API --------------------------------------------------------
     def ready(self) -> bool:
-        """Would ``/readyz`` pass: warm."""
-        return bool(self.warmed)
+        """Would ``/readyz`` pass: warm AND — when a supervisor is
+        attached — not LOST. The one readiness predicate (the JAX engine's):
+        a LOST node still answers correctly from the oracle, but should not
+        be sent traffic."""
+        sup = self.supervisor
+        return bool(self.warmed and not (sup is not None and sup.is_lost))
 
     def warmup(self) -> None:
         """Run every bucket width once (empty boards) before serving, so the
         first request pays neither the kernel build nor the first launch.
-        The counters are not touched."""
+        The counters are not touched. The supervisor's rebuild calls it
+        again on a LOST engine."""
         N = self.spec.size
         for b in self.buckets:
             self._solve_padded(np.zeros((b, N, N), np.int32))
+            with self._lock:
+                self._warm.add(b)
         self._warm_segment_program()
         self.warmed = True
 
@@ -777,11 +908,22 @@ class SolverEngine:
         ``deadline_s`` has the JAX engine's meaning: it bounds the
         frontier route, which this package does not have yet, so on the
         bucket route it changes nothing. A deadline that guards the queue
-        rides ``solve_one_async``."""
+        rides ``solve_one_async``.
+
+        With a supervisor attached this is the degraded-mode seam
+        (``_supervised_answer``)."""
         del deadline_s  # the bucket route has no frontier leg to bound
         arr = np.asarray(board, np.int32)
+        sup = self.supervisor
+        if sup is None:
+            return self._solve_one_bucket_direct(arr)
+        return self._supervised_answer(
+            sup, arr, lambda: self._solve_one_bucket_direct(arr)
+        )
+
+    def _solve_one_bucket_direct(self, arr: np.ndarray):
         if self.coalesce:
-            solution, info = self.coalescer.submit(arr).result()
+            solution, info = self._await_result(self.coalescer.submit(arr))
         else:
             solutions, solved_mask, info = self.solve_batch_np(arr[None])
             solution = solutions[0].tolist() if solved_mask[0] else None
@@ -794,6 +936,105 @@ class SolverEngine:
                 "included) — board not finished, NOT proven unsolvable"
             )
         return solution, info
+
+    def _await_result(self, fut):
+        """``fut.result()`` — BOUNDED when a supervisor is attached: a
+        hung device call blocks the coalescer's thread in a CUDA event wait
+        that nothing can interrupt, and an untimed wait would pin this
+        handler thread just as permanently. The bound is past the
+        watchdog's hang declaration by construction, so a trip has already
+        rerouted serving when it fires; the starved future is cancelled
+        (the coalescer's ``_resolve`` then skips it) and the raise sends
+        THIS request to the fallback."""
+        sup = self.supervisor
+        if sup is None:
+            return fut.result()
+        timeout = 2.0 * sup.watchdog_budget_s + 5.0
+        try:
+            return fut.result(timeout=timeout)
+        except FuturesTimeout:
+            fut.cancel()
+            raise RuntimeError(
+                f"supervised solve starved past {timeout:.1f}s "
+                "(hung device call ahead of it?)"
+            ) from None
+
+    def _supervised_answer(self, sup, arr: np.ndarray, call, deadline_s=None):
+        """The degraded-serving contract, in one place (applied by
+        ``solve_one`` and ``solve_one_supervised``): an open breaker answers
+        from the host-oracle fallback before the device is touched (the
+        fallback honors ``deadline_s`` while queued on its semaphore —
+        queue wait only, like the coalescer); a device failure mid-call
+        falls back instead of erroring the request (the seam already fed
+        the breaker); and every device answer is verified host-side so a
+        poisoned kernel can never emit a silent wrong answer — a corrupted
+        grid OR a false UNSAT claim. ``DeadlineExceeded`` always
+        propagates: a shed request stays shed."""
+        if sup.should_fallback():
+            return sup.fallback_solve(arr, deadline_s=deadline_s)
+        try:
+            solution, info = call()
+        except DeadlineExceeded:
+            raise
+        except Exception:
+            logger.exception(
+                "device path failed — answering from the host-oracle "
+                "fallback"
+            )
+            return sup.fallback_solve(arr)
+        if solution is not None and not sup.check_solution(arr, solution):
+            # the device call "succeeded" but the answer is wrong: the
+            # poisoned-kernel failure mode — never serve it
+            logger.error(
+                "device answer failed host-side verification — "
+                "poisoned kernel? answering from the fallback"
+            )
+            sup.record_failure(None, "bad-result")
+            return sup.fallback_solve(arr)
+        if solution is None and not info.get("capped"):
+            # the device claims PROVEN unsatisfiable (capped answers claim
+            # only "not finished" and are exempt): cross-check — a kernel
+            # clearing the solved flag is as wrong as one corrupting the
+            # grid, and must trip the breaker too
+            alt, alt_info = sup.verify_unsat(arr)
+            if alt is not None:
+                sup.record_failure(None, "bad-result")
+                return alt, alt_info
+        return solution, info
+
+    def solve_one_supervised(
+        self,
+        board: Sequence[Sequence[int]],
+        *,
+        deadline_s: Optional[float] = None,
+    ) -> Tuple[Optional[List[List[int]]], dict]:
+        """``solve_one_async(...).result()`` with the supervisor's
+        degraded-serving contract applied in the CALLING thread — the
+        serving entry point ``net/node.py`` uses for /solve requests.
+
+        Without a supervisor this is exactly that await. With one, the
+        ``_supervised_answer`` contract applies (open breaker → bounded
+        host-oracle fallback; a device failure OR a starved future — a
+        hung segment ahead of this request — falls back instead of
+        erroring or pinning the handler thread; answers are verified
+        host-side). ``DeadlineExceeded`` always propagates (the 429 path),
+        and the fallback honors an already-expired deadline. The inline
+        route (``coalesce=False``) is supervised inside ``solve_one``."""
+        sup = self.supervisor
+        if sup is None:
+            return self.solve_one_async(board, deadline_s=deadline_s).result()
+        arr = np.asarray(board, np.int32)
+        if deadline_s is not None and time.monotonic() > deadline_s and (
+            sup.should_fallback() or not self.coalesce
+        ):
+            raise DeadlineExceeded("deadline expired before the solve started")
+        if self.coalesce:
+            return self._supervised_answer(
+                sup, arr,
+                lambda: self._await_result(self.coalescer.submit(arr, deadline_s)),
+                deadline_s=deadline_s,
+            )
+        return self.solve_one(arr, deadline_s=deadline_s)
 
     def solve_one_async(
         self,

@@ -42,6 +42,25 @@ Extensions:
                 add a "serving" block (coalescer batch-fill, queue depth,
                 wait times) to GET /stats; off by default so the
                 reference's {"all", "nodes"} body stays byte-identical
+  --no-answer-cache / --answer-cache-capacity
+                canonical-form answer cache (cache/; ON by default): /solve
+                boards canonicalize over the sudoku symmetry group at the
+                front door, and repeats — or symmetries — of already
+                verified answers are served from an LRU (X-Cache: hit)
+                without touching admission or the device.
+                --no-answer-cache is the A/B escape hatch
+  --supervise-engine / --watchdog-budget-s / --breaker-threshold /
+  --probe-interval-s / --fallback-concurrency / --fallback-budget-s
+                failure-domain supervision (serving/health.py; off by
+                default): a watchdog bounds every device call's wall time,
+                a circuit breaker drives WARMING/HEALTHY/DEGRADED/LOST,
+                DEGRADED/LOST answer from a bounded host-oracle fallback
+                (X-Degraded: true) while half-open probes — verified
+                kernel round trips — re-admit the device
+  --chaos-injector
+                arm the engine-seam fault injector (utils/faults.py) and
+                expose POST /debug/faults to drive it (fail_next, delay_s,
+                poison_bucket, clear); off by default: the route 404s
 """
 
 from __future__ import annotations
@@ -50,8 +69,11 @@ import argparse
 import logging
 import threading
 
+from ..cache import AnswerCache
 from ..engine import SolverEngine
 from ..serving.admission import AdmissionController
+from ..serving.health import EngineSupervisor
+from ..utils.faults import EngineFaultInjector
 from .http_api import make_http_server
 from .node import P2PNode
 
@@ -166,6 +188,75 @@ def build_parser() -> argparse.ArgumentParser:
         "429 at arrival, and admitted requests that expire waiting are "
         "dropped before the kernel runs them. 0 (default) = no deadline",
     )
+    parser.add_argument(
+        "--no-answer-cache",
+        action="store_true",
+        help="disable the canonical-form answer cache (cache/): every "
+        "request pays full admission and a kernel run even for a repeat or "
+        "a symmetry of an already-answered puzzle",
+    )
+    parser.add_argument(
+        "--answer-cache-capacity",
+        type=int,
+        default=4096,
+        help="answer-cache entries across all shards (one entry serves a "
+        "puzzle's whole symmetry orbit); per-shard LRU eviction past it",
+    )
+    parser.add_argument(
+        "--supervise-engine",
+        action="store_true",
+        help="failure-domain supervision for the engine/device plane "
+        "(serving/health.py): a watchdog bounds device-call wall time, a "
+        "circuit breaker drives WARMING/HEALTHY/DEGRADED/LOST, "
+        "DEGRADED/LOST serve correct answers from a bounded host-oracle "
+        "fallback (X-Degraded header) while half-open probes — verified "
+        "round-trip solves — re-admit the device. Off by default",
+    )
+    parser.add_argument(
+        "--watchdog-budget-s",
+        type=float,
+        default=30.0,
+        help="with --supervise-engine: wall-time budget per device call "
+        "before it is declared hung (bucket quarantined, breaker fed)",
+    )
+    parser.add_argument(
+        "--breaker-threshold",
+        type=int,
+        default=3,
+        help="with --supervise-engine: consecutive failures before "
+        "DEGRADED escalates to LOST (engine rebuild + probe-gated "
+        "re-admission)",
+    )
+    parser.add_argument(
+        "--probe-interval-s",
+        type=float,
+        default=2.0,
+        help="with --supervise-engine: half-open probe cadence while the "
+        "breaker is open",
+    )
+    parser.add_argument(
+        "--fallback-concurrency",
+        type=int,
+        default=2,
+        help="with --supervise-engine: max concurrent host-oracle "
+        "fallback solves while DEGRADED/LOST",
+    )
+    parser.add_argument(
+        "--fallback-budget-s",
+        type=float,
+        default=30.0,
+        help="with --supervise-engine: wall-time budget per host-oracle "
+        "fallback solve; a degraded node answers 503 on boards whose "
+        "search runs past it (0 = unbudgeted)",
+    )
+    parser.add_argument(
+        "--chaos-injector",
+        action="store_true",
+        help="arm an engine-seam fault injector (utils/faults."
+        "EngineFaultInjector) and expose POST /debug/faults to drive it "
+        "(fail_next / delay_s / poison_bucket / clear). Off by default: "
+        "the route 404s and no injector exists",
+    )
     return parser
 
 
@@ -197,10 +288,33 @@ def build_node(args: argparse.Namespace):
             capacity=args.admission_capacity,
             default_deadline_ms=args.default_deadline_ms,
         )
+    if args.supervise_engine:
+        supervisor = EngineSupervisor(
+            engine,
+            watchdog_budget_s=args.watchdog_budget_s,
+            breaker_threshold=args.breaker_threshold,
+            probe_interval_s=args.probe_interval_s,
+            fallback_concurrency=args.fallback_concurrency,
+            fallback_budget_s=args.fallback_budget_s or None,
+        )
+        if admission is not None:
+            # every regime change — device lost AND device re-admitted —
+            # re-anchors the capacity estimator on the throughput the node
+            # can deliver NOW (serving/admission.py)
+            supervisor.add_transition_callback(
+                lambda _old, _new: admission.reanchor()
+            )
     node = P2PNode(
         args.host, args.s, handicap=args.h / 100, engine=engine,
         admission=admission,
     )
+    if not args.no_answer_cache:
+        node.answer_cache = AnswerCache(
+            capacity=max(1, args.answer_cache_capacity)
+        )
+    if args.chaos_injector:
+        engine.fault_injector = EngineFaultInjector()
+        node.chaos_routes = True
     httpd = make_http_server(
         node, args.host, args.p, expose_serving=args.serving_stats
     )

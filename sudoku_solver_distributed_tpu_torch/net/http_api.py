@@ -11,16 +11,30 @@ node.py:661-704):
                429 → {"error": "Overloaded" | "Deadline exceeded",
                       "retry_after_ms": ...} with a Retry-After header, only
                       with admission control on (serving/admission.py)
+               503 → {"error": "Degraded: fallback budget exceeded"} when a
+                      supervised node's host-oracle fallback ran past its
+                      budget (serving/health.py)
   GET  /stats  200 → the merged all_stats shape (plus a "serving" block of
                coalescer counters when asked for: ``expose_serving``)
   GET  /network 200 → the all_peers dict, or {self_id: []} when alone
+  GET  /healthz 200 → {"ok": true} (liveness)
+  GET  /readyz 200/503 → {"ready": ..., "warmed": ...[, "health": state]}
+  POST /debug/faults → arms the engine-seam fault injector; only on a node
+               built with ``--chaos-injector`` (404 otherwise)
   anything else 404 → {"error": "Invalid endpoint"}
 
 A request may carry ``X-Deadline-Ms``, its latency budget; it counts only
 with admission control on.
 
-Not in this slice: the answer cache, request tracing and /metrics,
-/solve_batch, and the lean keep-alive transport.
+With an answer cache on the node (``p2p_node.answer_cache``, cache/; on by
+default in the CLI) every /solve board is canonicalized at the front door,
+before admission: a repeat, or any symmetric twin, of an answer already
+verified is served from the cache with an ``X-Cache: hit`` header and
+counts nothing in /stats. An answer from the supervisor's oracle fallback
+carries ``X-Degraded: true``. Bodies stay byte-identical either way.
+
+Not in this slice: cache gossip (peer fetch), request tracing and
+/metrics, /solve_batch, and the lean keep-alive transport.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ import logging
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..models.oracle import OracleBudgetExceeded
 from ..serving.admission import DeadlineExceeded
 from .stats import serving_snapshot
 
@@ -99,8 +114,30 @@ def _parse_board(p2p_node, body: bytes):
     return sudoku
 
 
+def _cache_lookup(p2p_node, sudoku):
+    """Front-door cache consult: the local lookup only (cache gossip and
+    its peer fetch are not in this package yet). Returns (answer | None,
+    canonical form | None); exactly one hit or miss lands in the cache's
+    counters."""
+    cache = p2p_node.answer_cache
+    answer, form = cache.lookup(sudoku, count_miss=False)
+    if answer is None and form is not None:
+        cache._count("misses")
+    return answer, form
+
+
 def solve_route(p2p_node, body: bytes, deadline_ms=None):
-    """POST /solve: returns ``(status, payload, error_flag)``.
+    """POST /solve: returns ``(status, payload, error_flag, degraded,
+    cached)`` — ``degraded`` True when the answer came from the
+    supervisor's host-oracle fallback (serving/health.py), ``cached`` True
+    when it came from the answer cache (cache/). The transport turns them
+    into the ``X-Degraded`` / ``X-Cache: hit`` headers; the body stays
+    byte-identical.
+
+    With a cache attached, the lookup runs BEFORE admission accounting: a
+    hit never enters the pending budget, never feeds the completion-rate
+    estimator, and is counted in the separate ``admission.cache_hits``
+    gauge instead.
 
     ``deadline_ms`` is the request's relative latency budget (the
     ``X-Deadline-Ms`` header, parsed by the transport). With an admission
@@ -110,22 +147,55 @@ def solve_route(p2p_node, body: bytes, deadline_ms=None):
     full, or after the fact when the request expired waiting in the
     coalescer queue. Without one, the header is ignored."""
     adm = getattr(p2p_node, "admission", None)
+    cache = getattr(p2p_node, "answer_cache", None)
+    sudoku = None
+    form = None
+    already_expired = deadline_ms is not None and deadline_ms <= 0
+    if cache is not None and not already_expired:
+        # (an already-expired budget skips the consult: the admission
+        # layer's 429 is the cheapest answer a dead-on-arrival request
+        # can get)
+        t_arrival = time.monotonic()
+        sudoku = _parse_board(p2p_node, body)
+        if sudoku is None:
+            if adm is not None:
+                # parsed (and failed) before try_admit ran: keep the
+                # malformed-body flood visible to admission's arrival rate
+                # and rejected counter
+                adm.note_rejected()
+            return 400, {"error": "Invalid request"}, True, False, False
+        answer, form = _cache_lookup(p2p_node, sudoku)
+        if answer is not None:
+            if adm is not None:
+                adm.note_cache_hit()
+            return 200, answer, False, False, True
+        if deadline_ms is not None:
+            # the consult happened before admission: charge it against the
+            # client's budget
+            deadline_ms -= (time.monotonic() - t_arrival) * 1e3
     if adm is None:
-        return _solve_core(p2p_node, body, None)
+        return _solve_core(p2p_node, body, None, sudoku=sudoku, form=form)
     decision = adm.try_admit(deadline_ms)
     if not decision.admitted:
         logger.debug("shed /solve at arrival (%s)", decision.reason)
-        return 429, _shed_payload("Overloaded", decision.retry_after_s), True
+        return (
+            429, _shed_payload("Overloaded", decision.retry_after_s), True,
+            False, False,
+        )
     expired = False
     outcome = {"served": False}
     try:
-        return _solve_core(p2p_node, body, decision.deadline_s, outcome)
+        return _solve_core(
+            p2p_node, body, decision.deadline_s, outcome,
+            sudoku=sudoku, form=form,
+        )
     except DeadlineExceeded:
         # admitted in time, overtaken by load: dropped at batch formation
         # (parallel/coalescer.py) — the device never ran it
         expired = True
         return (
-            429, _shed_payload("Deadline exceeded", adm.retry_hint_s()), True
+            429, _shed_payload("Deadline exceeded", adm.retry_hint_s()), True,
+            False, False,
         )
     finally:
         # served=False (a body rejected before the engine ran) must not
@@ -133,23 +203,92 @@ def solve_route(p2p_node, body: bytes, deadline_ms=None):
         adm.release(expired=expired, served=outcome["served"])
 
 
-def _solve_core(p2p_node, body: bytes, deadline_s, outcome=None):
-    """Parse, validate and solve one /solve body; ``outcome["served"]``
-    turns True once the engine runs."""
+def _solve_core(p2p_node, body: bytes, deadline_s, outcome=None, *,
+                sudoku=None, form=None):
+    """Parse (unless the cache consult already did), validate and solve
+    one /solve body; ``outcome["served"]`` turns True once the engine
+    runs. A solved answer is offered to the cache, whose write gate
+    verifies it, reusing the lookup's canonical form."""
     t_in = time.time()
     logger.debug("received /solve POST request")
-    sudoku = _parse_board(p2p_node, body)
     if sudoku is None:
-        return 400, {"error": "Invalid request"}, True
+        sudoku = _parse_board(p2p_node, body)
+        if sudoku is None:
+            return 400, {"error": "Invalid request"}, True, False, False
     if outcome is not None:
         outcome["served"] = True  # past validation: the engine runs now
-    solution, _info = p2p_node.peer_sudoku_solve_info(
-        sudoku, deadline_s=deadline_s
-    )
+    try:
+        solution, info = p2p_node.peer_sudoku_solve_info(
+            sudoku, deadline_s=deadline_s
+        )
+    except OracleBudgetExceeded:
+        # the supervised node is in fallback AND this board's host solve
+        # ran past the fallback budget: a clean 503 instead of a request
+        # thread pinned on the oracle's exponential tail. 503, not 429:
+        # the node is not overloaded, it cannot serve THIS board correctly
+        # right now
+        logger.warning("503: degraded and over the fallback budget")
+        return (
+            503, {"error": "Degraded: fallback budget exceeded"}, True,
+            True, False,
+        )
+    degraded = bool(info.get("degraded"))
     logger.debug("execution time: %s", time.time() - t_in)
     if solution:
-        return 200, solution, False
-    return 400, {"error": "No solution found", "solution": solution}, True
+        cache = getattr(p2p_node, "answer_cache", None)
+        if cache is not None:
+            cache.store(sudoku, solution, form)
+        return 200, solution, False, degraded, False
+    return (
+        400, {"error": "No solution found", "solution": solution}, True,
+        degraded, False,
+    )
+
+
+def readyz_route(p2p_node):
+    """GET /readyz — readiness, ``(status, payload)``: 200 when the node
+    should receive traffic (``engine.ready()``: warm and, with a
+    supervisor, not LOST), else 503. DEGRADED stays ready on purpose: the
+    fallback serves correct answers."""
+    eng = p2p_node.engine
+    sup = eng.supervisor
+    ready = eng.ready()
+    body = {"ready": ready, "warmed": bool(eng.warmed)}
+    if sup is not None:
+        body["health"] = sup.state
+    return (200 if ready else 503), body
+
+
+def faults_route(p2p_node, body: bytes):
+    """POST /debug/faults (only with ``--chaos-injector``): arm the
+    engine-seam fault injector on a live node. Body: a JSON object with any
+    of ``fail_next`` (int), ``delay_s`` (float), ``poison_bucket`` (int
+    width), ``clear`` (bool — disarm everything, applied FIRST so
+    {"clear": true, "delay_s": x} re-arms atomically). Returns (status,
+    payload, error) with the injector's counters. Values are bounded at
+    the boundary: a hostile caller can waste the node's time, which the
+    flag opts into, but cannot crash the route."""
+    inj = p2p_node.engine.fault_injector
+    if inj is None or not getattr(p2p_node, "chaos_routes", False):
+        return 404, {"error": "Invalid endpoint"}, True
+    try:
+        cmd = json.loads(body.decode("utf-8")) if body else {}
+    except (ValueError, UnicodeDecodeError):
+        return 400, {"error": "Invalid request"}, True
+    if not isinstance(cmd, dict):
+        return 400, {"error": "Invalid request"}, True
+    try:
+        if cmd.get("clear"):
+            inj.clear()
+        if "fail_next" in cmd:
+            inj.arm_fail_next(max(0, min(1_000_000, int(cmd["fail_next"]))))
+        if "delay_s" in cmd:
+            inj.set_delay(max(0.0, min(3600.0, float(cmd["delay_s"]))))
+        if "poison_bucket" in cmd:
+            inj.poison_bucket(int(cmd["poison_bucket"]))
+    except (TypeError, ValueError):
+        return 400, {"error": "Invalid request"}, True
+    return 200, {"ok": True, "counts": inj.counts()}, False
 
 
 def stats_payload(p2p_node, expose_serving: bool):
@@ -167,11 +306,20 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
     p2p_node = None  # set by make_http_server
     expose_serving = False  # opt-in "serving" block on GET /stats
 
-    def _send_response(self, content, status: int = 200) -> None:
+    def _send_response(self, content, status: int = 200,
+                       degraded: bool = False, cached: bool = False) -> None:
         body = json.dumps(content).encode()
         self.send_response(status)
         self.send_header("Content-type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        if degraded:
+            # the answer came from the supervisor's host-oracle fallback:
+            # a header, not a body key, so the body stays the reference's
+            self.send_header("X-Degraded", "true")
+        if cached:
+            # the answer came from the answer cache: same header-not-body
+            # contract
+            self.send_header("X-Cache", "hit")
         if status == 429:
             retry = retry_after_header(content)
             if retry is not None:
@@ -200,10 +348,19 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
             post_data = self._read_body()
             if post_data is None:
                 return
-            status, payload, _error = solve_route(
+            status, payload, _error, degraded, cached = solve_route(
                 self.p2p_node, post_data,
                 deadline_ms=_parse_deadline_ms(self.headers.get("X-Deadline-Ms")),
             )
+            self._send_response(payload, status, degraded=degraded,
+                                cached=cached)
+        elif self.path == "/debug/faults" and getattr(
+            self.p2p_node, "chaos_routes", False
+        ):
+            post_data = self._read_body()
+            if post_data is None:
+                return
+            status, payload, _error = faults_route(self.p2p_node, post_data)
             self._send_response(payload, status)
         else:
             # the body was never read: close rather than desync keep-alive
@@ -217,6 +374,13 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
             )
         elif self.path == "/network":
             self._send_response(self.p2p_node.network_view())
+        elif self.path == "/healthz":
+            # liveness: a DEGRADED or LOST node still answers correctly from
+            # the fallback and must not be restarted; /readyz tells them apart
+            self._send_response({"ok": True})
+        elif self.path == "/readyz":
+            status, payload = readyz_route(self.p2p_node)
+            self._send_response(payload, status)
         else:
             self._send_response({"error": "Invalid endpoint"}, 404)
 

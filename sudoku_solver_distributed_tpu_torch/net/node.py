@@ -3,8 +3,10 @@
 The port of the single-node part of ``sudoku_solver_distributed_tpu/net/
 node.py``: the constructor and counters, the ``/stats`` and ``/network``
 bodies, the no-peers branch of ``peer_sudoku_solve(_info)`` (the request
-goes straight to the engine's coalesced path, with its admission
-deadline), and the graceful ``shutdown``. ``run`` binds
+goes straight to the engine's supervised serving entry point, with its
+admission deadline), and the graceful ``shutdown``. The node carries the
+front door's answer cache (``answer_cache``, None unless attached) and the
+chaos route's switch (``chaos_routes``). ``run`` binds
 the UDP socket like the original and then waits for shutdown: the UDP
 event loop, the anchor join and the per-cell task farm come with the P2P
 slice, so a node here never has peers.
@@ -54,6 +56,12 @@ class P2PNode:
         # 429 at arrival and expired queued requests answer 429
         # (net/http_api.solve_route); None serves every request
         self.admission = admission
+        # the canonical-form answer cache (cache/) the /solve front door
+        # consults before admission; None answers every request on the
+        # engine
+        self.answer_cache = None
+        # POST /debug/faults exists only when set (CLI --chaos-injector)
+        self.chaos_routes = False
         # ticks once per farmed task, as in the JAX node: the task farm
         # comes with the P2P slice, so a single node never ticks it
         self.limiter = HandicapLimiter(base_delay=handicap)
@@ -104,9 +112,11 @@ class P2PNode:
         peers = self.membership.neighbors()
         if not peers:
             return
+        sup = self.engine.supervisor
         msg = wire.stats_msg(
             self.id, self._solved_count, self.engine.validations,
             self.stats.snapshot(),
+            health=sup.state if sup is not None else None,
         )
         for peer in peers:
             self.send_to(peer, msg)
@@ -125,7 +135,9 @@ class P2PNode:
 
     def peer_sudoku_solve_info(self, sudoku, deadline_s=None):
         """Solve a request board; returns (solution | None, info). With no
-        peers (always, in this slice) the engine answers it.
+        peers (always, in this slice) the engine answers it. ``info``
+        carries the supervisor's ``degraded`` flag when the answer came
+        from the host-oracle fallback (serving/health.py).
 
         ``deadline_s`` (absolute monotonic, from the admission layer) rides
         into the engine's coalescer, where a request still queued past it
@@ -134,9 +146,9 @@ class P2PNode:
         handler thread enqueues on the engine and awaits its future."""
         if self.membership.total_peers():
             raise NotImplementedError("the task farm comes with the P2P slice")
-        solution, info = self.engine.solve_one_async(
+        solution, info = self.engine.solve_one_supervised(
             sudoku, deadline_s=deadline_s
-        ).result()
+        )
         if solution is not None:
             with self._state_lock:
                 self._solved_count += 1

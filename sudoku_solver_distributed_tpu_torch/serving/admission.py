@@ -27,10 +27,11 @@ cheap 429s or 400s cannot inflate the measured capacity and talk the
 controller into admitting a queue it cannot drain.
 
 A stdlib-only copy of ``sudoku_solver_distributed_tpu/serving/
-admission.py`` without the hooks of planes this package does not have yet
-(the answer cache, supervision, the autopilot). A node constructed without
-an AdmissionController (the default) serves as if this module did not
-exist.
+admission.py`` with the hooks of the answer cache (``note_rejected``,
+``note_cache_hit``) and of engine supervision (``reanchor``), without the
+autopilot's budget scale, which comes with the autopilot. A node
+constructed without an AdmissionController (the default) serves as if this
+module did not exist.
 """
 
 from __future__ import annotations
@@ -102,6 +103,8 @@ class AdmissionController:
         self.completed = 0
         self.expired = 0   # admitted but dropped/expired before completing
         self.rejected = 0  # admitted but finished without engine service
+        self.reanchors = 0   # supervisor regime changes (reanchor)
+        self.cache_hits = 0  # answered by the answer cache before admission
         self.arrivals = EwmaRate(tau_s=tau_s)
         # count-based, NOT gap-based: completions fan out in bursts (a
         # coalesced batch resolves its futures at once) and a gap EWMA
@@ -167,6 +170,41 @@ class AdmissionController:
         with self._lock:
             return self._retry_after_s(self._projected_wait_s())
 
+    def reanchor(self) -> None:
+        """Re-anchor the capacity estimator on the CURRENT serving
+        regime. Wired to the engine supervisor's state transitions
+        (serving/health.py via net/cli.py): when the device is lost the
+        projection must measure the host-oracle fallback's throughput —
+        not keep admitting against a dead device's held peak rate — and
+        when the device is re-admitted the fallback's slow rate must not
+        shed traffic the repaired device could serve. The batch-formation
+        expiry backstop bounds the brief optimism while the estimator
+        re-learns (load.WindowRate.reanchor)."""
+        with self._lock:
+            self.reanchors += 1
+            self._completions.reanchor()
+
+    def note_rejected(self) -> None:
+        """A request rejected BEFORE admission ran (the cache front door
+        parses bodies ahead of ``try_admit``): keep the arrivals EWMA and
+        the ``rejected`` counter faithful so a malformed-body flood stays
+        visible on the operator surface, without a pending-count round
+        trip (nothing was admitted)."""
+        now = time.monotonic()
+        with self._lock:
+            self.arrivals.observe(now)
+            self.rejected += 1
+
+    def note_cache_hit(self) -> None:
+        """One request answered by the canonical-form answer cache
+        (cache/) BEFORE admission accounting. Deliberately a bare gauge: a
+        hit never touches ``pending`` and never feeds the completion-rate
+        estimator — a hot-set storm answers in microseconds, and folding
+        those into the measured completion rate would inflate the
+        projected device capacity and over-admit device-bound work."""
+        with self._lock:
+            self.cache_hits += 1
+
     def release(self, *, expired: bool = False, served: bool = True) -> None:
         """One admitted request finished (solved, failed, or expired).
 
@@ -199,6 +237,8 @@ class AdmissionController:
                 "shed_deadline": self.shed_deadline,
                 "expired": self.expired,
                 "rejected": self.rejected,
+                "reanchors": self.reanchors,
+                "cache_hits": self.cache_hits,
                 "default_deadline_ms": round(
                     (self.default_deadline_s or 0.0) * 1e3, 3
                 ),

@@ -149,6 +149,25 @@ class WindowRate:
             self._roll(now)
             self._cur += 1
 
+    def reanchor(self) -> None:
+        """Forget everything — peak-hold included — and re-learn from the
+        next events. The peak-hold exists so a shed storm can't decay the
+        capacity estimate (see ``rate``); but when the capacity REGIME
+        changes — the supervisor reroutes serving onto the host-oracle
+        fallback, or re-admits the repaired device — the held peak is a
+        measurement of hardware that is no longer serving, and waiting
+        out its half-life means minutes of shedding against (or
+        over-admitting into) a phantom device. The cold-start span
+        normalization below re-reads the new regime within ~100 ms of
+        traffic."""
+        with self._lock:
+            self._start = None
+            self._cur = 0
+            self._prev = 0
+            self._have_prev = False
+            self._peak = 0.0
+            self._peak_t = None
+
     def _est(self, now: float) -> float:
         if self._start is None:
             # no events yet: a read must not set the epoch

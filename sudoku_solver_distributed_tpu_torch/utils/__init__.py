@@ -1,6 +1,13 @@
-"""Host-side utilities: the handicap rate limiter; profiler spans live in
+"""Host-side utilities: the handicap rate limiter, the engine and wire
+fault injectors (``faults.py``); profiler spans live in
 ``utils/profiling.py``."""
 
+from .faults import EngineFaultInjector, FaultInjector, InjectedEngineFault
 from .ratelimit import HandicapLimiter
 
-__all__ = ["HandicapLimiter"]
+__all__ = [
+    "EngineFaultInjector",
+    "FaultInjector",
+    "HandicapLimiter",
+    "InjectedEngineFault",
+]

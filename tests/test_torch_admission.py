@@ -146,15 +146,15 @@ def test_admission_default_deadline_attached_to_admitted_requests():
 
 
 def test_admission_snapshot_keys_are_the_jax_keys_it_has_planes_for():
-    """The port's snapshot is the JAX snapshot without the counters of
-    planes it does not have (supervision re-anchors, the answer cache,
-    the autopilot's budget scale)."""
+    """The port's snapshot is the JAX snapshot without the counter of the
+    plane it does not have (the autopilot's budget scale); the supervision
+    re-anchors and the answer cache's hits are there."""
     mine, theirs = AdmissionController(4), JaxAdmissionController(4)
     for a in (mine, theirs):
         a.try_admit(), a.try_admit(-1.0)
         a.release()
-    want = {k: v for k, v in theirs.snapshot().items()
-            if k not in ("reanchors", "cache_hits", "budget_scale")}
+        a.note_cache_hit(), a.note_rejected(), a.reanchor()
+    want = {k: v for k, v in theirs.snapshot().items() if k != "budget_scale"}
     got = mine.snapshot()
     assert sorted(got) == sorted(want)
     # the rates read the wall clock; every counter is equal

@@ -10,7 +10,9 @@ tree's CLI, reads the p50 of 40 README /solve requests (host clock,
 HTTP/1.0 on localhost, after 5 unrecorded) and of 40 ``engine.solve_one``
 calls, for each arm the tree has: the coalescer's closed loop (the default
 before continuous batching, ``--no-continuous`` since), ``--no-coalesce``,
-and continuous batching (the default where the tree has it). It also
+and continuous batching (the default where the tree has it); every arm
+runs with ``--no-answer-cache`` where the tree has the answer cache, so
+each repeated README request reaches the kernels. It also
 reads the p50 of 300 calls of ``ops.cuda_solver.solve_batch_cuda`` on the
 README board and of one ``dfs_solver`` launch plus a synchronize, width 1,
 the engine's sweeps. Needs a CUDA device; prints the card's name and
@@ -56,11 +58,13 @@ def free_port():
         return s.getsockname()[1]
 
 
-continuous = "--no-continuous" in build_parser().format_help()
-arms = [("closed loop", ["--no-continuous"] if continuous else []),
-        ("no-coalesce", ["--no-coalesce"])]
+flags = build_parser().format_help()
+continuous = "--no-continuous" in flags
+nocache = ["--no-answer-cache"] if "--no-answer-cache" in flags else []
+arms = [("closed loop", (["--no-continuous"] if continuous else []) + nocache),
+        ("no-coalesce", ["--no-coalesce"] + nocache)]
 if continuous:
-    arms.append(("continuous", []))
+    arms.append(("continuous", nocache))
 out = {}
 body = json.dumps({"sudoku": R}).encode()
 for label, argv in arms:
