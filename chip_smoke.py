@@ -7,8 +7,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. Build the kernel library from sudoku_solver_distributed_tpu_torch/csrc/
    and print ``ptxas -v``'s registers, stack and spills per instance of
    every kernel (dfs_solver_kernel, dfs_segment_kernel, segment_digest_
-   kernel); the 9x9 instances and the digest kernel must use no stack and
-   spill nothing.
+   kernel, each at 4x4, 9x9, 16x16 and 25x25); every instance must use
+   no stack and spill nothing.
 2. Hold the DFS kernel (ops/cuda_solver.solve_batch_cuda) against its
    plain PyTorch version (ops/solver.solve_batch), both on CUDA tensors,
    under each board size's serving configuration (``serving_config(n)``:
@@ -80,13 +80,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    each beside its bound and the plain version on the same inputs; and one
    segment (k = 8) of the segment kernels over pools of 8, 64, 512 and
    4096 lanes all injected from the hard corpus, over a 4096 pool with one
-   live lane, and each at k = 0. The first launch of each is held against
-   the plain version.
+   and with 16 live lanes, and each at k = 0: the pair with CUDA events,
+   and K3 and K3b each on its own from torch.profiler's kernel records,
+   each beside its bound and its part of the plain version. The first
+   launch of each is held against the plain version.
 
 Prints a ``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
-card's name and power limit, one ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. Exits non-zero without a
-result when no CUDA device is available. Imports nothing of JAX.
+card's name and power limit, one ``{"kernels": [...]}`` line (dfs_solver,
+dfs_segment_kernel, segment_digest_kernel), and last ``{"ok": true,
+"device": {...}}``. Exits non-zero without a result when no CUDA device
+is available. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -907,6 +910,55 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+SEGMENT_KERNELS = ("dfs_segment_kernel", "segment_digest_kernel")
+
+
+def _profiled_kernel_ms(fn, reps: int, kernels=SEGMENT_KERNELS) -> dict:
+    """Mean device time per call of each kernel in ``kernels`` (a part of
+    its symbol) over ``reps`` calls of ``fn``, from torch.profiler's CUDA
+    kernel records. Fails unless every kernel ran exactly once a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = dict.fromkeys(kernels, 0.0)
+    count = dict.fromkeys(kernels, 0)
+    for e in prof.key_averages():
+        for k in kernels:
+            if k in e.key:
+                total_us[k] += e.device_time_total
+                count[k] += e.count
+    check(all(count[k] == reps for k in kernels),
+          f"the profiler recorded {count} kernel launches for {reps} calls")
+    return {k: total_us[k] / reps / 1e3 for k in kernels}
+
+
+def segment_timing_cases():
+    """(name, pool width, live lanes): pools of 8, 64, 512 and 4096 lanes
+    every lane injected at entry (live None); and a 4096 pool whose other
+    lanes have finished, with one lane injected (a lone README /solve) or
+    16 (phase 6's 16 concurrent clients)."""
+    return [(str(W), W, None) for W in (8, 64, 512, 4096)] + [
+        ("4096, 1 live", 4096, 1), ("4096, 16 live", 4096, 16),
+    ]
+
+
+def segment_case_src(W: int, live):
+    """The timed segment's source map: every lane injected from its own
+    hard board, or only the first ``live`` lanes (the rest kept)."""
+    import torch
+
+    if live is None:
+        return torch.arange(W, dtype=torch.int32, device="cuda")
+    src = torch.full((W,), -1, dtype=torch.int32, device="cuda")
+    src[:live] = torch.arange(live, dtype=torch.int32, device="cuda")
+    return src
+
+
 def _bound_ms(boards, grid, meta, cells, locked: bool):
     """The least time for one launch: the larger of its bytes (boards in,
     grid and meta out) over the HBM rate and its integer operations
@@ -1235,29 +1287,64 @@ def phase_golden_segments(cs, ts, SolverEngine, spec_for_size, serving_config, o
     return out
 
 
-def _segment_bound_ms(W, cells, injected, sweeps_run, locked: bool):
-    """The least time for one segment: the larger of its bytes (per lane
-    the state's five scalars and grid in and out, the source map entry
-    and an injected lane's board in, the digest row and block row out)
-    over the HBM rate, and its integer operations (the sweeps the segment
-    ran x cells x operations per cell of a sweep) over the int32 rate."""
+def _segment_bounds_ms(cells, src, entry, running_code, sweeps_run, locked: bool,
+                       prefix_gather: bool) -> dict:
+    """The least time for one segment, of the pair and of each kernel on
+    its own: the larger of the words the function must move for this
+    segment's lanes (each input read once, each output written once) over
+    the HBM rate, and its integer operations (the sweeps it ran x cells x
+    operations per cell of a sweep) over the int32 rate. ``src`` is the
+    segment's source map and ``entry`` the pool state it starts from.
+
+    K3 reads every lane's source-map entry; an idle lane (kept, not
+    RUNNING) reads its four scalars and writes digest columns 0-4 and its
+    step word; a lane injected from a board reads the board, a pad
+    re-seed (-2) reads nothing, and both write the state (grid and five
+    scalars), digest columns 0-4 and the step word; a lane RUNNING at
+    entry also reads its state and, below depth 0, its top frame, and
+    writes both back; with the block masked, every lane writes its block
+    row. Frames pushed inside the segment are not counted, so this stays
+    a lower bound. K3b reads the step words and writes digest columns
+    5-7 and, prefix-gathered, reads the grid and writes the block. The
+    pair's step words are its own, and it reads only the idle lanes'
+    grid for the block (the others' it has just written). Returns
+    {"pair" or kernel: (bound ms, "bytes" or "operations")}."""
     per_cell = OPS_PER_CELL_SWEEP + (OPS_PER_CELL_LOCKED if locked else 0)
-    words = W * (2 * (5 + cells) + 1 + 8 + cells) + injected * cells
-    bytes_ms = words * 4 / HBM_BYTES_PER_S * 1e3
+    W = src.numel()
+    kept = src == -1
+    running = kept & (entry.status == running_code)
+    n_idle = int((kept & ~running).sum())
+    n_board = int((src >= 0).sum())
+    n_reseed = int((src == -2).sum())
+    n_running = int(running.sum())
+    n_frames = int((running & (entry.depth > 0)).sum())
+    state = cells + 5
+    block = W * cells
+    k3_words = (W + n_idle * 4 + n_board * cells + (n_board + n_reseed) * state
+                + n_running * 2 * state + n_frames * 2 * 2 + W * (5 + 1)
+                + (0 if prefix_gather else block))
+    k3b_words = W * (1 + 3) + (2 * block if prefix_gather else 0)
+    pair_words = (k3_words - W + 3 * W
+                  + (block + n_idle * cells if prefix_gather else 0))
     ops_ms = sweeps_run * cells * per_cell / INT32_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    out = {}
+    for name, words, ops in (("pair", pair_words, ops_ms),
+                             (SEGMENT_KERNELS[0], k3_words, ops_ms),
+                             (SEGMENT_KERNELS[1], k3b_words, 0.0)):
+        bytes_ms = words * 4 / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(bytes_ms, ops), "operations" if ops >= bytes_ms else "bytes")
+    return out
 
 
 def phase_segment_timing(cs, ts, spec_for_size, serving_config):
-    """Times one segment of the segment kernels (K3 then K3b, k = 8, the
-    serving sweeps) with CUDA events after a device spin: every lane of a
-    pool of 8, 64, 512 and 4096 injected from the hard corpus at entry;
-    one lane injected into a 4096 pool whose other lanes are finished (an
-    almost idle pool's cost); and each pool at k = 0 (load, store and
-    digest only). Beside each: the plain version's time on the same
-    inputs (one run) and the bound. The first launch of each shape is
-    held against the plain version."""
-    import numpy as np
+    """Times one segment of the segment kernels (K3 then K3b, the serving
+    sweeps) at every ``segment_timing_cases`` case, at k = 8 and at k = 0
+    (load, store and digest only): both kernels together with CUDA events
+    after a device spin, and each on its own from torch.profiler's CUDA
+    kernel records over as many segments. Beside each: the plain version's
+    time on the same inputs (one run, k = 8) and the bounds, of the pair
+    and of each kernel. The first launch of each case is held against the
+    plain version."""
     import torch
 
     from sudoku_solver_distributed_tpu_torch.ops.config import segment_prefix_gather
@@ -1268,26 +1355,36 @@ def phase_segment_timing(cs, ts, spec_for_size, serving_config):
     hard = torch.as_tensor(load_corpus("corpus_9x9_hard_4096.npz").reshape(4096, -1),
                            device="cuda")
     out = {"ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}, "k0_ms": {},
-           "mismatches": 0, "max_abs_err": 0}
-    cases = [(str(W), W, torch.arange(W, dtype=torch.int32, device="cuda"))
-             for W in (8, 64, 512, 4096)]
-    one = torch.full((4096,), -1, dtype=torch.int32, device="cuda")
-    one[0] = 0
-    cases.append(("4096, 1 live", 4096, one))
-    for name, W, src in cases:
+           "k0_bound_ms": {}, "split": {k: {} for k in SEGMENT_KERNELS},
+           "plain_split_ms": {k: {} for k in SEGMENT_KERNELS},
+           "warps_per_sm": cs.segment_warps_per_sm(9), "mismatches": 0,
+           "max_abs_err": 0}
+    log(f"dfs_segment_kernel 9x9: {out['warps_per_sm']} resident warps per SM")
+    for name, W, live in segment_timing_cases():
+        src = segment_case_src(W, live)
         pad = ts.pad_board(spec, "cuda").expand(W, 9, 9)
         pool = cs.SegmentPool.fresh(pad, spec, depth)
-        if name.endswith("live"):
+        if live is not None:
             # finish every pad lane first: one step each
             pool, _, _ = cs.dfs_segment(pool, hard, torch.full_like(src, -1), 1,
                                         prefix_gather=True, **sweeps)
         prefix = segment_prefix_gather(W, spec.cells)
         plain_in = ts.SegmentState(*(t.clone() for t in pool.state))
         pool, kd, kb = cs.dfs_segment(pool, hard, src, 8, prefix_gather=prefix, **sweeps)
+        # the plain version in its two parts, each timed once: inject and
+        # run (K3's function), then the digest (K3b's)
         plain = {}
-        plain_ms = _cuda_ms(lambda: plain.update(r=cs._dfs_segment_plain(
-            plain_in, hard, src, 8, spec, prefix, **sweeps)), 1)
-        pst, pd, pb = plain["r"]
+
+        def plain_run():
+            st = ts.inject_lanes_src(plain_in, hard.reshape(-1, 9, 9), src, spec)
+            plain["entry"] = st.status == ts.RUNNING
+            plain["state"], plain["stats"] = ts.run_segment(st, 8, spec, **sweeps)
+
+        plain_k3 = _cuda_ms(plain_run, 1)
+        plain_k3b = _cuda_ms(lambda: plain.update(out=ts.segment_digest(
+            plain["state"], plain["entry"], plain["stats"], prefix)), 1)
+        plain_ms = plain_k3 + plain_k3b
+        pst, (pd, pb) = plain["state"], plain["out"]
         n_bad, err = _segment_lane_diffs(pool, pst, kd, pd, kb, pb)
         out["mismatches"] += n_bad
         out["max_abs_err"] = max(out["max_abs_err"], err)
@@ -1300,18 +1397,42 @@ def phase_segment_timing(cs, ts, spec_for_size, serving_config):
 
         ms = _cuda_ms(lambda: seg(8), reps)
         k0 = _cuda_ms(lambda: seg(0), reps)
+        split = _profiled_kernel_ms(lambda: seg(8), reps)
+        split_k0 = _profiled_kernel_ms(lambda: seg(0), reps)
         sweeps_run = int(kd[:, 3].sum()) - int(plain_in.validations[src < 0].sum())
-        bound, by = _segment_bound_ms(W, spec.cells, int((src >= 0).sum()),
-                                      sweeps_run, sweeps["locked_candidates"])
+        locked = sweeps["locked_candidates"]
+        bounds, bounds_k0 = (
+            _segment_bounds_ms(spec.cells, src, plain_in, ts.RUNNING, n, locked, prefix)
+            for n in (sweeps_run, 0)
+        )
+        bound, by = bounds["pair"]
+        k0_bound = bounds_k0["pair"][0]
         out["ms"][name], out["plain_ms"][name], out["k0_ms"][name] = ms, plain_ms, k0
         out["bound_ms"][name], out["bound_by"][name] = bound, by
+        out["k0_bound_ms"][name] = k0_bound
+        out["plain_split_ms"][SEGMENT_KERNELS[0]][name] = plain_k3
+        out["plain_split_ms"][SEGMENT_KERNELS[1]][name] = plain_k3b
+        for kern in SEGMENT_KERNELS:
+            out["split"][kern][name] = {
+                "ms": split[kern], "k0_ms": split_k0[kern],
+                "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1],
+                "k0_bound_ms": bounds_k0[kern][0],
+            }
         log(
             f"timing segment pool {name} (k 8, waves {sweeps['waves']}): kernels "
             f"{ms:.4f} ms (CUDA events, mean of {reps}), k 0 {k0:.4f} ms; plain "
             f"{plain_ms:.1f} ms (1 run); bound {bound:.6f} ms by {by} "
-            f"({bound / ms:.2%} of the kernels); {sweeps_run} sweeps, lockstep "
-            f"steps {int(kd[0, 6]) // W}; {n_bad} lanes differ from the plain version"
+            f"({bound / ms:.2%} of the kernels), k 0 {k0_bound:.6f} ms; "
+            f"{sweeps_run} sweeps, lockstep steps {int(kd[0, 6]) // W}; {n_bad} "
+            f"lanes differ from the plain version"
         )
+        for kern in SEGMENT_KERNELS:
+            b, bby = bounds[kern]
+            log(
+                f"  {kern} (torch.profiler, mean of {reps}): k 8 {split[kern]:.4f} "
+                f"ms, bound {b:.6f} ms by {bby} ({b / split[kern]:.2%}); k 0 "
+                f"{split_k0[kern]:.4f} ms, bound {bounds_k0[kern][0]:.6f} ms"
+            )
         check(n_bad == 0, f"segment timing pool {name}: kernels and plain version disagree")
     return out
 
@@ -1326,7 +1447,7 @@ def card_name_and_power_limit() -> str:
 def ptxas_report(build_log, label: str = "ptxas"):
     """Registers, stack and spill bytes per kernel instance, from the
     ``-Xptxas -v`` report in ``build_log``, keyed "dfs_solver_kernel 9x9",
-    "dfs_segment_kernel 9x9", ..., "segment_digest_kernel"."""
+    "dfs_segment_kernel 16x16", "segment_digest_kernel 25x25", ..."""
     report, key = {}, None
     for line in build_log.read_text().splitlines():
         m = re.search(
@@ -1376,11 +1497,12 @@ def main() -> int:
     cs.load_library()
     log(f"build: dfs_solver library built and loaded in {time.perf_counter() - t0:.2f} s")
     ptxas = ptxas_report(cs.build().with_suffix(".log"))
-    for key in ("dfs_solver_kernel 9x9", "dfs_segment_kernel 9x9",
-                "segment_digest_kernel"):
-        inst = ptxas.get(key, {})
-        check(inst.get("stack") == 0 and inst.get("spill_stores") == 0,
-              f"{key} uses local memory: {inst}")
+    for kernel in ("dfs_solver_kernel", *SEGMENT_KERNELS):
+        for size in (4, 9, 16, 25):
+            key = f"{kernel} {size}x{size}"
+            inst = ptxas.get(key, {})
+            check(inst.get("stack") == 0 and inst.get("spill_stores") == 0
+                  and inst.get("spill_loads") == 0, f"{key} uses local memory: {inst}")
 
     mismatches, max_abs_err = phase_parity(
         cs, ts, spec_for_size, serving_config, oracle_is_valid_solution
@@ -1473,35 +1595,50 @@ def main() -> int:
         "readme_p50_ms": readme_p50,
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith("dfs_solver_kernel")},
     }
-    segment = {
-        "name": "dfs_segment",
-        "route": "cuda",
-        "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
-        # no Pallas kernel: the JAX package runs segments as XLA code
-        "replaces": "sudoku_solver_distributed_tpu/engine.py:873",
-        "kernels": ["dfs_segment_kernel", "segment_digest_kernel"],
-        "launches": main_path["segment_launches"],
-        "segments_per_readme_solve": main_path["segments_per_readme"],
-        "launches_cache_path": front["segment_launches_cache"],
-        "launches_supervised_path": front["segment_launches_supervised"],
-        "mismatches": seg_bad + seg_timing["mismatches"],
-        "max_abs_err": max(seg_err, seg_timing["max_abs_err"]),
-        # one segment (k = 8) over a 4096-lane pool, every lane injected
-        "ms": seg_timing["ms"]["4096"],
-        "plain_ms": seg_timing["plain_ms"]["4096"],
-        "bound_ms": seg_timing["bound_ms"]["4096"],
-        "bound_by": seg_timing["bound_by"]["4096"],
-        "library_ms": None,
-        "ms_by_pool": seg_timing["ms"],
-        "k0_ms_by_pool": seg_timing["k0_ms"],
-        "plain_ms_by_pool": seg_timing["plain_ms"],
-        "bound_ms_by_pool": seg_timing["bound_ms"],
-        "boundary_host_ms": main_path["boundary_host_ms"],
-        "golden_segmented": seg_golden,
-        "batch_fill_max": main_path["batch_fill_max"],
-        "ptxas": {k: v for k, v in ptxas.items() if not k.startswith("dfs_solver_kernel")},
+    # the segment kernels: no Pallas kernel (the JAX package runs segments
+    # as XLA code, engine.py:873); each stands for its plain function
+    replaces = {
+        "dfs_segment_kernel": "sudoku_solver_distributed_tpu/ops/solver.py:875",
+        "segment_digest_kernel": "sudoku_solver_distributed_tpu/ops/solver.py:801",
     }
-    print(json.dumps({"kernels": [kernel, segment]}), flush=True)
+    segment_kernels = []
+    for kern in SEGMENT_KERNELS:
+        split = seg_timing["split"][kern]
+        segment_kernels.append({
+            "name": kern,
+            "route": "cuda",
+            "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
+            "replaces": replaces[kern],
+            # both launch once a segment, from the one wrapper
+            # ops/cuda_solver.dfs_segment
+            "launches": main_path["segment_launches"],
+            "segments_per_readme_solve": main_path["segments_per_readme"],
+            "launches_cache_path": front["segment_launches_cache"],
+            "launches_supervised_path": front["segment_launches_supervised"],
+            "mismatches": seg_bad + seg_timing["mismatches"],
+            "max_abs_err": max(seg_err, seg_timing["max_abs_err"]),
+            # one segment (k = 8) over a 4096-lane pool, every lane
+            # injected; torch.profiler's kernel time
+            "ms": split["4096"]["ms"],
+            "plain_ms": seg_timing["plain_split_ms"][kern]["4096"],
+            "bound_ms": split["4096"]["bound_ms"],
+            "bound_by": split["4096"]["bound_by"],
+            "library_ms": None,
+            "by_pool": split,
+            "plain_ms_by_pool": seg_timing["plain_split_ms"][kern],
+            "ptxas": {k: v for k, v in ptxas.items() if k.startswith(kern)},
+        })
+    segment_kernels[0].update(
+        warps_per_sm_9x9=seg_timing["warps_per_sm"],
+        pair_ms_by_pool=seg_timing["ms"],
+        pair_k0_ms_by_pool=seg_timing["k0_ms"],
+        pair_plain_ms_by_pool=seg_timing["plain_ms"],
+        pair_bound_ms_by_pool=seg_timing["bound_ms"],
+        boundary_host_ms=main_path["boundary_host_ms"],
+        golden_segmented=seg_golden,
+        batch_fill_max=main_path["batch_fill_max"],
+    )
+    print(json.dumps({"kernels": [kernel, *segment_kernels]}), flush=True)
     print(
         json.dumps(
             {

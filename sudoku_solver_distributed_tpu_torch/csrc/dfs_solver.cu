@@ -92,8 +92,15 @@
 // the boundary. They replace no Pallas kernel: the JAX package runs this as
 // XLA code (engine.py's segment program: inject_lanes_src, run_segment,
 // segment_digest), and its Pallas backend refuses continuous batching. A
-// segment at k = 8 steps is ~25 sweeps of its slowest lane, so it is bound
+// segment at k = 8 steps is ~25 sweeps of its slowest lane, so K3 is bound
 // like the whole solve: by the latency of a lane's sweep chain, not bytes.
+// Around that chain, the serving pool is 4096 lanes wide, and most of them
+// are idle under light traffic: K3's warp of an idle lane leaves after a
+// few words. K3 keeps the default register bounds on every size (its note
+// says why a cap that fits all 4096 warps at once does not pay). K3b is
+// bound by bytes: it copies the pool's whole grid into
+// the solution block every segment, so its copy is spread over W / 32
+// blocks with several words in flight a thread (its note has the numbers).
 //
 // Interface: plain C, for ctypes. A launch uses the caller's stream, does
 // not synchronize and allocates nothing; it returns cudaGetLastError().
@@ -111,7 +118,9 @@ constexpr int kLanes = 32;
 constexpr int kWarps = 4;     // boards per block, one per warp
 constexpr int kMetaCols = 4;  // status, guesses, validations, steps
 constexpr int kDigestCols = 8;  // a segment's digest row per lane (ops/solver.py)
-constexpr int kDigestThreads = 256;  // lanes per block of the digest kernel
+constexpr int kDigestThreads = 256;  // threads per block of the digest kernel
+constexpr int kDigestLanes = 32;     // pool lanes per block of the digest kernel
+constexpr int kCopyInFlight = 4;     // block words a digest thread loads before storing
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kCellBits = 10;  // MRV key: popcount << kCellBits | cell
 constexpr unsigned kNoKey = 0xffffffffu;
@@ -624,6 +633,22 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
 //     segment" bit for the digest kernel (lane_steps), and, when the
 //     solution block is not prefix-gathered, the lane's block row (its grid
 //     if it solved in this segment, else zeros).
+//
+// What bounds it on an H100: a segment over live lanes is the latency of its
+// slowest lane's sweep chain, as in dfs_solver_kernel; and the serving pool
+// is 4096 lanes, one warp each. Two things the design does about that:
+//   * an idle lane (kept with src == -1, and not RUNNING) cannot change, so
+//     its warp leaves at once: it reads the lane's four scalars and writes
+//     digest columns 0-4, its step word and, with the block masked, its zero
+//     row; no grid load or store, no top frame, no shared-memory layout. A
+//     lone /solve in the 4096-lane pool is 4095 such warps;
+//   * no register cap: uncapped, 9x9 takes ~81 registers and an SM holds
+//     fewer than 32 of these warps, so a fully live 4096 pool runs in more
+//     than one wave. Capped at 64 registers (8 blocks of 4 warps an SM)
+//     all 4096 fit, and a full pool ran ~8% faster, but every lane's sweep
+//     chain ran ~10% slower, so every case the serving path produces (a
+//     few live lanes in the pool, pools of 8 to 512) ran 4-10% slower
+//     (PERF.md has the A/B). The cap would pay only at a full pool.
 template <int BOX>
 __global__ void __launch_bounds__(kWarps * kLanes)
 dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
@@ -643,6 +668,29 @@ dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
   const int warp = threadIdx.x / kLanes;
   const int b = blockIdx.x * kWarps + warp;
   if (b >= W) return;  // the whole warp leaves; no block-wide barrier follows
+  const int from = src[b];
+  if (from == -1 && status[b] != kRunning) {
+    // An idle lane (kept, and finished in an earlier segment): its state
+    // cannot change, so nothing of it is loaded or stored but the digest
+    // columns, its step word and, with the block masked, its zero row.
+    if (!prefix_gather) {
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        if (owns<BOX>(lane, j)) gathered[(size_t)b * C + lane + j * kLanes] = 0;
+      }
+    }
+    if (lane == 0) {
+      const int st = status[b];
+      int32_t* d = digest + (size_t)b * kDigestCols;
+      d[0] = st;
+      d[1] = st == kSolved;
+      d[2] = guesses[b];
+      d[3] = validations[b];
+      d[4] = board_iters[b];
+      lane_steps[b] = 0;
+    }
+    return;  // the whole warp leaves
+  }
   const Smem sh = warp_smem<BOX>(smem[warp]);
   int g[CPL], pk[CPL];
   UnitWalk uw[Geo::UPL];
@@ -652,7 +700,6 @@ dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
   int8_t* sg = stack_grid + (size_t)b * D * C;
   int32_t* sc = stack_cell + (size_t)b * D;
   int32_t* sm = stack_mask + (size_t)b * D;
-  const int from = src[b];
   Search s;
   if (from == -1) {
 #pragma unroll
@@ -673,10 +720,9 @@ dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
     s = Search{kRunning, 0, 0, 0, 0, 0, 0};
   }
   const int iters0 = from == -1 ? board_iters[b] : 0;
-  const bool entry_running = s.status == kRunning;
-  if (entry_running)
-    search<BOX>(g, pk, uw, sh, lane, sg, sc, sm, D, seg_iters, waves, options, s);
-  const bool newly = entry_running && s.status == kSolved;
+  // past the idle exit every lane is RUNNING at entry
+  search<BOX>(g, pk, uw, sh, lane, sg, sc, sm, D, seg_iters, waves, options, s);
+  const bool newly = s.status == kSolved;
 
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
@@ -712,22 +758,32 @@ dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
 // is the pool's grid with the lanes solved in this segment first, in lane
 // order, then the others in lane order (a stable partition), and fetch_slot
 // is a solved lane's row in it; without, fetch_slot is the lane index (the
-// segment kernel wrote the block). Block k handles lanes [k * 256, k * 256 +
-// 256): every block first reads all W step words (16 KB at W = 4096, from
-// L2) to get the totals and the count of solved lanes ahead of its range
-// itself, so blocks need no cross-block scan or atomics; then a block-wide
-// exclusive scan places its lanes and it copies their rows.
+// segment kernel wrote the block).
+//
+// What bounds it: the block copy, W * C words read and written (1.33 MB
+// each way at W = 4096 on 9x9), whether or not any lane solved. So the
+// copy is spread over the card: block k handles the kDigestLanes lanes
+// [k * kDigestLanes, (k + 1) * kDigestLanes), W / kDigestLanes blocks (128
+// at 4096), and each thread keeps kCopyInFlight words of the block's
+// contiguous rows in flight before it stores them. Every block first reads
+// all W step words itself (16 KB at 4096, from L2, a few words a thread)
+// for the totals and the count of solved lanes ahead of its range, so the
+// blocks need no cross-block scan or atomics; one ballot then places its
+// lanes.
+template <int BOX>
 __global__ void __launch_bounds__(kDigestThreads)
 segment_digest_kernel(const int32_t* __restrict__ lane_steps,
                       const int32_t* __restrict__ grid, int32_t* __restrict__ digest,
-                      int32_t* __restrict__ gathered, int W, int C, int prefix_gather) {
+                      int32_t* __restrict__ gathered, int W, int prefix_gather) {
+  constexpr int C = Geometry<BOX>::C;
   constexpr int kWarpsHere = kDigestThreads / kLanes;
-  __shared__ int red[3][kWarpsHere];
-  __shared__ int scan[kWarpsHere];
-  __shared__ int dest[kDigestThreads];
+  static_assert(kDigestLanes == kLanes, "one ballot places the block's lanes");
+  __shared__ int red[4][kWarpsHere];
+  __shared__ int dest[kDigestLanes];
   const int t = threadIdx.x, lane = t % kLanes, warp = t / kLanes;
-  const int first = blockIdx.x * kDigestThreads;
+  const int first = blockIdx.x * kDigestLanes;
   int r_max = 0, r_sum = 0, solved = 0, solved_before = 0;
+#pragma unroll 4
   for (int i = t; i < W; i += kDigestThreads) {
     const int v = lane_steps[i];
     r_max = max(r_max, v >> 1);
@@ -743,7 +799,7 @@ segment_digest_kernel(const int32_t* __restrict__ lane_steps,
     red[0][warp] = r_max;
     red[1][warp] = r_sum;
     red[2][warp] = solved;
-    scan[warp] = solved_before;
+    red[3][warp] = solved_before;
   }
   __syncthreads();
   r_max = r_sum = solved = solved_before = 0;
@@ -752,39 +808,45 @@ segment_digest_kernel(const int32_t* __restrict__ lane_steps,
     r_max = max(r_max, red[0][w]);
     r_sum += red[1][w];
     solved += red[2][w];
-    solved_before += scan[w];
+    solved_before += red[3][w];
   }
-  __syncthreads();  // scan[] is reused below
 
-  // exclusive scan of the "solved in this segment" bits over this block's
-  // lanes, in lane order
-  const int i = first + t;
-  const int mine = i < W ? lane_steps[i] & 1 : 0;
-  int incl = mine;
-#pragma unroll
-  for (int o = 1; o < kLanes; o <<= 1) {
-    const int n = __shfl_up_sync(kAll, incl, o);
-    if (lane >= o) incl += n;
-  }
-  if (lane == kLanes - 1) scan[warp] = incl;
-  __syncthreads();
-  int ahead = solved_before;
-  for (int w = 0; w < warp; ++w) ahead += scan[w];
-  ahead += incl - mine;  // solved lanes before lane i
-  if (i < W) {
-    const int lockstep = r_max * W;
-    int32_t* d = digest + (size_t)i * kDigestCols;
-    d[5] = mine ? (prefix_gather ? ahead : i) : -1;
-    d[6] = lockstep;
-    d[7] = lockstep - r_sum;
-    dest[t] = mine ? ahead : solved + (i - ahead);
+  // warp 0 places the block's lanes: a solved lane after the solved lanes
+  // before it, any other after every solved lane and the unsolved ones
+  // before it
+  if (warp == 0) {
+    const int i = first + lane;
+    const int mine = i < W ? lane_steps[i] & 1 : 0;
+    const unsigned bits = __ballot_sync(kAll, mine);
+    const int ahead = solved_before + __popc(bits & ((1u << lane) - 1u));
+    if (i < W) {
+      const int lockstep = r_max * W;
+      int32_t* d = digest + (size_t)i * kDigestCols;
+      d[5] = mine ? (prefix_gather ? ahead : i) : -1;
+      d[6] = lockstep;
+      d[7] = lockstep - r_sum;
+      dest[lane] = mine ? ahead : solved + (i - ahead);
+    }
   }
   if (!prefix_gather) return;  // uniform over the block
   __syncthreads();
-  const int n = min(kDigestThreads, W - first);
-  for (int k = t; k < n * C; k += kDigestThreads) {
-    const int l = k / C;
-    gathered[(size_t)dest[l] * C + (k - l * C)] = grid[(size_t)first * C + k];
+  const int n = min(kDigestLanes, W - first) * C;
+  const int32_t* rows = grid + (size_t)first * C;
+  for (int k0 = t; k0 < n; k0 += kCopyInFlight * kDigestThreads) {
+    int v[kCopyInFlight];
+#pragma unroll
+    for (int u = 0; u < kCopyInFlight; ++u) {
+      const int k = k0 + u * kDigestThreads;
+      if (k < n) v[u] = rows[k];
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyInFlight; ++u) {
+      const int k = k0 + u * kDigestThreads;
+      if (k < n) {
+        const int l = k / C;
+        gathered[(size_t)dest[l] * C + (k - l * C)] = v[u];
+      }
+    }
   }
 }
 
@@ -824,11 +886,10 @@ int launch_segment(const void* boards, int n_boards, const void* src, const Pool
       seg_iters, waves, options, prefix_gather);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  segment_digest_kernel<<<(W + kDigestThreads - 1) / kDigestThreads, kDigestThreads, 0,
-                          stream>>>(
+  segment_digest_kernel<BOX><<<(W + kDigestLanes - 1) / kDigestLanes, kDigestThreads, 0,
+                               stream>>>(
       static_cast<const int32_t*>(lane_steps), static_cast<const int32_t*>(p.grid),
-      static_cast<int32_t*>(digest), static_cast<int32_t*>(gathered), W,
-      Geometry<BOX>::C, prefix_gather);
+      static_cast<int32_t*>(digest), static_cast<int32_t*>(gathered), W, prefix_gather);
   return (int)cudaGetLastError();
 }
 
@@ -841,6 +902,33 @@ int dfs_solver_meta_cols() { return kMetaCols; }
 
 // Digest columns per lane of a segment, likewise.
 int dfs_segment_digest_cols() { return kDigestCols; }
+
+// Warps of the segment kernel resident on one SM of the current device at
+// once, for board box edge `box` (the occupancy its registers and shared
+// memory allow), or -1 on an error.
+int dfs_segment_warps_per_sm(int box) {
+  int blocks = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (box) {
+    case 2:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dfs_segment_kernel<2>,
+                                                          kWarps * kLanes, 0);
+      break;
+    case 3:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dfs_segment_kernel<3>,
+                                                          kWarps * kLanes, 0);
+      break;
+    case 4:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dfs_segment_kernel<4>,
+                                                          kWarps * kLanes, 0);
+      break;
+    case 5:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dfs_segment_kernel<5>,
+                                                          kWarps * kLanes, 0);
+      break;
+  }
+  return err == cudaSuccess ? blocks * kWarps : -1;
+}
 
 // boards (B, C) int32 in, grid_out (B, C) int32 and meta (B, 4) int32 out,
 // scratch stack_grid (B, D, C) int8, stack_cell and stack_mask (B, D) int32.

@@ -640,13 +640,9 @@ class SolverEngine:
                     # real requests only: -2 pad re-seeds are not injections
                     injected = int((src_np >= 0).sum())
                 src_dev = self._device_batch(src_np)
-            prefix = self.segment_pipeline and segment_prefix_gather(
-                width, self.spec.cells
-            )
-            nxt, digest, block = dfs_segment(
+            nxt, digest, block = self._segment_kernels(
                 state, boards, src_dev,
                 int(seg_iters) if seg_iters else self.segment_iters,
-                prefix_gather=prefix, **self._sweeps(width),
             )
             if self.segment_pipeline:
                 out = digest
@@ -800,19 +796,37 @@ class SolverEngine:
             t.record_stream(stream)
         return t
 
+    def _segment_kernels(self, state: SegmentPool, boards: torch.Tensor,
+                         src: torch.Tensor, seg_iters: int):
+        """One launch of the segment kernels over the pool ``state`` with
+        the engine's sweeps for its width and, on the pipelined arm, the
+        prefix-gathered solution block where the width takes it; returns
+        ``dfs_segment``'s ``(pool, digest, block)``. No token, no hook:
+        the seam is the caller's."""
+        width = state.width
+        return dfs_segment(
+            state, boards, src, seg_iters,
+            prefix_gather=self.segment_pipeline
+            and segment_prefix_gather(width, self.spec.cells),
+            **self._sweeps(width),
+        )
+
     def _warm_segment_program(self) -> None:
         """Before serving: one trivial segment over a fresh all-pad pool at
         the serving width, so the first request pays neither the kernel
-        build nor its first launch at that width."""
+        build nor its first launch at that width. It calls the segment
+        kernels directly, outside the supervised seam (no token, no
+        injector hook), as the JAX engine's warm-up calls its program."""
         if not self.continuous_active:
             return
         w = self.segment_pool_width()
-        N = self.spec.size
-        handle = self.dispatch_segment(
-            self.new_segment_pool(w), np.zeros((w, N, N), np.int32),
-            np.zeros((w,), np.int32),
+        keep = torch.full((w,), -1, dtype=torch.int32, device=self.device)
+        boards = torch.zeros((1, self.spec.cells), dtype=torch.int32,
+                             device=self.device)
+        _, digest, _ = self._segment_kernels(
+            self.new_segment_pool(w), boards, keep, self.segment_iters
         )
-        self.finalize_segment(handle, active=np.zeros(w, bool))
+        digest.cpu()  # the segment has run
         with self._lock:
             self._warm.add(w)
 
@@ -853,10 +867,22 @@ class SolverEngine:
         """Run every bucket width once (empty boards) before serving, so the
         first request pays neither the kernel build nor the first launch.
         The counters are not touched. The supervisor's rebuild calls it
-        again on a LOST engine."""
+        again on a LOST engine.
+
+        As in the JAX engine's ``_warm_bucket``, each width runs the bucket
+        path's inner launch and wait (``_launch``, ``_wait_rows``) directly,
+        outside the supervised seam: no watchdog token, no injector hook,
+        no quarantine routing. A width
+        already warm is skipped, so a rebuild relaunches only the segment
+        warm-up."""
         N = self.spec.size
         for b in self.buckets:
-            self._solve_padded(np.zeros((b, N, N), np.int32))
+            with self._lock:
+                if b in self._warm:
+                    continue
+            self._wait_rows(
+                self._launch(np.zeros((b, N, N), np.int32), b, self.max_iters)
+            )
             with self._lock:
                 self._warm.add(b)
         self._warm_segment_program()

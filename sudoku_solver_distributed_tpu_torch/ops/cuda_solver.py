@@ -142,7 +142,18 @@ def load_library() -> ctypes.CDLL:
     lib.dfs_segment_digest_cols.restype = i
     if lib.dfs_segment_digest_cols() != SEGMENT_DIGEST_COLS:
         raise RuntimeError("dfs_solver library disagrees on the digest layout")
+    lib.dfs_segment_warps_per_sm.argtypes = [i]
+    lib.dfs_segment_warps_per_sm.restype = i
     return lib
+
+
+def segment_warps_per_sm(size: int) -> int:
+    """Warps of the segment kernel for ``size``×``size`` boards that one SM
+    of the current CUDA device holds at once (its occupancy)."""
+    warps = load_library().dfs_segment_warps_per_sm(round(size ** 0.5))
+    if warps < 0:
+        raise RuntimeError(f"no segment kernel occupancy for size {size}")
+    return warps
 
 
 def _dfs_solver_plain(boards: torch.Tensor, spec: BoardSpec, depth: int,

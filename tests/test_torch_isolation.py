@@ -319,6 +319,56 @@ def test_segment_kernels_match_plain_on_the_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width, live", [(4096, 1), (4096, 16), (64, 5)],
+                         ids=["4096-1-live", "4096-16-live", "64-idle-masked"])
+def test_segment_kernels_with_idle_lanes_match_plain_on_the_card(width, live):
+    """A pool whose other lanes have finished, as a lone /solve or a few
+    concurrent clients leave the serving pool: the pad lanes finish in a
+    first segment, then ``live`` lanes scattered over the pool board hard
+    boards and run segments until they solve, every idle lane kept. The 4096 pools
+    prefix-gather their block (the digest kernel copies it); the 64 pool
+    masks it (the segment kernel writes every lane's row, zeros for the
+    idle ones). State, digest and block must equal the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops import solver as ts
+    from sudoku_solver_distributed_tpu_torch.ops.config import (
+        segment_prefix_gather, serving_config,
+    )
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        SegmentPool, _dfs_segment_plain, dfs_segment,
+    )
+
+    spec = spec_for_size(9)
+    sweeps = {k: serving_config(9)[k]
+              for k in ("locked_candidates", "waves", "naked_pairs")}
+    prefix = segment_prefix_gather(width, spec.cells)
+    assert prefix == (width == 4096)
+    stock = torch.as_tensor(_hard(64).reshape(64, -1), device="cuda")
+    lanes = np.random.default_rng(width + live).choice(width, live, replace=False)
+    pool = SegmentPool.fresh(ts.pad_board(spec, "cuda").expand(width, 9, 9), spec, 81)
+    plain = ts.SegmentState(*(t.clone() for t in pool.state))
+    keep = torch.full((width,), -1, dtype=torch.int32, device="cuda")
+    inject = keep.clone()
+    inject[torch.as_tensor(lanes, device="cuda")] = torch.arange(
+        live, dtype=torch.int32, device="cuda")
+    gathered = 0
+    for seg, (src, k) in enumerate([(keep, 1), (inject, 8), (keep, 3), (keep, 512)]):
+        pool, kd, kb = dfs_segment(pool, stock, src, k, prefix_gather=prefix, **sweeps)
+        plain, pd, pb = _dfs_segment_plain(plain, stock, src, k, spec, prefix, **sweeps)
+        torch.cuda.synchronize()
+        for f in ("grid", "depth", "status", "guesses", "validations", "board_iters"):
+            assert torch.equal(getattr(pool.state, f), getattr(plain, f)), (seg, f)
+        below = torch.arange(81, device="cuda")[None, :] < plain.depth.long()[:, None]
+        for f in ("stack_grid", "stack_cell", "stack_mask"):
+            assert torch.equal(getattr(pool.state, f)[below],
+                               getattr(plain, f)[below]), (seg, f)
+        assert torch.equal(kd, pd) and torch.equal(kb, pb), seg
+        gathered += int((kd[:, 5] >= 0).sum())
+    assert gathered == live  # every live lane solved, and its row was placed
+
+
+@pytest.mark.cuda
 def test_continuous_engine_on_the_card_matches_the_cpu_engine():
     """The default engine on the card (continuous, pool 64, pipelined and
     full-row arms) answers as the CPU engine does, counters included."""

@@ -75,13 +75,14 @@ def _valid_answer(board, solution) -> bool:
 class Side:
     """One package's engine under its own supervisor and injector."""
 
-    def __init__(self, engine, supervisor_cls, injector_cls):
+    def __init__(self, engine, supervisor_cls, injector_cls, *,
+                 watchdog_budget_s=BUDGET_S, probe_interval_s=600.0):
         self.engine = engine
         self.inj = injector_cls()
         engine.fault_injector = self.inj
         self.sup = supervisor_cls(
-            engine, watchdog_budget_s=BUDGET_S, breaker_threshold=3,
-            probe_interval_s=600.0,
+            engine, watchdog_budget_s=watchdog_budget_s, breaker_threshold=3,
+            probe_interval_s=probe_interval_s,
         )
 
     def close(self):
@@ -225,6 +226,68 @@ def test_fault_script_matches_jax_supervisor(engines):
     finally:
         for side in sides:
             side.close()
+
+
+@pytest.mark.parametrize("delay_during_rebuild", [False, True],
+                         ids=["armed-failures", "fetch-delay"])
+def test_lost_rebuild_warms_outside_the_seam_as_jax(delay_during_rebuild,
+                                                    monkeypatch):
+    """The LOST rebuild (``_rebuild`` → ``warmup``) on a warmed engine:
+    three supervised solves under five armed failures (the first fails,
+    the fallback answers the others), then the rebuild, then half-open
+    probes by hand until HEALTHY.
+    The rebuild must consume no armed failure and relaunch no warm width,
+    as the JAX engine's warm-up does not; with a fetch delay armed during
+    the rebuild (past a lowered watchdog budget), no width may be declared
+    hung or quarantined. Probe counts, settled views and the injector's
+    counts must be equal."""
+    launches = []  # the port's bucket launches
+    real = SolverEngine._launch
+    monkeypatch.setattr(
+        SolverEngine, "_launch",
+        lambda self, boards, *a, **kw: launches.append(boards.shape[0])
+        or real(self, boards, *a, **kw),
+    )
+    views = []
+    for engine_cls, sup_cls, inj_cls, kw in (
+        (JaxEngine, jax_health.EngineSupervisor, JaxInjector, {}),
+        (SolverEngine, health.EngineSupervisor, EngineFaultInjector,
+         {"device": "cpu"}),
+    ):
+        eng = engine_cls(coalesce=False, buckets=(1, 4), **kw)
+        eng.warmup()
+        side = Side(eng, sup_cls, inj_cls, watchdog_budget_s=30.0,
+                    probe_interval_s=3600.0)
+        try:
+            side.inj.arm_fail_next(5)
+            answers = [side.solve(BOARD) for _ in range(3)]
+            assert all(_valid_answer(BOARD, sol) for sol, _ in answers)
+            if delay_during_rebuild:
+                side.sup.watchdog_budget_s = HANG_BUDGET_S
+                side.inj.set_delay(DELAY_S)
+            launches.clear()
+            side.sup._rebuild()
+            assert launches == [], "the rebuild relaunched a warm bucket"
+            side.inj.set_delay(0.0)
+            side.sup.watchdog_budget_s = 30.0
+            rebuilt = side.settled()
+            probes = 0
+            while side.sup.state != health.HEALTHY:
+                assert probes < 10, "the probes never re-admitted the device"
+                side.sup.probe()
+                probes += 1
+            views.append((rebuilt, probes, side.settled()))
+        finally:
+            side.close()
+            eng.close()
+    assert views[1] == views[0]
+    rebuilt, probes, _ = views[1]
+    # the rebuild consumed no armed failure and declared no hang; the
+    # probes took the other four
+    assert rebuilt["faults"]["calls"] == 1
+    assert rebuilt["faults"]["armed_fail_next"] == 4
+    assert rebuilt["snapshot"]["hangs"] == 0
+    assert probes == 5
 
 
 def test_lost_engine_rebuilds_and_reenters_healthy():
