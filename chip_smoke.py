@@ -84,12 +84,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and K3 and K3b each on its own from torch.profiler's kernel records,
    each beside its bound and its part of the plain version. The first
    launch of each is held against the plain version.
+8. The observability plane (obs/), with both kernels' counters set to 0
+   before it and read after: a default node with ``--metrics`` (answer
+   cache off) answers 20 README /solves with ``X-Timing``. Each echoes its
+   ``X-Request-Id``, reports device time, the pool width as its bucket and
+   the same segment count; its device stage equals the sum of its
+   segments' dispatch-to-fetch times (host clock), and its stages sum to
+   no more than its total once the pipelined segments' overlap (their
+   summed times less the wall span from the first dispatch to the last
+   fetch) is taken off; every segment's device stage is at least K3 +
+   K3b's time by CUDA events around the launches. After 16
+   concurrent clients the cost plane's segment count and its pool
+   bucket's lane_steps / idle_lane_steps equal the count and the sum of
+   the K3b digests' columns; ``/metrics.prom`` parses, equals
+   ``?format=prom`` and every leaf of the JSON body; ``/debug/trace`` is
+   trace-event JSON with the /solve spans; ``POST /debug/flightrecord``
+   writes a dump holding them (in a temporary directory). A
+   ``--device-trace-dir`` node's torch.profiler warm-up trace must name
+   the three kernels; the README p50 of a node with the plane on and a
+   ``--no-obs`` node are read in turns (on, off, off, on).
 
 Prints a ``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
-card's name and power limit, one ``{"kernels": [...]}`` line (dfs_solver,
-dfs_segment_kernel, segment_digest_kernel), and last ``{"ok": true,
-"device": {...}}``. Exits non-zero without a result when no CUDA device
-is available. Imports nothing of JAX.
+card's name and power limit, a ``{"obs": {...}}`` line (phase 8), one
+``{"kernels": [...]}`` line (dfs_solver, dfs_segment_kernel,
+segment_digest_kernel), and last ``{"ok": true, "device": {...}}``. Exits
+non-zero without a result when no CUDA device is available. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1437,6 +1457,348 @@ def phase_segment_timing(cs, ts, spec_for_size, serving_config):
     return out
 
 
+STAGE_KEYS = ("cache_ms", "queue_ms", "coalesce_ms", "device_ms", "verify_ms",
+              "fallback_ms")
+_PROM_LINE = re.compile(
+    r"^(?:# (?:TYPE|HELP) .*|"
+    r"([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^{}]*\})?) "
+    r"([-+]?(?:[0-9.]+(?:[eE][-+]?[0-9]+)?|Inf|NaN)))$"
+)
+
+
+def _segment_probe(engine):
+    """Wrap the engine's segment seam to record, for every segment, K3 +
+    K3b's time by CUDA events (recorded around the two launches, on the
+    stream they run on), the digest's lane_steps / idle_lane_steps (left
+    on the device until read) and, at its fetch, the dispatch-to-fetch
+    time the request spans stamp as device time, with the dispatch and
+    fetch instants (monotonic clock). Returns the list of finalized
+    segments' records (``_read_segments`` reads their device values)."""
+    import torch
+
+    real_kernels = engine._segment_kernels
+    real_dispatch = engine.dispatch_segment
+    real_finalize = engine.finalize_segment
+    local = threading.local()
+    pending = {}
+    done = []
+
+    def kernels(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_kernels(*args, **kw)
+        end.record()
+        local.last = (start, end, out[1][0, 6:8].clone())
+        return out
+
+    def dispatch(*args, **kw):
+        handle = real_dispatch(*args, **kw)
+        pending[id(handle)] = local.last
+        return handle
+
+    def finalize(handle, **kw):
+        rows, device_s = real_finalize(handle, **kw)
+        t_fetch = time.monotonic()
+        start, end, stats = pending.pop(id(handle))
+        done.append({"device_ms": device_s * 1e3, "start": start, "end": end,
+                     "stats": stats, "t0": handle.t0, "t_fetch": t_fetch})
+        return rows, device_s
+
+    engine._segment_kernels = kernels
+    engine.dispatch_segment = dispatch
+    engine.finalize_segment = finalize
+    return done
+
+
+def _read_segments(done):
+    """The probe's records with their device values read: per segment
+    ``(device_ms, kernels_ms, lane_steps, idle_lane_steps)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    out = []
+    for rec in list(done):
+        lane, idle = (int(v) for v in rec["stats"].tolist())
+        out.append((rec["device_ms"], rec["start"].elapsed_time(rec["end"]),
+                    lane, idle))
+    return out
+
+
+def _prom_leaves(body, prefix="sudoku"):
+    """{exposition name: value} of every numeric, boolean and string leaf
+    of a /metrics body, by the exposition's mapping (route blocks labeled
+    by route, other leaves by path, strings as ``_info`` gauges)."""
+    from sudoku_solver_distributed_tpu_torch.obs.prom import _label, _name
+
+    out = {}
+
+    def walk(path, v):
+        if isinstance(v, bool):
+            out[_name(*path)] = 1.0 if v else 0.0
+        elif isinstance(v, (int, float)):
+            out[_name(*path)] = float(v)
+        elif isinstance(v, str):
+            out[f'{_name(*path)}_info{{value="{_label(v)}"}}'] = 1.0
+        elif isinstance(v, dict):
+            for k, x in v.items():
+                walk(path + (str(k),), x)
+
+    for key, value in body.items():
+        if key.startswith("/"):
+            for field, v in value.items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    out[f'{prefix}_route_{_name(field)}{{route="{key}"}}'] = float(v)
+        else:
+            walk((prefix, key), value)
+    return out
+
+
+def phase_obs(cs, build_parser, build_node, oracle_ok, boundary_p50_ms):
+    """Phase 8 (``_phase_obs``) with its dumps and traces in a temporary
+    directory, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as out_dir:
+        return _phase_obs(cs, build_parser, build_node, oracle_ok,
+                          boundary_p50_ms, out_dir)
+
+
+def _phase_obs(cs, build_parser, build_node, oracle_ok, boundary_p50_ms,
+               out_dir):
+    """The observability plane on the main path, with both kernels'
+    counters set to 0 just before and read just after. A default node
+    with ``--metrics`` (answer cache off, so every README /solve reaches
+    the kernels): 20 README /solves with ``X-Timing``, each holding its
+    stages to its total and every segment's device stage to K3 + K3b's
+    CUDA-event time; 16 concurrent clients, then the cost plane's
+    segment lane counters against the sum of the K3b digests;
+    ``/metrics.prom`` against the JSON body; ``/debug/trace``; a POST
+    /debug/flightrecord dump. Then a ``--device-trace-dir`` node's
+    warm-up trace must name the kernels, and the README p50 with the
+    plane on is read beside a ``--no-obs`` node's, in turns."""
+    corpus = load_corpus("corpus_9x9_hard_4096.npz")
+    readme = json.dumps({"sudoku": README_PUZZLE}).encode()
+    dump_dir = os.path.join(out_dir, "flightrecords")
+    out = {}
+    cs.dfs_segment.launches = 0
+    cs.dfs_solver.launches = 0
+    node = _Node(build_parser, build_node,
+                 ["--metrics", "--no-answer-cache", "--flightrecord-dir", dump_dir])
+    eng = node.node.engine
+    try:
+        check(node.node.tracer is not None and node.node.flight is not None,
+              "the default node has no tracer or flight recorder")
+        probe = _segment_probe(eng)
+        width = eng.segment_pool_width()
+        timings, lat_ms, per_request, windows = [], [], [], []
+        for i in range(20):
+            n0 = cs.dfs_segment.launches
+            t_req = time.monotonic()
+            t0 = time.perf_counter()
+            status, body, headers = _http(node.base, "/solve", readme,
+                                          {"X-Timing": "1", "X-Request-Id": f"readme-{i}"})
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+            windows.append((t_req, time.monotonic()))
+            check(status == 200, f"/solve answered {status}")
+            _check_answer(README_PUZZLE, json.loads(body), oracle_ok, "README /solve")
+            check(headers.get("X-Request-Id") == f"readme-{i}", "X-Request-Id not echoed")
+            timing = json.loads(headers["X-Timing"])
+            timings.append(timing)
+            per_request.append(cs.dfs_segment.launches - n0)
+            check(timing["device_ms"] > 0, f"README /solve device_ms {timing}")
+            check(timing["bucket"] == width and timing["batch_id"] >= 1,
+                  f"README /solve span attribution {timing}")
+        # The stages against the total. A request's device stage is the sum
+        # of its segments' dispatch-to-fetch times, and the pipelined loop
+        # dispatches segment N+1 before it fetches N, so those times
+        # overlap: the stages' raw sum may pass the total by the overlap.
+        # Its segments (the first ``segments`` dispatched in its window,
+        # from the probe) give the overlap: their summed device times
+        # minus the wall span from the first dispatch to the last fetch.
+        records = sorted(probe, key=lambda r: r["t0"])
+        overlap_ms, raw_over = [], 0
+        for timing, (a, b) in zip(timings, windows):
+            mine = [r for r in records if a <= r["t0"] <= b][: timing["segments"]]
+            check(len(mine) == timing["segments"],
+                  f"the probe saw {len(mine)} segments of a request reporting {timing}")
+            summed = sum(r["device_ms"] for r in mine)
+            check(abs(summed - timing["device_ms"]) <= 0.01,
+                  f"the span's device stage {timing['device_ms']} ms is not its "
+                  f"segments' dispatch-to-fetch sum {summed:.3f} ms")
+            overlap = summed - (mine[-1]["t_fetch"] - mine[0]["t0"]) * 1e3
+            overlap_ms.append(overlap)
+            stages = sum(timing[k] for k in STAGE_KEYS)
+            raw_over += stages > timing["total_ms"]
+            check(stages - overlap <= timing["total_ms"] + 0.01,
+                  f"README /solve stages sum to {stages:.3f} ms, {overlap:.3f} ms "
+                  f"of it the segments' overlap, past the total {timing}")
+        out["readme_segment_overlap_ms_p50"] = _p50_ms(overlap_ms)
+        out["readme_stages_past_total"] = raw_over
+        log(f"README /solve stages: the raw sum passes total_ms in {raw_over} of "
+            f"20 requests; the pipelined segments' overlap p50 "
+            f"{out['readme_segment_overlap_ms_p50']:.3f} ms; every sum less its "
+            f"overlap is within the total")
+        segs = {t["segments"] for t in timings}
+        check(len(segs) == 1 and min(segs) >= 1,
+              f"README /solves report different segment counts {sorted(segs)}")
+        out["readme_segments"] = timings[0]["segments"]
+        out["readme_segment_launches"] = sum(per_request) / len(per_request)
+        out["readme_stage_p50_ms"] = {
+            k: _p50_ms([t[k] for t in timings]) for k in ("total_ms", *STAGE_KEYS)
+        }
+        out["readme_p50_ms_host"] = _p50_ms(lat_ms)
+        log(f"README /solve x20 with X-Timing: {out['readme_segments']} segments "
+            f"each in the span, {out['readme_segment_launches']:.2f} segment "
+            f"launches per request; stage p50s (ms) {out['readme_stage_p50_ms']}; "
+            f"host-clock p50 {out['readme_p50_ms_host']:.3f} ms")
+        segments = _read_segments(probe)
+        short = [(d, k) for d, k, _, _ in segments if d < k]
+        check(segments and not short,
+              f"segments whose device stage is under K3 + K3b's event time: {short[:5]}")
+        out["segment_device_ms_p50"] = _p50_ms([d for d, _, _, _ in segments])
+        out["segment_kernels_ms_p50"] = _p50_ms([k for _, k, _, _ in segments])
+        log(f"{len(segments)} README segments: device stage p50 "
+            f"{out['segment_device_ms_p50']:.4f} ms (dispatch to fetch, host "
+            f"clock) against K3 + K3b p50 {out['segment_kernels_ms_p50']:.4f} ms "
+            f"(CUDA events); every segment's device stage is at least its kernels'")
+
+        clients = [b.tolist() for b in corpus[300:316]]
+
+        def post(i):
+            status, body, _ = _http(
+                node.base, "/solve", json.dumps({"sudoku": clients[i]}).encode())
+            check(status == 200, f"concurrent /solve answered {status}")
+            return json.loads(body)
+
+        for i, sol in enumerate(_concurrent(16, post)):
+            _check_answer(clients[i], sol, oracle_ok, "concurrent /solve answer")
+
+        def cost():
+            return json.loads(_http(node.base, "/metrics")[1])["engine"]["cost"]
+
+        _wait(lambda: cost()["continuous"]["segments"] == len(probe), 10.0,
+              "every dispatched segment to be fetched")
+        segments = _read_segments(probe)
+        body = json.loads(_http(node.base, "/metrics")[1])
+        c = body["engine"]["cost"]
+        lane = sum(s[2] for s in segments)
+        idle = sum(s[3] for s in segments)
+        bucket = c["buckets"][str(width)]
+        check(c["continuous"]["segments"] == bucket["dispatches"] == len(segments),
+              f"the cost plane counts {c['continuous']['segments']} segments, "
+              f"the probe {len(segments)}")
+        check((bucket["lane_steps"], bucket["idle_lane_steps"]) == (lane, idle),
+              f"cost plane lane/idle {bucket['lane_steps']}/{bucket['idle_lane_steps']} "
+              f"against the K3b digests' {lane}/{idle}")
+        out["cost_continuous"] = c["continuous"]
+        out["cost_pool"] = {k: bucket[k] for k in (
+            "dispatches", "boards", "lane_steps", "idle_lane_steps", "lane_util_pct",
+            "fill_pct", "device_s")}
+        out["boundary_host_ms_cost_plane"] = c["continuous"]["boundary_host_ms"]
+        out["boundary_host_ms_phase6_p50"] = boundary_p50_ms
+        log(f"after 16 concurrent clients: engine.cost.continuous {c['continuous']}; "
+            f"pool bucket {out['cost_pool']}; K3b digests sum lane {lane} idle "
+            f"{idle} over {len(segments)} segments (equal); boundary_host_ms "
+            f"(cost plane: mean over every segment, speculative ones at 0) "
+            f"{out['boundary_host_ms_cost_plane']} beside phase 6's recorder p50 "
+            f"{boundary_p50_ms}")
+
+        # the Prometheus rendering of the same (quiescent) body
+        status, prom, headers = _http(node.base, "/metrics.prom")
+        check(status == 200 and headers["Content-Type"].startswith("text/plain; version=0.0.4"),
+              f"/metrics.prom answered {status}")
+        check(prom == _http(node.base, "/metrics?format=prom")[1],
+              "/metrics.prom and /metrics?format=prom differ")
+        body = json.loads(_http(node.base, "/metrics")[1])
+        values = {}
+        for line in prom.decode().strip().splitlines():
+            m = _PROM_LINE.match(line)
+            check(m is not None, f"unparseable prom line {line!r}")
+            if m.group(1):
+                values[m.group(1)] = float(m.group(2))
+        leaves = _prom_leaves(body)
+        differ = {k: (v, values.get(k)) for k, v in leaves.items() if values.get(k) != v}
+        check(not differ, f"/metrics.prom disagrees with the JSON body: {list(differ.items())[:5]}")
+        check(values['sudoku_stage_latency_ms_count{stage="device"}']
+              == body["obs"]["stages"]["device"]["count"], "stage histogram count differs")
+        out["prom_series"] = len(values)
+        log(f"/metrics.prom: {len(values)} series, every JSON leaf equal")
+
+        status, raw, _ = _http(node.base, "/debug/trace")
+        doc = json.loads(raw)
+        xs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+        check(status == 200 and xs and all(
+            isinstance(e["ts"], float) and isinstance(e["dur"], float)
+            and e["name"] and e["pid"] == 1 and e["tid"] >= 1 for e in xs),
+            "/debug/trace is not valid trace-event JSON")
+        check(any(e["name"] == "/solve" for e in xs)
+              and any(e["cat"] == "stage" and e["name"] == "device" for e in xs),
+              "/debug/trace holds no /solve span with a device stage")
+        out["trace_events"] = len(doc["traceEvents"])
+        status, raw, _ = _http(node.base, "/debug/flightrecord", b"")
+        dump = json.loads(raw)
+        check(status == 200 and dump["path"] and os.path.exists(dump["path"]),
+              f"POST /debug/flightrecord wrote no dump: {status} {dump}")
+        with open(dump["path"]) as f:
+            record = json.load(f)
+        check(len(record["spans"]) == dump["spans"] >= 36 and record["trace"]["traceEvents"],
+              "the flight record lacks the spans")
+        out["flightrecord_spans"] = dump["spans"]
+        log(f"/debug/trace: {out['trace_events']} events; POST /debug/flightrecord "
+            f"wrote {dump['spans']} spans to {os.path.basename(dump['path'])}")
+    finally:
+        node.stop()
+    out["segment_launches"] = cs.dfs_segment.launches
+    out["solver_launches"] = cs.dfs_solver.launches
+    check(out["segment_launches"] > 0 and out["solver_launches"] > 0,
+          "the obs main path launched no kernel")
+    log(f"obs main path: {out['segment_launches']} segment launches, "
+        f"{out['solver_launches']} dfs_solver launches (warm-up)")
+
+    # a --device-trace-dir node: its warm-up capture names the kernels
+    trace_dir = os.path.join(out_dir, "device_trace")
+    n_before = len(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else 0
+    traced = _Node(build_parser, build_node,
+                   ["--no-answer-cache", "--device-trace-dir", trace_dir,
+                    "--device-trace-calls", "1"])
+    try:
+        check(traced.node.engine.warm_info()["device_trace"]["warmup_traced"],
+              "the --device-trace-dir node did not trace its warm-up")
+        status, body, _ = _http(traced.base, "/solve", readme)
+        check(status == 200, f"/solve on the traced node answered {status}")
+    finally:
+        traced.stop()
+    files = sorted(os.listdir(trace_dir))
+    check(len(files) > n_before, "the --device-trace-dir node wrote no trace")
+    text = "".join(open(os.path.join(trace_dir, f)).read() for f in files)
+    named = {k: k in text for k in ("dfs_solver_kernel", "dfs_segment_kernel",
+                                    "segment_digest_kernel")}
+    check(all(named.values()), f"the torch.profiler trace does not name the kernels: {named}")
+    out["device_trace_files"] = len(files)
+    log(f"--device-trace-dir: {len(files)} torch.profiler trace(s), naming {sorted(named)}")
+
+    # the plane's cost: README p50 with obs on beside --no-obs, in turns
+    on = _Node(build_parser, build_node, ["--no-answer-cache"])
+    off = _Node(build_parser, build_node, ["--no-answer-cache", "--no-obs"])
+    try:
+        check(off.node.tracer is None and off.node.flight is None,
+              "the --no-obs node has a tracer")
+        status, _, headers = _http(off.base, "/solve", readme, {"X-Timing": "1"})
+        check(status == 200 and "X-Timing" not in headers
+              and headers.get("X-Request-Id"),
+              "the --no-obs node answered X-Timing or no X-Request-Id")
+        turns = {"on": [], "off": []}
+        for arm, n in (("on", on), ("off", off), ("off", off), ("on", on)):
+            turns[arm].append(n.readme_p50(f"obs {arm}", oracle_ok))
+        out["readme_p50_ms_obs_on"] = turns["on"]
+        out["readme_p50_ms_obs_off"] = turns["off"]
+    finally:
+        on.stop()
+        off.stop()
+    return out
+
+
 def card_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1531,6 +1893,8 @@ def main() -> int:
     )
     timing = phase_timing(cs, spec_for_size, serving_config)
     seg_timing = phase_segment_timing(cs, ts, spec_for_size, serving_config)
+    obs = phase_obs(cs, build_parser, build_node, oracle_is_valid_solution,
+                    main_path["boundary_host_ms"].get("p50"))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"cache_supervision": {
@@ -1548,7 +1912,9 @@ def main() -> int:
         "transitions": front["transitions"],
         "faults": front["faults"],
     }}), flush=True)
-    log(card_name_and_power_limit())
+    card = card_name_and_power_limit()
+    log(card)
+    print(json.dumps({"obs": dict(obs, card=card)}), flush=True)
     serving, singles = timing["serving"], timing["singles"]
     readme_p50 = {
         "continuous": main_path["p50_continuous"],
@@ -1574,6 +1940,8 @@ def main() -> int:
         # (warm-up, half-open probes and the LOST rebuild)
         "launches_cache_path": front["solver_launches_cache"],
         "launches_supervised_path": front["solver_launches_supervised"],
+        # the observability plane's node (phase 8): its warm-up
+        "launches_obs_path": obs["solver_launches"],
         "launches_per_readme_solve": main_path["per_readme_closed"],
         "mismatches": mismatches + timing["mismatches"],
         "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
@@ -1615,6 +1983,7 @@ def main() -> int:
             "segments_per_readme_solve": main_path["segments_per_readme"],
             "launches_cache_path": front["segment_launches_cache"],
             "launches_supervised_path": front["segment_launches_supervised"],
+            "launches_obs_path": obs["segment_launches"],
             "mismatches": seg_bad + seg_timing["mismatches"],
             "max_abs_err": max(seg_err, seg_timing["max_abs_err"]),
             # one segment (k = 8) over a 4096-lane pool, every lane

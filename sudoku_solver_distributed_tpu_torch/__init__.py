@@ -16,9 +16,12 @@ Layout (mirrors the JAX package):
   cache/     the canonical-form answer cache of the /solve front door
   serving/   admission control, deadlines, load estimation and engine
              supervision (watchdog, breaker, oracle fallback)
+  obs/       observability: request spans, the device cost plane, SLO
+             burn rates, the flight recorder, trace export, Prometheus
   models/    the trusted host-side oracle solver
   net/       wire protocol, membership, stats gossip, node, HTTP API, CLI
-  utils/     handicap rate limiter, fault injectors, profiler spans
+  utils/     handicap rate limiter, fault injectors, request metrics,
+             torch.profiler traces and spans
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``SolverEngine(device="cpu")``, the CLI's ``--platform cpu``, or a CPU

@@ -44,6 +44,16 @@ token, with the injector's hooks at the launch and at the fetch, and
 ``solve_one``/``solve_one_supervised`` answer from the host oracle while
 the breaker is open and verify every device answer host-side.
 
+Observability (obs/): every finalized bucket call and every segment
+records one device-cost sample in ``self.cost`` (obs/cost.py, the
+``engine.cost`` block of ``/metrics``); the request span of the calling
+thread (obs/trace.current_trace) gets the ``device`` stage of a direct
+call and the ``verify`` stage of the supervised answer check;
+``health()`` and ``warm_info()`` are the ``engine`` block of
+``/metrics``. ``arm_device_trace`` / ``profile_dir`` capture
+``torch.profiler`` traces of the warm-up and of bucket calls
+(utils/profiling.device_trace).
+
 Not in this slice (each raises ``NotImplementedError`` when asked for):
 a choice of backend (the engine always runs the kernel), the mesh and the
 frontier race, AOT/compile caches.
@@ -62,6 +72,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .obs.cost import CostAccounting
+from .obs.trace import current_trace
 from .ops.config import (
     CONTINUOUS_SERVING,
     SEGMENT_PIPELINE,
@@ -73,6 +85,7 @@ from .ops.cuda_solver import SegmentPool, dfs_segment, solve_stage
 from .ops.solver import OVERFLOW, RUNNING, pad_board, staged_depths
 from .ops.spec import SPEC_9, BoardSpec
 from .serving.admission import DeadlineExceeded
+from .utils.profiling import annotate, device_trace
 
 logger = logging.getLogger(__name__)
 
@@ -109,7 +122,7 @@ class _Inflight(NamedTuple):
     """A dispatched bucket: the first depth stage's rows on their way to
     the host, and what finalizing needs to run the later stages."""
 
-    host: torch.Tensor                 # (B, C+4) rows; pinned on CUDA
+    host: torch.Tensor                 # (B, C+6) rows; pinned on CUDA
     ready: Optional[torch.cuda.Event]  # recorded after the copy; None on CPU
     dev: torch.Tensor                  # (B, N, N) the padded boards, on device
     boards: np.ndarray                 # the padded boards, on the host
@@ -117,6 +130,7 @@ class _Inflight(NamedTuple):
     iters: int                         # the call's step budget
     sweeps: dict                       # the call's sweep knobs
     token: Optional[int] = None        # the supervisor's token, if any
+    t0: Optional[float] = None         # dispatch time (None: warm-up, deep retry)
 
 
 class _SegmentHandle(NamedTuple):
@@ -302,6 +316,27 @@ class SolverEngine:
         # (utils/faults.EngineFaultInjector); None costs nothing
         self.supervisor = None
         self.fault_injector = None
+        # device cost accounting (obs/cost.py): one sample per finalized
+        # bucket call and per segment, never per request — the /metrics
+        # "engine.cost" block
+        self.cost = CostAccounting()
+        # warm-up record per width ({warm, source, compile_s}), the order
+        # warm-up ran them, and the distinct (variant, width) launch shapes
+        # seen: the /metrics "engine.warm" block (warm_info)
+        self._warm_state: dict = {}
+        self._warm_order: list = []
+        self._programs: set = set()
+        # torch.profiler captures (utils/profiling.device_trace): with
+        # ``profile_dir`` set every bucket call is traced; armed by
+        # ``arm_device_trace``, the first warm-up and the next N bucket
+        # calls are. One capture per process at a time: a call that finds
+        # the mutex held runs untraced.
+        self.profile_dir: Optional[str] = None
+        self._profile_mutex = threading.Lock()
+        self.device_trace_dir: Optional[str] = None
+        self._device_trace_budget = 0
+        self._device_trace_captured = 0
+        self._warmup_trace_done = False
 
     @property
     def coalescer(self):
@@ -389,10 +424,12 @@ class SolverEngine:
 
     def _stage_rows(self, dev: torch.Tensor, depth: int, iters: int,
                     sweeps: dict) -> torch.Tensor:
-        """One depth stage on the device: the packed (B, C+4) int32 rows
-        [grid | solved | status | guesses | validations] (the JAX engine's
-        row layout without its two cost-accounting columns)."""
-        res, _ = solve_stage(dev, self.spec, depth, iters, **sweeps)
+        """One depth stage on the device: the packed (B, C+6) int32 rows
+        [grid | solved | status | guesses | validations | lane_steps |
+        idle_lane_steps], the JAX engine's row layout. The two trailing
+        columns are the stage's LoopStats broadcast across rows (the cost
+        plane reads row 0), built on the device, so no host sync."""
+        res, stats = solve_stage(dev, self.spec, depth, iters, **sweeps)
         B = dev.shape[0]
         return torch.cat(
             [
@@ -401,19 +438,39 @@ class SolverEngine:
                 res.status[:, None],
                 res.guesses[:, None],
                 res.validations[:, None],
+                self._stat_column(stats.lane_steps, B),
+                self._stat_column(stats.idle_lane_steps, B),
             ],
             dim=1,
         )
 
+    def _stat_column(self, value, B: int) -> torch.Tensor:
+        """A (B, 1) int32 column of one LoopStats counter: a 0-dim device
+        tensor stays on the device, a Python int becomes a fill."""
+        if isinstance(value, torch.Tensor):
+            return value.to(torch.int32).reshape(1, 1).expand(B, 1)
+        return torch.full((B, 1), int(value), dtype=torch.int32,
+                          device=self.device)
+
+    def _note_program(self, name: str, width: int) -> None:
+        """Record a distinct (variant, width) launch shape, counted by
+        ``warm_info()["programs"]``."""
+        key = (name, int(width))
+        if key not in self._programs:
+            with self._lock:
+                self._programs.add(key)
+
     def _launch(self, boards: np.ndarray, n: int, iters: int,
-                token: Optional[int] = None) -> _Inflight:
+                token: Optional[int] = None,
+                t0: Optional[float] = None) -> _Inflight:
         """Enqueue the first depth stage of the padded ``boards`` and the
         copy of its rows to the host; no host sync."""
+        self._note_program("solve", boards.shape[0])
         dev = self._device_batch(boards)
         sweeps = self._sweeps(boards.shape[0])
         rows = self._stage_rows(dev, self._depths[0], iters, sweeps)
         host, ready = self._to_host(rows)
-        return _Inflight(host, ready, dev, boards, n, iters, sweeps, token)
+        return _Inflight(host, ready, dev, boards, n, iters, sweeps, token, t0)
 
     @staticmethod
     def _to_host(t: torch.Tensor):
@@ -440,7 +497,8 @@ class SolverEngine:
         waits for the first stage's copy, then reruns the boards that hit
         OVERFLOW at each deeper stage — every other lane a pad board, as
         ``ops.solver.solve_staged`` does — taking their grid and status and
-        accumulating their guesses and validations."""
+        accumulating their guesses and validations. The call's LoopStats
+        columns sum over the stages it ran."""
         if call.ready is not None:
             call.ready.synchronize()
         rows = call.host.numpy().copy()
@@ -457,7 +515,8 @@ class SolverEngine:
             )
             r2 = self._stage_rows(g2, depth, call.iters, call.sweeps).cpu().numpy()
             rows[need, : C + 2] = r2[need, : C + 2]
-            rows[need, C + 2:] += r2[need, C + 2:]
+            rows[need, C + 2: C + 4] += r2[need, C + 2: C + 4]
+            rows[:, C + 4:] += r2[0, C + 4:]
         return rows
 
     def _dispatch_padded(self, boards: np.ndarray) -> _Inflight:
@@ -469,12 +528,20 @@ class SolverEngine:
         The supervised seam (serving/health.py): a watchdog token opens
         here and closes in ``_finalize_padded``, so the supervisor bounds
         the wall time of the whole dispatch→fetch span; the engine-seam
-        fault injector (utils/faults.py) plugs in at the same two points."""
+        fault injector (utils/faults.py) plugs in at the same two points.
+
+        With a device trace armed (``arm_device_trace``) or ``profile_dir``
+        set, the launch runs inside a ``torch.profiler`` capture when the
+        profile mutex is free; such a capture waits for the call's device
+        work before it stops."""
         n = boards.shape[0]
         bucket = self._bucket_for(n)
         sup = self.supervisor
         token = sup.call_started(bucket) if sup is not None else None
         try:
+            # the dispatch anchor rides the handle: _finalize_padded bills
+            # the whole dispatch→fetch span to the cost plane
+            t0 = time.monotonic()
             inj = self.fault_injector
             if inj is not None:
                 inj.on_device_call(bucket)  # may raise (fail-next-N)
@@ -485,19 +552,47 @@ class SolverEngine:
                 # construction.
                 pad = np.broadcast_to(boards[0], (bucket - n, *boards.shape[1:]))
                 boards = np.concatenate([boards, pad], axis=0)
-            return self._launch(boards, n, self.max_iters, token)
+            trace_dir = self._take_trace_dir()
+            if trace_dir is None:
+                return self._launch(boards, n, self.max_iters, token, t0)
+            try:
+                with device_trace(trace_dir), annotate(f"solve_bucket_{bucket}"):
+                    return self._launch(boards, n, self.max_iters, token, t0)
+            finally:
+                self._profile_mutex.release()
         except BaseException:
             if sup is not None:
                 sup.call_finished(token, ok=False)
             raise
+
+    def _take_trace_dir(self) -> Optional[str]:
+        """The directory this bucket call's profiler capture goes to, with
+        the profile mutex held (the caller releases it), or None: an armed
+        device-trace capture spends one of its budgeted calls; else
+        ``profile_dir``; else nothing, and nothing is held."""
+        if self.device_trace_dir is None and self.profile_dir is None:
+            return None
+        if not self._profile_mutex.acquire(blocking=False):
+            return None
+        with self._lock:
+            if self.device_trace_dir is not None and self._device_trace_budget > 0:
+                self._device_trace_budget -= 1
+                self._device_trace_captured += 1
+                return self.device_trace_dir
+        if self.profile_dir is not None:
+            return self.profile_dir
+        self._profile_mutex.release()
+        return None
 
     def _finalize_padded(self, call: _Inflight) -> np.ndarray:
         """Wait for a ``_dispatch_padded`` call (its later depth stages
         included) and rerun the boards still RUNNING at the budget once at
         ``deep_retry_factor ×`` it, in the smallest covering bucket,
         accumulating their guesses and validations. Returns the packed
-        (n, C+4) host rows. The dispatch's supervision token closes here
-        however the fetch ends."""
+        (n, C+6) host rows (the two trailing columns are the call's
+        LoopStats, sliced off by every result reader). The call, and the
+        deep retry apart, each record one cost sample. The dispatch's
+        supervision token closes here however the fetch ends."""
         sup = self.supervisor
         try:
             rows = self._finalize_padded_inner(call)
@@ -521,6 +616,13 @@ class SolverEngine:
             rows = self._wait_rows(call)
             if inj is not None:
                 rows = inj.corrupt(call.boards.shape[0], rows)
+            # the cost sample, before the deep-retry merge can overwrite
+            # the LoopStats columns of capped rows: the whole
+            # dispatch→fetch wall, the real fill, this call's counters
+            self._record_call_cost(
+                call.boards.shape[0], n, time.monotonic() - call.t0,
+                int(rows[0, C + 4]), int(rows[0, C + 5]),
+            )
             running = rows[:, C + 1] == RUNNING
             if running[:n].any():
                 capped = np.flatnonzero(running[:n])
@@ -536,10 +638,16 @@ class SolverEngine:
                         ],
                         axis=0,
                     )
+                t_deep = time.monotonic()
                 deep = self._wait_rows(
                     self._launch(
                         sub, len(capped), self.max_iters * self.deep_retry_factor
                     )
+                )
+                # the deep retry is its own device call: its own sample
+                self._record_call_cost(
+                    sub.shape[0], len(capped), time.monotonic() - t_deep,
+                    int(deep[0, C + 4]), int(deep[0, C + 5]), deep_retry=True,
                 )
                 first = rows[capped].copy()
                 rows[capped] = deep[: len(capped)]
@@ -547,8 +655,38 @@ class SolverEngine:
                 rows[capped, C + 3] += first[:, C + 3]
         return rows[:n]
 
+    def _record_call_cost(self, bucket: int, n: int, device_s: float,
+                          lane: int, idle: int, deep_retry: bool = False) -> None:
+        """Fold one finalized device call into the cost plane
+        (obs/cost.py). Every pad row bills the coalescer: this package has
+        no mesh, so ``pad_mesh`` is 0."""
+        self.cost.record_call(
+            bucket=bucket,
+            boards=n,
+            pad_coalesce=bucket - n,
+            pad_mesh=0,
+            device_s=device_s,
+            lane_steps=lane,
+            idle_lane_steps=idle,
+            deep_retry=deep_retry,
+        )
+
     def _solve_padded(self, boards: np.ndarray) -> np.ndarray:
-        return self._finalize_padded(self._dispatch_padded(boards))
+        """Solve ≤bucket boards: ``_dispatch_padded`` then
+        ``_finalize_padded`` in the calling thread. The caller's request
+        span (when one is open: the ``--no-coalesce`` /solve path)
+        accumulates the call's wall time as its ``device`` stage here;
+        coalesced requests are stamped by the coalescer's threads."""
+        tr = current_trace()
+        if tr is None:
+            return self._finalize_padded(self._dispatch_padded(boards))
+        t0 = time.monotonic()
+        try:
+            rows = self._finalize_padded(self._dispatch_padded(boards))
+        finally:
+            tr.mark("device", time.monotonic() - t0)
+        tr.bucket = self._bucket_for(boards.shape[0])
+        return rows
 
     # -- continuous batching: the segment seam ---------------------------------
     @property
@@ -620,6 +758,7 @@ class SolverEngine:
             inj = self.fault_injector
             if inj is not None:
                 inj.on_device_call(width)  # may raise (fail-next-N)
+            self._note_program("segment", width)
             if not isinstance(boards, torch.Tensor):
                 boards = self._device_batch(boards)
             boards = boards.reshape(boards.shape[0], -1)
@@ -675,20 +814,23 @@ class SolverEngine:
         the block is prefix-gathered, else the whole (small) block — on a
         stream of its own, so it does not wait for a segment queued after
         this one. Grid columns of the other lanes are zero (the segment loop
-        reads grids only of lanes that solved). ``active`` (the lanes
-        holding a request at fetch time) is the accounting hook of the JAX
-        seam's cost plane, which this package does not have yet.
+        reads grids only of lanes that solved).
+
+        The segment records one cost sample (``cost.note_segment``): the
+        dispatch-to-fetch time, ``active`` (the (W,) mask of lanes holding
+        a request at fetch time: the fill and the boards resolved), the
+        boards injected, the digest's lane_steps / idle_lane_steps
+        columns, the boundary host time and the bytes fetched.
 
         The dispatch's supervision token closes here; the fault injector's
         delay runs before the event wait and its poison applies to the
         assembled rows, so a lane that solved carries the poisoned grid."""
-        del active
         sup = self.supervisor
         try:
             inj = self.fault_injector
             if inj is not None:
                 inj.on_fetch(handle.width)  # may sleep (watchdog food)
-            rows = self._segment_rows(handle)
+            rows, fetch_bytes = self._segment_rows(handle)
             if inj is not None:
                 rows = inj.corrupt(handle.width, rows)
         except BaseException:
@@ -697,16 +839,33 @@ class SolverEngine:
             raise
         if sup is not None:
             sup.call_finished(handle.token, ok=True)
-        return rows, time.monotonic() - handle.t0
+        device_s = time.monotonic() - handle.t0
+        C = self.spec.cells
+        act = np.asarray(active, bool)
+        self.cost.note_segment(
+            width=handle.width,
+            active=int(act.sum()),
+            injected=handle.injected,
+            resolved=int(((rows[:, C + 1] != RUNNING) & act).sum()),
+            device_s=device_s,
+            lane_steps=int(rows[0, C + 5]),
+            idle_lane_steps=int(rows[0, C + 6]),
+            pipelined=handle.pipelined,
+            boundary_host_s=handle.boundary_host_s,
+            fetch_bytes=fetch_bytes,
+        )
+        return rows, device_s
 
-    def _segment_rows(self, handle: _SegmentHandle) -> np.ndarray:
+    def _segment_rows(self, handle: _SegmentHandle):
         """Wait for a segment's boundary bytes and assemble its (W, C+7)
-        host rows (``finalize_segment``'s fetch)."""
+        host rows (``finalize_segment``'s fetch). Returns ``(rows,
+        fetch_bytes)``: the bytes copied to the host, digest and solution
+        rows on the pipelined arm, the full rows on the other."""
         if handle.ready is not None:
             handle.ready.synchronize()
         host = handle.host.numpy()
         if handle.block is None:
-            return host.copy()
+            return host.copy(), host.nbytes
         C = self.spec.cells
         width = handle.width
         rows = np.zeros((width, C + 7), np.int32)
@@ -719,13 +878,16 @@ class SolverEngine:
         rows[:, C + 6] = host[:, 7]    # idle_lane_steps
         slots = host[:, 5]
         lanes = np.nonzero(slots >= 0)[0]
+        fetch_bytes = host.nbytes
         if lanes.size:
             n = (
                 int(slots[lanes].max()) + 1
                 if segment_prefix_gather(width, C) else width
             )
-            rows[lanes, :C] = self._fetch_rows(handle.block, n)[slots[lanes]]
-        return rows
+            grids = self._fetch_rows(handle.block, n)
+            fetch_bytes += grids.nbytes
+            rows[lanes, :C] = grids[slots[lanes]]
+        return rows, fetch_bytes
 
     def _fetch_rows(self, block: torch.Tensor, n: int) -> np.ndarray:
         """The first ``n`` rows of a finished segment's solution block, read
@@ -820,6 +982,7 @@ class SolverEngine:
         if not self.continuous_active:
             return
         w = self.segment_pool_width()
+        self._note_program("segment", w)
         keep = torch.full((w,), -1, dtype=torch.int32, device=self.device)
         boards = torch.zeros((1, self.spec.cells), dtype=torch.int32,
                              device=self.device)
@@ -863,6 +1026,113 @@ class SolverEngine:
         sup = self.supervisor
         return bool(self.warmed and not (sup is not None and sup.is_lost))
 
+    @property
+    def backend(self) -> str:
+        """What runs the search: ``"cuda"``, the hand-written kernels
+        (csrc/dfs_solver.cu), or ``"plain"``, their plain PyTorch versions
+        on the CPU. The JAX engine names its XLA or Pallas program here."""
+        return "cuda" if self.device.type == "cuda" else "plain"
+
+    def arm_device_trace(self, log_dir: str, calls: int = 4) -> None:
+        """Arm the ``torch.profiler`` capture (CLI ``--device-trace-dir``):
+        the next warm-up and the next ``calls`` bucket calls each write a
+        trace into ``log_dir``. A later call resets the budget; the
+        warm-up capture stays once per process."""
+        with self._lock:
+            self.device_trace_dir = log_dir
+            self._device_trace_budget = max(0, int(calls))
+
+    def health(self) -> dict:
+        """Operator-facing engine health, the ``engine`` block of
+        ``/metrics``, keyed as the JAX engine's. Keys of planes this
+        package does not have take the values of a JAX engine without
+        them: the frontier race is off (``frontier_enabled`` False, its
+        counters 0) and there is no mesh block. ``backend`` names what runs
+        the search (``"cuda"`` / ``"plain"``, the JAX engine's ``"xla"`` /
+        ``"pallas"``).
+
+        ``cost`` is the device cost plane (obs/cost.py). Its lane counters
+        differ from the JAX engine's by design on the closed loop: the DFS
+        kernel runs each board on its own warp, so on the card a bucket
+        call reports ``idle_lane_steps`` 0 and ``lane_steps`` = Σ the
+        boards' own steps, and ``lane_util_pct`` of the bucket calls reads
+        100; its plain version reports the call's step count times its
+        width, idle 0 (ops/cuda_solver.py). The JAX engine counts lockstep
+        lanes, idle ones included. The segment counters of the continuous
+        block (``cost.continuous``) come from the segment digest and equal
+        the JAX engine's on the same workload."""
+        out = {
+            "backend": self.backend,
+            "frontier_enabled": False,
+            "frontier_route": "auto",
+            "frontier_handoff": False,
+            "frontier_fallbacks": 0,
+            "frontier_escalations": 0,
+            "coalesce": self.coalesce,
+            "continuous": {
+                "enabled": self.continuous_active,
+                "configured": self.continuous,
+                "segment_iters": self.segment_iters,
+                "pipeline": self.segment_pipeline,
+            },
+            "warmed": self.warmed,
+            "fully_warmed": self.warmed,
+            "warm": self.warm_info(),
+        }
+        out["cost"] = self.cost.snapshot(warm_info=out["warm"])
+        if self.supervisor is not None:
+            # the one-word summary; the full state machine is the /metrics
+            # top-level "health" block (supervisor.snapshot())
+            out["supervisor"] = self.supervisor.state
+        if self._coalescer is not None:
+            out["coalescer"] = self._coalescer.stats()
+        return out
+
+    def _tier0_buckets(self) -> list:
+        """The widths one ``/solve`` needs warm first: the smallest bucket
+        and, with an explicit coalescer batch cap, the width its batches
+        dispatch at (the JAX engine's tier 0; this engine warms every
+        width before serving)."""
+        tier = {self.buckets[0]}
+        if self.coalesce and self.coalesce_max_batch:
+            cap = min(self.coalesce_max_batch, self.buckets[-1])
+            for b in self.buckets:
+                if cap <= b:
+                    tier.add(b)
+                    break
+        return sorted(tier)
+
+    def warm_info(self) -> dict:
+        """Per-width warm state (the ``/metrics`` ``engine.warm`` block),
+        keyed as the JAX engine's: which widths ran their warm-up launch
+        and how long it took (``compile_s``: the kernel library's build and
+        load are in the first), the order, the distinct (variant, width)
+        launch shapes seen, and the torch.profiler capture state when a
+        device trace is armed. ``solver_loop`` describes the kernels,
+        which have no lockstep compaction schedule."""
+        with self._lock:
+            out = {
+                "warmed": self.warmed,
+                "fully_warmed": self.warmed,
+                "tier0": self._tier0_buckets(),
+                "buckets": {
+                    str(b): dict(self._warm_state.get(b) or {"warm": False})
+                    for b in self.buckets
+                },
+                "order": list(self._warm_order),
+                "skipped": [],
+                "programs": len(self._programs),
+                "solver_loop": {"backend": self.backend},
+            }
+            if self.device_trace_dir is not None:
+                out["device_trace"] = {
+                    "dir": self.device_trace_dir,
+                    "warmup_traced": self._warmup_trace_done,
+                    "captured_calls": self._device_trace_captured,
+                    "calls_remaining": self._device_trace_budget,
+                }
+        return out
+
     def warmup(self) -> None:
         """Run every bucket width once (empty boards) before serving, so the
         first request pays neither the kernel build nor the first launch.
@@ -874,19 +1144,51 @@ class SolverEngine:
         outside the supervised seam: no watchdog token, no injector hook,
         no quarantine routing. A width
         already warm is skipped, so a rebuild relaunches only the segment
-        warm-up."""
+        warm-up.
+
+        Each width's warm-up time (the kernel library's build and load
+        included, the first time in a process) is recorded for
+        ``warm_info()``. With a device trace armed,
+        the process's first warm-up runs inside one ``torch.profiler``
+        capture."""
+        with self._lock:
+            trace_warm = (
+                self.device_trace_dir is not None and not self._warmup_trace_done
+            )
+        trace_warm = trace_warm and self._profile_mutex.acquire(blocking=False)
+        try:
+            with contextlib.ExitStack() as stack:
+                if trace_warm:
+                    with self._lock:
+                        self._warmup_trace_done = True
+                    stack.enter_context(device_trace(self.device_trace_dir))
+                    stack.enter_context(annotate("warmup"))
+                self._warm_buckets()
+                self._warm_segment_program()
+        finally:
+            if trace_warm:
+                self._profile_mutex.release()
+        self.warmed = True
+
+    def _warm_buckets(self) -> None:
+        """One launch and wait of the bucket path per width not yet warm."""
         N = self.spec.size
         for b in self.buckets:
             with self._lock:
                 if b in self._warm:
                     continue
+            t0 = time.perf_counter()
             self._wait_rows(
                 self._launch(np.zeros((b, N, N), np.int32), b, self.max_iters)
             )
             with self._lock:
                 self._warm.add(b)
-        self._warm_segment_program()
-        self.warmed = True
+                self._warm_state[b] = {
+                    "warm": True,
+                    "source": "launch",
+                    "compile_s": round(time.perf_counter() - t0, 3),
+                }
+                self._warm_order.append(b)
 
     def solve_batch_np(
         self, boards: np.ndarray
@@ -1008,21 +1310,31 @@ class SolverEngine:
                 "fallback"
             )
             return sup.fallback_solve(arr)
-        if solution is not None and not sup.check_solution(arr, solution):
-            # the device call "succeeded" but the answer is wrong: the
-            # poisoned-kernel failure mode — never serve it
-            logger.error(
-                "device answer failed host-side verification — "
-                "poisoned kernel? answering from the fallback"
-            )
-            sup.record_failure(None, "bad-result")
-            return sup.fallback_solve(arr)
+        tr = current_trace()
+        if solution is not None:
+            t_v = time.monotonic()
+            ok = sup.check_solution(arr, solution)
+            if tr is not None:
+                # the host-side verification stage of this request's span
+                tr.mark("verify", time.monotonic() - t_v)
+            if not ok:
+                # the device call "succeeded" but the answer is wrong: the
+                # poisoned-kernel failure mode — never serve it
+                logger.error(
+                    "device answer failed host-side verification — "
+                    "poisoned kernel? answering from the fallback"
+                )
+                sup.record_failure(None, "bad-result")
+                return sup.fallback_solve(arr)
         if solution is None and not info.get("capped"):
             # the device claims PROVEN unsatisfiable (capped answers claim
             # only "not finished" and are exempt): cross-check — a kernel
             # clearing the solved flag is as wrong as one corrupting the
             # grid, and must trip the breaker too
+            t_v = time.monotonic()
             alt, alt_info = sup.verify_unsat(arr)
+            if tr is not None:
+                tr.mark("verify", time.monotonic() - t_v)
             if alt is not None:
                 sup.record_failure(None, "bad-result")
                 return alt, alt_info

@@ -61,19 +61,49 @@ Extensions:
                 arm the engine-seam fault injector (utils/faults.py) and
                 expose POST /debug/faults to drive it (fail_next, delay_s,
                 poison_bucket, clear); off by default: the route 404s
+  --metrics     expose GET /metrics (per-route percentiles, the engine's
+                health, warm state and device cost plane, cache,
+                admission, supervision, faults, obs and SLO blocks) and
+                its Prometheus spellings /metrics.prom and
+                /metrics?format=prom; off by default (404)
+  --no-obs      turn off the observability plane (obs/, on by default):
+                request spans and the X-Timing breakdown, the /metrics obs
+                block and stage histograms, the flight recorder
+                (/debug/trace and POST /debug/flightrecord 404) and SLOs.
+                X-Request-Id stays on every response either way
+  --slo / --slo-windows / --slo-fast-burn
+                declarative latency objectives (obs/slo.py, repeatable:
+                --slo latency_p99_ms=500@99.9) evaluated as burn rates over
+                a short and a long window (default 300,3600 s); a fast
+                burn over both (default 14.4x the budget rate) records a
+                flight-recorder event and dumps it
+  --flightrecord-dir
+                where flight-recorder dumps land (breaker trip, shed storm,
+                SLO fast burn, SIGUSR2, POST /debug/flightrecord); env
+                default SUDOKU_FLIGHTRECORD_DIR, else ./flightrecords
+  --device-trace-dir / --device-trace-calls
+                torch.profiler captures: the warm-up and the first N
+                bucket calls (default 4) each write a Chrome/TensorBoard
+                trace into the dir; the state rides /metrics engine.warm
+  --profile-dir trace every bucket call with torch.profiler into the dir
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import signal
 import threading
 
 from ..cache import AnswerCache
 from ..engine import SolverEngine
+from ..obs import FlightRecorder, Tracer
+from ..obs.slo import DEFAULT_WINDOWS_S, SloEngine, parse_slo
 from ..serving.admission import AdmissionController
 from ..serving.health import EngineSupervisor
 from ..utils.faults import EngineFaultInjector
+from ..utils.profiling import RequestMetrics
 from .http_api import make_http_server
 from .node import P2PNode
 
@@ -257,7 +287,108 @@ def build_parser() -> argparse.ArgumentParser:
         "(fail_next / delay_s / poison_bucket / clear). Off by default: "
         "the route 404s and no injector exists",
     )
+    parser.add_argument(
+        "--metrics", action="store_true", help="expose GET /metrics"
+    )
+    parser.add_argument(
+        "--no-obs",
+        action="store_true",
+        help="disable the observability plane (obs/): span recording, the "
+        "X-Timing breakdown, the /metrics obs block and stage histograms, "
+        "the incident flight recorder and SLOs (X-Request-Id stays). On "
+        "by default",
+    )
+    parser.add_argument(
+        "--slo",
+        action="append",
+        default=[],
+        metavar="NAME=MS@PCT",
+        help="declarative latency objective, repeatable (obs/slo.py): "
+        "e.g. --slo latency_p99_ms=500@99.9 means 99.9%% of requests "
+        "under 500 ms; a stage prefix picks a span stage "
+        "(device_latency_p99_ms=50@99). Evaluated as burn rates over two "
+        "windows from the stage histograms, exposed as an 'slo' /metrics "
+        "block; a fast burn records a flight-recorder event and dumps it. "
+        "Needs the observability plane (not --no-obs)",
+    )
+    parser.add_argument(
+        "--slo-windows",
+        default=None,
+        metavar="SHORT_S,LONG_S",
+        help="with --slo: the burn-rate window pair in seconds (default "
+        "300,3600)",
+    )
+    parser.add_argument(
+        "--slo-fast-burn",
+        type=float,
+        default=14.4,
+        help="with --slo: the fast-burn bar in multiples of the "
+        "sustainable budget-spend rate (default 14.4)",
+    )
+    parser.add_argument(
+        "--flightrecord-dir",
+        default=os.environ.get("SUDOKU_FLIGHTRECORD_DIR") or "flightrecords",
+        help="directory flight-recorder dumps are written to (breaker "
+        "trip, shed storm, SLO fast burn, SIGUSR2, POST "
+        "/debug/flightrecord). Env default: SUDOKU_FLIGHTRECORD_DIR",
+    )
+    parser.add_argument(
+        "--device-trace-dir",
+        default=None,
+        help="record the warm-up and the first N bucket calls "
+        "(--device-trace-calls) as torch.profiler traces into this dir; "
+        "the capture state rides /metrics engine.warm",
+    )
+    parser.add_argument(
+        "--device-trace-calls",
+        type=int,
+        default=4,
+        help="with --device-trace-dir: how many bucket calls to capture "
+        "after the warm-up (default 4)",
+    )
+    parser.add_argument(
+        "--profile-dir",
+        default=None,
+        help="trace every bucket call with torch.profiler into this dir",
+    )
     return parser
+
+
+def build_obs(args: argparse.Namespace):
+    """The observability plane the arguments ask for: ``(tracer, flight,
+    slo)``, each None when off. The SLO objectives are parsed here, so a
+    malformed one fails the start, not a later scrape."""
+    if args.no_obs:
+        if args.slo:
+            raise SystemExit(
+                "--slo needs the observability plane (stage histograms): "
+                "remove --no-obs"
+            )
+        return None, None, None
+    flight = FlightRecorder(dump_dir=args.flightrecord_dir)
+    tracer = Tracer(recorder=flight)
+    slo = None
+    if args.slo:
+        windows = DEFAULT_WINDOWS_S
+        if args.slo_windows:
+            try:
+                windows = tuple(float(w) for w in args.slo_windows.split(","))
+                if len(windows) != 2 or min(windows) <= 0:
+                    raise ValueError
+            except ValueError:
+                raise SystemExit(
+                    f"--slo-windows wants SHORT_S,LONG_S (got "
+                    f"{args.slo_windows!r})"
+                ) from None
+        slo = SloEngine(
+            tracer.stages,
+            [parse_slo(spec) for spec in args.slo],
+            recorder=flight,
+            windows_s=windows,
+            fast_burn_threshold=args.slo_fast_burn,
+        )
+        tracer.slo = slo
+    return tracer, flight, slo
 
 
 def build_node(args: argparse.Namespace):
@@ -279,7 +410,15 @@ def build_node(args: argparse.Namespace):
     }
     if args.buckets:
         kwargs["buckets"] = tuple(int(b) for b in args.buckets.split(","))
+    tracer, flight, slo = build_obs(args)
     engine = SolverEngine(**kwargs)
+    if args.profile_dir:
+        engine.profile_dir = args.profile_dir
+    if args.device_trace_dir:
+        # armed before the warm-up, so the warm-up is the first capture
+        engine.arm_device_trace(
+            args.device_trace_dir, calls=args.device_trace_calls
+        )
     if not args.no_warmup:
         engine.warmup()
     admission = None
@@ -304,10 +443,20 @@ def build_node(args: argparse.Namespace):
             supervisor.add_transition_callback(
                 lambda _old, _new: admission.reanchor()
             )
+        if flight is not None:
+            # breaker trips and watchdog hangs land in the event ring and
+            # dump the black box
+            flight.attach_supervisor(supervisor)
     node = P2PNode(
         args.host, args.s, handicap=args.h / 100, engine=engine,
         admission=admission,
+        # one recording machinery: with tracing on, the node's per-route
+        # recorder IS the tracer's
+        metrics=tracer.routes if tracer is not None else RequestMetrics(),
     )
+    node.tracer = tracer
+    node.flight = flight
+    node.slo = slo
     if not args.no_answer_cache:
         node.answer_cache = AnswerCache(
             capacity=max(1, args.answer_cache_capacity)
@@ -316,7 +465,8 @@ def build_node(args: argparse.Namespace):
         engine.fault_injector = EngineFaultInjector()
         node.chaos_routes = True
     httpd = make_http_server(
-        node, args.host, args.p, expose_serving=args.serving_stats
+        node, args.host, args.p, expose_serving=args.serving_stats,
+        expose_metrics=args.metrics,
     )
     return node, httpd
 
@@ -334,6 +484,18 @@ def main(argv=None) -> None:
         level=logging.INFO, format="%(asctime)s - %(levelname)s - %(message)s"
     )
     node, httpd = build_node(args)
+    if node.flight is not None:
+        try:
+            # operator dump trigger: kill -USR2 <pid> writes the flight
+            # record without touching the HTTP surface
+            signal.signal(
+                signal.SIGUSR2,
+                lambda _sig, _frm: node.flight.dump(reason="sigusr2"),
+            )
+        except (ValueError, AttributeError, OSError):
+            # not the main thread, or no SIGUSR2 on this platform: the
+            # HTTP trigger still works
+            pass
     http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     http_thread.start()
     try:

@@ -19,12 +19,28 @@ node.py:661-704):
   GET  /network 200 → the all_peers dict, or {self_id: []} when alone
   GET  /healthz 200 → {"ok": true} (liveness)
   GET  /readyz 200/503 → {"ready": ..., "warmed": ...[, "health": state]}
+  GET  /metrics 200 → per-route latency percentiles, the engine's health
+               and cost plane, cache, admission, supervision, faults,
+               tracer and SLO blocks; ``/metrics.prom`` and
+               ``/metrics?format=prom`` render the same body as
+               Prometheus text. Only with ``expose_metrics`` (CLI
+               ``--metrics``; 404 otherwise)
+  GET  /debug/trace 200 → the flight recorder's span ring as Chrome
+               trace-event JSON; POST /debug/flightrecord → a flight
+               record dump. Both only on a node with a flight recorder
+               (404 otherwise)
   POST /debug/faults → arms the engine-seam fault injector; only on a node
                built with ``--chaos-injector`` (404 otherwise)
   anything else 404 → {"error": "Invalid endpoint"}
 
 A request may carry ``X-Deadline-Ms``, its latency budget; it counts only
 with admission control on.
+
+Every response carries ``X-Request-Id``: the client's own when it sent a
+well-formed one, else a fresh id. On a node with a tracer
+(``p2p_node.tracer``, obs/trace.py) each /solve opens a request span; a
+client that sends an ``X-Timing`` header gets the span's stage breakdown
+back as an ``X-Timing`` JSON header. Bodies are the same either way.
 
 With an answer cache on the node (``p2p_node.answer_cache``, cache/; on by
 default in the CLI) every /solve board is canonicalized at the front door,
@@ -33,8 +49,8 @@ verified is served from the cache with an ``X-Cache: hit`` header and
 counts nothing in /stats. An answer from the supervisor's oracle fallback
 carries ``X-Degraded: true``. Bodies stay byte-identical either way.
 
-Not in this slice: cache gossip (peer fetch), request tracing and
-/metrics, /solve_batch, and the lean keep-alive transport.
+Not in this slice: cache gossip (peer fetch), ``/metrics/cluster``,
+/solve_batch, and the lean keep-alive transport.
 """
 
 from __future__ import annotations
@@ -45,10 +61,16 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..models.oracle import OracleBudgetExceeded
+from ..obs.prom import CONTENT_TYPE as PROM_CONTENT_TYPE
+from ..obs.trace import current_trace, new_request_id, valid_request_id
 from ..serving.admission import DeadlineExceeded
 from .stats import serving_snapshot
 
 logger = logging.getLogger(__name__)
+
+# the two Prometheus spellings of the /metrics surface, matched exactly
+# (no general query parsing: every other path keeps its 404)
+PROM_PATHS = ("/metrics.prom", "/metrics?format=prom")
 
 
 def _board_error(sudoku, size: int) -> str | None:
@@ -63,6 +85,73 @@ def _board_error(sudoku, size: int) -> str | None:
             if type(v) is not int or not 0 <= v <= size:
                 return f"cells must be integers in 0..{size}"
     return None
+
+
+def record_route(
+    p2p_node, route: str, t0: float, error: bool = False, shed: bool = False
+) -> None:
+    """Fold one request into the node's route recorder
+    (``p2p_node.metrics``, obs/histo.RouteMetrics) when it has one."""
+    m = getattr(p2p_node, "metrics", None)
+    if m is not None:
+        m.record(route, time.perf_counter() - t0, error=error, shed=shed)
+
+
+def ensure_request_id(raw) -> str:
+    """The response's ``X-Request-Id``: the client's own id when it sent
+    a well-formed one (so retries correlate), else a fresh one. Every
+    response carries it — 404s, 429 sheds and degraded answers included:
+    the replies that went wrong are the ones an operator must find again
+    in the flight record."""
+    return valid_request_id(raw) or new_request_id()
+
+
+def start_trace(p2p_node, route: str, request_id: str):
+    """Open a request span (obs/trace.py) when the node carries a tracer;
+    None otherwise. Called unconditionally at ingress of /solve."""
+    tracer = getattr(p2p_node, "tracer", None)
+    if tracer is None:
+        return None
+    return tracer.start(route, trace_id=request_id)
+
+
+def finish_trace(p2p_node, trace, status: int, degraded: bool = False):
+    """Close a span; returns the finished record (the ``X-Timing`` header
+    source) or None. Takes trace=None so call sites stay branch-free."""
+    if trace is None:
+        return None
+    tracer = getattr(p2p_node, "tracer", None)
+    if tracer is None:
+        return None
+    return tracer.finish(trace, status, degraded=degraded)
+
+
+def timing_header_value(record: dict) -> str:
+    """The opt-in ``X-Timing`` response header (sent when the request
+    carried an ``X-Timing`` header): the span's stage breakdown as
+    compact JSON, the JAX node's key set."""
+    return json.dumps(
+        {
+            "total_ms": record["total_ms"],
+            # the front-door answer-cache consult: nonzero on hits AND
+            # misses
+            "cache_ms": record["cache_ms"],
+            "queue_ms": record["queue_ms"],
+            "coalesce_ms": record["coalesce_ms"],
+            "device_ms": record["device_ms"],
+            "verify_ms": record["verify_ms"],
+            "fallback_ms": record["fallback_ms"],
+            "bucket": record["bucket"],
+            "batch_id": record["batch_id"],
+            "degraded": record["degraded"],
+            "fallback": record["fallback"],
+            "farmed": record["farmed"],
+            # the device segments this request's device stage covered (0
+            # on the closed loop)
+            "segments": record["segments"],
+        },
+        separators=(",", ":"),
+    )
 
 
 def _parse_deadline_ms(raw):
@@ -118,11 +207,18 @@ def _cache_lookup(p2p_node, sudoku):
     """Front-door cache consult: the local lookup only (cache gossip and
     its peer fetch are not in this package yet). Returns (answer | None,
     canonical form | None); exactly one hit or miss lands in the cache's
-    counters."""
+    counters. The elapsed time is the request span's ``cache`` stage,
+    hit or miss."""
     cache = p2p_node.answer_cache
-    answer, form = cache.lookup(sudoku, count_miss=False)
-    if answer is None and form is not None:
-        cache._count("misses")
+    t0 = time.monotonic()
+    try:
+        answer, form = cache.lookup(sudoku, count_miss=False)
+        if answer is None and form is not None:
+            cache._count("misses")
+    finally:
+        tr = current_trace()
+        if tr is not None:
+            tr.mark("cache", time.monotonic() - t0)
     return answer, form
 
 
@@ -301,17 +397,137 @@ def stats_payload(p2p_node, expose_serving: bool):
     return body
 
 
+def metrics_payload(p2p_node):
+    """GET /metrics (opt-in): per-route percentiles (route keys start
+    with "/", so they cannot collide with the blocks) and the blocks of
+    the planes this node has, as the JAX node builds them: ``engine``
+    (health, warm state, the cost plane with the answer cache's counters
+    under ``engine.cost.cache``), ``membership``, ``admission``,
+    ``health`` (the supervisor), ``faults``, ``obs`` (tracer and flight
+    recorder) and ``slo``."""
+    m = getattr(p2p_node, "metrics", None)
+    body = m.summary() if m is not None else {}
+    eng = getattr(p2p_node, "engine", None)
+    if eng is not None:
+        body["engine"] = eng.health()
+    answer_cache = getattr(p2p_node, "answer_cache", None)
+    if answer_cache is not None and isinstance(
+        body.get("engine", {}).get("cost"), dict
+    ):
+        # cache hits ARE device cost avoided: the cache's counters live
+        # where an operator reads serving spend
+        body["engine"]["cost"]["cache"] = answer_cache.snapshot()
+    m_health = getattr(getattr(p2p_node, "membership", None), "health", None)
+    if m_health is not None:
+        body["membership"] = m_health()
+    adm = getattr(p2p_node, "admission", None)
+    if adm is not None:
+        body["admission"] = adm.snapshot()
+    sup = getattr(eng, "supervisor", None)
+    if sup is not None:
+        body["health"] = sup.snapshot()
+    # armed chaos injectors: a chaos run is read from /metrics, not logs
+    faults = {}
+    wire_inj = getattr(p2p_node, "fault_injector", None)
+    if wire_inj is not None:
+        faults["wire"] = wire_inj.counts()
+    eng_inj = getattr(eng, "fault_injector", None)
+    if eng_inj is not None:
+        faults["engine"] = eng_inj.counts()
+    if faults:
+        body["faults"] = faults
+    tracer = getattr(p2p_node, "tracer", None)
+    if tracer is not None:
+        body["obs"] = tracer.snapshot()
+    flight = getattr(p2p_node, "flight", None)
+    if flight is not None:
+        body.setdefault("obs", {})["flight"] = flight.stats()
+    slo = getattr(p2p_node, "slo", None)
+    if slo is not None:
+        # a scrape gets a fresh evaluation (the tick is rate-limited)
+        body["slo"] = slo.snapshot()
+    return body
+
+
+def metrics_prom_payload(p2p_node) -> bytes:
+    """``GET /metrics.prom`` / ``GET /metrics?format=prom``: the SAME
+    dict the JSON body serializes, rendered as Prometheus text
+    (obs/prom.py), plus the tracer's stage histograms as histogram
+    families."""
+    from ..obs.prom import render
+
+    body = metrics_payload(p2p_node)
+    tracer = getattr(p2p_node, "tracer", None)
+    histograms = tracer.stages.histograms() if tracer is not None else None
+    return render(body, histograms).encode()
+
+
+def trace_export_route(p2p_node):
+    """``GET /debug/trace``: the flight recorder's span ring as Chrome
+    trace-event JSON (obs/export.py, Perfetto-loadable). Returns (status,
+    payload, error); 404 on a node without a recorder."""
+    flight = getattr(p2p_node, "flight", None)
+    if flight is None:
+        return 404, {"error": "Invalid endpoint"}, True
+    from ..obs.export import build_trace
+
+    return 200, build_trace(flight.spans()), False
+
+
+def flightrecord_route(p2p_node):
+    """POST /debug/flightrecord: an operator-triggered flight-recorder
+    dump (obs/flight.py, the same black box the breaker-trip, shed-storm,
+    SLO and SIGUSR2 triggers write). Returns (status, payload, error): a
+    summary plus the dump's path when the recorder has a dump directory,
+    else the whole record inline. 404 on a node without a recorder."""
+    flight = getattr(p2p_node, "flight", None)
+    if flight is None:
+        return 404, {"error": "Invalid endpoint"}, True
+    out = flight.dump(reason="http")
+    body = {
+        "dumped": True,
+        "reason": out["reason"],
+        "seq": out["seq"],
+        "path": out["path"],
+        "spans": out["spans"],
+        "events": out["events"],
+    }
+    if out["path"] is None:
+        body["record"] = out["payload"]
+    return 200, body, False
+
+
 class SudokuHTTPHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.0"  # one connection per request, as the seed
     p2p_node = None  # set by make_http_server
     expose_serving = False  # opt-in "serving" block on GET /stats
+    expose_metrics = False  # opt-in /metrics routes (CLI --metrics)
+    _req_id = None  # this request's X-Request-Id, set by _begin_request
+    _want_timing = False  # the client sent X-Timing: it gets the breakdown
+
+    def _begin_request(self) -> None:
+        """Echo or mint the X-Request-Id every response carries, and note
+        whether the client asked for the X-Timing stage breakdown."""
+        self._req_id = ensure_request_id(self.headers.get("X-Request-Id"))
+        self._want_timing = self.headers.get("X-Timing") is not None
 
     def _send_response(self, content, status: int = 200,
-                       degraded: bool = False, cached: bool = False) -> None:
-        body = json.dumps(content).encode()
+                       degraded: bool = False, cached: bool = False,
+                       timing=None) -> None:
+        if isinstance(content, bytes):
+            # a pre-rendered non-JSON body (the Prometheus exposition)
+            body = content
+            ctype = PROM_CONTENT_TYPE
+        else:
+            body = json.dumps(content).encode()
+            ctype = "application/json"
         self.send_response(status)
-        self.send_header("Content-type", "application/json")
+        self.send_header("Content-type", ctype)
         self.send_header("Content-Length", str(len(body)))
+        if self._req_id is not None:
+            self.send_header("X-Request-Id", self._req_id)
+        if timing is not None:
+            self.send_header("X-Timing", timing)
         if degraded:
             # the answer came from the supervisor's host-oracle fallback:
             # a header, not a body key, so the body stays the reference's
@@ -329,7 +545,7 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def _read_body(self):
+    def _read_body(self, route: str, t0: float):
         """The request body, or None after answering 400 and closing the
         connection when it cannot be framed (chunked, bad Content-Length)."""
         te = (self.headers.get("Transfer-Encoding") or "").lower()
@@ -339,25 +555,55 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
             content_length = -1
         if content_length < 0 or "chunked" in te:
             self.close_connection = True
+            record_route(self.p2p_node, route, t0, error=True)
             self._send_response({"error": "Invalid request"}, 400)
             return None
         return self.rfile.read(content_length)
 
     def do_POST(self):
+        t0 = time.perf_counter()
+        self._begin_request()
         if self.path == "/solve":
-            post_data = self._read_body()
+            post_data = self._read_body("/solve", t0)
             if post_data is None:
                 return
-            status, payload, _error, degraded, cached = solve_route(
-                self.p2p_node, post_data,
-                deadline_ms=_parse_deadline_ms(self.headers.get("X-Deadline-Ms")),
+            trace = start_trace(self.p2p_node, "/solve", self._req_id)
+            try:
+                status, payload, error, degraded, cached = solve_route(
+                    self.p2p_node, post_data,
+                    deadline_ms=_parse_deadline_ms(
+                        self.headers.get("X-Deadline-Ms")
+                    ),
+                )
+            except BaseException:
+                # a route-core crash still closes the span: the crashed
+                # request is the span an incident dump needs
+                finish_trace(self.p2p_node, trace, 500)
+                raise
+            record = finish_trace(self.p2p_node, trace, status, degraded=degraded)
+            # recorded before replying: a client may read /metrics the
+            # instant its response arrives
+            shed = status == 429
+            record_route(self.p2p_node, "/solve", t0,
+                         error=error and not shed, shed=shed)
+            self._send_response(
+                payload, status, degraded=degraded, cached=cached,
+                timing=timing_header_value(record)
+                if record is not None and self._want_timing else None,
             )
-            self._send_response(payload, status, degraded=degraded,
-                                cached=cached)
+        elif (
+            self.path == "/debug/flightrecord"
+            and getattr(self.p2p_node, "flight", None) is not None
+        ):
+            post_data = self._read_body("/debug/flightrecord", t0)
+            if post_data is None:
+                return
+            status, payload, _error = flightrecord_route(self.p2p_node)
+            self._send_response(payload, status)
         elif self.path == "/debug/faults" and getattr(
             self.p2p_node, "chaos_routes", False
         ):
-            post_data = self._read_body()
+            post_data = self._read_body("/debug/faults", t0)
             if post_data is None:
                 return
             status, payload, _error = faults_route(self.p2p_node, post_data)
@@ -368,12 +614,23 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
             self._send_response({"error": "Invalid endpoint"}, 404)
 
     def do_GET(self):
+        self._begin_request()
         if self.path == "/stats":
             self._send_response(
                 stats_payload(self.p2p_node, self.expose_serving)
             )
         elif self.path == "/network":
             self._send_response(self.p2p_node.network_view())
+        elif self.path == "/metrics" and self.expose_metrics:
+            self._send_response(metrics_payload(self.p2p_node))
+        elif self.path in PROM_PATHS and self.expose_metrics:
+            self._send_response(metrics_prom_payload(self.p2p_node))
+        elif (
+            self.path == "/debug/trace"
+            and getattr(self.p2p_node, "flight", None) is not None
+        ):
+            status, payload, _error = trace_export_route(self.p2p_node)
+            self._send_response(payload, status)
         elif self.path == "/healthz":
             # liveness: a DEGRADED or LOST node still answers correctly from
             # the fallback and must not be restarted; /readyz tells them apart
@@ -396,15 +653,21 @@ class _ThreadingHTTPServer(ThreadingHTTPServer):
 
 
 def make_http_server(p2p_node, host: str, http_port: int, *,
-                     expose_serving: bool = False):
+                     expose_serving: bool = False,
+                     expose_metrics: bool = False):
     """The stdlib threading HTTP server, one connection per request
     (HTTP/1.0). ``expose_serving`` adds the coalescer's "serving" block to
-    GET /stats. Returns it unstarted: serve_forever() / shutdown() /
+    GET /stats; ``expose_metrics`` opens GET /metrics and its Prometheus
+    spellings. Returns it unstarted: serve_forever() / shutdown() /
     server_address."""
     handler = type(
         "BoundHandler",
         (SudokuHTTPHandler,),
-        {"p2p_node": p2p_node, "expose_serving": expose_serving},
+        {
+            "p2p_node": p2p_node,
+            "expose_serving": expose_serving,
+            "expose_metrics": expose_metrics,
+        },
     )
     httpd = _ThreadingHTTPServer((host, http_port), handler)
     logger.info("HTTP server on %s:%s", host, http_port)

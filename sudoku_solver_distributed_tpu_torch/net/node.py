@@ -5,8 +5,10 @@ node.py``: the constructor and counters, the ``/stats`` and ``/network``
 bodies, the no-peers branch of ``peer_sudoku_solve(_info)`` (the request
 goes straight to the engine's supervised serving entry point, with its
 admission deadline), and the graceful ``shutdown``. The node carries the
-front door's answer cache (``answer_cache``, None unless attached) and the
-chaos route's switch (``chaos_routes``). ``run`` binds
+front door's answer cache (``answer_cache``, None unless attached), the
+chaos route's switch (``chaos_routes``) and the observability plane's
+``metrics``, ``tracer``, ``flight`` and ``slo`` (obs/; None unless
+attached, as net/cli.py does by default). ``run`` binds
 the UDP socket like the original and then waits for shutdown: the UDP
 event loop, the anchor join and the per-cell task farm come with the P2P
 slice, so a node here never has peers.
@@ -41,6 +43,7 @@ class P2PNode:
         failure_timeout: float = FAILURE_TIMEOUT_S,
         tombstone_ttl_s: Optional[float] = None,
         admission=None,
+        metrics=None,
     ):
         if anchor_node is not None:
             raise NotImplementedError(
@@ -62,6 +65,14 @@ class P2PNode:
         self.answer_cache = None
         # POST /debug/faults exists only when set (CLI --chaos-injector)
         self.chaos_routes = False
+        # the observability plane (obs/), each None when off: the per-route
+        # recorder behind the /metrics route blocks (the tracer's own
+        # RouteMetrics when tracing is on), the request tracer, the
+        # incident flight recorder and the SLO burn-rate engine
+        self.metrics = metrics
+        self.tracer = None
+        self.flight = None
+        self.slo = None
         # ticks once per farmed task, as in the JAX node: the task farm
         # comes with the P2P slice, so a single node never ticks it
         self.limiter = HandicapLimiter(base_delay=handicap)

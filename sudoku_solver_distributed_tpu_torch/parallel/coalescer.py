@@ -48,11 +48,19 @@ Counters (``stats()``): dispatched batches/boards, the realized batch-fill
 queue depth, and request wait time; with continuous batching also
 segments, refills, active lanes, the pool width and the pipeline's
 counters. Served on the opt-in ``/stats`` serving block
-(net/http_api.py).
+(net/http_api.py) and the ``/metrics`` ``engine.coalescer`` block.
 
-The port of ``sudoku_solver_distributed_tpu/parallel/coalescer.py``
-without its request-trace marks and cost-plane stamps (they come with the
-observability slice).
+Request spans (obs/trace.py): each queued request carries the span of the
+thread that submitted it, and the coalescer's threads stamp its
+``queue``, ``coalesce`` and ``device`` stages, its ``bucket`` (the batch
+or pool width), ``batch_id`` and, on the open loop, ``segments``, always
+BEFORE resolving its future. Every dispatched batch, and every segment
+that boards requests, also feeds the engine's cost plane a formation
+sample (``cost.note_formation``: the oldest rider's wait and the fill).
+With overlapping segments the per-segment ``device`` stamps of a request
+can sum past its wall time, as in the JAX node.
+
+The port of ``sudoku_solver_distributed_tpu/parallel/coalescer.py``.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..obs.trace import current_trace
 from ..ops.solver import RUNNING, pad_board
 from ..serving.admission import DeadlineExceeded
 from ..utils.profiling import annotate
@@ -115,7 +124,7 @@ def _resolve(future: Future, result=None, exc=None) -> None:
 
 
 class _Request:
-    __slots__ = ("board", "future", "enqueued", "deadline")
+    __slots__ = ("board", "future", "enqueued", "deadline", "trace")
 
     def __init__(self, board: np.ndarray, deadline: Optional[float] = None):
         self.board = board
@@ -125,6 +134,11 @@ class _Request:
         # expired request is dropped at batch-formation time so the device
         # never solves a board nobody is waiting for
         self.deadline = deadline
+        # the submitting thread's request span (obs/trace.py), captured at
+        # enqueue: the coalescer's threads stamp its stages strictly
+        # BEFORE resolving the future, so the handler thread's read after
+        # the future resolves sees them. None (no tracer) costs one slot.
+        self.trace = current_trace()
 
 
 class _InjectionPrestager:
@@ -600,6 +614,9 @@ class BatchCoalescer:
                 # resolve outside the condition lock: future callbacks run
                 # inline in set_exception and must not re-enter the queue
                 for r in dropped:
+                    if r.trace is not None:
+                        # the expired request's whole life was queue wait
+                        r.trace.mark("queue", now - r.enqueued)
                     _resolve(
                         r.future,
                         exc=DeadlineExceeded(
@@ -629,10 +646,14 @@ class BatchCoalescer:
                 with self._stats_lock:
                     self.failed_batches += 1
                 for r in batch:
+                    if r.trace is not None:
+                        r.trace.mark("queue", now - r.enqueued)
                     _resolve(r.future, exc=e)
                 continue
+            t_dispatched = time.monotonic()
             with self._stats_lock:
                 self.batches += 1
+                batch_id = self.batches
                 self.boards += len(batch)
                 self.last_batch_fill = len(batch)
                 if len(batch) > self.max_batch_fill:
@@ -642,8 +663,22 @@ class BatchCoalescer:
                     self._wait_sum_s += w
                     if w > self._wait_max_s:
                         self._wait_max_s = w
+            # the cost plane's formation sample: the oldest rider's wait is
+            # the latency this batch's coalescing added (one per BATCH)
+            self._engine.cost.note_formation(now - batch[0].enqueued, len(batch))
+            # span stamps, outside every lock: queue wait ended at batch
+            # formation (now); coalesce is the stack/pad + device enqueue
+            # that just ran; the padded width is the bucket
+            bucket = int(handle.boards.shape[0])
+            for r in batch:
+                tr = r.trace
+                if tr is not None:
+                    tr.mark("queue", now - r.enqueued)
+                    tr.mark("coalesce", t_dispatched - now)
+                    tr.bucket = bucket
+                    tr.batch_id = batch_id
             # blocks at pipeline depth
-            self._inflight.put((handle, batch))
+            self._inflight.put((handle, batch, t_dispatched))
         self._inflight.put(_SENTINEL)
 
     # -- completion side ---------------------------------------------------
@@ -656,7 +691,7 @@ class BatchCoalescer:
                 self._cond.notify_all()
             if item is _SENTINEL:
                 break
-            handle, batch = item
+            handle, batch, t_dispatched = item
             try:
                 # waits for this batch's rows; the dispatcher is already
                 # stacking the next batch meanwhile
@@ -668,9 +703,23 @@ class BatchCoalescer:
                 logger.exception("coalescer completion failed")
                 with self._stats_lock:
                     self.failed_batches += 1
+                t_done = time.monotonic()
                 for r in batch:
+                    if r.trace is not None and not r.future.done():
+                        # the failed call's wall time is still device time,
+                        # but a future a starved caller already cancelled
+                        # is never stamped (its handler may be finishing
+                        # the span; Tracer.finish's stage snapshot covers
+                        # the check-then-mark window)
+                        r.trace.mark("device", t_done - t_dispatched)
                     _resolve(r.future, exc=e)
                 continue
+            # device stage: dispatch -> rows on the host, stamped before
+            # the futures resolve; cancelled futures skipped, as above
+            t_done = time.monotonic()
+            for r in batch:
+                if r.trace is not None and not r.future.done():
+                    r.trace.mark("device", t_done - t_dispatched)
             for r, res in zip(batch, results):
                 # a caller may cancel() its future while the batch is in
                 # flight; _resolve absorbs the done-check/cancel race
@@ -714,12 +763,14 @@ class BatchCoalescer:
         self._pending.extend(live)
         return take
 
-    def _resolve_expired(self, dropped) -> None:
+    def _resolve_expired(self, dropped, now: float) -> None:
         if not dropped:
             return
         with self._stats_lock:
             self.expired += len(dropped)
         for r in dropped:
+            if r.trace is not None:
+                r.trace.mark("queue", now - r.enqueued)
             _resolve(
                 r.future,
                 exc=DeadlineExceeded("deadline expired in the coalescer queue"),
@@ -749,10 +800,15 @@ class BatchCoalescer:
                 self._cond.wait(timeout=min(cap_at, quiet_at) - now)
         return True
 
-    def _note_segment(self, take, n_active: int, t_inject: float) -> None:
-        """Count one dispatched segment and its boarding requests."""
+    def _note_segment(self, take, n_active: int, t_inject: float,
+                      width: int) -> None:
+        """Count one dispatched segment and its boarding requests: the
+        stats, the cost plane's formation sample when requests board, and
+        the boarding requests' queue and coalesce stamps, bucket (the pool
+        width) and batch_id (the segment's)."""
         with self._stats_lock:
             self.batches += 1  # a segment is a device dispatch
+            segment_id = self.batches
             self.segments += 1
             self.boards += len(take)
             self.refills += len(take)
@@ -765,6 +821,27 @@ class BatchCoalescer:
                 self._wait_sum_s += w
                 if w > self._wait_max_s:
                     self._wait_max_s = w
+        if take:
+            self._engine.cost.note_formation(
+                t_inject - min(r.enqueued for r in take), n_active
+            )
+        t_disp = time.monotonic()
+        for r in take:
+            if r.trace is not None:
+                r.trace.mark("queue", t_inject - r.enqueued)
+                r.trace.mark("coalesce", t_disp - t_inject)
+                r.trace.bucket = width
+                r.trace.batch_id = segment_id
+
+    @staticmethod
+    def _stamp_segment(slots, device_s: float) -> None:
+        """Every resident request's span: one more segment, and its
+        dispatch-to-fetch time as device time — stamped before any future
+        of the boundary resolves."""
+        for r in slots:
+            if r is not None and r.trace is not None and not r.future.done():
+                r.trace.mark("device", device_s)
+                r.trace.segments += 1
 
     def _classify(self, slots, ages, stale, rows, C: int):
         """Boundary bookkeeping shared by both segment loops: free the lanes whose
@@ -820,13 +897,19 @@ class BatchCoalescer:
                             self.deep_evictions += 1
         return resolved, deep_entries
 
-    def _fail_residents(self, slots, exc) -> None:
-        """A segment failed: every resident lane's future gets ``exc``."""
+    def _fail_residents(self, slots, exc, t_anchor: Optional[float]) -> None:
+        """A segment failed: every resident lane's future gets ``exc``; the
+        time since ``t_anchor`` (the failed segment's dispatch) is its
+        device time."""
         with self._stats_lock:
             self.failed_batches += 1
+        t_done = time.monotonic()
         for i, r in enumerate(slots):
             if r is not None:
                 slots[i] = None
+                if (t_anchor is not None and r.trace is not None
+                        and not r.future.done()):
+                    r.trace.mark("device", t_done - t_anchor)
                 _resolve(r.future, exc=exc)
 
     def _segment_loop(self) -> None:
@@ -856,8 +939,14 @@ class BatchCoalescer:
         # nothing), up to 4 doublings, and snaps back on any progress.
         boost = 0
         base_k = int(eng.segment_iters)
+        # when the previous segment's rows arrived, while lanes stay busy:
+        # the boundary host gap the cost plane reports (None across idle
+        # waits, so waiting for work never reads as boundary cost)
+        last_done = None
         while True:
             with self._cond:
+                if not self._pending and not any(s is not None for s in slots):
+                    last_done = None  # pool idle: the gap is no boundary
                 if not self._wait_for_work_locked(slots):
                     break
                 now = time.monotonic()
@@ -865,7 +954,7 @@ class BatchCoalescer:
                 free_idx = [i for i, s in enumerate(slots) if s is None]
                 take = self._take_for_slots_locked(len(free_idx))
                 self._cond.notify_all()  # submit() blocked on max_pending
-            self._resolve_expired(dropped)
+            self._resolve_expired(dropped, now)
             if not take and not any(s is not None for s in slots):
                 continue  # everything drained had expired
             t_inject = time.monotonic()
@@ -888,21 +977,29 @@ class BatchCoalescer:
             n_active = int(active.sum())
             if state is None:
                 state = eng.new_segment_pool(width)
-            self._note_segment(take, n_active, t_inject)
+            self._note_segment(take, n_active, t_inject, width)
             if take:
                 boost = 0
+            t_call = time.monotonic()
             try:
                 with annotate(f"coalescer_segment_a{n_active}"):
-                    state, rows, _ = eng.run_segment_supervised(
+                    state, rows, device_s = eng.run_segment_supervised(
                         state, boards, inject, active=active,
                         seg_iters=base_k << boost, injected=len(take),
+                        boundary_host_s=(
+                            t_call - last_done if last_done is not None else 0.0
+                        ),
                     )
+                last_done = time.monotonic()
             except Exception as e:  # noqa: BLE001 — fail residents, not the loop
                 logger.exception("continuous segment failed")
-                self._fail_residents(slots, e)
+                self._fail_residents(slots, e, t_call)
                 state = None  # the pool is suspect: rebuild on demand
                 stale.clear()
+                # the failed span is fault time, not boundary host time
+                last_done = None
                 continue
+            self._stamp_segment(slots, device_s)
             resolved, deep_entries = self._classify(slots, ages, stale, rows, C)
             for r, row in resolved:
                 _resolve(r.future, result=eng._row_result(row, routed="continuous"))
@@ -948,10 +1045,10 @@ class BatchCoalescer:
         inflight = None         # a dispatched segment whose digest is unread
         last_fetch_done = None  # when the previous digest arrived
 
-        def fail_pool(exc) -> None:
+        def fail_pool(exc, t_anchor) -> None:
             nonlocal state, last_fetch_done
             last_fetch_done = None
-            self._fail_residents(slots, exc)
+            self._fail_residents(slots, exc, t_anchor)
             stale.clear()
             state = None
 
@@ -1000,7 +1097,7 @@ class BatchCoalescer:
             n_active = sum(1 for s in slots if s is not None)
             if state is None:
                 state = eng.new_segment_pool(width)
-            self._note_segment(take, n_active, t_inject)
+            self._note_segment(take, n_active, t_inject, width)
             if take:
                 boost = 0
             with annotate(f"coalescer_segment_a{n_active}"):
@@ -1032,7 +1129,7 @@ class BatchCoalescer:
                     free_idx = [i for i, s in enumerate(slots) if s is None]
                     take = self._take_for_slots_locked(len(free_idx))
                     self._cond.notify_all()
-                self._resolve_expired(dropped)
+                self._resolve_expired(dropped, now)
                 if not take and not any(s is not None for s in slots):
                     continue  # everything drained had expired
                 try:
@@ -1041,7 +1138,7 @@ class BatchCoalescer:
                     )
                 except Exception as e:  # noqa: BLE001
                     logger.exception("continuous segment dispatch failed")
-                    fail_pool(e)
+                    fail_pool(e, time.monotonic())
                     continue
             # -- one-deep speculation: nothing to inject, chain N+1 -----
             # Only on an empty queue that is also quiet: right after a
@@ -1073,17 +1170,18 @@ class BatchCoalescer:
                         spec_exc = e
             # -- finalize segment N ----------------------------------------
             try:
-                rows, _ = eng.finalize_segment(
+                rows, device_s = eng.finalize_segment(
                     inflight, active=np.array([s is not None for s in slots])
                 )
             except Exception as e:  # noqa: BLE001
                 logger.exception("continuous segment failed")
                 if spec_handle is not None:
                     eng.abandon_segment(spec_handle)
-                fail_pool(e)
+                fail_pool(e, inflight.t0)
                 inflight = None
                 continue
             last_fetch_done = time.monotonic()
+            self._stamp_segment(slots, device_s)
             # -- boundary N: classify lanes (no fan-out yet) --------------
             resolved, deep_entries = self._classify(slots, ages, stale, rows, C)
             now = time.monotonic()
@@ -1105,7 +1203,7 @@ class BatchCoalescer:
                         logger.exception("continuous segment dispatch failed")
                         spec_exc = e
             # -- host-side fan-out, overlapped with segment N+1 -----------
-            self._resolve_expired(dropped)
+            self._resolve_expired(dropped, now)
             for r, row in resolved:
                 _resolve(r.future, result=eng._row_result(row, routed="continuous"))
             for r, row in deep_entries:
@@ -1115,7 +1213,7 @@ class BatchCoalescer:
             injected_next = next_handle.injected if next_handle is not None else 0
             boost = 0 if (resolved or injected_next) else min(boost + 1, 4)
             if spec_exc is not None:
-                fail_pool(spec_exc)
+                fail_pool(spec_exc, last_fetch_done)
                 next_handle = None
             inflight = next_handle
 
@@ -1129,10 +1227,13 @@ class BatchCoalescer:
         C = self._engine.spec.cells
 
         def run():
+            t0 = time.monotonic()
             try:
                 out = self._engine._solve_padded(req.board[None])[0].copy()
                 out[C + 2] += row[C + 2]
                 out[C + 3] += row[C + 3]
+                if req.trace is not None and not req.future.done():
+                    req.trace.mark("device", time.monotonic() - t0)
                 self._engine._account_coalesced(out[None])
                 _resolve(
                     req.future,

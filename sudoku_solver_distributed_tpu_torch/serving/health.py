@@ -50,8 +50,10 @@ against a dead device's stale rate.
 Everything defaults off: an engine without a supervisor attached serves
 exactly as it would without this module.
 
-A copy of ``sudoku_solver_distributed_tpu/serving/health.py`` without its
-request-trace marks, falling back to this package's own oracle.
+A copy of ``sudoku_solver_distributed_tpu/serving/health.py``, falling
+back to this package's own oracle. The flight recorder (obs/flight.py)
+registers through ``add_transition_callback``; the fallback stamps the
+request span's ``fallback`` stage (obs/trace.py).
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ from ..models.oracle import (
     oracle_is_valid_solution,
     oracle_solve,
 )
+from ..obs.trace import current_trace
 
 logger = logging.getLogger(__name__)
 
@@ -405,8 +408,14 @@ class EngineSupervisor:
         The solve itself runs under ``fallback_budget_s``: an
         adversarial deep board trips ``OracleBudgetExceeded`` — counted,
         propagated, answered as a clean 503 by the HTTP layer — instead
-        of pinning a host core for the exponential tail."""
+        of pinning a host core for the exponential tail.
+
+        The request's span (obs/trace.current_trace, when a tracer is on)
+        gets the ``fallback`` stage — semaphore wait plus oracle solve —
+        and its ``fallback`` and ``degraded`` flags."""
         arr = np.asarray(board, np.int32)
+        tr = current_trace()
+        t0 = time.monotonic()
         with self._fallback_sem:
             if deadline_s is not None and time.monotonic() > deadline_s:
                 from .admission import DeadlineExceeded
@@ -421,12 +430,20 @@ class EngineSupervisor:
             except OracleBudgetExceeded:
                 with self._lock:
                     self.fallback_budget_trips += 1
+                if tr is not None:
+                    tr.mark("fallback", time.monotonic() - t0)
+                    tr.fallback = True
+                    tr.degraded = True
                 logger.warning(
                     "host-oracle fallback exceeded its %.1fs budget — "
                     "answering 503 (degraded and over budget)",
                     self.fallback_budget_s,
                 )
                 raise
+        if tr is not None:
+            tr.mark("fallback", time.monotonic() - t0)
+            tr.fallback = True
+            tr.degraded = True
         with self._lock:
             self.fallback_served += 1
             state = self.state
@@ -481,6 +498,13 @@ class EngineSupervisor:
             "device claimed UNSAT for a solvable board — poisoned "
             "program? serving the oracle's solution"
         )
+        tr = current_trace()
+        if tr is not None:
+            # the cross-check's oracle answer IS fallback serving (its
+            # wall time rides the verify stage the engine stamps around
+            # this call)
+            tr.fallback = True
+            tr.degraded = True
         with self._lock:
             self.fallback_served += 1
             state = self.state

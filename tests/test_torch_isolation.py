@@ -35,6 +35,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from sudoku_solver_distributed_tpu_torch.utils.profiling import (
+    RequestMetrics, annotate, device_trace,
+)
+from sudoku_solver_distributed_tpu_torch.obs import RouteMetrics, Tracer
+assert RequestMetrics is RouteMetrics
 leaked = [n for n in sys.modules
           if n.split(".")[0] == "sudoku_solver_distributed_tpu"]
 assert not leaked, leaked
@@ -46,8 +51,40 @@ print(" ".join(names))
 # module; these are the ones a later slice added and must not lose)
 REQUIRED = (
     "cache", "cache.canonical", "cache.store", "serving.health",
-    "utils.faults", "net.http_api", "engine",
+    "utils.faults", "net.http_api", "engine", "utils.profiling", "obs",
+    "obs.trace", "obs.histo", "obs.prom", "obs.flight", "obs.export",
+    "obs.cost", "obs.slo",
 )
+
+# the observability plane without JAX: a span, a torch.profiler capture
+# through utils/profiling.device_trace, and the Prometheus rendering
+OBS_WITHOUT_JAX = r"""
+import json, os, sys, tempfile
+sys.modules["jax"] = None
+import torch
+from sudoku_solver_distributed_tpu_torch.obs import FlightRecorder, Tracer
+from sudoku_solver_distributed_tpu_torch.obs.prom import render
+from sudoku_solver_distributed_tpu_torch.utils.profiling import (
+    annotate, device_trace,
+)
+tracer = Tracer(recorder=FlightRecorder())
+t = tracer.start("/solve")
+t.mark("device", 0.002)
+rec = tracer.finish(t, 200)
+assert rec["device_ms"] == 2.0
+out = tempfile.mkdtemp()
+with device_trace(out), annotate("probe"):
+    torch.ones(8).sum()
+(name,) = os.listdir(out)
+doc = json.load(open(os.path.join(out, name)))
+assert "probe" in {e.get("name") for e in doc["traceEvents"]}
+text = render({"obs": tracer.snapshot()}, tracer.stages.histograms())
+assert 'sudoku_stage_latency_ms_count{stage="device"} 1' in text
+leaked = [n for n in sys.modules
+          if n.split(".")[0] == "sudoku_solver_distributed_tpu"]
+assert not leaked, leaked
+print("ok")
+"""
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -62,6 +99,16 @@ def test_port_and_chip_smoke_import_without_jax():
     missing = [m for m in REQUIRED
                if f"sudoku_solver_distributed_tpu_torch.{m}" not in names]
     assert not missing
+
+
+def test_obs_plane_and_device_trace_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", OBS_WITHOUT_JAX], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok"]
 
 
 def test_no_import_line_names_jax_or_the_jax_package():
