@@ -1,8 +1,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
-Phases, each of which fails the run (non-zero exit) on any error:
+``--seed`` seeds the generated board sets (symmetry transforms, 4x4
+boards, pool rotations). Phases, each of which fails the run (non-zero
+exit) on any error:
 
 1. Build the kernel library from sudoku_solver_distributed_tpu_torch/csrc/
    and print ``ptxas -v``'s registers, stack and spills per instance of
@@ -11,12 +13,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    no stack and spill nothing.
 2. Hold the DFS kernel (ops/cuda_solver.solve_batch_cuda) against its
    plain PyTorch version (ops/solver.solve_batch), both on CUDA tensors,
-   under each board size's serving configuration (``serving_config(n)``:
-   locked candidates, and three sweeps a step on 9x9), on the committed
+   under each board size's node configuration (``serving_config(n)``:
+   locked candidates, and three sweeps a step on 9x9; on 4x4, which has
+   none, the engine's defaults), on the committed
    corpora (the deep 9x9 one to a 512-step budget), on seeded symmetry
    transforms of them (which move MRV ties and
-   singles across the kernel's lane boundaries), on degenerate boards and
-   on the README board alone (width 1, both depth stages); and on the 9x9
+   singles across the kernel's lane boundaries), on degenerate boards,
+   on the README board alone (width 1, both depth stages), and on seeded
+   4x4 boards at each width of a 4x4 node's ladder (1 to 4096; clue
+   conflicts at 512); and on the 9x9
    hard corpus also with naked pairs, with ``waves`` 1 and 2, and in the
    singles configuration. Grid, status, guesses and validations must be
    equal per board, and every SOLVED grid must pass the host oracle and
@@ -29,8 +34,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    hard corpus over a 4096-lane pool under budgets (3, 7, 1, 13), seeded
    rotations of new boards into freed and running lanes (pad re-seeds
    included) at pools of 512 and 64, the 16x16 and 25x25 corpora in their
-   serving configs, the degenerate boards and the README board in a
-   one-lane pool. State, stack frames below each lane's depth, digest and
+   serving configs (16x16 also over the 4096-lane pool its node runs,
+   25x25 over the 64-lane pool of phase 9's node), seeded 4x4 boards with
+   clue conflicts rotated through a 4096-lane pool, the degenerate boards
+   and the README board in a one-lane pool. State, stack frames below
+   each lane's depth, digest and
    solution block must be equal in every lane. Then a chain of segments
    over the 4096 hard boards must equal one flat DFS launch at the flat
    depth, and the deep-union corpus through the engine's segment seam
@@ -103,22 +111,63 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``--device-trace-dir`` node's torch.profiler warm-up trace must name
    the three kernels; the README p50 of a node with the plane on and a
    ``--no-obs`` node are read in turns (on, off, off, on).
+9. The rest of the single-node surface, each path with both kernels'
+   counters set to 0 before it and read after. (a) Transports: the
+   default node (``--no-answer-cache``) serves its keep-alive transport
+   (net/fastserve.py) and, over the same node object, the stdlib arm
+   (``legacy_transport=True``); in turns (fast, legacy, legacy, fast) the
+   README /solve p50 over 20 requests on a keep-alive connection and a
+   connection per request, the same for cache hits on a cached node, and
+   16 concurrent clients (4 boards each) whose /stats validations must
+   equal the same boards replayed through the node; then a
+   ``--seed-serving`` node's README p50 and 16-client wall time. (b)
+   ``POST /solve_batch`` (``--batch-api``): the 4096-board hard corpus in
+   one request must equal ``solve_batch_np`` on a fresh engine row for
+   row (SOLVED rows oracle-valid, ``solved`` / ``capped`` equal), grow
+   /stats by its validations, and launch K1 only at 4096 wide; its
+   boards/s over HTTP beside in-process, and the JSON encode / decode
+   time; the same batch while 16 keep-alive /solve clients are in flight
+   answers the same rows; a 64-board batch twice on a cached node is an
+   ``X-Cache: hit``; a supervised node's batch carries no degraded flag
+   before any fault and, after ``fail_next``, is a 200 with per-board
+   ``degraded`` flags and ``X-Degraded: true``; no answer of an
+   unsupervised node carries one. (c)
+   ``--board-size 16`` (the default ladder: 16 boards sequential and 16
+   concurrent, a 256-board batch, a 9x9 body's 400), ``--board-size 25
+   --buckets 1,8,64`` (8 boards) and ``--board-size 4`` (16 seeded
+   boards): every answer
+   oracle-valid with its clues, K3 launched at each size. (d) Tiered
+   warm-up: with tier 0 held at a gate, /readyz answers 503, then 200
+   once the gate opens; the seconds to ready and to ``fully_warmed``;
+   the GC freeze once fully warm; a CLI node in a process of its own,
+   seconds from spawn to ready and to fully warm; a budget-cut node
+   lists its skipped widths and tiles a 4096-board batch over its
+   largest warm width (K1's launch widths), with (b)'s answers. (e)
+   ``Sudoku`` on the card answers the README board's checks as on the
+   CPU, and ``SudokuSolver()`` solves it on the card.
+
+Every node harness waits for the CLI's background warm-up to finish
+(``fully_warmed``) before its phase measures, and sends the node's
+flight-record dumps to a temporary directory unless the phase names one.
 
 Prints a ``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
-card's name and power limit, a ``{"obs": {...}}`` line (phase 8), one
-``{"kernels": [...]}`` line (dfs_solver, dfs_segment_kernel,
-segment_digest_kernel), and last ``{"ok": true, "device": {...}}``. Exits
-non-zero without a result when no CUDA device is available. Imports
-nothing of JAX.
+card's name and power limit, a ``{"obs": {...}}`` line (phase 8), a
+``{"front": {...}}`` line (phase 9), one ``{"kernels": [...]}`` line
+(dfs_solver, dfs_segment_kernel, segment_digest_kernel, each with its
+launches on every path), and last ``{"ok": true, "device": {...}}``.
+Exits non-zero without a result when no CUDA device is available.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -228,6 +277,49 @@ def degenerate_boards():
     return out
 
 
+SOLVED_4X4 = [[1, 2, 3, 4], [3, 4, 1, 2], [2, 1, 4, 3], [4, 3, 2, 1]]
+
+
+def boards_4x4(count: int, seed: int, conflicts: bool = False):
+    """``count`` seeded 4x4 boards: random symmetries of a solved grid with
+    a random share of their cells emptied, from a quarter to all sixteen
+    (so many have several solutions and need guesses); with ``conflicts``,
+    every fourth board also gets one random clue written over a cell,
+    which may leave it unsolvable."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = symmetry_transforms(np.asarray(SOLVED_4X4, np.int32)[None], count, seed)
+    keep = rng.random((count, 4, 4)) >= rng.uniform(0.25, 1.0, (count, 1, 1))
+    out = np.where(keep, out, 0).astype(np.int32)
+    if conflicts:
+        idx = np.arange(0, count, 4)
+        r, c = rng.integers(0, 4, (2, idx.size))
+        out[idx, r, c] = rng.integers(1, 5, idx.size)
+    return out
+
+
+def node_config(SolverEngine, spec_for_size, serving_config):
+    """``config(size)``: the solver knobs (``serving_config``'s keys) that
+    a ``--board-size`` node's engine runs. A size with a serving config
+    runs it; one without (4x4) runs the engine's defaults, read off an
+    engine built for that size."""
+
+    def config(size: int) -> dict:
+        try:
+            return serving_config(size)
+        except ValueError:
+            eng = SolverEngine(spec=spec_for_size(size), coalesce=False)
+            try:
+                return dict(max_depth=eng.max_depth, max_iters=eng.max_iters,
+                            locked_candidates=eng.locked_candidates,
+                            waves=eng.waves, naked_pairs=eng.naked_pairs)
+            finally:
+                eng.close()
+
+    return config
+
+
 def sweeps_of(cfg) -> dict:
     """The sweep knobs of a ``serving_config(n)`` (or any solver config)."""
     return {k: cfg[k] for k in ("locked_candidates", "waves", "naked_pairs")}
@@ -236,18 +328,19 @@ def sweeps_of(cfg) -> dict:
 SINGLES = dict(locked_candidates=False, waves=1, naked_pairs=False)
 
 
-def parity_cases(serving_config):
+def parity_cases(serving_config, seed: int):
     """(name, boards, size, solvable, sweeps, step budget): every set under
-    its size's serving configuration, and the 9x9 hard corpus under four
-    more. The deep set stops at 512 steps (its boards take 2,199, and the
-    plain version's steps dominate the run); the golden-counter phase
-    runs deep boards to the end."""
+    its size's node configuration (``node_config``), and the 9x9 hard
+    corpus under four more. The deep set stops at 512 steps (its boards
+    take 2,199, and the plain version's steps dominate the run); the
+    golden-counter phase runs deep boards to the end. The 4x4 sets are
+    made from ``seed`` at each bucket width of a 4x4 node's ladder, one
+    with clue conflicts."""
     import numpy as np
 
     hard = load_corpus("corpus_9x9_hard_4096.npz")
     hexa = load_corpus("corpus_16x16_hard_2048.npz")
     giant = load_corpus("corpus_25x25_hard_512.npz")
-    seed = SYMMETRY_SEED
     sets = [
         ("9x9 hard 4096", hard, 9, True, None),
         ("9x9 hard symmetry 4096", symmetry_transforms(hard, 4096, seed), 9, True,
@@ -261,6 +354,12 @@ def parity_cases(serving_config):
          None),
         ("9x9 degenerate", degenerate_boards(), 9, False, None),
         ("9x9 README 1", np.asarray(README_PUZZLE, np.int32)[None], 9, True, None),
+        ("4x4 random 4096", boards_4x4(4096, seed), 4, True, None),
+        ("4x4 conflicts 512", boards_4x4(512, seed + 1, conflicts=True), 4, False,
+         None),
+        ("4x4 random 64", boards_4x4(64, seed + 2), 4, True, None),
+        ("4x4 random 8", boards_4x4(8, seed + 3), 4, True, None),
+        ("4x4 random 1", boards_4x4(1, seed + 4), 4, True, None),
     ]
     cases = [
         (f"{name} [serving]", boards, size, solvable,
@@ -278,14 +377,15 @@ def parity_cases(serving_config):
     return cases
 
 
-def phase_parity(cs, ts, spec_for_size, serving_config, oracle_ok):
+def phase_parity(cs, ts, spec_for_size, serving_config, oracle_ok, seed: int):
     import numpy as np
     import torch
 
     mismatches = 0
     max_abs_err = 0
     before = cs.dfs_solver.launches
-    for name, boards, size, solvable, sweeps, budget in parity_cases(serving_config):
+    for name, boards, size, solvable, sweeps, budget in parity_cases(serving_config,
+                                                                     seed):
         spec = spec_for_size(size)
         cfg = serving_config(size)
         depth, iters = cfg["max_depth"], budget or cfg["max_iters"]
@@ -408,10 +508,20 @@ def _http(base: str, path: str, body=None, headers=None):
 
 class _Node:
     """A node and its HTTP server built by the CLI's construction function
-    from ``argv``, serving on free localhost ports until ``stop()``."""
+    from ``argv``, serving on free localhost ports until ``stop()``. The
+    CLI warms the engine in a background thread; unless ``wait`` is False
+    (or the node has ``--no-warmup``), the constructor returns once the
+    whole ladder is warm and a supervisor has left WARMING, so a phase
+    never measures a half-warm node."""
 
-    def __init__(self, build_parser, build_node, argv):
+    def __init__(self, build_parser, build_node, argv, wait: bool = True):
         http_port, udp_port = _free_port(), _free_port()
+        # flight-record dumps (a breaker trip writes one) go to a temporary
+        # directory unless the phase names its own
+        self.dump_dir = None
+        if "--flightrecord-dir" not in argv:
+            self.dump_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_fr_")
+            argv = [*argv, "--flightrecord-dir", self.dump_dir.name]
         args = build_parser().parse_args(
             ["-p", str(http_port), "-s", str(udp_port), "-h", "1", *argv]
         )
@@ -423,6 +533,12 @@ class _Node:
         for t in self.threads:
             t.start()
         self.base = f"http://127.0.0.1:{http_port}"
+        if wait and not args.no_warmup:
+            eng = self.node.engine
+            sup = eng.supervisor
+            _wait(lambda: eng.fully_warmed
+                  and (sup is None or sup.state != "warming"),
+                  300.0, f"the node {' '.join(argv)} to warm")
 
     def stop(self) -> None:
         self.node.shutdown()
@@ -431,6 +547,8 @@ class _Node:
         self.node.engine.close()
         for t in self.threads:
             t.join(timeout=10)
+        if self.dump_dir is not None:
+            self.dump_dir.cleanup()
 
     def validations(self) -> int:
         return json.loads(_http(self.base, "/stats")[1])["all"]["validations"]
@@ -455,8 +573,8 @@ class _Node:
                       f"a README /solve counted {grew} validations, not {per_answer}")
         lat_ms.sort()
         log(
-            f"/solve README puzzle x20, {label} (host clock, HTTP/1.0 on "
-            f"localhost): p50 {lat_ms[10]:.3f} ms, min {lat_ms[0]:.3f} ms, "
+            f"/solve README puzzle x20, {label} (host clock, a connection "
+            f"per request on localhost): p50 {lat_ms[10]:.3f} ms, min {lat_ms[0]:.3f} ms, "
             f"max {lat_ms[-1]:.3f} ms"
         )
         return lat_ms[10]
@@ -942,6 +1060,11 @@ def _profiled_kernel_ms(fn, reps: int, kernels=SEGMENT_KERNELS) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # kernels that start close to the capture window's opening can
+        # lose their records (up to three a window; tools/profiler_edge.py
+        # counts them): a 5 ms device sleep queued first keeps the counted
+        # launches clear of that edge
+        torch.cuda._sleep(int(5e-3 * SM_CLOCK_HZ))
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1080,25 +1203,32 @@ def flat_depth(ts, spec, serving_config):
     return max(ts.staged_depths(serving_config(spec.size)["max_depth"], spec))
 
 
-def segment_parity_sets():
+def segment_parity_sets(seed: int):
     """(name, stock, size, width, budgets, rotation seed or None, sweeps
     override): the 9x9 hard corpus over a 4096-lane pool under ragged
     budgets; seeded rotations (new boards into random freed lanes at
     random boundaries, pad re-seeds and strangers over running lanes
     included) at widths 512 (prefix-gathered block) and 64 (masked block);
-    the 16x16 and 25x25 corpora in their serving configs; the degenerate
-    boards; the README board in a one-lane pool (one sweep a step)."""
+    the 16x16 and 25x25 corpora in their serving configs, each also at the
+    pool width its node runs (4096; 64 under phase 9's ``--buckets
+    1,8,64``); seeded 4x4 boards with clue conflicts rotated through the
+    4x4 node's 4096-lane pool; the degenerate boards; the README board in
+    a one-lane pool (one sweep a step)."""
     import numpy as np
 
     hard = load_corpus("corpus_9x9_hard_4096.npz")
+    hexa = load_corpus("corpus_16x16_hard_2048.npz")
+    giant = load_corpus("corpus_25x25_hard_512.npz")
     return [
         ("9x9 hard 4096 ragged", hard, 9, 4096, (3, 7, 1, 13), None, {}),
         ("9x9 rotation 512", hard, 9, 512, (2, 5, 3), 1, {}),
         ("9x9 rotation 64", hard[2048:], 9, 64, (8, 3), 2, {}),
-        ("16x16 hard 256", load_corpus("corpus_16x16_hard_2048.npz")[:256], 16,
-         256, (16,), None, {}),
-        ("25x25 hard 4", load_corpus("corpus_25x25_hard_512.npz")[:4], 25, 4,
-         (32,), None, {}),
+        ("16x16 hard 256", hexa[:256], 16, 256, (16,), None, {}),
+        ("16x16 hard pool 4096", hexa, 16, 4096, (16,), None, {}),
+        ("25x25 hard 4", giant[:4], 25, 4, (32,), None, {}),
+        ("25x25 hard pool 64", giant[:64], 25, 64, (32,), None, {}),
+        ("4x4 rotation 4096", boards_4x4(4096, seed + 5, conflicts=True), 4, 4096,
+         (16, 3, 1), seed, {}),
         ("9x9 degenerate", degenerate_boards(), 9, 6, (8, 3), None, {}),
         ("9x9 README pool 1", np.asarray(README_PUZZLE, np.int32)[None], 9, 1,
          (8,), None, {"waves": 1}),
@@ -1131,7 +1261,8 @@ def _segment_lane_diffs(pool, plain, kd, pd, kb, pb):
     return int(bad.sum()), err
 
 
-def phase_segment_parity(cs, ts, spec_for_size, serving_config, oracle_ok):
+def phase_segment_parity(cs, ts, spec_for_size, serving_config, oracle_ok,
+                         seed: int):
     """K3/K3b against the plain version of ops/cuda_solver.dfs_segment,
     segment by segment, on every ``segment_parity_sets`` set under its
     size's serving config: state, frames below each lane's depth, digest
@@ -1142,10 +1273,10 @@ def phase_segment_parity(cs, ts, spec_for_size, serving_config, oracle_ok):
     from sudoku_solver_distributed_tpu_torch.ops.config import segment_prefix_gather
 
     total_bad = total_err = 0
-    for name, stock, size, W, ks, seed, over in segment_parity_sets():
+    for name, stock, size, W, ks, rot, over in segment_parity_sets(seed):
         spec = spec_for_size(size)
         sweeps = dict(sweeps_of(serving_config(size)), **over)
-        rng = np.random.default_rng(seed)
+        rng = np.random.default_rng(rot)
         pad = ts.pad_board(spec, "cuda").expand(W, size, size)
         pool = cs.SegmentPool.fresh(pad, spec, flat_depth(ts, spec, serving_config))
         plain = ts.SegmentState(*(t.clone() for t in pool.state))
@@ -1165,7 +1296,7 @@ def phase_segment_parity(cs, ts, spec_for_size, serving_config, oracle_ok):
             bad, err = bad + n_bad, max(err, e)
             status = plain.status.cpu().numpy()
             src_np = np.full(W, -1, np.int32)
-            if seed is not None and seg < 24:
+            if rot is not None and seg < 24:
                 free = np.flatnonzero(status != ts.RUNNING)
                 pick = free[rng.random(free.size) < 0.5]
                 src_np[pick] = rng.integers(0, len(stock), pick.size)
@@ -1799,6 +1930,645 @@ def _phase_obs(cs, build_parser, build_node, oracle_ok, boundary_p50_ms,
     return out
 
 
+# -- phase 9: the rest of the single-node surface -----------------------------
+
+class _Conn:
+    """One keep-alive HTTP/1.1 connection to a node."""
+
+    def __init__(self, base: str):
+        import http.client
+
+        host, port = base.rsplit("/", 1)[1].split(":")
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=300)
+
+    def request(self, method: str, path: str, body=None, headers=None):
+        """(status, body bytes, response headers); the connection stays
+        open unless the server closed it."""
+        self.conn.request(method, path, body, headers or {})
+        r = self.conn.getresponse()
+        return r.status, r.read(), r.headers
+
+    def post(self, path: str, body: bytes, headers=None):
+        return self.request("POST", path, body, headers)
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _p50_of(send, n: int, ok) -> float:
+    """The p50 in ms of ``n`` calls of ``send`` (host clock); ``ok`` checks
+    each (status, body, headers)."""
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        got = send()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        ok(*got)
+    return _p50_ms(lat)
+
+
+def _clients(n: int, boards, send_for, oracle_ok, what: str) -> float:
+    """``n`` client threads released together, client i sending its share
+    of ``boards`` one after another through ``send_for(i)``; every answer
+    must be a solution of its board. Returns the wall time in s."""
+    per = len(boards) // n
+
+    def run(i):
+        send = send_for(i)
+        for b in boards[i * per:(i + 1) * per]:
+            status, body, _ = send("/solve", json.dumps({"sudoku": b}).encode())
+            check(status == 200, f"{what}: /solve answered {status}")
+            _check_answer(b, json.loads(body), oracle_ok, what)
+
+    t0 = time.perf_counter()
+    _concurrent(n, run)
+    return time.perf_counter() - t0
+
+
+def _keepalive_sender(base: str, conns: list):
+    conn = _Conn(base)
+    conns.append(conn)
+    return conn.post
+
+
+def _per_conn_sender(base: str):
+    return lambda path, body: _http(base, path, body)
+
+
+def _serve_legacy(make_http_server, node):
+    """The stdlib transport (HTTP/1.0) over the same node object."""
+    httpd = make_http_server(node, "127.0.0.1", 0, legacy_transport=True)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def _front_transports(cs, build_parser, build_node, make_http_server, oracle_ok):
+    """Phase 9 (a): the README /solve p50 on the default node's fastserve
+    (keep-alive and a connection per request) and on the stdlib transport
+    over the same node, in turns (fast, legacy, legacy, fast); the same for
+    cache hits on a cached node; 16 concurrent clients on each transport;
+    then a --seed-serving node."""
+    corpus = load_corpus("corpus_9x9_hard_4096.npz")
+    readme = json.dumps({"sudoku": README_PUZZLE}).encode()
+    turns = ("fast", "legacy", "legacy", "fast")
+    out = {"readme_p50_ms": {}, "hit_p50_ms": {}, "clients16_wall_s": {}}
+
+    def readme_ok(status, body, headers, hit=False):
+        check(status == 200, f"README /solve answered {status}")
+        check(oracle_ok(json.loads(body)), "README answer invalid")
+        check((headers.get("X-Cache") == "hit") == hit, "unexpected X-Cache")
+
+    for cached in (False, True):
+        argv = [] if cached else ["--no-answer-cache"]
+        node = _Node(build_parser, build_node, argv)
+        legacy, legacy_base = _serve_legacy(make_http_server, node.node)
+        key = "hit_p50_ms" if cached else "readme_p50_ms"
+        ok = (lambda *a: readme_ok(*a, hit=True)) if cached else readme_ok
+        reads = {"fast_keepalive": [], "fast_per_conn": [], "legacy_per_conn": []}
+        conns = []
+        try:
+            if cached:
+                status, _, _ = _http(node.base, "/solve", readme)
+                check(status == 200, "priming the cache failed")
+            for turn in turns:
+                if turn == "fast":
+                    conn = _Conn(node.base)
+                    conns.append(conn)
+                    reads["fast_keepalive"].append(
+                        _p50_of(lambda: conn.post("/solve", readme), 20, ok))
+                    reads["fast_per_conn"].append(
+                        _p50_of(lambda: _http(node.base, "/solve", readme), 20, ok))
+                else:
+                    reads["legacy_per_conn"].append(
+                        _p50_of(lambda: _http(legacy_base, "/solve", readme), 20, ok))
+            out[key] = reads
+            if not cached:
+                # 16 concurrent clients, 4 fresh boards each, per turn; the
+                # /stats validations they added must equal the same boards'
+                # counters replayed through the node's solve entry point
+                before = node.validations()
+                sent = []
+                for k, turn in enumerate(turns):
+                    boards = [b.tolist() for b in corpus[600 + 64 * k: 664 + 64 * k]]
+                    sent += boards
+                    if turn == "fast":
+                        wall = _clients(
+                            16, boards,
+                            lambda i: _keepalive_sender(node.base, conns),
+                            oracle_ok, "keep-alive client")
+                        out["clients16_wall_s"].setdefault("fast_keepalive", []).append(wall)
+                    else:
+                        wall = _clients(16, boards,
+                                        lambda i: _per_conn_sender(legacy_base),
+                                        oracle_ok, "legacy client")
+                        out["clients16_wall_s"].setdefault("legacy_per_conn", []).append(wall)
+                grew = node.validations() - before
+                replay = []
+                for lo in range(0, len(sent), 16):
+                    replay += _concurrent(
+                        16, lambda i, lo=lo: node.node.peer_sudoku_solve_info(sent[lo + i]))
+                summed = sum(info["validations"] for _, info in replay)
+                log(f"16 concurrent clients x4 turns: /stats validations grew by "
+                    f"{grew}; the same 256 boards replayed count {summed}")
+                check(grew == summed, "/stats validations disagree with the answers")
+        finally:
+            for c in conns:
+                c.close()
+            legacy.shutdown()
+            legacy.server_close()
+            node.stop()
+    seed = _Node(build_parser, build_node, ["--seed-serving", "--no-answer-cache"])
+    try:
+        check(not seed.node.engine.coalesce and seed.node.serialize_solves,
+              "--seed-serving did not serialize without the coalescer")
+        out["readme_p50_ms"]["seed_serving"] = _p50_of(
+            lambda: _http(seed.base, "/solve", readme), 20, readme_ok)
+        boards = [b.tolist() for b in corpus[900:964]]
+        out["clients16_wall_s"]["seed_serving"] = _clients(
+            16, boards, lambda i: _per_conn_sender(seed.base), oracle_ok,
+            "--seed-serving client")
+    finally:
+        seed.stop()
+    log(f"transport A/B (host clock; fast/legacy/legacy/fast): README p50 ms "
+        f"{out['readme_p50_ms']}; cache-hit p50 ms {out['hit_p50_ms']}; 16 "
+        f"concurrent clients x 4 boards, wall s {out['clients16_wall_s']}")
+    return out
+
+
+def _stage_widths(engine):
+    """Record the width of every DFS-kernel stage the engine runs (bucket
+    calls, their deeper stages and deep retries): wraps ``_stage_rows``.
+    Returns the list it fills."""
+    real = engine._stage_rows
+    widths = []
+    lock = threading.Lock()
+
+    def stage_rows(dev, *a, **kw):
+        with lock:
+            widths.append(int(dev.shape[0]))
+        return real(dev, *a, **kw)
+
+    engine._stage_rows = stage_rows
+    return widths
+
+
+def _rows_of(payload):
+    return payload["solutions"], payload["solved"], payload["capped"]
+
+
+def _front_batch(cs, SolverEngine, build_parser, build_node, oracle_ok):
+    """Phase 9 (b): POST /solve_batch. The 4096-board hard corpus in one
+    request against ``solve_batch_np`` on a fresh engine, its throughput
+    beside in-process, the same batch beside 16 /solve clients, a cached
+    repeat, and a supervised node's degraded batch."""
+    import numpy as np
+
+    boards = load_corpus("corpus_9x9_hard_4096.npz")
+    out = {}
+    fresh = SolverEngine()
+    try:
+        fresh.warmup()
+        sols, mask, info = fresh.solve_batch_np(boards)
+        t0 = time.perf_counter()
+        fresh.solve_batch_np(boards)
+        out["inprocess_boards_per_s"] = len(boards) / (time.perf_counter() - t0)
+    finally:
+        fresh.close()
+    want = [s.tolist() if m else None for s, m in zip(sols, mask)]
+    want_rows = (want, int(mask.sum()), info["capped"])
+    # the path's launches start here: the fresh engine is the reference
+    cs.dfs_solver.launches = 0
+    cs.dfs_segment.launches = 0
+    node = _Node(build_parser, build_node, ["--batch-api", "--no-answer-cache"])
+    eng = node.node.engine
+    conns = []
+    try:
+        widths = _stage_widths(eng)
+        k1 = cs.dfs_solver.launches
+        v0 = node.validations()
+        conn = _Conn(node.base)
+        conns.append(conn)
+        t0 = time.perf_counter()
+        body = json.dumps({"sudokus": boards.tolist()}).encode()
+        t1 = time.perf_counter()
+        status, raw, headers = conn.post("/solve_batch", body)
+        t2 = time.perf_counter()
+        payload = json.loads(raw)
+        t3 = time.perf_counter()
+        check(status == 200, f"/solve_batch answered {status}: {raw[:200]!r}")
+        check("degraded" not in payload and headers.get("X-Degraded") is None,
+              "the unsupervised node's batch carried degraded flags")
+        check(_rows_of(payload) == want_rows,
+              "/solve_batch rows differ from solve_batch_np on a fresh engine")
+        for b, sol in zip(boards, payload["solutions"]):
+            if sol is not None:
+                _check_answer(b, sol, oracle_ok, "/solve_batch row")
+        grew = node.validations() - v0
+        check(grew == info["validations"],
+              f"/stats validations grew by {grew}, the batch's info says "
+              f"{info['validations']}")
+        launched = cs.dfs_solver.launches - k1
+        check(launched == len(widths) and set(widths) == {eng.buckets[-1]},
+              f"K1 launches {launched}, stage widths {widths}: not "
+              f"{eng.buckets[-1]}-wide chunks")
+        out["http"] = {
+            "boards_per_s": len(boards) / (t3 - t0),
+            "encode_ms": (t1 - t0) * 1e3,
+            "roundtrip_ms": (t2 - t1) * 1e3,
+            "decode_ms": (t3 - t2) * 1e3,
+            "request_bytes": len(body),
+            "response_bytes": len(raw),
+            "k1_launches": launched,
+        }
+        log(f"/solve_batch {len(boards)} hard boards: {out['http']}; in-process "
+            f"solve_batch_np {out['inprocess_boards_per_s']:.0f} boards/s (host clock)")
+
+        # the same batch while 16 /solve clients are in flight
+        stop = threading.Event()
+        answered = []
+        k3 = cs.dfs_segment.launches
+
+        def client(i):
+            c = _Conn(node.base)
+            try:
+                j = 0
+                while not stop.is_set():
+                    b = boards[(i * 37 + j) % len(boards)].tolist()
+                    status, raw_i, _ = c.post("/solve", json.dumps({"sudoku": b}).encode())
+                    check(status == 200, f"/solve beside the batch answered {status}")
+                    _check_answer(b, json.loads(raw_i), oracle_ok, "/solve beside the batch")
+                    answered.append(1)
+                    j += 1
+            finally:
+                c.close()
+
+        errors = []
+
+        def guarded(i):
+            try:
+                client(i)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=guarded, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        _wait(lambda: len(answered) >= 16, 60.0, "the /solve clients to start")
+        status, raw, _ = conn.post("/solve_batch", body)
+        during = len(answered)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        if errors:
+            raise errors[0]
+        check(status == 200 and _rows_of(json.loads(raw)) == want_rows,
+              "/solve_batch beside 16 /solve clients answered other rows")
+        check(cs.dfs_segment.launches > k3, "the /solve clients launched no segment")
+        out["concurrent"] = {"solve_answers": len(answered),
+                             "solve_answers_by_batch_end": during}
+        log(f"/solve_batch beside 16 keep-alive /solve clients: same rows; "
+            f"{out['concurrent']}")
+    finally:
+        for c in conns:
+            c.close()
+        node.stop()
+
+    cached = _Node(build_parser, build_node, ["--batch-api"])
+    try:
+        body = json.dumps({"sudokus": boards[:64].tolist()}).encode()
+        s1, b1, h1 = _http(cached.base, "/solve_batch", body)
+        s2, b2, h2 = _http(cached.base, "/solve_batch", body)
+        check(s1 == s2 == 200 and h1.get("X-Cache") is None
+              and h2.get("X-Cache") == "hit" and b1 == b2,
+              "the repeated 64-board batch was not a byte-identical X-Cache hit")
+        out["cache"] = cached.node.answer_cache.snapshot()
+    finally:
+        cached.stop()
+
+    sup_node = _Node(build_parser, build_node, [
+        "--batch-api", "--no-answer-cache", "--supervise-engine", "--chaos-injector"])
+    try:
+        small = load_corpus("corpus_9x9_hard_64.npz")[:4]
+        body = json.dumps({"sudokus": small.tolist()}).encode()
+        status, raw, headers = _http(sup_node.base, "/solve_batch", body)
+        check(status == 200 and "degraded" not in json.loads(raw)
+              and headers.get("X-Degraded") is None,
+              f"the supervised batch before any fault answered {status} "
+              f"{headers.get('X-Degraded')} {raw[:200]!r}")
+        _faults(sup_node.base, {"fail_next": 1})
+        status, raw, headers = _http(sup_node.base, "/solve_batch", body)
+        check(status == 200, f"the supervised degraded batch answered {status}")
+        payload = json.loads(raw)
+        check(headers.get("X-Degraded") == "true"
+              and payload["degraded"] == [True] * len(small)
+              and payload["solved"] == len(small),
+              f"the degraded batch carried {headers.get('X-Degraded')} {payload}")
+        for b, sol in zip(small, payload["solutions"]):
+            _check_answer(b, sol, oracle_ok, "degraded batch row")
+        out["supervised"] = {"degraded": payload["degraded"],
+                             "state": sup_node.node.engine.supervisor.state}
+        log(f"supervised /solve_batch after fail_next 1: 200, X-Degraded true, "
+            f"{out['supervised']}")
+    finally:
+        sup_node.stop()
+    return out, want_rows
+
+
+def _board_sizes(cs, build_parser, build_node, oracle_ok, seed: int):
+    """Phase 9 (c): nodes at 16x16 (the default ladder), 25x25 (buckets
+    1,8,64) and 4x4 (16 seeded boards), each path's launches counted
+    apart."""
+    out = {"launches": {}}
+    cases = (
+        (16, ["--batch-api"], load_corpus("corpus_16x16_hard_2048.npz")),
+        (25, ["--buckets", "1,8,64"], load_corpus("corpus_25x25_hard_512.npz")[:8]),
+        (4, [], boards_4x4(16, seed + 6)),
+    )
+    for size, argv, boards in cases:
+        cs.dfs_solver.launches = 0
+        cs.dfs_segment.launches = 0
+        t0 = time.perf_counter()
+        node = _Node(build_parser, build_node,
+                     ["--board-size", str(size), "--no-answer-cache", *argv])
+        warm_s = time.perf_counter() - t0
+        conns = []
+        try:
+            eng = node.node.engine
+            check(eng.spec.size == size, f"--board-size {size} built a {eng.spec.size} engine")
+            k3 = cs.dfs_segment.launches
+            seq = [b.tolist() for b in boards[:16]]
+            t0 = time.perf_counter()
+            for b in seq:
+                status, raw, headers = _http(node.base, "/solve",
+                                             json.dumps({"sudoku": b}).encode())
+                check(status == 200 and headers.get("X-Degraded") is None,
+                      f"{size}x{size} /solve answered {status} "
+                      f"X-Degraded {headers.get('X-Degraded')}")
+                _check_answer(b, json.loads(raw), oracle_ok, f"{size}x{size} /solve")
+            seq_ms = (time.perf_counter() - t0) * 1e3 / len(seq)
+            check(cs.dfs_segment.launches > k3, f"{size}x{size} /solve launched no segment")
+            entry = {"warm_s": warm_s, "solve_ms_mean": seq_ms, "boards": len(seq)}
+            if size == 16:
+                entry["clients16_wall_s"] = _clients(
+                    16, seq, lambda i: _keepalive_sender(node.base, conns),
+                    oracle_ok, "16x16 keep-alive client")
+                many = boards[:256]
+                status, raw, headers = _http(
+                    node.base, "/solve_batch",
+                    json.dumps({"sudokus": many.tolist()}).encode())
+                payload = json.loads(raw)
+                check(status == 200 and payload["solved"] == len(many)
+                      and "degraded" not in payload
+                      and headers.get("X-Degraded") is None,
+                      f"16x16 /solve_batch answered {status} {raw[:200]!r}")
+                for b, sol in zip(many, payload["solutions"]):
+                    _check_answer(b, sol, oracle_ok, "16x16 /solve_batch row")
+                nine = json.dumps({"sudoku": [[0] * 9 for _ in range(9)]}).encode()
+                status, raw, _ = _http(node.base, "/solve", nine)
+                check(status == 400 and json.loads(raw) == {"error": "Invalid request"},
+                      f"a 9x9 body on the 16x16 node answered {status} {raw!r}")
+            out[f"{size}x{size}"] = entry
+        finally:
+            for c in conns:
+                c.close()
+            node.stop()
+        out["launches"][size] = {"dfs_solver": cs.dfs_solver.launches,
+                                 "dfs_segment": cs.dfs_segment.launches}
+        log(f"--board-size {size}: {out[f'{size}x{size}']}, launches "
+            f"{out['launches'][size]}")
+    return out
+
+
+def _fresh_process_ready(argv=(), timeout_s: float = 180.0) -> dict:
+    """A default CLI node in a process of its own (the kernel library
+    loaded from its build directory, no nvcc): seconds from the spawn to
+    the first /readyz 503, to /readyz 200 and to ``fully_warmed``."""
+    import subprocess as sp
+
+    http_port, udp_port = _free_port(), _free_port()
+    base = f"http://127.0.0.1:{http_port}"
+    dump_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_fr_")
+    t0 = time.perf_counter()
+    proc = sp.Popen(
+        [sys.executable, "-m", "sudoku_solver_distributed_tpu_torch.net.cli",
+         "-p", str(http_port), "-s", str(udp_port), "-h", "1", "--metrics",
+         "--no-answer-cache", "--flightrecord-dir", dump_dir.name, *argv],
+        cwd=ROOT, stdout=sp.DEVNULL, stderr=sp.DEVNULL,
+    )
+    out = {"first_503_s": None}
+    try:
+        while True:
+            check(proc.poll() is None, "the CLI node exited")
+            check(time.perf_counter() - t0 < timeout_s, "the CLI node never became ready")
+            try:
+                with urllib.request.urlopen(base + "/readyz", timeout=5) as r:
+                    status = r.status
+            except urllib.error.HTTPError as e:
+                status = e.code
+            except OSError:
+                time.sleep(0.01)  # not bound yet
+                continue
+            if status == 503 and out["first_503_s"] is None:
+                out["first_503_s"] = time.perf_counter() - t0
+            if status == 200:
+                out["ready_s"] = time.perf_counter() - t0
+                break
+            time.sleep(0.005)
+        while True:
+            check(time.perf_counter() - t0 < timeout_s, "the CLI node never warmed fully")
+            metrics = json.loads(_http(base, "/metrics")[1])
+            if metrics["engine"]["fully_warmed"]:
+                out["fully_warmed_s"] = time.perf_counter() - t0
+                break
+            time.sleep(0.02)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except sp.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        dump_dir.cleanup()
+    return out
+
+
+def _front_warmup(cs, SolverEngine, build_parser, build_node, oracle_ok, want_rows):
+    """Phase 9 (d): /readyz 503 until tier 0 ran and 200 after, the GC
+    freeze once fully warm, a fresh process's seconds to ready, and a
+    budget-cut node's /solve_batch tiled over its largest warm width."""
+    import gc
+
+    out = {}
+    gate = threading.Event()
+    real = SolverEngine._warm_segment_program
+
+    def held(self):
+        check(gate.wait(60), "the tier-0 gate was never opened")
+        return real(self)
+
+    # the CLI's gc.freeze() calls, each with its thread and what the
+    # generations held (an earlier node's freeze thread may fire here too;
+    # the count alone cannot tell, and an earlier freeze already moved the
+    # heap to the permanent generation)
+    real_freeze = gc.freeze
+    froze = []
+
+    def freeze():
+        froze.append((threading.current_thread(), len(gc.get_objects())))
+        real_freeze()
+
+    SolverEngine._warm_segment_program = held
+    gc.freeze = freeze
+    node = None
+    earlier = {t for t in threading.enumerate() if t.name == "gc-freeze"}
+    try:
+        t0 = time.perf_counter()
+        node = _Node(build_parser, build_node, ["--no-answer-cache"], wait=False)
+        bound_s = time.perf_counter() - t0
+        freezer = [t for t in threading.enumerate()
+                   if t.name == "gc-freeze" and t not in earlier]
+        check(len(freezer) == 1, f"the node started {len(freezer)} GC-freeze threads")
+        status, raw, _ = _http(node.base, "/readyz")
+        check(status == 503 and json.loads(raw) == {"ready": False, "warmed": False},
+              f"/readyz before tier 0 answered {status} {raw!r}")
+        check(not any(t is freezer[0] for t, _ in froze),
+              "the node froze its heap before the warm-up")
+        t_gate = time.perf_counter()
+        gate.set()
+        while _http(node.base, "/readyz")[0] != 200:
+            check(time.perf_counter() - t_gate < 120, "/readyz never turned 200")
+            time.sleep(0.002)
+        out["bind_s"] = bound_s
+        out["gate_held_s"] = t_gate - t0 - bound_s
+        out["ready_after_gate_s"] = time.perf_counter() - t_gate
+        eng = node.node.engine
+        _wait(lambda: eng.fully_warmed, 120.0, "fully_warmed")
+        out["fully_warmed_after_gate_s"] = time.perf_counter() - t_gate
+        # the freeze thread polls fully_warmed once a second, then runs a
+        # full collection and the freeze
+        freezer[0].join(timeout=120)
+        out["gc_freeze_done_after_gate_s"] = time.perf_counter() - t_gate
+        out["gc_freeze_count"] = gc.get_freeze_count()
+        out["gc_objects_at_freeze"] = [n for t, n in froze if t is freezer[0]]
+        check(not freezer[0].is_alive() and len(out["gc_objects_at_freeze"]) == 1
+              and out["gc_freeze_count"] > 0,
+              f"the GC freeze did not run: {out}, all calls {froze}")
+        out["order"] = eng.warm_info()["order"]
+    finally:
+        gate.set()
+        SolverEngine._warm_segment_program = real
+        gc.freeze = real_freeze
+        if node is not None:
+            node.stop()
+    out["fresh_process"] = _fresh_process_ready()
+    log(f"tiered warm-up: {out}")
+
+    # a budget-cut node (a zero budget means none, as in the JAX CLI): the
+    # widening skips every bucket past tier 0 ([1, 512] on the default
+    # ladder with a 512 batch cap), and a 4096-board batch tiles over 512
+    cut = _Node(build_parser, build_node,
+                ["--batch-api", "--no-answer-cache", "--warmup-budget-s", "1e-9",
+                 "--coalesce-max-batch", "512"], wait=False)
+    try:
+        eng = cut.node.engine
+        _wait(lambda: eng.warm_info()["skipped"], 120.0, "the budget cut")
+        info = eng.warm_info()
+        tier0 = [eng.buckets[0], min(b for b in eng.buckets if b >= min(512, eng.buckets[-1]))]
+        check(info["tier0"] == tier0 and eng.warmed and not eng.fully_warmed
+              and info["skipped"] == [b for b in eng.buckets if b not in tier0],
+              f"the budget-cut warm-up reads {info}")
+        widths = _stage_widths(eng)
+        k1 = cs.dfs_solver.launches
+        boards = load_corpus("corpus_9x9_hard_4096.npz")
+        status, raw, _ = _http(cut.base, "/solve_batch",
+                               json.dumps({"sudokus": boards.tolist()}).encode())
+        check(status == 200, f"the budget-cut /solve_batch answered {status}")
+        got = _rows_of(json.loads(raw))
+        check(got[:2] == want_rows[:2],
+              "the tiled /solve_batch answered other rows than the 4096-wide one")
+        check(set(widths) == {tier0[-1]} and len(widths) >= len(boards) // tier0[-1]
+              and cs.dfs_solver.launches - k1 == len(widths),
+              f"the tiled batch ran K1 at widths {sorted(set(widths))} x{len(widths)}")
+        out["budget_cut"] = {"skipped": info["skipped"], "tier0": info["tier0"],
+                             "k1_widths": sorted(set(widths)), "k1_launches": len(widths)}
+    finally:
+        cut.stop()
+    log(f"budget-cut node: {out['budget_cut']}")
+    return out
+
+
+def _host_apis(oracle_ok):
+    """Phase 9 (e): ``Sudoku`` on the default device (the card) answers
+    the README board's checks as on the CPU; ``SudokuSolver()`` solves it
+    on the card."""
+    from sudoku_solver_distributed_tpu_torch import Sudoku, SudokuSolver
+
+    def checks(s):
+        return ([s.check_row(i) for i in range(9)]
+                + [s.check_column(i) for i in range(9)]
+                + [s.check_square(3 * i, 3 * j) for i in range(3) for j in range(3)]
+                + [s.check_is_valid(0, 0, 1), s.check_is_valid(0, 0, 5), s.check()])
+
+    card = Sudoku(README_PUZZLE, base_delay=0.0)
+    check(card.device.type == "cuda", f"Sudoku defaults to {card.device}")
+    got, want = checks(card), checks(Sudoku(README_PUZZLE, base_delay=0.0, device="cpu"))
+    check(got == want, "Sudoku's checks on the card differ from the CPU's")
+    solver = SudokuSolver()
+    try:
+        check(solver._engine.device.type == "cuda", "SudokuSolver's engine is not on the card")
+        board = [row[:] for row in README_PUZZLE]
+        sol = solver.solve_sudoku(board)
+        _check_answer(README_PUZZLE, sol, oracle_ok, "SudokuSolver answer")
+        check(board == sol and Sudoku(sol, base_delay=0.0).check(),
+              "SudokuSolver did not solve the README board in place")
+    finally:
+        solver._engine.close()
+    log("host APIs: Sudoku checks on the card equal the CPU's; SudokuSolver "
+        "solved the README board on the card")
+    return {"sudoku_checks": sum(got), "solver_validations": solver.validations}
+
+
+def phase_front(cs, SolverEngine, build_parser, build_node, make_http_server, oracle_ok,
+                seed: int):
+    """Phase 9: the transports, /solve_batch, the board sizes, the tiered
+    warm-up and the host APIs. Returns the ``front`` numbers and the
+    launches of each new path."""
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[name] = round(now - t0, 1)
+        t0 = now
+
+    front = {"transports": _front_transports(cs, build_parser, build_node,
+                                             make_http_server, oracle_ok)}
+    lap("a_transports")
+    front["batch"], want_rows = _front_batch(cs, SolverEngine, build_parser,
+                                             build_node, oracle_ok)
+    launches = {"batch_api": {"dfs_solver": cs.dfs_solver.launches,
+                              "dfs_segment": cs.dfs_segment.launches}}
+    lap("b_batch")
+    sizes = _board_sizes(cs, build_parser, build_node, oracle_ok, seed)
+    for size in (16, 25, 4):
+        launches[f"board_{size}"] = sizes["launches"].pop(size)
+    front["board_sizes"] = sizes
+    lap("c_board_sizes")
+    front["warmup"] = _front_warmup(cs, SolverEngine, build_parser, build_node,
+                                    oracle_ok, want_rows)
+    lap("d_warmup")
+    front["host_apis"] = _host_apis(oracle_ok)
+    lap("e_host_apis")
+    front["seconds"] = seconds
+    log(f"phase 9 seconds by part: {seconds}")
+    for path, counts in launches.items():
+        check(counts["dfs_solver"] > 0 and counts["dfs_segment"] > 0,
+              f"the {path} path did not launch every kernel: {counts}")
+    front["launches"] = launches
+    return front
+
+
 def card_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1834,7 +2604,19 @@ def ptxas_report(build_log, label: str = "ptxas"):
     return report
 
 
-def main() -> int:
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch/CUDA port on one NVIDIA GPU and check "
+        "it end to end (see the module docstring).")
+    parser.add_argument(
+        "--seed", type=int, default=SYMMETRY_SEED,
+        help="seed of the generated board sets: symmetry transforms, 4x4 "
+        "boards and pool rotations (default %(default)s)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1845,6 +2627,7 @@ def main() -> int:
     from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
     from sudoku_solver_distributed_tpu_torch.models import oracle_is_valid_solution
     from sudoku_solver_distributed_tpu_torch.net.cli import build_node, build_parser
+    from sudoku_solver_distributed_tpu_torch.net.http_api import make_http_server
     from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs
     from sudoku_solver_distributed_tpu_torch.ops import solver as ts
     from sudoku_solver_distributed_tpu_torch.ops.config import serving_config
@@ -1866,24 +2649,42 @@ def main() -> int:
             check(inst.get("stack") == 0 and inst.get("spill_stores") == 0
                   and inst.get("spill_loads") == 0, f"{key} uses local memory: {inst}")
 
+    marks = {}
+    t_mark = [time.perf_counter()]
+
+    def _mark(name):
+        now = time.perf_counter()
+        marks[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+        log(f"[{now - t_start:.1f} s] {name} took {marks[name]} s")
+
+    config = node_config(SolverEngine, spec_for_size, serving_config)
     mismatches, max_abs_err = phase_parity(
-        cs, ts, spec_for_size, serving_config, oracle_is_valid_solution
+        cs, ts, spec_for_size, config, oracle_is_valid_solution, args.seed
     )
+    _mark("phase_parity")
     golden = phase_golden(cs, spec_for_size, serving_config)
+    _mark("phase_golden")
     seg_bad, seg_err = phase_segment_parity(
-        cs, ts, spec_for_size, serving_config, oracle_is_valid_solution
+        cs, ts, spec_for_size, config, oracle_is_valid_solution, args.seed
     )
+    _mark("phase_segment_parity")
     phase_chain_vs_flat(cs, ts, spec_for_size, serving_config)
+    _mark("phase_chain_vs_flat")
     seg_golden = phase_golden_segments(
         cs, ts, SolverEngine, spec_for_size, serving_config, oracle_is_valid_solution
     )
+    _mark("phase_golden_segments")
     phase_engine(SolverEngine, oracle_is_valid_solution)
+    _mark("phase_engine")
     main_path = phase_solve_http(
         cs, build_parser, build_node, oracle_is_valid_solution
     )
+    _mark("phase_solve_http")
     front = phase_cache_and_supervision(
         cs, build_parser, build_node, oracle_is_valid_solution, random_symmetry
     )
+    _mark("phase_cache_and_supervision")
     log(
         f"README /solve p50 side by side (host clock): cache hit "
         f"{front['hit_p50_ms']:.3f} ms vs miss (--no-answer-cache) "
@@ -1892,11 +2693,17 @@ def main() -> int:
         f"{main_path['p50_continuous']:.3f} ms"
     )
     timing = phase_timing(cs, spec_for_size, serving_config)
+    _mark("phase_timing")
     seg_timing = phase_segment_timing(cs, ts, spec_for_size, serving_config)
+    _mark("phase_segment_timing")
     obs = phase_obs(cs, build_parser, build_node, oracle_is_valid_solution,
                     main_path["boundary_host_ms"].get("p50"))
+    _mark("phase_obs")
+    surface = phase_front(cs, SolverEngine, build_parser, build_node,
+                          make_http_server, oracle_is_valid_solution, args.seed)
+    _mark("phase_front")
 
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s; seconds by phase {marks}")
     print(json.dumps({"cache_supervision": {
         "readme_hit_p50_ms": front["hit_p50_ms"],
         "readme_miss_p50_ms_no_answer_cache": main_path["p50_continuous"],
@@ -1915,6 +2722,9 @@ def main() -> int:
     card = card_name_and_power_limit()
     log(card)
     print(json.dumps({"obs": dict(obs, card=card)}), flush=True)
+    print(json.dumps({"front": dict(surface, card=card)}), flush=True)
+    new_paths = {f"launches_{path}": counts
+                 for path, counts in surface["launches"].items()}
     serving, singles = timing["serving"], timing["singles"]
     readme_p50 = {
         "continuous": main_path["p50_continuous"],
@@ -1942,6 +2752,8 @@ def main() -> int:
         "launches_supervised_path": front["solver_launches_supervised"],
         # the observability plane's node (phase 8): its warm-up
         "launches_obs_path": obs["solver_launches"],
+        # phase 9's paths: /solve_batch, and nodes at 16x16, 25x25, 4x4
+        **{k: v["dfs_solver"] for k, v in new_paths.items()},
         "launches_per_readme_solve": main_path["per_readme_closed"],
         "mismatches": mismatches + timing["mismatches"],
         "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
@@ -1984,6 +2796,7 @@ def main() -> int:
             "launches_cache_path": front["segment_launches_cache"],
             "launches_supervised_path": front["segment_launches_supervised"],
             "launches_obs_path": obs["segment_launches"],
+            **{k: v["dfs_segment"] for k, v in new_paths.items()},
             "mismatches": seg_bad + seg_timing["mismatches"],
             "max_abs_err": max(seg_err, seg_timing["max_abs_err"]),
             # one segment (k = 8) over a 4096-lane pool, every lane

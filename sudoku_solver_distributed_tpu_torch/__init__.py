@@ -19,9 +19,15 @@ Layout (mirrors the JAX package):
   obs/       observability: request spans, the device cost plane, SLO
              burn rates, the flight recorder, trace export, Prometheus
   models/    the trusted host-side oracle solver
-  net/       wire protocol, membership, stats gossip, node, HTTP API, CLI
-  utils/     handicap rate limiter, fault injectors, request metrics,
-             torch.profiler traces and spans
+  net/       wire protocol, membership, stats gossip, node, HTTP API and
+             its two transports (fastserve.py, the default, and the stdlib
+             server), the reference's SudokuSolver surface, CLI
+  utils/     handicap rate limiter, board rendering, fault injectors,
+             request metrics, torch.profiler traces and spans
+  api.py     the ``Sudoku`` host-facing class (reference sudoku.py surface)
+
+``Sudoku`` and ``SudokuSolver`` are importable from the package itself;
+they load on first use, so importing the package stays light.
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``SolverEngine(device="cpu")``, the CLI's ``--platform cpu``, or a CPU
@@ -29,3 +35,17 @@ tensor handed to the solver); with no GPU and no such request they raise.
 """
 
 __version__ = "0.1.0"
+
+__all__ = ["Sudoku", "SudokuSolver"]
+
+
+def __getattr__(name):
+    if name == "Sudoku":
+        from .api import Sudoku
+
+        return Sudoku
+    if name == "SudokuSolver":
+        from .net.solver_api import SudokuSolver
+
+        return SudokuSolver
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

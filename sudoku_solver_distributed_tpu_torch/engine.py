@@ -54,6 +54,15 @@ call and the ``verify`` stage of the supervised answer check;
 ``torch.profiler`` traces of the warm-up and of bucket calls
 (utils/profiling.device_trace).
 
+Warm-up is tiered, as in the JAX engine (``warmup``): tier 0 (the
+smallest bucket, the coalescer's batch-cap width and one segment over the
+serving pool) flips ``warmed``, then the rest of the ladder widens, inline
+or in a background thread, under an optional budget; ``fully_warmed``
+flips when every bucket ran. While part of the ladder is cold, bucket
+choice prefers the warm widths and ``solve_batch_np`` tiles over the
+largest one. ``solve_batch_np_supervised`` is the batch path under the
+supervisor's degraded-serving contract (``/solve_batch``).
+
 Not in this slice (each raises ``NotImplementedError`` when asked for):
 a choice of backend (the engine always runs the kernel), the mesh and the
 frontier race, AOT/compile caches.
@@ -81,10 +90,11 @@ from .ops.config import (
     resolved_segment_shape,
     segment_prefix_gather,
 )
-from .ops.cuda_solver import SegmentPool, dfs_segment, solve_stage
+from .ops.cuda_solver import KernelLaunchError, SegmentPool, dfs_segment, solve_stage
 from .ops.solver import OVERFLOW, RUNNING, pad_board, staged_depths
 from .ops.spec import SPEC_9, BoardSpec
 from .serving.admission import DeadlineExceeded
+from .utils.faults import InjectedEngineFault
 from .utils.profiling import annotate, device_trace
 
 logger = logging.getLogger(__name__)
@@ -116,6 +126,21 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch solver on the CPU"
         )
     return dev
+
+
+def device_fault(exc: BaseException) -> bool:
+    """Whether ``exc`` is a fault of a device call, which a supervised
+    batch answers from the host fallback: an injected fault, a kernel
+    launch's CUDA error, or a CUDA error that torch raised (out of memory
+    included). A kernel library that fails to build or load, and any other
+    error, is not one: it fails the request."""
+    if isinstance(exc, (InjectedEngineFault, KernelLaunchError,
+                        torch.cuda.OutOfMemoryError)):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA error" in str(exc)
 
 
 class _Inflight(NamedTuple):
@@ -307,10 +332,19 @@ class SolverEngine:
         # `validations` counter: one unit per analysis sweep per board
         self.validations = 0
         self.solved_puzzles = 0
+        # tiered warm-up (``warmup``): ``warmed`` flips once tier 0 ran
+        # (the node is servable), ``fully_warmed`` once every bucket did.
+        # While a warm-up has left part of the ladder cold, bucket choice
+        # prefers warm widths (``_tiling_active``)
         self.warmed = False
-        # the widths warmup has run (buckets, then the segment pool): the
-        # supervisor's watchdog declares hangs only at widths that ran
-        self._warm: set = set()
+        self.fully_warmed = False
+        self._warm_skipped: list = []  # buckets a warm-up budget cut off
+        self._warmup_started = False
+        self._warm_thread: Optional[threading.Thread] = None
+        # the segment pool's width once its warm segment ran (None before):
+        # with the warm buckets, the widths whose first launch the
+        # supervisor's watchdog no longer excuses (``_watched_widths``)
+        self._pool_warm_width: Optional[int] = None
         # failure-domain supervision (serving/health.EngineSupervisor sets
         # itself here) and the engine-seam fault injector
         # (utils/faults.EngineFaultInjector); None costs nothing
@@ -380,11 +414,30 @@ class SolverEngine:
 
     # -- internals ---------------------------------------------------------
     def _warm_widths(self) -> list:
-        """The widths warmup has run: every bucket, and the segment pool's
-        width once its warm segment ran. A width not listed has not had
-        its first launch, which the watchdog excuses."""
+        """The bucket widths whose warm-up launch ran, as the JAX engine
+        reads them: what tiling may use while the ladder is cold."""
         with self._lock:
-            return sorted(self._warm)
+            return sorted(
+                b for b, st in self._warm_state.items() if st.get("warm")
+            )
+
+    def _watched_widths(self) -> list:
+        """The widths whose first launch has run: the warm buckets, and the
+        segment pool's width once its warm segment ran. The supervisor's
+        watchdog excuses a first launch at any other width."""
+        widths = set(self._warm_widths())
+        with self._lock:
+            if self._pool_warm_width is not None:
+                widths.add(self._pool_warm_width)
+        return sorted(widths)
+
+    def _tiling_active(self) -> bool:
+        """True while a tiered warm-up has left part of the ladder cold
+        (mid-background widening, or cut off by a warm-up budget): bucket
+        choice then prefers warm widths, and oversize batches tile over
+        the largest warm width. Engines that never called ``warmup`` (or
+        finished it) choose as before."""
+        return self._warmup_started and not self.fully_warmed
 
     def _bucket_for(self, n: int) -> int:
         # widths the supervisor quarantined (hung/failed calls) are routed
@@ -396,6 +449,13 @@ class SolverEngine:
             if self.supervisor is not None
             else ()
         )
+        if self._tiling_active():
+            for b in self._warm_widths():
+                if n <= b and b not in quarantined:
+                    return b
+            # wider than every warm width: the cold ladder serves (a
+            # direct dispatch cannot tile; solve_batch_np bounds its
+            # chunks by the largest warm width instead)
         for b in self.buckets:
             if n <= b and b not in quarantined:
                 return b
@@ -991,7 +1051,7 @@ class SolverEngine:
         )
         digest.cpu()  # the segment has run
         with self._lock:
-            self._warm.add(w)
+            self._pool_warm_width = w
 
     def _account_coalesced(self, rows: np.ndarray) -> None:
         """Fold one coalesced batch's work into the engine counters — the
@@ -1076,7 +1136,7 @@ class SolverEngine:
                 "pipeline": self.segment_pipeline,
             },
             "warmed": self.warmed,
-            "fully_warmed": self.warmed,
+            "fully_warmed": self.fully_warmed,
             "warm": self.warm_info(),
         }
         out["cost"] = self.cost.snapshot(warm_info=out["warm"])
@@ -1091,8 +1151,7 @@ class SolverEngine:
     def _tier0_buckets(self) -> list:
         """The widths one ``/solve`` needs warm first: the smallest bucket
         and, with an explicit coalescer batch cap, the width its batches
-        dispatch at (the JAX engine's tier 0; this engine warms every
-        width before serving)."""
+        dispatch at (the JAX engine's tier 0)."""
         tier = {self.buckets[0]}
         if self.coalesce and self.coalesce_max_batch:
             cap = min(self.coalesce_max_batch, self.buckets[-1])
@@ -1113,14 +1172,14 @@ class SolverEngine:
         with self._lock:
             out = {
                 "warmed": self.warmed,
-                "fully_warmed": self.warmed,
+                "fully_warmed": self.fully_warmed,
                 "tier0": self._tier0_buckets(),
                 "buckets": {
                     str(b): dict(self._warm_state.get(b) or {"warm": False})
                     for b in self.buckets
                 },
                 "order": list(self._warm_order),
-                "skipped": [],
+                "skipped": list(self._warm_skipped),
                 "programs": len(self._programs),
                 "solver_loop": {"backend": self.backend},
             }
@@ -1133,25 +1192,44 @@ class SolverEngine:
                 }
         return out
 
-    def warmup(self) -> None:
-        """Run every bucket width once (empty boards) before serving, so the
-        first request pays neither the kernel build nor the first launch.
-        The counters are not touched. The supervisor's rebuild calls it
-        again on a LOST engine.
+    def warmup(self, *, budget_s: Optional[float] = None,
+               background: bool = False) -> None:
+        """Warm the serving widths, tiered, so requests pay neither the
+        kernel build nor a width's first launch.
+
+        Tier 0 runs first and is budget-exempt: the smallest bucket, the
+        coalescer's batch-cap width (``_tier0_buckets``) and one segment
+        over the serving pool (``_warm_segment_program``) — what one
+        ``/solve`` needs. ``warmed`` flips there: the node is servable.
+        The rest of the ladder then widens (``_warm_widen``), inline by
+        default, so a bare ``warmup()`` returns fully warm, or in an
+        ``engine-warmup`` daemon thread with ``background=True``. The CLI
+        runs the whole blocking ``warmup()`` in a thread of its own, so the
+        node binds before tier 0; ``background=True`` is for a caller that
+        wants the engine servable on return, as the JAX package's benchmark
+        drives its engine (the port's benchmark, ROADMAP Queue 1 item 3).
+
+        ``budget_s`` bounds the widening: buckets that would start past it
+        are skipped (``warm_info()["skipped"]``), ``fully_warmed`` stays
+        False, and oversize batches tile over the largest warm width
+        (``_bucket_for`` / ``solve_batch_np``). A later ``warmup()``
+        resumes where the budget cut off.
 
         As in the JAX engine's ``_warm_bucket``, each width runs the bucket
-        path's inner launch and wait (``_launch``, ``_wait_rows``) directly,
-        outside the supervised seam: no watchdog token, no injector hook,
-        no quarantine routing. A width
-        already warm is skipped, so a rebuild relaunches only the segment
-        warm-up.
+        path's inner launch and wait (``_launch``, ``_wait_rows``)
+        directly, outside the supervised seam: no watchdog token, no
+        injector hook, no quarantine routing. A width already warm is
+        skipped, so the supervisor's rebuild (``warmup()`` on a LOST
+        engine) relaunches only the segment warm-up. The counters are not
+        touched.
 
         Each width's warm-up time (the kernel library's build and load
         included, the first time in a process) is recorded for
-        ``warm_info()``. With a device trace armed,
-        the process's first warm-up runs inside one ``torch.profiler``
-        capture."""
+        ``warm_info()``. With a device trace armed, the process's first
+        tier 0 runs inside one ``torch.profiler`` capture."""
+        deadline = None if budget_s is None else time.monotonic() + budget_s
         with self._lock:
+            self._warmup_started = True
             trace_warm = (
                 self.device_trace_dir is not None and not self._warmup_trace_done
             )
@@ -1163,32 +1241,71 @@ class SolverEngine:
                         self._warmup_trace_done = True
                     stack.enter_context(device_trace(self.device_trace_dir))
                     stack.enter_context(annotate("warmup"))
-                self._warm_buckets()
+                for b in self._tier0_buckets():
+                    self._warm_bucket(b)
                 self._warm_segment_program()
         finally:
             if trace_warm:
                 self._profile_mutex.release()
-        self.warmed = True
-
-    def _warm_buckets(self) -> None:
-        """One launch and wait of the bucket path per width not yet warm."""
-        N = self.spec.size
-        for b in self.buckets:
-            with self._lock:
-                if b in self._warm:
-                    continue
-            t0 = time.perf_counter()
-            self._wait_rows(
-                self._launch(np.zeros((b, N, N), np.int32), b, self.max_iters)
+        with self._lock:
+            self.warmed = True
+        if background:
+            t = threading.Thread(
+                target=self._warm_widen, args=(deadline,),
+                name="engine-warmup", daemon=True,
             )
+            self._warm_thread = t
+            t.start()
+            return
+        self._warm_widen(deadline)
+
+    def _warm_widen(self, deadline: Optional[float]) -> None:
+        """Widen past tier 0: the remaining buckets, ascending. Runs inline
+        or as the background warm thread; a budget cut and a failure both
+        leave the engine serving, tier-0 warm, the cold widths tiled over
+        or launched on demand."""
+        try:
+            for b in self.buckets:
+                if deadline is not None and time.monotonic() > deadline:
+                    with self._lock:
+                        self._warm_skipped = [
+                            x for x in self.buckets
+                            if not self._warm_state.get(x, {}).get("warm")
+                        ]
+                        skipped = list(self._warm_skipped)
+                    logger.info(
+                        "warm-up budget exhausted — skipping buckets %s "
+                        "(serving tiles over the warm widths)", skipped,
+                    )
+                    return
+                self._warm_bucket(b)
             with self._lock:
-                self._warm.add(b)
-                self._warm_state[b] = {
-                    "warm": True,
-                    "source": "launch",
-                    "compile_s": round(time.perf_counter() - t0, 3),
-                }
-                self._warm_order.append(b)
+                self._warm_skipped = []
+                self.fully_warmed = True
+        except Exception:  # noqa: BLE001 — a failed widening must not kill serving
+            logger.exception(
+                "warm-up widening failed — cold widths launch on demand"
+            )
+
+    def _warm_bucket(self, b: int) -> None:
+        """One launch and wait of the bucket path at width ``b``, recorded
+        warm; nothing when ``b`` is warm already (the segment pool's warm
+        launch does not count: its width may equal a bucket's)."""
+        with self._lock:
+            if self._warm_state.get(b, {}).get("warm"):
+                return
+        N = self.spec.size
+        t0 = time.perf_counter()
+        self._wait_rows(
+            self._launch(np.zeros((b, N, N), np.int32), b, self.max_iters)
+        )
+        with self._lock:
+            self._warm_state[b] = {
+                "warm": True,
+                "source": "launch",
+                "compile_s": round(time.perf_counter() - t0, 3),
+            }
+            self._warm_order.append(b)
 
     def solve_batch_np(
         self, boards: np.ndarray
@@ -1199,12 +1316,19 @@ class SolverEngine:
         the partial/original grid. Tiles over the largest bucket.
         ``info["capped"]`` counts boards whose search exhausted even the
         deep-retry budget: for those "not solved" means "not finished",
-        not "proven unsatisfiable"."""
+        not "proven unsatisfiable".
+
+        While a tiered warm-up has left the ladder cold, the chunks are
+        bounded by the largest warm width instead."""
         boards = np.asarray(boards, np.int32)
         B = boards.shape[0]
         N = self.spec.size
         C = self.spec.cells
         cap = self.buckets[-1]
+        if self._tiling_active():
+            warm = self._warm_widths()
+            if warm:
+                cap = warm[-1]
         packed = np.concatenate(
             [self._solve_padded(boards[lo: lo + cap]) for lo in range(0, B, cap)],
             axis=0,
@@ -1221,6 +1345,70 @@ class SolverEngine:
             "validations": validations,
             "guesses": guesses,
             "capped": capped,
+        }
+
+    def solve_batch_np_supervised(
+        self, boards: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray, dict]:
+        """``solve_batch_np`` under the degraded-serving contract (the
+        ``/solve_batch`` entry point): with a supervisor attached, an open
+        breaker answers every board from the supervised host-oracle
+        fallback, and a device fault mid-batch (``device_fault``) falls
+        back the same way, instead of a whole-batch error. Any other
+        exception (a kernel library that does not build, a programming
+        error) propagates: the batch fails, it is not moved to the host.
+
+        ``info`` gains ``degraded_boards`` (per-board bools, the HTTP
+        body's flags) and ``degraded`` (any board: the ``X-Degraded``
+        header). Without a supervisor this is ``solve_batch_np``."""
+        boards = np.asarray(boards, np.int32)
+        B = boards.shape[0]
+        sup = self.supervisor
+        if sup is None:
+            return self.solve_batch_np(boards)
+        if sup.should_fallback():
+            return self._fallback_batch(sup, boards)
+        try:
+            sols, mask, info = self.solve_batch_np(boards)
+        except Exception as e:  # noqa: BLE001 — re-raised unless a device fault
+            if not device_fault(e):
+                raise
+            logger.exception(
+                "batch device path failed — answering per board from the "
+                "supervised oracle fallback"
+            )
+            return self._fallback_batch(sup, boards)
+        info["degraded_boards"] = [False] * B
+        info["degraded"] = False
+        return sols, mask, info
+
+    def _fallback_batch(self, sup, boards: np.ndarray):
+        """Answer a whole batch from the supervised host oracle, board by
+        board (bounded by the fallback's semaphore). A board that runs past
+        the per-solve budget stays unsolved and counts as capped ("not
+        finished"), never a whole-batch error."""
+        B = boards.shape[0]
+        solutions = boards.copy()
+        mask = np.zeros((B,), bool)
+        capped = 0
+        for i in range(B):
+            try:
+                sol, _info = sup.fallback_solve(boards[i])
+            except Exception:  # noqa: BLE001 — budget trip or oracle failure
+                capped += 1
+                continue
+            if sol is not None:
+                solutions[i] = np.asarray(sol, np.int32)
+                mask[i] = True
+        with self._lock:
+            self.solved_puzzles += int(mask.sum())
+        return solutions, mask, {
+            "validations": 0,
+            "guesses": 0,
+            "capped": capped,
+            "degraded_boards": [True] * B,
+            "degraded": True,
+            "routed": "oracle-fallback",
         }
 
     def solve_one(

@@ -1,11 +1,14 @@
 """Networking: wire protocol, membership, stats gossip, the node, the HTTP
-API and the CLI."""
+API and its two transports, the reference's ``SudokuSolver`` surface and
+the CLI."""
 
 from .wire import Msg, encode_msg, decode_msg, parse_address
 from .stats import StatsGossip
 from .membership import Membership
 from .node import P2PNode
 from .http_api import make_http_server
+from .fastserve import FastHTTPServer
+from .solver_api import SudokuSolver
 
 __all__ = [
     "Msg",
@@ -16,4 +19,6 @@ __all__ = [
     "Membership",
     "P2PNode",
     "make_http_server",
+    "FastHTTPServer",
+    "SudokuSolver",
 ]

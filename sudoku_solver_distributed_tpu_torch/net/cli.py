@@ -13,9 +13,31 @@ The reference's flags, with the same meanings and defaults:
 Extensions:
   --host        bind address (default 127.0.0.1)
   --buckets     comma-separated engine batch widths
+  --board-size  board edge length the engine serves: 4, 9 (default), 16 or
+                25; a body of another size answers 400
   --platform    gpu (default: the DFS kernel on the CUDA device) or cpu (the
                 plain PyTorch solver); gpu with no CUDA device fails
-  --no-warmup   skip the warm-up pass over every bucket width
+  --no-warmup   skip the warm-up; otherwise it runs in a background thread
+                after the node is built, tiered: tier 0 (the smallest
+                bucket, the coalescer's batch-cap width, one segment over
+                the serving pool) flips /readyz to 200, then the rest of
+                the ladder widens; once every bucket is warm the process
+                runs gc.collect() and gc.freeze()
+  --warmup-budget-s
+                bound the widening past tier 0 to this many seconds; the
+                buckets past it are skipped and batches tile over the warm
+                widths (0, the default: warm the whole ladder)
+  --batch-api   expose POST /solve_batch: many boards per request through
+                the engine's bucketed batch path (up to 4096 boards); off
+                by default (404)
+  --seed-serving
+                serve as the seed did, the baseline of transport A/Bs:
+                requests serialized behind one lock, no coalescer, and the
+                stdlib HTTP/1.0 transport, a connection per request
+  --http-workers
+                the bound of the default transport's connection-worker
+                pool (net/fastserve.py; default 128). The default
+                transport speaks HTTP/1.1 with keep-alive
   --no-coalesce / --coalesce-max-wait-ms / --coalesce-max-batch
                 disable or tune the request coalescer
                 (parallel/coalescer.py) that merges concurrent /solve
@@ -91,15 +113,18 @@ Extensions:
 from __future__ import annotations
 
 import argparse
+import gc
 import logging
 import os
 import signal
 import threading
+import time
 
 from ..cache import AnswerCache
 from ..engine import SolverEngine
 from ..obs import FlightRecorder, Tracer
 from ..obs.slo import DEFAULT_WINDOWS_S, SloEngine, parse_slo
+from ..ops.spec import spec_for_size
 from ..serving.admission import AdmissionController
 from ..serving.health import EngineSupervisor
 from ..utils.faults import EngineFaultInjector
@@ -126,12 +151,50 @@ def build_parser() -> argparse.ArgumentParser:
         "--buckets", default=None, help="comma-separated batch bucket widths"
     )
     parser.add_argument(
+        "--board-size",
+        type=int,
+        default=9,
+        choices=[4, 9, 16, 25],
+        help="board edge length the engine serves (9, 16 hexadoku, or 25)",
+    )
+    parser.add_argument(
         "--platform",
         default="gpu",
         choices=["gpu", "cpu"],
         help="run the solver on the CUDA device (default) or the CPU",
     )
     parser.add_argument("--no-warmup", action="store_true")
+    parser.add_argument(
+        "--warmup-budget-s",
+        type=float,
+        default=0.0,
+        help="bound the background warm-up's ladder widening to this many "
+        "seconds: tier 0 (smallest + coalescer-preferred buckets and the "
+        "segment pool) always runs and flips serving warm; buckets past "
+        "the budget are skipped and requests tile over the warm widths "
+        "instead. 0 (default) = no budget, warm the full ladder",
+    )
+    parser.add_argument(
+        "--batch-api",
+        action="store_true",
+        help="expose POST /solve_batch (the engine's bucketed batch path "
+        "over HTTP; opt-in — off keeps the reference 404 surface)",
+    )
+    parser.add_argument(
+        "--seed-serving",
+        action="store_true",
+        help="serve as the seed did, for A/B measurement: requests "
+        "serialized behind one lock, no coalescer, the stdlib HTTP/1.0 "
+        "transport",
+    )
+    parser.add_argument(
+        "--http-workers",
+        type=int,
+        default=128,
+        help="connection-worker pool bound for the serving transport "
+        "(net/fastserve.py): a connection flood exhausts a queue, not "
+        "the process thread table",
+    )
     parser.add_argument(
         "--serving-stats",
         action="store_true",
@@ -392,12 +455,15 @@ def build_obs(args: argparse.Namespace):
 
 
 def build_node(args: argparse.Namespace):
-    """Construct the engine (warmed unless --no-warmup), the node and its
-    HTTP server from parsed CLI arguments. Returns (node, httpd); the
-    caller starts ``httpd.serve_forever`` and ``node.run``."""
+    """Construct the engine, the node and its HTTP server from parsed CLI
+    arguments, and start the engine's tiered warm-up (unless --no-warmup)
+    and the GC freeze after it, each in a daemon thread. Returns (node,
+    httpd), the server bound; the caller starts ``httpd.serve_forever``
+    and ``node.run``. ``/readyz`` answers 503 until tier 0 is warm."""
     kwargs = {
+        "spec": spec_for_size(args.board_size),
         "device": "cuda" if args.platform == "gpu" else "cpu",
-        "coalesce": not args.no_coalesce,
+        "coalesce": not (args.no_coalesce or args.seed_serving),
         "coalesce_max_wait_s": args.coalesce_max_wait_ms / 1e3,
         "coalesce_max_batch": args.coalesce_max_batch,
         "coalesce_adaptive": args.adaptive_coalesce,
@@ -415,12 +481,11 @@ def build_node(args: argparse.Namespace):
     if args.profile_dir:
         engine.profile_dir = args.profile_dir
     if args.device_trace_dir:
-        # armed before the warm-up, so the warm-up is the first capture
+        # armed before the warm-up thread starts, so the warm-up is the
+        # first capture
         engine.arm_device_trace(
             args.device_trace_dir, calls=args.device_trace_calls
         )
-    if not args.no_warmup:
-        engine.warmup()
     admission = None
     if args.admission_capacity > 0 or args.default_deadline_ms > 0:
         admission = AdmissionController(
@@ -453,6 +518,7 @@ def build_node(args: argparse.Namespace):
         # one recording machinery: with tracing on, the node's per-route
         # recorder IS the tracer's
         metrics=tracer.routes if tracer is not None else RequestMetrics(),
+        serialize_solves=args.seed_serving,
     )
     node.tracer = tracer
     node.flight = flight
@@ -464,11 +530,44 @@ def build_node(args: argparse.Namespace):
     if args.chaos_injector:
         engine.fault_injector = EngineFaultInjector()
         node.chaos_routes = True
+    if not args.no_warmup:
+        # tiered: the thread flips `warmed` (and /readyz) once tier 0 ran,
+        # then widens the ladder, bounded by --warmup-budget-s when set
+        threading.Thread(
+            target=engine.warmup,
+            kwargs={"budget_s": args.warmup_budget_s or None},
+            name="engine-warmup",
+            daemon=True,
+        ).start()
+    threading.Thread(
+        target=_freeze_after_warmup, args=(engine, not args.no_warmup),
+        name="gc-freeze", daemon=True,
+    ).start()
     httpd = make_http_server(
-        node, args.host, args.p, expose_serving=args.serving_stats,
+        node, args.host, args.p,
         expose_metrics=args.metrics,
+        expose_batch=args.batch_api,
+        expose_serving=args.serving_stats,
+        legacy_transport=args.seed_serving,
+        max_workers=args.http_workers,
     )
     return node, httpd
+
+
+def _freeze_after_warmup(engine, warming: bool) -> None:
+    """GC hygiene for a serving process: once the ladder is warm, the heap
+    it built is long-lived, and a full collection over it every few
+    thousand request-path allocations is wasted work. ``gc.freeze()``
+    moves it to the permanent generation, so steady-state collections
+    scan only the young per-request objects. Waits for ``fully_warmed``
+    at most 600 s (a budget-cut warm-up never flips it: what exists by
+    then is frozen)."""
+    if warming:
+        deadline = time.monotonic() + 600.0
+        while not engine.fully_warmed and time.monotonic() < deadline:
+            time.sleep(1.0)
+    gc.collect()
+    gc.freeze()
 
 
 def main(argv=None) -> None:

@@ -1,8 +1,12 @@
 """HTTP API: POST /solve, GET /stats, GET /network — byte-identical bodies.
 
-The port of the stock transport of ``sudoku_solver_distributed_tpu/net/
-http_api.py`` (its ``legacy_transport`` arm: the stdlib
-``ThreadingHTTPServer`` speaking HTTP/1.0). Response contract (reference
+The port of ``sudoku_solver_distributed_tpu/net/http_api.py``: the route
+cores both transports share, and the stock transport.
+``make_http_server`` returns the lean keep-alive transport
+(net/fastserve.py: HTTP/1.1, a bounded worker pool) by default, as the
+JAX package does; ``legacy_transport=True`` (the CLI's
+``--seed-serving``) returns the stdlib ``ThreadingHTTPServer`` speaking
+HTTP/1.0, a connection per request. Response contract (reference
 node.py:661-704):
 
   POST /solve  200 → the solved grid as a JSON array-of-arrays;
@@ -14,6 +18,11 @@ node.py:661-704):
                503 → {"error": "Degraded: fallback budget exceeded"} when a
                       supervised node's host-oracle fallback ran past its
                       budget (serving/health.py)
+  POST /solve_batch 200 → {"solutions": [grid | null, ...], "solved": n,
+               "capped": n[, "degraded": [bool, ...]]} for {"sudokus":
+               [grid, ...]} (1..MAX_BATCH boards, at most MAX_BATCH_BYTES);
+               400 / 429 as /solve. Only with ``expose_batch`` (CLI
+               ``--batch-api``; 404 otherwise)
   GET  /stats  200 → the merged all_stats shape (plus a "serving" block of
                coalescer counters when asked for: ``expose_serving``)
   GET  /network 200 → the all_peers dict, or {self_id: []} when alone
@@ -49,8 +58,8 @@ verified is served from the cache with an ``X-Cache: hit`` header and
 counts nothing in /stats. An answer from the supervisor's oracle fallback
 carries ``X-Degraded: true``. Bodies stay byte-identical either way.
 
-Not in this slice: cache gossip (peer fetch), ``/metrics/cluster``,
-/solve_batch, and the lean keep-alive transport.
+Not in this slice: cache gossip (peer fetch) and ``/metrics/cluster``
+(both come with the P2P slice; the cluster paths answer 404).
 """
 
 from __future__ import annotations
@@ -71,6 +80,15 @@ logger = logging.getLogger(__name__)
 # the two Prometheus spellings of the /metrics surface, matched exactly
 # (no general query parsing: every other path keeps its 404)
 PROM_PATHS = ("/metrics.prom", "/metrics?format=prom")
+
+MAX_BATCH = 4096        # board-count guard for /solve_batch
+MAX_BATCH_BYTES = 32 << 20  # body-size guard, checked before buffering
+# the largest /solve_batch the answer cache consults and feeds: the
+# per-board canonicalization is pure Python, a rounding error on a single
+# request but seconds of handler-thread work on a MAX_BATCH bulk job,
+# which is throughput traffic, not the repeated stream the cache serves.
+# Larger batches skip the cache (lookup and store) entirely
+CACHE_BATCH_MAX = 256
 
 
 def _board_error(sudoku, size: int) -> str | None:
@@ -341,6 +359,105 @@ def _solve_core(p2p_node, body: bytes, deadline_s, outcome=None, *,
     )
 
 
+def solve_batch_route(p2p_node, body: bytes, deadline_ms=None):
+    """POST /solve_batch (opt-in): the engine's bucketed batch path over
+    HTTP. Body {"sudokus": [grid, ...]} → {"solutions": [grid | null, ...],
+    "solved": n, "capped": n}; a null row is not solved, and ``capped``
+    counts rows whose search exhausted the step budget (not finished, not
+    proven unsatisfiable). Returns ``(status, payload, error_flag,
+    degraded, cached)`` like ``solve_route``.
+
+    Under an open breaker or a device failure mid-batch the supervised
+    engine answers every board from the host-oracle fallback; the body
+    then carries per-board ``degraded`` flags and ``degraded`` is True
+    (the ``X-Degraded`` header), instead of the whole batch erroring.
+
+    With an answer cache on the node and at most ``CACHE_BATCH_MAX``
+    boards, cached boards are stripped out before the engine runs and
+    their answers merged back in request order; ``cached`` says any board
+    hit (the ``X-Cache: hit`` header).
+
+    ``deadline_ms`` (the ``X-Deadline-Ms`` header): a budget already
+    spent on arrival, or by validation and the cache consult, answers 429
+    before the engine runs. An all-hit batch never sheds."""
+    t_arrival = time.monotonic()
+    try:
+        sudokus = json.loads(body.decode())["sudokus"]
+    except (ValueError, KeyError, TypeError, UnicodeDecodeError):
+        return 400, {"error": "Invalid request"}, True, False, False
+    size = p2p_node.engine.spec.size
+    if not isinstance(sudokus, list) or not 1 <= len(sudokus) <= MAX_BATCH:
+        reason = f"need 1..{MAX_BATCH} boards"
+    else:
+        reason = next(
+            filter(None, (_board_error(s, size) for s in sudokus)), None
+        )
+    if reason is not None:
+        logger.info("rejected /solve_batch body: %s", reason)
+        return 400, {"error": "Invalid request"}, True, False, False
+    cache = getattr(p2p_node, "answer_cache", None)
+    n = len(sudokus)
+    if cache is not None and n > CACHE_BATCH_MAX:
+        cache = None
+    answers = [None] * n
+    forms = [None] * n
+    hit = [False] * n
+    if cache is not None:
+        t0 = time.monotonic()
+        for i, s in enumerate(sudokus):
+            answers[i], forms[i] = cache.lookup(s)
+            hit[i] = answers[i] is not None
+        tr = current_trace()
+        if tr is not None:
+            tr.mark("cache", time.monotonic() - t0)
+    miss_idx = [i for i in range(n) if not hit[i]]
+    degraded = False
+    degraded_rows = [False] * n
+    capped = 0
+    solved = n - len(miss_idx)
+    if miss_idx:
+        if deadline_ms is not None:
+            # validation and the cache consult are charged against the
+            # budget; once the engine runs, the batch runs to its end
+            remaining_ms = deadline_ms - (time.monotonic() - t_arrival) * 1e3
+            if remaining_ms <= 0:
+                adm = getattr(p2p_node, "admission", None)
+                retry = adm.retry_hint_s() if adm is not None else None
+                logger.debug("shed /solve_batch: deadline expired")
+                return (
+                    429, _shed_payload("Deadline exceeded", retry), True,
+                    False, False,
+                )
+        solutions, mask, info = p2p_node.batch_sudoku_solve(
+            [sudokus[i] for i in miss_idx]
+        )
+        capped = info["capped"]
+        solved += int(mask.sum())
+        degraded = bool(info.get("degraded"))
+        for pos, i in enumerate(miss_idx):
+            if mask[pos]:
+                answers[i] = solutions[pos].tolist()
+                if cache is not None:
+                    # write-gated: store verifies host-side
+                    cache.store(sudokus[i], answers[i], forms[i])
+            if degraded:
+                degraded_rows[i] = bool(info["degraded_boards"][pos])
+    payload = {"solutions": answers, "solved": solved, "capped": capped}
+    if degraded:
+        # per-board flags only when the fallback served: a healthy body
+        # keeps its shape (a cached answer reads False, it was verified
+        # when it was written)
+        payload["degraded"] = degraded_rows
+    return 200, payload, False, degraded, any(hit)
+
+
+def healthz_payload(p2p_node):
+    """GET /healthz — liveness: 200 whenever the HTTP plane answers. A
+    DEGRADED or LOST node still answers correctly from the fallback and
+    must not be restarted; /readyz tells them apart."""
+    return {"ok": True}
+
+
 def readyz_route(p2p_node):
     """GET /readyz — readiness, ``(status, payload)``: 200 when the node
     should receive traffic (``engine.ready()``: warm and, with a
@@ -502,6 +619,7 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
     p2p_node = None  # set by make_http_server
     expose_serving = False  # opt-in "serving" block on GET /stats
     expose_metrics = False  # opt-in /metrics routes (CLI --metrics)
+    expose_batch = False  # opt-in POST /solve_batch (CLI --batch-api)
     _req_id = None  # this request's X-Request-Id, set by _begin_request
     _want_timing = False  # the client sent X-Timing: it gets the breakdown
 
@@ -545,15 +663,20 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def _read_body(self, route: str, t0: float):
+    def _read_body(self, route: str, t0: float, max_bytes=None):
         """The request body, or None after answering 400 and closing the
-        connection when it cannot be framed (chunked, bad Content-Length)."""
+        connection when it cannot be framed (chunked, bad Content-Length,
+        over ``max_bytes``)."""
         te = (self.headers.get("Transfer-Encoding") or "").lower()
         try:
             content_length = int(self.headers.get("Content-Length", 0))
         except (ValueError, TypeError):
             content_length = -1
-        if content_length < 0 or "chunked" in te:
+        if (
+            content_length < 0
+            or "chunked" in te
+            or (max_bytes is not None and content_length > max_bytes)
+        ):
             self.close_connection = True
             record_route(self.p2p_node, route, t0, error=True)
             self._send_response({"error": "Invalid request"}, 400)
@@ -586,6 +709,30 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
             shed = status == 429
             record_route(self.p2p_node, "/solve", t0,
                          error=error and not shed, shed=shed)
+            self._send_response(
+                payload, status, degraded=degraded, cached=cached,
+                timing=timing_header_value(record)
+                if record is not None and self._want_timing else None,
+            )
+        elif self.path == "/solve_batch" and self.expose_batch:
+            post_data = self._read_body(
+                "/solve_batch", t0, max_bytes=MAX_BATCH_BYTES
+            )
+            if post_data is None:
+                return
+            trace = start_trace(self.p2p_node, "/solve_batch", self._req_id)
+            try:
+                status, payload, error, degraded, cached = solve_batch_route(
+                    self.p2p_node, post_data,
+                    deadline_ms=_parse_deadline_ms(
+                        self.headers.get("X-Deadline-Ms")
+                    ),
+                )
+            except BaseException:
+                finish_trace(self.p2p_node, trace, 500)
+                raise
+            record = finish_trace(self.p2p_node, trace, status, degraded=degraded)
+            record_route(self.p2p_node, "/solve_batch", t0, error=error)
             self._send_response(
                 payload, status, degraded=degraded, cached=cached,
                 timing=timing_header_value(record)
@@ -634,7 +781,7 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
         elif self.path == "/healthz":
             # liveness: a DEGRADED or LOST node still answers correctly from
             # the fallback and must not be restarted; /readyz tells them apart
-            self._send_response({"ok": True})
+            self._send_response(healthz_payload(self.p2p_node))
         elif self.path == "/readyz":
             status, payload = readyz_route(self.p2p_node)
             self._send_response(payload, status)
@@ -652,23 +799,47 @@ class _ThreadingHTTPServer(ThreadingHTTPServer):
     request_queue_size = 1024
 
 
-def make_http_server(p2p_node, host: str, http_port: int, *,
-                     expose_serving: bool = False,
-                     expose_metrics: bool = False):
-    """The stdlib threading HTTP server, one connection per request
-    (HTTP/1.0). ``expose_serving`` adds the coalescer's "serving" block to
-    GET /stats; ``expose_metrics`` opens GET /metrics and its Prometheus
-    spellings. Returns it unstarted: serve_forever() / shutdown() /
-    server_address."""
-    handler = type(
-        "BoundHandler",
-        (SudokuHTTPHandler,),
-        {
-            "p2p_node": p2p_node,
-            "expose_serving": expose_serving,
-            "expose_metrics": expose_metrics,
-        },
-    )
-    httpd = _ThreadingHTTPServer((host, http_port), handler)
+def make_http_server(
+    p2p_node,
+    host: str,
+    http_port: int,
+    *,
+    expose_metrics: bool = False,
+    expose_batch: bool = False,
+    expose_serving: bool = False,
+    legacy_transport: bool = False,
+    max_workers: int = 128,
+):
+    """The node's HTTP server, unstarted: serve_forever() / shutdown() /
+    server_close() / server_address. By default the lean keep-alive
+    transport (net/fastserve.py), whose connection-worker pool
+    ``max_workers`` bounds; ``legacy_transport=True`` gives the stdlib
+    threading server, a connection per request (HTTP/1.0), the
+    ``--seed-serving`` baseline. ``expose_metrics`` opens GET /metrics and
+    its Prometheus spellings, ``expose_batch`` POST /solve_batch, and
+    ``expose_serving`` adds the coalescer's "serving" block to GET
+    /stats."""
+    if legacy_transport:
+        handler = type(
+            "BoundHandler",
+            (SudokuHTTPHandler,),
+            {
+                "p2p_node": p2p_node,
+                "expose_serving": expose_serving,
+                "expose_metrics": expose_metrics,
+                "expose_batch": expose_batch,
+            },
+        )
+        httpd = _ThreadingHTTPServer((host, http_port), handler)
+    else:
+        from .fastserve import FastHTTPServer
+
+        httpd = FastHTTPServer(
+            p2p_node, host, http_port,
+            expose_metrics=expose_metrics,
+            expose_batch=expose_batch,
+            expose_serving=expose_serving,
+            max_workers=max_workers,
+        )
     logger.info("HTTP server on %s:%s", host, http_port)
     return httpd

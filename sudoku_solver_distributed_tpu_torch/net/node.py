@@ -4,7 +4,10 @@ The port of the single-node part of ``sudoku_solver_distributed_tpu/net/
 node.py``: the constructor and counters, the ``/stats`` and ``/network``
 bodies, the no-peers branch of ``peer_sudoku_solve(_info)`` (the request
 goes straight to the engine's supervised serving entry point, with its
-admission deadline), and the graceful ``shutdown``. The node carries the
+admission deadline; with ``serialize_solves``, the ``--seed-serving``
+baseline, behind one lock on the engine's ``solve_one``), the
+``/solve_batch`` core ``batch_sudoku_solve``, and the graceful
+``shutdown``. The node carries the
 front door's answer cache (``answer_cache``, None unless attached), the
 chaos route's switch (``chaos_routes``) and the observability plane's
 ``metrics``, ``tracer``, ``flight`` and ``slo`` (obs/; None unless
@@ -19,9 +22,11 @@ from __future__ import annotations
 import logging
 import socket
 import threading
+import time
 from typing import Optional
 
 from ..engine import SolverEngine
+from ..serving.admission import DeadlineExceeded
 from ..utils import HandicapLimiter
 from . import wire
 from .membership import Membership
@@ -44,6 +49,7 @@ class P2PNode:
         tombstone_ttl_s: Optional[float] = None,
         admission=None,
         metrics=None,
+        serialize_solves: bool = False,
     ):
         if anchor_node is not None:
             raise NotImplementedError(
@@ -55,6 +61,10 @@ class P2PNode:
         self.handicap = handicap
 
         self.engine = engine if engine is not None else SolverEngine()
+        # the --seed-serving baseline: /solve requests take turns on one
+        # lock around the engine's solve_one, as the seed served them
+        self.serialize_solves = serialize_solves
+        self._solve_lock = threading.Lock()
         # overload control (serving/admission.py): when set, /solve sheds
         # 429 at arrival and expired queued requests answer 429
         # (net/http_api.solve_route); None serves every request
@@ -154,17 +164,43 @@ class P2PNode:
         into the engine's coalescer, where a request still queued past it
         is dropped at batch formation (DeadlineExceeded propagates to the
         HTTP layer's 429). Concurrent requests do not serialize here: each
-        handler thread enqueues on the engine and awaits its future."""
+        handler thread enqueues on the engine and awaits its future —
+        unless ``serialize_solves`` is set, which queues them on one lock
+        around ``engine.solve_one``; a request whose deadline passed while
+        it waited there raises ``DeadlineExceeded``."""
         if self.membership.total_peers():
             raise NotImplementedError("the task farm comes with the P2P slice")
-        solution, info = self.engine.solve_one_supervised(
-            sudoku, deadline_s=deadline_s
-        )
+        if self.serialize_solves:
+            with self._solve_lock:
+                if deadline_s is not None and time.monotonic() > deadline_s:
+                    # expired while queued on the lock: the same case the
+                    # coalescer drops at batch formation
+                    raise DeadlineExceeded(
+                        "deadline expired waiting for the solve lock"
+                    )
+                solution, info = self.engine.solve_one(sudoku)
+        else:
+            solution, info = self.engine.solve_one_supervised(
+                sudoku, deadline_s=deadline_s
+            )
         if solution is not None:
             with self._state_lock:
                 self._solved_count += 1
         self.broadcast_stats()
         return solution, info
+
+    def batch_sudoku_solve(self, sudokus):
+        """Solve many boards in one engine batch (``POST /solve_batch``).
+        The counters move as ``len(sudokus)`` sequential solves would:
+        solved boards add to this node's solved count, the engine bills
+        its validation sweeps, and one stats broadcast follows. The
+        supervised batch answers degraded-mode boards from the host-oracle
+        fallback under an open breaker or a device failure."""
+        solutions, mask, info = self.engine.solve_batch_np_supervised(sudokus)
+        with self._state_lock:
+            self._solved_count += int(mask.sum())
+        self.broadcast_stats()
+        return solutions, mask, info
 
     # -- lifecycle ---------------------------------------------------------
     def run(self) -> None:

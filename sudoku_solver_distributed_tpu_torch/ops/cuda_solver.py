@@ -85,6 +85,12 @@ OPT_LOCKED, OPT_PAIRS, OPT_LIGHT = 1, 2, 4
 _LAUNCHES_LOCK = threading.Lock()
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error: a fault of the device call,
+    which a supervised engine answers from its host fallback. A library
+    that fails to build or load raises a plain ``RuntimeError``."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -249,7 +255,7 @@ def _launch(lib: ctypes.CDLL, boards: torch.Tensor, spec: BoardSpec,
             options, stream,
         )
     if err != 0:
-        raise RuntimeError(f"dfs_solver launch failed: cudaError {err}")
+        raise KernelLaunchError(f"dfs_solver launch failed: cudaError {err}")
     with _LAUNCHES_LOCK:
         dfs_solver.launches += 1
     return grid, meta
@@ -404,7 +410,7 @@ def _launch_segment(lib: ctypes.CDLL, pool: SegmentPool, boards: torch.Tensor,
             options, int(bool(prefix_gather)), stream,
         )
     if err != 0:
-        raise RuntimeError(f"dfs_segment launch failed: cudaError {err}")
+        raise KernelLaunchError(f"dfs_segment launch failed: cudaError {err}")
     with _LAUNCHES_LOCK:
         dfs_segment.launches += 1
     return digest, block

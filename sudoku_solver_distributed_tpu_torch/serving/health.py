@@ -547,7 +547,7 @@ class EngineSupervisor:
         # engine-warmed widths, read BEFORE taking the supervisor lock
         # (engine state is never read under it — never nest the two)
         try:
-            warm_widths = set(self._engine._warm_widths())
+            warm_widths = set(self._engine._watched_widths())
         except Exception:  # noqa: BLE001 — engines without the warm plane
             warm_widths = set()
         fires = []
@@ -579,9 +579,9 @@ class EngineSupervisor:
                     fires.append(
                         self._record_failure_locked(tok.bucket, "hang")
                     )
-            # 2) warm promotion: an engine whose warmup finished ran
-            # every serving width once — WARMING has nothing left to wait
-            # for
+            # 2) warm promotion: an engine whose tier-0 warm-up finished
+            # ran what one request needs — WARMING has nothing left to
+            # wait for (the rest of the ladder may still be widening)
             if self.state == WARMING and getattr(self._engine, "warmed", False):
                 fires.append(
                     self._transition_locked(HEALTHY, "engine warm")

@@ -243,7 +243,8 @@ def test_adaptive_lone_request_dispatch_wait_beats_fixed_budget(boards):
 # -- HTTP surface ----------------------------------------------------------------
 
 def _serve(node, **kw):
-    httpd = http_api.make_http_server(node, "127.0.0.1", 0, **kw)
+    httpd = http_api.make_http_server(node, "127.0.0.1", 0,
+                                      legacy_transport=True, **kw)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     return httpd
 
@@ -358,7 +359,7 @@ def test_http_429_bytes_match_jax_node(engine):
     servers = [
         jax_http_api.make_http_server(jax_node, "127.0.0.1", 0,
                                       legacy_transport=True),
-        http_api.make_http_server(node, "127.0.0.1", 0),
+        http_api.make_http_server(node, "127.0.0.1", 0, legacy_transport=True),
     ]
     for s in servers:
         threading.Thread(target=s.serve_forever, daemon=True).start()

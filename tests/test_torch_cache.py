@@ -238,7 +238,7 @@ def nodes():
     port_node.answer_cache = AnswerCache(capacity=128)
     servers = [
         jax_make_http_server(jax_node, "127.0.0.1", 0, legacy_transport=True),
-        make_http_server(port_node, "127.0.0.1", 0),
+        make_http_server(port_node, "127.0.0.1", 0, legacy_transport=True),
     ]
     bases = [_serve(s) for s in servers]
     yield (jax_node, port_node), bases

@@ -480,7 +480,9 @@ def test_debug_trace_route_and_404(engine):
                    metrics=tracer.routes)
     node.tracer = tracer
     node.flight = flight
-    httpd = make_http_server(node, "127.0.0.1", 0, expose_metrics=True)
+    httpd = make_http_server(
+        node, "127.0.0.1", 0, expose_metrics=True, legacy_transport=True,
+    )
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
         port = httpd.server_address[1]
@@ -495,7 +497,9 @@ def test_debug_trace_route_and_404(engine):
         httpd.shutdown()
         httpd.server_close()
     bare = P2PNode("127.0.0.1", free_udp_port(), engine=engine)
-    httpd2 = make_http_server(bare, "127.0.0.1", 0, expose_metrics=True)
+    httpd2 = make_http_server(
+        bare, "127.0.0.1", 0, expose_metrics=True, legacy_transport=True,
+    )
     threading.Thread(target=httpd2.serve_forever, daemon=True).start()
     try:
         status, _h, raw = get(httpd2.server_address[1], "/debug/trace")
@@ -517,7 +521,9 @@ def test_metrics_json_prom_parity_with_cost_and_device_trace(tmp_path):
                    metrics=tracer.routes)
     node.tracer = tracer
     node.flight = flight
-    httpd = make_http_server(node, "127.0.0.1", 0, expose_metrics=True)
+    httpd = make_http_server(
+        node, "127.0.0.1", 0, expose_metrics=True, legacy_transport=True,
+    )
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
         port = httpd.server_address[1]

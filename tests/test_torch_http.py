@@ -96,7 +96,7 @@ def _make_nodes(sweeps):
     )
     servers = [
         jax_make_http_server(jax_node, "127.0.0.1", 0, legacy_transport=True),
-        make_http_server(port_node, "127.0.0.1", 0),
+        make_http_server(port_node, "127.0.0.1", 0, legacy_transport=True),
     ]
     bases = [serve(s)[0] for s in servers]
     return (jax_node, port_node), bases, servers

@@ -40,6 +40,17 @@ from sudoku_solver_distributed_tpu_torch.utils.profiling import (
 )
 from sudoku_solver_distributed_tpu_torch.obs import RouteMetrics, Tracer
 assert RequestMetrics is RouteMetrics
+from sudoku_solver_distributed_tpu_torch import Sudoku, SudokuSolver
+from sudoku_solver_distributed_tpu_torch.api import Sudoku as S2
+from sudoku_solver_distributed_tpu_torch.net import FastHTTPServer
+from sudoku_solver_distributed_tpu_torch.net import SudokuSolver as SS2
+from sudoku_solver_distributed_tpu_torch.net.http_api import (
+    CACHE_BATCH_MAX, MAX_BATCH, MAX_BATCH_BYTES, solve_batch_route,
+)
+from sudoku_solver_distributed_tpu_torch.utils import (
+    render_board, render_board_highlight_zeros,
+)
+assert Sudoku is S2 and SudokuSolver is SS2
 leaked = [n for n in sys.modules
           if n.split(".")[0] == "sudoku_solver_distributed_tpu"]
 assert not leaked, leaked
@@ -53,8 +64,49 @@ REQUIRED = (
     "cache", "cache.canonical", "cache.store", "serving.health",
     "utils.faults", "net.http_api", "engine", "utils.profiling", "obs",
     "obs.trace", "obs.histo", "obs.prom", "obs.flight", "obs.export",
-    "obs.cost", "obs.slo",
+    "obs.cost", "obs.slo", "net.fastserve", "net.solver_api", "api",
+    "utils.render",
 )
+
+# the default transport without JAX, on the plain solver: a /solve_batch
+# and two /solve requests on one keep-alive connection of a CLI node
+SERVE_WITHOUT_JAX = r"""
+import http.client, json, sys, time
+sys.modules["jax"] = None
+from sudoku_solver_distributed_tpu_torch.models import oracle_is_valid_solution
+from sudoku_solver_distributed_tpu_torch.net import cli
+from sudoku_solver_distributed_tpu_torch.net.fastserve import FastHTTPServer
+import threading
+board = [[0] * 9 for _ in range(9)]
+board[0][0] = 5
+args = cli.build_parser().parse_args(
+    ["-p", "0", "-s", "0", "--platform", "cpu", "--buckets", "1,8",
+     "--batch-api", "--no-answer-cache"])
+node, httpd = cli.build_node(args)
+assert isinstance(httpd, FastHTTPServer)
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+deadline = time.monotonic() + 60
+while not node.engine.fully_warmed and time.monotonic() < deadline:
+    time.sleep(0.05)
+conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=60)
+conn.request("POST", "/solve_batch", json.dumps({"sudokus": [board, board]}))
+r = conn.getresponse()
+body = json.loads(r.read())
+assert r.status == 200 and body["solved"] == 2, body
+assert all(oracle_is_valid_solution(s) for s in body["solutions"])
+for _ in range(2):
+    conn.request("POST", "/solve", json.dumps({"sudoku": board}))
+    r = conn.getresponse()
+    assert r.status == 200 and r.version == 11 and not r.will_close
+    assert oracle_is_valid_solution(json.loads(r.read()))
+httpd.shutdown()
+node.shutdown()
+node.engine.close()
+leaked = [n for n in sys.modules
+          if n.split(".")[0] == "sudoku_solver_distributed_tpu"]
+assert not leaked, leaked
+print("ok")
+"""
 
 # the observability plane without JAX: a span, a torch.profiler capture
 # through utils/profiling.device_trace, and the Prometheus rendering
@@ -111,13 +163,24 @@ def test_obs_plane_and_device_trace_run_without_jax():
     assert proc.stdout.split() == ["ok"]
 
 
+def test_batch_api_and_keepalive_serve_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_WITHOUT_JAX], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok"]
+
+
 def test_no_import_line_names_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|sudoku_solver_distributed_tpu)(\.|\s|$)"
     )
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "dfs_solver_ab.py"),
-             os.path.join(ROOT, "tools", "serving_ab.py")]
+             os.path.join(ROOT, "tools", "serving_ab.py"),
+             os.path.join(ROOT, "tools", "profiler_edge.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     hits = [
@@ -132,7 +195,7 @@ def test_no_import_line_names_jax_or_the_jax_package():
 @pytest.mark.parametrize(
     "argv",
     [["chip_smoke.py"], ["tools/dfs_solver_ab.py", "_archive/parent_dfs_solver.cu"],
-     ["tools/serving_ab.py", "_archive/parent"]],
+     ["tools/serving_ab.py", "_archive/parent"], ["tools/profiler_edge.py"]],
 )
 def test_chip_scripts_fail_without_a_card_and_print_no_result(argv):
     if torch.cuda.is_available():
@@ -437,3 +500,51 @@ def test_continuous_engine_on_the_card_matches_the_cpu_engine():
         finally:
             gpu.close()
             cpu.close()
+
+
+@pytest.mark.cuda
+def test_solve_batch_route_on_the_card_matches_solve_batch_np():
+    """POST /solve_batch on a card node (default transport, continuous
+    segment driver beside it) answers the rows ``solve_batch_np`` gives on
+    a fresh card engine for the same boards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import http.client
+    import json
+    import threading
+    import time
+
+    from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+    from sudoku_solver_distributed_tpu_torch.net import cli
+
+    boards = _hard(256)
+    args = cli.build_parser().parse_args(
+        ["-p", "0", "-s", "0", "--buckets", "1,8,64,512", "--batch-api",
+         "--no-answer-cache"]
+    )
+    node, httpd = cli.build_node(args)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    fresh = SolverEngine(buckets=(1, 8, 64, 512))
+    try:
+        deadline = time.monotonic() + 300
+        while not node.engine.fully_warmed and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert node.engine.fully_warmed
+        conn = http.client.HTTPConnection(
+            "127.0.0.1", httpd.server_address[1], timeout=300
+        )
+        conn.request("POST", "/solve_batch",
+                     json.dumps({"sudokus": boards.tolist()}))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        assert resp.status == 200
+        sols, mask, info = fresh.solve_batch_np(boards)
+        want = [s.tolist() if ok else None for s, ok in zip(sols, mask)]
+        assert body["solutions"] == want
+        assert body["solved"] == int(mask.sum())
+        assert body["capped"] == info["capped"]
+    finally:
+        httpd.shutdown()
+        node.shutdown()
+        node.engine.close()
+        fresh.close()

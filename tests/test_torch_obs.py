@@ -139,7 +139,9 @@ def served(engine):
     )
     node.tracer = tracer
     node.flight = flight
-    httpd = make_http_server(node, "127.0.0.1", 0, expose_metrics=True)
+    httpd = make_http_server(
+        node, "127.0.0.1", 0, expose_metrics=True, legacy_transport=True,
+    )
     port = serve(httpd)
     yield {"node": node, "tracer": tracer, "flight": flight, "port": port}
     httpd.shutdown()
@@ -193,7 +195,7 @@ def test_request_id_on_every_route_and_status(served, engine):
         "127.0.0.1", free_udp_port(), engine=SolverEngine(device="cpu"),
         admission=AdmissionController(capacity=4),
     )
-    cold_httpd = make_http_server(cold, "127.0.0.1", 0)
+    cold_httpd = make_http_server(cold, "127.0.0.1", 0, legacy_transport=True)
     cold_port = serve(cold_httpd)
     try:
         seen.append(request(cold_port, "/readyz")[:2])
@@ -292,7 +294,9 @@ def test_flightrecord_and_trace_404_without_recorder(engine):
     node = P2PNode(
         "127.0.0.1", free_udp_port(), engine=engine, metrics=RequestMetrics()
     )
-    httpd = make_http_server(node, "127.0.0.1", 0, expose_metrics=True)
+    httpd = make_http_server(
+        node, "127.0.0.1", 0, expose_metrics=True, legacy_transport=True,
+    )
     port = serve(httpd)
     try:
         status, _h, raw = request(port, "/debug/flightrecord", raw=b"")
@@ -372,7 +376,7 @@ def test_prom_404_without_metrics_flag(engine):
     httpd = make_http_server(
         P2PNode("127.0.0.1", free_udp_port(), engine=engine,
                 metrics=RequestMetrics()),
-        "127.0.0.1", 0,
+        "127.0.0.1", 0, legacy_transport=True,
     )
     port = serve(httpd)
     try:
@@ -636,7 +640,8 @@ def _side_by_side(obs: bool, cache: bool):
          lambda n: jax_make_http_server(n, "127.0.0.1", 0, expose_metrics=True,
                                         legacy_transport=True), "jax"),
         (lambda **k: SolverEngine(device="cpu", **k), P2PNode,
-         lambda n: make_http_server(n, "127.0.0.1", 0, expose_metrics=True),
+         lambda n: make_http_server(n, "127.0.0.1", 0, expose_metrics=True,
+                                    legacy_transport=True),
          "port"),
     ):
         eng = Engine(**kw)

@@ -317,11 +317,11 @@ def test_lost_engine_rebuilds_and_reenters_healthy():
 
 def test_first_call_at_an_unwarmed_width_is_not_a_hang():
     """A cold engine's first call at a width may include the kernel build:
-    the watchdog excuses it, and ``_warm_widths`` lists no width that has
-    not run. Once the width has completed a call, the same delay is a
+    the watchdog excuses it, and ``_watched_widths`` lists no width that
+    has not run. Once the width has completed a call, the same delay is a
     hang."""
     eng = SolverEngine(device="cpu", buckets=(1,), coalesce=False)
-    assert eng._warm_widths() == []
+    assert eng._warm_widths() == eng._watched_widths() == []
     inj = EngineFaultInjector()
     eng.fault_injector = inj
     sup = health.EngineSupervisor(eng, watchdog_budget_s=0.2,
@@ -342,10 +342,15 @@ def test_first_call_at_an_unwarmed_width_is_not_a_hang():
 
 
 def test_warm_widths_are_the_buckets_then_the_pool():
+    """The watchdog's widths are the warm buckets and the segment pool's
+    width; ``_warm_widths`` (the JAX engine's name, what tiling reads) is
+    the warm buckets alone. A budget-cut warm-up tells the two apart: the
+    pool's warm segment ran at 8, the bucket 8 did not."""
     eng = SolverEngine(device="cpu", buckets=(1, 8))
     try:
         eng.warmup()
         assert eng._warm_widths() == [1, 8]  # the pool is 8 wide
+        assert eng._watched_widths() == [1, 8]
     finally:
         eng.close()
     eng = SolverEngine(device="cpu", buckets=(1, 8), coalesce_max_batch=2,
@@ -354,6 +359,15 @@ def test_warm_widths_are_the_buckets_then_the_pool():
         eng.warmup()
         assert eng.segment_pool_width() == 8
         assert eng._warm_widths() == [1, 8]
+        assert eng._watched_widths() == [1, 8]
+    finally:
+        eng.close()
+    eng = SolverEngine(device="cpu", buckets=(1, 8))
+    try:
+        eng.warmup(budget_s=0.0)
+        assert eng.warm_info()["skipped"] == [8]
+        assert eng._warm_widths() == [1]
+        assert eng._watched_widths() == [1, 8]
     finally:
         eng.close()
 

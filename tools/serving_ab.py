@@ -72,6 +72,9 @@ for label, argv in arms:
     node, httpd = build_node(build_parser().parse_args(
         ["-p", str(port), "-s", str(free_port()), "-h", "1", *argv]))
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    # a tree whose CLI warms in the background: measure a fully warm node
+    while not getattr(node.engine, "fully_warmed", True):
+        time.sleep(0.01)
     req = lambda: urllib.request.urlopen(urllib.request.Request(
         f"http://127.0.0.1:{port}/solve", data=body,
         headers={"Content-Type": "application/json"})).read()
