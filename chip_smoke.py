@@ -145,6 +145,38 @@ exit) on any error:
    largest warm width (K1's launch widths), with (b)'s answers. (e)
    ``Sudoku`` on the card answers the README board's checks as on the
    CPU, and ``SudokuSolver()`` solves it on the card.
+10. The P2P cluster on one card: 4 processes of the port's CLI (each its
+   own CUDA context and engine) in their default configuration
+   (continuous batching over the 4096-lane pool, answer cache, autopilot
+   and tracing on) with ``-h 0 --metrics --failure-timeout 2`` (``-h 0``:
+   the reference's handicap throttle would be what the timings measure);
+   node 0 is
+   the anchor and nodes 1-3 join with ``-a``. Each process starts its
+   kernel wrappers' launch counts at 0 and writes them on SIGUSR1. Once
+   every ``/network`` lists the 4 nodes, every ``/readyz`` answers 200 and
+   every engine is fully warm: (a) the README board on node 3, a miss, is
+   farmed: an oracle-valid answer with its clues (a board of many
+   solutions: which one the merge keeps depends on the order the cells'
+   answers arrive, as on the JAX cluster), /stats ``solved`` +1, the
+   segment count of every worker's ``engine.cost`` grew (K3 ran there),
+   and the farm's dispatches are counted (fewer than the 73 empty cells
+   when a merged board turns unsolvable and the master's engine answers
+   it); (b) 20 farmed
+   corpus misses (one solution each), each equal to the single-node
+   answer, each empty cell dispatched, timed beside phases 6 and 6b's
+   single-node misses; (c) a board solved on node 1 and its
+   ``random_symmetry`` twin sent to node 2 (or, when node 2 is not linked
+   to node 1, a node that is: hot sets ride the stats gossip to direct
+   links), which answers ``X-Cache: hit`` through the peer fetch; (d)
+   ``/metrics/cluster`` on node 0 lists the 4 nodes and its Prometheus
+   spellings answer; the launch counts are read (from each process's
+   start, warm-up included, and after the warm-up) and both kernels must
+   have run; (e) node 2 is SIGKILLed while a farm is in flight: the
+   request still answers the single-node answer, and the survivors drop
+   it within the failure timeout plus one gossip period; (f) node 1 stops
+   (SIGINT, the graceful departure) and its disconnect prunes it before
+   the failure timeout could. Every process is stopped at the end, and
+   their logs print when the phase fails.
 
 Every node harness waits for the CLI's background warm-up to finish
 (``fully_warmed``) before its phase measures, and sends the node's
@@ -152,7 +184,8 @@ flight-record dumps to a temporary directory unless the phase names one.
 
 Prints a ``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
 card's name and power limit, a ``{"obs": {...}}`` line (phase 8), a
-``{"front": {...}}`` line (phase 9), one ``{"kernels": [...]}`` line
+``{"front": {...}}`` line (phase 9), a ``{"p2p": {...}}`` line (phase
+10), one ``{"kernels": [...]}`` line
 (dfs_solver, dfs_segment_kernel, segment_digest_kernel, each with its
 launches on every path), and last ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is available.
@@ -165,6 +198,7 @@ import argparse
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2569,6 +2603,416 @@ def phase_front(cs, SolverEngine, build_parser, build_node, make_http_server, or
     return front
 
 
+# -- phase 10: the P2P cluster on one card ------------------------------------
+
+P2P_NODES = 4
+P2P_FAILURE_TIMEOUT_S = 2.0  # --failure-timeout of every phase-10 node
+GOSSIP_INTERVAL_S = 1.0      # the node's stats gossip period (net/node.py)
+
+# What each phase-10 process runs: the port's CLI, with the kernel
+# wrappers' launch counts set to 0 before it starts and SIGUSR1 writing
+# them (and a sequence number) to the file CHIP_SMOKE_COUNTS names.
+_P2P_BOOT = r"""
+import json, os, signal, sys
+from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs
+from sudoku_solver_distributed_tpu_torch.net import cli
+path = os.environ["CHIP_SMOKE_COUNTS"]
+seq = [0]
+def dump(*_):
+    seq[0] += 1
+    with open(path + ".tmp", "w") as f:
+        json.dump({"seq": seq[0], "dfs_solver": cs.dfs_solver.launches,
+                   "dfs_segment": cs.dfs_segment.launches}, f)
+    os.replace(path + ".tmp", path)
+cs.dfs_solver.launches = 0
+cs.dfs_segment.launches = 0
+signal.signal(signal.SIGUSR1, dump)
+cli.main(sys.argv[1:])
+"""
+
+
+def _free_udp_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _ProcNode:
+    """One node of the port's CLI in a process of its own (its own CUDA
+    context and engine), in its default configuration plus ``--metrics``,
+    ``-h 0`` and the phase's ``--failure-timeout``; ``anchor`` is its
+    ``-a``. Its log and flight records go to ``tmp``. ``-h 0``: the
+    reference's handicap throttle (each farmed task past 5 in 10 s sleeps
+    ``h / 100 × (n − 4)`` s on the worker) would otherwise be what the
+    farm's timings measure: with ``-h 1``, 20 farmed corpus misses took
+    3.8–7.0 s each on the H100."""
+
+    def __init__(self, k: int, tmp: str, anchor=None):
+        self.k = k
+        http_port, udp_port = _free_port(), _free_udp_port()
+        self.id = f"127.0.0.1:{udp_port}"
+        self.base = f"http://127.0.0.1:{http_port}"
+        self.counts_path = os.path.join(tmp, f"counts{k}.json")
+        self.seq = 0
+        argv = ["-p", str(http_port), "-s", str(udp_port), "-h", "0",
+                "--metrics", "--failure-timeout", str(P2P_FAILURE_TIMEOUT_S),
+                "--flightrecord-dir", tmp]
+        if anchor is not None:
+            argv += ["-a", anchor]
+        self.log_path = os.path.join(tmp, f"node{k}.log")
+        self.log = open(self.log_path, "wb")
+        env = dict(os.environ, CHIP_SMOKE_COUNTS=self.counts_path,
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _P2P_BOOT, *argv], cwd=ROOT, env=env,
+            stdout=self.log, stderr=subprocess.STDOUT,
+        )
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def get(self, path: str):
+        """(status, body bytes, headers), or None while nothing listens."""
+        try:
+            return _http(self.base, path)
+        except (urllib.error.URLError, ConnectionError, OSError):
+            return None
+
+    def json(self, path: str):
+        r = self.get(path)
+        check(r is not None and r[0] == 200,
+              f"node {self.k} {path}: {r and r[0]}")
+        return json.loads(r[1])
+
+    def solve(self, board):
+        return _http(self.base, "/solve", json.dumps({"sudoku": board}).encode())
+
+    def network(self) -> set:
+        view = self.json("/network")
+        return set(view) | {p for v in view.values() for p in v}
+
+    def counts(self) -> dict:
+        """The wrappers' launch counts in this process, read through
+        SIGUSR1 and the counts file."""
+        self.seq += 1
+        self.proc.send_signal(signal.SIGUSR1)
+
+        def fresh():
+            try:
+                with open(self.counts_path) as f:
+                    return json.load(f).get("seq") == self.seq
+            except (OSError, ValueError):
+                return False
+
+        _wait(fresh, 15.0, f"node {self.k}'s launch counts")
+        with open(self.counts_path) as f:
+            return json.load(f)
+
+    def tail(self, n: int = 3000) -> str:
+        try:
+            with open(self.log_path, "rb") as f:
+                return f.read()[-n:].decode(errors="replace")
+        except OSError:
+            return ""
+
+    def stop(self, timeout_s: float = 30.0) -> None:
+        """SIGINT (the CLI's graceful departure), then SIGKILL past
+        ``timeout_s``."""
+        if self.alive():
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self.log.close()
+
+
+def _metric(body: dict, *path, default=0):
+    for key in path:
+        if not isinstance(body, dict) or key not in body:
+            return default
+        body = body[key]
+    return body
+
+
+def phase_p2p(oracle_ok, random_symmetry, count_solutions, SolverEngine,
+              single_node_p50: dict):
+    """Phase 10 (see the module docstring) in a temporary directory that
+    holds the nodes' logs, flight records and launch-count files."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p2p_") as tmp:
+        nodes = []
+        try:
+            return _phase_p2p(nodes, tmp, oracle_ok, random_symmetry,
+                              count_solutions, SolverEngine, single_node_p50)
+        except BaseException:
+            for n in nodes:
+                log(f"--- phase 10 node {n.k} log tail ---\n{n.tail()}")
+            raise
+        finally:
+            for n in nodes:
+                n.stop()
+
+
+def _phase_p2p(nodes, tmp, oracle_ok, random_symmetry, count_solutions,
+               SolverEngine, single_node_p50):
+    import numpy as np
+
+    out = {"nodes": P2P_NODES, "failure_timeout_s": P2P_FAILURE_TIMEOUT_S}
+    corpus = load_corpus("corpus_9x9_hard_4096.npz")
+    timed = [corpus[300 + i].tolist() for i in range(20)]
+    crash_board = corpus[320].tolist()
+    gossip_board = corpus[330].tolist()
+    # the single-node answers: an in-process engine on the card
+    single = SolverEngine(buckets=(1, 8))
+    try:
+        single.warmup()
+        want = {}
+        for b in [README_PUZZLE, *timed, crash_board, gossip_board]:
+            sol, _ = single.solve_one(b)
+            _check_answer(b, sol, oracle_ok, "the single-node answer")
+            want[json.dumps(b)] = sol
+    finally:
+        single.close()
+    for b in [*timed, crash_board, gossip_board]:
+        check(count_solutions(b) == 1, "a phase-10 corpus board is not unique")
+
+    t0 = time.perf_counter()
+    nodes.append(_ProcNode(0, tmp))
+    for k in range(1, P2P_NODES):
+        nodes.append(_ProcNode(k, tmp, anchor=nodes[0].id))
+    ids = {n.id for n in nodes}
+
+    def converged():
+        time.sleep(0.2)
+        for n in nodes:
+            check(n.alive(), f"node {n.k} exited: {n.proc.returncode}")
+            r = n.get("/readyz")
+            if r is None or r[0] != 200:
+                return False
+            if not _metric(n.json("/metrics"), "engine", "fully_warmed"):
+                return False
+            if n.network() != ids:
+                return False
+        return True
+
+    out["converged_s"] = _wait(converged, 240.0,
+                               "the 4 nodes to converge through -a and warm")
+    log(f"phase 10: {P2P_NODES} CLI processes joined through -a, ready and "
+        f"fully warm in {time.perf_counter() - t0:.2f} s")
+    warm_counts = [n.counts() for n in nodes]
+    metrics0 = [n.json("/metrics") for n in nodes]
+    master, workers = nodes[3], nodes[:3]
+
+    # (a) the README board on a non-anchor node, on a miss: farmed
+    stats0 = master.json("/stats")["all"]
+    t1 = time.perf_counter()
+    status, body, headers = master.solve(README_PUZZLE)
+    out["readme_farm_ms"] = (time.perf_counter() - t1) * 1e3
+    check(status == 200 and headers.get("X-Cache") is None
+          and headers.get("X-Degraded") is None,
+          f"the farmed README /solve answered {status} {dict(headers)}")
+    answer = json.loads(body)
+    _check_answer(README_PUZZLE, answer, oracle_ok, "the farmed README answer")
+    # the README board has many solutions: which one a farm merges depends
+    # on the order its cells' answers arrive (the JAX cluster's farm
+    # merges the same way); the corpus boards below have one
+    out["readme_equals_single_node"] = answer == want[json.dumps(README_PUZZLE)]
+    stats1 = master.json("/stats")["all"]
+    check(stats1["solved"] == stats0["solved"] + 1,
+          f"/stats solved went {stats0['solved']} -> {stats1['solved']}")
+    metrics1 = [n.json("/metrics") for n in nodes]
+    seg = [(_metric(m1, "engine", "cost", "continuous", "segments")
+            - _metric(m0, "engine", "cost", "continuous", "segments"))
+           for m0, m1 in zip(metrics0, metrics1)]
+    out["readme_segments_by_node"] = seg
+    check(all(s > 0 for s in seg[:3]),
+          f"a worker ran no segment kernel for the farm: {seg}")
+    farm = _metric(metrics1[3], "engine", "cost", "farm", default={})
+    holes = sum(v == 0 for row in README_PUZZLE for v in row)
+    out["readme_dispatches"] = farm.get("dispatches", 0)
+    check(out["readme_dispatches"] > 0, f"the README farm dispatched {farm}")
+    # fewer dispatches than empty cells: cells merged from different
+    # solutions left a board a worker proved unsolvable, and the master's
+    # engine answered the original board (the farm's authoritative
+    # fallback, as on the JAX node)
+    out["readme_fell_back"] = out["readme_dispatches"] < holes
+    log(f"phase 10 (a): README on node 3 farmed in {out['readme_farm_ms']:.1f} ms, "
+        f"{out['readme_dispatches']} dispatches for {holes} empty cells "
+        f"(engine fallback: {out['readme_fell_back']}), segments per node "
+        f"{seg}, equal to the single-node answer: "
+        f"{out['readme_equals_single_node']}")
+
+    # (b) 20 farmed corpus boards, each a miss, timed on the host clock
+    lat = []
+    for b in timed:
+        t1 = time.perf_counter()
+        status, body, headers = master.solve(b)
+        lat.append((time.perf_counter() - t1) * 1e3)
+        check(status == 200 and headers.get("X-Cache") is None,
+              f"a farmed corpus /solve answered {status}")
+        check(json.loads(body) == want[json.dumps(b)],
+              "a farmed corpus answer differs from the single-node answer")
+    lat.sort()
+    out["farm_ms"] = {"p50": lat[10], "min": lat[0], "max": lat[-1]}
+    out["single_node_miss_p50_ms"] = single_node_p50
+    metrics2 = [n.json("/metrics") for n in nodes]
+    farm2 = _metric(metrics2[3], "engine", "cost", "farm", default={})
+    dispatched = farm2.get("dispatches", 0) - out["readme_dispatches"]
+    corpus_holes = sum(v == 0 for b in timed for row in b for v in row)
+    # one solution each: every answer merges, so every empty cell is
+    # dispatched at least once (more with requeues)
+    check(dispatched >= corpus_holes,
+          f"{dispatched} dispatches for {corpus_holes} empty cells")
+    out["dispatches_per_corpus_request"] = dispatched / len(timed)
+    out["corpus_requeues"] = dispatched - corpus_holes
+    log(f"phase 10 (b): 20 farmed corpus /solve misses on node 3 (host clock): "
+        f"p50 {lat[10]:.3f} ms, min {lat[0]:.3f} ms, max {lat[-1]:.3f} ms; "
+        f"single-node misses (phases 6/6b): {single_node_p50}; "
+        f"{out['dispatches_per_corpus_request']:.1f} dispatches per request")
+
+    # (c) cache gossip: node 1 solves a board, and a node linked to it
+    # (node 2 when it is; hot sets ride the stats gossip, which goes to
+    # direct links only, as on the JAX node) answers the board's twin
+    # from node 1's cache
+    status, body, _ = nodes[1].solve(gossip_board)
+    check(status == 200 and json.loads(body) == want[json.dumps(gossip_board)],
+          "node 1's gossip board")
+    # the view maps each dialed node to its dialers: node 1's links are
+    # its dialers and the nodes it dialed
+    view = nodes[1].json("/network")
+    links = set(view.get(nodes[1].id, [])) | {
+        k for k, dialers in view.items() if nodes[1].id in dialers}
+    fetcher = nodes[2] if nodes[2].id in links else next(
+        n for n in nodes if n.id in links)
+    out["peer_fetch_node"] = fetcher.k
+    time.sleep(2 * GOSSIP_INTERVAL_S + 0.5)  # node 1's next hot-set digest
+    twin = random_symmetry(np.asarray(gossip_board), np.random.default_rng(SYMMETRY_SEED))
+    c0 = _metric(fetcher.json("/metrics"), "engine", "cost", "cache", default={})
+    s0 = _metric(nodes[1].json("/metrics"), "engine", "cost", "cache",
+                 "gossip", "peer_serves")
+    status, body, headers = fetcher.solve(twin)
+    check(status == 200 and headers.get("X-Cache") == "hit",
+          f"node {fetcher.k}'s twin was not a peer-fetched hit: {status} "
+          f"{dict(headers)}")
+    _check_answer(twin, json.loads(body), oracle_ok, "the peer-fetched twin")
+    c1 = _metric(fetcher.json("/metrics"), "engine", "cost", "cache", default={})
+    s1 = _metric(nodes[1].json("/metrics"), "engine", "cost", "cache",
+                 "gossip", "peer_serves")
+    out["peer_fetch"] = {k: c1.get(k, 0) - c0.get(k, 0)
+                         for k in ("hits", "misses", "peer_fetches", "peer_answers")}
+    out["peer_fetch"]["peer_serves"] = s1 - s0
+    check(out["peer_fetch"]["peer_fetches"] >= 1
+          and out["peer_fetch"]["peer_answers"] >= 1
+          and out["peer_fetch"]["hits"] == 1 and s1 > s0,
+          f"the twin was not answered through the peer fetch: {out['peer_fetch']}")
+    log(f"phase 10 (c): the twin on node {fetcher.k} answered from node 1's "
+        f"cache: {out['peer_fetch']}")
+
+    # (d) the cluster view lists every live node, in both spellings
+    view = nodes[0].json("/metrics/cluster")
+    listed = {view["self"]["id"], *view["peers"]}
+    check(listed == ids, f"/metrics/cluster lists {sorted(listed)}")
+    r1 = nodes[0].get("/metrics/cluster.prom")
+    r2 = nodes[0].get("/metrics/cluster?format=prom")
+    check(r1 is not None and r2 is not None and r1[0] == r2[0] == 200
+          and b"sudoku_cluster_fleet_nodes" in r1[1],
+          "the cluster view's Prometheus spellings")
+    out["cluster_fleet"] = view["fleet"]
+
+    # the launch counts of the path: from each process's start (warm-up
+    # included) to here, and the farm's share after the warm-up
+    end_counts = [n.counts() for n in nodes]
+    out["launches"] = {
+        k: sum(c[k] for c in end_counts) for k in ("dfs_solver", "dfs_segment")}
+    out["launches_farm"] = {
+        k: sum(c[k] - w[k] for c, w in zip(end_counts, warm_counts))
+        for k in ("dfs_solver", "dfs_segment")}
+    out["launches_by_node"] = end_counts
+    check(out["launches"]["dfs_solver"] > 0 and out["launches"]["dfs_segment"] > 0,
+          f"a kernel of the P2P path was never launched: {out['launches']}")
+    ap = [n.json("/metrics").get("autopilot", {}) for n in nodes]
+    out["autopilot"] = {
+        "hedges": sum(_metric(a, "hedge", "fired") for a in ap),
+        "late_dups": sum(_metric(a, "hedge", "late_dups") for a in ap),
+        "hedge_tasks_received": sum(_metric(a, "hedge", "tasks_received")
+                                    for a in ap),
+    }
+    log(f"phase 10 (d): /metrics/cluster lists all {len(listed)} nodes; "
+        f"launches from start {out['launches']}, in the farm window "
+        f"{out['launches_farm']}; autopilot {out['autopilot']}")
+
+    # (e) SIGKILL a worker while a farm is in flight
+    victim = nodes[2]
+    result = {}
+
+    def farm_crash_board():
+        result["r"] = master.solve(crash_board)
+
+    survivors = [n for n in nodes if n is not victim]
+
+    def dropped():
+        time.sleep(0.02)
+        return all(victim.id not in n.network() for n in survivors)
+
+    def watch_views():
+        _wait(dropped, 30.0, "the survivors to drop the killed node")
+        result["detect_s"] = time.perf_counter() - t_kill
+
+    th = threading.Thread(target=farm_crash_board)
+    th.start()
+    time.sleep(0.05)
+    victim.proc.kill()
+    t_kill = time.perf_counter()
+    watcher = threading.Thread(target=watch_views)
+    watcher.start()
+    th.join(timeout=120)
+    check("r" in result, "the farm across the crash never answered")
+    out["crash_request_s"] = time.perf_counter() - t_kill
+    status, body, _ = result["r"]
+    check(status == 200 and json.loads(body) == want[json.dumps(crash_board)],
+          f"the farm across the crash answered {status}")
+    watcher.join(timeout=60)
+    check("detect_s" in result, "the survivors never dropped the killed node")
+    out["crash_detect_s"] = result["detect_s"]
+    # the killed worker's cell reaches a survivor by a hedge (the autopilot
+    # duplicates a cell straggling past the farm's measured p99), by the
+    # crash detector's requeue or by the task deadline's, whichever first
+    ap = [n.json("/metrics").get("autopilot", {}) for n in survivors]
+    out["crash_hedges_total"] = sum(_metric(a, "hedge", "fired") for a in ap)
+    log(f"phase 10 (e): SIGKILL of node 2 mid-farm: the request answered "
+        f"correctly {out['crash_request_s']:.2f} s after the kill; the survivors "
+        f"dropped it {out['crash_detect_s']:.2f} s after the kill (failure "
+        f"timeout {P2P_FAILURE_TIMEOUT_S} s + gossip period {GOSSIP_INTERVAL_S} s); "
+        f"hedges fired by the survivors so far: {out['crash_hedges_total']}")
+    check(out["crash_detect_s"] <= P2P_FAILURE_TIMEOUT_S + GOSSIP_INTERVAL_S,
+          f"the crash took {out['crash_detect_s']:.2f} s to detect")
+
+    # (f) a graceful departure prunes at once
+    leaver = nodes[1]
+    t1 = time.perf_counter()
+    leaver.proc.send_signal(signal.SIGINT)
+    stay = [n for n in survivors if n is not leaver]
+    def departed():
+        time.sleep(0.01)
+        return all(leaver.id not in n.network() for n in stay)
+
+    _wait(departed, 30.0, "the survivors to drop the departed node")
+    out["depart_prune_s"] = time.perf_counter() - t1
+    check(out["depart_prune_s"] < P2P_FAILURE_TIMEOUT_S,
+          f"the departure took {out['depart_prune_s']:.2f} s to prune: the "
+          "crash detector, not its disconnect")
+    leaver.proc.wait(timeout=60)
+    log(f"phase 10 (f): node 1's graceful departure pruned in "
+        f"{out['depart_prune_s']:.3f} s; it exited {leaver.proc.returncode}")
+    for n in stay:
+        check(n.alive(), f"node {n.k} died")
+    return out
+
+
 def card_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2626,6 +3070,7 @@ def main(argv=None) -> int:
     from sudoku_solver_distributed_tpu_torch.cache.canonical import random_symmetry
     from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
     from sudoku_solver_distributed_tpu_torch.models import oracle_is_valid_solution
+    from sudoku_solver_distributed_tpu_torch.models.oracle import count_solutions
     from sudoku_solver_distributed_tpu_torch.net.cli import build_node, build_parser
     from sudoku_solver_distributed_tpu_torch.net.http_api import make_http_server
     from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs
@@ -2638,6 +3083,7 @@ def main(argv=None) -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
     )
+    log(f"card: {card_name_and_power_limit()}")
     t0 = time.perf_counter()
     cs.load_library()
     log(f"build: dfs_solver library built and loaded in {time.perf_counter() - t0:.2f} s")
@@ -2702,6 +3148,12 @@ def main(argv=None) -> int:
     surface = phase_front(cs, SolverEngine, build_parser, build_node,
                           make_http_server, oracle_is_valid_solution, args.seed)
     _mark("phase_front")
+    p2p = phase_p2p(oracle_is_valid_solution, random_symmetry, count_solutions,
+                    SolverEngine, {
+                        "readme_no_answer_cache": main_path["p50_continuous"],
+                        "corpus": front["corpus_miss_p50_ms"],
+                    })
+    _mark("phase_p2p")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; seconds by phase {marks}")
     print(json.dumps({"cache_supervision": {
@@ -2723,6 +3175,7 @@ def main(argv=None) -> int:
     log(card)
     print(json.dumps({"obs": dict(obs, card=card)}), flush=True)
     print(json.dumps({"front": dict(surface, card=card)}), flush=True)
+    print(json.dumps({"p2p": dict(p2p, card=card)}), flush=True)
     new_paths = {f"launches_{path}": counts
                  for path, counts in surface["launches"].items()}
     serving, singles = timing["serving"], timing["singles"]
@@ -2754,6 +3207,10 @@ def main(argv=None) -> int:
         "launches_obs_path": obs["solver_launches"],
         # phase 9's paths: /solve_batch, and nodes at 16x16, 25x25, 4x4
         **{k: v["dfs_solver"] for k, v in new_paths.items()},
+        # phase 10's 4 node processes, from their start (warm-up included)
+        # to the cluster view, summed; and the farm's share after warm-up
+        "launches_p2p_path": p2p["launches"]["dfs_solver"],
+        "launches_p2p_farm": p2p["launches_farm"]["dfs_solver"],
         "launches_per_readme_solve": main_path["per_readme_closed"],
         "mismatches": mismatches + timing["mismatches"],
         "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
@@ -2797,6 +3254,8 @@ def main(argv=None) -> int:
             "launches_supervised_path": front["segment_launches_supervised"],
             "launches_obs_path": obs["segment_launches"],
             **{k: v["dfs_segment"] for k, v in new_paths.items()},
+            "launches_p2p_path": p2p["launches"]["dfs_segment"],
+            "launches_p2p_farm": p2p["launches_farm"]["dfs_segment"],
             "mismatches": seg_bad + seg_timing["mismatches"],
             "max_abs_err": max(seg_err, seg_timing["max_abs_err"]),
             # one segment (k = 8) over a 4096-lane pool, every lane

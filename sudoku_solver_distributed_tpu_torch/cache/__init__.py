@@ -11,20 +11,23 @@ symmetries — without touching the device:
                 gated on host-side rule verification (verified answers
                 only), hits are de-canonicalized through the inverse
                 transform and rule-checked before serving
+  gossip.py     fleet convergence: top-K hot-set digests riding the stats
+                heartbeat plus the cache_get/cache_answer UDP pair, so a
+                local miss on a peer-advertised hot key fetches the
+                answer instead of dispatching
 
 Copies of the JAX package's modules of the same names, with equal keys.
-Not here yet: ``gossip.py`` (``CacheGossip``, ``PeerHotset`` — the hot-set
-digest on the stats heartbeat and the ``cache_get``/``cache_answer`` UDP
-pair). It needs the peer map and the UDP event loop, which come with the
-P2P slice; until then a node's cache answers only what it solved itself.
 """
 
 from .canonical import CanonicalForm, Transform, canonicalize
+from .gossip import CacheGossip, PeerHotset
 from .store import AnswerCache
 
 __all__ = [
     "AnswerCache",
+    "CacheGossip",
     "CanonicalForm",
+    "PeerHotset",
     "Transform",
     "canonicalize",
 ]

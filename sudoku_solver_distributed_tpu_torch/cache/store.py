@@ -1,9 +1,8 @@
 """Verified canonical-form answer store: sharded, bounded, poison-proof.
 
-A copy of ``sudoku_solver_distributed_tpu/cache/store.py``. The gossip
-surface (``get_canonical``, ``store_canonical``, ``hot_set`` and the peer
-counters) is here too, so the store is whole when cache gossip is ported;
-until then nothing on this package's serving path calls it.
+A copy of ``sudoku_solver_distributed_tpu/cache/store.py``, with the
+gossip surface (``get_canonical``, ``store_canonical``, ``hot_set`` and the
+peer counters) that cache/gossip.py calls.
 
 The LRU behind the front door (net/http_api.py). Entries are keyed by
 the canonical hash (cache/canonical.py) and hold the CANONICAL board +

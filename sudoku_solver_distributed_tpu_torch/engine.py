@@ -128,13 +128,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class SolveStarved(RuntimeError):
+    """A supervised solve's future outlived its bound (``_await_result``):
+    a hung device call ahead of it in the coalescer. A device fault."""
+
+
 def device_fault(exc: BaseException) -> bool:
     """Whether ``exc`` is a fault of a device call, which a supervised
-    batch answers from the host fallback: an injected fault, a kernel
-    launch's CUDA error, or a CUDA error that torch raised (out of memory
-    included). A kernel library that fails to build or load, and any other
-    error, is not one: it fails the request."""
-    if isinstance(exc, (InjectedEngineFault, KernelLaunchError,
+    solve or batch answers from the host fallback: an injected fault, a
+    kernel launch's CUDA error, a CUDA error that torch raised (out of
+    memory included), or a solve starved behind a hung device call. A
+    kernel library that fails to build or load, and any other error, is
+    not one: it fails the request."""
+    if isinstance(exc, (InjectedEngineFault, KernelLaunchError, SolveStarved,
                         torch.cuda.OutOfMemoryError)):
         return True
     accel = getattr(torch, "AcceleratorError", None)
@@ -350,6 +356,9 @@ class SolverEngine:
         # (utils/faults.EngineFaultInjector); None costs nothing
         self.supervisor = None
         self.fault_injector = None
+        # the frontier race is not in this package: the P2P task farm reads
+        # this as the JAX node does, and always farms
+        self.frontier_enabled = False
         # device cost accounting (obs/cost.py): one sample per finalized
         # bucket call and per segment, never per request — the /metrics
         # "engine.cost" block
@@ -1470,7 +1479,7 @@ class SolverEngine:
             return fut.result(timeout=timeout)
         except FuturesTimeout:
             fut.cancel()
-            raise RuntimeError(
+            raise SolveStarved(
                 f"supervised solve starved past {timeout:.1f}s "
                 "(hung device call ahead of it?)"
             ) from None
@@ -1485,14 +1494,24 @@ class SolverEngine:
         the breaker); and every device answer is verified host-side so a
         poisoned kernel can never emit a silent wrong answer — a corrupted
         grid OR a false UNSAT claim. ``DeadlineExceeded`` always
-        propagates: a shed request stays shed."""
+        propagates: a shed request stays shed.
+
+        Only a device fault (``device_fault``: an injected fault, a launch's
+        CUDA error, a CUDA error or out-of-memory raised by torch, a solve
+        starved behind a hung device call) falls back. Any other error (a
+        kernel library that does not build or load, a programming error)
+        fails the request. This departs from the JAX engine, whose seam
+        falls back on any exception: here a fallback must never hide the
+        kernel."""
         if sup.should_fallback():
             return sup.fallback_solve(arr, deadline_s=deadline_s)
         try:
             solution, info = call()
         except DeadlineExceeded:
             raise
-        except Exception:
+        except Exception as exc:
+            if not device_fault(exc):
+                raise
             logger.exception(
                 "device path failed — answering from the host-oracle "
                 "fallback"
@@ -1540,7 +1559,7 @@ class SolverEngine:
 
         Without a supervisor this is exactly that await. With one, the
         ``_supervised_answer`` contract applies (open breaker → bounded
-        host-oracle fallback; a device failure OR a starved future — a
+        host-oracle fallback; a device fault OR a starved future — a
         hung segment ahead of this request — falls back instead of
         erroring or pinning the handler thread; answers are verified
         host-side). ``DeadlineExceeded`` always propagates (the 429 path),

@@ -5,8 +5,7 @@
 The reference's flags, with the same meanings and defaults:
   -p  HTTP port (default 8001)
   -s  P2P/UDP port (default 7000)
-  -a  anchor node "host:port" — joining a network comes with the P2P slice;
-      this port exits with a message when it is given
+  -a  anchor node "host:port" to join through
   -h  handicap in ms, divided by 100 into base_delay seconds (the
       reference's conversion); -h means handicap, not help, as in the
       reference
@@ -108,6 +107,21 @@ Extensions:
                 bucket calls (default 4) each write a Chrome/TensorBoard
                 trace into the dir; the state rides /metrics engine.warm
   --profile-dir trace every bucket call with torch.profiler into the dir
+  --failure-timeout
+                declare a silent neighbor dead after this many seconds
+                (default 5; 0 = only a graceful disconnect prunes a peer)
+  --cache-fetch-timeout-ms
+                how long a miss on a key a peer advertises waits for that
+                peer's verified answer before it reaches the engine
+                (cache/gossip.py; default 250; 0 = no peer fetch)
+  --no-autopilot / --no-autopilot-admission / --no-autopilot-farm /
+  --no-autopilot-hedge / --no-autopilot-join / --hedge-budget-pct
+                the fleet autopilot (serving/autopilot.py; on by default):
+                burn-aware admission, telemetry-ranked farm dispatch,
+                hedged dispatch of straggling cells (at most
+                --hedge-budget-pct, default 25, of primary dispatches) and
+                a join deferred until /readyz would pass; the first flag
+                turns all four off, the others one each
 """
 
 from __future__ import annotations
@@ -121,11 +135,14 @@ import threading
 import time
 
 from ..cache import AnswerCache
+from ..cache.gossip import CacheGossip
 from ..engine import SolverEngine
 from ..obs import FlightRecorder, Tracer
+from ..obs.cluster import TelemetryPublisher
 from ..obs.slo import DEFAULT_WINDOWS_S, SloEngine, parse_slo
 from ..ops.spec import spec_for_size
 from ..serving.admission import AdmissionController
+from ..serving.autopilot import Autopilot
 from ..serving.health import EngineSupervisor
 from ..utils.faults import EngineFaultInjector
 from ..utils.profiling import RequestMetrics
@@ -296,6 +313,14 @@ def build_parser() -> argparse.ArgumentParser:
         "puzzle's whole symmetry orbit); per-shard LRU eviction past it",
     )
     parser.add_argument(
+        "--cache-fetch-timeout-ms",
+        type=float,
+        default=250.0,
+        help="how long a local cache miss on a peer-advertised hot key "
+        "waits for the peer's cache_answer before dispatching normally "
+        "(cache/gossip.py); 0 disables peer fetching",
+    )
+    parser.add_argument(
         "--supervise-engine",
         action="store_true",
         help="failure-domain supervision for the engine/device plane "
@@ -389,6 +414,50 @@ def build_parser() -> argparse.ArgumentParser:
         "sustainable budget-spend rate (default 14.4)",
     )
     parser.add_argument(
+        "--no-autopilot",
+        action="store_true",
+        help="disable the fleet autopilot (serving/autopilot.py): no "
+        "burn-aware admission tightening, no telemetry-weighted farm "
+        "ranking, no hedged dispatch, no join deferral. On by default: "
+        "the loops do nothing when their inputs (SLO engine, admission, "
+        "telemetry) are absent",
+    )
+    parser.add_argument(
+        "--no-autopilot-admission",
+        action="store_true",
+        help="disable only the burn-aware admission loop (an SLO "
+        "fast-burn edge tightening the projected-wait shed budget, "
+        "relaxing with hysteresis on recovery)",
+    )
+    parser.add_argument(
+        "--no-autopilot-farm",
+        action="store_true",
+        help="disable only telemetry-weighted farm ranking (masters farm "
+        "in sorted peer order; LOST peers are skipped either way)",
+    )
+    parser.add_argument(
+        "--no-autopilot-hedge",
+        action="store_true",
+        help="disable only hedged dispatch (a farm cell straggling past "
+        "the measured farm-task p99 is no longer duplicated to an idle "
+        "peer)",
+    )
+    parser.add_argument(
+        "--no-autopilot-join",
+        action="store_true",
+        help="disable only elastic membership (the joiner dials its "
+        "anchor at once instead of deferring until /readyz would pass, "
+        "and skips the hot-set cache prewarm)",
+    )
+    parser.add_argument(
+        "--hedge-budget-pct",
+        type=float,
+        default=25.0,
+        help="with the autopilot's hedge loop: lifetime hedge dispatches "
+        "stay under this percentage of primary dispatches (floor: one "
+        "outstanding hedge)",
+    )
+    parser.add_argument(
         "--flightrecord-dir",
         default=os.environ.get("SUDOKU_FLIGHTRECORD_DIR") or "flightrecords",
         help="directory flight-recorder dumps are written to (breaker "
@@ -413,6 +482,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--profile-dir",
         default=None,
         help="trace every bucket call with torch.profiler into this dir",
+    )
+    parser.add_argument(
+        "--failure-timeout",
+        type=float,
+        default=5.0,
+        help="declare a silent neighbor dead after this many seconds (0=off)",
     )
     return parser
 
@@ -456,10 +531,17 @@ def build_obs(args: argparse.Namespace):
 
 def build_node(args: argparse.Namespace):
     """Construct the engine, the node and its HTTP server from parsed CLI
-    arguments, and start the engine's tiered warm-up (unless --no-warmup)
-    and the GC freeze after it, each in a daemon thread. Returns (node,
-    httpd), the server bound; the caller starts ``httpd.serve_forever``
-    and ``node.run``. ``/readyz`` answers 503 until tier 0 is warm."""
+    arguments, and start the engine's tiered warm-up (unless --no-warmup),
+    the GC freeze after it and the autopilot (unless --no-autopilot), each
+    in a daemon thread. Returns (node, httpd), the server bound; the
+    caller starts ``httpd.serve_forever`` and ``node.run`` (which joins
+    the anchor given by -a) and closes ``node.autopilot`` at the end.
+    ``/readyz`` answers 503 until tier 0 is warm.
+
+    By default a node gossips what a default JAX node gossips: the answer
+    cache's hot set (``cache_gossip``, with the peer fetch), the telemetry
+    digest (``telemetry``, with the observability plane) and runs the
+    autopilot."""
     kwargs = {
         "spec": spec_for_size(args.board_size),
         "device": "cuda" if args.platform == "gpu" else "cpu",
@@ -513,7 +595,8 @@ def build_node(args: argparse.Namespace):
             # dump the black box
             flight.attach_supervisor(supervisor)
     node = P2PNode(
-        args.host, args.s, handicap=args.h / 100, engine=engine,
+        args.host, args.s, anchor_node=args.a, handicap=args.h / 100,
+        engine=engine, failure_timeout=args.failure_timeout,
         admission=admission,
         # one recording machinery: with tracing on, the node's per-route
         # recorder IS the tracer's
@@ -527,9 +610,37 @@ def build_node(args: argparse.Namespace):
         node.answer_cache = AnswerCache(
             capacity=max(1, args.answer_cache_capacity)
         )
+        # hot-set gossip on the stats heartbeat and the peer fetch of
+        # advertised keys
+        node.cache_gossip = CacheGossip(
+            node.answer_cache,
+            node,
+            fetch_timeout_s=max(0.0, args.cache_fetch_timeout_ms) / 1e3,
+        )
+    if tracer is not None:
+        # this node's telemetry digest rides every stats heartbeat
+        # (rebuilt at most once a second), so any peer can render GET
+        # /metrics/cluster
+        node.telemetry = TelemetryPublisher(node)
     if args.chaos_injector:
         engine.fault_injector = EngineFaultInjector()
         node.chaos_routes = True
+    if not args.no_autopilot:
+        # each loop does nothing when its inputs are absent (no SLO engine:
+        # no tightening; no telemetry: neutral ranking). The join loop
+        # waits for the warm-up, so a --no-warmup node, which never flips
+        # warm, does not defer its join
+        node.autopilot = Autopilot(
+            node,
+            admission=admission,
+            slo=slo,
+            admission_loop=not args.no_autopilot_admission,
+            farm_loop=not args.no_autopilot_farm,
+            hedge_loop=not args.no_autopilot_hedge,
+            join_loop=not args.no_autopilot_join and not args.no_warmup,
+            hedge_budget_frac=max(0.0, args.hedge_budget_pct) / 100.0,
+        )
+        node.autopilot.start()
     if not args.no_warmup:
         # tiered: the thread flips `warmed` (and /readyz) once tier 0 ran,
         # then widens the ladder, bounded by --warmup-budget-s when set
@@ -573,12 +684,6 @@ def _freeze_after_warmup(engine, warming: bool) -> None:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.a:
-        parser.exit(
-            2,
-            "joining a network (-a) is not ported yet: it comes with the "
-            "P2P slice; start a single node without -a\n",
-        )
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s - %(levelname)s - %(message)s"
     )
@@ -604,6 +709,8 @@ def main(argv=None) -> None:
     finally:
         httpd.shutdown()
         httpd.server_close()
+        if node.autopilot is not None:
+            node.autopilot.close()
         node.engine.close()  # drain the coalescer (in-flight futures resolve)
 
 

@@ -30,11 +30,6 @@ handler's contract.
 ``shutdown`` returns ``serve_forever`` at once: it shuts the listening
 socket down before closing it, which the JAX copy does not (there a
 thread blocked in ``accept`` returns only at the next connection).
-
-One route of the JAX transport is not here: ``/metrics/cluster`` and its
-Prometheus spellings need the fleet view (obs/cluster.py), which comes
-with the P2P slice; until then they answer the 404 every unknown path
-gets.
 """
 
 from __future__ import annotations
@@ -443,6 +438,17 @@ class FastHTTPServer:
                 # the bytes match the stock transport's exactly
                 return (
                     200, http_api.metrics_prom_payload(node), False,
+                    False, False,
+                )
+            if path == http_api.CLUSTER_PATH and self.expose_metrics:
+                # the gossip-aggregated fleet view (obs/cluster.py)
+                return (
+                    200, http_api.cluster_payload(node), False, False,
+                    False,
+                )
+            if path in http_api.CLUSTER_PROM_PATHS and self.expose_metrics:
+                return (
+                    200, http_api.cluster_prom_payload(node), False,
                     False, False,
                 )
             if (

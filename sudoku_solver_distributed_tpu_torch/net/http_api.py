@@ -18,6 +18,10 @@ node.py:661-704):
                503 → {"error": "Degraded: fallback budget exceeded"} when a
                       supervised node's host-oracle fallback ran past its
                       budget (serving/health.py)
+               500 → {"error": "Internal error"} when the solve raised an
+                      error that is not a device fault (engine.device_fault:
+                      e.g. a kernel library that does not build or load).
+                      The JAX node drops the connection there
   POST /solve_batch 200 → {"solutions": [grid | null, ...], "solved": n,
                "capped": n[, "degraded": [bool, ...]]} for {"sudokus":
                [grid, ...]} (1..MAX_BATCH boards, at most MAX_BATCH_BYTES);
@@ -58,8 +62,14 @@ verified is served from the cache with an ``X-Cache: hit`` header and
 counts nothing in /stats. An answer from the supervisor's oracle fallback
 carries ``X-Degraded: true``. Bodies stay byte-identical either way.
 
-Not in this slice: cache gossip (peer fetch) and ``/metrics/cluster``
-(both come with the P2P slice; the cluster paths answer 404).
+With cache gossip on the node (``p2p_node.cache_gossip``, cache/gossip.py)
+a miss on a key some fresh peer advertises waits a bounded beat for that
+peer's verified answer before it reaches the engine.
+
+  GET  /metrics/cluster 200 → the gossip-aggregated fleet view
+               (obs/cluster.py); ``/metrics/cluster.prom`` and
+               ``/metrics/cluster?format=prom`` render it as Prometheus
+               text. Gated as /metrics.
 """
 
 from __future__ import annotations
@@ -221,16 +231,34 @@ def _parse_board(p2p_node, body: bytes):
     return sudoku
 
 
-def _cache_lookup(p2p_node, sudoku):
-    """Front-door cache consult: the local lookup only (cache gossip and
-    its peer fetch are not in this package yet). Returns (answer | None,
+def _cache_lookup(p2p_node, sudoku, deadline_ms=None):
+    """Front-door cache consult: the local lookup, then, on a miss for a
+    key some fresh peer's hot-set gossip advertises, a bounded peer fetch
+    (verified on arrival) before any dispatch. Returns (answer | None,
     canonical form | None); exactly one hit or miss lands in the cache's
     counters. The elapsed time is the request span's ``cache`` stage,
-    hit or miss."""
+    hit or miss.
+
+    ``deadline_ms`` (the request's relative budget) clamps the peer fetch
+    wait: a request never parks past its own deadline for an answer it
+    could no longer use."""
     cache = p2p_node.answer_cache
     t0 = time.monotonic()
     try:
+        # miss accounting deferred (count_miss=False): the peer-fetch path
+        # probes the store twice for one request, and exactly one outcome
+        # may land in the counters
         answer, form = cache.lookup(sudoku, count_miss=False)
+        if answer is None and form is not None:
+            gossip = getattr(p2p_node, "cache_gossip", None)
+            if gossip is not None:
+                budget_s = None
+                if deadline_ms is not None:
+                    budget_s = deadline_ms / 1e3 - (time.monotonic() - t0)
+                if gossip.try_peer_fetch(form.key, timeout_s=budget_s):
+                    # a verified peer answer just landed under this key:
+                    # re-run the lookup and serve it as a hit
+                    answer, form = cache.lookup(sudoku, form, count_miss=False)
         if answer is None and form is not None:
             cache._count("misses")
     finally:
@@ -278,7 +306,7 @@ def solve_route(p2p_node, body: bytes, deadline_ms=None):
                 # and rejected counter
                 adm.note_rejected()
             return 400, {"error": "Invalid request"}, True, False, False
-        answer, form = _cache_lookup(p2p_node, sudoku)
+        answer, form = _cache_lookup(p2p_node, sudoku, deadline_ms=deadline_ms)
         if answer is not None:
             if adm is not None:
                 adm.note_cache_hit()
@@ -346,6 +374,15 @@ def _solve_core(p2p_node, body: bytes, deadline_s, outcome=None, *,
             503, {"error": "Degraded: fallback budget exceeded"}, True,
             True, False,
         )
+    except DeadlineExceeded:
+        raise  # solve_route's 429
+    except Exception:
+        # not a device fault (those the supervisor answers from the
+        # fallback): a kernel library that does not build or load, or a
+        # programming error. A clean 500 instead of the dropped connection
+        # the JAX node's transports give; never an oracle answer
+        logger.exception("500: the solve failed")
+        return 500, {"error": "Internal error"}, True, False, False
     degraded = bool(info.get("degraded"))
     logger.debug("execution time: %s", time.time() - t_in)
     if solution:
@@ -518,10 +555,11 @@ def metrics_payload(p2p_node):
     """GET /metrics (opt-in): per-route percentiles (route keys start
     with "/", so they cannot collide with the blocks) and the blocks of
     the planes this node has, as the JAX node builds them: ``engine``
-    (health, warm state, the cost plane with the answer cache's counters
-    under ``engine.cost.cache``), ``membership``, ``admission``,
-    ``health`` (the supervisor), ``faults``, ``obs`` (tracer and flight
-    recorder) and ``slo``."""
+    (health, warm state, the cost plane with the answer cache's and cache
+    gossip's counters under ``engine.cost.cache``), ``membership``,
+    ``admission``, ``health`` (the supervisor, and the peers' gossiped
+    states), ``faults``, ``obs`` (tracer and flight recorder), ``slo`` and
+    ``autopilot``."""
     m = getattr(p2p_node, "metrics", None)
     body = m.summary() if m is not None else {}
     eng = getattr(p2p_node, "engine", None)
@@ -532,8 +570,12 @@ def metrics_payload(p2p_node):
         body.get("engine", {}).get("cost"), dict
     ):
         # cache hits ARE device cost avoided: the cache's counters live
-        # where an operator reads serving spend
-        body["engine"]["cost"]["cache"] = answer_cache.snapshot()
+        # where an operator reads serving spend, with cache gossip's
+        snap = answer_cache.snapshot()
+        gossip = getattr(p2p_node, "cache_gossip", None)
+        if gossip is not None:
+            snap["gossip"] = gossip.snapshot()
+        body["engine"]["cost"]["cache"] = snap
     m_health = getattr(getattr(p2p_node, "membership", None), "health", None)
     if m_health is not None:
         body["membership"] = m_health()
@@ -542,7 +584,13 @@ def metrics_payload(p2p_node):
         body["admission"] = adm.snapshot()
     sup = getattr(eng, "supervisor", None)
     if sup is not None:
-        body["health"] = sup.snapshot()
+        # the supervisor's state machine, plus the gossip-carried view of
+        # the peers' supervisor states the task farm routes around
+        health = sup.snapshot()
+        peers = getattr(p2p_node, "peer_health", None)
+        if peers is not None:
+            health["peers"] = peers.snapshot()
+        body["health"] = health
     # armed chaos injectors: a chaos run is read from /metrics, not logs
     faults = {}
     wire_inj = getattr(p2p_node, "fault_injector", None)
@@ -563,7 +611,38 @@ def metrics_payload(p2p_node):
     if slo is not None:
         # a scrape gets a fresh evaluation (the tick is rate-limited)
         body["slo"] = slo.snapshot()
+    # the fleet autopilot (serving/autopilot.py): every control loop's
+    # enable flag, knobs and counters, scalar leaves only
+    autopilot = getattr(p2p_node, "autopilot", None)
+    if autopilot is not None:
+        body["autopilot"] = autopilot.snapshot()
     return body
+
+
+# the cluster view's spellings, matched exactly as PROM_PATHS
+CLUSTER_PATH = "/metrics/cluster"
+CLUSTER_PROM_PATHS = (
+    "/metrics/cluster.prom",
+    "/metrics/cluster?format=prom",
+)
+
+
+def cluster_payload(p2p_node) -> dict:
+    """``GET /metrics/cluster``: the gossip-aggregated fleet view, this
+    node's own telemetry digest, every unexpired peer digest (TTL'd,
+    freshness-marked) and fleet rollups (obs/cluster.py). Both transports
+    serve it through this one core, gated as /metrics."""
+    from ..obs.cluster import cluster_snapshot
+
+    return cluster_snapshot(p2p_node)
+
+
+def cluster_prom_payload(p2p_node) -> bytes:
+    """The Prometheus rendering of the same cluster snapshot: per-node
+    gauges labeled ``{node="host:port"}`` plus flattened fleet rollups."""
+    from ..obs.cluster import cluster_snapshot, render_cluster_prom
+
+    return render_cluster_prom(cluster_snapshot(p2p_node)).encode()
 
 
 def metrics_prom_payload(p2p_node) -> bytes:
@@ -772,6 +851,10 @@ class SudokuHTTPHandler(BaseHTTPRequestHandler):
             self._send_response(metrics_payload(self.p2p_node))
         elif self.path in PROM_PATHS and self.expose_metrics:
             self._send_response(metrics_prom_payload(self.p2p_node))
+        elif self.path == CLUSTER_PATH and self.expose_metrics:
+            self._send_response(cluster_payload(self.p2p_node))
+        elif self.path in CLUSTER_PROM_PATHS and self.expose_metrics:
+            self._send_response(cluster_prom_payload(self.p2p_node))
         elif (
             self.path == "/debug/trace"
             and getattr(self.p2p_node, "flight", None) is not None

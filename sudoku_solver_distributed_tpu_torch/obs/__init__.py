@@ -1,7 +1,7 @@
 """Observability plane: request spans, device cost, SLOs, incident records.
 
-The port of ``sudoku_solver_distributed_tpu/obs/`` for one node, each
-module a copy of the JAX package's:
+The port of ``sudoku_solver_distributed_tpu/obs/``, each module a copy of
+the JAX package's:
 
   trace.py   request-lifecycle spans (cache → queue → coalesce → device →
              verify → fallback), the ``X-Timing`` header's source
@@ -11,11 +11,12 @@ module a copy of the JAX package's:
   flight.py  the always-on incident flight recorder
   export.py  the span ring as Perfetto-loadable trace-event JSON
   prom.py    Prometheus text exposition of the ``/metrics`` body
+  cluster.py the fleet view: each node's telemetry digest on the stats
+             gossip (``TelemetryPublisher``) and ``/metrics/cluster``
 
 On by default in the CLI (net/cli.py; ``--no-obs`` turns the tracer, the
 flight recorder and the SLO engine off — the ``X-Request-Id`` header
-stays). Not here: ``obs/cluster.py`` (the gossip telemetry publisher and
-``/metrics/cluster``), which needs peers and comes with the P2P plane.
+stays).
 """
 
 from .cost import CostAccounting

@@ -17,7 +17,7 @@ chrome://tracing load directly):
     request tree line up under one timeline;
   * request spans render under pid 1 ("serving"); pid 2
     ("farm-workers") holds ``farm-task`` spans, which only a node with
-    peers records (the task farm is not in this package yet).
+    peers records.
 
 Timestamps are the records' wall-clock anchors in microseconds.
 

@@ -9,18 +9,23 @@ the ``/solve`` path.
     rates for the admission projection and the adaptive coalescer wait.
   * health.py — ``EngineSupervisor``: watchdog, circuit breaker, host-oracle
     fallback and half-open probes around every device call of the engine.
+  * autopilot.py — ``Autopilot``: the telemetry plane's closed control
+    loops (burn-aware admission, telemetry-ranked farming, hedged
+    dispatch, elastic membership).
 
-Copies of the JAX package's modules of the same names. Everything
-defaults off: a node started without admission or a supervisor serves as
-it would without this package.
+Copies of the JAX package's modules of the same names. Admission
+and supervision default off: a node started without them serves as it
+would without this package. The CLI turns the autopilot on.
 """
 
 from .admission import AdmissionController, Decision, DeadlineExceeded
+from .autopilot import Autopilot
 from .load import AdaptiveWaitPolicy, EwmaRate, WindowRate
 
 __all__ = [
     "AdaptiveWaitPolicy",
     "AdmissionController",
+    "Autopilot",
     "DeadlineExceeded",
     "Decision",
     "EwmaRate",

@@ -28,8 +28,8 @@ controller into admitting a queue it cannot drain.
 
 A stdlib-only copy of ``sudoku_solver_distributed_tpu/serving/
 admission.py`` with the hooks of the answer cache (``note_rejected``,
-``note_cache_hit``) and of engine supervision (``reanchor``), without the
-autopilot's budget scale, which comes with the autopilot. A node
+``note_cache_hit``), of engine supervision (``reanchor``) and of the
+autopilot (``budget_scale``, ``set_budget_scale``). A node
 constructed without an AdmissionController (the default) serves as if this
 module did not exist.
 """
@@ -105,6 +105,14 @@ class AdmissionController:
         self.rejected = 0  # admitted but finished without engine service
         self.reanchors = 0   # supervisor regime changes (reanchor)
         self.cache_hits = 0  # answered by the answer cache before admission
+        # burn-aware tightening (serving/autopilot.py): the fraction of
+        # each request's deadline budget the projected-wait shed may
+        # consume. 1.0, the default and the value every escape hatch
+        # restores, sheds as if there were no autopilot; the autopilot
+        # lowers it on an SLO fast-burn rising edge and raises it back
+        # with hysteresis. It scales only the shed projection: the
+        # client's real deadline (Decision.deadline_s) is never shortened.
+        self.budget_scale = 1.0
         self.arrivals = EwmaRate(tau_s=tau_s)
         # count-based, NOT gap-based: completions fan out in bursts (a
         # coalesced batch resolves its futures at once) and a gap EWMA
@@ -152,7 +160,9 @@ class AdmissionController:
                     retry_after_s=self._retry_after_s(projected),
                     reason="capacity",
                 )
-            if budget_s is not None and (budget_s <= 0 or projected > budget_s):
+            if budget_s is not None and (
+                budget_s <= 0 or projected > budget_s * self.budget_scale
+            ):
                 self.shed_deadline += 1
                 return Decision(
                     False,
@@ -183,6 +193,13 @@ class AdmissionController:
         with self._lock:
             self.reanchors += 1
             self._completions.reanchor()
+
+    def set_budget_scale(self, scale: float) -> None:
+        """Set the burn-aware shed tightening factor (serving/autopilot.py
+        drives this), clamped to [0.05, 1.0]: a control-law bug must never
+        be able to shed everything or loosen past the deadline."""
+        with self._lock:
+            self.budget_scale = min(1.0, max(0.05, float(scale)))
 
     def note_rejected(self) -> None:
         """A request rejected BEFORE admission ran (the cache front door
@@ -239,6 +256,7 @@ class AdmissionController:
                 "rejected": self.rejected,
                 "reanchors": self.reanchors,
                 "cache_hits": self.cache_hits,
+                "budget_scale": self.budget_scale,
                 "default_deadline_ms": round(
                     (self.default_deadline_s or 0.0) * 1e3, 3
                 ),

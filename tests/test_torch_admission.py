@@ -146,16 +146,19 @@ def test_admission_default_deadline_attached_to_admitted_requests():
 
 
 def test_admission_snapshot_keys_are_the_jax_keys_it_has_planes_for():
-    """The port's snapshot is the JAX snapshot without the counter of the
-    plane it does not have (the autopilot's budget scale); the supervision
-    re-anchors and the answer cache's hits are there."""
+    """The port's snapshot is the JAX snapshot: the supervision re-anchors,
+    the answer cache's hits and the autopilot's budget scale (set, and
+    clamped to [0.05, 1]) are there."""
     mine, theirs = AdmissionController(4), JaxAdmissionController(4)
     for a in (mine, theirs):
         a.try_admit(), a.try_admit(-1.0)
         a.release()
         a.note_cache_hit(), a.note_rejected(), a.reanchor()
-    want = {k: v for k, v in theirs.snapshot().items() if k != "budget_scale"}
+        a.set_budget_scale(0.01)
+        a.set_budget_scale(0.5)
+    want = theirs.snapshot()
     got = mine.snapshot()
+    assert got["budget_scale"] == 0.5
     assert sorted(got) == sorted(want)
     # the rates read the wall clock; every counter is equal
     timed = ("arrival_rate_hz", "completion_rate_hz", "projected_wait_ms")

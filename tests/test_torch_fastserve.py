@@ -409,22 +409,29 @@ def test_wire_bytes_match_jax_fastserve(pair, readme_puzzle):
 
 
 def test_cluster_view_is_a_404_on_the_port(engine):
-    """/metrics/cluster comes with the P2P slice: until then the port's
-    fastserve answers it (and its Prometheus spellings) as any unknown
-    path, with /metrics itself served."""
+    """/metrics/cluster and its Prometheus spellings are gated as /metrics:
+    without ``expose_metrics`` the port's fastserve answers them as any
+    unknown path; with it they answer 200 (the bodies are held against
+    the JAX node's in tests/test_torch_p2p_planes.py)."""
     node = P2PNode("127.0.0.1", free_udp_port(), engine=engine,
                    metrics=RequestMetrics())
-    httpd = make_http_server(node, "127.0.0.1", 0, expose_metrics=True)
-    port = serve(httpd)
-    try:
-        for path in (b"/metrics/cluster", b"/metrics/cluster.prom",
-                     b"/metrics/cluster?format=prom"):
-            (r,) = _parse(_exchange(port, _request(b"GET", path,
+    paths = (b"/metrics/cluster", b"/metrics/cluster.prom",
+             b"/metrics/cluster?format=prom")
+    for expose in (False, True):
+        httpd = make_http_server(node, "127.0.0.1", 0, expose_metrics=expose)
+        port = serve(httpd)
+        try:
+            for path in paths:
+                (r,) = _parse(_exchange(port, _request(b"GET", path,
+                                                       version=b"HTTP/1.0")))
+                if expose:
+                    assert r[0] == b"HTTP/1.1 200 OK"
+                else:
+                    assert r[0] == b"HTTP/1.1 404 Not Found"
+                    assert json.loads(r[3]) == {"error": "Invalid endpoint"}
+            (r,) = _parse(_exchange(port, _request(b"GET", b"/metrics",
                                                    version=b"HTTP/1.0")))
-            assert r[0] == b"HTTP/1.1 404 Not Found"
-            assert json.loads(r[3]) == {"error": "Invalid endpoint"}
-        (r,) = _parse(_exchange(port, _request(b"GET", b"/metrics",
-                                               version=b"HTTP/1.0")))
-        assert r[0] == b"HTTP/1.1 200 OK"
-    finally:
-        httpd.shutdown()
+            assert r[0] == (b"HTTP/1.1 200 OK" if expose
+                            else b"HTTP/1.1 404 Not Found")
+        finally:
+            httpd.shutdown()

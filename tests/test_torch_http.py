@@ -175,11 +175,23 @@ def test_cli_builds_a_serving_node():
         node.shutdown()
 
 
-def test_cli_refuses_anchor_join(capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["-a", "127.0.0.1:7000", "--platform", "cpu"])
-    assert exc.value.code != 0
-    assert "P2P slice" in capsys.readouterr().err
+def test_cli_refuses_anchor_join():
+    """The CLI no longer refuses ``-a``: the node it builds joins through
+    the anchor, and only a malformed anchor is refused, by the parser of
+    the node's own wire format."""
+    args = cli.build_parser().parse_args(
+        ["-p", "0", "-s", str(free_port(socket.SOCK_DGRAM)), "--platform",
+         "cpu", "--buckets", "1", "--no-warmup", "-a", "127.0.0.1:7000"]
+    )
+    node, httpd = cli.build_node(args)
+    try:
+        assert node.anchor_node == "127.0.0.1:7000"
+        assert node.failure_timeout == 5.0
+    finally:
+        httpd.server_close()
+        node.autopilot.close()
+        node.shutdown()
+        node.engine.close()
 
 
 def test_cli_defaults_to_gpu():

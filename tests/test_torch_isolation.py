@@ -65,7 +65,8 @@ REQUIRED = (
     "utils.faults", "net.http_api", "engine", "utils.profiling", "obs",
     "obs.trace", "obs.histo", "obs.prom", "obs.flight", "obs.export",
     "obs.cost", "obs.slo", "net.fastserve", "net.solver_api", "api",
-    "utils.render",
+    "utils.render", "net.peermap", "cache.gossip", "obs.cluster",
+    "serving.autopilot",
 )
 
 # the default transport without JAX, on the plain solver: a /solve_batch
@@ -100,6 +101,7 @@ for _ in range(2):
     assert r.status == 200 and r.version == 11 and not r.will_close
     assert oracle_is_valid_solution(json.loads(r.read()))
 httpd.shutdown()
+node.autopilot.close()
 node.shutdown()
 node.engine.close()
 leaked = [n for n in sys.modules
@@ -548,3 +550,60 @@ def test_solve_batch_route_on_the_card_matches_solve_batch_np():
         node.shutdown()
         node.engine.close()
         fresh.close()
+
+
+@pytest.mark.cuda
+def test_two_node_cluster_on_the_card_farms_as_the_single_node_engine():
+    """Two in-process port nodes on the card, the second joined through the
+    first: a 9-hole board sent to the joiner is farmed cell by cell to the
+    anchor, whose engine solves each on the card, and the answer equals the
+    single-node engine's (the board has one solution)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import socket
+    import threading
+    import time
+
+    from chip_smoke import README_PUZZLE
+    from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+    from sudoku_solver_distributed_tpu_torch.net.node import P2PNode
+
+    cpu = SolverEngine(device="cpu", buckets=(1,))
+    try:
+        full, _ = cpu.solve_one(README_PUZZLE)
+    finally:
+        cpu.close()
+    board = [list(r) for r in full]
+    for k in range(9):
+        board[(k * 7) % 9][(k * 4 + 1) % 9] = 0
+    engines = [SolverEngine(buckets=(1, 8)) for _ in range(2)]
+    nodes, threads, anchor = [], [], None
+    try:
+        for eng in engines:
+            eng.warmup()
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            node = P2PNode("127.0.0.1", port, anchor_node=anchor,
+                           handicap=0.0, engine=eng)
+            anchor = anchor or node.id
+            nodes.append(node)
+            threads.append(threading.Thread(target=node.run, daemon=True))
+            threads[-1].start()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not all(
+                n.membership.total_peers() for n in nodes):
+            time.sleep(0.05)
+        assert all(n.membership.total_peers() for n in nodes)
+        single, _ = engines[0].solve_one(board)
+        before = engines[0].validations
+        assert nodes[1].peer_sudoku_solve(board) == single == full
+        assert engines[0].validations > before  # the anchor did the work
+        assert engines[1].cost.snapshot()["farm"]["dispatches"] >= 9
+    finally:
+        for n in nodes:
+            n.shutdown()
+        for t in threads:
+            t.join(timeout=10)
+        for eng in engines:
+            eng.close()

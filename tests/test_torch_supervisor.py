@@ -27,8 +27,13 @@ from sudoku_solver_distributed_tpu.serving.admission import (
 from sudoku_solver_distributed_tpu.utils.faults import (
     EngineFaultInjector as JaxInjector,
 )
-from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+from sudoku_solver_distributed_tpu_torch.engine import (
+    SolveStarved,
+    SolverEngine,
+    device_fault,
+)
 from sudoku_solver_distributed_tpu_torch.models import oracle_is_valid_solution
+from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import KernelLaunchError
 from sudoku_solver_distributed_tpu_torch.net import cli
 from sudoku_solver_distributed_tpu_torch.serving import health
 from sudoku_solver_distributed_tpu_torch.serving.admission import (
@@ -415,6 +420,63 @@ def test_starved_future_falls_back_and_is_cancelled():
         assert never.cancelled()  # the coalescer's _resolve skips it
     finally:
         sup.close()
+
+
+SEAM_ERRORS = [
+    (InjectedEngineFault("injected"), True),
+    (KernelLaunchError("dfs_segment launch failed: cudaError 700"), True),
+    (SolveStarved("supervised solve starved past 11.0s"), True),
+    (RuntimeError("nvcc failed (1) building dfs_solver.cu"), False),
+    (OSError("libdfs_solver.so: cannot open shared object file"), False),
+    (RuntimeError("a plain programming error"), False),
+]
+
+
+@pytest.mark.parametrize("arm", ["direct", "continuous"])
+@pytest.mark.parametrize("exc,fault", SEAM_ERRORS,
+                         ids=[f"{type(e).__name__}{i}"
+                              for i, (e, _) in enumerate(SEAM_ERRORS)])
+def test_single_board_seam_falls_back_only_on_device_faults(arm, exc, fault,
+                                                           monkeypatch):
+    """A supervised /solve whose device call raises answers from the host
+    fallback, flagged degraded, only on a device fault; a kernel library
+    that does not build or load, or a plain error, answers 500 without the
+    degraded flag. The JAX engine falls back on any exception."""
+    import json
+
+    from sudoku_solver_distributed_tpu_torch.net.http_api import solve_route
+    from sudoku_solver_distributed_tpu_torch.net.node import P2PNode
+
+    assert device_fault(exc) is fault
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    eng = SolverEngine(device="cpu", buckets=(1,), **ARMS[arm])
+    eng.warmup()
+    node = P2PNode("127.0.0.1", port, engine=eng)
+    sup = health.EngineSupervisor(eng, watchdog_budget_s=BUDGET_S,
+                                  probe_interval_s=600.0)
+    try:
+        body = json.dumps({"sudoku": BOARD}).encode()
+        status, sol, *_ = solve_route(node, body)
+        assert status == 200 and _valid_answer(BOARD, sol)
+
+        def failing(*args, **kw):
+            raise exc
+
+        hook = "_launch" if arm == "direct" else "dispatch_segment"
+        monkeypatch.setattr(eng, hook, failing)
+        status, payload, error, degraded, cached = solve_route(node, body)
+        if fault:
+            assert (status, error, degraded, cached) == (200, False, True, False)
+            assert _valid_answer(BOARD, payload)
+        else:
+            assert (status, payload, error, degraded, cached) == (
+                500, {"error": "Internal error"}, True, False, False)
+    finally:
+        sup.close()
+        node.shutdown()
+        eng.close()
 
 
 def test_fallback_over_budget_answers_503():
