@@ -177,6 +177,33 @@ exit) on any error:
    (SIGINT, the graceful departure) and its disconnect prunes it before
    the failure timeout could. Every process is stopped at the end, and
    their logs print when the phase fails.
+11. The frontier race. (a) The race kernel and its fold
+   (ops/cuda_solver.dfs_race: ``dfs_race_kernel`` + ``race_fold_kernel``,
+   K4) against the plain lockstep race (``_dfs_race_plain``) on seeded
+   states (``parallel/frontier.seed_frontier``, locked, as the engine
+   seeds): four 9x9 deep-corpus boards picked by ``--seed`` at 64 states,
+   the README board at 512 (2048 raced), two 16x16 deep-anneal boards at
+   64 and a 25x25 one at 8 (the seeding BFS solves the rest itself,
+   and two deep boards at 512 are checked to be answered that way), the
+   README at 64 and capped at 8 steps, an UNSAT board; each size
+   in its serving configuration. The packed row and every state's status
+   and validations after the race must be equal, and a found row's
+   solution must be valid. (b) Early exit: the steps K4's warps ran in all
+   beside the sum of each state's steps to its own end (K1 over the same
+   states). (c) K4's time per race by CUDA events and torch.profiler (the
+   race and fold kernels apart), the plain race's time, the bound (the
+   lockstep race's sweeps), t* and the host seeding time, on four sets.
+   (d) A ``--frontier 64`` node in its default configuration, counters set
+   to 0 once warm: the README board stays on the probe (no escalation);
+   16 deep 9x9 boards /solve, each escalated (``frontier_escalations``),
+   correct and stamped with ``coalesce`` and ``device`` in ``X-Timing``; 4
+   more through the node's solve entry point, whose race validations plus
+   their probes' equal the /stats delta; the launches are read (K4 and
+   the K1 probe must have run); then ``engine.solve_one`` on 6 of the deep
+   boards, race route and ``frontier=False`` bucket path in turns (host
+   clock), a ``--frontier-handoff`` node on 4 deep boards (K3 probe
+   states seed the races), and ``--board-size 16`` and ``25`` frontier
+   nodes (``--buckets 1,8,64``) on 3 deep boards each.
 
 Every node harness waits for the CLI's background warm-up to finish
 (``fully_warmed``) before its phase measures, and sends the node's
@@ -185,9 +212,10 @@ flight-record dumps to a temporary directory unless the phase names one.
 Prints a ``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
 card's name and power limit, a ``{"obs": {...}}`` line (phase 8), a
 ``{"front": {...}}`` line (phase 9), a ``{"p2p": {...}}`` line (phase
-10), one ``{"kernels": [...]}`` line
-(dfs_solver, dfs_segment_kernel, segment_digest_kernel, each with its
-launches on every path), and last ``{"ok": true, "device": {...}}``.
+10), a ``{"frontier": {...}}`` line (phase 11), one ``{"kernels": [...]}``
+line (dfs_solver, dfs_segment_kernel, segment_digest_kernel and
+dfs_race_kernel, each with its launches on every path), and last
+``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is available.
 Imports nothing of JAX.
 """
@@ -1085,10 +1113,14 @@ def _cuda_ms(fn, reps: int) -> float:
 SEGMENT_KERNELS = ("dfs_segment_kernel", "segment_digest_kernel")
 
 
-def _profiled_kernel_ms(fn, reps: int, kernels=SEGMENT_KERNELS) -> dict:
+def _profiled_kernel_ms(fn, reps: int, kernels=SEGMENT_KERNELS,
+                        min_records=None) -> dict:
     """Mean device time per call of each kernel in ``kernels`` (a part of
     its symbol) over ``reps`` calls of ``fn``, from torch.profiler's CUDA
-    kernel records. Fails unless every kernel ran exactly once a call."""
+    kernel records. Fails unless every kernel ran exactly once a call; with
+    ``min_records``, the mean is per record and each kernel needs that many
+    records (torch.profiler drops some of the race kernels' records: as
+    few as 8 of 10 were kept)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1109,9 +1141,14 @@ def _profiled_kernel_ms(fn, reps: int, kernels=SEGMENT_KERNELS) -> dict:
             if k in e.key:
                 total_us[k] += e.device_time_total
                 count[k] += e.count
-    check(all(count[k] == reps for k in kernels),
+    if min_records is None:
+        check(all(count[k] == reps for k in kernels),
+              f"the profiler recorded {count} kernel launches for {reps} calls")
+        return {k: total_us[k] / reps / 1e3 for k in kernels}
+    check(all(min_records <= count[k] <= reps for k in kernels),
           f"the profiler recorded {count} kernel launches for {reps} calls")
-    return {k: total_us[k] / reps / 1e3 for k in kernels}
+    return {**{k: total_us[k] / count[k] / 1e3 for k in kernels},
+            "records": dict(count), "calls": reps}
 
 
 def segment_timing_cases():
@@ -3013,6 +3050,327 @@ def _phase_p2p(nodes, tmp, oracle_ok, random_symmetry, count_solutions,
     return out
 
 
+# -- phase 11: the frontier race on one card ---------------------------------
+
+RACE_KERNELS = ("dfs_race_kernel", "race_fold_kernel")
+FRONTIER_STATES = 64  # --frontier of phase 11's nodes: the engine's default
+FRONTIER_BUCKET_BOARDS = 6  # deep boards timed on both routes in phase 11 (d)
+
+
+def _race_states(F, board, spec, target: int):
+    """``seed_frontier`` at ``target`` states, padded to the race's rung as
+    ``frontier_solve`` pads; None when seeding alone solves the board."""
+    states, early = F.seed_frontier(board, spec, target=target, locked=True)
+    if early is not None:
+        return None
+    return F.bucket_states(states, spec, target)
+
+
+def frontier_race_sets(F, spec_for_size, seed: int):
+    """(name, board, spec, states, max_iters, target) of the race parity
+    phase: four 9x9 deep-corpus boards picked by ``--seed``, seeded at 64
+    states as a ``--frontier 64`` node seeds them (104 or 92 states, raced
+    as 128); the README board at 512 (1872 states, raced as 2048: at 512
+    every deep-corpus board is solved by the seeding BFS itself, so the
+    deep corpus gives no race there); the first two 16x16 deep-anneal boards
+    whose seeding leaves a race at 64 states; the first 25x25 one at 8 (at
+    64 the seeding solves every 25x25 deep board); the README board at
+    64, and capped at 8 steps (before its first solve, at 31); an UNSAT
+    board."""
+    import numpy as np
+
+    spec9 = spec_for_size(9)
+    deep9 = load_corpus("corpus_9x9_deep_128.npz")
+    picks = np.random.default_rng(seed).choice(len(deep9), 4, replace=False)
+    sets = []
+    for k in picks:
+        sets.append((f"9x9 deep #{k} @64", deep9[k], spec9,
+                     _race_states(F, deep9[k], spec9, 64), 65536, 64))
+    readme = np.asarray(README_PUZZLE, np.int32)
+    sets.append(("README @512", readme, spec9, _race_states(F, readme, spec9, 512),
+                 65536, 512))
+    for size, name, target, want in ((16, "corpus_16x16_deep_anneal_64.npz", 64, 2),
+                                     (25, "corpus_25x25_deep_anneal_32.npz", 8, 1)):
+        spec, found = spec_for_size(size), 0
+        for k, b in enumerate(load_corpus(name)):
+            states = _race_states(F, b, spec, target)
+            if states is not None:
+                sets.append((f"{size}x{size} deep #{k} @{target}", b, spec, states,
+                             65536, target))
+                found += 1
+                if found == want:
+                    break
+        check(found == want, f"no {size}x{size} deep board leaves a race at {target} states")
+    readme64 = _race_states(F, readme, spec9, 64)
+    sets.append(("README @64", readme, spec9, readme64, 65536, 64))
+    unsat = np.zeros((9, 9), np.int32)
+    unsat[0, 0] = unsat[0, 1] = 5
+    sets.append(("UNSAT @64", unsat, spec9, _race_states(F, unsat, spec9, 64), 65536, 64))
+    # its lockstep race solves at step 31: capped at 8, every state is cut
+    sets.append(("README @64 capped at 8", readme, spec9, readme64, 8, 64))
+    for name, _, _, states, _, _ in sets:
+        check(states is not None, f"{name}: seeding solved the board; nothing to race")
+    return sets
+
+
+def _seeding_answers_at_512(F, spec_for_size, oracle_ok, seed: int):
+    """At 512 states the seeding BFS itself solves the deep-corpus boards:
+    ``frontier_solve`` answers them with no race (validations 0)."""
+    import numpy as np
+
+    deep9 = load_corpus("corpus_9x9_deep_128.npz")
+    n0 = F.dfs_race.launches
+    for k in np.random.default_rng(seed + 1).choice(len(deep9), 2, replace=False):
+        sol, info = F.frontier_solve(deep9[k], "cuda", spec_for_size(9),
+                                     states_per_device=512, max_depth=(32, 81),
+                                     locked=True, waves=3, naked_pairs=False)
+        _check_answer(deep9[k], sol, oracle_ok, f"frontier_solve @512 of deep #{k}")
+        log(f"phase 11 (a): deep #{k} at 512 states: {info} (seeding answered)")
+    check(F.dfs_race.launches == n0, "a deep board raced at 512 states")
+
+
+def _race_bound_ms(states, fold, cells, locked: bool):
+    """The least time for one race: the larger of its bytes (the states in;
+    grids, run records, fold and row out) over the HBM rate and its integer
+    operations over the int32 rate, counting the sweeps the lockstep race
+    needs (the fold's validations: the sweeps this race's data needs; the
+    kernel's warps run past t* and sweep more)."""
+    M = states.shape[0]
+    per_cell = OPS_PER_CELL_SWEEP + (OPS_PER_CELL_LOCKED if locked else 0)
+    words = 2 * M * cells + M * (4 + 2) + cells + 3
+    bytes_ms = words * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = int(fold[:, 1].sum()) * cells * per_cell / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def _frontier_parity(cs, F, spec_for_size, serving_config, oracle_ok, seed: int):
+    """(a)-(c): K4 against its plain version on every set of
+    ``frontier_race_sets``, the early exit, and the timing. Restores the
+    launch counters: none of this is the main path."""
+    import torch
+
+    counts = (cs.dfs_race.launches, cs.dfs_solver.launches)
+    out = {"mismatches": 0, "max_abs_err": 0, "sets": {}, "timing": {}}
+    t0 = time.perf_counter()
+    sets = frontier_race_sets(F, spec_for_size, seed)
+    log(f"phase 11 (a): {len(sets)} race sets seeded in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    _seeding_answers_at_512(F, spec_for_size, oracle_ok, seed)
+    timed = {sets[0][0], sets[4][0], sets[5][0], sets[7][0]}  # 9x9, 512, 16, 25
+    for name, board, spec, states, max_iters, target in sets:
+        sweeps = sweeps_of(serving_config(spec.size))
+        depth = spec.max_depth
+        flat = torch.as_tensor(states.reshape(len(states), -1), device="cuda").contiguous()
+        krow, kfold, kmeta = cs.dfs_race(flat, spec, depth, max_iters, **sweeps)
+        plain = {}
+        plain_ms = _cuda_ms(lambda: plain.update(
+            r=cs._dfs_race_plain(flat, spec, depth, max_iters, **sweeps)), 1)
+        prow, pfold, pmeta = plain["r"]
+        _, own = cs.dfs_solver(flat, spec, depth, max_iters, **sweeps)
+        torch.cuda.synchronize()
+        bad = int((krow != prow).any()) + int((kfold != pfold).any(dim=1).sum())
+        err = max(int((krow.long() - prow.long()).abs().max()),
+                  int((kfold.long() - pfold.long()).abs().max()))
+        out["mismatches"] += bad
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        C = spec.cells
+        found = int(krow[C])
+        if found:
+            _check_answer(board, krow[:C].reshape(spec.size, spec.size).tolist(),
+                          oracle_ok, f"the race's answer on {name}")
+        t_star = int(pmeta[:, 1].max())
+        raced, to_end = int(kmeta[:, 1].sum()), int(own[:, 3].sum())
+        rec = {"states": len(states), "found": found, "t_star": t_star,
+               "validations": int(krow[C + 1]), "undecided": int(krow[C + 2]),
+               "k4_steps_all_warps": raced, "steps_each_to_own_end": to_end,
+               "lockstep_steps": int(pmeta[:, 1].sum()), "mismatches": bad}
+        out["sets"][name] = rec
+        log(f"phase 11 (a/b) {name}: {len(states)} states, found {found}, t* "
+            f"{t_star}, validations {rec['validations']}, undecided "
+            f"{rec['undecided']}; K4's warps ran {raced} steps in all against "
+            f"{to_end} for every state to its own end (lockstep "
+            f"{rec['lockstep_steps']}); {bad} mismatches vs the plain race")
+        check(bad == 0, f"{name}: K4 and the plain race disagree")
+        if name not in timed:
+            continue
+        this_ms = _cuda_ms(lambda: cs.dfs_race(flat, spec, depth, max_iters, **sweeps), 20)
+        split = _profiled_kernel_ms(
+            lambda: cs.dfs_race(flat, spec, depth, max_iters, **sweeps), 10,
+            kernels=RACE_KERNELS, min_records=5)
+        seed_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            F.seed_frontier(board, spec, target=target, locked=True)
+            seed_ms.append((time.perf_counter() - t0) * 1e3)
+        bound, by = _race_bound_ms(flat, pfold, C, sweeps["locked_candidates"])
+        out["timing"][name] = {
+            "ms": this_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "split_ms": split, "t_star": t_star, "seed_ms": sorted(seed_ms)[1],
+            "states": len(states),
+        }
+        log(f"phase 11 (c) {name}: K4 + fold {this_ms:.4f} ms a race (CUDA "
+            f"events, mean of 20; profiler: {split}); plain {plain_ms:.1f} ms; "
+            f"bound {bound:.5f} ms by {by} ({bound / this_ms:.2%}); t* {t_star}; "
+            f"{this_ms / max(t_star, 1) * 1e3:.3f} us per lockstep step; host "
+            f"seeding {sorted(seed_ms)[1]:.2f} ms (median of 3)")
+    cs.dfs_race.launches, cs.dfs_solver.launches = counts
+    check(any(r["found"] and r["k4_steps_all_warps"] < r["steps_each_to_own_end"]
+              for r in out["sets"].values()),
+          "no race stopped its warps short of their own ends: no early exit")
+    return out
+
+
+def _solve_timed(base, board, oracle_ok, what):
+    t0 = time.perf_counter()
+    status, body, headers = _http(base, "/solve", json.dumps({"sudoku": board}).encode(),
+                                  {"X-Timing": "1"})
+    ms = (time.perf_counter() - t0) * 1e3
+    check(status == 200, f"{what} answered {status}: {body[:200]!r}")
+    _check_answer(board, json.loads(body), oracle_ok, what)
+    return ms, json.loads(headers["X-Timing"])
+
+
+def _frontier_node(cs, build_parser, build_node, oracle_ok):
+    """(d): a ``--frontier 64`` node in its default configuration. Counts
+    are set to 0 once it is warm and read after its frontier requests."""
+    deep = load_corpus("corpus_9x9_deep_128.npz")
+    out = {}
+    node = _Node(build_parser, build_node, ["--frontier", str(FRONTIER_STATES)])
+    eng = node.node.engine
+    try:
+        check(eng.frontier_enabled and eng.frontier_route == "auto"
+              and eng.continuous, "the --frontier node is not the default auto route")
+        probe_vals = []
+        real_probe = eng._probe_quick
+
+        def probe(arr):
+            v0 = eng.validations
+            answered = real_probe(arr)
+            if answered is None:  # escalated: its sweeps are billed, not answered
+                probe_vals.append(eng.validations - v0)
+            return answered
+
+        eng._probe_quick = probe
+        cs.dfs_race.launches = cs.dfs_solver.launches = cs.dfs_segment.launches = 0
+        esc0, races0 = eng.frontier_escalations, eng.cost.snapshot().get(
+            "frontier", {}).get("races", 0)
+        _solve_timed(node.base, README_PUZZLE, oracle_ok, "README /solve on the frontier node")
+        check(eng.frontier_escalations == esc0,
+              "the README board escalated instead of staying bucket-quick")
+        race_ms, timings = [], []
+        boards = [b.tolist() for b in deep[:16]]
+        for board in boards:
+            ms, timing = _solve_timed(node.base, board, oracle_ok, "deep /solve")
+            race_ms.append(ms)
+            timings.append(timing)
+            check(timing["coalesce_ms"] > 0 and timing["device_ms"] > 0,
+                  f"an escalated /solve lacks its seeding or race stamp: {timing}")
+        check(eng.frontier_escalations - esc0 == len(boards),
+              f"frontier_escalations grew by {eng.frontier_escalations - esc0}, "
+              f"not {len(boards)}")
+        before = json.loads(_http(node.base, "/stats")[1])["all"]
+        n_probe = len(probe_vals)
+        more = [b.tolist() for b in deep[16:20]]
+        answers = [node.node.peer_sudoku_solve_info(b) for b in more]
+        for board, (sol, info) in zip(more, answers):
+            _check_answer(board, sol, oracle_ok, "peer_sudoku_solve_info answer")
+            check(info.get("frontier") is True, f"a deep board did not race: {info}")
+        after = json.loads(_http(node.base, "/stats")[1])["all"]
+        summed = sum(info["validations"] for _, info in answers) + sum(probe_vals[n_probe:])
+        log(f"phase 11 (d): /stats validations grew by "
+            f"{after['validations'] - before['validations']}, the 4 race answers' "
+            f"validations and their probes' sum to {summed}; solved grew by "
+            f"{after['solved'] - before['solved']}")
+        check(after["validations"] - before["validations"] == summed
+              and after["solved"] - before["solved"] == len(more),
+              "/stats disagrees with the answers")
+        out["launches"] = {"dfs_race": cs.dfs_race.launches,
+                           "dfs_solver": cs.dfs_solver.launches,
+                           "dfs_segment": cs.dfs_segment.launches}
+        log(f"phase 11 (d): launches on the frontier path (README, 16 deep "
+            f"/solve, 4 in process): {out['launches']}")
+        check(out["launches"]["dfs_race"] > 0 and out["launches"]["dfs_solver"] > 0,
+              f"the frontier path did not launch K4 and the K1 probe: {out['launches']}")
+        out["escalations"] = eng.frontier_escalations - esc0
+        out["races"] = eng.cost.snapshot()["frontier"]["races"] - races0
+        out["race_p50_ms_http"] = _p50_ms(race_ms)
+        out["race_max_ms_http"] = max(race_ms)
+        out["stage_p50_ms"] = {
+            k: _p50_ms([t[k] for t in timings]) for k in ("coalesce_ms", "device_ms",
+                                                           "total_ms")}
+        # the same node's bucket path on the same boards (frontier=False),
+        # beside its race route, in process and in turns
+        eng_race, eng_bucket = [], []
+        for board in boards[:FRONTIER_BUCKET_BOARDS]:
+            for arm, sink in ((None, eng_race), (False, eng_bucket)):
+                t0 = time.perf_counter()
+                sol, info = eng.solve_one(board, frontier=arm)
+                sink.append((time.perf_counter() - t0) * 1e3)
+                _check_answer(board, sol, oracle_ok, f"engine.solve_one frontier={arm}")
+                check((arm is None) == bool(info.get("frontier")),
+                      f"engine.solve_one frontier={arm} took the wrong route: {info}")
+        out["engine_race_p50_ms"] = _p50_ms(eng_race)
+        out["engine_bucket_p50_ms"] = _p50_ms(eng_bucket)
+        log(f"phase 11 (d): 16 deep 9x9 /solve on the --frontier "
+            f"{FRONTIER_STATES} node (host clock): p50 {out['race_p50_ms_http']:.3f} ms, "
+            f"max {out['race_max_ms_http']:.3f} ms; stage p50s {out['stage_p50_ms']}; "
+            f"engine.solve_one on {FRONTIER_BUCKET_BOARDS} of them: race route p50 "
+            f"{out['engine_race_p50_ms']:.3f} ms vs the bucket path (frontier=False) "
+            f"p50 {out['engine_bucket_p50_ms']:.3f} ms "
+            f"({out['engine_bucket_p50_ms'] / out['engine_race_p50_ms']:.2f}x)")
+    finally:
+        node.stop()
+    # the handoff arm: the probe's K3 segment state seeds the race
+    k3 = cs.dfs_segment.launches
+    hand = _Node(build_parser, build_node,
+                 ["--frontier", str(FRONTIER_STATES), "--frontier-handoff"])
+    try:
+        k3 = cs.dfs_segment.launches
+        ms = [_solve_timed(hand.base, b.tolist(), oracle_ok, "handoff /solve")[0]
+              for b in deep[:4]]
+        snap = hand.node.engine.cost.snapshot()["frontier"]
+        check(snap["escalations"] == 4 and cs.dfs_segment.launches - k3 >= 4,
+              f"the handoff arm did not hand 4 probe states to the race: {snap}")
+        out["handoff_p50_ms_http"] = _p50_ms(ms)
+        log(f"phase 11 (d): --frontier-handoff node: 4 deep /solve answered, "
+            f"p50 {out['handoff_p50_ms_http']:.3f} ms; cost.frontier {snap}")
+    finally:
+        hand.stop()
+    # 16x16 and 25x25 deep boards on frontier nodes of those sizes
+    for size, name in ((16, "corpus_16x16_deep_anneal_64.npz"),
+                       (25, "corpus_25x25_deep_anneal_32.npz")):
+        sized = _Node(build_parser, build_node,
+                      ["--frontier", str(FRONTIER_STATES), "--board-size", str(size),
+                       "--buckets", "1,8,64"])
+        try:
+            ms = [_solve_timed(sized.base, b.tolist(), oracle_ok,
+                               f"{size}x{size} deep /solve")[0]
+                  for b in load_corpus(name)[:3]]
+            out[f"p50_ms_http_{size}"] = _p50_ms(ms)
+            log(f"phase 11 (d): 3 deep {size}x{size} /solve on a --frontier node: "
+                f"p50 {_p50_ms(ms):.3f} ms; escalations "
+                f"{sized.node.engine.frontier_escalations}")
+        finally:
+            sized.stop()
+    return out
+
+
+def phase_frontier(cs, build_parser, build_node, spec_for_size, serving_config,
+                   oracle_ok, seed: int):
+    """Phase 11: the frontier race on the card (K4 parity, early exit,
+    timing; the frontier nodes). Returns its numbers."""
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    t0 = time.perf_counter()
+    out = _frontier_parity(cs, F, spec_for_size, serving_config, oracle_ok, seed)
+    t1 = time.perf_counter()
+    out["node"] = _frontier_node(cs, build_parser, build_node, oracle_ok)
+    out["seconds"] = {"parity_timing": round(t1 - t0, 1),
+                      "nodes": round(time.perf_counter() - t1, 1)}
+    log(f"phase 11 seconds by part: {out['seconds']}")
+    return out
+
+
 def card_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3028,7 +3386,8 @@ def ptxas_report(build_log, label: str = "ptxas"):
     for line in build_log.read_text().splitlines():
         m = re.search(
             r"Compiling entry function '\S*?(dfs_solver_kernel|dfs_segment_kernel|"
-            r"segment_digest_kernel)(?:ILi(\d)E)?", line
+            r"segment_digest_kernel|dfs_race_kernel|race_fold_kernel)(?:ILi(\d)E)?",
+            line
         )
         if m:
             key = m.group(1) + (f" {int(m.group(2)) ** 2}x{int(m.group(2)) ** 2}"
@@ -3088,7 +3447,7 @@ def main(argv=None) -> int:
     cs.load_library()
     log(f"build: dfs_solver library built and loaded in {time.perf_counter() - t0:.2f} s")
     ptxas = ptxas_report(cs.build().with_suffix(".log"))
-    for kernel in ("dfs_solver_kernel", *SEGMENT_KERNELS):
+    for kernel in ("dfs_solver_kernel", *SEGMENT_KERNELS, *RACE_KERNELS):
         for size in (4, 9, 16, 25):
             key = f"{kernel} {size}x{size}"
             inst = ptxas.get(key, {})
@@ -3154,6 +3513,9 @@ def main(argv=None) -> int:
                         "corpus": front["corpus_miss_p50_ms"],
                     })
     _mark("phase_p2p")
+    frontier = phase_frontier(cs, build_parser, build_node, spec_for_size,
+                              serving_config, oracle_is_valid_solution, args.seed)
+    _mark("phase_frontier")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; seconds by phase {marks}")
     print(json.dumps({"cache_supervision": {
@@ -3176,6 +3538,8 @@ def main(argv=None) -> int:
     print(json.dumps({"obs": dict(obs, card=card)}), flush=True)
     print(json.dumps({"front": dict(surface, card=card)}), flush=True)
     print(json.dumps({"p2p": dict(p2p, card=card)}), flush=True)
+    print(json.dumps({"frontier": dict(frontier, card=card)}), flush=True)
+    on_frontier = frontier["node"]["launches"]
     new_paths = {f"launches_{path}": counts
                  for path, counts in surface["launches"].items()}
     serving, singles = timing["serving"], timing["singles"]
@@ -3211,6 +3575,8 @@ def main(argv=None) -> int:
         # to the cluster view, summed; and the farm's share after warm-up
         "launches_p2p_path": p2p["launches"]["dfs_solver"],
         "launches_p2p_farm": p2p["launches_farm"]["dfs_solver"],
+        # phase 11's frontier node: the auto route's probes
+        "launches_frontier_path": on_frontier["dfs_solver"],
         "launches_per_readme_solve": main_path["per_readme_closed"],
         "mismatches": mismatches + timing["mismatches"],
         "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
@@ -3256,6 +3622,7 @@ def main(argv=None) -> int:
             **{k: v["dfs_segment"] for k, v in new_paths.items()},
             "launches_p2p_path": p2p["launches"]["dfs_segment"],
             "launches_p2p_farm": p2p["launches_farm"]["dfs_segment"],
+            "launches_frontier_path": on_frontier["dfs_segment"],
             "mismatches": seg_bad + seg_timing["mismatches"],
             "max_abs_err": max(seg_err, seg_timing["max_abs_err"]),
             # one segment (k = 8) over a 4096-lane pool, every lane
@@ -3279,7 +3646,36 @@ def main(argv=None) -> int:
         golden_segmented=seg_golden,
         batch_fill_max=main_path["batch_fill_max"],
     )
-    print(json.dumps({"kernels": [kernel, *segment_kernels]}), flush=True)
+    # the race kernel and its fold: one launch of ops/cuda_solver.dfs_race;
+    # the counterpart of XLA code (JAX parallel/frontier.py:337 race)
+    main_race = frontier["timing"][next(iter(frontier["timing"]))]
+    race_kernel = {
+        "name": "dfs_race_kernel",
+        "route": "cuda",
+        "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
+        "replaces": "sudoku_solver_distributed_tpu/parallel/frontier.py:337",
+        # phase 11's --frontier 64 node: README, 16 deep /solve, 4 in process
+        "launches": on_frontier["dfs_race"],
+        "mismatches": frontier["mismatches"],
+        "max_abs_err": frontier["max_abs_err"],
+        # one race (race kernel + fold, CUDA events) on a 9x9 deep board's
+        # 64-state seeding (raced as 128 states), the node's own race
+        "ms": main_race["ms"],
+        "plain_ms": main_race["plain_ms"],
+        "bound_ms": main_race["bound_ms"],
+        "bound_by": main_race["bound_by"],
+        "library_ms": None,
+        "timing_by_set": frontier["timing"],
+        "early_exit_by_set": {
+            k: {x: v[x] for x in ("states", "t_star", "k4_steps_all_warps",
+                                  "steps_each_to_own_end", "lockstep_steps")}
+            for k, v in frontier["sets"].items()
+        },
+        "frontier_node": frontier["node"],
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith(RACE_KERNELS)},
+    }
+    print(json.dumps({"kernels": [kernel, *segment_kernels, race_kernel]}), flush=True)
     print(
         json.dumps(
             {

@@ -102,6 +102,14 @@
 // the solution block every segment, so its copy is spread over W / 32
 // blocks with several words in flight a thread (its note has the numbers).
 //
+// The same step body runs the frontier race too: dfs_race_kernel (K4) steps
+// each of one board's seeded subtree states in its own warp until the
+// earliest solve any warp has posted (a compile-time poll in `search`, so
+// K1's and K3's code is unchanged), and race_fold_kernel rebuilds the
+// lockstep race's result from the warps' run records. They replace no
+// Pallas kernel either: the JAX package races in XLA code
+// (parallel/frontier.py:337). Their note below has the design.
+//
 // Interface: plain C, for ctypes. A launch uses the caller's stream, does
 // not synchronize and allocates nothing; it returns cudaGetLastError().
 
@@ -121,6 +129,9 @@ constexpr int kDigestCols = 8;  // a segment's digest row per lane (ops/solver.p
 constexpr int kDigestThreads = 256;  // threads per block of the digest kernel
 constexpr int kDigestLanes = 32;     // pool lanes per block of the digest kernel
 constexpr int kCopyInFlight = 4;     // block words a digest thread loads before storing
+constexpr int kRaceMetaCols = 4;  // a race state's run: status, steps, validations, complete
+constexpr int kRaceRowExtra = 3;  // after the solution: found, validations, undecided
+constexpr int kFoldThreads = 1024;  // the race fold's one block
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kCellBits = 10;  // MRV key: popcount << kCellBits | cell
 constexpr unsigned kNoKey = 0xffffffffu;
@@ -476,16 +487,39 @@ struct Search {
   int top_cell, top_mask;  // frame depth-1, kept out of the slab
 };
 
-// Run a RUNNING board's steps until its status changes or it has taken
-// `max_steps` steps in all: the step body shared by both kernels. The slab
-// holds frames 0..depth-2; frame depth-1 is in s.top_cell / s.top_mask.
-template <int BOX>
+// The step-boundary check of `search`: NoPoll never stops a board (K1 and
+// K3, whose code it leaves as it was); the race kernel's RacePoll stops it
+// once it has run more steps than the earliest solve any warp has posted.
+struct NoPoll {
+  __device__ __forceinline__ bool operator()(int) const { return false; }
+};
+
+// Reads the race's posted stop step from memory at every step boundary:
+// lane 0 loads it through a volatile pointer (so the compiler cannot hoist
+// the load out of the step loop, nor serve it from a register or L1) and
+// broadcasts it, so the warp agrees on one value.
+struct RacePoll {
+  const volatile unsigned* stop;
+  int lane;
+  __device__ __forceinline__ bool operator()(int steps) const {
+    unsigned v = 0;
+    if (lane == 0) v = *stop;
+    v = __shfl_sync(kAll, v, 0);
+    return (unsigned)steps > v;
+  }
+};
+
+// Run a RUNNING board's steps until its status changes, it has taken
+// `max_steps` steps in all or `poll` stops it at a step boundary: the step
+// body shared by the kernels. The slab holds frames 0..depth-2; frame
+// depth-1 is in s.top_cell / s.top_mask.
+template <int BOX, class Poll = NoPoll>
 __device__ __forceinline__ void search(int (&g)[Geometry<BOX>::CPL],
                                        const int (&pk)[Geometry<BOX>::CPL],
                                        const UnitWalk (&uw)[Geometry<BOX>::UPL],
                                        const Smem& sh, int lane, int8_t* sg, int32_t* sc,
                                        int32_t* sm, int D, int max_steps, int waves,
-                                       int options, Search& s) {
+                                       int options, Search& s, Poll poll = Poll{}) {
   using Geo = Geometry<BOX>;
   constexpr int C = Geo::C;
   constexpr int CPL = Geo::CPL;
@@ -499,7 +533,7 @@ __device__ __forceinline__ void search(int (&g)[Geometry<BOX>::CPL],
   // sweeps 1..waves-1 only assign their singles.
   for (int wave = 0;; wave = wave + 1 == waves ? 0 : wave + 1) {
     if (wave == 0) {
-      if (s.steps >= max_steps) break;
+      if (s.steps >= max_steps || poll(s.steps)) break;
       ++s.steps;
     }
     ++s.validations;
@@ -850,6 +884,164 @@ segment_digest_kernel(const int32_t* __restrict__ lane_steps,
   }
 }
 
+// The race kernel (K4): one board's frontier race on one device. The JAX
+// package races the (M, C) seeded subtree states of one hard board in
+// lockstep (parallel/frontier.py:337, a while_loop of ops/solver.step with a
+// psum early exit: every state takes step t together, and the loop stops
+// after the first step t* at which any state is SOLVED, or when none is
+// RUNNING, or at max_iters; then finalize_status). It is XLA code, not a
+// Pallas kernel. Here each state is a warp running K1's step body on its
+// own trajectory (the trajectories are independent), out of step with the
+// others:
+//   * a warp whose board solves at step e posts e with atomicMin into the
+//     device-global `stop` (0xffffffff: none yet); at every step boundary
+//     `search` re-reads `stop` (RacePoll) and the warp stops once it has run
+//     more steps than the posted value. Since every posted e is at least
+//     t*, a warp still RUNNING at t* always runs step t* + 1 (or reaches
+//     max_iters), which is what the fold needs;
+//   * each warp writes its run record (status, steps, validations, and
+//     whether a board stopped RUNNING is complete: the closing analysis)
+//     and its grid;
+//   * race_fold_kernel then rebuilds the lockstep result exactly from the
+//     records (ops/solver.py fold_race has the argument) and writes the
+//     packed row [solution (C), found, validations, undecided] and each
+//     state's [status, validations] after the race, so the host fetches
+//     one row of C + 3 words.
+// What bounds it on an H100: like K1, the latency of the sweep chain of the
+// slowest warp up to t* + 1 steps; its bytes (M * C words in and out, the
+// stack slab touched only on branches) are far below that. The early exit
+// is the design's answer: the race costs the steps to the first solve, not
+// those of the slowest subtree. All M warps of a race of M <= ~3500 states
+// are resident together (K1's registers), so their steps overlap.
+template <int BOX>
+__global__ void __launch_bounds__(kWarps * kLanes)
+dfs_race_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
+                int32_t* __restrict__ meta, int8_t* __restrict__ stack_grid,
+                int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
+                unsigned* stop, int M, int D, int max_iters, int waves, int options) {
+  using Geo = Geometry<BOX>;
+  constexpr int C = Geo::C;
+  constexpr int CPL = Geo::CPL;
+  __shared__ int32_t smem[kWarps][Geo::WORDS];
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int i = blockIdx.x * kWarps + warp;
+  if (i >= M) return;  // the whole warp leaves; no block-wide barrier follows
+  const Smem sh = warp_smem<BOX>(smem[warp]);
+  int g[CPL], pk[CPL];
+  UnitWalk uw[Geo::UPL];
+  lane_layout<BOX>(lane, pk, uw);
+  const int32_t* in = states + (size_t)i * C;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) g[j] = owns<BOX>(lane, j) ? in[lane + j * kLanes] : 0;
+
+  Search s{kRunning, 0, 0, 0, 0, 0, 0};
+  search<BOX>(g, pk, uw, sh, lane, stack_grid + (size_t)i * D * C,
+              stack_cell + (size_t)i * D, stack_mask + (size_t)i * D, D, max_iters, waves,
+              options, s, RacePoll{stop, lane});
+  if (s.status == kSolved && lane == 0) atomicMin(stop, (unsigned)s.steps);
+  // the closing analysis of a board stopped RUNNING (warp-uniform)
+  const int complete =
+      s.status == kRunning && value_pass<BOX>(g, uw, sh.cm, sh.uo, lane) == 0;
+
+  int32_t* out = grid_out + (size_t)i * C;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    if (owns<BOX>(lane, j)) out[lane + j * kLanes] = g[j];
+  }
+  if (lane == 0) {
+    int32_t* m = meta + (size_t)i * kRaceMetaCols;
+    m[0] = s.status;
+    m[1] = s.steps;
+    m[2] = s.validations;
+    m[3] = complete;
+  }
+}
+
+// The race's fold (after K4 on the same stream), one block: t* is the
+// earliest step any state solved at, else the last step any state ran. A
+// state that ended at or before t* keeps its status and validations; any
+// other ran RUNNING through t* (t* * waves validations) and is SOLVED after
+// the race exactly when its grid was complete after step t*: it solved at
+// t* + 1, or it stopped at t* (max_iters) and its closing analysis found it
+// complete. The winner is the lowest SOLVED index. Validations sum in
+// unsigned (int32 wraparound, as the JAX psum of int32).
+template <int BOX>
+__global__ void __launch_bounds__(kFoldThreads)
+race_fold_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__ grid,
+                 int32_t* __restrict__ fold, int32_t* __restrict__ row, int M, int waves) {
+  constexpr int C = Geometry<BOX>::C;
+  constexpr int kWarpsHere = kFoldThreads / kLanes;
+  __shared__ unsigned red[3][kWarpsHere];
+  const int t = threadIdx.x, lane = t % kLanes, warp = t / kLanes;
+
+  unsigned first_solve = kNoKey, last_step = 0;
+  for (int i = t; i < M; i += kFoldThreads) {
+    const int32_t* m = meta + (size_t)i * kRaceMetaCols;
+    if (m[0] == kSolved) first_solve = min(first_solve, (unsigned)m[1]);
+    last_step = max(last_step, (unsigned)m[1]);
+  }
+  first_solve = __reduce_min_sync(kAll, first_solve);
+  last_step = __reduce_max_sync(kAll, last_step);
+  if (lane == 0) {
+    red[0][warp] = first_solve;
+    red[1][warp] = last_step;
+  }
+  __syncthreads();
+  first_solve = kNoKey;
+  last_step = 0;
+#pragma unroll
+  for (int w = 0; w < kWarpsHere; ++w) {
+    first_solve = min(first_solve, red[0][w]);
+    last_step = max(last_step, red[1][w]);
+  }
+  const int t_star = (int)(first_solve != kNoKey ? first_solve : last_step);
+  __syncthreads();  // red[] is reused below
+
+  unsigned winner = kNoKey, total = 0, undecided = 0;
+  for (int i = t; i < M; i += kFoldThreads) {
+    const int32_t* m = meta + (size_t)i * kRaceMetaCols;
+    const int status = m[0], steps = m[1];
+    const bool ended = status != kRunning && steps <= t_star;
+    const bool flip =
+        !ended && ((status == kSolved && steps == t_star + 1) ||
+                   (status == kRunning && steps == t_star && m[3] != 0));
+    const int st = ended ? status : (flip ? kSolved : kRunning);
+    const int vals = ended ? m[2] : t_star * waves;
+    fold[(size_t)i * 2] = st;
+    fold[(size_t)i * 2 + 1] = vals;
+    if (st == kSolved) winner = min(winner, (unsigned)i);
+    total += (unsigned)vals;
+    undecided |= st == kRunning || st == kOverflow;
+  }
+  winner = __reduce_min_sync(kAll, winner);
+  total = __reduce_add_sync(kAll, total);
+  undecided = __reduce_or_sync(kAll, undecided);
+  if (lane == 0) {
+    red[0][warp] = winner;
+    red[1][warp] = total;
+    red[2][warp] = undecided;
+  }
+  __syncthreads();
+  winner = kNoKey;
+  total = 0;
+  undecided = 0;
+#pragma unroll
+  for (int w = 0; w < kWarpsHere; ++w) {
+    winner = min(winner, red[0][w]);
+    total += red[1][w];
+    undecided |= red[2][w];
+  }
+  const bool found = winner != kNoKey;
+  for (int c = t; c < C; c += kFoldThreads)
+    row[c] = found ? grid[(size_t)winner * C + c] : 0;
+  if (t == 0) {
+    row[C] = found;
+    row[C + 1] = (int32_t)total;
+    row[C + 2] = undecided != 0;
+  }
+}
+
 template <int BOX>
 int launch(const void* boards, void* grid_out, void* meta, void* stack_grid,
            void* stack_cell, void* stack_mask, int B, int D, int max_iters, int waves,
@@ -890,6 +1082,26 @@ int launch_segment(const void* boards, int n_boards, const void* src, const Pool
                                stream>>>(
       static_cast<const int32_t*>(lane_steps), static_cast<const int32_t*>(p.grid),
       static_cast<int32_t*>(digest), static_cast<int32_t*>(gathered), W, prefix_gather);
+  return (int)cudaGetLastError();
+}
+
+template <int BOX>
+int launch_race(const void* states, void* grid_out, void* meta, void* fold, void* row,
+                void* stack_grid, void* stack_cell, void* stack_mask, void* stop, int M,
+                int D, int max_iters, int waves, int options, cudaStream_t stream) {
+  // no stop step posted yet: 0xffffffff
+  cudaError_t err = cudaMemsetAsync(stop, 0xff, sizeof(unsigned), stream);
+  if (err != cudaSuccess) return (int)err;
+  dfs_race_kernel<BOX><<<(M + kWarps - 1) / kWarps, kWarps * kLanes, 0, stream>>>(
+      static_cast<const int32_t*>(states), static_cast<int32_t*>(grid_out),
+      static_cast<int32_t*>(meta), static_cast<int8_t*>(stack_grid),
+      static_cast<int32_t*>(stack_cell), static_cast<int32_t*>(stack_mask),
+      static_cast<unsigned*>(stop), M, D, max_iters, waves, options);
+  const int launched = (int)cudaGetLastError();
+  if (launched != 0) return launched;
+  race_fold_kernel<BOX><<<1, kFoldThreads, 0, stream>>>(
+      static_cast<const int32_t*>(meta), static_cast<const int32_t*>(grid_out),
+      static_cast<int32_t*>(fold), static_cast<int32_t*>(row), M, waves);
   return (int)cudaGetLastError();
 }
 
@@ -993,6 +1205,43 @@ int dfs_segment_launch(const void* boards, int n_boards, const void* src, void* 
     case 5:
       return launch_segment<5>(boards, n_boards, src, p, digest, gathered, lane_steps,
                                W, D, seg_iters, waves, options, prefix_gather, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Run-record columns per race state, and the packed row's columns after the
+// solution, so the wrapper can check its layout.
+int dfs_race_meta_cols() { return kRaceMetaCols; }
+int dfs_race_row_extra() { return kRaceRowExtra; }
+
+// One frontier race over M states: the race kernel, then its fold, on
+// `stream`. states (M, C) int32 in; grid_out (M, C) and meta (M, 4) int32
+// out (each state's run: its grid and status, steps, validations, complete);
+// fold (M, 2) int32 out (status and validations after the lockstep race);
+// row (C + 3) int32 out (solution, found, validations, undecided); scratch
+// stack_grid (M, D, C) int8, stack_cell and stack_mask (M, D) int32, and
+// stop (1,) int32. box, waves and options as for dfs_solver_launch; a state
+// takes at most max_iters steps. Returns a cudaError_t.
+int dfs_race_launch(const void* states, void* grid_out, void* meta, void* fold, void* row,
+                    void* stack_grid, void* stack_cell, void* stack_mask, void* stop, int M,
+                    int box, int D, int max_iters, int waves, int options, void* stream) {
+  if (M <= 0 || D <= 0 || max_iters < 0 || waves < 1 || (options & ~7))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (box) {
+    case 2:
+      return launch_race<2>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
+                            stack_mask, stop, M, D, max_iters, waves, options, s);
+    case 3:
+      return launch_race<3>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
+                            stack_mask, stop, M, D, max_iters, waves, options, s);
+    case 4:
+      return launch_race<4>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
+                            stack_mask, stop, M, D, max_iters, waves, options, s);
+    case 5:
+      return launch_race<5>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
+                            stack_mask, stop, M, D, max_iters, waves, options, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -63,9 +63,18 @@ choice prefers the warm widths and ``solve_batch_np`` tiles over the
 largest one. ``solve_batch_np_supervised`` is the batch path under the
 supervisor's degraded-serving contract (``/solve_batch``).
 
+The frontier race (``frontier_mesh``, parallel/frontier.py): with it,
+``solve_one`` answers the easy mass of boards from a short probe (K1 at the
+escalation budget, or with ``frontier_handoff`` one K3 segment whose
+state seeds the race) and races the rest across their own subtrees on one
+device (the race kernel, K4), inline in the calling thread, as the JAX
+engine routes them. A race that fails with a device fault is answered from
+the bucket path (``frontier_fallbacks``); any other failure reaches the
+caller.
+
 Not in this slice (each raises ``NotImplementedError`` when asked for):
-a choice of backend (the engine always runs the kernel), the mesh and the
-frontier race, AOT/compile caches.
+a choice of backend (the engine always runs the kernel), the mesh (and a
+race across more than one device), AOT/compile caches.
 """
 
 from __future__ import annotations
@@ -90,8 +99,15 @@ from .ops.config import (
     resolved_segment_shape,
     segment_prefix_gather,
 )
-from .ops.cuda_solver import KernelLaunchError, SegmentPool, dfs_segment, solve_stage
-from .ops.solver import OVERFLOW, RUNNING, pad_board, staged_depths
+from .ops.cuda_solver import (
+    KernelLaunchError,
+    SegmentPool,
+    dfs_race,
+    dfs_segment,
+    solve_stage,
+)
+from .ops.propagate import analyze
+from .ops.solver import OVERFLOW, RUNNING, SOLVED, pad_board, staged_depths
 from .ops.spec import SPEC_9, BoardSpec
 from .serving.admission import DeadlineExceeded
 from .utils.faults import InjectedEngineFault
@@ -109,9 +125,7 @@ _AUTO = object()
 # Passing one with a value other than None/False raises instead of being
 # ignored.
 _UNPORTED = frozenset((
-    "backend", "mesh", "bucket_multiple", "sharding", "frontier_mesh",
-    "frontier_states_per_device", "frontier_route",
-    "frontier_escalate_iters", "frontier_handoff",
+    "backend", "mesh", "bucket_multiple", "sharding",
     "compile_cache_dir", "aot_artifacts", "solver_config",
 ))
 
@@ -226,6 +240,19 @@ class SolverEngine:
       deep_lane_cap: with continuous batching, the most lanes boards
         resident past a few boundaries may hold while requests queue; the
         overage is evicted to the deep retry. 0 = no cap.
+      frontier_mesh: route single-board solves through the frontier race
+        on one device: ``"auto"`` or True races on the engine's device (a
+        CPU engine runs the plain race), a device or its name on that
+        device; None (default) keeps the bucket path. A sequence of more
+        than one device raises ``NotImplementedError`` (the multi-GPU
+        slice).
+      frontier_states_per_device: states the race seeds (at least; padded
+        to this × 2^k).
+      frontier_route: ``"auto"`` answers a board from a probe at
+        ``frontier_escalate_iters`` steps and races only boards the probe
+        left RUNNING (or OVERFLOWed); ``"always"`` races every board.
+      frontier_handoff: seed an escalated race from the probe's
+        unexplored subtrees instead of the board's root.
     """
 
     def __init__(
@@ -251,6 +278,11 @@ class SolverEngine:
         segment_iters: Optional[int] = None,
         segment_pipeline: Optional[bool] = None,
         deep_lane_cap: int = 0,
+        frontier_mesh=None,
+        frontier_states_per_device: int = 64,
+        frontier_route: str = "auto",
+        frontier_escalate_iters: int = 512,
+        frontier_handoff: bool = False,
         **unported,
     ):
         for name, value in unported.items():
@@ -262,6 +294,18 @@ class SolverEngine:
                 )
         self.spec = spec
         self.device = resolve_device(device)
+        self.frontier_mesh = frontier_mesh
+        # the one device the race runs on (None: no frontier route)
+        self.frontier_device = self._frontier_device(frontier_mesh)
+        self.frontier_states_per_device = frontier_states_per_device
+        if frontier_route not in ("auto", "always"):
+            raise ValueError(
+                f"frontier_route must be 'auto' or 'always', got "
+                f"{frontier_route!r}"
+            )
+        self.frontier_route = frontier_route
+        self.frontier_escalate_iters = frontier_escalate_iters
+        self.frontier_handoff = bool(frontier_handoff)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         cfg = SERVING_CONFIG.get(spec.size, {})
         if max_depth is _AUTO:
@@ -338,6 +382,11 @@ class SolverEngine:
         # `validations` counter: one unit per analysis sweep per board
         self.validations = 0
         self.solved_puzzles = 0
+        # /solve requests answered by the bucket path because the race
+        # failed with a device fault, and auto-routed requests whose probe
+        # escalated them to the race: /metrics health signals
+        self.frontier_fallbacks = 0
+        self.frontier_escalations = 0
         # tiered warm-up (``warmup``): ``warmed`` flips once tier 0 ran
         # (the node is servable), ``fully_warmed`` once every bucket did.
         # While a warm-up has left part of the ladder cold, bucket choice
@@ -356,9 +405,6 @@ class SolverEngine:
         # (utils/faults.EngineFaultInjector); None costs nothing
         self.supervisor = None
         self.fault_injector = None
-        # the frontier race is not in this package: the P2P task farm reads
-        # this as the JAX node does, and always farms
-        self.frontier_enabled = False
         # device cost accounting (obs/cost.py): one sample per finalized
         # bucket call and per segment, never per request — the /metrics
         # "engine.cost" block
@@ -380,6 +426,21 @@ class SolverEngine:
         self._device_trace_budget = 0
         self._device_trace_captured = 0
         self._warmup_trace_done = False
+
+    def _frontier_device(self, mesh) -> Optional[torch.device]:
+        """``frontier_mesh`` as the race's device (None: no race)."""
+        if mesh is None or mesh is False:
+            return None
+        if mesh is True or mesh == "auto":
+            return self.device
+        from .parallel.frontier import race_device
+
+        return race_device(mesh)
+
+    @property
+    def frontier_enabled(self) -> bool:
+        """True when single-board solves route through the frontier race."""
+        return self.frontier_device is not None
 
     @property
     def coalescer(self):
@@ -1113,12 +1174,12 @@ class SolverEngine:
 
     def health(self) -> dict:
         """Operator-facing engine health, the ``engine`` block of
-        ``/metrics``, keyed as the JAX engine's. Keys of planes this
-        package does not have take the values of a JAX engine without
-        them: the frontier race is off (``frontier_enabled`` False, its
-        counters 0) and there is no mesh block. ``backend`` names what runs
-        the search (``"cuda"`` / ``"plain"``, the JAX engine's ``"xla"`` /
-        ``"pallas"``).
+        ``/metrics``, keyed as the JAX engine's: the frontier route's
+        switches and counters (``frontier_fallbacks`` counts requests the
+        bucket path answered after a race's device fault), and no mesh
+        block, which this package does not have. ``backend`` names what
+        runs the search (``"cuda"`` / ``"plain"``, the JAX engine's
+        ``"xla"`` / ``"pallas"``).
 
         ``cost`` is the device cost plane (obs/cost.py). Its lane counters
         differ from the JAX engine's by design on the closed loop: the DFS
@@ -1132,11 +1193,11 @@ class SolverEngine:
         the JAX engine's on the same workload."""
         out = {
             "backend": self.backend,
-            "frontier_enabled": False,
-            "frontier_route": "auto",
-            "frontier_handoff": False,
-            "frontier_fallbacks": 0,
-            "frontier_escalations": 0,
+            "frontier_enabled": self.frontier_enabled,
+            "frontier_route": self.frontier_route,
+            "frontier_handoff": self.frontier_handoff,
+            "frontier_fallbacks": self.frontier_fallbacks,
+            "frontier_escalations": self.frontier_escalations,
             "coalesce": self.coalesce,
             "continuous": {
                 "enabled": self.continuous_active,
@@ -1252,6 +1313,7 @@ class SolverEngine:
                     stack.enter_context(annotate("warmup"))
                 for b in self._tier0_buckets():
                     self._warm_bucket(b)
+                self._warm_probe_programs()
                 self._warm_segment_program()
         finally:
             if trace_warm:
@@ -1269,10 +1331,10 @@ class SolverEngine:
         self._warm_widen(deadline)
 
     def _warm_widen(self, deadline: Optional[float]) -> None:
-        """Widen past tier 0: the remaining buckets, ascending. Runs inline
-        or as the background warm thread; a budget cut and a failure both
-        leave the engine serving, tier-0 warm, the cold widths tiled over
-        or launched on demand."""
+        """Widen past tier 0: the remaining buckets, ascending, then the
+        frontier race's rungs. Runs inline or as the background warm
+        thread; a budget cut and a failure both leave the engine serving,
+        tier-0 warm, the cold widths tiled over or launched on demand."""
         try:
             for b in self.buckets:
                 if deadline is not None and time.monotonic() > deadline:
@@ -1288,6 +1350,12 @@ class SolverEngine:
                     )
                     return
                 self._warm_bucket(b)
+            if self.frontier_enabled:
+                if deadline is not None and time.monotonic() > deadline:
+                    with self._lock:
+                        self._warm_skipped = ["frontier"]
+                    return
+                self._warm_frontier()
             with self._lock:
                 self._warm_skipped = []
                 self.fully_warmed = True
@@ -1295,6 +1363,40 @@ class SolverEngine:
             logger.exception(
                 "warm-up widening failed — cold widths launch on demand"
             )
+
+    def _warm_probe_programs(self) -> None:
+        """Tier-0 companion of an auto-routed frontier engine: the probe
+        runs before every routing decision. The K1 probe is the bucket
+        path's launch at the smallest width, warm with tier 0; the handoff
+        probe is its own launch shape (one segment over a one-lane pool),
+        so it runs once here on the empty board. No counter moves."""
+        if not (self.frontier_enabled and self.frontier_route == "auto"):
+            return
+        if self.frontier_handoff:
+            N = self.spec.size
+            self._note_program("quick_state", 1)
+            self._quick_state(np.zeros((N, N), np.int32))
+
+    def _warm_frontier(self) -> None:
+        """The race's first rungs before serving: the seeding ops, then a
+        race over ``states_per_device × {1, 2, 4}`` instantly-unsat pad
+        states (each dies in one step, so no solution and no counter), as
+        the JAX engine warms its racer. Larger rungs launch on first use."""
+        from .parallel import frontier
+
+        N, C = self.spec.size, self.spec.cells
+        target = self.frontier_states_per_device
+        frontier.warm_seeding(self.spec, target, self.locked_candidates)
+        pad = torch.from_numpy(frontier._unsat_pad(self.spec).reshape(1, C))
+        for mult in (1, 2, 4):
+            states = pad.expand(target * mult, C).contiguous()
+            row, _, _ = dfs_race(
+                states.to(self.frontier_device), self.spec, self._depth_flat,
+                frontier.DEFAULT_MAX_ITERS,
+                locked_candidates=self.locked_candidates, waves=self.waves,
+                naked_pairs=self.naked_pairs,
+            )
+            row.cpu()  # the race has run
 
     def _warm_bucket(self, b: int) -> None:
         """One launch and wait of the bucket path at width ``b``, recorded
@@ -1420,25 +1522,266 @@ class SolverEngine:
             "routed": "oracle-fallback",
         }
 
+    def _probe_quick(self, arr: np.ndarray):
+        """The auto-route probe: one K1 call at the smallest covering width
+        with ``frontier_escalate_iters`` steps, padded with copies of the
+        board, at the staged depth and the width's sweeps (one a step at
+        width 1), straight to the kernel (no coalescer, no token).
+
+        Returns (solution | None, info) when the probe FINISHED (solved,
+        or proved unsatisfiable), or None when the board was still RUNNING
+        at the budget or OVERFLOWed: the deep-search tail that escalates to
+        the race (``solve_one``)."""
+        bucket = self._bucket_for(1)
+        boards = arr[None]
+        if bucket > 1:
+            # copies of the probe board, not empty boards: a block runs
+            # until its slowest board finishes, and a copy adds no step
+            boards = np.concatenate(
+                [boards, np.broadcast_to(arr, (bucket - 1, *arr.shape))]
+            )
+        tr = current_trace()
+        t_dev = time.monotonic()
+        try:
+            row = self._wait_rows(
+                self._launch(boards, 1, self.frontier_escalate_iters)
+            )[0]
+        finally:
+            if tr is not None:
+                tr.mark("device", time.monotonic() - t_dev)
+        C = self.spec.cells
+        status = int(row[C + 1])
+        validations = int(row[C + 3])
+        if status in (RUNNING, OVERFLOW):
+            # RUNNING: out of probe steps. OVERFLOW: the probe's stack
+            # overflowed, which is no answer either; the race runs the
+            # full-depth stack. Both escalate; the probe's sweeps are billed
+            with self._lock:
+                self.validations += validations
+                self.frontier_escalations += 1
+            return None
+        solved = bool(row[C])
+        with self._lock:
+            self.validations += validations
+            self.solved_puzzles += int(solved)
+        info = {
+            "validations": validations,
+            "guesses": int(row[C + 2]),
+            "routed": "bucket-quick",
+        }
+        N = self.spec.size
+        return (row[:C].reshape(N, N).tolist() if solved else None), info
+
+    def _quick_state(self, arr: np.ndarray):
+        """The handoff probe's device work: one segment of
+        ``frontier_escalate_iters`` steps over a one-lane pool holding the
+        board, at the flat depth and one sweep a step (K3/K3b on the card),
+        which leaves the lane's whole search state in the pool. Returns
+        ``(packed, pool)``: the host row [grid (C), status, guesses,
+        validations], fetched in one copy, with ``finalize_status``
+        applied to the status (a segment has no closing analysis), and the
+        pool, whose state stays on the device."""
+        C = self.spec.cells
+        dev = self._device_batch(arr[None])
+        pool = SegmentPool.fresh(dev, self.spec, self._depth_flat)
+        keep = torch.full((1,), -1, dtype=torch.int32, device=self.device)
+        pool, _, _ = dfs_segment(
+            pool, dev.reshape(1, C), keep, self.frontier_escalate_iters,
+            prefix_gather=False, locked_candidates=self.locked_candidates,
+            waves=1, naked_pairs=self.naked_pairs,
+        )
+        st = pool.state
+        packed = torch.cat(
+            [st.grid[0], st.status, st.guesses, st.validations]
+        ).cpu().numpy()
+        if packed[C] == RUNNING:
+            # finalize_status: a board completed on the budget's last step
+            # reads RUNNING until one more analysis
+            N = self.spec.size
+            grid = torch.from_numpy(packed[:C].reshape(1, N, N).copy())
+            if bool(analyze(grid, self.spec).solved[0]):
+                packed[C] = SOLVED
+        return packed, pool
+
+    def _probe_quick_state(self, arr: np.ndarray):
+        """Handoff variant of ``_probe_quick`` (``frontier_handoff``).
+
+        Returns ("done", (solution | None, info)) when the probe answered
+        the request, or ("escalate", seed_states) with the probe's
+        unexplored subtrees (parallel/frontier.state_handoff_frontier) for
+        the race to continue from."""
+        self._note_program("quick_state", 1)
+        tr = current_trace()
+        t_dev = time.monotonic()
+        try:
+            packed, pool = self._quick_state(arr)
+        finally:
+            if tr is not None:
+                tr.mark("device", time.monotonic() - t_dev)
+        C = self.spec.cells
+        status = int(packed[C])
+        validations = int(packed[C + 2])
+        if status in (RUNNING, OVERFLOW):
+            # the same escalation contract as _probe_quick; the stack is
+            # fetched only here, on the rare deep path
+            from .parallel.frontier import state_handoff_frontier
+
+            seeds = state_handoff_frontier(pool.state, self.spec)
+            with self._lock:
+                self.validations += validations
+                self.frontier_escalations += 1
+            return "escalate", seeds
+        solved = status == SOLVED
+        with self._lock:
+            self.validations += validations
+            self.solved_puzzles += int(solved)
+        info = {
+            "validations": validations,
+            "guesses": int(packed[C + 1]),
+            "routed": "bucket-quick",
+        }
+        N = self.spec.size
+        solution = packed[:C].reshape(N, N).tolist() if solved else None
+        return "done", (solution, info)
+
+    def _frontier_raw(self, arr: np.ndarray, seed_states=None, deadline_s=None):
+        """Run the race without serving-stats side effects;
+        ``_frontier_solve`` wraps it with the counter accounting.
+
+        Supervision and cost, as in the JAX engine: the race opens a
+        watchdog token under the width 0 (it is not a bucket call, but a
+        hung race must trip the same breaker) with an 8× budget, since a
+        healthy race runs far past one bucket call, and folds its wall
+        time into ``cost.note_frontier``. A ``DeadlineExceeded`` abandons
+        the token without feeding the breaker either way."""
+        from .parallel.frontier import frontier_solve
+
+        sup = self.supervisor
+        token = (
+            sup.call_started(0, budget_scale=8.0) if sup is not None else None
+        )
+        t0 = time.monotonic()
+        try:
+            solution, info = frontier_solve(
+                arr,
+                self.frontier_device,
+                self.spec,
+                states_per_device=self.frontier_states_per_device,
+                max_depth=self.max_depth,
+                locked=self.locked_candidates,
+                waves=self.waves,
+                naked_pairs=self.naked_pairs,
+                initial_states=seed_states,
+                deadline_s=deadline_s,
+            )
+        except DeadlineExceeded:
+            if sup is not None:
+                sup.call_abandoned(token)
+            raise
+        except BaseException:
+            if sup is not None:
+                sup.call_finished(token, ok=False)
+            raise
+        if sup is not None:
+            sup.call_finished(token, ok=True)
+        self.cost.note_frontier(
+            device_s=time.monotonic() - t0, escalated=seed_states is not None
+        )
+        return solution, dict(info, frontier=True)
+
+    def _frontier_solve(self, arr: np.ndarray, seed_states=None, deadline_s=None):
+        solution, info = self._frontier_raw(arr, seed_states, deadline_s)
+        with self._lock:
+            self.validations += info["validations"]
+            if solution is not None:
+                self.solved_puzzles += 1
+        return solution, info
+
     def solve_one(
         self,
         board: Sequence[Sequence[int]],
         *,
+        frontier: Optional[bool] = None,
         deadline_s: Optional[float] = None,
     ) -> Tuple[Optional[List[List[int]]], dict]:
-        """Solve a single board through the bucket path: coalesced with
-        concurrent requests when enabled, else a direct width-1 call.
-        Returns (solution | None, info).
+        """Solve a single board; returns (solution | None, info).
 
-        ``deadline_s`` has the JAX engine's meaning: it bounds the
-        frontier route, which this package does not have yet, so on the
-        bucket route it changes nothing. A deadline that guards the queue
-        rides ``solve_one_async``.
+        Without the frontier race this is the bucket path: coalesced with
+        concurrent requests when enabled, else a direct width-1 call. With
+        it (``frontier_mesh``), an ``"auto"`` route first probes the board
+        (``_probe_quick``, or ``_probe_quick_state`` with the handoff) and
+        races only what the probe left unfinished; ``"always"`` and an
+        explicit ``frontier=True`` race at once; ``frontier=False`` forces
+        the bucket path (the P2P worker's per-cell tasks and the host APIs
+        use it, as in the JAX package).
 
-        With a supervisor attached this is the degraded-mode seam
-        (``_supervised_answer``)."""
-        del deadline_s  # the bucket route has no frontier leg to bound
+        ``deadline_s`` (absolute monotonic) bounds the race's leg: a request
+        that expires after its probe, or mid-seeding, raises
+        ``DeadlineExceeded`` (the 429 path); a race already dispatched
+        runs to completion. A deadline that guards the bucket route's
+        queue rides ``solve_one_async``.
+
+        A race that fails with a device fault (``device_fault``) is
+        answered from the bucket path and counted in
+        ``frontier_fallbacks``; any other failure reaches the caller. The
+        JAX engine sends every race failure to the bucket path: here a
+        fallback must never hide the kernel.
+
+        With a supervisor attached the bucket path is the degraded-mode
+        seam (``_supervised_answer``)."""
         arr = np.asarray(board, np.int32)
+        use_frontier = (
+            self.frontier_enabled
+            if frontier is None
+            else (frontier and self.frontier_enabled)
+        )
+        seed_states = None
+        if use_frontier and frontier is None and self.frontier_route == "auto":
+            if self.frontier_handoff:
+                outcome, payload = self._probe_quick_state(arr)
+                if outcome == "done":
+                    return payload
+                seed_states = payload  # the race continues the probe's search
+            else:
+                probed = self._probe_quick(arr)
+                if probed is not None:
+                    return probed
+        if use_frontier:
+            if deadline_s is not None and time.monotonic() > deadline_s:
+                # the escalation boundary: the race leg has not started
+                raise DeadlineExceeded(
+                    "deadline expired before the frontier race"
+                )
+            try:
+                solution, info = self._frontier_solve(
+                    arr, seed_states, deadline_s
+                )
+            except DeadlineExceeded:
+                raise
+            except Exception as exc:  # noqa: BLE001 — re-raised unless a device fault
+                if not device_fault(exc):
+                    raise
+                logger.exception(
+                    "frontier race failed on the device — serving this "
+                    "request from the bucket path"
+                )
+                with self._lock:
+                    self.frontier_fallbacks += 1
+            else:
+                if solution is None and info.get("capped"):
+                    # a race whose every subtree OVERFLOWed or was still
+                    # RUNNING at max_iters has NOT proven the board
+                    # unsolvable
+                    logger.warning(
+                        "solve_one: frontier race budget/stack exhausted — "
+                        "board not finished, NOT proven unsolvable"
+                    )
+                return solution, info
+        return self._solve_one_bucket(arr)
+
+    def _solve_one_bucket(self, arr: np.ndarray):
+        """The single-board bucket path, under ``_supervised_answer`` when
+        a supervisor is attached."""
         sup = self.supervisor
         if sup is None:
             return self._solve_one_bucket_direct(arr)
@@ -1564,16 +1907,19 @@ class SolverEngine:
         erroring or pinning the handler thread; answers are verified
         host-side). ``DeadlineExceeded`` always propagates (the 429 path),
         and the fallback honors an already-expired deadline. The inline
-        route (``coalesce=False``) is supervised inside ``solve_one``."""
+        routes (``coalesce=False``, and a frontier engine's) are supervised
+        inside ``solve_one``, once: its bucket path is the seam, and a race
+        that fails on the device already falls back there."""
         sup = self.supervisor
         if sup is None:
             return self.solve_one_async(board, deadline_s=deadline_s).result()
         arr = np.asarray(board, np.int32)
+        inline = not self.coalesce or self.frontier_enabled
         if deadline_s is not None and time.monotonic() > deadline_s and (
-            sup.should_fallback() or not self.coalesce
+            sup.should_fallback() or inline
         ):
             raise DeadlineExceeded("deadline expired before the solve started")
-        if self.coalesce:
+        if not inline:
             return self._supervised_answer(
                 sup, arr,
                 lambda: self._await_result(self.coalescer.submit(arr, deadline_s)),
@@ -1585,13 +1931,16 @@ class SolverEngine:
         self,
         board: Sequence[Sequence[int]],
         *,
+        frontier: Optional[bool] = None,
         deadline_s: Optional[float] = None,
     ) -> Future:
         """``solve_one`` returning a ``concurrent.futures.Future``.
 
-        With the coalescer on, the request is enqueued and the call returns
-        at once; concurrent requests share one device call. Without it, the
-        solve runs inline in the calling thread.
+        With the coalescer on, a bucket-path request is enqueued and the
+        call returns at once; concurrent requests share one device call.
+        Frontier-routed requests (and engines without the coalescer) run
+        inline in the calling thread: the race occupies the device by
+        design and must not stall the bucket pipeline behind it.
 
         ``deadline_s`` (absolute ``time.monotonic()``, from the admission
         layer — serving/admission.py): a coalesced request still queued
@@ -1600,7 +1949,12 @@ class SolverEngine:
         (work already started is never abandoned — the deadline guards
         queue wait, not service time)."""
         arr = np.asarray(board, np.int32)
-        if self.coalesce:
+        use_frontier = (
+            self.frontier_enabled
+            if frontier is None
+            else (frontier and self.frontier_enabled)
+        )
+        if self.coalesce and not use_frontier:
             return self.coalescer.submit(arr, deadline_s)
         fut: Future = Future()
         try:
@@ -1608,7 +1962,9 @@ class SolverEngine:
                 raise DeadlineExceeded(
                     "deadline expired before the solve started"
                 )
-            fut.set_result(self.solve_one(arr))
+            fut.set_result(
+                self.solve_one(arr, frontier=frontier, deadline_s=deadline_s)
+            )
         except BaseException as e:  # noqa: BLE001 — deliver through the future
             fut.set_exception(e)
         return fut

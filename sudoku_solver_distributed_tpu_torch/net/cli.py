@@ -122,6 +122,16 @@ Extensions:
                 --hedge-budget-pct, default 25, of primary dispatches) and
                 a join deferred until /readyz would pass; the first flag
                 turns all four off, the others one each
+  --frontier STATES_PER_DEVICE / --frontier-route / --frontier-escalate-iters
+  / --frontier-handoff
+                route single-board /solve through the frontier race
+                (parallel/frontier.py) on the engine's device, seeding
+                this many subtree states (0, the default: off). With
+                --frontier-route auto (default) a probe of
+                --frontier-escalate-iters steps (512) answers easy boards
+                and only the rest race; 'always' races every board.
+                --frontier-handoff seeds an escalated race from the
+                probe's unexplored subtrees instead of the board's root
 """
 
 from __future__ import annotations
@@ -190,6 +200,37 @@ def build_parser() -> argparse.ArgumentParser:
         "segment pool) always runs and flips serving warm; buckets past "
         "the budget are skipped and requests tile over the warm widths "
         "instead. 0 (default) = no budget, warm the full ladder",
+    )
+    parser.add_argument(
+        "--frontier",
+        type=int,
+        default=0,
+        metavar="STATES_PER_DEVICE",
+        help="route single-board /solve through the search-frontier race on "
+        "the engine's device with this many speculative states "
+        "(0 = off: bucket-1 batch solve)",
+    )
+    parser.add_argument(
+        "--frontier-route",
+        default="auto",
+        choices=["auto", "always"],
+        help="with --frontier: 'auto' (default) answers easy requests from "
+        "a short bucket-path probe and escalates only deep-search boards "
+        "to the race; 'always' races every request",
+    )
+    parser.add_argument(
+        "--frontier-escalate-iters",
+        type=int,
+        default=512,
+        help="auto-route probe budget in lockstep iterations before a "
+        "request escalates to the frontier race",
+    )
+    parser.add_argument(
+        "--frontier-handoff",
+        action="store_true",
+        help="seed escalated races from the auto-route probe's unexplored "
+        "subtrees instead of restarting from the board's root (off by "
+        "default)",
     )
     parser.add_argument(
         "--batch-api",
@@ -558,6 +599,13 @@ def build_node(args: argparse.Namespace):
     }
     if args.buckets:
         kwargs["buckets"] = tuple(int(b) for b in args.buckets.split(","))
+    if args.frontier > 0:
+        # the race runs on the engine's own device (one host, one device)
+        kwargs["frontier_mesh"] = "auto"
+        kwargs["frontier_states_per_device"] = args.frontier
+        kwargs["frontier_route"] = args.frontier_route
+        kwargs["frontier_escalate_iters"] = args.frontier_escalate_iters
+        kwargs["frontier_handoff"] = args.frontier_handoff
     tracer, flight, slo = build_obs(args)
     engine = SolverEngine(**kwargs)
     if args.profile_dir:

@@ -13,9 +13,11 @@ Deviations from the JAX node:
 
   * no ``mesh_peer_count``: the ``/tpu{k}`` pseudo-peers of a multi-device
     mesh are not in this package, so ``/network`` is the membership view;
-  * the engine has no frontier race (``engine.frontier_enabled`` is
-    False), so every ``solve_one`` here is the bucket route and takes no
-    ``frontier`` argument;
+  * the frontier race runs on one device (the engine's
+    ``frontier_mesh``), not across a mesh: with it enabled, ``/solve``
+    answers from the node's own race and does not farm, as on the JAX
+    node; per-cell tasks and the farm's closing solves pass
+    ``frontier=False``, as there;
   * ``shutdown`` also stops the worker thread at once (a sentinel on its
     queue) and closes the UDP socket once ``run`` returns, or at once when
     ``run`` never started; a second call does nothing.
@@ -638,7 +640,7 @@ class P2PNode:
             self.limiter.tick()  # the handicap contract, one tick per task
             # bucket path always: a farmed per-cell task must not occupy the
             # whole mesh the way a frontier-routed serving request does
-            solution, _ = self.engine.solve_one(board)
+            solution, _ = self.engine.solve_one(board, frontier=False)
             value = solution[row][col] if solution is not None else None
             if value is None:
                 status = 400
@@ -1106,7 +1108,9 @@ class P2PNode:
                         sudoku, deadline_s=deadline_s
                     )
                 else:
-                    solution, info = self.engine.solve_one(sudoku)
+                    solution, info = self.engine.solve_one(
+                        sudoku, frontier=False
+                    )
                 return solution, dict(info, farmed=True)
 
             if done:
@@ -1125,7 +1129,7 @@ class P2PNode:
                 board, deadline_s=deadline_s
             )
         else:
-            solution, info = self.engine.solve_one(board)
+            solution, info = self.engine.solve_one(board, frontier=False)
         return solution, dict(info, farmed=True)
 
     @staticmethod

@@ -66,7 +66,7 @@ class SudokuSolver:
         back into it; immutable inputs (tuples, numpy arrays) just get the
         return value."""
         self.sudoku_board = sudoku
-        solution, _ = self._engine.solve_one(sudoku)
+        solution, _ = self._engine.solve_one(sudoku, frontier=False)
         if solution is None:
             return None
         self.sudoku_board = solution
@@ -82,7 +82,7 @@ class SudokuSolver:
         Future resolving to ``(solution | None, info)``. The input is never
         mutated and ``solved_puzzles`` is not incremented (the engine's own
         counters still account the work)."""
-        return self._engine.solve_one_async(sudoku)
+        return self._engine.solve_one_async(sudoku, frontier=False)
 
     def is_valid_move(self, board, row: int, col: int, num: int) -> bool:
         """Reference node.py:42-60 — including its quirk that a fully valid
@@ -95,7 +95,7 @@ class SudokuSolver:
     def solve_sudoku_destributed(self, board, row: int, col: int):
         """Answer one cell (reference node.py:77-81, its task-farm unit)
         from a full engine solve; None means the board is unsatisfiable."""
-        solution, _ = self._engine.solve_one(board)
+        solution, _ = self._engine.solve_one(board, frontier=False)
         if solution is None:
             return None
         return int(solution[row][col])

@@ -114,10 +114,10 @@ class CostAccounting:
         # datagram is counted here exactly once and NEVER as a
         # completion anywhere
         self._farm = {"dispatches": 0, "hedges": 0, "dup_solutions": 0}
-        # frontier-route counters (the frontier race is not in this
-        # package yet): races run, quick-probe escalations among them,
-        # and the races' wall time; the per-bucket ledger can't carry
-        # these because a race has no bucket width
+        # frontier-route counters (engine._frontier_raw): races run,
+        # handoff escalations among them, and the races' wall time; the
+        # per-bucket ledger can't carry these because a race has no
+        # bucket width
         self._frontier = {"races": 0, "escalations": 0, "device_s": 0.0}
 
     def record_call(

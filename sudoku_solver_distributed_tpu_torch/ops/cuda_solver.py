@@ -38,6 +38,14 @@ ops/solver.py on a CPU one; ``dfs_segment.launches`` counts its launches.
 The pool's state tensors are updated in place, which takes the place of
 the JAX program's buffer donation: each call consumes the handle it was
 given and returns the pool's next one.
+
+``dfs_race`` is the frontier race of one board's seeded subtree states on
+one device: the race kernel and its fold (K4) on a CUDA tensor, the plain
+lockstep race ``ops/solver.race`` on a CPU one; ``dfs_race.launches``
+counts its launches. The JAX package races in lockstep with a
+per-step collective (parallel/frontier.py ``race``); the kernel's warps
+run out of step, stop one step past the earliest solve any of them has
+posted, and the fold rebuilds the lockstep result exactly.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ import numpy as np
 import torch
 
 from .solver import (
+    RACE_META_COLS,
+    RACE_ROW_EXTRA,
     RUNNING,
     SEGMENT_DIGEST_COLS,
     SegmentState,
@@ -63,6 +73,7 @@ from .solver import (
     SOLVED,
     init_segment_state,
     inject_lanes_src,
+    race,
     run_segment,
     segment_digest,
     solve_flat,
@@ -150,6 +161,14 @@ def load_library() -> ctypes.CDLL:
         raise RuntimeError("dfs_solver library disagrees on the digest layout")
     lib.dfs_segment_warps_per_sm.argtypes = [i]
     lib.dfs_segment_warps_per_sm.restype = i
+    lib.dfs_race_launch.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.dfs_race_launch.restype = i
+    lib.dfs_race_meta_cols.restype = i
+    lib.dfs_race_row_extra.restype = i
+    if (lib.dfs_race_meta_cols(), lib.dfs_race_row_extra()) != (
+        RACE_META_COLS, RACE_ROW_EXTRA
+    ):
+        raise RuntimeError("dfs_solver library disagrees on the race layout")
     return lib
 
 
@@ -417,6 +436,102 @@ def _launch_segment(lib: ctypes.CDLL, pool: SegmentPool, boards: torch.Tensor,
 
 
 dfs_segment.launches = 0
+
+
+def _dfs_race_plain(states: torch.Tensor, spec: BoardSpec, depth: int,
+                    max_iters: int, **sweeps):
+    """The plain PyTorch version of the race kernels on the same (M, C)
+    layout: ops/solver.race, the lockstep race, under the same ``sweeps``
+    knobs. Returns (row, fold, meta) like the kernels; ``meta`` is each
+    state's search as the lockstep loop cut it."""
+    M = states.shape[0]
+    N = spec.size
+    knobs = sweep_knobs(spec, **sweeps)
+    return race(states.reshape(M, N, N), spec, max_iters, depth, **knobs)
+
+
+def dfs_race(states: torch.Tensor, spec: BoardSpec, depth: int,
+             max_iters: int, *, locked_candidates: bool = False,
+             waves: int = 1, naked_pairs: bool | None = None,
+             packed: bool | None = None):
+    """Race (M, C) int32 seeded states of one board to the first solution:
+    the JAX package's lockstep frontier race on one device, each state with
+    a guess stack of ``depth`` frames and at most ``max_iters`` steps, under
+    ``ops.solver.solve_batch``'s sweep knobs (no light waves: the race has
+    none). Returns ``(row, fold, meta)``: the packed (C + 3,) int32 row
+    [solution, found, validations, undecided]; the (M, 2) int32 [status,
+    validations] of every state after the race; and the (M, 4) int32 run
+    record of ``ops.solver.RACE_META_COLS``. ``row`` and ``fold`` are the
+    lockstep race's exactly. ``meta`` says where each state's search
+    stopped: in lockstep for the plain version, at each warp's own pace for
+    the kernel, whose warps stop one step past the earliest solve they have
+    seen (``ops.solver.fold_race`` maps either to ``row`` and ``fold``).
+
+    A CUDA tensor launches the race kernel and its fold (K4) on the current
+    stream (no sync); a CPU tensor runs the plain version. Nothing else is
+    accepted. ``dfs_race.launches`` counts launches."""
+    sweeps = dict(
+        locked_candidates=locked_candidates, waves=waves,
+        naked_pairs=naked_pairs, packed=packed,
+    )
+    knobs = sweep_knobs(spec, **sweeps)
+    if not isinstance(states, torch.Tensor):
+        raise TypeError("dfs_race takes a torch.Tensor")
+    if states.dtype != torch.int32:
+        raise TypeError(f"dfs_race takes int32 states, got {states.dtype}")
+    if states.dim() != 2 or states.shape[1] != spec.cells or states.shape[0] < 1:
+        raise ValueError(
+            f"dfs_race takes (M >= 1, {spec.cells}) states, got "
+            f"{tuple(states.shape)}"
+        )
+    if depth < 1 or max_iters < 0:
+        raise ValueError(f"bad depth {depth} / max_iters {max_iters}")
+    if states.device.type == "cpu":
+        return _dfs_race_plain(states, spec, depth, max_iters, **sweeps)
+    if states.device.type != "cuda":
+        raise ValueError(f"dfs_race runs on cuda or cpu, not {states.device}")
+    if not states.is_contiguous():
+        raise ValueError("dfs_race takes contiguous states")
+    return _launch_race(
+        load_library(), states, spec, depth, max_iters, knobs["waves"],
+        _options(knobs),
+    )
+
+
+def _launch_race(lib: ctypes.CDLL, states: torch.Tensor, spec: BoardSpec,
+                 depth: int, max_iters: int, waves: int, options: int):
+    """Allocate the race's outputs and scratch for (M, C) states on a CUDA
+    device, launch ``lib``'s race kernel and its fold on the current stream,
+    and count the launch in ``dfs_race.launches``. The (M, D, C) stack slab
+    (0.8 GB for 2048 25x25 states at 625 frames) comes from PyTorch's
+    caching allocator, which hands the same block back to the next race of
+    the same rung instead of allocating anew."""
+    M, C = states.shape
+    dev = states.device
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    grid, meta = empty(M, C), empty(M, RACE_META_COLS)
+    fold, row = empty(M, 2), empty(C + RACE_ROW_EXTRA)
+    stack_grid = empty(M, depth, C, dtype=torch.int8)
+    stack_cell, stack_mask, stop = empty(M, depth), empty(M, depth), empty(1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dfs_race_launch(
+            states.data_ptr(), grid.data_ptr(), meta.data_ptr(),
+            fold.data_ptr(), row.data_ptr(), stack_grid.data_ptr(),
+            stack_cell.data_ptr(), stack_mask.data_ptr(), stop.data_ptr(),
+            M, spec.box, depth, max_iters, waves, options, stream,
+        )
+    if err != 0:
+        raise KernelLaunchError(f"dfs_race launch failed: cudaError {err}")
+    with _LAUNCHES_LOCK:
+        dfs_race.launches += 1
+    return row, fold, meta
+
+
+dfs_race.launches = 0
 
 
 def solve_stage(grid: torch.Tensor, spec: BoardSpec, depth: int,

@@ -619,3 +619,103 @@ def segment_digest(state: SegmentState, entry_running: torch.Tensor,
         dim=1,
     )
     return digest, gathered
+
+
+# -- the frontier race: one board's disjoint subtrees raced to a solution -----
+
+# Columns of a race's packed row after its C solution cells: found, the
+# validations summed over every state, and undecided (some state still
+# RUNNING or OVERFLOWed, so "not found" is a budget verdict, not a proof).
+RACE_ROW_EXTRA = 3
+# Columns of a race's per-state run record: the status the state's search
+# stopped in, the steps it took, its validations then, and whether a
+# closing analysis finds a state stopped RUNNING complete.
+RACE_META_COLS = 4
+
+
+def race(states: torch.Tensor, spec: BoardSpec, max_iters: int,
+         max_depth: int | None = None, **sweeps):
+    """The lockstep race of the JAX package's ``parallel/frontier.py``
+    (``_make_racer``'s ``race``) on one device: the (M, N, N) states step
+    together while no state is SOLVED, some state is RUNNING and fewer than
+    ``max_iters`` steps ran; then ``finalize_status``. ``sweeps`` are
+    ``_step``'s knobs. Returns ``(row, fold, meta)``: the packed (C + 3,)
+    int32 row ``race_row``; the (M, 2) [status, validations] of every state
+    after the race; and the (M, 4) run record of ``RACE_META_COLS``, each
+    state's search as the lockstep loop left it (steps counted while the
+    state was RUNNING, status before the closing analysis), which
+    ``fold_race`` turns into the same row and fold."""
+    M = states.shape[0]
+    st = init_state(states, spec, max_depth)
+    steps = torch.zeros((M,), dtype=torch.int32, device=states.device)
+    while st.iters < max_iters:
+        running = st.status == RUNNING
+        if not bool(running.any()):
+            break
+        steps += running.to(torch.int32)
+        st = _step(st, spec, **sweeps)
+        if bool((st.status == SOLVED).any()):
+            break
+    done = finalize_status(st, spec)
+    complete = ((st.status == RUNNING) & (done.status == SOLVED)).to(torch.int32)
+    meta = torch.stack([st.status, steps, st.validations, complete], dim=1)
+    fold = torch.stack([done.status, done.validations], dim=1)
+    return race_row(done.grid, fold, spec), fold, meta
+
+
+def race_row(grid: torch.Tensor, fold: torch.Tensor, spec: BoardSpec) -> torch.Tensor:
+    """The race's packed row from the (M, C) grids and the (M, 2) [status,
+    validations] after it: the lowest-index SOLVED state's grid (zeros when
+    none), found, the validations' int32 sum and undecided."""
+    status = fold[:, 0]
+    solved = status == SOLVED
+    found = bool(solved.any())
+    solution = grid[int(torch.argmax(solved.to(torch.int32)))] if found else \
+        torch.zeros((spec.cells,), dtype=torch.int32, device=grid.device)
+    total = fold[:, 1].to(torch.int64).sum()
+    total = ((total + 2**31) % 2**32 - 2**31).to(torch.int32)  # int32 wrap
+    undecided = ((status == RUNNING) | (status == OVERFLOW)).any()
+    return torch.cat([
+        solution.to(torch.int32),
+        torch.tensor([int(found)], dtype=torch.int32, device=grid.device),
+        total.reshape(1),
+        undecided.to(torch.int32).reshape(1),
+    ])
+
+
+def fold_race(meta: torch.Tensor, grid: torch.Tensor, spec: BoardSpec,
+              waves: int) -> tuple:
+    """The lockstep race's outcome from each state's own run (the plain
+    version of csrc/dfs_solver.cu's ``race_fold_kernel``).
+
+    ``meta`` is the (M, 4) run record of ``RACE_META_COLS`` and ``grid``
+    the (M, C) grids the runs stopped on. A state's run may stop anywhere
+    from where the lockstep race would cut it to its own end: the race
+    kernel's warps run out of step and each stops one step past the
+    earliest solve it has seen. The fold needs t*, the step the lockstep
+    loop stops after: the earliest step any state solves at, else the last
+    step any state ran. Then:
+
+    * a state that ended (SOLVED, UNSAT, OVERFLOW) at or before t* keeps its
+      status and validations;
+    * any other state was RUNNING through t*, so it has t* × ``waves``
+      validations (every step of a running state runs ``waves`` sweeps);
+      ``finalize_status`` flips it to SOLVED exactly when its grid was
+      complete after step t*: it solved at step t* + 1, or its run stopped
+      at t* and the closing analysis (``complete``) found it complete.
+
+    Returns ``(row, fold)`` as ``race``."""
+    status, steps, vals, complete = meta.unbind(1)
+    solved = status == SOLVED
+    t_star = steps[solved].min() if bool(solved.any()) else steps.max()
+    ended = (status != RUNNING) & (steps <= t_star)
+    flip = ~ended & (
+        (solved & (steps == t_star + 1))
+        | ((status == RUNNING) & (steps == t_star) & (complete != 0))
+    )
+    final_status = torch.where(
+        ended, status, torch.where(flip, SOLVED, RUNNING)
+    ).to(torch.int32)
+    final_vals = torch.where(ended, vals, t_star * int(waves)).to(torch.int32)
+    fold = torch.stack([final_status, final_vals], dim=1)
+    return race_row(grid, fold, spec), fold

@@ -169,7 +169,7 @@ def test_serving_knobs_match_jax(kw):
     [
         {"mesh": "auto"},
         {"solver_config": "legacy"},
-        {"frontier_mesh": object()},
+        {"frontier_mesh": ["cpu", "cpu"]},  # a race across two devices
     ],
 )
 def test_unported_knobs_raise(kw):

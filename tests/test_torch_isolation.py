@@ -19,6 +19,7 @@ import torch
 from sudoku_solver_distributed_tpu_torch.ops import spec_for_size
 from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
     _dfs_solver_plain,
+    dfs_race,
     dfs_solver,
     solve_batch_cuda,
 )
@@ -66,7 +67,7 @@ REQUIRED = (
     "obs.trace", "obs.histo", "obs.prom", "obs.flight", "obs.export",
     "obs.cost", "obs.slo", "net.fastserve", "net.solver_api", "api",
     "utils.render", "net.peermap", "cache.gossip", "obs.cluster",
-    "serving.autopilot",
+    "serving.autopilot", "parallel.frontier",
 )
 
 # the default transport without JAX, on the plain solver: a /solve_batch
@@ -241,6 +242,88 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(boards, error):
 def test_wrapper_rejects_bad_depth():
     with pytest.raises(ValueError):
         dfs_solver(torch.zeros((1, 81), dtype=torch.int32), spec_for_size(9), 0, 8)
+
+
+@pytest.mark.parametrize(
+    "states, error",
+    [
+        (np.zeros((2, 81), np.int32), TypeError),              # not a tensor
+        (torch.zeros((2, 81), dtype=torch.int64), TypeError),  # wrong dtype
+        (torch.zeros((2, 80), dtype=torch.int32), ValueError),  # wrong cells
+        (torch.zeros((0, 81), dtype=torch.int32), ValueError),  # no state
+        (torch.zeros((2, 81), dtype=torch.int32, device="meta"), ValueError),
+    ],
+)
+def test_race_wrapper_rejects_what_the_kernel_does_not_take(states, error):
+    before = dfs_race.launches
+    with pytest.raises(error):
+        dfs_race(states, spec_for_size(9), 81, 64)
+    assert dfs_race.launches == before
+
+
+def _race_sets():
+    """Seeded states of deep boards, as the frontier route races them:
+    9x9 in its serving configuration at 64 states, 16x16 and 25x25 at 8,
+    and a capped 9x9 race."""
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    deep9 = np.load(os.path.join(ROOT, "benchmarks", "corpus_9x9_deep_128.npz"))["boards"]
+    deep16 = np.load(os.path.join(
+        ROOT, "benchmarks", "corpus_16x16_deep_anneal_64.npz"))["boards"]
+    deep25 = np.load(os.path.join(
+        ROOT, "benchmarks", "corpus_25x25_deep_anneal_32.npz"))["boards"]
+    out = []
+    for size, board, target, waves, max_iters in (
+        (9, deep9[0], 64, 3, 65536), (9, deep9[3], 64, 3, 65536),
+        (9, deep9[0], 64, 3, 40), (16, deep16[0], 8, 1, 65536),
+        (25, deep25[31], 8, 1, 65536),
+    ):
+        spec = spec_for_size(size)
+        states, early = F.seed_frontier(board, spec, target=target, locked=True)
+        assert early is None
+        states = F.bucket_states(states, spec, target)
+        out.append((spec, states.reshape(len(states), -1), waves, max_iters))
+    return out
+
+
+@pytest.mark.cuda
+def test_race_kernel_matches_plain_on_the_card():
+    """K4 and its fold against the plain lockstep race on seeded deep
+    states: the packed row and every state's status and validations
+    exactly, and the fold of the kernel's own run records (ops/solver
+    fold_race) equal to the fold kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import _dfs_race_plain
+    from sudoku_solver_distributed_tpu_torch.ops.solver import fold_race
+
+    for spec, states, waves, max_iters in _race_sets():
+        knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
+        cpu = torch.as_tensor(states)
+        row, fold, _ = _dfs_race_plain(cpu, spec, spec.max_depth, max_iters, **knobs)
+        before = dfs_race.launches
+        krow, kfold, kmeta = dfs_race(cpu.cuda(), spec, spec.max_depth, max_iters, **knobs)
+        torch.cuda.synchronize()
+        assert dfs_race.launches == before + 1
+        assert torch.equal(krow.cpu(), row) and torch.equal(kfold.cpu(), fold)
+
+
+@pytest.mark.cuda
+def test_race_kernel_exits_early_on_the_card():
+    """A race stops one step past its first solve: the steps K4's warps ran
+    in all fall short of the sum of each state's steps to its own end (K1
+    over the same states, every state to its own end)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    spec, states, waves, max_iters = _race_sets()[0]
+    knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
+    g = torch.as_tensor(states).cuda()
+    row, _, meta = dfs_race(g, spec, spec.max_depth, max_iters, **knobs)
+    _, own = dfs_solver(g, spec, spec.max_depth, max_iters, **knobs)
+    torch.cuda.synchronize()
+    assert int(row[spec.cells]) == 1
+    raced, to_end = int(meta[:, 1].sum()), int(own[:, 3].sum())
+    assert raced < to_end, (raced, to_end)
 
 
 @pytest.mark.cuda

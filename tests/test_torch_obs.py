@@ -20,6 +20,7 @@ import re
 import socket
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -48,6 +49,7 @@ from sudoku_solver_distributed_tpu_torch.obs import (
     current_trace,
     valid_request_id,
 )
+from sudoku_solver_distributed_tpu_torch.obs import cost as tcost
 from sudoku_solver_distributed_tpu_torch.obs import flight as tflight
 from sudoku_solver_distributed_tpu_torch.obs import histo as thisto
 from sudoku_solver_distributed_tpu_torch.obs import prom as tprom
@@ -327,8 +329,34 @@ def _prom_values(text):
     return out
 
 
-def test_prom_exposition_parses_and_agrees_with_json(served):
+def _quiesce(engine, timeout_s=60.0):
+    """Wait until the engine's ``health()`` block stops changing: the
+    open loop's trailing speculative segment, dispatched after the last
+    answer, has finalized and been billed."""
+    deadline = time.monotonic() + timeout_s
+    last = json.dumps(engine.health(), sort_keys=True, default=str)
+    while time.monotonic() < deadline:
+        time.sleep(0.25)
+        now = json.dumps(engine.health(), sort_keys=True, default=str)
+        if now == last:
+            return
+        last = now
+    raise AssertionError("the engine did not go quiet")
+
+
+def test_prom_exposition_parses_and_agrees_with_json(served, monkeypatch):
     request(served["port"], "/solve", {"sudoku": BOARD})
+    # Both scrapes must read one state. The cost plane's recent-window
+    # gauges (recent_pps, sustained_*, recent_segments) are computed from
+    # the clock at every scrape, so a segment of an earlier test in this
+    # module that ages past the 60 s horizon between the two scrapes moved
+    # them (a slow, loaded run crosses it): pin the clock the cost plane
+    # reads, then let the open loop's trailing segment finish.
+    frozen = time.monotonic()
+    monkeypatch.setattr(
+        tcost, "time", types.SimpleNamespace(monotonic=lambda: frozen)
+    )
+    _quiesce(served["node"].engine)
     _s, _h, raw_json = request(served["port"], "/metrics")
     body = json.loads(raw_json)
     _s, headers, raw_prom = request(served["port"], "/metrics.prom")
