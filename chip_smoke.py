@@ -7,7 +7,8 @@ boards, pool rotations). Phases, each of which fails the run (non-zero
 exit) on any error:
 
 1. Build the kernel library from sudoku_solver_distributed_tpu_torch/csrc/
-   and print ``ptxas -v``'s registers, stack and spills per instance of
+   (into its store, ``_build/``) and print ``ptxas -v``'s registers, stack
+   and spills (kept in the store's record) per instance of
    every kernel (dfs_solver_kernel, dfs_segment_kernel, segment_digest_
    kernel, each at 4x4, 9x9, 16x16 and 25x25); every instance must use
    no stack and spill nothing.
@@ -204,6 +205,41 @@ exit) on any error:
    clock), a ``--frontier-handoff`` node on 4 deep boards (K3 probe
    states seed the races), and ``--board-size 16`` and ``25`` frontier
    nodes (``--buckets 1,8,64``) on 3 deep boards each.
+12. The cold-start and durability plane. (a) The compile plane: a CLI
+   node in a process of its own on a fresh ``--compile-cache-dir`` builds
+   the kernel library into the store (``/metrics`` ``engine.warm.aot``:
+   saved 1) and answers the README board; a second process on the same
+   dir loads it (loaded 1, saved 0, every width's source ``aot``) without
+   running nvcc (the stored library's file untouched), with the first
+   process's README body; the spawn-to-200 seconds of both. Then the
+   stored library is truncated and an engine in a process of its own
+   (``SolverEngine(compile_cache_dir=...)``, not the CLI) counts an error,
+   rebuilds, verifies every width and answers; beside it, an engine run
+   from a read-only copy of the package, its cache dir elsewhere, builds
+   and answers and writes nothing into the copy, and an engine on a copy
+   of the good store whose first round-trip verification is made to fail:
+   it rebuilds the library with nvcc, loads it as a new image (from a
+   private copy when the bytes equal the stored build's), verifies every
+   width again, is ready and answers. (b) Resumable batches
+   (utils/checkpoint.py, one K3 segment a chunk): all 4096 hard boards in
+   chunks of 32 steps in a child process, SIGKILLed as soon as its first
+   snapshot lands, resumed by this process to the rows of an uninterrupted
+   run and of the plain version (``ops.solver.solve_batch`` on the card):
+   grid, solved, status, guesses, validations and iters, SOLVED grids
+   oracle-valid; the deep corpus cut at 512 steps with boards RUNNING,
+   resumed to the uncut run's rows; 16x16 [:256] once, equal to one flat
+   K1 launch; the chunks, K3 ms a chunk (CUDA events), the snapshot's
+   bytes and write ms, and the wall time beside ``solve_batch_np``. (c)
+   ``generate_batch``: 64 unique 9x9 and 4 unique 16x16 boards with the
+   native oracle built on this host, each solved by K1, valid, with one
+   solution; ms a board. (d) A sticky CUDA fault under supervision: a
+   ``--supervise-engine --no-continuous`` node in a process of its own,
+   whose next K1 launch after a healthy round reads its boards from an
+   illegal device address (a patch of the wrapper's launch in that process
+   only): the request answers 200 from the oracle (``X-Degraded``) as a
+   device fault, the node goes LOST and stays LOST (``/readyz`` 503), and
+   every answer before and after is correct. (a)'s two engines and (d)'s
+   node run in parallel.
 
 Every node harness waits for the CLI's background warm-up to finish
 (``fully_warmed``) before its phase measures, and sends the node's
@@ -212,7 +248,8 @@ flight-record dumps to a temporary directory unless the phase names one.
 Prints a ``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
 card's name and power limit, a ``{"obs": {...}}`` line (phase 8), a
 ``{"front": {...}}`` line (phase 9), a ``{"p2p": {...}}`` line (phase
-10), a ``{"frontier": {...}}`` line (phase 11), one ``{"kernels": [...]}``
+10), a ``{"frontier": {...}}`` line (phase 11), a ``{"durability":
+{...}}`` line (phase 12), one ``{"kernels": [...]}``
 line (dfs_solver, dfs_segment_kernel, segment_digest_kernel and
 dfs_race_kernel, each with its launches on every path), and last
 ``{"ok": true, "device": {...}}``.
@@ -1048,8 +1085,18 @@ def phase_cache_and_supervision(cs, build_parser, build_node, oracle_ok, random_
         result = {}
         t = threading.Thread(target=lambda: result.update(d=solve("hung")), daemon=True)
         t.start()
-        _wait(lambda: sup.hangs > hangs, 10.0, "the watchdog to declare a hang")
-        check(sup.state == "degraded", f"a hang left the node {sup.state}")
+        seen = {}
+
+        def hung():
+            # the watchdog counts a hang and moves the state in one hold of
+            # the supervisor's lock (with a log write between the two), so
+            # both are read under it
+            with sup._lock:
+                seen["state"] = sup.state
+                return sup.hangs > hangs
+
+        _wait(hung, 10.0, "the watchdog to declare a hang")
+        check(seen["state"] == "degraded", f"a hang left the node {seen['state']}")
         _faults(node.base, {"clear": True})
         t.join(timeout=60)
         check("d" in result, "the hung request never answered")
@@ -2410,10 +2457,12 @@ def _board_sizes(cs, build_parser, build_node, oracle_ok, seed: int):
     return out
 
 
-def _fresh_process_ready(argv=(), timeout_s: float = 180.0) -> dict:
+def _fresh_process_ready(argv=(), timeout_s: float = 180.0, probe=None) -> dict:
     """A default CLI node in a process of its own (the kernel library
-    loaded from its build directory, no nvcc): seconds from the spawn to
-    the first /readyz 503, to /readyz 200 and to ``fully_warmed``."""
+    loaded from its store, no nvcc, unless ``argv`` names another store):
+    seconds from the spawn to the first /readyz 503, to /readyz 200 and to
+    ``fully_warmed``; then ``probe(base)``, if given, into ``"probe"``,
+    before the node stops."""
     import subprocess as sp
 
     http_port, udp_port = _free_port(), _free_port()
@@ -2452,6 +2501,8 @@ def _fresh_process_ready(argv=(), timeout_s: float = 180.0) -> dict:
                 out["fully_warmed_s"] = time.perf_counter() - t0
                 break
             time.sleep(0.02)
+        if probe is not None:
+            out["probe"] = probe(base)
     finally:
         proc.terminate()
         try:
@@ -3371,6 +3422,627 @@ def phase_frontier(cs, build_parser, build_node, spec_for_size, serving_config,
     return out
 
 
+# -- phase 12: the cold-start and durability plane ------------------------------
+
+DURABLE_CHUNK_ITERS = 32   # 12(b): the 4096 hard boards' chunk budget (~10 chunks)
+DEEP_CHUNK_ITERS = 256     # 12(b): the deep corpus's chunk budget
+DEEP_CUT_ITERS = 512       # 12(b): the deep corpus's first budget: boards still RUNNING
+FAULT_ADDRESS = 0x10       # 12(d): the illegal device address one K1 launch reads
+
+# 12(a): an engine in a process of its own, not the CLI: the package root to
+# import from (the checkout, or a read-only copy of the package), the
+# compile cache dir and the README board on argv, and "fail-once" to make
+# the first round-trip verification fail (the engine's check of the
+# answer, patched in this process only), so the real rebuild runs: nvcc,
+# the loader, every width verified again; prints one JSON line
+_ENGINE_CHILD = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs
+cs.dfs_solver.launches = cs.dfs_segment.launches = 0
+failed = []
+if sys.argv[4:] == ["fail-once"]:
+    real_ok = SolverEngine._round_trip_ok
+
+    def round_trip_ok(self, status, grid):
+        if not failed:
+            failed.append(status)
+            return False
+        return real_ok(self, status, grid)
+
+    SolverEngine._round_trip_ok = round_trip_ok
+eng = SolverEngine(compile_cache_dir=sys.argv[2])
+eng.warmup()
+sol, info = eng.solve_one(json.loads(sys.argv[3]))
+warm = eng.warm_info()
+print(json.dumps({
+    "aot": warm["aot"], "answer": sol, "info": info,
+    "sources": {b: v.get("source") for b, v in warm["buckets"].items()},
+    "store": str(cs.kernel_store().root), "package": cs.__file__,
+    "launches": {"dfs_solver": cs.dfs_solver.launches,
+                 "dfs_segment": cs.dfs_segment.launches},
+    "failed": failed, "ready": eng.ready(),
+    "library": os.path.basename(cs.load_library()._name),
+    "kernels": sorted(os.listdir(cs.kernel_store().root)),
+    "seconds": time.perf_counter() - t0,
+}), flush=True)
+eng.close()
+"""
+
+# 12(b): a resumable batch of every board of a corpus, SIGKILLed by the
+# parent once its first snapshot lands
+_RESUMABLE_CHILD = r"""
+import sys
+import numpy as np
+from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+with np.load(sys.argv[1]) as d:
+    boards = d["boards"].astype(np.int32)
+eng = SolverEngine()
+print("solving", flush=True)
+eng.solve_batch_resumable_np(boards, sys.argv[2], chunk_iters=int(sys.argv[3]))
+print("finished", flush=True)
+"""
+
+# 12(d): a supervised --no-continuous node (README /solve on K1) whose next
+# K1 launch, after a healthy round, reads its boards from an illegal device
+# address (the wrapper's inner launch patched in this process only): the
+# context's fault is sticky. Boards on argv; prints one JSON line.
+_FAULT_CHILD = r"""
+import json, os, sys, threading, time, urllib.error, urllib.request
+from sudoku_solver_distributed_tpu_torch import engine as engine_mod
+from sudoku_solver_distributed_tpu_torch.net import cli
+from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs
+boards = json.loads(sys.argv[1])
+args = cli.build_parser().parse_args(
+    ["-p", "0", "-s", "0", "-h", "0", "--no-answer-cache", "--no-continuous",
+     "--supervise-engine", "--metrics", "--buckets", "1,8", "--no-autopilot",
+     "--probe-interval-s", "0.2", "--flightrecord-dir", sys.argv[2]])
+node, httpd = cli.build_node(args)
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+def get(path, body=None):
+    req = urllib.request.Request(base + path, data=body, headers={
+        "Content-Type": "application/json"} if body else {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+def state():
+    return json.loads(get("/metrics")[1])["health"]
+
+def solve(board):
+    status, body, headers = get("/solve", json.dumps({"sudoku": board}).encode())
+    return {"status": status, "answer": json.loads(body),
+            "degraded": headers.get("X-Degraded") == "true"}
+
+deadline = time.monotonic() + 120
+while not (node.engine.fully_warmed and state()["state"] == "healthy"):
+    assert time.monotonic() < deadline, "the node never became healthy"
+    time.sleep(0.02)
+out = {"healthy": [solve(b) for b in boards], "seen": []}
+real_fault = engine_mod.device_fault
+
+def device_fault(exc):
+    verdict = real_fault(exc)
+    out["seen"].append([type(exc).__name__, str(exc)[:160], verdict])
+    return verdict
+
+engine_mod.device_fault = device_fault
+
+class IllegalBoards:
+    def __init__(self, lib):
+        self.lib = lib
+    def dfs_solver_launch(self, boards_ptr, *rest):
+        return self.lib.dfs_solver_launch(int(sys.argv[3]), *rest)
+
+real_launch, armed = cs._launch, [True]
+
+def launch(lib, *a, **k):
+    if armed[0]:
+        armed[0] = False
+        lib = IllegalBoards(lib)
+    return real_launch(lib, *a, **k)
+
+cs._launch = launch
+t0 = time.monotonic()
+out["faulted"] = solve(boards[0])
+while state()["state"] != "lost" and time.monotonic() - t0 < 30:
+    time.sleep(0.02)
+out["lost_s"] = time.monotonic() - t0
+out["after"] = [solve(b) for b in boards]
+time.sleep(1.0)  # probes keep running while LOST
+out["after_1s"] = [solve(b) for b in boards]
+out["readyz"] = get("/readyz")[0]
+out["health"] = {k: v for k, v in state().items() if k != "transitions"}
+out["transitions"] = [t.get("to") for t in state()["transitions"]]
+print(json.dumps(out), flush=True)
+os._exit(0)  # the context is broken: skip CUDA teardown
+"""
+
+
+def _child_json(proc, what: str, timeout_s: float) -> dict:
+    """The last stdout line of a child process as JSON, once it exits 0;
+    its stderr's tail is in the error otherwise."""
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise RuntimeError(f"{what} did not finish in {timeout_s} s:\n{err[-3000:]}")
+    check(proc.returncode == 0 and out.strip(),
+          f"{what} exited {proc.returncode}:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _spawn_engine_child(pkg_root: str, cache: str, env=None, *mode):
+    return subprocess.Popen(
+        [sys.executable, "-c", _ENGINE_CHILD, pkg_root, cache, json.dumps(README_PUZZLE),
+         *mode],
+        cwd=pkg_root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True,
+    )
+
+
+def _read_only_package_copy(tmp: str) -> str:
+    """The package copied to ``tmp``/pkg without its build directories,
+    every file and directory made read-only. Returns the copy's root."""
+    import shutil
+
+    root = os.path.join(tmp, "pkg")
+    shutil.copytree(
+        os.path.join(ROOT, "sudoku_solver_distributed_tpu_torch"),
+        os.path.join(root, "sudoku_solver_distributed_tpu_torch"),
+        ignore=shutil.ignore_patterns("_build", "__pycache__"),
+    )
+    for dirpath, dirs, files in os.walk(root):
+        for name in files:
+            os.chmod(os.path.join(dirpath, name), 0o444)
+    for dirpath, dirs, files in os.walk(root, topdown=False):
+        os.chmod(dirpath, 0o555)
+    return root
+
+
+def _tree(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, n), root)
+                  for d, dirs, files in os.walk(root) for n in dirs + files)
+
+
+def _compile_plane(oracle_ok) -> dict:
+    """Phase 12(a): a cold CLI node on a fresh --compile-cache-dir builds
+    and saves the library; a second process loads it without nvcc; a
+    truncated stored library is rebuilt by the next engine; an engine run
+    from a read-only copy of the package builds into its cache dir."""
+    import numpy as np
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cc_")
+    cache = os.path.join(tmp, "cache")
+    kernels = os.path.join(cache, "kernels")
+    readme = json.dumps({"sudoku": README_PUZZLE}).encode()
+
+    def probe(base):
+        status, body, _ = _http(base, "/solve", readme)
+        warm = json.loads(_http(base, "/metrics")[1])["engine"]["warm"]
+        return {"status": status, "answer": json.loads(body), "aot": warm.get("aot"),
+                "sources": {b: v.get("source") for b, v in warm["buckets"].items()}}
+
+    try:
+        cold = _fresh_process_ready(["--compile-cache-dir", cache], probe=probe)
+        libs = sorted(n for n in os.listdir(kernels) if n.endswith(".so"))
+        check(len(libs) == 1, f"the cold node stored {libs}")
+        lib = os.path.join(kernels, libs[0])
+        stamp = (os.stat(lib).st_mtime_ns, os.stat(lib).st_ino)
+        warm = _fresh_process_ready(["--compile-cache-dir", cache], probe=probe)
+        for name, node, want in (("cold", cold, {"loaded": 0, "saved": 1, "errors": 0}),
+                                 ("warm", warm, {"loaded": 1, "saved": 0, "errors": 0})):
+            p = node["probe"]
+            check(p["aot"] == want, f"the {name} node's engine.warm.aot is {p['aot']}, not {want}")
+            check(p["status"] == 200, f"the {name} node answered README /solve {p['status']}")
+            _check_answer(README_PUZZLE, p["answer"], oracle_ok, f"{name} README /solve")
+        check(warm["probe"]["answer"] == cold["probe"]["answer"],
+              "the warm node's README body differs from the cold node's")
+        check((os.stat(lib).st_mtime_ns, os.stat(lib).st_ino) == stamp
+              and sorted(n for n in os.listdir(kernels) if n.endswith(".so")) == libs,
+              "the warm node rewrote the stored library (nvcc ran)")
+        check(set(warm["probe"]["sources"].values()) == {"aot"}
+              and set(cold["probe"]["sources"].values()) == {"compile+save"},
+              f"warm-up sources: cold {cold['probe']['sources']}, warm {warm['probe']['sources']}")
+        out["cold"] = {k: cold[k] for k in ("first_503_s", "ready_s", "fully_warmed_s")}
+        out["warm"] = {k: warm[k] for k in ("first_503_s", "ready_s", "fully_warmed_s")}
+        out["cold"]["aot"], out["warm"]["aot"] = cold["probe"]["aot"], warm["probe"]["aot"]
+        out["stored_library_bytes"] = os.path.getsize(lib)
+        log(f"phase 12 (a): spawn to /readyz 200 cold {cold['ready_s']:.3f} s "
+            f"(nvcc and store: aot {cold['probe']['aot']}), warm {warm['ready_s']:.3f} s "
+            f"(aot {warm['probe']['aot']}, library untouched); fully warm "
+            f"{cold['fully_warmed_s']:.3f} / {warm['fully_warmed_s']:.3f} s")
+        # a truncated stored library, a read-only package with its cache
+        # elsewhere, and a good stored library whose first verification
+        # fails, each in an engine of its own (in parallel)
+        import shutil
+
+        rebuilt_cache = os.path.join(tmp, "rebuilt_cache")
+        shutil.copytree(kernels, os.path.join(rebuilt_cache, "kernels"))
+        os.truncate(lib, os.path.getsize(lib) // 2)
+        ro = _read_only_package_copy(tmp)
+        before = _tree(ro)
+        ro_cache = os.path.join(tmp, "ro_cache")
+        t0 = time.perf_counter()
+        procs = {
+            "truncated": _spawn_engine_child(ROOT, cache),
+            "read_only": _spawn_engine_child(
+                ro, ro_cache, env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1")),
+            "rebuilt": _spawn_engine_child(ROOT, rebuilt_cache, None, "fail-once"),
+        }
+        return out, procs, (ro, before, ro_cache, tmp, t0, libs[0])
+    except BaseException:
+        _rmtree_writable(tmp)
+        raise
+
+
+def _rmtree_writable(path: str) -> None:
+    import shutil
+
+    for dirpath, dirs, files in os.walk(path):
+        os.chmod(dirpath, 0o755)
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def _compile_plane_finish(out, procs, ctx, oracle_ok) -> dict:
+    ro, before, ro_cache, tmp, t0, stored = ctx
+    try:
+        res = {name: _child_json(p, f"the {name} engine", 300) for name, p in procs.items()}
+        out["children_s"] = time.perf_counter() - t0
+        want = {"truncated": {"loaded": 0, "saved": 1, "errors": 1},
+                "read_only": {"loaded": 0, "saved": 1, "errors": 0},
+                "rebuilt": {"loaded": 1, "saved": 1, "errors": 1}}
+        for name, r in res.items():
+            check(r["aot"] == want[name], f"the {name} engine's aot is {r['aot']}, not {want[name]}")
+            check(r["ready"], f"the {name} engine is not ready")
+            _check_answer(README_PUZZLE, r["answer"], oracle_ok, f"{name} engine README")
+            out[name] = {k: r[k] for k in ("aot", "seconds", "launches", "sources")}
+        check(res["truncated"]["answer"] == res["read_only"]["answer"]
+              == res["rebuilt"]["answer"], "the engines' README answers differ")
+        # the forced failure: one rebuild by nvcc, loaded as a new image (a
+        # private copy when nvcc gave the stored build's bytes, hence its
+        # name), and no copy left in the store
+        rb = res["rebuilt"]
+        libs = [n for n in rb["kernels"] if n.endswith(".so")]
+        same_bytes = libs == [stored]
+        private = rb["library"] not in libs and rb["library"].startswith(".")
+        check(rb["failed"] == [1] and len(libs) == 1 and len(rb["kernels"]) == 2
+              and same_bytes == private,
+              f"the rebuilt engine: failed {rb['failed']}, library {rb['library']}, "
+              f"store {rb['kernels']}, stored {stored}")
+        out["rebuilt"].update(same_bytes=same_bytes, library=rb["library"])
+        check(res["read_only"]["package"].startswith(ro)
+              and res["read_only"]["store"] == os.path.join(ro_cache, "kernels"),
+              f"the read-only engine ran {res['read_only']['package']} on "
+              f"{res['read_only']['store']}")
+        check(_tree(ro) == before, "the read-only package copy was written to")
+        log(f"phase 12 (a): a forced verification failure: rebuilt by nvcc "
+            f"({'the same bytes, loaded from a private copy' if same_bytes else 'new bytes'}), "
+            f"every width verified again and served (aot {rb['aot']}, {rb['seconds']:.2f} s)")
+        log(f"phase 12 (a): truncated library: counted, rebuilt, verified and served "
+            f"(aot {res['truncated']['aot']}, {res['truncated']['seconds']:.2f} s); "
+            f"read-only package with its cache elsewhere: built and served "
+            f"(aot {res['read_only']['aot']}, {res['read_only']['seconds']:.2f} s)")
+        return out
+    finally:
+        _rmtree_writable(tmp)
+
+
+def _timed_chunks(ck):
+    """Wrap utils/checkpoint's segment launch and snapshot write: CUDA
+    events around every chunk's K3 + K3b launch, host time and bytes of
+    every snapshot. Returns (record, restore)."""
+    import torch
+
+    rec = {"events": [], "snap_ms": [], "snap_bytes": []}
+    seg, save = ck.dfs_segment, ck.save_solver_state
+
+    def timed_segment(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = seg(*a, **k)
+        end.record()
+        rec["events"].append((start, end))
+        return res
+
+    def timed_save(path, *a, **k):
+        t = time.perf_counter()
+        save(path, *a, **k)
+        rec["snap_ms"].append((time.perf_counter() - t) * 1e3)
+        rec["snap_bytes"].append(os.path.getsize(path))
+
+    ck.dfs_segment, ck.save_solver_state = timed_segment, timed_save
+
+    def restore():
+        ck.dfs_segment, ck.save_solver_state = seg, save
+
+    return rec, restore
+
+
+def _chunk_summary(rec) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in rec["events"]]
+    out = {"chunks": len(ms), "k3_ms_per_chunk": _ms_summary(ms) if ms else None,
+           "snapshots": len(rec["snap_ms"])}
+    if rec["snap_ms"]:
+        out["snapshot_ms"] = _ms_summary(rec["snap_ms"])
+        out["snapshot_bytes"] = max(rec["snap_bytes"])
+    return out
+
+
+def _rows_equal(a, b, what: str) -> None:
+    import torch
+
+    for f in ("grid", "solved", "status", "guesses", "validations"):
+        x, y = getattr(a, f), getattr(b, f)
+        check(torch.equal(torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()),
+              f"{what}: {f} differs")
+    check(int(a.iters) == int(b.iters), f"{what}: iters {int(a.iters)} != {int(b.iters)}")
+
+
+def _resumable(cs, ts, SolverEngine, spec_for_size, serving_config, oracle_ok) -> dict:
+    """Phase 12(b): the 4096 hard boards killed mid-batch and resumed, the
+    deep corpus cut at a budget and resumed, 16x16 [:256] once."""
+    import numpy as np
+    import torch
+
+    from sudoku_solver_distributed_tpu_torch.utils import checkpoint as ck
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    corpus_path = os.path.join(ROOT, "benchmarks", "corpus_9x9_hard_4096.npz")
+    boards = load_corpus("corpus_9x9_hard_4096.npz")
+    spec = spec_for_size(9)
+    cfg = serving_config(9)
+    knobs = dict(locked=cfg["locked_candidates"], waves=cfg["waves"],
+                 naked_pairs=cfg["naked_pairs"], max_depth=max(cfg["max_depth"]))
+    try:
+        # the child: killed as soon as its first snapshot lands
+        killed = os.path.join(tmp, "killed.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _RESUMABLE_CHILD, corpus_path, killed,
+             str(DURABLE_CHUNK_ITERS)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        try:
+            while not os.path.exists(killed):
+                if proc.poll() is not None:
+                    raise RuntimeError(
+                        f"the resumable child exited ({proc.returncode}) before "
+                        f"its first snapshot: {proc.communicate()[1][-2000:]}")
+                check(time.perf_counter() - t0 < 180, "no snapshot within 180 s")
+                time.sleep(0.002)
+            proc.send_signal(signal.SIGKILL)
+        finally:
+            proc.wait()
+        check(proc.returncode == -signal.SIGKILL,
+              f"the resumable child was not killed mid-batch (exit {proc.returncode})")
+        snap_iters = int(np.load(killed)["iters"])
+        out["killed_after_s"] = time.perf_counter() - t0
+        cs.dfs_segment.launches = 0
+        cs.dfs_solver.launches = 0
+        rec, restore = _timed_chunks(ck)
+        try:
+            t = time.perf_counter()
+            resumed = ck.solve_batch_resumable(
+                boards, spec, checkpoint_path=killed,
+                chunk_iters=DURABLE_CHUNK_ITERS, **knobs)
+            torch.cuda.synchronize()
+            resumed_s = time.perf_counter() - t
+            resumed_rec = _chunk_summary(rec)
+            rec["events"].clear(), rec["snap_ms"].clear(), rec["snap_bytes"].clear()
+            t = time.perf_counter()
+            whole = ck.solve_batch_resumable(
+                boards, spec, checkpoint_path=os.path.join(tmp, "whole.npz"),
+                chunk_iters=DURABLE_CHUNK_ITERS, **knobs)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t
+            whole_rec = _chunk_summary(rec)
+            rec["events"].clear(), rec["snap_ms"].clear(), rec["snap_bytes"].clear()
+            # the deep corpus: cut at a budget with boards RUNNING, resumed
+            deep = load_corpus("corpus_9x9_deep_128.npz")
+            deep_path = os.path.join(tmp, "deep.npz")
+            cut = ck.solve_batch_resumable(
+                deep, spec, checkpoint_path=deep_path, chunk_iters=DEEP_CHUNK_ITERS,
+                max_iters=DEEP_CUT_ITERS, **knobs)
+            check(os.path.exists(deep_path) and int(cut.iters) == DEEP_CUT_ITERS
+                  and bool((cut.status == ts.RUNNING).any()),
+                  "the deep corpus's cut run left no RUNNING boards or no snapshot")
+            deep_resumed = ck.solve_batch_resumable(
+                deep, spec, checkpoint_path=deep_path, chunk_iters=DEEP_CHUNK_ITERS, **knobs)
+            deep_whole = ck.solve_batch_resumable(
+                deep, spec, checkpoint_path=os.path.join(tmp, "deep_whole.npz"),
+                chunk_iters=DEEP_CHUNK_ITERS, **knobs)
+            deep_rec = _chunk_summary(rec)
+            rec["events"].clear(), rec["snap_ms"].clear(), rec["snap_bytes"].clear()
+            # 16x16 [:256] once, in its serving configuration
+            b16 = load_corpus("corpus_16x16_hard_2048.npz")[:256]
+            spec16, cfg16 = spec_for_size(16), serving_config(16)
+            knobs16 = dict(locked=cfg16["locked_candidates"], waves=cfg16["waves"],
+                           naked_pairs=cfg16["naked_pairs"], max_depth=max(cfg16["max_depth"]))
+            r16 = ck.solve_batch_resumable(
+                b16, spec16, checkpoint_path=os.path.join(tmp, "b16.npz"),
+                chunk_iters=16, **knobs16)
+            r16_rec = _chunk_summary(rec)
+        finally:
+            restore()
+        out["launches"] = {"dfs_segment": cs.dfs_segment.launches,
+                           "dfs_solver": cs.dfs_solver.launches}
+        check(cs.dfs_segment.launches == (
+            resumed_rec["chunks"] + whole_rec["chunks"] + deep_rec["chunks"]
+            + r16_rec["chunks"]), "a resumable chunk did not launch the segment kernels")
+        # every row against the uninterrupted run and the plain version
+        _rows_equal(resumed, whole, "4096 resumed vs uninterrupted")
+        plain = ts.solve_batch(torch.as_tensor(boards, device="cuda"), spec,
+                               max_iters=65536, max_depth=knobs["max_depth"],
+                               locked_candidates=knobs["locked"], waves=knobs["waves"],
+                               naked_pairs=knobs["naked_pairs"])
+        _rows_equal(whole, plain, "4096 resumable vs the plain version")
+        grids = whole.grid.cpu().numpy()
+        solved = whole.solved.cpu().numpy()
+        check(solved.all(), "a hard board was not solved")
+        for k in np.flatnonzero(solved):
+            _check_answer(boards[k], grids[k].tolist(), oracle_ok, "resumable 4096")
+        _rows_equal(deep_resumed, deep_whole, "deep cut and resumed vs uncut")
+        check(bool(deep_whole.solved.all()), "a deep board was not solved")
+        k16 = cs.solve_batch_cuda(torch.as_tensor(b16, device="cuda"), spec16,
+                                  max_depth=knobs16["max_depth"], max_iters=65536,
+                                  locked_candidates=knobs16["locked"],
+                                  waves=knobs16["waves"], naked_pairs=knobs16["naked_pairs"])
+        _rows_equal(r16, k16, "16x16 resumable vs one flat K1 launch")
+        for b, g in zip(b16, r16.grid.cpu().numpy()):
+            _check_answer(b, g.tolist(), oracle_ok, "resumable 16x16")
+        # the whole batch's wall time beside solve_batch_np on a warm engine
+        eng = SolverEngine()
+        try:
+            eng.warmup()
+            t = time.perf_counter()
+            _, mask, _ = eng.solve_batch_np(boards)
+            batch_np_s = time.perf_counter() - t
+        finally:
+            eng.close()
+        check(mask.all(), "solve_batch_np left a hard board unsolved")
+        out.update(
+            snapshot_iters_at_kill=snap_iters, iters=int(whole.iters),
+            resumed=dict(resumed_rec, wall_s=resumed_s),
+            uninterrupted=dict(whole_rec, wall_s=whole_s),
+            solve_batch_np_s=batch_np_s,
+            deep=dict(deep_rec, cut_iters=DEEP_CUT_ITERS, iters=int(deep_whole.iters)),
+            b16=dict(r16_rec, iters=int(r16.iters)),
+        )
+        log(f"phase 12 (b): 4096 hard boards, chunk {DURABLE_CHUNK_ITERS}: child killed "
+            f"at its first snapshot (iters {snap_iters}); resumed to the uninterrupted "
+            f"run's and the plain version's rows (iters {int(whole.iters)}); "
+            f"uninterrupted: {whole_rec['chunks']} chunks, K3 ms/chunk "
+            f"{whole_rec['k3_ms_per_chunk']}, snapshot {whole_rec.get('snapshot_bytes')} B "
+            f"in {whole_rec.get('snapshot_ms')} ms, wall {whole_s:.3f} s beside "
+            f"solve_batch_np {batch_np_s:.3f} s; deep: {deep_rec['chunks']} chunks, "
+            f"cut at {DEEP_CUT_ITERS} and resumed = uncut; 16x16 [:256]: "
+            f"{r16_rec['chunks']} chunks = one K1 launch")
+        return out
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _generator(cs, spec_for_size, serving_config, oracle_ok, count_solutions) -> dict:
+    """Phase 12(c): 64 unique 9x9 boards and 4 unique 16x16 boards from the
+    generator, with the native oracle built on this host; each solved by
+    K1, valid, with one solution."""
+    import numpy as np
+    import torch
+
+    from sudoku_solver_distributed_tpu_torch import native
+    from sudoku_solver_distributed_tpu_torch.models import generate_batch
+
+    check(native.available(), "no C++ compiler: the native oracle did not build")
+    out = {"native_store": str(native.native_store().root)}
+    cs.dfs_solver.launches = 0
+    cs.dfs_segment.launches = 0
+    for size, count, holes in ((9, 64, 55), (16, 4, 120)):
+        t = time.perf_counter()
+        boards = generate_batch(count, holes, size=size, seed=SYMMETRY_SEED, unique=True)
+        gen_ms = (time.perf_counter() - t) * 1e3 / count
+        spec = spec_for_size(size)
+        cfg = serving_config(size)
+        res = cs.solve_batch_cuda(torch.as_tensor(boards, device="cuda"), spec, **cfg)
+        check(bool(res.solved.all()), f"K1 left a generated {size}x{size} board unsolved")
+        for b, g in zip(boards, res.grid.cpu().numpy()):
+            _check_answer(b, g.tolist(), oracle_ok, f"generated {size}x{size}")
+            check(count_solutions(b.tolist(), limit=2) == 1,
+                  f"a generated {size}x{size} board has more than one solution")
+        out[f"{size}x{size}"] = {"boards": count, "holes_asked": holes,
+                                 "holes_mean": float((boards == 0).sum((1, 2)).mean()),
+                                 "ms_per_board": gen_ms}
+    out["launches"] = {"dfs_solver": cs.dfs_solver.launches,
+                       "dfs_segment": cs.dfs_segment.launches}
+    log(f"phase 12 (c): generated and solved by K1: {out}")
+    return out
+
+
+def _sticky_fault(proc, boards) -> dict:
+    """Phase 12(d): the sticky-fault child's record, checked: the faulted
+    request answered correctly from the oracle as a device fault, the node
+    went LOST, stayed so, and served no wrong answer."""
+    from sudoku_solver_distributed_tpu_torch.models import oracle_is_valid_solution
+
+    out = _child_json(proc, "the sticky-fault node", 180)
+    for k, r in enumerate(out["healthy"]):
+        check(r["status"] == 200 and not r["degraded"], f"healthy answer {k}: {r}")
+    f = out["faulted"]
+    check(f["status"] == 200 and f["degraded"],
+          f"the faulted request was not answered from the fallback: {f}")
+    check(any(v for _, _, v in out["seen"]),
+          f"no exception of the faulted call counted as a device fault: {out['seen']}")
+    for key in ("faulted", "after", "after_1s"):
+        answers = [out[key]] if key == "faulted" else out[key]
+        for b, r in zip(boards, answers):
+            check(r["status"] == 200 and r["degraded"], f"{key}: {r}")
+            _check_answer(b, r["answer"], oracle_is_valid_solution, f"sticky fault {key}")
+    check(out["health"]["state"] == "lost" and out["readyz"] == 503,
+          f"the node is {out['health']['state']} (readyz {out['readyz']}) after a sticky fault")
+    log(f"phase 12 (d): a K1 launch handed address {FAULT_ADDRESS:#x}: "
+        f"{out['seen'][0][:2]} counted as a device fault; LOST after "
+        f"{out['lost_s']:.3f} s; transitions {out['transitions']}; "
+        f"failures {out['health']['failures']}, probes {out['health']['probes']} "
+        f"({out['health']['probe_failures']} failed), rebuilds {out['health']['rebuilds']}; "
+        f"every answer from the oracle, correct")
+    return {k: out[k] for k in ("seen", "lost_s", "readyz", "health", "transitions")}
+
+
+def phase_durability(cs, ts, SolverEngine, spec_for_size, serving_config, oracle_ok,
+                     count_solutions) -> dict:
+    """Phase 12: (a) the compile plane, (b) resumable batches, (c) the
+    generator, (d) a sticky CUDA fault under supervision. (a)'s two engine
+    children and (d)'s node run in parallel with each other."""
+    seconds = {}
+    t = time.perf_counter()
+    out = {}
+    compile_out, procs, ctx = _compile_plane(oracle_ok)
+    corpus = load_corpus("corpus_9x9_hard_4096.npz")
+    fault_boards = [README_PUZZLE] + [b.tolist() for b in corpus[40:43]]
+    flight = tempfile.TemporaryDirectory(prefix="chip_smoke_fr_")
+    fault = subprocess.Popen(
+        [sys.executable, "-c", _FAULT_CHILD, json.dumps(fault_boards), flight.name,
+         str(FAULT_ADDRESS)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        out["compile_plane"] = _compile_plane_finish(compile_out, procs, ctx, oracle_ok)
+        seconds["a"] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+        out["sticky_fault"] = _sticky_fault(fault, fault_boards)
+        seconds["d"] = round(time.perf_counter() - t, 1)
+    finally:
+        for proc in (*procs.values(), fault):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        flight.cleanup()
+    t = time.perf_counter()
+    out["resumable"] = _resumable(cs, ts, SolverEngine, spec_for_size, serving_config, oracle_ok)
+    seconds["b"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    out["generator"] = _generator(cs, spec_for_size, serving_config, oracle_ok, count_solutions)
+    seconds["c"] = round(time.perf_counter() - t, 1)
+    out["seconds"] = seconds
+    log(f"phase 12 seconds by part: {seconds}")
+    return out
+
+
 def card_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3378,12 +4050,13 @@ def card_name_and_power_limit() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def ptxas_report(build_log, label: str = "ptxas"):
+def ptxas_report(build_log: str, label: str = "ptxas"):
     """Registers, stack and spill bytes per kernel instance, from the
-    ``-Xptxas -v`` report in ``build_log``, keyed "dfs_solver_kernel 9x9",
-    "dfs_segment_kernel 16x16", "segment_digest_kernel 25x25", ..."""
+    ``-Xptxas -v`` report in the text ``build_log``, keyed
+    "dfs_solver_kernel 9x9", "dfs_segment_kernel 16x16",
+    "segment_digest_kernel 25x25", ..."""
     report, key = {}, None
-    for line in build_log.read_text().splitlines():
+    for line in build_log.splitlines():
         m = re.search(
             r"Compiling entry function '\S*?(dfs_solver_kernel|dfs_segment_kernel|"
             r"segment_digest_kernel|dfs_race_kernel|race_fold_kernel)(?:ILi(\d)E)?",
@@ -3446,7 +4119,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cs.load_library()
     log(f"build: dfs_solver library built and loaded in {time.perf_counter() - t0:.2f} s")
-    ptxas = ptxas_report(cs.build().with_suffix(".log"))
+    build_log = cs.build_log()
+    check(build_log is not None, "the kernel store kept no build log")
+    ptxas = ptxas_report(build_log)
     for kernel in ("dfs_solver_kernel", *SEGMENT_KERNELS, *RACE_KERNELS):
         for size in (4, 9, 16, 25):
             key = f"{kernel} {size}x{size}"
@@ -3516,6 +4191,9 @@ def main(argv=None) -> int:
     frontier = phase_frontier(cs, build_parser, build_node, spec_for_size,
                               serving_config, oracle_is_valid_solution, args.seed)
     _mark("phase_frontier")
+    durability = phase_durability(cs, ts, SolverEngine, spec_for_size, serving_config,
+                                  oracle_is_valid_solution, count_solutions)
+    _mark("phase_durability")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; seconds by phase {marks}")
     print(json.dumps({"cache_supervision": {
@@ -3539,6 +4217,14 @@ def main(argv=None) -> int:
     print(json.dumps({"front": dict(surface, card=card)}), flush=True)
     print(json.dumps({"p2p": dict(p2p, card=card)}), flush=True)
     print(json.dumps({"frontier": dict(frontier, card=card)}), flush=True)
+    print(json.dumps({"durability": dict(durability, card=card)}), flush=True)
+    on_durable = {
+        "resumable": durability["resumable"]["launches"],
+        "generator": durability["generator"]["launches"],
+        # each 12(a) engine child's, from its start (warm-up verification)
+        "compile_plane_truncated": durability["compile_plane"]["truncated"]["launches"],
+        "compile_plane_read_only": durability["compile_plane"]["read_only"]["launches"],
+    }
     on_frontier = frontier["node"]["launches"]
     new_paths = {f"launches_{path}": counts
                  for path, counts in surface["launches"].items()}
@@ -3577,6 +4263,9 @@ def main(argv=None) -> int:
         "launches_p2p_farm": p2p["launches_farm"]["dfs_solver"],
         # phase 11's frontier node: the auto route's probes
         "launches_frontier_path": on_frontier["dfs_solver"],
+        # phase 12's paths: K1 solves the generated boards; an engine's
+        # warm-up verifies a stored library at every bucket width
+        **{f"launches_{k}_path": v["dfs_solver"] for k, v in on_durable.items()},
         "launches_per_readme_solve": main_path["per_readme_closed"],
         "mismatches": mismatches + timing["mismatches"],
         "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
@@ -3623,6 +4312,9 @@ def main(argv=None) -> int:
             "launches_p2p_path": p2p["launches"]["dfs_segment"],
             "launches_p2p_farm": p2p["launches_farm"]["dfs_segment"],
             "launches_frontier_path": on_frontier["dfs_segment"],
+            # phase 12's paths: one segment a resumable chunk; the pool's
+            # warm-up verification in each 12(a) engine child
+            **{f"launches_{k}_path": v["dfs_segment"] for k, v in on_durable.items()},
             "mismatches": seg_bad + seg_timing["mismatches"],
             "max_abs_err": max(seg_err, seg_timing["max_abs_err"]),
             # one segment (k = 8) over a 4096-lane pool, every lane

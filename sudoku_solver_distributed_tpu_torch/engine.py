@@ -72,9 +72,19 @@ engine routes them. A race that fails with a device fault is answered from
 the bucket path (``frontier_fallbacks``); any other failure reaches the
 caller.
 
+The compile plane (compilecache/): the process's kernel library is built
+into, and loaded from, a kernel store (``<dir>/kernels`` with
+``compile_cache_dir``, else ``_build/``), so a second process loads it
+without running ``nvcc``; every warm width's warm-up launch is a
+round-trip verification of that library, as the JAX engine verifies an
+AOT artifact before it serves (``_verified``). A library that fails twice
+stops launching for good and the engine stops being ready. ``solve_batch_resumable_np`` is the batch
+path with crash durability: K3 segments in bounded chunks with an atomic
+snapshot between them (utils/checkpoint.py).
+
 Not in this slice (each raises ``NotImplementedError`` when asked for):
 a choice of backend (the engine always runs the kernel), the mesh (and a
-race across more than one device), AOT/compile caches.
+race across more than one device), a solver configuration preset.
 """
 
 from __future__ import annotations
@@ -90,6 +100,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .models.oracle import oracle_is_valid_solution
 from .obs.cost import CostAccounting
 from .obs.trace import current_trace
 from .ops.config import (
@@ -104,6 +115,12 @@ from .ops.cuda_solver import (
     SegmentPool,
     dfs_race,
     dfs_segment,
+    LibraryVerificationError,
+    kernel_store,
+    library_error,
+    library_quarantine,
+    library_source,
+    rebuild_library,
     solve_stage,
 )
 from .ops.propagate import analyze
@@ -125,8 +142,7 @@ _AUTO = object()
 # Passing one with a value other than None/False raises instead of being
 # ignored.
 _UNPORTED = frozenset((
-    "backend", "mesh", "bucket_multiple", "sharding",
-    "compile_cache_dir", "aot_artifacts", "solver_config",
+    "backend", "mesh", "bucket_multiple", "sharding", "solver_config",
 ))
 
 
@@ -253,6 +269,17 @@ class SolverEngine:
         left RUNNING (or OVERFLOWed); ``"always"`` races every board.
       frontier_handoff: seed an escalated race from the probe's
         unexplored subtrees instead of the board's root.
+      compile_cache_dir: root of the compile plane (compilecache/): the
+        process's kernel library is built into, and loaded from, the
+        kernel store under ``<dir>/kernels`` (first wins: a process whose
+        store is already fixed keeps it, with a warning). None (default):
+        the store is ``_build/`` beside the package. Either way every warm
+        width's warm-up launch verifies the library by a round-trip solve
+        before it serves; a library that fails is invalidated, rebuilt
+        once and verified again at every warm width, and a second failure
+        raises, stops the library's launches and the engine's readiness.
+      aot_artifacts: with ``compile_cache_dir``, keep the store there
+        (default True). False keeps the build directory (``_build/``).
     """
 
     def __init__(
@@ -283,6 +310,8 @@ class SolverEngine:
         frontier_route: str = "auto",
         frontier_escalate_iters: int = 512,
         frontier_handoff: bool = False,
+        compile_cache_dir: Optional[str] = None,
+        aot_artifacts: bool = True,
         **unported,
     ):
         for name, value in unported.items():
@@ -294,6 +323,19 @@ class SolverEngine:
                 )
         self.spec = spec
         self.device = resolve_device(device)
+        # the compile plane: the kernel store the process's library comes
+        # from, verified by every warm width's launch
+        self.compile_cache_dir = compile_cache_dir
+        # warm_info reports the store's counters (``aot``) where the JAX
+        # engine does: with a cache dir and its AOT artifacts on
+        self._report_aot = bool(compile_cache_dir and aot_artifacts)
+        if self._report_aot:
+            from .compilecache import enable_persistent_cache
+
+            enable_persistent_cache(compile_cache_dir)
+        self._store = kernel_store()
+        # each verified width's round trip by name, run again on a rebuild
+        self._round_trips: dict = {}
         self.frontier_mesh = frontier_mesh
         # the one device the race runs on (None: no frontier route)
         self.frontier_device = self._frontier_device(frontier_mesh)
@@ -1108,20 +1150,33 @@ class SolverEngine:
         the serving width, so the first request pays neither the kernel
         build nor its first launch at that width. It calls the segment
         kernels directly, outside the supervised seam (no token, no
-        injector hook), as the JAX engine's warm-up calls its program."""
+        injector hook), as the JAX engine's warm-up calls its program.
+        The segment is the library's round-trip verification on the
+        segment kernels (``_segment_round_trip``, ``_verified``)."""
         if not self.continuous_active:
             return
         w = self.segment_pool_width()
         self._note_program("segment", w)
-        keep = torch.full((w,), -1, dtype=torch.int32, device=self.device)
         boards = torch.zeros((1, self.spec.cells), dtype=torch.int32,
                              device=self.device)
-        _, digest, _ = self._segment_kernels(
-            self.new_segment_pool(w), boards, keep, self.segment_iters
-        )
-        digest.cpu()  # the segment has run
+        self._verified(f"dfs_segment over {w} lanes",
+                       lambda: self._segment_round_trip(w, boards))
         with self._lock:
             self._pool_warm_width = w
+
+    def _segment_round_trip(self, w: int, boards: torch.Tensor):
+        """The segment warm-up, a verification: the empty board injected
+        into lane 0 of a fresh ``w``-lane pool, one segment of the warm-up
+        budget (``max_iters``); returns its (status, grid)."""
+        src = torch.full((w,), -1, dtype=torch.int32, device=self.device)
+        src[0] = 0
+        _, digest, block = self._segment_kernels(
+            self.new_segment_pool(w), boards, src, self.max_iters
+        )
+        digest = digest.cpu().numpy()
+        slot = int(digest[0, 5])
+        grid = block[slot].cpu().numpy() if slot >= 0 else None
+        return int(digest[0, 0]), grid
 
     def _account_coalesced(self, rows: np.ndarray) -> None:
         """Fold one coalesced batch's work into the engine counters — the
@@ -1154,7 +1209,10 @@ class SolverEngine:
         a LOST node still answers correctly from the oracle, but should not
         be sent traffic."""
         sup = self.supervisor
-        return bool(self.warmed and not (sup is not None and sup.is_lost))
+        return bool(
+            self.warmed and library_error() is None
+            and not (sup is not None and sup.is_lost)
+        )
 
     @property
     def backend(self) -> str:
@@ -1233,12 +1291,17 @@ class SolverEngine:
 
     def warm_info(self) -> dict:
         """Per-width warm state (the ``/metrics`` ``engine.warm`` block),
-        keyed as the JAX engine's: which widths ran their warm-up launch
-        and how long it took (``compile_s``: the kernel library's build and
-        load are in the first), the order, the distinct (variant, width)
-        launch shapes seen, and the torch.profiler capture state when a
-        device trace is armed. ``solver_loop`` describes the kernels,
-        which have no lockstep compaction schedule."""
+        keyed as the JAX engine's: which widths ran their verified warm-up
+        launch, from what ``source`` (the library's: ``"aot"``, loaded from
+        the store, or ``"compile+save"``; ``"plain"`` on the CPU, which
+        loads none) and how long it took (``compile_s``: the kernel
+        library's build and load are in the first), the order, the
+        distinct (variant, width) launch shapes seen, the torch.profiler
+        capture state when a device trace is armed, and with a cache dir
+        the kernel store's counters (``aot``: loaded, saved, errors), as
+        the JAX engine reports its AOT store's. ``solver_loop``
+        describes the kernels, which have no lockstep compaction
+        schedule."""
         with self._lock:
             out = {
                 "warmed": self.warmed,
@@ -1260,6 +1323,8 @@ class SolverEngine:
                     "captured_calls": self._device_trace_captured,
                     "calls_remaining": self._device_trace_budget,
                 }
+        if self._report_aot:
+            out["aot"] = self._store.stats()
         return out
 
     def warmup(self, *, budget_s: Optional[float] = None,
@@ -1296,7 +1361,12 @@ class SolverEngine:
         Each width's warm-up time (the kernel library's build and load
         included, the first time in a process) is recorded for
         ``warm_info()``. With a device trace armed, the process's first
-        tier 0 runs inside one ``torch.profiler`` capture."""
+        tier 0 runs inside one ``torch.profiler`` capture. A library that
+        failed its verification twice (``_verified``) is never warmed
+        again: this raises its error."""
+        error = library_error()
+        if error is not None:
+            raise error
         deadline = None if budget_s is None else time.monotonic() + budget_s
         with self._lock:
             self._warmup_started = True
@@ -1334,7 +1404,9 @@ class SolverEngine:
         """Widen past tier 0: the remaining buckets, ascending, then the
         frontier race's rungs. Runs inline or as the background warm
         thread; a budget cut and a failure both leave the engine serving,
-        tier-0 warm, the cold widths tiled over or launched on demand."""
+        tier-0 warm, the cold widths tiled over or launched on demand. A
+        library that fails its verification twice is the exception: the
+        engine stops serving (``_verified``) and the error is raised."""
         try:
             for b in self.buckets:
                 if deadline is not None and time.monotonic() > deadline:
@@ -1359,6 +1431,8 @@ class SolverEngine:
             with self._lock:
                 self._warm_skipped = []
                 self.fully_warmed = True
+        except LibraryVerificationError:
+            raise  # the engine is no longer ready; say so in this thread
         except Exception:  # noqa: BLE001 — a failed widening must not kill serving
             logger.exception(
                 "warm-up widening failed — cold widths launch on demand"
@@ -1405,18 +1479,70 @@ class SolverEngine:
         with self._lock:
             if self._warm_state.get(b, {}).get("warm"):
                 return
-        N = self.spec.size
+        N, C = self.spec.size, self.spec.cells
         t0 = time.perf_counter()
-        self._wait_rows(
-            self._launch(np.zeros((b, N, N), np.int32), b, self.max_iters)
-        )
+
+        def launch():
+            rows = self._wait_rows(
+                self._launch(np.zeros((b, N, N), np.int32), b, self.max_iters)
+            )
+            return int(rows[0, C + 1]), rows[0, :C]
+
+        source = self._verified(f"dfs_solver at width {b}", launch)
         with self._lock:
             self._warm_state[b] = {
                 "warm": True,
-                "source": "launch",
+                "source": source,
                 "compile_s": round(time.perf_counter() - t0, 3),
             }
             self._warm_order.append(b)
+
+    def _verified(self, what: str, launch) -> str:
+        """Run one warm-up launch as the library's round-trip verification,
+        ``launch()`` → (status, grid) of the empty board it solved, as the
+        JAX engine's ``_verify_aot``: the board must come back SOLVED with
+        a grid the host oracle accepts. Returns the width's warm
+        ``source``: where the library came from (``library_source``),
+        ``"plain"`` on the CPU.
+
+        A library that fails is invalidated in the store and rebuilt under
+        ``library_quarantine`` (every other thread's launch raises
+        meanwhile), then this width and every width verified before are
+        verified again on the new library. A second failure, or a rebuild
+        that fails, raises ``LibraryVerificationError``: the library
+        launches no more, and the engine is no longer warm or ready.
+        Nothing falls back to the plain version."""
+        if not self._round_trip_ok(*launch()):
+            logger.warning(
+                "the kernel library failed its round-trip verification (%s) — "
+                "invalidating and rebuilding it", what,
+            )
+            with self._lock:
+                again = [(what, launch), *self._round_trips.items()]
+            try:
+                with library_quarantine(what):
+                    rebuild_library()
+                    for name, check in again:
+                        if not self._round_trip_ok(*check()):
+                            raise LibraryVerificationError(
+                                f"the kernel library failed its round-trip "
+                                f"verification twice ({what}, then {name} "
+                                f"on a fresh build): the empty board did not "
+                                f"come back solved and valid"
+                            )
+            except BaseException:
+                with self._lock:
+                    self.warmed = self.fully_warmed = False
+                raise
+        with self._lock:
+            self._round_trips[what] = launch
+        return library_source() or "plain"
+
+    def _round_trip_ok(self, status: int, grid) -> bool:
+        N = self.spec.size
+        return status == SOLVED and oracle_is_valid_solution(
+            np.asarray(grid).reshape(N, N).tolist()
+        )
 
     def solve_batch_np(
         self, boards: np.ndarray
@@ -1457,6 +1583,55 @@ class SolverEngine:
             "guesses": guesses,
             "capped": capped,
         }
+
+    def solve_batch_resumable_np(
+        self,
+        boards: np.ndarray,
+        checkpoint_path: str,
+        *,
+        chunk_iters: int = 256,
+        max_iters: int = 65536,
+        keep_checkpoint: bool = False,
+    ) -> Tuple[np.ndarray, np.ndarray, dict]:
+        """``solve_batch_np`` with crash durability: the solve advances in
+        bounded chunks (one K3 segment each on the card) with an atomic .npz
+        snapshot between chunks (utils/checkpoint.py), and a re-run with the
+        same ``checkpoint_path`` resumes bit-exact from the snapshot instead
+        of restarting. It runs the engine's serving configuration
+        (``locked_candidates``, ``waves``, ``naked_pairs``, ``max_depth``)
+        on the engine's device.
+
+        Returns (solutions, solved_mask, info) like ``solve_batch_np``. The
+        snapshot carries the per-board counters, so a resumed run folds the
+        batch's whole effort (pre-kill and post-resume) into this engine's
+        counters, once: the killed process's counters died with it."""
+        from .utils.checkpoint import solve_batch_resumable
+
+        boards = np.asarray(boards, np.int32)
+        res = solve_batch_resumable(
+            boards,
+            self.spec,
+            checkpoint_path=checkpoint_path,
+            chunk_iters=chunk_iters,
+            max_iters=max_iters,
+            max_depth=self.max_depth,
+            keep_checkpoint=keep_checkpoint,
+            locked=self.locked_candidates,
+            waves=self.waves,
+            naked_pairs=self.naked_pairs,
+            device=self.device,
+        )
+        solved_mask = res.solved.cpu().numpy()
+        validations = int(res.validations.sum())
+        guesses = int(res.guesses.sum())
+        with self._lock:
+            self.validations += validations
+            self.solved_puzzles += int(solved_mask.sum())
+        return (
+            res.grid.cpu().numpy(),
+            solved_mask,
+            {"validations": validations, "guesses": guesses},
+        )
 
     def solve_batch_np_supervised(
         self, boards: np.ndarray

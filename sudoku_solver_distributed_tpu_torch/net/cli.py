@@ -22,6 +22,16 @@ Extensions:
                 the serving pool) flips /readyz to 200, then the rest of
                 the ladder widens; once every bucket is warm the process
                 runs gc.collect() and gc.freeze()
+  --compile-cache-dir
+                root of the compile plane (compilecache/; env default
+                SUDOKU_COMPILE_CACHE_DIR): the kernel library is built into
+                and loaded from the kernel store under <dir>/kernels, keyed
+                by its source and flags and named by the backend's
+                fingerprint, so a second process loads it without nvcc;
+                every warm width's warm-up launch verifies it by a
+                round-trip solve (a library that fails is rebuilt once; a
+                second failure fails the warm-up). Unset: _build/ beside
+                the package
   --warmup-budget-s
                 bound the widening past tier 0 to this many seconds; the
                 buckets past it are skipped and batches tile over the warm
@@ -191,6 +201,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="run the solver on the CUDA device (default) or the CPU",
     )
     parser.add_argument("--no-warmup", action="store_true")
+    parser.add_argument(
+        "--compile-cache-dir",
+        default=os.environ.get("SUDOKU_COMPILE_CACHE_DIR") or None,
+        help="root of the compile plane (compilecache/): <dir>/kernels "
+        "holds the kernel store the warm-up loads a verified kernel library "
+        "from (and saves new builds into), <dir>/native the native "
+        "oracle's. Env default: SUDOKU_COMPILE_CACHE_DIR. Unset (default): "
+        "the library is built into _build/ beside the package",
+    )
     parser.add_argument(
         "--warmup-budget-s",
         type=float,
@@ -596,6 +615,7 @@ def build_node(args: argparse.Namespace):
         "segment_iters": args.segment_iters,
         "segment_pipeline": False if args.no_segment_pipeline else None,
         "deep_lane_cap": args.deep_lane_cap,
+        "compile_cache_dir": args.compile_cache_dir,
     }
     if args.buckets:
         kwargs["buckets"] = tuple(int(b) for b in args.buckets.split(","))

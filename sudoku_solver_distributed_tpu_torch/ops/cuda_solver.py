@@ -22,9 +22,12 @@ Differences from the Pallas path, all by design:
   so a solve syncs only for the OVERFLOW check between depth stages and
   for whatever the caller copies back.
 
-The kernel is built from csrc/ at first use with ``nvcc`` into
-``_build/`` beside this package and loaded with ctypes (a plain C
-interface, so the build takes seconds, not PyTorch-header minutes).
+The kernel is built from csrc/ at first use with ``nvcc`` and loaded with
+ctypes (a plain C interface, so the build takes seconds, not
+PyTorch-header minutes). The build goes through the process's kernel store
+(compilecache/): ``<dir>/kernels`` under ``--compile-cache-dir``, else
+``_build/`` beside this package; a build stored for this backend's
+fingerprint is loaded without running ``nvcc``.
 
 ``dfs_solver`` runs the plain PyTorch version (ops/solver.py) for a CPU
 tensor, and only then; for a CUDA tensor it launches the kernel or raises.
@@ -39,6 +42,11 @@ The pool's state tensors are updated in place, which takes the place of
 the JAX program's buffer donation: each call consumes the handle it was
 given and returns the pool's next one.
 
+A library that fails the engine's round-trip verification is rebuilt
+under ``library_quarantine``: every wrapper checks the launch gate first,
+so while the rebuild runs, and for good once the rebuilt library fails
+too, a launch raises ``LibraryVerificationError`` instead of running.
+
 ``dfs_race`` is the frontier race of one board's seeded subtree states on
 one device: the race kernel and its fold (K4) on a CUDA tensor, the plain
 lockstep race ``ops/solver.race`` on a CPU one; ``dfs_race.launches``
@@ -50,14 +58,17 @@ posted, and the fold rebuilds the lockstep result exactly.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -81,6 +92,12 @@ from .solver import (
     staged_depths,
     sweep_knobs,
 )
+from ..compilecache import (
+    KernelStore,
+    backend_fingerprint,
+    fixed_cache_root,
+    nvcc_path,
+)
 from .spec import BoardSpec
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -103,48 +120,108 @@ class KernelLaunchError(RuntimeError):
 
 
 def _nvcc() -> str:
-    found = shutil.which("nvcc")
+    found = nvcc_path()
     if found:
         return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
     raise RuntimeError(
         "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
         "DFS kernel is built from csrc/ on a machine with the CUDA toolkit"
     )
 
 
-def build() -> Path:
-    """Compile csrc/dfs_solver.cu into ``_build/`` (keyed by the source's
-    hash and flags, so an edited source rebuilds) and return the library
-    path. The compiler's register/spill report is kept beside it as
-    ``<lib>.log``."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libdfs_solver_{key}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+def library_key() -> str:
+    """The kernel library's store key: its source's hash and the ``nvcc``
+    flags (the backend fingerprint names the artifact within the key). The
+    solver configuration is not part of it: the knobs are the launch's
+    arguments, not compile-time constants."""
+    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return f"libdfs_solver-{digest.hexdigest()[:12]}"
+
+
+@functools.cache
+def kernel_store() -> KernelStore:
+    """The process's kernel store, fixed at its first use: ``<root>/kernels``
+    under the cache root of ``compilecache.enable_persistent_cache``, else
+    ``_build/`` beside this package. Fixing it fixes the process's cache
+    root: a later ``enable_persistent_cache`` is refused."""
+    root = fixed_cache_root()
+    return KernelStore(BUILD_DIR if root is None else Path(root) / "kernels")
+
+
+def _nvcc_compile(out: Path) -> str:
+    """Compile csrc/dfs_solver.cu into ``out``; returns the command and the
+    compiler's report (``ptxas -v``: registers and spills per kernel)."""
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = lib.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
             + proc.stderr[-4000:]
         )
-    os.replace(tmp, lib)
-    return lib
+    return " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+
+
+def build(store: Optional[KernelStore] = None, compile=_nvcc_compile) -> tuple:
+    """The kernel library through ``store`` (default: ``kernel_store()``):
+    the stored build for this backend's fingerprint, loaded without running
+    ``nvcc``, or a new build by ``compile(out)`` saved back to the store.
+    Returns ``(path, source)``, ``source`` ``"aot"`` or ``"compile+save"``.
+    A store directory that cannot be written raises a ``RuntimeError`` that
+    names ``--compile-cache-dir``."""
+    store = kernel_store() if store is None else store
+    return store.get(
+        library_key(), backend_fingerprint(), compile,
+        meta={"source": SOURCE.name, "flags": " ".join(NVCC_FLAGS)},
+    )
+
+
+def build_log() -> Optional[str]:
+    """The compiler's report of the process's kernel library, kept in its
+    store record (``ptxas -v``: registers and spills per kernel)."""
+    return kernel_store().log(library_key(), backend_fingerprint())
+
+
+# the process's library: where it came from ("aot", the store, or
+# "compile+save", built by this process; set by ``load_library``), the
+# paths it was opened from, and the launch gate (``library_quarantine``):
+# while ``error`` is set, every wrapper raises it in any thread but
+# ``owner``'s
+_LIBRARY = {"source": None, "opened": set()}
+_GATE = {"error": None, "owner": None}
+_GATE_LOCK = threading.Lock()
+
+
+class LibraryVerificationError(RuntimeError):
+    """The kernel library failed its round-trip verification twice: once
+    as loaded and once after a rebuild. Every launch after that raises it
+    (``library_quarantine``); nothing falls back to the plain version."""
+
+
+def _dlopen(path: Path) -> ctypes.CDLL:
+    """``ctypes.CDLL`` of ``path`` as a new image. The dynamic loader
+    hands back an object it already holds for the same path name, so a
+    rebuild whose bytes (hence its content-hashed name) equal the failed
+    library's would run the failed image again: a path this process opened
+    before is opened through a private copy, unlinked once mapped."""
+    if path not in _LIBRARY["opened"]:
+        _LIBRARY["opened"].add(path)
+        return ctypes.CDLL(str(path))
+    fd, name = tempfile.mkstemp(dir=path.parent, prefix=f".{path.stem}.",
+                                suffix=".so")
+    os.close(fd)
+    try:
+        shutil.copyfile(path, name)
+        return ctypes.CDLL(name)
+    finally:
+        os.unlink(name)
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
-    lib = ctypes.CDLL(str(build()))
+    """Build (if needed) and load the kernel library once per process,
+    through the process's kernel store (``build``)."""
+    path, source = build()
+    lib = _dlopen(path)
     lib.dfs_solver_launch.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -169,7 +246,72 @@ def load_library() -> ctypes.CDLL:
         RACE_META_COLS, RACE_ROW_EXTRA
     ):
         raise RuntimeError("dfs_solver library disagrees on the race layout")
+    _LIBRARY["source"] = source
     return lib
+
+
+def library_source() -> Optional[str]:
+    """Where the process's kernel library came from: ``"aot"`` (loaded from
+    the store), ``"compile+save"`` (built and saved by this process), or
+    None before it was loaded."""
+    return _LIBRARY["source"]
+
+
+def rebuild_library() -> ctypes.CDLL:
+    """Replace the process's kernel library after it failed a verification
+    solve: its stored artifact is invalidated (deleted, an error in the
+    store's counters), the library is built anew and saved, and the new
+    build is loaded as the process's library, as a new image even where
+    its bytes equal the old build's (``_dlopen``)."""
+    kernel_store().invalidate(library_key(), backend_fingerprint())
+    load_library.cache_clear()
+    return load_library()
+
+
+def library_error() -> Optional[LibraryVerificationError]:
+    """The error every launch raises, or None: the library is being
+    rebuilt after a failed verification, or failed it twice."""
+    return _GATE["error"]
+
+
+def _check_library() -> None:
+    with _GATE_LOCK:
+        error, owner = _GATE["error"], _GATE["owner"]
+    if error is not None and owner != threading.get_ident():
+        raise error
+
+
+@contextlib.contextmanager
+def library_quarantine(what: str):
+    """Hold every launch of the process's library while the calling thread
+    rebuilds and verifies it again: the wrappers raise
+    ``LibraryVerificationError`` in every other thread (those requests
+    fail; none is answered by a library that solved wrong). A clean exit
+    lifts the gate. An exception, the second failed verification or a
+    rebuild that fails, leaves it shut for good, for every thread, and
+    leaves as a ``LibraryVerificationError``."""
+    error = LibraryVerificationError(
+        f"the kernel library failed its round-trip verification ({what}) "
+        f"and is being rebuilt"
+    )
+    with _GATE_LOCK:
+        _GATE.update(error=error, owner=threading.get_ident())
+    try:
+        yield
+    except BaseException as exc:
+        failed = exc if isinstance(exc, LibraryVerificationError) else (
+            LibraryVerificationError(
+                f"the kernel library failed its round-trip verification "
+                f"({what}) and its rebuild failed: {exc}"
+            )
+        )
+        with _GATE_LOCK:
+            _GATE.update(error=failed, owner=None)
+        if failed is exc:
+            raise
+        raise failed from exc
+    with _GATE_LOCK:
+        _GATE.update(error=None, owner=None)
 
 
 def segment_warps_per_sm(size: int) -> int:
@@ -210,7 +352,9 @@ def dfs_solver(boards: torch.Tensor, spec: BoardSpec, depth: int,
     (the results are the same); it is checked, not sent to the kernel.
 
     A CUDA tensor launches the kernel on the current stream (no sync);
-    a CPU tensor runs the plain version. Nothing else is accepted."""
+    a CPU tensor runs the plain version. Nothing else is accepted. While
+    ``library_quarantine`` holds the library, it raises instead."""
+    _check_library()
     sweeps = dict(
         locked_candidates=locked_candidates, waves=waves,
         light_waves=light_waves, naked_pairs=naked_pairs, packed=packed,
@@ -362,7 +506,9 @@ def dfs_segment(pool: SegmentPool, boards: torch.Tensor, src: torch.Tensor,
 
     A CUDA pool launches the segment kernel and its digest kernel on the
     current stream (no sync); a CPU pool runs the plain version. Nothing
-    else is accepted."""
+    else is accepted. While ``library_quarantine`` holds the library, it
+    raises instead."""
+    _check_library()
     pool.check_live()
     spec = pool.spec
     sweeps = dict(
@@ -469,7 +615,9 @@ def dfs_race(states: torch.Tensor, spec: BoardSpec, depth: int,
 
     A CUDA tensor launches the race kernel and its fold (K4) on the current
     stream (no sync); a CPU tensor runs the plain version. Nothing else is
-    accepted. ``dfs_race.launches`` counts launches."""
+    accepted. ``dfs_race.launches`` counts launches. While
+    ``library_quarantine`` holds the library, it raises instead."""
+    _check_library()
     sweeps = dict(
         locked_candidates=locked_candidates, waves=waves,
         naked_pairs=naked_pairs, packed=packed,

@@ -7,6 +7,7 @@ are in tests/test_torch_continuous.py) and its stdlib HTTP node, and the 429 sur
 
 import json
 import socket
+import statistics
 import threading
 import time
 import urllib.error
@@ -222,25 +223,56 @@ def test_coalescer_delivers_request_that_expires_mid_flight(engine, boards):
 
 
 def test_adaptive_lone_request_dispatch_wait_beats_fixed_budget(boards):
+    """Adaptive mode cuts a lone request's dispatch wait below the fixed
+    2 ms budget, under the JAX copy's bounds (tests/test_admission.py),
+    read on every request's own wait: its median, and its upper quartile,
+    so a policy that waits out the budget on a quarter of the stream fails.
+
+    The solve is pinned: each board's rows are computed by the plain
+    solver before the measured stream and replayed by the engine's solve
+    stage, so the stream's host work is the coalescer's own. What is left
+    is the host's: with the suite's workers busy, the dispatcher thread
+    wakes from its wait ~10 ms late on one request in 16 or so, in either
+    arm and whatever the policy, which moved a mean of 8 past the bound."""
     waits = {}
     for adaptive in (False, True):
         eng = SolverEngine(device="cpu", buckets=(1, 8),
                            coalesce_adaptive=adaptive, continuous=False)
         eng.warmup()
+        solve_stage, pinned = eng._stage_rows, {}
+
+        def replay(dev, *args):
+            key = dev.numpy().tobytes()
+            if key not in pinned:
+                pinned[key] = solve_stage(dev, *args)
+            return pinned[key]
+
+        eng._stage_rows = replay
         try:
-            for i in range(8):
-                sol, _ = eng.solve_one(boards[i % len(boards)].tolist())
+            stream = [boards[i % len(boards)] for i in range(16)]
+            for board in stream:  # the rows to replay, off the coalescer
+                eng._solve_padded(board[None])
+            per_request, total = [], 0.0
+            for board in stream:
+                sol, _ = eng.solve_one(board.tolist())
                 assert sol is not None
-                time.sleep(0.05)
-            waits[adaptive] = eng.coalescer.stats()["avg_wait_ms"]
+                st = eng.coalescer.stats()
+                per_request.append(st["avg_wait_ms"] * st["boards"] - total)
+                total = st["avg_wait_ms"] * st["boards"]
+                time.sleep(0.05)  # idle spacing: no co-riders in sight
+            assert st["boards"] == len(stream)
+            assert len(pinned) == len({b.tobytes() for b in stream})  # all replayed
+            waits[adaptive] = (statistics.median(per_request),
+                               statistics.quantiles(per_request, n=4)[2])
         finally:
             eng.close()
-    # fixed mode waits out the 2 ms budget for co-riders that never come;
-    # adaptive mode sees a ~20 Hz stream and waits a few percent of it.
-    # Both read the same host scheduling noise (the plain solver keeps a
-    # test worker's core busy), so the saving is asserted, not a ceiling
-    assert waits[False] >= 1.5, waits
-    assert waits[True] < waits[False] - 1.0, waits
+    # fixed mode waits out the full 2 ms budget for co-riders that never
+    # come; adaptive mode sees a ~20 Hz stream and waits a few percent of it
+    fixed, adaptive_waits = waits[False][0], waits[True]
+    assert fixed >= 1.5, waits
+    for wait in adaptive_waits:  # median, upper quartile
+        assert wait < 1.0, waits
+        assert wait < fixed / 2, waits
 
 
 # -- HTTP surface ----------------------------------------------------------------

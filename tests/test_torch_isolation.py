@@ -67,7 +67,8 @@ REQUIRED = (
     "obs.trace", "obs.histo", "obs.prom", "obs.flight", "obs.export",
     "obs.cost", "obs.slo", "net.fastserve", "net.solver_api", "api",
     "utils.render", "net.peermap", "cache.gossip", "obs.cluster",
-    "serving.autopilot", "parallel.frontier",
+    "serving.autopilot", "parallel.frontier", "compilecache",
+    "compilecache.store", "utils.checkpoint", "native", "models.generator",
 )
 
 # the default transport without JAX, on the plain solver: a /solve_batch
@@ -142,6 +143,42 @@ print("ok")
 """
 
 
+# the compile plane, a resumable batch and the generator without JAX, on
+# the plain solver: the native oracle and the engine's store under one
+# compile cache, a batch cut at its budget and resumed by a second engine
+PLANE_WITHOUT_JAX = r"""
+import os, sys, tempfile
+sys.modules["jax"] = None
+from sudoku_solver_distributed_tpu_torch import native
+from sudoku_solver_distributed_tpu_torch.compilecache import enable_persistent_cache
+from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+from sudoku_solver_distributed_tpu_torch.models import (
+    generate_batch, oracle_is_valid_solution,
+)
+root = tempfile.mkdtemp()
+assert enable_persistent_cache(root)
+boards = generate_batch(4, 45, seed=3, unique=True)
+assert str(native.native_store().root) == os.path.join(root, "native")
+engines = [SolverEngine(device="cpu", buckets=(1, 8), compile_cache_dir=root)
+           for _ in range(2)]
+engines[0].warmup()
+assert engines[0].warm_info()["aot"] == {"loaded": 0, "saved": 0, "errors": 0}
+ck = os.path.join(root, "batch.npz")
+engines[0].solve_batch_resumable_np(boards, ck, chunk_iters=1, max_iters=2)
+assert os.path.exists(ck)
+sols, mask, info = engines[1].solve_batch_resumable_np(boards, ck, chunk_iters=2)
+assert mask.all() and not os.path.exists(ck)
+assert all(oracle_is_valid_solution(s.tolist()) for s in sols)
+assert engines[1].validations == info["validations"] > 0
+for eng in engines:
+    eng.close()
+leaked = [n for n in sys.modules
+          if n.split(".")[0] == "sudoku_solver_distributed_tpu"]
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def test_port_and_chip_smoke_import_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(
@@ -170,6 +207,16 @@ def test_batch_api_and_keepalive_serve_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(
         [sys.executable, "-c", SERVE_WITHOUT_JAX], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ok"]
+
+
+def test_compile_plane_resumable_batch_and_generator_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", PLANE_WITHOUT_JAX], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
@@ -690,3 +737,35 @@ def test_two_node_cluster_on_the_card_farms_as_the_single_node_engine():
             t.join(timeout=10)
         for eng in engines:
             eng.close()
+
+
+@pytest.mark.cuda
+def test_resumable_batch_on_the_card_matches_the_plain_version(tmp_path):
+    """Checkpointed chunks on the card (one K3 segment each) against their
+    plain version on the CPU: cut at a budget, resumed with a larger one,
+    and uninterrupted, every row and ``iters`` equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import dfs_segment
+    from sudoku_solver_distributed_tpu_torch.utils.checkpoint import (
+        solve_batch_resumable,
+    )
+
+    boards = _hard(64)
+    knobs = dict(locked=True, waves=3, naked_pairs=False, chunk_iters=2)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        path = str(tmp_path / f"{device}.npz")
+        before = dfs_segment.launches
+        cut = solve_batch_resumable(boards, checkpoint_path=path, max_iters=3,
+                                    device=device, **knobs)
+        assert os.path.exists(path) and cut.iters == 3
+        runs[device] = (cut, solve_batch_resumable(
+            boards, checkpoint_path=path, device=device, **knobs))
+        assert not os.path.exists(path)
+        if device == "cuda":
+            assert dfs_segment.launches > before + 2
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        for f in ("grid", "solved", "status", "guesses", "validations"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        assert got.iters == want.iters

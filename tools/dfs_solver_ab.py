@@ -182,8 +182,8 @@ def main(argv) -> int:
     this = cs.load_library()
     other, other_log = build_other(cs, source)
     ptxas = {
-        "this": smoke.ptxas_report(cs.build().with_suffix(".log"), "ptxas this"),
-        "other": smoke.ptxas_report(other_log, "ptxas other"),
+        "this": smoke.ptxas_report(cs.build_log(), "ptxas this"),
+        "other": smoke.ptxas_report(other_log.read_text(), "ptxas other"),
     }
     occupancy = {"this": cs.segment_warps_per_sm(9)}
     smoke.log(f"dfs_segment_kernel 9x9 resident warps per SM (this build): "
