@@ -178,22 +178,31 @@ exit) on any error:
    (SIGINT, the graceful departure) and its disconnect prunes it before
    the failure timeout could. Every process is stopped at the end, and
    their logs print when the phase fails.
-11. The frontier race. (a) The race kernel and its fold
-   (ops/cuda_solver.dfs_race: ``dfs_race_kernel`` + ``race_fold_kernel``,
-   K4) against the plain lockstep race (``_dfs_race_plain``) on seeded
+11. The frontier race. (a) The race kernel
+   (ops/cuda_solver.dfs_race: ``dfs_race_kernel``, K4, one launch a race:
+   a thread block a state, the fold in the last block) against the plain
+   lockstep race (``_dfs_race_plain``) on seeded
    states (``parallel/frontier.seed_frontier``, locked, as the engine
    seeds): four 9x9 deep-corpus boards picked by ``--seed`` at 64 states,
    the README board at 512 (2048 raced), two 16x16 deep-anneal boards at
    64 and a 25x25 one at 8 (the seeding BFS solves the rest itself,
    and two deep boards at 512 are checked to be answered that way), the
-   README at 64 and capped at 8 steps, an UNSAT board; each size
-   in its serving configuration. The packed row and every state's status
-   and validations after the race must be equal, and a found row's
-   solution must be valid. (b) Early exit: the steps K4's warps ran in all
-   beside the sum of each state's steps to its own end (K1 over the same
-   states). (c) K4's time per race by CUDA events and torch.profiler (the
-   race and fold kernels apart), the plain race's time, the bound (the
-   lockstep race's sweeps), t* and the host seeding time, on four sets.
+   README at 64 and capped at 8 steps, an UNSAT board, a 4x4 board with one
+   clue at 8, and the first 16x16 set tiled to 1024 states; each size in the
+   configuration its node races with. The packed row and every state's
+   status and validations after the race must be equal, a found row's
+   solution must be valid, and every state whose K4 run ended by t* must
+   have K1's status, steps and validations for it. (b) Early exit: the
+   steps K4's blocks ran in all beside the sum of each state's steps to its
+   own end (K1 over the same states); two races back to back on one stream
+   (the first stops early, the second runs past it: the scratch was reset)
+   and two at once on two CUDA streams, each equal to its plain race. (c)
+   K4's threads a state, stack placement and resident states per SM; its
+   time per race by CUDA events (beside the parent's build in turns with
+   ``--race-parent FILE``) and torch.profiler (one kernel record a race, no
+   other kernel or memset), the plain race's time, the bound (the lockstep
+   race's sweeps), t*, microseconds per sweep of the slowest state and the
+   host seeding time, on five sets (``race_timing_sets``).
    (d) A ``--frontier 64`` node in its default configuration, counters set
    to 0 once warm: the README board stays on the probe (no escalation);
    16 deep 9x9 boards /solve, each escalated (``frontier_escalations``),
@@ -3103,7 +3112,7 @@ def _phase_p2p(nodes, tmp, oracle_ok, random_symmetry, count_solutions,
 
 # -- phase 11: the frontier race on one card ---------------------------------
 
-RACE_KERNELS = ("dfs_race_kernel", "race_fold_kernel")
+RACE_KERNELS = ("dfs_race_kernel",)  # K4 folds in its own launch
 FRONTIER_STATES = 64  # --frontier of phase 11's nodes: the engine's default
 FRONTIER_BUCKET_BOARDS = 6  # deep boards timed on both routes in phase 11 (d)
 
@@ -3127,7 +3136,8 @@ def frontier_race_sets(F, spec_for_size, seed: int):
     whose seeding leaves a race at 64 states; the first 25x25 one at 8 (at
     64 the seeding solves every 25x25 deep board); the README board at
     64, and capped at 8 steps (before its first solve, at 31); an UNSAT
-    board."""
+    board; a 4x4 board with one clue at 8 states (12 seeded, raced as 16;
+    every 4x4 board with more clues is solved by its seeding)."""
     import numpy as np
 
     spec9 = spec_for_size(9)
@@ -3159,6 +3169,11 @@ def frontier_race_sets(F, spec_for_size, seed: int):
     sets.append(("UNSAT @64", unsat, spec9, _race_states(F, unsat, spec9, 64), 65536, 64))
     # its lockstep race solves at step 31: capped at 8, every state is cut
     sets.append(("README @64 capped at 8", readme, spec9, readme64, 8, 64))
+    spec4 = spec_for_size(4)
+    one_clue = np.zeros((4, 4), np.int32)
+    one_clue[0, 0] = 1
+    sets.append(("4x4 one clue @8", one_clue, spec4, _race_states(F, one_clue, spec4, 8),
+                 65536, 8))
     for name, _, _, states, _, _ in sets:
         check(states is not None, f"{name}: seeding solved the board; nothing to race")
     return sets
@@ -3180,12 +3195,30 @@ def _seeding_answers_at_512(F, spec_for_size, oracle_ok, seed: int):
     check(F.dfs_race.launches == n0, "a deep board raced at 512 states")
 
 
+def race_timing_sets(sets):
+    """The race sets phase 11 (c) and ``tools/dfs_solver_ab.py`` time: a 9x9
+    deep board at 64 (128 states, a ``--frontier 64`` node's own race), the
+    README at 512 (2048 states), a 16x16 deep board at 64 (128), the 25x25
+    at 8; and a 16x16 race at 1024 states, the 16x16 set's states tiled 8
+    times (at 1024 the seeding solves every 16x16 corpus board), for the
+    occupancy of a wide race."""
+    import numpy as np
+
+    by_name = {s[0]: s for s in sets}
+    names = [sets[0][0], "README @512", sets[5][0], sets[7][0]]
+    out = [by_name[n] for n in names]
+    name, board, spec, states, max_iters, _ = sets[5]
+    out.append((f"{name} tiled to 1024", board, spec, np.tile(states, (8, 1, 1)),
+                max_iters, 1024))
+    return out
+
+
 def _race_bound_ms(states, fold, cells, locked: bool):
     """The least time for one race: the larger of its bytes (the states in;
     grids, run records, fold and row out) over the HBM rate and its integer
     operations over the int32 rate, counting the sweeps the lockstep race
     needs (the fold's validations: the sweeps this race's data needs; the
-    kernel's warps run past t* and sweep more)."""
+    kernel's blocks run past t* and sweep more)."""
     M = states.shape[0]
     per_cell = OPS_PER_CELL_SWEEP + (OPS_PER_CELL_LOCKED if locked else 0)
     words = 2 * M * cells + M * (4 + 2) + cells + 3
@@ -3194,22 +3227,145 @@ def _race_bound_ms(states, fold, cells, locked: bool):
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def _frontier_parity(cs, F, spec_for_size, serving_config, oracle_ok, seed: int):
+def race_trajectory_diffs(kmeta, own, t_star: int) -> tuple:
+    """(mismatches, ended): of the states whose K4 run ended (not RUNNING)
+    at or before t*, those whose status, steps and validations differ from
+    K1's run of the same state to its own end (``own``: K1's meta, status,
+    guesses, validations, steps)."""
+    ended = (kmeta[:, 0] != 0) & (kmeta[:, 1] <= t_star)
+    k, o = kmeta[ended], own[ended]
+    bad = (k[:, 0] != o[:, 0]) | (k[:, 1] != o[:, 3]) | (k[:, 2] != o[:, 2])
+    return int(bad.sum()), int(ended.sum())
+
+
+def _race_diffs(a, b) -> tuple:
+    """(mismatches, largest difference) of two races' (row, fold)."""
+    (arow, afold), (brow, bfold) = a, b
+    bad = int((arow != brow).any()) + int((afold != bfold).any(dim=1).sum())
+    err = max(int((arow.long() - brow.long()).abs().max()),
+              int((afold.long() - bfold.long()).abs().max()))
+    return bad, err
+
+
+def race_profile(fn, reps: int) -> dict:
+    """torch.profiler's device records over ``reps`` calls of a race:
+    ``_profiled_kernel_ms`` of K4, plus every other kernel or memset in the
+    window by name (the device sleep that opens the window aside)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(5e-3 * SM_CLOCK_HZ))
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    count, total_us, others = 0, 0.0, {}
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        if RACE_KERNELS[0] in e.key:
+            count += e.count
+            total_us += e.device_time_total
+        elif "spin_kernel" not in e.key:
+            others[e.key] = others.get(e.key, 0) + e.count
+    check(5 <= count <= reps, f"the profiler recorded {count} race kernels for {reps} races")
+    return {"ms": total_us / count / 1e3, "records": count, "calls": reps,
+            "other_records": others}
+
+
+def _race_parent(cs, source):
+    """The parent's kernel library for phase 11 (c)'s turns, built from
+    ``source`` (``--race-parent``) by ``tools/dfs_solver_ab.build_other``;
+    None without one."""
+    from pathlib import Path
+
+    if source is None:
+        return None
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import dfs_solver_ab
+
+    lib, _ = dfs_solver_ab.build_other(cs, Path(source).resolve())
+    return lib
+
+
+def _race_streams(cs, sets, config) -> dict:
+    """Two races back to back on one stream (the first posts an early stop,
+    the second races far past it, so its result shows the scratch was
+    reset), and two races at once on two CUDA streams: each equal to its
+    plain race."""
+    import torch
+
+    by_name = {s[0]: s for s in sets}
+    short, long_ = sets[0], by_name["README @64"]
+
+    def run(entry):
+        name, _, spec, states, max_iters, _ = entry
+        flat = torch.as_tensor(states.reshape(len(states), -1), device="cuda").contiguous()
+        args = (flat, spec, spec.max_depth, max_iters)
+        return name, flat, args, sweeps_of(config(spec.size))
+
+    out = {"mismatches": 0}
+    runs = [run(short), run(long_)]
+    plain = [cs._dfs_race_plain(*args, **sw) for _, _, args, sw in runs]
+    t_stars = [int(meta[:, 1].max()) for _, _, meta in plain]
+    plain = [p[:2] for p in plain]
+    check(t_stars[0] < t_stars[1], f"the first race (t* {t_stars[0]}) does not stop "
+                                   f"before the second needs to (t* {t_stars[1]})")
+    torch.cuda.synchronize()
+    got = [cs.dfs_race(*args, **sw)[:2] for _, _, args, sw in runs]
+    torch.cuda.synchronize()
+    bad = sum(_race_diffs(g, p)[0] for g, p in zip(got, plain))
+    out["back_to_back"] = bad
+    log(f"phase 11 (b) back to back on one stream: {runs[0][0]} (t* {t_stars[0]}) "
+        f"then {runs[1][0]} (t* {t_stars[1]}): {bad} mismatches")
+    check(bad == 0, "back-to-back races disagree with their plain races")
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [None, None]
+    for k, (st, (_, _, args, sw)) in enumerate(zip(streams, runs[::-1])):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            got[k] = cs.dfs_race(*args, **sw)[:2]
+    torch.cuda.synchronize()
+    bad = sum(_race_diffs(g, p)[0] for g, p in zip(got, plain[::-1]))
+    out["two_streams"] = bad
+    out["mismatches"] = out["back_to_back"] + bad
+    log(f"phase 11 (b) {runs[1][0]} and {runs[0][0]} at once on two streams: "
+        f"{bad} mismatches")
+    check(bad == 0, "races on two streams disagree with their plain races")
+    return out
+
+
+def _frontier_parity(cs, F, spec_for_size, config, oracle_ok, seed: int,
+                     race_parent=None):
     """(a)-(c): K4 against its plain version on every set of
-    ``frontier_race_sets``, the early exit, and the timing. Restores the
-    launch counters: none of this is the main path."""
+    ``frontier_race_sets``, each ended state's run against K1's, the early
+    exit, back-to-back races and two streams, and the timing (the parent's
+    build in turns, with ``race_parent``). Restores the launch counters:
+    none of this is the main path."""
     import torch
 
     counts = (cs.dfs_race.launches, cs.dfs_solver.launches)
     out = {"mismatches": 0, "max_abs_err": 0, "sets": {}, "timing": {}}
+    out["states_per_sm"] = {size: cs.race_states_per_sm(size) for size in (4, 9, 16, 25)}
+    lib = cs.load_library()
+    out["threads"] = {size: lib.dfs_race_threads(round(size ** 0.5))
+                      for size in (4, 9, 16, 25)}
+    out["stack_in_slab"] = {size: cs.race_stack_in_slab(lib, round(size ** 0.5))
+                            for size in (4, 9, 16, 25)}
+    log(f"phase 11: K4 threads a state {out['threads']}, stack in the device slab "
+        f"{out['stack_in_slab']}, resident states per SM {out['states_per_sm']}")
     t0 = time.perf_counter()
     sets = frontier_race_sets(F, spec_for_size, seed)
     log(f"phase 11 (a): {len(sets)} race sets seeded in "
         f"{time.perf_counter() - t0:.2f} s (host)")
     _seeding_answers_at_512(F, spec_for_size, oracle_ok, seed)
-    timed = {sets[0][0], sets[4][0], sets[5][0], sets[7][0]}  # 9x9, 512, 16, 25
-    for name, board, spec, states, max_iters, target in sets:
-        sweeps = sweeps_of(serving_config(spec.size))
+    parent = _race_parent(cs, race_parent)
+    timing_sets = race_timing_sets(sets)
+    timed = {s[0] for s in timing_sets}
+    # the timing sets are parity sets too; only the tiled 16x16 one is new
+    for name, board, spec, states, max_iters, target in sets + timing_sets[4:]:
+        sweeps = sweeps_of(config(spec.size))
         depth = spec.max_depth
         flat = torch.as_tensor(states.reshape(len(states), -1), device="cuda").contiguous()
         krow, kfold, kmeta = cs.dfs_race(flat, spec, depth, max_iters, **sweeps)
@@ -3219,9 +3375,7 @@ def _frontier_parity(cs, F, spec_for_size, serving_config, oracle_ok, seed: int)
         prow, pfold, pmeta = plain["r"]
         _, own = cs.dfs_solver(flat, spec, depth, max_iters, **sweeps)
         torch.cuda.synchronize()
-        bad = int((krow != prow).any()) + int((kfold != pfold).any(dim=1).sum())
-        err = max(int((krow.long() - prow.long()).abs().max()),
-                  int((kfold.long() - pfold.long()).abs().max()))
+        bad, err = _race_diffs((krow, kfold), (prow, pfold))
         out["mismatches"] += bad
         out["max_abs_err"] = max(out["max_abs_err"], err)
         C = spec.cells
@@ -3230,44 +3384,80 @@ def _frontier_parity(cs, F, spec_for_size, serving_config, oracle_ok, seed: int)
             _check_answer(board, krow[:C].reshape(spec.size, spec.size).tolist(),
                           oracle_ok, f"the race's answer on {name}")
         t_star = int(pmeta[:, 1].max())
+        traj_bad, ended = race_trajectory_diffs(kmeta, own, t_star)
         raced, to_end = int(kmeta[:, 1].sum()), int(own[:, 3].sum())
         rec = {"states": len(states), "found": found, "t_star": t_star,
                "validations": int(krow[C + 1]), "undecided": int(krow[C + 2]),
-               "k4_steps_all_warps": raced, "steps_each_to_own_end": to_end,
-               "lockstep_steps": int(pmeta[:, 1].sum()), "mismatches": bad}
+               "k4_steps_all_blocks": raced, "steps_each_to_own_end": to_end,
+               "lockstep_steps": int(pmeta[:, 1].sum()), "mismatches": bad,
+               "trajectory_mismatches": traj_bad, "ended_by_t_star": ended}
         out["sets"][name] = rec
         log(f"phase 11 (a/b) {name}: {len(states)} states, found {found}, t* "
             f"{t_star}, validations {rec['validations']}, undecided "
-            f"{rec['undecided']}; K4's warps ran {raced} steps in all against "
+            f"{rec['undecided']}; K4's blocks ran {raced} steps in all against "
             f"{to_end} for every state to its own end (lockstep "
-            f"{rec['lockstep_steps']}); {bad} mismatches vs the plain race")
+            f"{rec['lockstep_steps']}); {bad} mismatches vs the plain race; "
+            f"{traj_bad} of the {ended} states ended by t* differ from K1's run")
         check(bad == 0, f"{name}: K4 and the plain race disagree")
+        check(traj_bad == 0, f"{name}: an ended state's K4 run differs from K1's")
         if name not in timed:
             continue
-        this_ms = _cuda_ms(lambda: cs.dfs_race(flat, spec, depth, max_iters, **sweeps), 20)
-        split = _profiled_kernel_ms(
-            lambda: cs.dfs_race(flat, spec, depth, max_iters, **sweeps), 10,
-            kernels=RACE_KERNELS, min_records=5)
+        waves = sweeps["waves"]
+        knobs = cs.sweep_knobs(spec, **sweeps)
+
+        def this_race():
+            cs.dfs_race(flat, spec, depth, max_iters, **sweeps)
+
+        timing = {}
+        if parent is not None:
+            parent_scratch = torch.tensor(cs.RACE_SCRATCH_IDLE, dtype=torch.int32,
+                                          device="cuda")
+
+            def parent_race():
+                return cs._launch_race(parent, flat, spec, depth, max_iters, waves,
+                                       cs._options(knobs), slab=True,
+                                       scratch=parent_scratch)[:2]
+
+            pbad, _ = _race_diffs(parent_race(), (krow, kfold))
+            check(pbad == 0, f"{name}: the parent's build disagrees with this one")
+            turns = [_cuda_ms(f, 20) for f in (parent_race, this_race, this_race,
+                                                parent_race)]
+            this_ms = (turns[1] + turns[2]) / 2
+            timing.update(parent_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+        else:
+            this_ms = _cuda_ms(this_race, 20)
+        prof = race_profile(this_race, 10)
+        check(not prof["other_records"],
+              f"{name}: a race launched more than its kernel: {prof['other_records']}")
         seed_ms = []
         for _ in range(3):
             t0 = time.perf_counter()
             F.seed_frontier(board, spec, target=target, locked=True)
             seed_ms.append((time.perf_counter() - t0) * 1e3)
         bound, by = _race_bound_ms(flat, pfold, C, sweeps["locked_candidates"])
-        out["timing"][name] = {
-            "ms": this_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "split_ms": split, "t_star": t_star, "seed_ms": sorted(seed_ms)[1],
-            "states": len(states),
-        }
-        log(f"phase 11 (c) {name}: K4 + fold {this_ms:.4f} ms a race (CUDA "
-            f"events, mean of 20; profiler: {split}); plain {plain_ms:.1f} ms; "
-            f"bound {bound:.5f} ms by {by} ({bound / this_ms:.2%}); t* {t_star}; "
-            f"{this_ms / max(t_star, 1) * 1e3:.3f} us per lockstep step; host "
-            f"seeding {sorted(seed_ms)[1]:.2f} ms (median of 3)")
+        sweeps_slowest = int(kmeta[:, 2].max())
+        out["timing"][name] = dict(
+            timing, ms=this_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            kernel_ms=prof["ms"], profiler_records=prof["records"], t_star=t_star,
+            us_per_sweep_slowest=this_ms * 1e3 / max(sweeps_slowest, 1),
+            seed_ms=sorted(seed_ms)[1], states=len(states),
+        )
+        parent_note = (f"; parent {timing['parent_ms']:.4f} ms (turns "
+                       + ", ".join(f"{x:.4f}" for x in timing["turns_ms"]) + ")"
+                       if parent is not None else "")
+        log(f"phase 11 (c) {name}: K4 {this_ms:.4f} ms a race (CUDA events, mean of "
+            f"20{parent_note}); profiler {prof['ms']:.4f} ms in {prof['records']} "
+            f"records of {prof['calls']} races, no other kernel or memset; plain "
+            f"{plain_ms:.1f} ms; bound {bound:.5f} ms by {by} ({bound / this_ms:.2%}); "
+            f"t* {t_star}; {this_ms * 1e3 / max(sweeps_slowest, 1):.3f} us per sweep "
+            f"of the slowest state ({sweeps_slowest} sweeps); host seeding "
+            f"{sorted(seed_ms)[1]:.2f} ms (median of 3)")
+    out["streams"] = _race_streams(cs, sets, config)
+    out["mismatches"] += out["streams"]["mismatches"]
     cs.dfs_race.launches, cs.dfs_solver.launches = counts
-    check(any(r["found"] and r["k4_steps_all_warps"] < r["steps_each_to_own_end"]
+    check(any(r["found"] and r["k4_steps_all_blocks"] < r["steps_each_to_own_end"]
               for r in out["sets"].values()),
-          "no race stopped its warps short of their own ends: no early exit")
+          "no race stopped its blocks short of their own ends: no early exit")
     return out
 
 
@@ -3406,14 +3596,15 @@ def _frontier_node(cs, build_parser, build_node, oracle_ok):
     return out
 
 
-def phase_frontier(cs, build_parser, build_node, spec_for_size, serving_config,
-                   oracle_ok, seed: int):
+def phase_frontier(cs, build_parser, build_node, spec_for_size, config,
+                   oracle_ok, seed: int, race_parent=None):
     """Phase 11: the frontier race on the card (K4 parity, early exit,
-    timing; the frontier nodes). Returns its numbers."""
+    streams, timing; the frontier nodes). ``config(size)``: the knobs a
+    node of that size races with (``node_config``). Returns its numbers."""
     from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
 
     t0 = time.perf_counter()
-    out = _frontier_parity(cs, F, spec_for_size, serving_config, oracle_ok, seed)
+    out = _frontier_parity(cs, F, spec_for_size, config, oracle_ok, seed, race_parent)
     t1 = time.perf_counter()
     out["node"] = _frontier_node(cs, build_parser, build_node, oracle_ok)
     out["seconds"] = {"parity_timing": round(t1 - t0, 1),
@@ -4088,6 +4279,11 @@ def parse_args(argv=None):
         "--seed", type=int, default=SYMMETRY_SEED,
         help="seed of the generated board sets: symmetry transforms, 4x4 "
         "boards and pool rotations (default %(default)s)")
+    parser.add_argument(
+        "--race-parent", metavar="FILE", default=None,
+        help="another dfs_solver.cu of the same C interface inside the checkout "
+        "(e.g. the parent commit's, from git archive into _archive/): phase 11 "
+        "(c) times its race kernel in turns with this one's")
     return parser.parse_args(argv)
 
 
@@ -4189,7 +4385,8 @@ def main(argv=None) -> int:
                     })
     _mark("phase_p2p")
     frontier = phase_frontier(cs, build_parser, build_node, spec_for_size,
-                              serving_config, oracle_is_valid_solution, args.seed)
+                              config, oracle_is_valid_solution, args.seed,
+                              args.race_parent)
     _mark("phase_frontier")
     durability = phase_durability(cs, ts, SolverEngine, spec_for_size, serving_config,
                                   oracle_is_valid_solution, count_solutions)
@@ -4338,8 +4535,8 @@ def main(argv=None) -> int:
         golden_segmented=seg_golden,
         batch_fill_max=main_path["batch_fill_max"],
     )
-    # the race kernel and its fold: one launch of ops/cuda_solver.dfs_race;
-    # the counterpart of XLA code (JAX parallel/frontier.py:337 race)
+    # the race kernel, one launch of ops/cuda_solver.dfs_race (its last block
+    # folds); the counterpart of XLA code (JAX parallel/frontier.py:337 race)
     main_race = frontier["timing"][next(iter(frontier["timing"]))]
     race_kernel = {
         "name": "dfs_race_kernel",
@@ -4350,17 +4547,24 @@ def main(argv=None) -> int:
         "launches": on_frontier["dfs_race"],
         "mismatches": frontier["mismatches"],
         "max_abs_err": frontier["max_abs_err"],
-        # one race (race kernel + fold, CUDA events) on a 9x9 deep board's
-        # 64-state seeding (raced as 128 states), the node's own race
+        # one race (CUDA events) on a 9x9 deep board's 64-state seeding
+        # (raced as 128 states), the node's own race
         "ms": main_race["ms"],
         "plain_ms": main_race["plain_ms"],
         "bound_ms": main_race["bound_ms"],
         "bound_by": main_race["bound_by"],
         "library_ms": None,
         "timing_by_set": frontier["timing"],
+        # the parent's build in turns (--race-parent), else None
+        "parent_ms_by_set": {k: v.get("parent_ms") for k, v in frontier["timing"].items()},
+        "threads_by_size": frontier["threads"],
+        "stack_in_slab_by_size": frontier["stack_in_slab"],
+        "states_per_sm_by_size": frontier["states_per_sm"],
+        "streams": frontier["streams"],
         "early_exit_by_set": {
-            k: {x: v[x] for x in ("states", "t_star", "k4_steps_all_warps",
-                                  "steps_each_to_own_end", "lockstep_steps")}
+            k: {x: v[x] for x in ("states", "t_star", "k4_steps_all_blocks",
+                                  "steps_each_to_own_end", "lockstep_steps",
+                                  "trajectory_mismatches", "ended_by_t_star")}
             for k, v in frontier["sets"].items()
         },
         "frontier_node": frontier["node"],

@@ -103,18 +103,21 @@
 // blocks with several words in flight a thread (its note has the numbers).
 //
 // The same step body runs the frontier race too: dfs_race_kernel (K4) steps
-// each of one board's seeded subtree states in its own warp until the
-// earliest solve any warp has posted (a compile-time poll in `search`, so
-// K1's and K3's code is unchanged), and race_fold_kernel rebuilds the
-// lockstep race's result from the warps' run records. They replace no
-// Pallas kernel either: the JAX package races in XLA code
-// (parallel/frontier.py:337). Their note below has the design.
+// each of one board's seeded subtree states in its own thread block (the
+// step body is templated on the group that carries a board: a warp for K1
+// and K3, a block for K4) until the earliest solve any block has posted,
+// and the last block to finish folds the blocks' run records into the
+// lockstep race's result, in the same launch. It replaces no Pallas kernel
+// either: the JAX package races in XLA code (parallel/frontier.py:337). Its
+// note below has the design.
 //
 // Interface: plain C, for ctypes. A launch uses the caller's stream, does
 // not synchronize and allocates nothing; it returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -131,7 +134,11 @@ constexpr int kDigestLanes = 32;     // pool lanes per block of the digest kerne
 constexpr int kCopyInFlight = 4;     // block words a digest thread loads before storing
 constexpr int kRaceMetaCols = 4;  // a race state's run: status, steps, validations, complete
 constexpr int kRaceRowExtra = 3;  // after the solution: found, validations, undecided
-constexpr int kFoldThreads = 1024;  // the race fold's one block
+// K4's threads a state, by box edge: about a cell a thread (dfs_race_kernel's
+// note has the measurements behind each)
+constexpr int kRaceThreads[6] = {0, 0, 32, 96, 256, 320};
+// the largest box edge whose race keeps its guess stack in shared memory
+constexpr int kRaceOnChipMaxBox = 4;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kCellBits = 10;  // MRV key: popcount << kCellBits | cell
 constexpr unsigned kNoKey = 0xffffffffu;
@@ -152,23 +159,111 @@ constexpr int kSweepContra = 1;    // duplicate, out-of-range value or dead cell
 constexpr int kSweepAssigned = 2;  // its singles were assigned
 constexpr int kSweepStuck = 3;     // no single: the key holds the MRV candidates
 
-template <int BOX>
+// A board spread over the T threads of its group (a warp unless said).
+template <int BOX, int T = kLanes>
 struct Geometry {
   static constexpr int N = BOX * BOX;
   static constexpr int C = N * N;
   static constexpr int U = 3 * N;                        // rows, columns, boxes
   static constexpr int FULL = (1 << N) - 1;
-  static constexpr int CPL = (C + kLanes - 1) / kLanes;  // cells per lane
-  static constexpr int UPL = (U + kLanes - 1) / kLanes;  // units per lane
+  static constexpr int CPL = (C + T - 1) / T;            // cells per thread
+  static constexpr int UPL = (U + T - 1) / T;            // units per thread
   static constexpr int NB = N * BOX;                     // segments per direction
   static constexpr int S = 2 * NB;                       // row, then column segments
-  static constexpr int SPL = (S + kLanes - 1) / kLanes;  // segments per lane
-  static constexpr int WORDS = 2 * C + 2 * U + 3 * S;    // shared int32 per warp
+  static constexpr int SPL = (S + T - 1) / T;            // segments per thread
+  static constexpr int WORDS = 2 * C + 2 * U + 3 * S;    // shared int32 per group
   static_assert(C <= (1 << kCellBits), "MRV key packs the cell in kCellBits");
   static_assert(N <= 32, "a unit's pair flags fit one word");
 };
 
-// The warp's slice of shared memory.
+// Warp reductions by operation, for the block's two-level reductions.
+struct OrOp {
+  static constexpr unsigned kIdentity = 0;
+  __device__ static unsigned warp(unsigned v) { return __reduce_or_sync(kAll, v); }
+};
+struct MinOp {
+  static constexpr unsigned kIdentity = kNoKey;
+  __device__ static unsigned warp(unsigned v) { return __reduce_min_sync(kAll, v); }
+};
+struct MaxOp {
+  static constexpr unsigned kIdentity = 0;
+  __device__ static unsigned warp(unsigned v) { return __reduce_max_sync(kAll, v); }
+};
+struct AddOp {
+  static constexpr unsigned kIdentity = 0;
+  __device__ static unsigned warp(unsigned v) { return __reduce_add_sync(kAll, v); }
+};
+
+// The threads that carry one board: its barrier and its votes. `t` is the
+// thread's index in the group. K1 and K3 give a board a warp.
+struct WarpGroup {
+  static constexpr int kThreads = kLanes;
+  static constexpr bool kBlock = false;
+  int t;  // the lane
+  __device__ __forceinline__ void sync() { __syncwarp(); }
+  // a warp's votes order no memory: the passes sync before one
+  __device__ __forceinline__ void sync_before_vote() { __syncwarp(); }
+  __device__ __forceinline__ bool any(bool p) { return __any_sync(kAll, p); }
+  __device__ __forceinline__ unsigned reduce_or(unsigned v) { return OrOp::warp(v); }
+};
+
+// K4 gives a state a block of T threads. Its votes are barriers
+// (__syncthreads_or); a reduction is one warp reduction a warp, a word a
+// warp into shared memory, a barrier and one more warp reduction over
+// those words. The words alternate between two slots, so a reduction never
+// overwrites words a slower thread has still to read: between reductions
+// k and k + 2 lies reduction k + 1's barrier.
+template <int T>
+struct BlockGroup {
+  static constexpr int kThreads = T;
+  static constexpr bool kBlock = true;
+  static constexpr int kWarpsIn = T / kLanes;
+  static constexpr int kRedWords = 4 * kWarpsIn;  // two slots of (key, payload) a warp
+  static_assert(T % kLanes == 0 && kWarpsIn <= kLanes, "one warp folds the warps' words");
+  int t;
+  unsigned* red;  // shared, kRedWords
+  int slot;
+  __device__ __forceinline__ void sync() { __syncthreads(); }
+  __device__ __forceinline__ void sync_before_vote() {}  // the vote is a barrier
+  __device__ __forceinline__ bool any(bool p) { return __syncthreads_or(p) != 0; }
+  __device__ __forceinline__ unsigned* next_slot() {
+    unsigned* r = red + slot * 2 * kWarpsIn;
+    slot ^= 1;
+    return r;
+  }
+  template <class Op>
+  __device__ __forceinline__ unsigned reduce(unsigned v) {
+    v = Op::warp(v);
+    unsigned* r = next_slot();
+    const int lane = t % kLanes;
+    if (lane == 0) r[t / kLanes] = v;
+    __syncthreads();
+    return Op::warp(lane < kWarpsIn ? r[lane] : Op::kIdentity);
+  }
+  __device__ __forceinline__ unsigned reduce_or(unsigned v) { return reduce<OrOp>(v); }
+  // The least of the threads' distinct keys (kNoKey: none), and in
+  // `payload_out` the payload of the thread that holds it.
+  __device__ __forceinline__ unsigned min_key(unsigned key, unsigned payload,
+                                              unsigned& payload_out) {
+    const int lane = t % kLanes;
+    const unsigned wmin = MinOp::warp(key);
+    const unsigned wpay =
+        __shfl_sync(kAll, payload, __ffs(__ballot_sync(kAll, key == wmin)) - 1);
+    unsigned* r = next_slot();
+    if (lane == 0) {
+      r[t / kLanes] = wmin;
+      r[kWarpsIn + t / kLanes] = wpay;
+    }
+    __syncthreads();
+    const unsigned k = lane < kWarpsIn ? r[lane] : kNoKey;
+    const unsigned p = lane < kWarpsIn ? r[kWarpsIn + lane] : 0;
+    const unsigned bmin = MinOp::warp(k);
+    payload_out = __shfl_sync(kAll, p, __ffs(__ballot_sync(kAll, k == bmin)) - 1);
+    return bmin;
+  }
+};
+
+// The group's slice of shared memory.
 struct Smem {
   int32_t* cm;   // per cell: value mask (A-B), then candidates (C-D)
   int32_t* uo;   // per unit: values present
@@ -179,11 +274,11 @@ struct Smem {
   int32_t* pe;   // per cell: naked-pair eliminations
 };
 
-// Slot j of a lane holds cell lane + 32 j; the last slot may run off the board.
-template <int BOX>
-__device__ __forceinline__ bool owns(int lane, int j) {
+// Slot j of a thread holds cell t + T j; the last slot may run off the board.
+template <int BOX, int T>
+__device__ __forceinline__ bool owns(int t, int j) {
   constexpr int C = Geometry<BOX>::C;
-  return (j + 1) * kLanes <= C || lane + j * kLanes < C;
+  return (j + 1) * T <= C || t + j * T < C;
 }
 
 // A unit's cells: base + (k / BOX) * sa + (k % BOX) * sb for k in 0..N-1.
@@ -239,23 +334,28 @@ __device__ __forceinline__ void unit_once_twice(const int32_t* cm, const UnitWal
   twice = t[0];
 }
 
+// The thread's share of a board in a group G.
+template <int BOX, class G>
+using GeoOf = Geometry<BOX, G::kThreads>;
+
 // Passes A and B: value masks per cell, then per unit; writes uo[] and
-// returns the warp's verdict bits (0 ⇔ the board is solved).
-template <int BOX>
-__device__ __forceinline__ int value_pass(const int (&g)[Geometry<BOX>::CPL],
-                                          const UnitWalk (&uw)[Geometry<BOX>::UPL],
-                                          int32_t* cm, int32_t* uo, int lane) {
-  using Geo = Geometry<BOX>;
+// returns the group's verdict bits (0 ⇔ the board is solved).
+template <int BOX, class G>
+__device__ __forceinline__ int value_pass(const int (&g)[GeoOf<BOX, G>::CPL],
+                                          const UnitWalk (&uw)[GeoOf<BOX, G>::UPL],
+                                          int32_t* cm, int32_t* uo, G& grp) {
+  using Geo = GeoOf<BOX, G>;
+  constexpr int T = G::kThreads;
   int flags = 0;
 #pragma unroll
   for (int j = 0; j < Geo::CPL; ++j) {
-    if (!owns<BOX>(lane, j)) continue;
+    if (!owns<BOX, T>(grp.t, j)) continue;
     const int v = g[j];
     const bool in_range = v >= 1 && v <= Geo::N;
     flags |= v == 0 ? kEmpty : (in_range ? 0 : kBad);
-    cm[lane + j * kLanes] = in_range ? 1 << (v - 1) : 0;
+    cm[grp.t + j * T] = in_range ? 1 << (v - 1) : 0;
   }
-  __syncwarp();
+  grp.sync();
 #pragma unroll
   for (int s = 0; s < Geo::UPL; ++s) {
     if (uw[s].unit >= Geo::U) continue;
@@ -264,18 +364,18 @@ __device__ __forceinline__ int value_pass(const int (&g)[Geometry<BOX>::CPL],
     uo[uw[s].unit] = once;
     if (twice) flags |= kDup;
   }
-  __syncwarp();
-  return (int)__reduce_or_sync(kAll, (unsigned)flags);
+  grp.sync_before_vote();
+  return (int)grp.reduce_or((unsigned)flags);
 }
 
-// Naked pairs of the lane's units, from the candidates in cm: two cells of a
-// unit with the same two candidates take them from every other cell of the
-// unit. Cells of several units collect theirs with atomicOr into pe (zeroed
-// in pass C). Quadratic in N per unit, from shared memory.
-template <int BOX>
-__device__ __forceinline__ void pair_pass(const UnitWalk (&uw)[Geometry<BOX>::UPL],
+// Naked pairs of the thread's units, from the candidates in cm: two cells
+// of a unit with the same two candidates take them from every other cell of
+// the unit. Cells of several units collect theirs with atomicOr into pe
+// (zeroed in pass C). Quadratic in N per unit, from shared memory.
+template <int BOX, class G>
+__device__ __forceinline__ void pair_pass(const UnitWalk (&uw)[GeoOf<BOX, G>::UPL],
                                           const Smem& sh) {
-  using Geo = Geometry<BOX>;
+  using Geo = GeoOf<BOX, G>;
 #pragma unroll
   for (int s = 0; s < Geo::UPL; ++s) {
     const UnitWalk& w = uw[s];
@@ -307,29 +407,30 @@ __device__ __forceinline__ void pair_pass(const UnitWalk (&uw)[Geometry<BOX>::UP
 }
 
 // Pass L: the elimination of every line segment from locked candidates, into
-// seg[] (and the naked pairs into pe[] when asked). Starts after a
-// __syncwarp() that published the candidates in cm; ends with one.
-template <int BOX>
-__device__ __forceinline__ void locked_pass(const UnitWalk (&uw)[Geometry<BOX>::UPL],
-                                            const Smem& sh, int lane, bool pairs) {
-  using Geo = Geometry<BOX>;
+// seg[] (and the naked pairs into pe[] when asked). Starts after a sync that
+// published the candidates in cm; ends with one.
+template <int BOX, class G>
+__device__ __forceinline__ void locked_pass(const UnitWalk (&uw)[GeoOf<BOX, G>::UPL],
+                                            const Smem& sh, G& grp, bool pairs) {
+  using Geo = GeoOf<BOX, G>;
+  constexpr int T = G::kThreads;
   constexpr int NB = Geo::NB;
-  if (pairs) pair_pass<BOX>(uw, sh);
+  if (pairs) pair_pass<BOX, G>(uw, sh);
 #pragma unroll
   for (int k = 0; k < Geo::SPL; ++k) {
-    const int i = lane + k * kLanes;
+    const int i = grp.t + k * T;
     if (i >= Geo::S) continue;
     int m = 0;
 #pragma unroll
     for (int t = 0; t < BOX; ++t) m |= sh.cm[segment_cell<BOX>(i, t)];
     sh.seg[i] = m;
   }
-  __syncwarp();
+  grp.sync();
   // leave-one-out ORs: over the band's other lines in the same box
   // (pointing), and over the line's other boxes (claiming)
 #pragma unroll
   for (int k = 0; k < Geo::SPL; ++k) {
-    const int i = lane + k * kLanes;
+    const int i = grp.t + k * T;
     if (i >= Geo::S) continue;
     const int* dir = sh.seg + (i < NB ? 0 : NB);
     const int line = (i % NB) / BOX, part = i % BOX, band0 = line - line % BOX;
@@ -343,12 +444,12 @@ __device__ __forceinline__ void locked_pass(const UnitWalk (&uw)[Geometry<BOX>::
     sh.os[i] = m & ~seg_other;
     sh.ob[i] = m & ~box_other;
   }
-  __syncwarp();
+  grp.sync();
   // a value confined to this line in another box of the line leaves this
   // segment; so does one confined to this box on another line of the band
 #pragma unroll
   for (int k = 0; k < Geo::SPL; ++k) {
-    const int i = lane + k * kLanes;
+    const int i = grp.t + k * T;
     if (i >= Geo::S) continue;
     const int off = i < NB ? 0 : NB;
     const int line = (i % NB) / BOX, part = i % BOX, band0 = line - line % BOX;
@@ -360,22 +461,24 @@ __device__ __forceinline__ void locked_pass(const UnitWalk (&uw)[Geometry<BOX>::
     }
     sh.seg[i] = e;
   }
-  __syncwarp();
+  grp.sync();
 }
 
 // One sweep analysis of the board in g: its outcome, with cand[] holding the
 // candidates. Assigns the sweep's singles into g (kSweepAssigned) unless the
-// board is solved or contradictory; with none, leaves the lane's MRV key.
-template <int BOX>
-__device__ __forceinline__ int sweep(int (&g)[Geometry<BOX>::CPL],
-                                     int (&cand)[Geometry<BOX>::CPL],
-                                     const int (&pk)[Geometry<BOX>::CPL],
-                                     const UnitWalk (&uw)[Geometry<BOX>::UPL],
-                                     const Smem& sh, int lane, bool locked, bool pairs,
+// board is solved or contradictory; with none, leaves the thread's MRV key.
+template <int BOX, class G>
+__device__ __forceinline__ int sweep(int (&g)[GeoOf<BOX, G>::CPL],
+                                     int (&cand)[GeoOf<BOX, G>::CPL],
+                                     const int (&pk)[GeoOf<BOX, G>::CPL],
+                                     const UnitWalk (&uw)[GeoOf<BOX, G>::UPL],
+                                     const Smem& sh, G& grp, bool locked, bool pairs,
                                      unsigned& key) {
-  using Geo = Geometry<BOX>;
+  using Geo = GeoOf<BOX, G>;
+  constexpr int T = G::kThreads;
   constexpr int N = Geo::N;
-  const int flags = value_pass<BOX>(g, uw, sh.cm, sh.uo, lane);
+  const int t = grp.t;
+  const int flags = value_pass<BOX>(g, uw, sh.cm, sh.uo, grp);
   if (flags == 0) return kSweepSolved;
   if (flags & (kDup | kBad)) return kSweepContra;
 
@@ -383,24 +486,24 @@ __device__ __forceinline__ int sweep(int (&g)[Geometry<BOX>::CPL],
 #pragma unroll
   for (int j = 0; j < Geo::CPL; ++j) {
     int c = 0;
-    if (owns<BOX>(lane, j)) {
+    if (owns<BOX, T>(t, j)) {
       if (g[j] == 0) {
         const int p = pk[j];
         c = ~(sh.uo[p & 0xff] | sh.uo[(p >> 8) & 0xff] | sh.uo[p >> 16]) & Geo::FULL;
       }
-      sh.cm[lane + j * kLanes] = c;
-      if (pairs) sh.pe[lane + j * kLanes] = 0;
+      sh.cm[t + j * T] = c;
+      if (pairs) sh.pe[t + j * T] = 0;
     }
     cand[j] = c;
   }
 
   if (locked) {
-    __syncwarp();
-    locked_pass<BOX>(uw, sh, lane, pairs);
+    grp.sync();
+    locked_pass<BOX>(uw, sh, grp, pairs);
 #pragma unroll
     for (int j = 0; j < Geo::CPL; ++j) {
       if (cand[j] == 0) continue;
-      const int cell = lane + j * kLanes;
+      const int cell = t + j * T;
       const int r = pk[j] & 0xff, c = ((pk[j] >> 8) & 0xff) - N;
       int e = sh.seg[r * BOX + c / BOX] | sh.seg[Geo::NB + c * BOX + r / BOX];
       if (pairs) e |= sh.pe[cell];
@@ -412,12 +515,12 @@ __device__ __forceinline__ int sweep(int (&g)[Geometry<BOX>::CPL],
   bool dead = false;
 #pragma unroll
   for (int j = 0; j < Geo::CPL; ++j) {
-    dead |= owns<BOX>(lane, j) && g[j] == 0 && cand[j] == 0;
+    dead |= owns<BOX, T>(t, j) && g[j] == 0 && cand[j] == 0;
   }
-  if (__any_sync(kAll, dead)) return kSweepContra;
+  if (grp.any(dead)) return kSweepContra;
 
   // Pass D: per-unit hidden-single masks from the candidates.
-  __syncwarp();
+  grp.sync_before_vote();
 #pragma unroll
   for (int s = 0; s < Geo::UPL; ++s) {
     if (uw[s].unit >= Geo::U) continue;
@@ -425,7 +528,7 @@ __device__ __forceinline__ int sweep(int (&g)[Geometry<BOX>::CPL],
     unit_once_twice<BOX>(sh.cm, uw[s], once, twice);
     sh.hid[uw[s].unit] = once & ~twice;
   }
-  __syncwarp();
+  grp.sync();
 
   // Pass E: assign every forced single; otherwise key the MRV candidates.
   bool assigned = false;
@@ -443,15 +546,15 @@ __device__ __forceinline__ int sweep(int (&g)[Geometry<BOX>::CPL],
       g[j] = __ffs(a);
       assigned = true;
     } else {
-      key = min(key, (unsigned)(pc << kCellBits | (lane + j * kLanes)));
+      key = min(key, (unsigned)(pc << kCellBits | (t + j * T)));
     }
   }
-  return __any_sync(kAll, assigned) ? kSweepAssigned : kSweepStuck;
+  return grp.any(assigned) ? kSweepAssigned : kSweepStuck;
 }
 
-// The warp's slice of shared memory, carved from its block's array.
+// The group's slice of shared memory, carved from its array.
 template <int BOX>
-__device__ __forceinline__ Smem warp_smem(int32_t* base) {
+__device__ __forceinline__ Smem group_smem(int32_t* base) {
   using Geo = Geometry<BOX>;
   Smem sh;
   sh.cm = base;
@@ -466,63 +569,72 @@ __device__ __forceinline__ Smem warp_smem(int32_t* base) {
 
 // Per cell slot, its row / column / box unit ids packed a byte each; per
 // unit slot, the unit's walk.
-template <int BOX>
-__device__ __forceinline__ void lane_layout(int lane, int (&pk)[Geometry<BOX>::CPL],
-                                            UnitWalk (&uw)[Geometry<BOX>::UPL]) {
-  using Geo = Geometry<BOX>;
+template <int BOX, class G>
+__device__ __forceinline__ void lane_layout(int t, int (&pk)[GeoOf<BOX, G>::CPL],
+                                            UnitWalk (&uw)[GeoOf<BOX, G>::UPL]) {
+  using Geo = GeoOf<BOX, G>;
+  constexpr int T = G::kThreads;
   constexpr int N = Geo::N;
 #pragma unroll
   for (int j = 0; j < Geo::CPL; ++j) {
-    const int cell = lane + j * kLanes;
+    const int cell = t + j * T;
     const int r = cell / N, c = cell % N;
     pk[j] = r | (N + c) << 8 | (2 * N + (r / BOX) * BOX + c / BOX) << 16;
   }
 #pragma unroll
-  for (int s = 0; s < Geo::UPL; ++s) uw[s] = unit_walk<BOX>(lane + s * kLanes);
+  for (int s = 0; s < Geo::UPL; ++s) uw[s] = unit_walk<BOX>(t + s * T);
 }
 
-// A board's search state between steps; every field is warp-uniform.
+// A board's search state between steps; every field is uniform over its
+// group.
 struct Search {
   int status, depth, guesses, validations, steps;
-  int top_cell, top_mask;  // frame depth-1, kept out of the slab
+  int top_cell, top_mask;  // frame depth-1, kept out of the stack
 };
 
 // The step-boundary check of `search`: NoPoll never stops a board (K1 and
 // K3, whose code it leaves as it was); the race kernel's RacePoll stops it
-// once it has run more steps than the earliest solve any warp has posted.
+// once it has run more steps than the earliest solve any block has posted.
 struct NoPoll {
   __device__ __forceinline__ bool operator()(int) const { return false; }
 };
 
-// Reads the race's posted stop step from memory at every step boundary:
-// lane 0 loads it through a volatile pointer (so the compiler cannot hoist
-// the load out of the step loop, nor serve it from a register or L1) and
-// broadcasts it, so the warp agrees on one value.
+// The race's stop step, read by thread 0 through a volatile pointer (so the
+// compiler cannot hoist the load out of the step loop, nor serve it from a
+// register or L1) and broadcast by the boundary's __syncthreads_or. The
+// value a boundary decides on was loaded at the boundary before, so the
+// load's L2 latency never stalls the chain; a state may run one step more
+// than a fresh read would let it, which the fold allows for (every posted
+// step is at least t*).
 struct RacePoll {
   const volatile unsigned* stop;
-  int lane;
-  __device__ __forceinline__ bool operator()(int steps) const {
-    unsigned v = 0;
-    if (lane == 0) v = *stop;
-    v = __shfl_sync(kAll, v, 0);
-    return (unsigned)steps > v;
+  int t;
+  unsigned seen;  // thread 0: the posted step as of the previous boundary
+  __device__ __forceinline__ bool operator()(int steps) {
+    const bool halt = __syncthreads_or(t == 0 && (unsigned)steps > seen) != 0;
+    if (t == 0) seen = *stop;
+    return halt;
   }
 };
 
 // Run a RUNNING board's steps until its status changes, it has taken
 // `max_steps` steps in all or `poll` stops it at a step boundary: the step
-// body shared by the kernels. The slab holds frames 0..depth-2; frame
-// depth-1 is in s.top_cell / s.top_mask.
-template <int BOX, class Poll = NoPoll>
-__device__ __forceinline__ void search(int (&g)[Geometry<BOX>::CPL],
-                                       const int (&pk)[Geometry<BOX>::CPL],
-                                       const UnitWalk (&uw)[Geometry<BOX>::UPL],
-                                       const Smem& sh, int lane, int8_t* sg, int32_t* sc,
+// body shared by the kernels, for a board carried by the group `grp`. The
+// stack (sg, sc, sm: device memory or, for K4, shared memory) holds frames
+// 0..depth-2; frame depth-1 is in s.top_cell / s.top_mask. Each thread
+// pushes and restores only its own cells' snapshot bytes.
+template <int BOX, class G, class Poll = NoPoll>
+__device__ __forceinline__ void search(int (&g)[GeoOf<BOX, G>::CPL],
+                                       const int (&pk)[GeoOf<BOX, G>::CPL],
+                                       const UnitWalk (&uw)[GeoOf<BOX, G>::UPL],
+                                       const Smem& sh, G& grp, int8_t* sg, int32_t* sc,
                                        int32_t* sm, int D, int max_steps, int waves,
                                        int options, Search& s, Poll poll = Poll{}) {
-  using Geo = Geometry<BOX>;
+  using Geo = GeoOf<BOX, G>;
+  constexpr int T = G::kThreads;
   constexpr int C = Geo::C;
   constexpr int CPL = Geo::CPL;
+  const int t = grp.t;
   const bool locked = options & kOptLocked;
   const bool pairs = locked && (options & kOptPairs);
   const bool wave_locked = locked && !(options & kOptLight);
@@ -538,7 +650,7 @@ __device__ __forceinline__ void search(int (&g)[Geometry<BOX>::CPL],
     }
     ++s.validations;
     unsigned key;
-    const int v = sweep<BOX>(g, cand, pk, uw, sh, lane, wave ? wave_locked : locked,
+    const int v = sweep<BOX>(g, cand, pk, uw, sh, grp, wave ? wave_locked : locked,
                              wave ? wave_pairs : pairs, key);
     if (wave) continue;
     if (v == kSweepSolved) {
@@ -563,8 +675,8 @@ __device__ __forceinline__ void search(int (&g)[Geometry<BOX>::CPL],
       const int8_t* f = sg + (size_t)(s.depth - 1) * C;
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
-        const int cell = lane + j * kLanes;
-        if (owns<BOX>(lane, j)) g[j] = cell == s.top_cell ? __ffs(bit) : f[cell];
+        const int cell = t + j * T;
+        if (owns<BOX, T>(t, j)) g[j] = cell == s.top_cell ? __ffs(bit) : f[cell];
       }
       s.top_mask &= ~bit;
       continue;
@@ -576,23 +688,37 @@ __device__ __forceinline__ void search(int (&g)[Geometry<BOX>::CPL],
       s.status = kOverflow;
       break;
     }
-    const int cell = (int)(__reduce_min_sync(kAll, key) & ((1u << kCellBits) - 1));
-    int mine = 0;
+    int cell, mask;
+    if constexpr (G::kBlock) {
+      // the key's owner hands its cell's mask on through the reduction
+      const int mine_cell = (int)(key & ((1u << kCellBits) - 1));
+      int mine = 0;
 #pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      if (lane + j * kLanes == cell) mine = cand[j];
+      for (int j = 0; j < CPL; ++j) {
+        if (t + j * T == mine_cell) mine = cand[j];
+      }
+      unsigned m;
+      cell = (int)(grp.min_key(key, (unsigned)mine, m) & ((1u << kCellBits) - 1));
+      mask = (int)m;
+    } else {
+      cell = (int)(__reduce_min_sync(kAll, key) & ((1u << kCellBits) - 1));
+      int mine = 0;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        if (t + j * T == cell) mine = cand[j];
+      }
+      mask = (int)__reduce_or_sync(kAll, (unsigned)mine);
     }
-    const int mask = (int)__reduce_or_sync(kAll, (unsigned)mine);
     const int bit = mask & -mask;
     int8_t* f = sg + (size_t)s.depth * C;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
-      const int c = lane + j * kLanes;
-      if (!owns<BOX>(lane, j)) continue;
+      const int c = t + j * T;
+      if (!owns<BOX, T>(t, j)) continue;
       f[c] = (int8_t)g[j];
       if (c == cell) g[j] = __ffs(bit);
     }
-    if (s.depth > 0 && lane == 0) {
+    if (s.depth > 0 && t == 0) {
       sc[s.depth - 1] = s.top_cell;
       sm[s.depth - 1] = s.top_mask;
     }
@@ -617,27 +743,29 @@ dfs_solver_kernel(const int32_t* __restrict__ boards, int32_t* __restrict__ grid
   const int warp = threadIdx.x / kLanes;
   const int board = blockIdx.x * kWarps + warp;
   if (board >= B) return;  // the whole warp leaves; no block-wide barrier follows
-  const Smem sh = warp_smem<BOX>(smem[warp]);
+  const Smem sh = group_smem<BOX>(smem[warp]);
+  WarpGroup grp{lane};
   int g[CPL], pk[CPL];
   UnitWalk uw[Geo::UPL];
-  lane_layout<BOX>(lane, pk, uw);
+  lane_layout<BOX, WarpGroup>(lane, pk, uw);
   const int32_t* in = boards + (size_t)board * C;
 #pragma unroll
-  for (int j = 0; j < CPL; ++j) g[j] = owns<BOX>(lane, j) ? in[lane + j * kLanes] : 0;
+  for (int j = 0; j < CPL; ++j)
+    g[j] = owns<BOX, kLanes>(lane, j) ? in[lane + j * kLanes] : 0;
 
   Search s{kRunning, 0, 0, 0, 0, 0, 0};
-  search<BOX>(g, pk, uw, sh, lane, stack_grid + (size_t)board * D * C,
+  search<BOX>(g, pk, uw, sh, grp, stack_grid + (size_t)board * D * C,
               stack_cell + (size_t)board * D, stack_mask + (size_t)board * D, D, max_iters,
               waves, options, s);
 
   // the step cap stopped a board that its last step may have completed
-  if (s.status == kRunning && value_pass<BOX>(g, uw, sh.cm, sh.uo, lane) == 0)
+  if (s.status == kRunning && value_pass<BOX>(g, uw, sh.cm, sh.uo, grp) == 0)
     s.status = kSolved;
 
   int32_t* out = grid_out + (size_t)board * C;
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
-    if (owns<BOX>(lane, j)) out[lane + j * kLanes] = g[j];
+    if (owns<BOX, kLanes>(lane, j)) out[lane + j * kLanes] = g[j];
   }
   if (lane == 0) {
     int32_t* m = meta + (size_t)board * kMetaCols;
@@ -710,7 +838,7 @@ dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
     if (!prefix_gather) {
 #pragma unroll
       for (int j = 0; j < CPL; ++j) {
-        if (owns<BOX>(lane, j)) gathered[(size_t)b * C + lane + j * kLanes] = 0;
+        if (owns<BOX, kLanes>(lane, j)) gathered[(size_t)b * C + lane + j * kLanes] = 0;
       }
     }
     if (lane == 0) {
@@ -725,10 +853,11 @@ dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
     }
     return;  // the whole warp leaves
   }
-  const Smem sh = warp_smem<BOX>(smem[warp]);
+  const Smem sh = group_smem<BOX>(smem[warp]);
+  WarpGroup grp{lane};
   int g[CPL], pk[CPL];
   UnitWalk uw[Geo::UPL];
-  lane_layout<BOX>(lane, pk, uw);
+  lane_layout<BOX, WarpGroup>(lane, pk, uw);
 
   int32_t* row = grid + (size_t)b * C;
   int8_t* sg = stack_grid + (size_t)b * D * C;
@@ -737,7 +866,8 @@ dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
   Search s;
   if (from == -1) {
 #pragma unroll
-    for (int j = 0; j < CPL; ++j) g[j] = owns<BOX>(lane, j) ? row[lane + j * kLanes] : 0;
+    for (int j = 0; j < CPL; ++j)
+      g[j] = owns<BOX, kLanes>(lane, j) ? row[lane + j * kLanes] : 0;
     s = Search{status[b], depth[b], guesses[b], validations[b], 0, 0, 0};
     if (s.depth > 0) {
       s.top_cell = sc[s.depth - 1];
@@ -749,19 +879,19 @@ dfs_segment_kernel(const int32_t* __restrict__ boards, int n_boards,
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
       const int cell = lane + j * kLanes;
-      g[j] = !owns<BOX>(lane, j) ? 0 : from == -2 ? (cell < 2 ? 1 : 0) : in[cell];
+      g[j] = !owns<BOX, kLanes>(lane, j) ? 0 : from == -2 ? (cell < 2 ? 1 : 0) : in[cell];
     }
     s = Search{kRunning, 0, 0, 0, 0, 0, 0};
   }
   const int iters0 = from == -1 ? board_iters[b] : 0;
   // past the idle exit every lane is RUNNING at entry
-  search<BOX>(g, pk, uw, sh, lane, sg, sc, sm, D, seg_iters, waves, options, s);
+  search<BOX>(g, pk, uw, sh, grp, sg, sc, sm, D, seg_iters, waves, options, s);
   const bool newly = s.status == kSolved;
 
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
     const int cell = lane + j * kLanes;
-    if (!owns<BOX>(lane, j)) continue;
+    if (!owns<BOX, kLanes>(lane, j)) continue;
     row[cell] = g[j];
     if (!prefix_gather) gathered[(size_t)b * C + cell] = newly ? g[j] : 0;
   }
@@ -884,161 +1014,206 @@ segment_digest_kernel(const int32_t* __restrict__ lane_steps,
   }
 }
 
-// The race kernel (K4): one board's frontier race on one device. The JAX
-// package races the (M, C) seeded subtree states of one hard board in
-// lockstep (parallel/frontier.py:337, a while_loop of ops/solver.step with a
-// psum early exit: every state takes step t together, and the loop stops
-// after the first step t* at which any state is SOLVED, or when none is
-// RUNNING, or at max_iters; then finalize_status). It is XLA code, not a
-// Pallas kernel. Here each state is a warp running K1's step body on its
-// own trajectory (the trajectories are independent), out of step with the
-// others:
-//   * a warp whose board solves at step e posts e with atomicMin into the
-//     device-global `stop` (0xffffffff: none yet); at every step boundary
-//     `search` re-reads `stop` (RacePoll) and the warp stops once it has run
-//     more steps than the posted value. Since every posted e is at least
-//     t*, a warp still RUNNING at t* always runs step t* + 1 (or reaches
-//     max_iters), which is what the fold needs;
-//   * each warp writes its run record (status, steps, validations, and
-//     whether a board stopped RUNNING is complete: the closing analysis)
-//     and its grid;
-//   * race_fold_kernel then rebuilds the lockstep result exactly from the
-//     records (ops/solver.py fold_race has the argument) and writes the
-//     packed row [solution (C), found, validations, undecided] and each
-//     state's [status, validations] after the race, so the host fetches
-//     one row of C + 3 words.
+// The race kernel (K4): one board's frontier race on one device, in one
+// launch. The JAX package races the (M, C) seeded subtree states of one
+// hard board in lockstep (parallel/frontier.py:337, a while_loop of
+// ops/solver.step with a psum early exit: every state takes step t
+// together, and the loop stops after the first step t* at which any state
+// is SOLVED, or when none is RUNNING, or at max_iters; then
+// finalize_status). It is XLA code, not a Pallas kernel. Here each state is
+// one thread block running the step body `search` on its own trajectory
+// (the trajectories are independent), out of step with the others:
+//   * T = kRaceThreads[BOX] threads a state, about a cell a thread (4x4 32,
+//     9x9 96, 16x16 256, 25x25 320: two cells a thread), with the units and
+//     line segments spread over the same threads (BlockGroup): a pass is a
+//     cell or two, one unit or one segment a thread between block barriers,
+//     where a warp a state walked 3 (9x9), 8 (16x16) or 20 (25x25) cells a
+//     lane serially; the votes are __syncthreads_or, the MRV key a
+//     two-level reduction that also carries the winning cell's mask from
+//     its owner;
+//   * the guess stack (snapshots, cell and mask frames) lives in dynamic
+//     shared memory where it fits: D x (C + 8) bytes, 0.4 KB for 4x4, 7.2 KB
+//     for 9x9 and 67.6 KB for 16x16 at their full depth (opted in above
+//     48 KB; 3 states an SM against 4 with the slab). 25x25 (390 KB, more
+//     than an SM holds) keeps the device slab the wrapper allocates;
+//   * a block whose state solves at step e posts e with atomicMin into the
+//     device-global stop word; at every step boundary `search` polls it
+//     (RacePoll) and the block stops once it has run more steps than the
+//     posted value. Every posted e is at least t*, so a block still RUNNING
+//     at t* always runs step t* + 1 (or reaches max_iters), which is what
+//     the fold needs;
+//   * each block writes its run record (status, steps, validations, and
+//     whether a state stopped RUNNING is complete: the closing analysis)
+//     and its grid, fences, and takes a ticket from a device counter. The
+//     block that takes the last ticket rebuilds the lockstep result exactly
+//     from the records (ops/solver.py fold_race has the argument; its
+//     loads bypass L1), writes the packed row [solution (C), found,
+//     validations, undecided] and each state's [status, validations] after
+//     the race, so the host fetches one row of C + 3 words, and resets the
+//     stop word and the counter to their idle values (0xffffffff, 0) for
+//     the next race on the stream. That two-word scratch belongs to the
+//     wrapper, one per (device, stream): a race is one launch, with no
+//     memset and no second kernel.
 // What bounds it on an H100: like K1, the latency of the sweep chain of the
-// slowest warp up to t* + 1 steps; its bytes (M * C words in and out, the
-// stack slab touched only on branches) are far below that. The early exit
-// is the design's answer: the race costs the steps to the first solve, not
-// those of the slowest subtree. All M warps of a race of M <= ~3500 states
-// are resident together (K1's registers), so their steps overlap.
+// slowest state up to t* + 1 steps; its bytes (M * C words in and out, a
+// 25x25 stack slab touched only on branches) are far below that. A race
+// has few states (128 at the 9x9 default rung, 8 at 25x25), so a warp a
+// state left most of the card idle and each sweep serial within its
+// warp; a block a state spends that idle width on a shorter chain. The
+// early exit is the design's other answer: the race costs the steps to the
+// first solve, not those of the slowest subtree.
+// How T and the stack's place were chosen (tools/dfs_solver_ab.py --arms
+// race, one-constant variants of this file in turns, H100 80GB HBM3 at
+// 700 W; PERF.md has every number): a warp a state (T = 32 here too) is
+// slower at 9x9, 16x16 and 25x25 on the node's own race sizes (128 9x9
+// states 0.036 against 0.026 ms, 16x16 0.091 against 0.039, 25x25 1.42
+// against 0.26) but faster on a 2048-state 9x9 race (0.172 against 0.214
+// ms: a 96-thread block of 59 registers fits 10 states an SM, so 2048
+// states take two waves); 9x9 keeps 96 for the 128-state race that a
+// --frontier 64 node runs. T = 64 on 9x9 spilled. 25x25 at 640 threads
+// spilled (48 registers) and took 0.31 ms, at 320 threads 113 registers
+// and 0.26 ms. The 16x16 stack on chip was 2-3 % faster than the slab at
+// 128 and at 1024 states.
+// Left out: folding the pad states into the launch (a pad is a block that
+// dies in its first sweep, adding no serial time); wgmma and TMA (no
+// matrix work; a 25x25 frame push is 625 bytes); thread-block clusters (a
+// 25x25 stack would need two SMs a state).
 template <int BOX>
-__global__ void __launch_bounds__(kWarps * kLanes)
-dfs_race_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
-                int32_t* __restrict__ meta, int8_t* __restrict__ stack_grid,
-                int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
-                unsigned* stop, int M, int D, int max_iters, int waves, int options) {
-  using Geo = Geometry<BOX>;
-  constexpr int C = Geo::C;
-  constexpr int CPL = Geo::CPL;
-  __shared__ int32_t smem[kWarps][Geo::WORDS];
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-  const int i = blockIdx.x * kWarps + warp;
-  if (i >= M) return;  // the whole warp leaves; no block-wide barrier follows
-  const Smem sh = warp_smem<BOX>(smem[warp]);
-  int g[CPL], pk[CPL];
-  UnitWalk uw[Geo::UPL];
-  lane_layout<BOX>(lane, pk, uw);
-  const int32_t* in = states + (size_t)i * C;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) g[j] = owns<BOX>(lane, j) ? in[lane + j * kLanes] : 0;
+constexpr bool kRaceOnChip = BOX <= kRaceOnChipMaxBox;
 
-  Search s{kRunning, 0, 0, 0, 0, 0, 0};
-  search<BOX>(g, pk, uw, sh, lane, stack_grid + (size_t)i * D * C,
-              stack_cell + (size_t)i * D, stack_mask + (size_t)i * D, D, max_iters, waves,
-              options, s, RacePoll{stop, lane});
-  if (s.status == kSolved && lane == 0) atomicMin(stop, (unsigned)s.steps);
-  // the closing analysis of a board stopped RUNNING (warp-uniform)
-  const int complete =
-      s.status == kRunning && value_pass<BOX>(g, uw, sh.cm, sh.uo, lane) == 0;
-
-  int32_t* out = grid_out + (size_t)i * C;
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    if (owns<BOX>(lane, j)) out[lane + j * kLanes] = g[j];
-  }
-  if (lane == 0) {
-    int32_t* m = meta + (size_t)i * kRaceMetaCols;
-    m[0] = s.status;
-    m[1] = s.steps;
-    m[2] = s.validations;
-    m[3] = complete;
-  }
+// Dynamic shared memory of a race block at stack depth D: the cell and
+// mask frames (D int32 each), then the D snapshots of C bytes; none when
+// the stack lives in the device slab.
+template <int BOX>
+size_t race_stack_bytes(int D) {
+  return kRaceOnChip<BOX> ? (size_t)D * (Geometry<BOX>::C + 2 * sizeof(int32_t))
+                                   : 0;
 }
 
-// The race's fold (after K4 on the same stream), one block: t* is the
-// earliest step any state solved at, else the last step any state ran. A
-// state that ended at or before t* keeps its status and validations; any
-// other ran RUNNING through t* (t* * waves validations) and is SOLVED after
-// the race exactly when its grid was complete after step t*: it solved at
-// t* + 1, or it stopped at t* (max_iters) and its closing analysis found it
-// complete. The winner is the lowest SOLVED index. Validations sum in
-// unsigned (int32 wraparound, as the JAX psum of int32).
-template <int BOX>
-__global__ void __launch_bounds__(kFoldThreads)
-race_fold_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__ grid,
-                 int32_t* __restrict__ fold, int32_t* __restrict__ row, int M, int waves) {
+// The fold of the race, by the last block: t* is the earliest step any
+// state solved at, else the last step any state ran. A state that ended at
+// or before t* keeps its status and validations; any other ran RUNNING
+// through t* (t* * waves validations) and is SOLVED after the race exactly
+// when its grid was complete after step t*: it solved at t* + 1, or it
+// stopped at t* (max_iters) and its closing analysis found it complete. The
+// winner is the lowest SOLVED index. Validations sum in unsigned (int32
+// wraparound, as the JAX psum of int32).
+template <int BOX, class G>
+__device__ __forceinline__ void race_fold(G& grp, const int32_t* meta, const int32_t* grid,
+                                          int32_t* fold, int32_t* row, int M, int waves) {
   constexpr int C = Geometry<BOX>::C;
-  constexpr int kWarpsHere = kFoldThreads / kLanes;
-  __shared__ unsigned red[3][kWarpsHere];
-  const int t = threadIdx.x, lane = t % kLanes, warp = t / kLanes;
-
+  constexpr int T = G::kThreads;
+  const int t = grp.t;
   unsigned first_solve = kNoKey, last_step = 0;
-  for (int i = t; i < M; i += kFoldThreads) {
+  for (int i = t; i < M; i += T) {
     const int32_t* m = meta + (size_t)i * kRaceMetaCols;
-    if (m[0] == kSolved) first_solve = min(first_solve, (unsigned)m[1]);
-    last_step = max(last_step, (unsigned)m[1]);
+    const int steps = __ldcg(m + 1);
+    if (__ldcg(m) == kSolved) first_solve = min(first_solve, (unsigned)steps);
+    last_step = max(last_step, (unsigned)steps);
   }
-  first_solve = __reduce_min_sync(kAll, first_solve);
-  last_step = __reduce_max_sync(kAll, last_step);
-  if (lane == 0) {
-    red[0][warp] = first_solve;
-    red[1][warp] = last_step;
-  }
-  __syncthreads();
-  first_solve = kNoKey;
-  last_step = 0;
-#pragma unroll
-  for (int w = 0; w < kWarpsHere; ++w) {
-    first_solve = min(first_solve, red[0][w]);
-    last_step = max(last_step, red[1][w]);
-  }
+  first_solve = grp.template reduce<MinOp>(first_solve);
+  last_step = grp.template reduce<MaxOp>(last_step);
   const int t_star = (int)(first_solve != kNoKey ? first_solve : last_step);
-  __syncthreads();  // red[] is reused below
 
   unsigned winner = kNoKey, total = 0, undecided = 0;
-  for (int i = t; i < M; i += kFoldThreads) {
+  for (int i = t; i < M; i += T) {
     const int32_t* m = meta + (size_t)i * kRaceMetaCols;
-    const int status = m[0], steps = m[1];
+    const int status = __ldcg(m), steps = __ldcg(m + 1);
     const bool ended = status != kRunning && steps <= t_star;
     const bool flip =
         !ended && ((status == kSolved && steps == t_star + 1) ||
-                   (status == kRunning && steps == t_star && m[3] != 0));
+                   (status == kRunning && steps == t_star && __ldcg(m + 3) != 0));
     const int st = ended ? status : (flip ? kSolved : kRunning);
-    const int vals = ended ? m[2] : t_star * waves;
+    const int vals = ended ? __ldcg(m + 2) : t_star * waves;
     fold[(size_t)i * 2] = st;
     fold[(size_t)i * 2 + 1] = vals;
     if (st == kSolved) winner = min(winner, (unsigned)i);
     total += (unsigned)vals;
     undecided |= st == kRunning || st == kOverflow;
   }
-  winner = __reduce_min_sync(kAll, winner);
-  total = __reduce_add_sync(kAll, total);
-  undecided = __reduce_or_sync(kAll, undecided);
-  if (lane == 0) {
-    red[0][warp] = winner;
-    red[1][warp] = total;
-    red[2][warp] = undecided;
-  }
-  __syncthreads();
-  winner = kNoKey;
-  total = 0;
-  undecided = 0;
-#pragma unroll
-  for (int w = 0; w < kWarpsHere; ++w) {
-    winner = min(winner, red[0][w]);
-    total += red[1][w];
-    undecided |= red[2][w];
-  }
+  winner = grp.template reduce<MinOp>(winner);
+  total = grp.template reduce<AddOp>(total);
+  undecided = grp.template reduce<OrOp>(undecided);
   const bool found = winner != kNoKey;
-  for (int c = t; c < C; c += kFoldThreads)
-    row[c] = found ? grid[(size_t)winner * C + c] : 0;
+  for (int c = t; c < C; c += T) row[c] = found ? __ldcg(grid + (size_t)winner * C + c) : 0;
   if (t == 0) {
     row[C] = found;
     row[C + 1] = (int32_t)total;
     row[C + 2] = undecided != 0;
+  }
+}
+
+template <int BOX>
+__global__ void __launch_bounds__(kRaceThreads[BOX])
+dfs_race_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
+                int32_t* __restrict__ meta, int32_t* __restrict__ fold,
+                int32_t* __restrict__ row, int8_t* __restrict__ stack_grid,
+                int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
+                unsigned* scratch, int M, int D, int max_iters, int waves, int options) {
+  constexpr int T = kRaceThreads[BOX];
+  using G = BlockGroup<T>;
+  using Geo = Geometry<BOX, T>;
+  constexpr int C = Geo::C;
+  constexpr int CPL = Geo::CPL;
+  __shared__ int32_t words[Geo::WORDS];
+  __shared__ unsigned red[G::kRedWords];
+  __shared__ int last;
+  extern __shared__ __align__(16) unsigned char race_stack[];
+  const int t = threadIdx.x;
+  const int i = blockIdx.x;
+  G grp{t, red, 0};
+  const Smem sh = group_smem<BOX>(words);
+  int g[CPL], pk[CPL];
+  UnitWalk uw[Geo::UPL];
+  lane_layout<BOX, G>(t, pk, uw);
+  const int32_t* in = states + (size_t)i * C;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) g[j] = owns<BOX, T>(t, j) ? in[t + j * T] : 0;
+  int8_t* sg;
+  int32_t *sc, *sm;
+  if constexpr (kRaceOnChip<BOX>) {
+    sc = reinterpret_cast<int32_t*>(race_stack);
+    sm = sc + D;
+    sg = reinterpret_cast<int8_t*>(sm + D);
+  } else {
+    sg = stack_grid + (size_t)i * D * C;
+    sc = stack_cell + (size_t)i * D;
+    sm = stack_mask + (size_t)i * D;
+  }
+
+  Search s{kRunning, 0, 0, 0, 0, 0, 0};
+  search<BOX>(g, pk, uw, sh, grp, sg, sc, sm, D, max_iters, waves, options, s,
+              RacePoll{scratch, t, kNoKey});
+  if (s.status == kSolved && t == 0) atomicMin(scratch, (unsigned)s.steps);
+  // the closing analysis of a state stopped RUNNING (uniform over the block)
+  const int complete =
+      s.status == kRunning && value_pass<BOX>(g, uw, sh.cm, sh.uo, grp) == 0;
+
+  int32_t* out = grid_out + (size_t)i * C;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    if (owns<BOX, T>(t, j)) out[t + j * T] = g[j];
+  }
+  if (t == 0) {
+    int32_t* m = meta + (size_t)i * kRaceMetaCols;
+    m[0] = s.status;
+    m[1] = s.steps;
+    m[2] = s.validations;
+    m[3] = complete;
+  }
+  // the last block to finish folds: each block's writes are fenced before
+  // its ticket, and the fold reads them from L2
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(scratch + 1, 1u) == (unsigned)(M - 1);
+  __syncthreads();
+  if (!last) return;  // uniform over the block
+  __threadfence();
+  race_fold<BOX>(grp, meta, grid_out, fold, row, M, waves);
+  if (t == 0) {
+    // every block has taken its ticket, so none reads the stop word again
+    scratch[0] = kNoKey;
+    scratch[1] = 0;
   }
 }
 
@@ -1085,24 +1260,66 @@ int launch_segment(const void* boards, int n_boards, const void* src, const Pool
   return (int)cudaGetLastError();
 }
 
+// Opt the race kernel in to the dynamic shared memory of its on-chip stack
+// above 32 KB, which leaves its static arrays (under 16 KB at every size)
+// room below the default 48 KB a block.
+template <int BOX>
+cudaError_t race_smem_opt_in(size_t bytes) {
+  if (bytes <= 32 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(dfs_race_kernel<BOX>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 template <int BOX>
 int launch_race(const void* states, void* grid_out, void* meta, void* fold, void* row,
-                void* stack_grid, void* stack_cell, void* stack_mask, void* stop, int M,
+                void* stack_grid, void* stack_cell, void* stack_mask, void* scratch, int M,
                 int D, int max_iters, int waves, int options, cudaStream_t stream) {
-  // no stop step posted yet: 0xffffffff
-  cudaError_t err = cudaMemsetAsync(stop, 0xff, sizeof(unsigned), stream);
+  // a search holds at most C - 1 frames (each pushed frame guessed another
+  // empty cell), so a deeper stack is never reached and never OVERFLOWs
+  if (D > Geometry<BOX>::C) D = Geometry<BOX>::C;
+  const size_t smem = race_stack_bytes<BOX>(D);
+  if (!kRaceOnChip<BOX> && (!stack_grid || !stack_cell || !stack_mask))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = race_smem_opt_in<BOX>(smem);
   if (err != cudaSuccess) return (int)err;
-  dfs_race_kernel<BOX><<<(M + kWarps - 1) / kWarps, kWarps * kLanes, 0, stream>>>(
+  dfs_race_kernel<BOX><<<M, kRaceThreads[BOX], smem, stream>>>(
       static_cast<const int32_t*>(states), static_cast<int32_t*>(grid_out),
-      static_cast<int32_t*>(meta), static_cast<int8_t*>(stack_grid),
-      static_cast<int32_t*>(stack_cell), static_cast<int32_t*>(stack_mask),
-      static_cast<unsigned*>(stop), M, D, max_iters, waves, options);
-  const int launched = (int)cudaGetLastError();
-  if (launched != 0) return launched;
-  race_fold_kernel<BOX><<<1, kFoldThreads, 0, stream>>>(
-      static_cast<const int32_t*>(meta), static_cast<const int32_t*>(grid_out),
-      static_cast<int32_t*>(fold), static_cast<int32_t*>(row), M, waves);
+      static_cast<int32_t*>(meta), static_cast<int32_t*>(fold), static_cast<int32_t*>(row),
+      static_cast<int8_t*>(stack_grid), static_cast<int32_t*>(stack_cell),
+      static_cast<int32_t*>(stack_mask), static_cast<unsigned*>(scratch), M, D, max_iters,
+      waves, options);
   return (int)cudaGetLastError();
+}
+
+// Race blocks resident on one SM of the current device at once (the
+// occupancy its threads, registers and shared memory allow at the full
+// depth C), or -1 on an error.
+template <int BOX>
+int race_states_per_sm() {
+  const size_t smem = race_stack_bytes<BOX>(Geometry<BOX>::C);
+  int blocks = -1;
+  cudaError_t err = race_smem_opt_in<BOX>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dfs_race_kernel<BOX>,
+                                                        kRaceThreads[BOX], smem);
+  return err == cudaSuccess ? blocks : -1;
+}
+
+// f(std::integral_constant<int, box>{}) for a box edge 2..5, else `bad`.
+template <class F>
+int by_box(int box, int bad, F f) {
+  switch (box) {
+    case 2:
+      return f(std::integral_constant<int, 2>{});
+    case 3:
+      return f(std::integral_constant<int, 3>{});
+    case 4:
+      return f(std::integral_constant<int, 4>{});
+    case 5:
+      return f(std::integral_constant<int, 5>{});
+    default:
+      return bad;
+  }
 }
 
 }  // namespace
@@ -1215,36 +1432,45 @@ int dfs_segment_launch(const void* boards, int n_boards, const void* src, void* 
 int dfs_race_meta_cols() { return kRaceMetaCols; }
 int dfs_race_row_extra() { return kRaceRowExtra; }
 
-// One frontier race over M states: the race kernel, then its fold, on
-// `stream`. states (M, C) int32 in; grid_out (M, C) and meta (M, 4) int32
-// out (each state's run: its grid and status, steps, validations, complete);
-// fold (M, 2) int32 out (status and validations after the lockstep race);
-// row (C + 3) int32 out (solution, found, validations, undecided); scratch
-// stack_grid (M, D, C) int8, stack_cell and stack_mask (M, D) int32, and
-// stop (1,) int32. box, waves and options as for dfs_solver_launch; a state
-// takes at most max_iters steps. Returns a cudaError_t.
+// The race kernel's threads a state for box edge `box`, and whether its
+// guess stack lives on chip (1: the wrapper passes no slab), or -1.
+int dfs_race_threads(int box) {
+  return box >= 2 && box <= 5 ? kRaceThreads[box] : -1;
+}
+int dfs_race_stack_on_chip(int box) {
+  return box >= 2 && box <= 5 ? (int)(box <= kRaceOnChipMaxBox) : -1;
+}
+
+// Race states resident on one SM of the current device at once for box
+// edge `box` (one block each), or -1 on an error.
+int dfs_race_states_per_sm(int box) {
+  return by_box(box, -1, [](auto b) { return race_states_per_sm<decltype(b)::value>(); });
+}
+
+// One frontier race over M states, one launch on `stream`. states (M, C)
+// int32 in; grid_out (M, C) and meta (M, 4) int32 out (each state's run:
+// its grid and status, steps, validations, complete); fold (M, 2) int32 out
+// (status and validations after the lockstep race); row (C + 3) int32 out
+// (solution, found, validations, undecided). stop: the race's two-word
+// scratch (stop step, ticket count), idle at 0xffffffff, 0 before the
+// launch and left so after it; races on one stream may share it, races on
+// two streams may not. stack_grid (M, D', C) int8, stack_cell and
+// stack_mask (M, D') int32, with D' = min(D, C): the guess-stack slab,
+// scratch, for a box whose stack does not live on chip
+// (dfs_race_stack_on_chip), else ignored and may be null. box, waves and
+// options as for dfs_solver_launch; a state takes at most max_iters steps.
+// Returns a cudaError_t.
 int dfs_race_launch(const void* states, void* grid_out, void* meta, void* fold, void* row,
                     void* stack_grid, void* stack_cell, void* stack_mask, void* stop, int M,
                     int box, int D, int max_iters, int waves, int options, void* stream) {
-  if (M <= 0 || D <= 0 || max_iters < 0 || waves < 1 || (options & ~7))
+  if (M <= 0 || D <= 0 || max_iters < 0 || waves < 1 || (options & ~7) || !stop)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (box) {
-    case 2:
-      return launch_race<2>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
-                            stack_mask, stop, M, D, max_iters, waves, options, s);
-    case 3:
-      return launch_race<3>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
-                            stack_mask, stop, M, D, max_iters, waves, options, s);
-    case 4:
-      return launch_race<4>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
-                            stack_mask, stop, M, D, max_iters, waves, options, s);
-    case 5:
-      return launch_race<5>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
-                            stack_mask, stop, M, D, max_iters, waves, options, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return by_box(box, (int)cudaErrorInvalidValue, [&](auto b) {
+    return launch_race<decltype(b)::value>(states, grid_out, meta, fold, row, stack_grid,
+                                           stack_cell, stack_mask, stop, M, D, max_iters,
+                                           waves, options, s);
+  });
 }
 
 }  // extern "C"

@@ -48,12 +48,17 @@ so while the rebuild runs, and for good once the rebuilt library fails
 too, a launch raises ``LibraryVerificationError`` instead of running.
 
 ``dfs_race`` is the frontier race of one board's seeded subtree states on
-one device: the race kernel and its fold (K4) on a CUDA tensor, the plain
-lockstep race ``ops/solver.race`` on a CPU one; ``dfs_race.launches``
-counts its launches. The JAX package races in lockstep with a
-per-step collective (parallel/frontier.py ``race``); the kernel's warps
-run out of step, stop one step past the earliest solve any of them has
-posted, and the fold rebuilds the lockstep result exactly.
+one device: the race kernel (K4, one launch: a thread block a state, and
+the last block to finish folds) on a CUDA tensor, the plain lockstep race
+``ops/solver.race`` on a CPU one; ``dfs_race.launches`` counts its
+launches. The JAX package races in lockstep with a per-step collective
+(parallel/frontier.py ``race``); the kernel's blocks run out of step, stop
+once they have run more steps than the earliest solve any of them has
+posted, and the fold rebuilds the lockstep result exactly. The wrapper
+owns the race's two-word scratch, one per (device, stream)
+(``race_scratch``), and allocates the guess-stack slab only for a board
+size whose stack the library does not keep on chip
+(``race_stack_in_slab``).
 """
 
 from __future__ import annotations
@@ -242,6 +247,9 @@ def load_library() -> ctypes.CDLL:
     lib.dfs_race_launch.restype = i
     lib.dfs_race_meta_cols.restype = i
     lib.dfs_race_row_extra.restype = i
+    for fn in ("dfs_race_threads", "dfs_race_stack_on_chip", "dfs_race_states_per_sm"):
+        getattr(lib, fn).argtypes = [i]
+        getattr(lib, fn).restype = i
     if (lib.dfs_race_meta_cols(), lib.dfs_race_row_extra()) != (
         RACE_META_COLS, RACE_ROW_EXTRA
     ):
@@ -321,6 +329,16 @@ def segment_warps_per_sm(size: int) -> int:
     if warps < 0:
         raise RuntimeError(f"no segment kernel occupancy for size {size}")
     return warps
+
+
+def race_states_per_sm(size: int) -> int:
+    """Race states (one thread block each) for ``size``×``size`` boards
+    that one SM of the current CUDA device holds at once (the race
+    kernel's occupancy at the full stack depth)."""
+    states = load_library().dfs_race_states_per_sm(round(size ** 0.5))
+    if states < 0:
+        raise RuntimeError(f"no race kernel occupancy for size {size}")
+    return states
 
 
 def _dfs_solver_plain(boards: torch.Tensor, spec: BoardSpec, depth: int,
@@ -586,7 +604,7 @@ dfs_segment.launches = 0
 
 def _dfs_race_plain(states: torch.Tensor, spec: BoardSpec, depth: int,
                     max_iters: int, **sweeps):
-    """The plain PyTorch version of the race kernels on the same (M, C)
+    """The plain PyTorch version of the race kernel on the same (M, C)
     layout: ops/solver.race, the lockstep race, under the same ``sweeps``
     knobs. Returns (row, fold, meta) like the kernels; ``meta`` is each
     state's search as the lockstep loop cut it."""
@@ -609,14 +627,16 @@ def dfs_race(states: torch.Tensor, spec: BoardSpec, depth: int,
     validations] of every state after the race; and the (M, 4) int32 run
     record of ``ops.solver.RACE_META_COLS``. ``row`` and ``fold`` are the
     lockstep race's exactly. ``meta`` says where each state's search
-    stopped: in lockstep for the plain version, at each warp's own pace for
-    the kernel, whose warps stop one step past the earliest solve they have
-    seen (``ops.solver.fold_race`` maps either to ``row`` and ``fold``).
+    stopped: in lockstep for the plain version, at each block's own pace
+    for the kernel, whose blocks stop once they have run more steps than
+    the earliest solve they have seen (``ops.solver.fold_race`` maps either
+    to ``row`` and ``fold``).
 
-    A CUDA tensor launches the race kernel and its fold (K4) on the current
-    stream (no sync); a CPU tensor runs the plain version. Nothing else is
-    accepted. ``dfs_race.launches`` counts launches. While
-    ``library_quarantine`` holds the library, it raises instead."""
+    A CUDA tensor launches the race kernel (K4, which folds in the same
+    launch) on the current stream (no sync); a CPU tensor runs the plain
+    version. Nothing else is accepted. ``dfs_race.launches`` counts
+    launches. While ``library_quarantine`` holds the library, it raises
+    instead."""
     _check_library()
     sweeps = dict(
         locked_candidates=locked_candidates, waves=waves,
@@ -646,31 +666,77 @@ def dfs_race(states: torch.Tensor, spec: BoardSpec, depth: int,
     )
 
 
+# The race's two-word scratch when no race runs: the stop step 0xffffffff
+# (no solve posted) and the ticket count 0. A race leaves it so.
+RACE_SCRATCH_IDLE = (-1, 0)
+_RACE_SCRATCH: dict = {}
+_RACE_SCRATCH_LOCK = threading.Lock()
+
+
+def race_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """The race kernel's (2,) int32 scratch for the CUDA stream handle
+    ``stream`` on ``device``: allocated and set idle (``RACE_SCRATCH_IDLE``)
+    at the first race there, on that stream, and handed back to every later
+    one. Races on one stream run in order, each leaving it idle for the
+    next; races on two streams may run at once, so they never share one."""
+    key = (device, stream)
+    with _RACE_SCRATCH_LOCK:
+        scratch = _RACE_SCRATCH.get(key)
+        if scratch is None:
+            scratch = _RACE_SCRATCH[key] = torch.tensor(
+                RACE_SCRATCH_IDLE, dtype=torch.int32, device=device
+            )
+    return scratch
+
+
+def race_stack_in_slab(lib, box: int) -> bool:
+    """Whether ``lib``'s race kernel keeps the guess stack of boards with
+    box edge ``box`` in a device slab the wrapper allocates; otherwise it
+    lives in the kernel's shared memory and no slab is passed."""
+    on_chip = lib.dfs_race_stack_on_chip(box)
+    if on_chip not in (0, 1):
+        raise ValueError(f"the race kernel takes no box edge {box}")
+    return on_chip == 0
+
+
 def _launch_race(lib: ctypes.CDLL, states: torch.Tensor, spec: BoardSpec,
-                 depth: int, max_iters: int, waves: int, options: int):
-    """Allocate the race's outputs and scratch for (M, C) states on a CUDA
-    device, launch ``lib``'s race kernel and its fold on the current stream,
-    and count the launch in ``dfs_race.launches``. The (M, D, C) stack slab
-    (0.8 GB for 2048 25x25 states at 625 frames) comes from PyTorch's
-    caching allocator, which hands the same block back to the next race of
-    the same rung instead of allocating anew."""
+                 depth: int, max_iters: int, waves: int, options: int,
+                 slab: Optional[bool] = None,
+                 scratch: Optional[torch.Tensor] = None):
+    """Allocate the race's outputs for (M, C) states on a CUDA device,
+    launch ``lib``'s race kernel on the current stream with the stream's
+    scratch (``race_scratch``), and count the launch in
+    ``dfs_race.launches``. A search never holds more than C - 1 frames, so
+    the stack is ``min(depth, C)`` frames deep. ``slab`` (default:
+    ``race_stack_in_slab``) allocates the (M, D, C) stack slab; it comes
+    from PyTorch's caching allocator (0.8 GB for 2048 25x25 states), which
+    hands the same block back to the next race of the same rung. A
+    ``scratch`` given takes the place of the stream's own."""
     M, C = states.shape
     dev = states.device
+    depth = min(depth, C)
+    if slab is None:
+        slab = race_stack_in_slab(lib, spec.box)
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     grid, meta = empty(M, C), empty(M, RACE_META_COLS)
     fold, row = empty(M, 2), empty(C + RACE_ROW_EXTRA)
-    stack_grid = empty(M, depth, C, dtype=torch.int8)
-    stack_cell, stack_mask, stop = empty(M, depth), empty(M, depth), empty(1)
+    stack = (
+        (empty(M, depth, C, dtype=torch.int8), empty(M, depth), empty(M, depth))
+        if slab else ()
+    )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        if scratch is None:
+            scratch = race_scratch(dev, stream)
         err = lib.dfs_race_launch(
             states.data_ptr(), grid.data_ptr(), meta.data_ptr(),
-            fold.data_ptr(), row.data_ptr(), stack_grid.data_ptr(),
-            stack_cell.data_ptr(), stack_mask.data_ptr(), stop.data_ptr(),
-            M, spec.box, depth, max_iters, waves, options, stream,
+            fold.data_ptr(), row.data_ptr(),
+            *([t.data_ptr() for t in stack] if slab else [None] * 3),
+            scratch.data_ptr(), M, spec.box, depth, max_iters, waves, options,
+            stream,
         )
     if err != 0:
         raise KernelLaunchError(f"dfs_race launch failed: cudaError {err}")

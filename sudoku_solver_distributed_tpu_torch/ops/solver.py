@@ -686,13 +686,14 @@ def race_row(grid: torch.Tensor, fold: torch.Tensor, spec: BoardSpec) -> torch.T
 def fold_race(meta: torch.Tensor, grid: torch.Tensor, spec: BoardSpec,
               waves: int) -> tuple:
     """The lockstep race's outcome from each state's own run (the plain
-    version of csrc/dfs_solver.cu's ``race_fold_kernel``).
+    version of the fold that csrc/dfs_solver.cu's race kernel runs in its
+    last block).
 
     ``meta`` is the (M, 4) run record of ``RACE_META_COLS`` and ``grid``
     the (M, C) grids the runs stopped on. A state's run may stop anywhere
     from where the lockstep race would cut it to its own end: the race
-    kernel's warps run out of step and each stops one step past the
-    earliest solve it has seen. The fold needs t*, the step the lockstep
+    kernel's blocks run out of step and each stops once it has run more
+    steps than the earliest solve it has seen. The fold needs t*, the step the lockstep
     loop stops after: the earliest step any state solves at, else the last
     step any state ran. Then:
 

@@ -10,9 +10,10 @@ has no solution.
 
 The JAX package races in lockstep across a mesh, with a one-scalar
 ``psum`` after every step for the early exit. Here the race runs on one
-CUDA device through the race kernel (ops/cuda_solver.dfs_race, K4: one
-warp per state, each stopping one step past the earliest solve posted so
-far, then a fold that rebuilds the lockstep result exactly); on the CPU
+CUDA device through the race kernel (ops/cuda_solver.dfs_race, K4, one
+launch: a thread block per state, each stopping once it has run more steps
+than the earliest solve posted so far, and a fold by the last block that
+rebuilds the lockstep result exactly); on the CPU
 the wrapper runs the plain lockstep race (ops/solver.race). Seeding runs
 on the host, on CPU tensors, as the JAX package seeds on its CPU backend:
 it is a handful of tiny analyze/split rounds with a host decision between

@@ -232,6 +232,14 @@ def test_handoff_seeds_cover_the_solution_once():
 # -- the race's packed row -----------------------------------------------------
 
 
+# a 4x4 board with one clue: its seeding at 8 leaves 12 states (raced as
+# 16); every 4x4 board with more clues is solved by its seeding
+ONE_CLUE_4 = np.zeros((4, 4), np.int32)
+ONE_CLUE_4[0, 0] = 1
+# a 4x4 node's knobs (no serving config: the engine's defaults, naked pairs
+# following locked candidates)
+ENGINE_4 = dict(locked=True, waves=1, naked_pairs=True)
+
 RACE_CASES = {
     # name: (size, board, states_per_device, max_iters, depth, config)
     "readme-serving": (9, README, 8, JF.DEFAULT_MAX_ITERS, 81, SERVING[9]),
@@ -241,6 +249,7 @@ RACE_CASES = {
     "25x25-deep": (25, DEEP25[31], 8, JF.DEFAULT_MAX_ITERS, 625, SERVING[25]),
     "readme-singles": (9, README, 16, JF.DEFAULT_MAX_ITERS, 81,
                        dict(locked=False, waves=1, naked_pairs=None)),
+    "4x4-one-clue": (4, ONE_CLUE_4, 8, JF.DEFAULT_MAX_ITERS, 16, ENGINE_4),
 }
 
 
@@ -270,8 +279,8 @@ def test_unsat_race_is_a_proof_in_both(mesh1):
 
 
 def _own_runs(states, spec, depth, max_iters, sweeps, rng):
-    """Each state's own search, cut where a warp of the race kernel may
-    stop it: the trajectories are independent, and a warp stops anywhere
+    """Each state's own search, cut where a block of the race kernel may
+    stop it: the trajectories are independent, and a block stops anywhere
     from one step past t* (the earliest solve) to its own end or the step
     cap. Returns (meta, grid) as the kernel writes them."""
     M = len(states)
@@ -308,7 +317,7 @@ def _own_runs(states, spec, depth, max_iters, sweeps, rng):
 
 
 @pytest.mark.parametrize("name", ["readme-serving", "readme-capped", "hexadoku-deep",
-                                  "readme-singles"])
+                                  "readme-singles", "4x4-one-clue"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_fold_of_cut_runs_equals_the_lockstep_race(name, seed):
     size, board, spd, max_iters, depth, cfg = RACE_CASES[name]

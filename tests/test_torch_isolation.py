@@ -308,6 +308,111 @@ def test_race_wrapper_rejects_what_the_kernel_does_not_take(states, error):
     assert dfs_race.launches == before
 
 
+class _FakeRaceLibrary:
+    """Stands in for the kernel library in the race wrapper's launch: says
+    where a box's stack lives, records each launch's arguments and returns
+    ``error``."""
+
+    def __init__(self, on_chip_max_box=3, error=0):
+        self.on_chip_max_box = on_chip_max_box
+        self.error = error
+        self.calls = []
+
+    def dfs_race_stack_on_chip(self, box):
+        return int(box <= self.on_chip_max_box) if 2 <= box <= 5 else -1
+
+    def dfs_race_launch(self, *args):
+        self.calls.append(args)
+        return self.error
+
+
+@pytest.fixture
+def fake_cuda_stream(monkeypatch):
+    """The race wrapper's launch on CPU tensors: no device to enter, and a
+    current stream whose handle the test sets."""
+    import contextlib
+    import types
+
+    stream = types.SimpleNamespace(cuda_stream=101)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: stream)
+    return stream
+
+
+def test_race_scratch_is_one_idle_buffer_per_device_and_stream():
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SCRATCH_IDLE,
+        race_scratch,
+    )
+
+    cpu = torch.device("cpu")
+    a = race_scratch(cpu, 7001)
+    assert a.dtype == torch.int32 and a.tolist() == list(RACE_SCRATCH_IDLE)
+    assert race_scratch(cpu, 7001) is a
+    assert race_scratch(cpu, 7002) is not a
+    assert race_scratch(torch.device("meta"), 7001) is not a
+    # idle: no stop step posted (0xffffffff), no ticket taken
+    assert a.view(torch.uint32)[0].item() == 0xFFFFFFFF and a[1].item() == 0
+
+
+def test_race_stack_in_slab_asks_the_library():
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import race_stack_in_slab
+
+    lib = _FakeRaceLibrary(on_chip_max_box=3)
+    assert [race_stack_in_slab(lib, b) for b in (2, 3, 4, 5)] == [False, False, True, True]
+    lib = _FakeRaceLibrary(on_chip_max_box=4)
+    assert race_stack_in_slab(lib, 4) is False
+    with pytest.raises(ValueError):
+        race_stack_in_slab(lib, 6)
+
+
+@pytest.mark.parametrize("size, depth, slab", [(4, 16, False), (9, 81, False),
+                                               (9, 200, False), (16, 256, True),
+                                               (25, 700, True)])
+def test_race_launch_passes_a_slab_only_off_chip_and_the_stream_scratch(
+        fake_cuda_stream, size, depth, slab):
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        _launch_race,
+        race_scratch,
+    )
+
+    spec = spec_for_size(size)
+    states = torch.zeros((3, spec.cells), dtype=torch.int32)
+    lib = _FakeRaceLibrary()
+    before = dfs_race.launches
+    row, fold, meta = _launch_race(lib, states, spec, depth, 64, 1, 1)
+    assert dfs_race.launches == before + 1
+    assert row.shape == (spec.cells + 3,) and fold.shape == (3, 2) and meta.shape == (3, 4)
+    (args,) = lib.calls
+    stack, stop = args[5:8], args[8]
+    M, box, D = args[9:12]
+    assert (M, box) == (3, spec.box)
+    assert D == min(depth, spec.cells)  # no search holds C frames
+    assert all(p is not None for p in stack) if slab else stack == (None,) * 3
+    assert stop == race_scratch(states.device, 101).data_ptr()
+    assert args[-1] == 101
+    # another stream gets a scratch of its own; a given scratch is used as is
+    fake_cuda_stream.cuda_stream = 102
+    _launch_race(lib, states, spec, depth, 64, 1, 1)
+    assert lib.calls[1][8] == race_scratch(states.device, 102).data_ptr() != stop
+    own = torch.tensor([-1, 0], dtype=torch.int32)
+    _launch_race(lib, states, spec, depth, 64, 1, 1, slab=True, scratch=own)
+    assert lib.calls[2][8] == own.data_ptr() and None not in lib.calls[2][5:8]
+
+
+def test_race_launch_error_raises_and_counts_nothing(fake_cuda_stream):
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        KernelLaunchError,
+        _launch_race,
+    )
+
+    before = dfs_race.launches
+    with pytest.raises(KernelLaunchError):
+        _launch_race(_FakeRaceLibrary(error=1), torch.zeros((2, 81), dtype=torch.int32),
+                     spec_for_size(9), 81, 64, 3, 1)
+    assert dfs_race.launches == before
+
+
 def _race_sets():
     """Seeded states of deep boards, as the frontier route races them:
     9x9 in its serving configuration at 64 states, 16x16 and 25x25 at 8,
@@ -335,10 +440,9 @@ def _race_sets():
 
 @pytest.mark.cuda
 def test_race_kernel_matches_plain_on_the_card():
-    """K4 and its fold against the plain lockstep race on seeded deep
-    states: the packed row and every state's status and validations
-    exactly, and the fold of the kernel's own run records (ops/solver
-    fold_race) equal to the fold kernel's."""
+    """K4 (which folds in its last block) against the plain lockstep race
+    on seeded deep states: the packed row and every state's status and
+    validations exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import _dfs_race_plain
@@ -357,7 +461,7 @@ def test_race_kernel_matches_plain_on_the_card():
 
 @pytest.mark.cuda
 def test_race_kernel_exits_early_on_the_card():
-    """A race stops one step past its first solve: the steps K4's warps ran
+    """A race stops soon after its first solve: the steps K4's blocks ran
     in all fall short of the sum of each state's steps to its own end (K1
     over the same states, every state to its own end)."""
     if not torch.cuda.is_available():
@@ -371,6 +475,123 @@ def test_race_kernel_exits_early_on_the_card():
     assert int(row[spec.cells]) == 1
     raced, to_end = int(meta[:, 1].sum()), int(own[:, 3].sum())
     assert raced < to_end, (raced, to_end)
+
+
+def _race_set_of_size(size):
+    """One seeded race per box size, in the configuration a node of that
+    size races with: a one-clue 4x4 board at 8 states (raced as 16), a
+    deep 9x9 board at 64 (128), deep 16x16 and 25x25 boards at 8."""
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    if size == 4:
+        board = np.zeros((4, 4), np.int32)
+        board[0, 0] = 1
+        target, knobs = 8, dict(locked_candidates=True, waves=1, naked_pairs=True)
+    else:
+        name, k, target = {9: ("corpus_9x9_deep_128", 0, 64),
+                           16: ("corpus_16x16_deep_anneal_64", 0, 8),
+                           25: ("corpus_25x25_deep_anneal_32", 31, 8)}[size]
+        board = np.load(os.path.join(ROOT, "benchmarks", f"{name}.npz"))["boards"][k]
+        knobs = dict(locked_candidates=True, waves=3 if size == 9 else 1,
+                     naked_pairs=False)
+    spec = spec_for_size(size)
+    states, early = F.seed_frontier(board, spec, target=target, locked=True)
+    assert early is None
+    states = F.bucket_states(states, spec, target)
+    return spec, torch.as_tensor(states.reshape(len(states), -1)), knobs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [4, 9, 16, 25])
+def test_race_kernel_matches_plain_and_k1_at_every_box_size(size):
+    """K4 against the plain lockstep race at box edges 2-5, in one launch
+    that leaves the stream's scratch idle; and every state whose K4 run
+    ended (not RUNNING) by t* has the status, steps and validations K1
+    gives it run to its own end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SCRATCH_IDLE,
+        _dfs_race_plain,
+        race_scratch,
+    )
+
+    spec, cpu, knobs = _race_set_of_size(size)
+    row, fold, meta = _dfs_race_plain(cpu, spec, spec.max_depth, 65536, **knobs)
+    g = cpu.cuda()
+    before = dfs_race.launches
+    krow, kfold, kmeta = dfs_race(g, spec, spec.max_depth, 65536, **knobs)
+    _, own = dfs_solver(g, spec, spec.max_depth, 65536, **knobs)
+    torch.cuda.synchronize()
+    assert dfs_race.launches == before + 1
+    assert torch.equal(krow.cpu(), row) and torch.equal(kfold.cpu(), fold)
+    scratch = race_scratch(g.device, torch.cuda.current_stream().cuda_stream)
+    assert scratch.tolist() == list(RACE_SCRATCH_IDLE)
+    t_star = int(meta[:, 1].max())
+    kmeta, own = kmeta.cpu(), own.cpu()
+    ended = (kmeta[:, 0] != 0) & (kmeta[:, 1] <= t_star)
+    assert bool(ended.any())
+    assert torch.equal(kmeta[ended][:, 0], own[ended][:, 0])
+    assert torch.equal(kmeta[ended][:, 1], own[ended][:, 3])
+    assert torch.equal(kmeta[ended][:, 2], own[ended][:, 2])
+
+
+@pytest.mark.cuda
+def test_races_back_to_back_and_on_two_streams_match_plain():
+    """A race that posts an early stop, then on the same stream one that
+    must run past it (the scratch was reset); then the two at once on two
+    CUDA streams (each has a scratch of its own)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import _dfs_race_plain
+
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    spec, short, knobs = _race_set_of_size(9)  # t* 7
+    readme = np.zeros((9, 9), np.int32)  # the README board: t* 31 at 64 states
+    readme[0, 3], readme[1, 3], readme[1, 4], readme[2, 5] = 1, 3, 2, 9
+    readme[3, 7], readme[5, 3], readme[6, 6], readme[7, 8] = 7, 9, 9, 3
+    long_, early = F.seed_frontier(readme, spec, target=64, locked=True)
+    assert early is None
+    long_ = torch.as_tensor(F.bucket_states(long_, spec, 64).reshape(-1, spec.cells))
+    plain = [_dfs_race_plain(s, spec, 81, 65536, **knobs) for s in (short, long_)]
+    assert int(plain[0][2][:, 1].max()) < int(plain[1][2][:, 1].max())
+    got = [dfs_race(s.cuda(), spec, 81, 65536, **knobs) for s in (short, long_)]
+    torch.cuda.synchronize()
+    for (krow, kfold, _), (row, fold, _) in zip(got, plain):
+        assert torch.equal(krow.cpu(), row) and torch.equal(kfold.cpu(), fold)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [s.cuda() for s in (short, long_)]
+    got = []
+    for st, g in zip(streams, inputs):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            got.append(dfs_race(g, spec, 81, 65536, **knobs))
+    torch.cuda.synchronize()
+    for (krow, kfold, _), (row, fold, _) in zip(got, plain):
+        assert torch.equal(krow.cpu(), row) and torch.equal(kfold.cpu(), fold)
+
+
+@pytest.mark.cuda
+def test_a_race_is_one_kernel_record():
+    """torch.profiler sees one kernel a race, the race kernel: no fold
+    kernel and no memset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from torch.profiler import ProfilerActivity, profile
+
+    spec, cpu, knobs = _race_set_of_size(9)
+    g = cpu.cuda()
+    dfs_race(g, spec, spec.max_depth, 65536, **knobs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000_000)  # keeps the races clear of the window's edge
+        for _ in range(4):
+            dfs_race(g, spec, spec.max_depth, 65536, **knobs)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_time_total > 0}
+    names = {n for n in names if "spin_kernel" not in n}
+    assert len(names) == 1 and "dfs_race_kernel" in names.pop()
 
 
 @pytest.mark.cuda
