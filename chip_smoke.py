@@ -250,6 +250,39 @@ exit) on any error:
    every answer before and after is correct. (a)'s two engines and (d)'s
    node run in parallel.
 
+13. The mesh plane on a 4-shard virtual mesh of this card
+   (``parallel/mesh.virtual_mesh("cuda:0", 4)``: four shards, a CUDA
+   stream each). (a) A mesh engine (its ladder rounded to (4, 8, 64, 512,
+   4096)) against the one-device engine: the 4096 hard boards in one
+   bucket call each, every row equal (grid, status, guesses,
+   validations), 4 K1 launches the call, ``engine.mesh`` showing 4 shards
+   of 1024 rows; the README board alone, in the mesh-rounded bucket of 4
+   at the serving waves, equal to the plain version of the same 4-shard
+   program, its grid to one device's. (b) A CLI node under
+   ``SUDOKU_VIRTUAL_MESH`` (parallel/sim.py's environment) with
+   ``--mesh-peers 4 --frontier 16``; the references (the plain 4-shard
+   engine on the CPU, the one-device engine) answer first, then the
+   counts are set to 0: README
+   /solve x20 (the auto route's probe, each at the plain 4-shard probe's
+   validations), the README 4 times on the mesh pool (``frontier=False``:
+   109 validations each), deep /solve raced across the 4 shards (the plain
+   4-shard engine's counters, one device's grids) and /solve_batch of the
+   deep boards on the mesh bucket path (one device's grids and counters),
+   ``/metrics`` ``engine.mesh``, the four ``/tpu{k}`` pseudo-peers at
+   ``/network``; every kernel's launches on this path. (c) The race across
+   the 4 shards (K4's shard form, then the fold kernel) against the plain
+   race on phase 11's sets: row and fold equal, every state that ended by
+   t* equal to K1's run of it; the shard launches alone and with the fold
+   (CUDA events) beside the one-shard race of the same padded states,
+   each shard's steps past t*; the shard launches of the first set and the
+   fold kernel alone, each against its plain version. (d) ``FrontierServingLoop`` in child processes: a
+   one-rank NCCL group (4 shards), then two ranks on a gloo group on this
+   card (2 shards each, gloo asked for by this script): a batch fan-out
+   with one device's grids and the plain counters, and the README race
+   equal to the plain 4-shard race. (e) A resumable batch on the mesh in a
+   child, SIGKILLed at its first snapshot and resumed on one device to the
+   uninterrupted run's rows.
+
 Every node harness waits for the CLI's background warm-up to finish
 (``fully_warmed``) before its phase measures, and sends the node's
 flight-record dumps to a temporary directory unless the phase names one.
@@ -258,9 +291,11 @@ Prints a ``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
 card's name and power limit, a ``{"obs": {...}}`` line (phase 8), a
 ``{"front": {...}}`` line (phase 9), a ``{"p2p": {...}}`` line (phase
 10), a ``{"frontier": {...}}`` line (phase 11), a ``{"durability":
-{...}}`` line (phase 12), one ``{"kernels": [...]}``
-line (dfs_solver, dfs_segment_kernel, segment_digest_kernel and
-dfs_race_kernel, each with its launches on every path), and last
+{...}}`` line (phase 12), a ``{"mesh": {...}}`` line (phase 13), one
+``{"kernels": [...]}`` line (dfs_solver, dfs_segment_kernel,
+segment_digest_kernel, dfs_race_kernel, dfs_race_shard_kernel and
+race_fold_kernel, each with its launches on every path,
+``launches_mesh_path`` among them), and last
 ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is available.
 Imports nothing of JAX.
@@ -3113,6 +3148,11 @@ def _phase_p2p(nodes, tmp, oracle_ok, random_symmetry, count_solutions,
 # -- phase 11: the frontier race on one card ---------------------------------
 
 RACE_KERNELS = ("dfs_race_kernel",)  # K4 folds in its own launch
+# a race across shards: K4's shard form a shard, then one fold launch
+MESH_RACE_KERNELS = ("dfs_race_shard_kernel", "race_fold_kernel")
+# the wrappers whose launch counts phase 13 (b) reads on the mesh node
+MESH_PATH_KERNELS = ("dfs_solver", "dfs_segment", "dfs_race", "dfs_race_shards",
+                     "race_fold")
 FRONTIER_STATES = 64  # --frontier of phase 11's nodes: the engine's default
 FRONTIER_BUCKET_BOARDS = 6  # deep boards timed on both routes in phase 11 (d)
 
@@ -4234,11 +4274,566 @@ def phase_durability(cs, ts, SolverEngine, spec_for_size, serving_config, oracle
     return out
 
 
+# -- phase 13: the mesh plane ----------------------------------------------------
+
+MESH_SHARDS = 4        # the virtual mesh's shards on cuda:0
+MESH_FRONTIER = 16     # 13(b): the node's --frontier (states a shard)
+MESH_DEEP_BOARDS = 2   # 13(b): deep boards on each route
+MESH_RESUMABLE_BOARDS = 1024  # 13(e): hard boards in the killed batch
+
+
+def _mesh(where: str = "cuda:0"):
+    from sudoku_solver_distributed_tpu_torch.parallel.mesh import virtual_mesh
+
+    return virtual_mesh(where, MESH_SHARDS)
+
+
+def _mesh_engine(cs, SolverEngine, oracle_ok) -> dict:
+    """13(a): a 4-shard virtual-mesh engine against the one-device engine
+    on the 4096 hard boards (one bucket call each: rows equal, 4 K1
+    launches), and the lone README board in its mesh-rounded bucket of 4
+    against the plain version of the same 4-shard program."""
+    import numpy as np
+    from sudoku_solver_distributed_tpu_torch.parallel.shard import (
+        make_packed_serving_program,
+    )
+
+    boards = load_corpus("corpus_9x9_hard_4096.npz")
+    ladder = (1, 8, 64, 512, 4096)
+    em = SolverEngine(mesh=_mesh(), buckets=ladder, coalesce=False)
+    es = SolverEngine(buckets=ladder, coalesce=False)
+    out = {}
+    try:
+        check(em.buckets == (4, 8, 64, 512, 4096), f"mesh ladder {em.buckets}")
+        em.warmup()
+        es.warmup()
+        C = em.spec.cells
+        n0 = cs.dfs_solver.launches
+        t0 = time.perf_counter()
+        rm = em._solve_padded(boards)
+        mesh_s = time.perf_counter() - t0
+        k1 = cs.dfs_solver.launches - n0
+        t0 = time.perf_counter()
+        rs = es._solve_padded(boards)
+        one_s = time.perf_counter() - t0
+        bad = int((rm[:, :C + 4] != rs[:, :C + 4]).any(axis=1).sum())
+        check(bad == 0, f"13(a): {bad} of 4096 mesh rows differ from one device's")
+        check(k1 == MESH_SHARDS, f"13(a): a 4096 bucket call launched K1 {k1} times")
+        mi = em.mesh_info()
+        check(mi["devices"] == MESH_SHARDS
+              and mi["last_split"] == {"devices": MESH_SHARDS, "rows_per_device": 1024},
+              f"13(a): engine.mesh {mi}")
+        readme = np.asarray(README_PUZZLE, np.int32)
+        r1 = em._solve_padded(readme[None])
+        plain = make_packed_serving_program(
+            _mesh("cpu"), em.spec, max_depth=em.max_depth,
+            locked_candidates=em.locked_candidates, waves=em.waves,
+            naked_pairs=em.naked_pairs,
+        )(np.broadcast_to(readme, (MESH_SHARDS, 9, 9)), em.max_iters)
+        check(np.array_equal(r1[0, :C + 4], plain[0, :C + 4]),
+              "13(a): the README row differs from the plain 4-shard program's")
+        r1s = es._solve_padded(readme[None])
+        check(np.array_equal(r1[0, :C], r1s[0, :C]) and oracle_ok(
+            r1[0, :C].reshape(9, 9).tolist()), "13(a): the README grid differs")
+        out = {
+            "rows_equal": 4096 - bad, "k1_launches_a_bucket_call": k1,
+            "mesh_call_ms": round(mesh_s * 1e3, 3), "one_device_call_ms": round(one_s * 1e3, 3),
+            "readme_validations_mesh": int(r1[0, C + 3]),
+            "readme_validations_one_device": int(r1s[0, C + 3]),
+            "lane_steps_mesh": int(rm[0, C + 4]), "idle_lane_steps_mesh": int(rm[0, C + 5]),
+            "engine_mesh": {k: mi[k] for k in ("devices", "buckets", "last_split",
+                                                "min_devices_seen", "dispatches")},
+        }
+        log(f"phase 13 (a): 4096 hard boards, 4-shard virtual mesh vs one device: rows "
+            f"equal, {k1} K1 launches, {out['mesh_call_ms']} vs {out['one_device_call_ms']} "
+            f"ms (host clock, one call each); README in the bucket of 4: "
+            f"{out['readme_validations_mesh']} validations (the plain 4-shard program's) "
+            f"vs {out['readme_validations_one_device']} at width 1 on one device")
+    finally:
+        em.close()
+        es.close()
+    return out
+
+
+def _mesh_node(cs, build_parser, build_node, SolverEngine, oracle_ok) -> dict:
+    """13(b): a CLI node on the 4-shard virtual mesh (SUDOKU_VIRTUAL_MESH
+    from parallel/sim.py's environment) with --mesh-peers 4 --frontier 16.
+    The references (the plain 4-shard engine on the CPU, the one-device
+    engine on this card) answer first; the counts are then set to 0 and
+    read after the node's requests: the mesh path's launches alone."""
+    import numpy as np
+    from sudoku_solver_distributed_tpu_torch.parallel import sim
+
+    key = sim.VIRTUAL_MESH_ENV
+    saved = os.environ.get(key)
+    os.environ[key] = sim.virtual_mesh_env(MESH_SHARDS, device="cuda:0")[key]
+    try:
+        node = _Node(build_parser, build_node,
+                     ["--mesh-peers", str(MESH_SHARDS), "--frontier", str(MESH_FRONTIER),
+                      "--metrics", "--no-answer-cache", "--batch-api"])
+    finally:
+        if saved is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = saved
+    eng = node.node.engine
+    deep = load_corpus("corpus_9x9_deep_128.npz")[:MESH_DEEP_BOARDS]
+    plain = SolverEngine(device="cpu", mesh=_mesh("cpu"), frontier_mesh="auto",
+                         frontier_states_per_device=MESH_FRONTIER, coalesce=False)
+    single = SolverEngine(coalesce=False)
+    out = {}
+    try:
+        check(eng.mesh is not None and eng.mesh.size == MESH_SHARDS
+              and eng.race_mesh is eng.mesh, "13(b): the node is not on the 4-shard mesh")
+        # the README /solve: the auto route's probe answers it, one K1 call
+        # at the mesh-rounded width 4 (the serving waves), as the plain
+        # 4-shard engine's probe does
+        p0 = plain.validations
+        plain.solve_one(README_PUZZLE)
+        out["readme_probe_validations"] = plain.validations - p0
+        want = []
+        for board in deep:
+            p0 = plain.validations
+            _, pinfo = plain.solve_one(board.tolist())
+            ssol, _ = single.solve_one(board.tolist(), frontier=False)
+            want.append((plain.validations - p0, pinfo, ssol))
+        batch_sols, _, batch_info = single.solve_batch_np(deep)
+        for k in MESH_PATH_KERNELS:
+            getattr(cs, k).launches = 0
+        out["readme_p50_ms"] = node.readme_p50(
+            "13(b) 4-shard virtual-mesh node", oracle_ok,
+            per_answer=out["readme_probe_validations"])
+        # the bucket path's own README: the continuous pool over the mesh
+        # (K3 + K3b a shard), the serving waves at every width: 109 each
+        for _ in range(4):
+            sol, info = eng.solve_one(README_PUZZLE, frontier=False)
+            _check_answer(README_PUZZLE, sol, oracle_ok, "13(b) README on the mesh pool")
+            check(info["validations"] == 109 and info["routed"] == "continuous",
+                  f"13(b): the README on the mesh pool: {info}")
+        races, ok = [], 0
+        for k, board in enumerate(deep):
+            v0 = node.validations()
+            status, body, _ = _http(node.base, "/solve",
+                                    json.dumps({"sudoku": board.tolist()}).encode())
+            grew = node.validations() - v0
+            sol = json.loads(body)
+            _check_answer(board, sol, oracle_ok, f"13(b) deep #{k} /solve")
+            pvalid, pinfo, ssol = want[k]
+            check(sol == ssol, f"13(b): deep #{k}'s grid differs from one device's")
+            check(grew == pvalid and pinfo.get("frontier") is True,
+                  f"13(b): deep #{k} /solve counted {grew} validations, the plain "
+                  f"4-shard mesh {pvalid} ({pinfo})")
+            races.append({"validations": grew, "seeded": pinfo.get("seeded")})
+        v0 = node.validations()
+        status, body, _ = _http(node.base, "/solve_batch",
+                                json.dumps({"sudokus": deep.tolist()}).encode())
+        check(status == 200, f"13(b): /solve_batch answered {status}")
+        grew = node.validations() - v0
+        got = json.loads(body)["solutions"]
+        check(got == batch_sols.tolist() and grew == batch_info["validations"],
+              f"13(b): the bucket route's deep answers or counters differ ({grew} vs "
+              f"{batch_info['validations']})")
+        metrics = json.loads(_http(node.base, "/metrics")[1])
+        mesh_block = metrics["engine"]["mesh"]
+        check(mesh_block["devices"] == MESH_SHARDS
+              and mesh_block["buckets"] == [4, 8, 64, 512, 4096]
+              and mesh_block["runner_dispatches"] == 0, f"13(b): engine.mesh {mesh_block}")
+        network = json.loads(_http(node.base, "/network")[1])
+        me = node.node.id
+        check([p for p in network.get(me, []) if "/tpu" in p]
+              == [f"{me}/tpu{k}" for k in range(MESH_SHARDS)],
+              f"13(b): /network {network}")
+        out["launches"] = {k: getattr(cs, k).launches for k in MESH_PATH_KERNELS}
+        # a race across the 4 shards runs K4's shard form, never the
+        # one-shard K4 (dfs_race, counted here all the same)
+        check(all(v > 0 for k, v in out["launches"].items() if k != "dfs_race"),
+              f"13(b): the mesh path did not launch every kernel: {out['launches']}")
+        out.update(deep_race=races, batch_validations=grew, engine_mesh=mesh_block)
+        log(f"phase 13 (b): mesh node: README p50 {out['readme_p50_ms']:.3f} ms at 109 "
+            f"validations each; deep /solve raced across {MESH_SHARDS} shards "
+            f"{races} (the plain 4-shard mesh's counters, one device's grids); "
+            f"/solve_batch of {len(deep)} deep boards on the mesh bucket path: "
+            f"{grew} validations; launches {out['launches']}; /network pseudo-peers ok")
+    finally:
+        node.stop()
+        plain.close()
+        single.close()
+    return out
+
+
+def _event_ms(fn, reps: int, spin_s: float = 2e-3, after=None) -> list:
+    """Device time of each of ``reps`` calls of ``fn``, by CUDA events on
+    the current stream around it, each call enqueued behind a device spin
+    of ``spin_s`` so the host's enqueue is off the clock; ``after`` runs
+    once each call has finished, off the clock."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(spin_s * SM_CLOCK_HZ))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if after is not None:
+            after()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _fold_bound_ms(M: int, cells: int):
+    """The fold's least time: its bytes (each record read, each state's
+    fold and the row written, the winner's grid read) over the HBM rate; a
+    few integer operations a record is far below that."""
+    words = M * 4 + M * 2 + cells + 3 + cells
+    return words * 4 / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _mesh_race(cs, F, spec_for_size, config, seed: int) -> dict:
+    """13(c): the race across 4 shards of cuda:0 (K4's shard form on each
+    shard's stream, the fold kernel) against the plain race on phase 11's
+    sets, and each state whose shard-form run ended by t* against K1's run
+    of it to its own end; the time of the shard launches alone and with
+    the fold against the one-shard race of the same padded states, each
+    shard's steps past t*, the shard launches of the first set against
+    their plain version (``race_runs`` a shard) and their bound, and the
+    fold kernel alone against its plain version. Restores the counters."""
+    import numpy as np
+    import torch
+    from sudoku_solver_distributed_tpu_torch.ops.solver import race_runs
+
+    counts = {k: getattr(cs, k).launches for k in MESH_PATH_KERNELS}
+    mesh = _mesh()
+    s0 = mesh.streams[0]
+    streams = list(mesh.streams)
+    slots = F.mesh_race_slots(mesh)
+    sets = frontier_race_sets(F, spec_for_size, seed)
+    out = {"mismatches": 0, "max_abs_err": 0, "sets": {}}
+    fold_rec = shard_rec = None
+    for name, board, spec, states, max_iters, target in sets:
+        sweeps = sweeps_of(config(spec.size))
+        depth, C, M = spec.max_depth, spec.cells, len(states)
+        flat = torch.as_tensor(states.reshape(M, C), device="cuda").contiguous()
+        prow, pfold, pmeta = cs._dfs_race_plain(flat, spec, depth, max_iters, **sweeps)
+        _, own = cs.dfs_solver(flat, spec, depth, max_iters, **sweeps)
+
+        def race():
+            s0.wait_stream(torch.cuda.current_stream())
+            return F.race_on_mesh(states, mesh, spec, depth, max_iters, **sweeps)
+
+        krow, kfold, kmeta = race()
+        torch.cuda.synchronize()
+        bad, err = _race_diffs((krow, kfold), (prow, pfold))
+        steps = kmeta[:, 1].cpu().numpy()
+        status = kmeta[:, 0].cpu().numpy()
+        solved = status == 1
+        t_star = int(steps[solved].min()) if solved.any() else int(steps.max())
+        traj_bad, ended = race_trajectory_diffs(kmeta, own, t_star)
+        bad += traj_bad
+        out["mismatches"] += bad
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        per = M // MESH_SHARDS
+        past = [max(0, int(steps[i * per:(i + 1) * per].max()) - t_star)
+                for i in range(MESH_SHARDS)]
+        parts = [flat[i * per:(i + 1) * per].contiguous() for i in range(MESH_SHARDS)]
+
+        def shards():
+            cur = torch.cuda.current_stream()
+            for st in streams:
+                st.wait_stream(cur)
+            cs.dfs_race_shards(parts, spec, depth, max_iters, streams=streams,
+                               slots=slots.address, **sweeps)
+            for st in streams:
+                cur.wait_stream(st)
+
+        # no fold follows, so the slots are set idle after each call
+        with slots.lock:
+            shard_ms = _event_ms(shards, 5, after=slots.idle)
+        mesh_ms = _event_ms(race, 5)
+        one_ms = _event_ms(lambda: cs.dfs_race(flat, spec, depth, max_iters, **sweeps), 5)
+        rec = {"states": M, "t_star": t_star, "steps_past_t_star_by_shard": past,
+               "shards_ms": float(np.median(shard_ms)),
+               "k4_and_fold_ms": float(np.median(mesh_ms)),
+               "one_shard_ms": float(np.median(one_ms)), "mismatches": bad,
+               "trajectory_mismatches": traj_bad, "ended_by_t_star": ended}
+        out["sets"][name] = rec
+        log(f"phase 13 (c) {name}: {M} states over {MESH_SHARDS} shards: {bad} mismatches "
+            f"vs the plain race ({traj_bad} of the {ended} states ended by t* differ from "
+            f"K1's run); K4's shard form x{MESH_SHARDS} {rec['shards_ms']:.4f} ms, with "
+            f"the fold {rec['k4_and_fold_ms']:.4f} ms, vs one-shard K4 "
+            f"{rec['one_shard_ms']:.4f} ms (CUDA events, medians of 5); t* {t_star}, "
+            f"steps past t* by shard {past}")
+        if shard_rec is None:
+            knobs = cs.sweep_knobs(spec, **sweeps)
+            N = spec.size
+            plain_ms = _cuda_ms(lambda: [race_runs(p.reshape(per, N, N), spec, max_iters,
+                                                   depth, **knobs) for p in parts], 1)
+            bound, by = _race_bound_ms(flat, pfold, C, sweeps["locked_candidates"])
+            shard_rec = {"set": name, "states": M, "ms": rec["shards_ms"],
+                         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+            log(f"phase 13 (c) {name}: the shard launches {rec['shards_ms']:.4f} ms vs "
+                f"their plain version (race_runs a shard, on the card) {plain_ms:.1f} ms; "
+                f"bound {bound:.6f} ms ({by})")
+        if name == "README @512":
+            grid0 = torch.zeros((M, C), dtype=torch.int32, device="cuda")
+            meta_d = kmeta.contiguous()
+            frow, ffold = cs.race_fold(meta_d, grid0, spec, sweeps["waves"])
+            pr, pf = cs.fold_race(meta_d, grid0, spec, sweeps["waves"])
+            torch.cuda.synchronize()
+            fbad, ferr = _race_diffs((frow, ffold), (pr, pf))
+            out["mismatches"] += fbad
+            out["max_abs_err"] = max(out["max_abs_err"], ferr)
+            bound, by = _fold_bound_ms(M, C)
+            fold_rec = {
+                "states": M, "mismatches": fbad, "max_abs_err": ferr,
+                "ms": _cuda_ms(lambda: cs.race_fold(meta_d, grid0, spec, sweeps["waves"]), 50),
+                "plain_ms": _cuda_ms(lambda: cs.fold_race(meta_d, grid0, spec,
+                                                           sweeps["waves"]), 5),
+                "bound_ms": bound, "bound_by": by,
+            }
+            log(f"phase 13 (c): the fold kernel alone over {M} records: "
+                f"{fold_rec['ms']:.4f} ms (CUDA events, mean of 50) vs the plain fold "
+                f"{fold_rec['plain_ms']:.4f} ms; bound {bound:.6f} ms ({by}); "
+                f"{fbad} mismatches")
+    check(out["mismatches"] == 0, f"13(c): {out['mismatches']} race mismatches")
+    check(fold_rec is not None, "13(c): the README @512 set is missing")
+    out["fold"] = fold_rec
+    out["shard"] = shard_rec
+    for k, v in counts.items():
+        getattr(cs, k).launches = v
+    return out
+
+
+# 13(d): one rank of a serving loop on this card: a mesh engine over this
+# rank's shards (SUDOKU_VIRTUAL_MESH), the ladder rounded to the global 4
+# shards; rank 0 solves a batch through the fan-out and races the README
+# across every rank. argv: rank, world, port, backend, boards, README.
+_LOOP_CHILD = r"""
+import json, sys, time
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, port, backend = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+t0 = time.perf_counter()
+dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank, timeout=timedelta(seconds=120))
+from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs
+from sudoku_solver_distributed_tpu_torch.parallel import FrontierServingLoop, default_mesh
+
+mesh = default_mesh()
+eng = SolverEngine(mesh=mesh, buckets=(4, 8), coalesce=False, bucket_multiple=4)
+loop = FrontierServingLoop(mesh, eng.spec, states_per_device=8, max_depth=eng.max_depth,
+                           locked=eng.locked_candidates, waves=eng.waves,
+                           naked_pairs=eng.naked_pairs, collective_timeout_s=120,
+                           allow_gloo_on_cuda=backend == "gloo")
+loop.enable_batch_fanout(eng)
+loop.start(warm_race=False)
+if rank == 0:
+    loop.warm_batch_fanout(eng.buckets[0], eng.max_iters)
+    eng.mesh_runner = loop.solve_padded
+    boards = np.asarray(json.loads(sys.argv[5]), np.int32)
+    t1 = time.perf_counter()
+    sols, mask, info = eng.solve_batch_np(boards)
+    t2 = time.perf_counter()
+    race = loop.solve(np.asarray(json.loads(sys.argv[6]), np.int32))
+    t3 = time.perf_counter()
+    out = {"sols": sols.tolist(), "info": info, "race": race,
+           "backend": loop.backend, "collective_device": str(loop._collective_device),
+           "batch_ms": (t2 - t1) * 1e3, "race_ms": (t3 - t2) * 1e3,
+           "start_s": t1 - t0, "batches": loop.health()["batches"],
+           "launches": {"dfs_solver": cs.dfs_solver.launches,
+                        "dfs_race": cs.dfs_race.launches,
+                        "dfs_race_shards": cs.dfs_race_shards.launches,
+                        "race_fold": cs.race_fold.launches}}
+    loop.stop()
+    print(json.dumps(out), flush=True)
+else:
+    loop.join(timeout=300)
+    print(json.dumps({"follower": True, "launches": {
+        "dfs_solver": cs.dfs_solver.launches, "dfs_race": cs.dfs_race.launches,
+        "dfs_race_shards": cs.dfs_race_shards.launches}}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _loop_run(world: int, backend: str, boards, timeout_s: float = 240.0) -> list:
+    """Run ``world`` ranks of ``_LOOP_CHILD`` on this card, each on a
+    virtual mesh of 4 / world shards; returns each rank's JSON line."""
+    from sudoku_solver_distributed_tpu_torch.parallel import sim
+
+    port = _free_port()
+    env = sim.virtual_mesh_env(MESH_SHARDS // world, device="cuda:0")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _LOOP_CHILD, str(r), str(world), str(port), backend,
+         json.dumps(boards.tolist()), json.dumps(README_PUZZLE)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        check(p.returncode == 0, f"13(d) {backend} x{world}: a rank failed:\n{o[-3000:]}")
+    return [json.loads([ln for ln in o.splitlines() if ln.startswith("{")][-1]) for o in outs]
+
+
+def _mesh_loop(SolverEngine, oracle_ok) -> dict:
+    """13(d): FrontierServingLoop on a one-rank NCCL group (4 shards), then
+    two ranks on a gloo group on this card (2 shards each), the gloo
+    group asked for here (``allow_gloo_on_cuda``), never chosen by the
+    loop. The batch's grids equal one device's, its counters and the
+    race's (the README board has many solutions) equal the plain versions
+    over 4 shards, which the CPU two-process test holds to the JAX
+    package's."""
+    import numpy as np
+    from sudoku_solver_distributed_tpu_torch.models import generate_batch
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    boards = generate_batch(6, 55, seed=43)
+    cpu = SolverEngine(device="cpu", buckets=(4, 8), coalesce=False)
+    single = SolverEngine(buckets=(4, 8), coalesce=False)
+    try:
+        _, _, want_info = cpu.solve_batch_np(boards)
+        want_sols, _, _ = single.solve_batch_np(boards)
+        want_race = F.frontier_solve(
+            np.asarray(README_PUZZLE), _mesh("cpu"), cpu.spec, states_per_device=8,
+            max_depth=cpu.max_depth, locked=cpu.locked_candidates, waves=cpu.waves,
+            naked_pairs=cpu.naked_pairs)
+    finally:
+        cpu.close()
+        single.close()
+    out = {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        lead = _loop_run(world, backend, boards)[0]
+        wall = time.perf_counter() - t0
+        check(lead["sols"] == want_sols.tolist() and lead["info"] == want_info,
+              f"13(d) {backend} x{world}: the fan-out's answers {lead['info']} differ "
+              f"from {want_info}")
+        # the README board has many solutions: the race's is the plain race's
+        # over as many shards (the lowest-index solved state's), not K1's
+        _check_answer(README_PUZZLE, lead["race"][0], oracle_ok, f"13(d) {backend} race")
+        check(lead["race"] == list(want_race),
+              f"13(d) {backend} x{world}: the race {lead['race'][1]} differs from "
+              f"{want_race[1]}")
+        check(lead["backend"] == backend, f"13(d): the loop ran on {lead['backend']}")
+        out[f"{backend}_x{world}"] = {k: lead[k] for k in (
+            "info", "backend", "collective_device", "batch_ms", "race_ms", "start_s",
+            "batches", "launches")} | {"race_info": lead["race"][1], "wall_s": wall}
+        log(f"phase 13 (d) {backend} x{world}: fan-out of 6 boards {lead['batch_ms']:.1f} ms, "
+            f"README race {lead['race_ms']:.1f} ms (host clock, leader), {lead['race'][1]}; "
+            f"counters {lead['info']}; collectives on {lead['collective_device']}; "
+            f"{wall:.1f} s with the ranks' start")
+    return out
+
+
+# 13(e): a resumable batch on the 4-shard virtual mesh, SIGKILLed by the
+# parent once its first snapshot lands
+_MESH_RESUMABLE_CHILD = r"""
+import sys
+import numpy as np
+from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+with np.load(sys.argv[1]) as d:
+    boards = d["boards"][: int(sys.argv[4])].astype(np.int32)
+eng = SolverEngine(mesh="auto", coalesce=False)
+assert eng.mesh is not None and eng.mesh.size == 4, eng.mesh
+print("solving", flush=True)
+eng.solve_batch_resumable_np(boards, sys.argv[2], chunk_iters=int(sys.argv[3]))
+print("finished", flush=True)
+"""
+
+
+def _mesh_resumable(SolverEngine) -> dict:
+    """13(e): hard boards in chunks on the 4-shard virtual mesh, killed as
+    its first snapshot lands, resumed on one device to the rows of an
+    uninterrupted one-device run."""
+    import numpy as np
+    from sudoku_solver_distributed_tpu_torch.parallel import sim
+
+    n = MESH_RESUMABLE_BOARDS
+    boards = load_corpus("corpus_9x9_hard_4096.npz")[:n]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ck_") as tmp:
+        path = os.path.join(tmp, "batch.npz")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _MESH_RESUMABLE_CHILD,
+             os.path.join(ROOT, "benchmarks", "corpus_9x9_hard_4096.npz"), path,
+             str(DURABLE_CHUNK_ITERS), str(n)],
+            env=sim.virtual_mesh_env(MESH_SHARDS, device="cuda:0"), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        try:
+            _wait(lambda: os.path.exists(path) or proc.poll() is not None, 180.0,
+                  "13(e)'s first snapshot")
+            killed = proc.poll() is None
+            proc.kill()
+            log_out = proc.communicate(timeout=30)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(killed and os.path.exists(path),
+              f"13(e): the mesh child finished before its kill:\n{log_out[-2000:]}")
+        snap = dict(np.load(path))
+        eng = SolverEngine(coalesce=False)
+        try:
+            sols, mask, info = eng.solve_batch_resumable_np(
+                boards, path, chunk_iters=DURABLE_CHUNK_ITERS)
+            ref = eng.solve_batch_resumable_np(
+                boards, os.path.join(tmp, "ref.npz"), chunk_iters=DURABLE_CHUNK_ITERS)
+        finally:
+            eng.close()
+        check(np.array_equal(sols, ref[0]) and np.array_equal(mask, ref[1])
+              and info == ref[2], "13(e): the resumed rows differ from the uninterrupted run")
+    out = {"boards": n, "snapshot_iters": int(snap["iters"]), "validations": info["validations"],
+           "guesses": info["guesses"]}
+    log(f"phase 13 (e): {n} hard boards on the 4-shard mesh killed at the snapshot of step "
+        f"{out['snapshot_iters']}, resumed on one device: equal to the uninterrupted run "
+        f"({info})")
+    return out
+
+
+def phase_mesh(cs, build_parser, build_node, SolverEngine, spec_for_size, config,
+               oracle_ok, seed: int) -> dict:
+    """Phase 13: the mesh plane on one card, a 4-shard virtual mesh."""
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    marks, out = {}, {}
+    for key, fn in (
+        ("engine", lambda: _mesh_engine(cs, SolverEngine, oracle_ok)),
+        ("node", lambda: _mesh_node(cs, build_parser, build_node, SolverEngine, oracle_ok)),
+        ("race", lambda: _mesh_race(cs, F, spec_for_size, config, seed)),
+        ("loop", lambda: _mesh_loop(SolverEngine, oracle_ok)),
+        ("resumable", lambda: _mesh_resumable(SolverEngine)),
+    ):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        marks[key] = round(time.perf_counter() - t0, 1)
+    out["seconds"] = marks
+    log(f"phase 13 seconds by part: {marks}")
+    return out
+
+
 def card_name_and_power_limit() -> str:
+    return card_name_and_power_limit_all()[0]
+
+
+def card_name_and_power_limit_all() -> list:
+    """Every card's ``name, power.limit`` line, as nvidia-smi prints them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
 
 
 def ptxas_report(build_log: str, label: str = "ptxas"):
@@ -4250,7 +4845,8 @@ def ptxas_report(build_log: str, label: str = "ptxas"):
     for line in build_log.splitlines():
         m = re.search(
             r"Compiling entry function '\S*?(dfs_solver_kernel|dfs_segment_kernel|"
-            r"segment_digest_kernel|dfs_race_kernel|race_fold_kernel)(?:ILi(\d)E)?",
+            r"segment_digest_kernel|dfs_race_kernel|dfs_race_shard_kernel|race_fold_kernel)"
+            r"(?:ILi(\d)E)?",
             line
         )
         if m:
@@ -4318,7 +4914,7 @@ def main(argv=None) -> int:
     build_log = cs.build_log()
     check(build_log is not None, "the kernel store kept no build log")
     ptxas = ptxas_report(build_log)
-    for kernel in ("dfs_solver_kernel", *SEGMENT_KERNELS, *RACE_KERNELS):
+    for kernel in ("dfs_solver_kernel", *SEGMENT_KERNELS, *RACE_KERNELS, *MESH_RACE_KERNELS):
         for size in (4, 9, 16, 25):
             key = f"{kernel} {size}x{size}"
             inst = ptxas.get(key, {})
@@ -4391,6 +4987,9 @@ def main(argv=None) -> int:
     durability = phase_durability(cs, ts, SolverEngine, spec_for_size, serving_config,
                                   oracle_is_valid_solution, count_solutions)
     _mark("phase_durability")
+    mesh = phase_mesh(cs, build_parser, build_node, SolverEngine, spec_for_size, config,
+                      oracle_is_valid_solution, args.seed)
+    _mark("phase_mesh")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; seconds by phase {marks}")
     print(json.dumps({"cache_supervision": {
@@ -4415,6 +5014,8 @@ def main(argv=None) -> int:
     print(json.dumps({"p2p": dict(p2p, card=card)}), flush=True)
     print(json.dumps({"frontier": dict(frontier, card=card)}), flush=True)
     print(json.dumps({"durability": dict(durability, card=card)}), flush=True)
+    print(json.dumps({"mesh": dict(mesh, card=card)}), flush=True)
+    on_mesh = mesh["node"]["launches"]
     on_durable = {
         "resumable": durability["resumable"]["launches"],
         "generator": durability["generator"]["launches"],
@@ -4463,6 +5064,8 @@ def main(argv=None) -> int:
         # phase 12's paths: K1 solves the generated boards; an engine's
         # warm-up verifies a stored library at every bucket width
         **{f"launches_{k}_path": v["dfs_solver"] for k, v in on_durable.items()},
+        # phase 13's 4-shard virtual-mesh node (probes, /solve_batch)
+        "launches_mesh_path": on_mesh["dfs_solver"],
         "launches_per_readme_solve": main_path["per_readme_closed"],
         "mismatches": mismatches + timing["mismatches"],
         "max_abs_err": max(max_abs_err, timing["max_abs_err"]),
@@ -4509,6 +5112,8 @@ def main(argv=None) -> int:
             "launches_p2p_path": p2p["launches"]["dfs_segment"],
             "launches_p2p_farm": p2p["launches_farm"]["dfs_segment"],
             "launches_frontier_path": on_frontier["dfs_segment"],
+            # phase 13's mesh node: its README on the mesh pool, a launch a shard
+            "launches_mesh_path": on_mesh["dfs_segment"],
             # phase 12's paths: one segment a resumable chunk; the pool's
             # warm-up verification in each 12(a) engine child
             **{f"launches_{k}_path": v["dfs_segment"] for k, v in on_durable.items()},
@@ -4568,10 +5173,63 @@ def main(argv=None) -> int:
             for k, v in frontier["sets"].items()
         },
         "frontier_node": frontier["node"],
-        "ptxas": {k: v for k, v in ptxas.items()
-                  if k.startswith(RACE_KERNELS)},
+        # phase 13's mesh node races across its 4 shards in K4's shard
+        # form (its own entry below), so this is 0 there
+        "launches_mesh_path": on_mesh["dfs_race"],
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith(RACE_KERNELS)},
     }
-    print(json.dumps({"kernels": [kernel, *segment_kernels, race_kernel]}), flush=True)
+    shard = mesh["race"]["shard"]
+    shard_kernel = {
+        "name": "dfs_race_shard_kernel",
+        "route": "cuda",
+        "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
+        # the per-device body of the JAX mesh race (the shard_map'd lockstep
+        # loop with its per-step psum early exit)
+        "replaces": "sudoku_solver_distributed_tpu/parallel/frontier.py:337",
+        # its path is the mesh's: phase 13's node, a launch a shard a race
+        "launches": on_mesh["dfs_race_shards"],
+        "launches_mesh_path": on_mesh["dfs_race_shards"],
+        # the folded races against the plain race, and each state ended by
+        # t* against K1's run of it
+        "mismatches": mesh["race"]["mismatches"],
+        "max_abs_err": mesh["race"]["max_abs_err"],
+        # the 4 shard launches alone (CUDA events, median of 5) on the first
+        # phase 11 set, a 9x9 deep board at 64 (128 states)
+        "ms": shard["ms"],
+        "plain_ms": shard["plain_ms"],
+        "bound_ms": shard["bound_ms"],
+        "bound_by": shard["bound_by"],
+        "library_ms": None,
+        "set": shard["set"],
+        "states": shard["states"],
+        "mesh_race_by_set": mesh["race"]["sets"],
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith(MESH_RACE_KERNELS[0])},
+    }
+    check(shard_kernel["launches"] > 0, "the mesh path launched no shard race kernel")
+    fold = mesh["race"]["fold"]
+    fold_kernel = {
+        "name": "race_fold_kernel",
+        "route": "cuda",
+        "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
+        # the cross-device all_gather + argmax of the JAX mesh race
+        "replaces": "sudoku_solver_distributed_tpu/parallel/frontier.py:359",
+        # its path is the mesh's: phase 13's node, a fold a race
+        "launches": on_mesh["race_fold"],
+        "launches_mesh_path": on_mesh["race_fold"],
+        "mismatches": fold["mismatches"] + mesh["race"]["mismatches"],
+        "max_abs_err": max(fold["max_abs_err"], mesh["race"]["max_abs_err"]),
+        # the fold alone over the README @512 race's 2048 records
+        "ms": fold["ms"],
+        "plain_ms": fold["plain_ms"],
+        "bound_ms": fold["bound_ms"],
+        "bound_by": fold["bound_by"],
+        "library_ms": None,
+        "states": fold["states"],
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith("race_fold_kernel")},
+    }
+    check(fold_kernel["launches"] > 0, "the mesh path launched no fold kernel")
+    print(json.dumps({"kernels": [kernel, *segment_kernels, race_kernel, shard_kernel,
+                                  fold_kernel]}), flush=True)
     print(
         json.dumps(
             {

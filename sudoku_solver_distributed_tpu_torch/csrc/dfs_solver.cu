@@ -109,7 +109,11 @@
 // and the last block to finish folds the blocks' run records into the
 // lockstep race's result, in the same launch. It replaces no Pallas kernel
 // either: the JAX package races in XLA code (parallel/frontier.py:337). Its
-// note below has the design.
+// note below has the design. A race across the shards of a mesh runs K4's
+// shard form (dfs_race_shard_kernel) on every shard, the shards sharing a
+// stop through slots in mapped host memory, and folds every shard's run
+// records in race_fold_kernel (the JAX mesh race's cross-device gather and
+// extraction, parallel/frontier.py:359).
 //
 // Interface: plain C, for ctypes. A launch uses the caller's stream, does
 // not synchronize and allocates nothing; it returns cudaGetLastError().
@@ -1143,13 +1147,55 @@ __device__ __forceinline__ void race_fold(G& grp, const int32_t* meta, const int
   }
 }
 
-template <int BOX>
-__global__ void __launch_bounds__(kRaceThreads[BOX])
-dfs_race_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
-                int32_t* __restrict__ meta, int32_t* __restrict__ fold,
-                int32_t* __restrict__ row, int8_t* __restrict__ stack_grid,
-                int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
-                unsigned* scratch, int M, int D, int max_iters, int waves, int options) {
+// The stop of one shard of a race across shards (dfs_race_shard_kernel):
+// RacePoll's poll of the shard-local stop word, one a boundary, and a
+// relay from the race's slots (one a shard, in page-locked host memory
+// mapped into every device) into that word. Reads of mapped host memory
+// cross PCIe and the link serves them one after another, so a read by
+// every block at every boundary (tried first) stalled each step of a
+// 2048-state race for ~1.8 ms. Here thread 0 of a block reads the slots at
+// a boundary only in its turn: block b when steps + 8 b is a multiple of
+// 8 x the shard's blocks still running (the ticket count says how many
+// have finished), rounded up to a power of two, so the shard's running
+// blocks read about once every 8 steps between them, however many have
+// ended; the least posted step goes into the shard's stop word with
+// atomicMin, where every block of the shard sees it at its next boundary.
+// Every posted step is at least t*, so the stop word is too.
+struct RaceShardPoll {
+  volatile unsigned* stop;  // stop[0]: the shard's stop step; stop[1]: tickets
+  const volatile unsigned* slots;
+  int n, t, b;
+  unsigned blocks;
+  unsigned seen;  // thread 0: the stop word as of the previous boundary
+  unsigned done;  // thread 0: the tickets as of the previous boundary
+  __device__ __forceinline__ bool operator()(int steps) {
+    const bool halt = __syncthreads_or(t == 0 && (unsigned)steps > seen) != 0;
+    if (t == 0) {
+      unsigned period = 8;
+      while (period < 8u * (blocks - min(done, blocks - 1))) period <<= 1;
+      seen = stop[0];
+      done = stop[1];
+      if ((((unsigned)steps + 8u * (unsigned)b) & (period - 1)) == 0) {
+        unsigned posted = kNoKey;
+        for (int k = 0; k < n; ++k) posted = min(posted, slots[k]);
+        if (posted < seen) atomicMin(const_cast<unsigned*>(stop), posted);
+      }
+    }
+    return halt;
+  }
+};
+
+// One state of a race, a thread block: the body of K4 (kShard false: the
+// last block folds) and of its shard form (kShard true: the block also
+// posts a solve to its shard's slot and polls every shard's; nobody folds
+// here, race_fold_kernel does once every shard has run).
+template <int BOX, bool kShard>
+__device__ __forceinline__ void race_block(
+    const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
+    int32_t* __restrict__ meta, int32_t* __restrict__ fold, int32_t* __restrict__ row,
+    int8_t* __restrict__ stack_grid, int32_t* __restrict__ stack_cell,
+    int32_t* __restrict__ stack_mask, unsigned* scratch, unsigned* slots, int n_slots,
+    int shard, int M, int D, int max_iters, int waves, int options) {
   constexpr int T = kRaceThreads[BOX];
   using G = BlockGroup<T>;
   using Geo = Geometry<BOX, T>;
@@ -1182,9 +1228,24 @@ dfs_race_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_o
   }
 
   Search s{kRunning, 0, 0, 0, 0, 0, 0};
-  search<BOX>(g, pk, uw, sh, grp, sg, sc, sm, D, max_iters, waves, options, s,
-              RacePoll{scratch, t, kNoKey});
-  if (s.status == kSolved && t == 0) atomicMin(scratch, (unsigned)s.steps);
+  if constexpr (kShard) {
+    search<BOX>(g, pk, uw, sh, grp, sg, sc, sm, D, max_iters, waves, options, s,
+                RaceShardPoll{scratch, slots, n_slots, t, i, gridDim.x, kNoKey, 0});
+    if (s.status == kSolved && t == 0) {
+      // post the shard's earliest solve so far to its slot: no atomic
+      // crosses devices; two posts of one shard may land out of order,
+      // which leaves a later (still >= t*) step there, never a wrong stop
+      const unsigned old = atomicMin(scratch, (unsigned)s.steps);
+      if ((unsigned)s.steps < old) {
+        reinterpret_cast<volatile unsigned*>(slots)[shard] = (unsigned)s.steps;
+        __threadfence_system();
+      }
+    }
+  } else {
+    search<BOX>(g, pk, uw, sh, grp, sg, sc, sm, D, max_iters, waves, options, s,
+                RacePoll{scratch, t, kNoKey});
+    if (s.status == kSolved && t == 0) atomicMin(scratch, (unsigned)s.steps);
+  }
   // the closing analysis of a state stopped RUNNING (uniform over the block)
   const int complete =
       s.status == kRunning && value_pass<BOX>(g, uw, sh.cm, sh.uo, grp) == 0;
@@ -1209,12 +1270,61 @@ dfs_race_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_o
   __syncthreads();
   if (!last) return;  // uniform over the block
   __threadfence();
-  race_fold<BOX>(grp, meta, grid_out, fold, row, M, waves);
+  if constexpr (!kShard) race_fold<BOX>(grp, meta, grid_out, fold, row, M, waves);
   if (t == 0) {
     // every block has taken its ticket, so none reads the stop word again
     scratch[0] = kNoKey;
     scratch[1] = 0;
   }
+}
+
+template <int BOX>
+__global__ void __launch_bounds__(kRaceThreads[BOX])
+dfs_race_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
+                int32_t* __restrict__ meta, int32_t* __restrict__ fold,
+                int32_t* __restrict__ row, int8_t* __restrict__ stack_grid,
+                int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
+                unsigned* scratch, int M, int D, int max_iters, int waves, int options) {
+  race_block<BOX, false>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
+                         stack_mask, scratch, nullptr, 0, 0, M, D, max_iters, waves,
+                         options);
+}
+
+// K4 over one shard's states of a race across shards: each state's run
+// record and grid, for race_fold_kernel. `slots` (n_slots words, one a
+// shard, mapped host memory) carries every shard's earliest solve; this
+// shard posts to slots[shard].
+template <int BOX>
+__global__ void __launch_bounds__(kRaceThreads[BOX])
+dfs_race_shard_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
+                      int32_t* __restrict__ meta, int8_t* __restrict__ stack_grid,
+                      int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
+                      unsigned* scratch, unsigned* slots, int n_slots, int shard, int M,
+                      int D, int max_iters, int waves, int options) {
+  race_block<BOX, true>(states, grid_out, meta, nullptr, nullptr, stack_grid, stack_cell,
+                        stack_mask, scratch, slots, n_slots, shard, M, D, max_iters,
+                        waves, options);
+}
+
+// The fold of a race across shards: one block over every shard's run
+// records, gathered in global state order on one device (race_fold, the
+// argument of ops/solver.py fold_race: each shard's blocks stopped at some
+// posted step, every one of them at least t*). It then sets the race's
+// slots idle for the next race over them; the wrapper orders every
+// shard's next launch after this kernel.
+template <int BOX>
+__global__ void __launch_bounds__(kRaceThreads[BOX])
+race_fold_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__ grid,
+                 int32_t* __restrict__ fold, int32_t* __restrict__ row, unsigned* slots,
+                 int n_slots, int M, int waves) {
+  constexpr int T = kRaceThreads[BOX];
+  using G = BlockGroup<T>;
+  __shared__ unsigned red[G::kRedWords];
+  const int t = threadIdx.x;
+  G grp{t, red, 0};
+  race_fold<BOX>(grp, meta, grid, fold, row, M, waves);
+  for (int i = t; i < n_slots; i += T) reinterpret_cast<volatile unsigned*>(slots)[i] = kNoKey;
+  __threadfence_system();
 }
 
 template <int BOX>
@@ -1266,7 +1376,10 @@ int launch_segment(const void* boards, int n_boards, const void* src, const Pool
 template <int BOX>
 cudaError_t race_smem_opt_in(size_t bytes) {
   if (bytes <= 32 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(dfs_race_kernel<BOX>,
+  const cudaError_t err = cudaFuncSetAttribute(
+      dfs_race_kernel<BOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(dfs_race_shard_kernel<BOX>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
@@ -1288,6 +1401,36 @@ int launch_race(const void* states, void* grid_out, void* meta, void* fold, void
       static_cast<int8_t*>(stack_grid), static_cast<int32_t*>(stack_cell),
       static_cast<int32_t*>(stack_mask), static_cast<unsigned*>(scratch), M, D, max_iters,
       waves, options);
+  return (int)cudaGetLastError();
+}
+
+template <int BOX>
+int launch_race_shard(const void* states, void* grid_out, void* meta, void* stack_grid,
+                      void* stack_cell, void* stack_mask, void* scratch, void* slots,
+                      int n_slots, int shard, int M, int D, int max_iters, int waves,
+                      int options, cudaStream_t stream) {
+  if (D > Geometry<BOX>::C) D = Geometry<BOX>::C;
+  const size_t smem = race_stack_bytes<BOX>(D);
+  if (!kRaceOnChip<BOX> && (!stack_grid || !stack_cell || !stack_mask))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = race_smem_opt_in<BOX>(smem);
+  if (err != cudaSuccess) return (int)err;
+  dfs_race_shard_kernel<BOX><<<M, kRaceThreads[BOX], smem, stream>>>(
+      static_cast<const int32_t*>(states), static_cast<int32_t*>(grid_out),
+      static_cast<int32_t*>(meta), static_cast<int8_t*>(stack_grid),
+      static_cast<int32_t*>(stack_cell), static_cast<int32_t*>(stack_mask),
+      static_cast<unsigned*>(scratch), static_cast<unsigned*>(slots), n_slots, shard, M, D,
+      max_iters, waves, options);
+  return (int)cudaGetLastError();
+}
+
+template <int BOX>
+int launch_race_fold(const void* meta, const void* grid, void* fold, void* row, void* slots,
+                     int n_slots, int M, int waves, cudaStream_t stream) {
+  race_fold_kernel<BOX><<<1, kRaceThreads[BOX], 0, stream>>>(
+      static_cast<const int32_t*>(meta), static_cast<const int32_t*>(grid),
+      static_cast<int32_t*>(fold), static_cast<int32_t*>(row),
+      static_cast<unsigned*>(slots), n_slots, M, waves);
   return (int)cudaGetLastError();
 }
 
@@ -1470,6 +1613,90 @@ int dfs_race_launch(const void* states, void* grid_out, void* meta, void* fold, 
     return launch_race<decltype(b)::value>(states, grid_out, meta, fold, row, stack_grid,
                                            stack_cell, stack_mask, stop, M, D, max_iters,
                                            waves, options, s);
+  });
+}
+
+// The slots of races across shards: n words of page-locked host memory,
+// portable and mapped into every device, set idle (0xffffffff). Returns
+// the device address (the same on every device under unified addressing)
+// through *out, the host address through *host_out (where the wrapper
+// sets the slots idle itself after a race that never reached its fold),
+// and a cudaError_t. Never freed: the wrapper keeps one set for each set
+// of shard streams for the life of the process.
+int dfs_race_slots_alloc(int n, void** out, void** host_out) {
+  if (n <= 0 || !out || !host_out) return (int)cudaErrorInvalidValue;
+  void* host = nullptr;
+  cudaError_t err = cudaHostAlloc(&host, (size_t)n * sizeof(unsigned),
+                                  cudaHostAllocPortable | cudaHostAllocMapped);
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; i < n; ++i) static_cast<volatile unsigned*>(host)[i] = kNoKey;
+  err = cudaHostGetDevicePointer(out, host, 0);
+  if (err != cudaSuccess) {
+    cudaFreeHost(host);
+    return (int)err;
+  }
+  *host_out = host;
+  return (int)err;
+}
+
+// The launches of a race across n shards, all from one call, so they are
+// enqueued microseconds apart (one launch a shard from Python took tens of
+// microseconds each, and the first shards ran their states to their own
+// ends before the last was enqueued). Shard i: M states at states[i] on
+// device devices[i], launched on streams[i] with its two-word scratch
+// stop[i]; grid_out[i] (M, C) and meta[i] (M, 4) its run records for
+// dfs_race_fold_launch; stack_grid[i], stack_cell[i], stack_mask[i] its
+// slab where the box keeps the stack off chip (else null). slots: the
+// race's n words from dfs_race_slots_alloc, idle before the race. box,
+// D, max_iters, waves and options as for dfs_race_launch. Leaves the
+// caller's current device as it found it. Returns a cudaError_t.
+int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_out,
+                           void* const* meta, void* const* stack_grid,
+                           void* const* stack_cell, void* const* stack_mask,
+                           void* const* stop, void* slots, const int* devices,
+                           void* const* streams, int M, int box, int D, int max_iters,
+                           int waves, int options) {
+  if (n <= 0 || M <= 0 || D <= 0 || max_iters < 0 || waves < 1 || (options & ~7) || !slots)
+    return (int)cudaErrorInvalidValue;
+  int home = 0;
+  cudaError_t err = cudaGetDevice(&home);
+  if (err != cudaSuccess) return (int)err;
+  int rc = 0;
+  for (int i = 0; i < n && rc == 0; ++i) {
+    if (!stop[i]) {
+      rc = (int)cudaErrorInvalidValue;
+      break;
+    }
+    if (devices[i] != home || i > 0) {
+      err = cudaSetDevice(devices[i]);
+      if (err != cudaSuccess) {
+        rc = (int)err;
+        break;
+      }
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(streams[i]);
+    rc = by_box(box, (int)cudaErrorInvalidValue, [&](auto b) {
+      return launch_race_shard<decltype(b)::value>(
+          states[i], grid_out[i], meta[i], stack_grid[i], stack_cell[i], stack_mask[i],
+          stop[i], slots, n, i, M, D, max_iters, waves, options, s);
+    });
+  }
+  err = cudaSetDevice(home);
+  return rc != 0 ? rc : (int)err;
+}
+
+// The fold of a race across shards over M = every shard's states: meta
+// (M, 4) and grid (M, C) int32 in, in global state order; fold (M, 2) and
+// row (C + 3) int32 out, as dfs_race_launch's. Sets the n_slots slots
+// idle. Returns a cudaError_t.
+int dfs_race_fold_launch(const void* meta, const void* grid, void* fold, void* row,
+                         void* slots, int n_slots, int M, int box, int waves, void* stream) {
+  if (M <= 0 || waves < 1 || n_slots < 0 || (n_slots > 0 && !slots))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_box(box, (int)cudaErrorInvalidValue, [&](auto b) {
+    return launch_race_fold<decltype(b)::value>(meta, grid, fold, row, slots, n_slots, M,
+                                                waves, s);
   });
 }
 

@@ -66,9 +66,10 @@ supervisor's degraded-serving contract (``/solve_batch``).
 The frontier race (``frontier_mesh``, parallel/frontier.py): with it,
 ``solve_one`` answers the easy mass of boards from a short probe (K1 at the
 escalation budget, or with ``frontier_handoff`` one K3 segment whose
-state seeds the race) and races the rest across their own subtrees on one
-device (the race kernel, K4), inline in the calling thread, as the JAX
-engine routes them. A race that fails with a device fault is answered from
+state seeds the race) and races the rest across their own subtrees on the
+race's mesh (the race kernel, K4: one launch on one device, its shard form
+on each shard of a mesh and the fold kernel), inline in the calling
+thread, as the JAX engine routes them. A race that fails with a device fault is answered from
 the bucket path (``frontier_fallbacks``); any other failure reaches the
 caller.
 
@@ -82,9 +83,21 @@ stops launching for good and the engine stops being ready. ``solve_batch_resumab
 path with crash durability: K3 segments in bounded chunks with an atomic
 snapshot between them (utils/checkpoint.py).
 
+The mesh plane (``mesh=``, parallel/mesh.py and shard.py): with a mesh,
+the bucket ladder rounds to mesh-divisible widths, a bucket call is one
+K1 launch a shard, a segment one K3 + K3b launch a shard over a lane pool
+split across the shards, every shard at the engine's ``waves`` (as the JAX
+mesh programs run), the race spans the shards, warm-up verifies the
+library on every shard, and ``mesh_info()`` is the ``engine.mesh`` block
+of ``/metrics``. ``mesh="auto"`` (the CLI's default) builds it from every
+visible CUDA device, or the virtual mesh ``SUDOKU_VIRTUAL_MESH`` names,
+when it has at least two shards. A multi-host leader's bucket calls and
+races ride the serving loop instead (``mesh_runner``,
+``frontier_runner``: parallel/serving_loop.py).
+
 Not in this slice (each raises ``NotImplementedError`` when asked for):
-a choice of backend (the engine always runs the kernel), the mesh (and a
-race across more than one device), a solver configuration preset.
+a choice of backend (the engine always runs the kernel), a solver
+configuration preset.
 """
 
 from __future__ import annotations
@@ -113,7 +126,6 @@ from .ops.config import (
 from .ops.cuda_solver import (
     KernelLaunchError,
     SegmentPool,
-    dfs_race,
     dfs_segment,
     LibraryVerificationError,
     kernel_store,
@@ -141,9 +153,7 @@ _AUTO = object()
 # SolverEngine knobs of the JAX package that this port does not have yet.
 # Passing one with a value other than None/False raises instead of being
 # ignored.
-_UNPORTED = frozenset((
-    "backend", "mesh", "bucket_multiple", "sharding", "solver_config",
-))
+_UNPORTED = frozenset(("backend", "solver_config"))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -167,11 +177,15 @@ def device_fault(exc: BaseException) -> bool:
     """Whether ``exc`` is a fault of a device call, which a supervised
     solve or batch answers from the host fallback: an injected fault, a
     kernel launch's CUDA error, a CUDA error that torch raised (out of
-    memory included), or a solve starved behind a hung device call. A
-    kernel library that fails to build or load, and any other error, is
-    not one: it fails the request."""
+    memory included), a solve starved behind a hung device call, or a
+    failure of the multi-host serving loop's collective path
+    (``ServingLoopError``: a dead loop, a failed collective, no result in
+    time). A kernel library that fails to build or load, and any other
+    error, is not one: it fails the request."""
+    from .parallel.serving_loop import ServingLoopError
+
     if isinstance(exc, (InjectedEngineFault, KernelLaunchError, SolveStarved,
-                        torch.cuda.OutOfMemoryError)):
+                        ServingLoopError, torch.cuda.OutOfMemoryError)):
         return True
     accel = getattr(torch, "AcceleratorError", None)
     if accel is not None and isinstance(exc, accel):
@@ -212,6 +226,7 @@ class _SegmentHandle(NamedTuple):
     pipelined: bool
     boundary_host_s: float
     token: Optional[int] = None        # the supervisor's token, if any
+    shards: int = 1                    # the mesh's shards (1: one device)
 
 
 class SolverEngine:
@@ -257,13 +272,12 @@ class SolverEngine:
         resident past a few boundaries may hold while requests queue; the
         overage is evicted to the deep retry. 0 = no cap.
       frontier_mesh: route single-board solves through the frontier race
-        on one device: ``"auto"`` or True races on the engine's device (a
-        CPU engine runs the plain race), a device or its name on that
-        device; None (default) keeps the bucket path. A sequence of more
-        than one device raises ``NotImplementedError`` (the multi-GPU
-        slice).
-      frontier_states_per_device: states the race seeds (at least; padded
-        to this × 2^k).
+        (parallel/frontier.race_mesh): ``"auto"`` or True races across the
+        engine's mesh, or on its device (a CPU engine runs the plain
+        race); a ``Mesh``, a sequence of devices (each once) or one device
+        races there; None (default) keeps the bucket path.
+      frontier_states_per_device: states the race seeds a shard (at
+        least; padded to shards × this × 2^k).
       frontier_route: ``"auto"`` answers a board from a probe at
         ``frontier_escalate_iters`` steps and races only boards the probe
         left RUNNING (or OVERFLOWed); ``"always"`` races every board.
@@ -280,6 +294,17 @@ class SolverEngine:
         raises, stops the library's launches and the engine's readiness.
       aot_artifacts: with ``compile_cache_dir``, keep the store there
         (default True). False keeps the build directory (``_build/``).
+      mesh: the mesh plane: ``"auto"`` (a mesh over every visible CUDA
+        device, or the virtual mesh ``SUDOKU_VIRTUAL_MESH`` names, when it
+        has at least ``ops.config.MESH_SERVING["auto_min_devices"]``
+        shards of the engine's device type), a ``parallel.mesh.Mesh``, or
+        None (default). Bucket widths round up to mesh-divisible
+        multiples (``requested_buckets`` keeps the asked-for ladder).
+      bucket_multiple: round the ladder to multiples of this instead (the
+        multi-host CLI passes the global shard count).
+      sharding: a raw ``parallel.mesh.data_sharding(mesh)``: bucket calls
+        split over its mesh without the mesh plane (the ladder must
+        divide it; the closed loop). Exclusive with an explicit ``mesh``.
     """
 
     def __init__(
@@ -312,6 +337,9 @@ class SolverEngine:
         frontier_handoff: bool = False,
         compile_cache_dir: Optional[str] = None,
         aot_artifacts: bool = True,
+        mesh=None,
+        bucket_multiple: Optional[int] = None,
+        sharding=None,
         **unported,
     ):
         for name, value in unported.items():
@@ -323,6 +351,32 @@ class SolverEngine:
                 )
         self.spec = spec
         self.device = resolve_device(device)
+        # the mesh plane: resolved before the bucket ladder, whose widths
+        # round to mesh-divisible multiples so every batch splits over
+        # every shard
+        mesh = self._resolve_mesh(mesh, sharding, device)
+        self.mesh = mesh
+        # the mesh the bucket programs shard over: the mesh plane's, or a
+        # raw ``sharding=``'s (which keeps the caller's ladder and the
+        # closed loop, as the JAX engine keeps them)
+        self._shard_mesh = mesh if mesh is not None else (
+            sharding.mesh if sharding is not None else None
+        )
+        if self._shard_mesh is not None:
+            self.device = self._shard_mesh.primary
+        if mesh is not None:
+            from .parallel.mesh import data_sharding
+
+            sharding = data_sharding(mesh)
+        self.sharding = sharding
+        # the multi-host leader's fan-out hooks (parallel/serving_loop.py,
+        # wired by the CLI): a callable (padded boards, iters) -> host rows
+        # that bucket dispatches ride, and a callable board -> (solution,
+        # info) that races ride; ``frontier_loop`` is the loop itself, for
+        # health. None: this engine's own programs.
+        self.mesh_runner = None
+        self.frontier_runner = None
+        self.frontier_loop = None
         # the compile plane: the kernel store the process's library comes
         # from, verified by every warm width's launch
         self.compile_cache_dir = compile_cache_dir
@@ -337,8 +391,12 @@ class SolverEngine:
         # each verified width's round trip by name, run again on a rebuild
         self._round_trips: dict = {}
         self.frontier_mesh = frontier_mesh
-        # the one device the race runs on (None: no frontier route)
-        self.frontier_device = self._frontier_device(frontier_mesh)
+        # the mesh the race runs on (None: no local race) and its first
+        # device, where the race folds
+        self.race_mesh = self._race_mesh(frontier_mesh)
+        self.frontier_device = (
+            self.race_mesh.primary if self.race_mesh is not None else None
+        )
         self.frontier_states_per_device = frontier_states_per_device
         if frontier_route not in ("auto", "always"):
             raise ValueError(
@@ -348,7 +406,34 @@ class SolverEngine:
         self.frontier_route = frontier_route
         self.frontier_escalate_iters = frontier_escalate_iters
         self.frontier_handoff = bool(frontier_handoff)
-        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.requested_buckets = buckets
+        if mesh is not None or bucket_multiple:
+            from .ops.config import mesh_serving_config
+
+            fill = mesh_serving_config()["min_per_device_fill"]
+            mult = int(bucket_multiple or mesh.size * fill)
+            buckets = tuple(sorted({-(-b // mult) * mult for b in buckets}))
+            if buckets != self.requested_buckets:
+                logger.info(
+                    "mesh serving: bucket ladder %s rounded to mesh-divisible "
+                    "%s (multiple %d)", self.requested_buckets, buckets, mult,
+                )
+        elif sharding is not None:
+            bad = [b for b in buckets if b % sharding.mesh.size]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} do not divide the {sharding.mesh.size}-shard "
+                    "mesh of sharding= (the mesh plane, mesh=, rounds them)"
+                )
+        self.buckets = buckets
+        # mesh dispatch counters (under _lock): how many sharded dispatches
+        # ran and how the last one landed (parallel/shard.split_evidence),
+        # the mesh_info() / /metrics evidence
+        self.mesh_dispatches = 0
+        self.mesh_runner_dispatches = 0
+        self._mesh_last_split: dict = {}
+        self._mesh_min_devices: Optional[int] = None
         cfg = SERVING_CONFIG.get(spec.size, {})
         if max_depth is _AUTO:
             max_depth = cfg.get("max_depth")
@@ -378,12 +463,21 @@ class SolverEngine:
         self.coalesce_adaptive = coalesce_adaptive
         self.segment_shape = resolved_segment_shape(spec.size, segment_iters)
         self.segment_iters = self.segment_shape["k"]
+        raw_sharding = sharding is not None and mesh is None
         if continuous is None:
-            continuous = CONTINUOUS_SERVING["default_on"] and coalesce
+            continuous = (
+                CONTINUOUS_SERVING["default_on"] and coalesce and not raw_sharding
+            )
         elif continuous and not coalesce:
             raise ValueError(
                 "continuous batching rides the coalesced serving path — it "
                 "cannot be enabled with coalesce=False"
+            )
+        elif continuous and raw_sharding:
+            raise ValueError(
+                "continuous batching with a raw sharding= needs the mesh "
+                "plane (mesh=) — the lane-pool state has no sharded segment "
+                "program to ride otherwise"
             )
         self.continuous = bool(continuous)
         if segment_pipeline is None:
@@ -398,6 +492,30 @@ class SolverEngine:
         # segments resume mid-search, so the pool runs the largest stage's
         # depth: a staged depth's shallow first stage cannot apply
         self._depth_flat = max(self._depths)
+        # the mesh programs (parallel/shard.py): one K1 launch a shard a
+        # bucket call, one K3 + K3b launch a shard a segment, each shard at
+        # the engine's ``waves`` whatever its width, as the JAX mesh
+        # programs run
+        self._mesh_program = self._segment_mesh_program = None
+        if self._shard_mesh is not None:
+            from .parallel.shard import (
+                make_packed_serving_program,
+                make_segment_serving_program,
+            )
+
+            knobs = dict(
+                max_depth=self.max_depth,
+                locked_candidates=self.locked_candidates,
+                waves=self.waves,
+                naked_pairs=self.naked_pairs,
+            )
+            self._mesh_program = make_packed_serving_program(
+                self._shard_mesh, spec, **knobs
+            )
+            if mesh is not None:
+                self._segment_mesh_program = make_segment_serving_program(
+                    mesh, spec, **dict(knobs, max_depth=self._depth_flat),
+                )
         self._coalescer = None
         self._coalescer_init_lock = threading.Lock()
         # the stream finalizing runs later depth stages and deep retries
@@ -469,20 +587,71 @@ class SolverEngine:
         self._device_trace_captured = 0
         self._warmup_trace_done = False
 
-    def _frontier_device(self, mesh) -> Optional[torch.device]:
-        """``frontier_mesh`` as the race's device (None: no race)."""
+    def _resolve_mesh(self, mesh, sharding, device):
+        """The mesh plane from ``mesh=``: ``"auto"`` is ``default_mesh()``
+        (every visible CUDA device, or the virtual mesh
+        ``SUDOKU_VIRTUAL_MESH`` names) when it has at least
+        ``auto_min_devices`` shards of the engine's device type, else no
+        mesh; a ``Mesh`` is itself; None is no mesh. ``sharding=`` and an
+        explicit mesh are mutually exclusive, and ``"auto"`` yields to a
+        raw ``sharding=``, as in the JAX engine."""
+        from .parallel.mesh import Mesh, default_mesh, virtual_mesh_setting
+
+        if sharding is not None and not hasattr(sharding, "mesh"):
+            raise TypeError(
+                "sharding= takes a parallel.mesh.data_sharding(mesh) descriptor"
+            )
+        if mesh is None:
+            return None
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', a Mesh or None, got {mesh!r}")
+            from .ops.config import mesh_serving_config
+
+            if sharding is not None:
+                return None
+            setting = virtual_mesh_setting()
+            if setting is not None:
+                if setting[1].type != self.device.type:
+                    return None
+            elif self.device.type != "cuda":
+                return None
+            found = default_mesh()
+            if found.size < mesh_serving_config()["auto_min_devices"]:
+                return None
+            return found
+        if sharding is not None:
+            raise ValueError(
+                "mesh= and sharding= are mutually exclusive — the mesh plane "
+                "derives its own data-axis sharding"
+            )
+        if not isinstance(mesh, Mesh) or "data" not in mesh.axis_names:
+            raise ValueError(
+                "mesh= must be a 1-D parallel.mesh.Mesh with a 'data' axis, "
+                f"got {mesh!r}"
+            )
+        if device is not None and torch.device(device).type != mesh.primary.type:
+            raise ValueError(
+                f"device={device!r} and a mesh on {mesh.primary} disagree"
+            )
+        return mesh
+
+    def _race_mesh(self, mesh):
+        """``frontier_mesh`` as the race's mesh (None: no local race):
+        ``"auto"`` or True races over the engine's mesh, or its device."""
         if mesh is None or mesh is False:
             return None
-        if mesh is True or mesh == "auto":
-            return self.device
-        from .parallel.frontier import race_device
+        from .parallel.frontier import race_mesh
 
-        return race_device(mesh)
+        if mesh is True or mesh == "auto":
+            return self._shard_mesh if self._shard_mesh is not None else race_mesh(self.device)
+        return race_mesh(mesh)
 
     @property
     def frontier_enabled(self) -> bool:
-        """True when single-board solves route through the frontier race."""
-        return self.frontier_device is not None
+        """True when single-board solves route through the frontier race
+        (a local mesh, or the multi-host serving loop's ``frontier_runner``)."""
+        return self.race_mesh is not None or self.frontier_runner is not None
 
     @property
     def coalescer(self):
@@ -587,10 +756,11 @@ class SolverEngine:
     def _sweeps(self, width: int) -> dict:
         """The sweep knobs of a ``width``-board call: a single board sweeps
         once a step — extra sweeps only amortize a step's machinery over a
-        batch — and wider buckets run ``self.waves``."""
+        batch — and wider buckets run ``self.waves``. The mesh programs run
+        ``self.waves`` at every width, as the JAX mesh programs do."""
         return dict(
             locked_candidates=self.locked_candidates,
-            waves=1 if width == 1 else self.waves,
+            waves=1 if width == 1 and self._shard_mesh is None else self.waves,
             naked_pairs=self.naked_pairs,
         )
 
@@ -640,9 +810,27 @@ class SolverEngine:
         self._note_program("solve", boards.shape[0])
         dev = self._device_batch(boards)
         sweeps = self._sweeps(boards.shape[0])
-        rows = self._stage_rows(dev, self._depths[0], iters, sweeps)
+        if self._mesh_program is not None:
+            # one K1 launch a shard, the rows gathered in global order
+            rows = self._mesh_program.dispatch(dev, iters)
+            self._note_split(self._mesh_program)
+        else:
+            rows = self._stage_rows(dev, self._depths[0], iters, sweeps)
         host, ready = self._to_host(rows)
         return _Inflight(host, ready, dev, boards, n, iters, sweeps, token, t0)
+
+    def _note_split(self, program) -> None:
+        """Count one sharded dispatch and how it landed (the mesh_info()
+        evidence)."""
+        from .parallel.shard import split_evidence
+
+        split = split_evidence(program)
+        with self._lock:
+            self.mesh_dispatches += 1
+            self._mesh_last_split = split
+            ndev = split.get("devices", 1)
+            if self._mesh_min_devices is None or ndev < self._mesh_min_devices:
+                self._mesh_min_devices = ndev
 
     @staticmethod
     def _to_host(t: torch.Tensor):
@@ -674,6 +862,12 @@ class SolverEngine:
         if call.ready is not None:
             call.ready.synchronize()
         rows = call.host.numpy().copy()
+        if call.dev is None:
+            return rows  # the multi-host fan-out's rows, every stage run
+        if self._mesh_program is not None:
+            # each shard reruns its own OVERFLOW boards, as each shard of
+            # the JAX program runs its staged solve
+            return self._mesh_program.restage(rows, call.dev, call.iters)
         C = self.spec.cells
         for depth in self._depths[1:]:
             need = rows[:, C + 1] == OVERFLOW
@@ -724,6 +918,8 @@ class SolverEngine:
                 # construction.
                 pad = np.broadcast_to(boards[0], (bucket - n, *boards.shape[1:]))
                 boards = np.concatenate([boards, pad], axis=0)
+            if self.mesh_runner is not None:
+                return self._run_on_mesh_runner(boards, n, self.max_iters, token, t0)
             trace_dir = self._take_trace_dir()
             if trace_dir is None:
                 return self._launch(boards, n, self.max_iters, token, t0)
@@ -736,6 +932,18 @@ class SolverEngine:
             if sup is not None:
                 sup.call_finished(token, ok=False)
             raise
+
+    def _run_on_mesh_runner(self, boards: np.ndarray, n: int, iters: int,
+                            token: Optional[int] = None,
+                            t0: Optional[float] = None) -> _Inflight:
+        """The multi-host leader's bucket call: the padded batch rides the
+        serving loop's fan-out (``mesh_runner``), which every host's shards
+        join; its rows come back on the host with every depth stage run."""
+        rows = np.asarray(self.mesh_runner(boards, int(iters)), np.int32)
+        with self._lock:
+            self.mesh_runner_dispatches += 1
+        return _Inflight(torch.from_numpy(rows.copy()), None, None, boards, n,
+                         iters, self._sweeps(boards.shape[0]), token, t0)
 
     def _take_trace_dir(self) -> Optional[str]:
         """The directory this bucket call's profiler capture goes to, with
@@ -811,10 +1019,13 @@ class SolverEngine:
                         axis=0,
                     )
                 t_deep = time.monotonic()
+                deep_iters = self.max_iters * self.deep_retry_factor
+                # the deep retry is a collective too on the multi-host
+                # leader: it rides the loop as the first pass did
                 deep = self._wait_rows(
-                    self._launch(
-                        sub, len(capped), self.max_iters * self.deep_retry_factor
-                    )
+                    self._run_on_mesh_runner(sub, len(capped), deep_iters)
+                    if self.mesh_runner is not None
+                    else self._launch(sub, len(capped), deep_iters)
                 )
                 # the deep retry is its own device call: its own sample
                 self._record_call_cost(
@@ -830,13 +1041,21 @@ class SolverEngine:
     def _record_call_cost(self, bucket: int, n: int, device_s: float,
                           lane: int, idle: int, deep_retry: bool = False) -> None:
         """Fold one finalized device call into the cost plane
-        (obs/cost.py). Every pad row bills the coalescer: this package has
-        no mesh, so ``pad_mesh`` is 0."""
+        (obs/cost.py), splitting the pad rows as the JAX engine does:
+        those short of the requested ladder width bill the coalescer, the
+        extra width the mesh rounding added bills the mesh."""
+        req_cover = next((w for w in self.requested_buckets if w >= n), None)
+        if req_cover is not None and req_cover <= bucket:
+            pad_coalesce, pad_mesh = req_cover - n, bucket - req_cover
+        else:
+            # the rounded width is narrower than any requested cover (or n
+            # overflows the ladder): everything bills the coalescer
+            pad_coalesce, pad_mesh = bucket - n, 0
         self.cost.record_call(
             bucket=bucket,
             boards=n,
-            pad_coalesce=bucket - n,
-            pad_mesh=0,
+            pad_coalesce=pad_coalesce,
+            pad_mesh=pad_mesh,
             device_s=device_s,
             lane_steps=lane,
             idle_lane_steps=idle,
@@ -863,9 +1082,10 @@ class SolverEngine:
     # -- continuous batching: the segment seam ---------------------------------
     @property
     def continuous_active(self) -> bool:
-        """Whether the coalesced path serves open loop (this engine always
-        has its segment kernel, so the flag decides)."""
-        return self.continuous
+        """Whether the coalesced path serves open loop: the flag, unless the
+        multi-host ``mesh_runner`` fan-out is wired (that path speaks the
+        closed loop's (boards, iters) protocol), as in the JAX engine."""
+        return self.continuous and self.mesh_runner is None
 
     def segment_pool_width(self) -> int:
         """The lane pool's width: the bucket covering the coalescer's
@@ -878,6 +1098,9 @@ class SolverEngine:
         instantly-UNSAT pad board (dead after one sweep, then free), with
         the flat depth's stack. Its state stays on the device; segments
         update it in place."""
+        if self._segment_mesh_program is not None:
+            # one pool a shard, each on its device and stream
+            return self._segment_mesh_program.new_pool(width)
         N = self.spec.size
         boards = pad_board(self.spec, self.device).expand(width, N, N)
         return SegmentPool.fresh(boards, self.spec, self._depth_flat)
@@ -955,7 +1178,14 @@ class SolverEngine:
                 state, boards, src_dev,
                 int(seg_iters) if seg_iters else self.segment_iters,
             )
-            if self.segment_pipeline:
+            shards = 1
+            if isinstance(digest, list):
+                # the mesh: one digest and block a shard, gathered in lane
+                # order; _segment_rows sums the shards' LoopStats columns
+                shards = len(digest)
+                out, block = self._mesh_segment_out(nxt, digest, block)
+                self._note_split(self._segment_mesh_program)
+            elif self.segment_pipeline:
                 out = digest
             else:
                 # [grid | solved | status | guesses | validations | board_iters
@@ -972,8 +1202,27 @@ class SolverEngine:
         return _SegmentHandle(
             state=nxt, host=host, ready=ready, block=block, t0=t0,
             width=width, injected=int(injected), pipelined=bool(pipelined),
-            boundary_host_s=float(boundary_host_s), token=token,
+            boundary_host_s=float(boundary_host_s), token=token, shards=shards,
         )
+
+    def _mesh_segment_out(self, nxt, digests: list, blocks: list):
+        """A mesh segment's boundary bytes on the first shard's device:
+        the shards' digests in lane order (pipelined arm; the blocks stay
+        on their shards, read shard by shard in phase 2), or the full rows
+        [grid | digest columns] built on each shard's stream before its
+        next segment can move the pool, then gathered (the other arm)."""
+        from .parallel.shard import on_shard, to_primary
+
+        mesh = self.mesh
+        if self.segment_pipeline:
+            out = torch.cat([to_primary(mesh, i, d) for i, d in enumerate(digests)])
+            return out, blocks
+        rows = []
+        for i, (pool, d) in enumerate(zip(nxt.shards, digests)):
+            with on_shard(mesh, i):
+                cols = self._row_cols.to(d.device)
+                rows.append(torch.cat([pool.state.grid, d.index_select(1, cols)], 1))
+        return torch.cat([to_primary(mesh, i, r) for i, r in enumerate(rows)]), None
 
     def finalize_segment(self, handle: _SegmentHandle, *, active):
         """Wait for a dispatched segment's boundary bytes and return
@@ -1036,6 +1285,8 @@ class SolverEngine:
         if handle.ready is not None:
             handle.ready.synchronize()
         host = handle.host.numpy()
+        if handle.shards > 1:
+            return self._mesh_segment_rows(handle, host)
         if handle.block is None:
             return host.copy(), host.nbytes
         C = self.spec.cells
@@ -1059,6 +1310,46 @@ class SolverEngine:
             grids = self._fetch_rows(handle.block, n)
             fetch_bytes += grids.nbytes
             rows[lanes, :C] = grids[slots[lanes]]
+        return rows, fetch_bytes
+
+    def _mesh_segment_rows(self, handle: _SegmentHandle, host: np.ndarray):
+        """``_segment_rows`` of a mesh segment: each shard's LoopStats
+        columns summed into the call's totals on every row (the JAX
+        program's ``psum``), and on the pipelined arm each shard's newly
+        solved grids read from its own block at its own slots."""
+        C = self.spec.cells
+        width, n_shards = handle.width, handle.shards
+        w = width // n_shards
+        host = host.copy()
+        fetch_bytes = host.nbytes
+        first = np.arange(n_shards) * w
+        if handle.block is None:
+            for c in (C + 5, C + 6):
+                host[:, c] = int(host[first, c].astype(np.int64).sum())
+            return host, fetch_bytes
+        for c in (6, 7):
+            host[:, c] = int(host[first, c].astype(np.int64).sum())
+        rows = np.zeros((width, C + 7), np.int32)
+        rows[:, C] = host[:, 1]        # solved
+        rows[:, C + 1] = host[:, 0]    # status
+        rows[:, C + 2] = host[:, 2]    # guesses
+        rows[:, C + 3] = host[:, 3]    # validations
+        rows[:, C + 4] = host[:, 4]    # board_iters
+        rows[:, C + 5] = host[:, 6]    # lane_steps
+        rows[:, C + 6] = host[:, 7]    # idle_lane_steps
+        prefix = segment_prefix_gather(width, C)
+        for i, block in enumerate(handle.block):
+            slots = host[i * w:(i + 1) * w, 5]
+            lanes = np.nonzero(slots >= 0)[0]
+            if not lanes.size:
+                continue
+            n = int(slots[lanes].max()) + 1 if prefix else w
+            if block.device == self.device or block.device.type == "cpu":
+                grids = self._fetch_rows(block, n)
+            else:
+                grids = block[:n].cpu().numpy()
+            fetch_bytes += grids.nbytes
+            rows[i * w + lanes, :C] = grids[slots[lanes]]
         return rows, fetch_bytes
 
     def _fetch_rows(self, block: torch.Tensor, n: int) -> np.ndarray:
@@ -1138,10 +1429,13 @@ class SolverEngine:
         ``dfs_segment``'s ``(pool, digest, block)``. No token, no hook:
         the seam is the caller's."""
         width = state.width
+        prefix = self.segment_pipeline and segment_prefix_gather(width, self.spec.cells)
+        if self._segment_mesh_program is not None:
+            return self._segment_mesh_program(
+                state, boards, src, seg_iters, prefix_gather=prefix
+            )
         return dfs_segment(
-            state, boards, src, seg_iters,
-            prefix_gather=self.segment_pipeline
-            and segment_prefix_gather(width, self.spec.cells),
+            state, boards, src, seg_iters, prefix_gather=prefix,
             **self._sweeps(width),
         )
 
@@ -1169,6 +1463,21 @@ class SolverEngine:
         into lane 0 of a fresh ``w``-lane pool, one segment of the warm-up
         budget (``max_iters``); returns its (status, grid)."""
         src = torch.full((w,), -1, dtype=torch.int32, device=self.device)
+        if self._segment_mesh_program is not None:
+            # the empty board into every shard's first lane: each shard's
+            # device verifies the library, each its own result
+            ws = w // self.mesh.size
+            src[::ws] = 0
+            _, digests, blocks = self._segment_kernels(
+                self.new_segment_pool(w), boards, src, self.max_iters
+            )
+            out = []
+            for digest, block in zip(digests, blocks):
+                digest = digest.cpu().numpy()
+                slot = int(digest[0, 5])
+                out.append((int(digest[0, 0]),
+                            block[slot].cpu().numpy() if slot >= 0 else None))
+            return out
         src[0] = 0
         _, digest, block = self._segment_kernels(
             self.new_segment_pool(w), boards, src, self.max_iters
@@ -1234,8 +1543,9 @@ class SolverEngine:
         """Operator-facing engine health, the ``engine`` block of
         ``/metrics``, keyed as the JAX engine's: the frontier route's
         switches and counters (``frontier_fallbacks`` counts requests the
-        bucket path answered after a race's device fault), and no mesh
-        block, which this package does not have. ``backend`` names what
+        bucket path answered after a race's device fault), the ``mesh``
+        block with a mesh (``mesh_info``), and the serving loop's
+        ``frontier_loop_*`` health on a multi-host leader. ``backend`` names what
         runs the search (``"cuda"`` / ``"plain"``, the JAX engine's
         ``"xla"`` / ``"pallas"``).
 
@@ -1268,13 +1578,56 @@ class SolverEngine:
             "warm": self.warm_info(),
         }
         out["cost"] = self.cost.snapshot(warm_info=out["warm"])
+        mesh = self.mesh_info()
+        if mesh is not None:
+            # the mesh plane: topology and batch-split evidence, the
+            # /metrics "engine.mesh" block
+            out["mesh"] = mesh
         if self.supervisor is not None:
             # the one-word summary; the full state machine is the /metrics
             # top-level "health" block (supervisor.snapshot())
             out["supervisor"] = self.supervisor.state
         if self._coalescer is not None:
             out["coalescer"] = self._coalescer.stats()
+        loop = self.frontier_loop
+        if loop is None:
+            # a bare bound FrontierServingLoop.solve as the runner
+            loop = getattr(self.frontier_runner, "__self__", None)
+        if loop is not None and hasattr(loop, "health"):
+            for k, v in loop.health().items():
+                out[f"frontier_loop_{k}"] = v
         return out
+
+    def mesh_info(self) -> Optional[dict]:
+        """The ``engine.mesh`` block of ``GET /metrics``, keyed as the JAX
+        engine's: the mesh's shards, the bucket ladder it rounded, each
+        bucket's rows a shard, and the batch-split evidence (dispatches,
+        the fan-out's, and how the last one landed). ``device_kinds`` names
+        the shards' devices (``torch.cuda.get_device_name``, or ``cpu``).
+        None when the engine has no mesh."""
+        if self.mesh is None:
+            return None
+        n_dev = int(self.mesh.size)
+        with self._lock:
+            last_split = dict(self._mesh_last_split)
+            dispatches = self.mesh_dispatches
+            runner_dispatches = self.mesh_runner_dispatches
+            min_devices = self._mesh_min_devices
+        return {
+            "devices": n_dev,
+            "axis": "data",
+            "device_kinds": sorted({
+                torch.cuda.get_device_name(d) if d.type == "cuda" else d.type
+                for d in self.mesh.distinct_devices
+            }),
+            "buckets_requested": list(self.requested_buckets),
+            "buckets": list(self.buckets),
+            "per_device_fill": {str(b): b // n_dev for b in self.buckets},
+            "dispatches": dispatches,
+            "runner_dispatches": runner_dispatches,
+            "last_split": last_split,
+            "min_devices_seen": min_devices,
+        }
 
     def _tier0_buckets(self) -> list:
         """The widths one ``/solve`` needs warm first: the smallest bucket
@@ -1325,6 +1678,9 @@ class SolverEngine:
                 }
         if self._report_aot:
             out["aot"] = self._store.stats()
+        mesh = self.mesh_info()
+        if mesh is not None:
+            out["mesh"] = mesh
         return out
 
     def warmup(self, *, budget_s: Optional[float] = None,
@@ -1446,7 +1802,7 @@ class SolverEngine:
         so it runs once here on the empty board. No counter moves."""
         if not (self.frontier_enabled and self.frontier_route == "auto"):
             return
-        if self.frontier_handoff:
+        if self.frontier_handoff and self.frontier_runner is None:
             N = self.spec.size
             self._note_program("quick_state", 1)
             self._quick_state(np.zeros((N, N), np.int32))
@@ -1456,17 +1812,19 @@ class SolverEngine:
         race over ``states_per_device × {1, 2, 4}`` instantly-unsat pad
         states (each dies in one step, so no solution and no counter), as
         the JAX engine warms its racer. Larger rungs launch on first use."""
+        if self.race_mesh is None:
+            return  # the multi-host loop warmed its race at its start
         from .parallel import frontier
 
-        N, C = self.spec.size, self.spec.cells
-        target = self.frontier_states_per_device
+        C = self.spec.cells
+        target = self.race_mesh.size * self.frontier_states_per_device
         frontier.warm_seeding(self.spec, target, self.locked_candidates)
-        pad = torch.from_numpy(frontier._unsat_pad(self.spec).reshape(1, C))
+        pad = frontier._unsat_pad(self.spec).reshape(1, C)
         for mult in (1, 2, 4):
-            states = pad.expand(target * mult, C).contiguous()
-            row, _, _ = dfs_race(
-                states.to(self.frontier_device), self.spec, self._depth_flat,
-                frontier.DEFAULT_MAX_ITERS,
+            # every shard races its slice: each shard's launch is warm
+            row, _, _ = frontier.race_on_mesh(
+                np.broadcast_to(pad, (target * mult, C)), self.race_mesh,
+                self.spec, self._depth_flat, frontier.DEFAULT_MAX_ITERS,
                 locked_candidates=self.locked_candidates, waves=self.waves,
                 naked_pairs=self.naked_pairs,
             )
@@ -1486,6 +1844,11 @@ class SolverEngine:
             rows = self._wait_rows(
                 self._launch(np.zeros((b, N, N), np.int32), b, self.max_iters)
             )
+            if self._shard_mesh is not None:
+                # every shard's first board: each device of the mesh
+                # verifies the library on its own result
+                ws = b // self._shard_mesh.size
+                return [(int(r[C + 1]), r[:C]) for r in rows[::ws]]
             return int(rows[0, C + 1]), rows[0, :C]
 
         source = self._verified(f"dfs_solver at width {b}", launch)
@@ -1512,7 +1875,7 @@ class SolverEngine:
         that fails, raises ``LibraryVerificationError``: the library
         launches no more, and the engine is no longer warm or ready.
         Nothing falls back to the plain version."""
-        if not self._round_trip_ok(*launch()):
+        if not self._round_trips_ok(launch()):
             logger.warning(
                 "the kernel library failed its round-trip verification (%s) — "
                 "invalidating and rebuilding it", what,
@@ -1523,7 +1886,7 @@ class SolverEngine:
                 with library_quarantine(what):
                     rebuild_library()
                     for name, check in again:
-                        if not self._round_trip_ok(*check()):
+                        if not self._round_trips_ok(check()):
                             raise LibraryVerificationError(
                                 f"the kernel library failed its round-trip "
                                 f"verification twice ({what}, then {name} "
@@ -1537,6 +1900,12 @@ class SolverEngine:
         with self._lock:
             self._round_trips[what] = launch
         return library_source() or "plain"
+
+    def _round_trips_ok(self, result) -> bool:
+        """A launch's verification: one (status, grid), or a list of them,
+        one for each shard of a mesh, every one of which must pass."""
+        results = result if isinstance(result, list) else [result]
+        return all(self._round_trip_ok(*r) for r in results)
 
     def _round_trip_ok(self, status: int, grid) -> bool:
         N = self.spec.size
@@ -1608,6 +1977,12 @@ class SolverEngine:
         from .utils.checkpoint import solve_batch_resumable
 
         boards = np.asarray(boards, np.int32)
+        # the mesh plane splits only a mesh-divisible batch; another runs
+        # on the first shard's device (an explicit sharding= caller sized
+        # its batch), as in the JAX engine
+        sharding = self.sharding
+        if self.mesh is not None and boards.shape[0] % self.mesh.size:
+            sharding = None
         res = solve_batch_resumable(
             boards,
             self.spec,
@@ -1620,6 +1995,7 @@ class SolverEngine:
             waves=self.waves,
             naked_pairs=self.naked_pairs,
             device=self.device,
+            sharding=sharding,
         )
         solved_mask = res.solved.cpu().numpy()
         validations = int(res.validations.sum())
@@ -1837,18 +2213,29 @@ class SolverEngine:
         )
         t0 = time.monotonic()
         try:
-            solution, info = frontier_solve(
-                arr,
-                self.frontier_device,
-                self.spec,
-                states_per_device=self.frontier_states_per_device,
-                max_depth=self.max_depth,
-                locked=self.locked_candidates,
-                waves=self.waves,
-                naked_pairs=self.naked_pairs,
-                initial_states=seed_states,
-                deadline_s=deadline_s,
-            )
+            if self.frontier_runner is not None:
+                # the multi-host race: the loop's round trip is this
+                # request's device stage
+                tr = current_trace()
+                t_dev = time.monotonic()
+                try:
+                    solution, info = self.frontier_runner(arr)
+                finally:
+                    if tr is not None:
+                        tr.mark("device", time.monotonic() - t_dev)
+            else:
+                solution, info = frontier_solve(
+                    arr,
+                    self.race_mesh,
+                    self.spec,
+                    states_per_device=self.frontier_states_per_device,
+                    max_depth=self.max_depth,
+                    locked=self.locked_candidates,
+                    waves=self.waves,
+                    naked_pairs=self.naked_pairs,
+                    initial_states=seed_states,
+                    deadline_s=deadline_s,
+                )
         except DeadlineExceeded:
             if sup is not None:
                 sup.call_abandoned(token)
@@ -1912,7 +2299,7 @@ class SolverEngine:
         )
         seed_states = None
         if use_frontier and frontier is None and self.frontier_route == "auto":
-            if self.frontier_handoff:
+            if self.frontier_handoff and self.frontier_runner is None:
                 outcome, payload = self._probe_quick_state(arr)
                 if outcome == "done":
                     return payload

@@ -132,11 +132,32 @@ Extensions:
                 --hedge-budget-pct, default 25, of primary dispatches) and
                 a join deferred until /readyz would pass; the first flag
                 turns all four off, the others one each
+  --mesh-peers  N: surface N TPU-core pseudo-peers at /network (the JAX
+                node's names, ``{id}/tpu{k}``); default 0
+  --no-mesh     disable mesh-parallel bucket serving. DEFAULT ON with more
+                than one shard: every bucket and segment program splits
+                over the mesh (parallel/shard.py: one kernel launch a
+                shard), bucket widths round up to mesh-divisible multiples
+                (observable at /metrics engine.mesh); the mesh is every
+                visible CUDA device, or the virtual mesh
+                SUDOKU_VIRTUAL_MESH names (N or N@device: N shards on one
+                device, each with its own stream; parallel/sim.py sets it
+                for its children and the node logs it at startup).
+                --no-mesh restores the single-device programs for A/B
+  --coordinator / --num-hosts / --host-id
+                multi-host mode: torch.distributed.init_process_group
+                against the coordinator ("host:port", tcp://) with NCCL on
+                GPU hosts and gloo on CPU hosts; every host runs this CLI,
+                and the leader (--host-id 0) fans its coalesced batches and
+                its frontier races out to every host's shards through the
+                lockstep serving loop (parallel/serving_loop.py); the
+                P2P/HTTP control plane is unchanged
   --frontier STATES_PER_DEVICE / --frontier-route / --frontier-escalate-iters
   / --frontier-handoff
                 route single-board /solve through the frontier race
-                (parallel/frontier.py) on the engine's device, seeding
-                this many subtree states (0, the default: off). With
+                (parallel/frontier.py) across the mesh's shards (the
+                engine's device without one), seeding this many subtree
+                states a shard (0, the default: off). With
                 --frontier-route auto (default) a probe of
                 --frontier-escalate-iters steps (512) answers easy boards
                 and only the rest race; 'always' races every board.
@@ -153,6 +174,7 @@ import os
 import signal
 import threading
 import time
+from datetime import timedelta
 
 from ..cache import AnswerCache
 from ..cache.gossip import CacheGossip
@@ -161,6 +183,7 @@ from ..obs import FlightRecorder, Tracer
 from ..obs.cluster import TelemetryPublisher
 from ..obs.slo import DEFAULT_WINDOWS_S, SloEngine, parse_slo
 from ..ops.spec import spec_for_size
+from ..parallel.mesh import Mesh, default_mesh, virtual_mesh_setting
 from ..serving.admission import AdmissionController
 from ..serving.autopilot import Autopilot
 from ..serving.health import EngineSupervisor
@@ -184,6 +207,12 @@ def build_parser() -> argparse.ArgumentParser:
         "-h", type=float, default=1, help="Handicap (delay in ms) for validation"
     )
     parser.add_argument("--host", default="127.0.0.1", help="bind address")
+    parser.add_argument(
+        "--mesh-peers",
+        type=int,
+        default=0,
+        help="surface N TPU-core pseudo-peers at /network",
+    )
     parser.add_argument(
         "--buckets", default=None, help="comma-separated batch bucket widths"
     )
@@ -539,6 +568,22 @@ def build_parser() -> argparse.ArgumentParser:
         "after the warm-up (default 4)",
     )
     parser.add_argument(
+        "--no-mesh",
+        action="store_true",
+        help="disable mesh-parallel bucket serving: single-device bucket "
+        "programs even with more than one shard (for A/B). Default: with "
+        "more than one shard, bucket batches and segments dispatch one "
+        "kernel launch a shard over every local device (parallel/shard.py) "
+        "and bucket widths round to mesh-divisible multiples",
+    )
+    parser.add_argument(
+        "--coordinator",
+        default=None,
+        help="torch.distributed coordinator host:port (multi-host)",
+    )
+    parser.add_argument("--num-hosts", type=int, default=1)
+    parser.add_argument("--host-id", type=int, default=0)
+    parser.add_argument(
         "--profile-dir",
         default=None,
         help="trace every bucket call with torch.profiler into this dir",
@@ -619,15 +664,42 @@ def build_node(args: argparse.Namespace):
     }
     if args.buckets:
         kwargs["buckets"] = tuple(int(b) for b in args.buckets.split(","))
+    multi_host = init_hosts(args)
+    setting = virtual_mesh_setting()
+    if setting is not None:
+        logger.info(
+            "virtual mesh: %d shards on %s (SUDOKU_VIRTUAL_MESH)", *setting
+        )
+    local = platform_mesh(kwargs["device"])
+    mesh_fanout = False
+    if not args.no_mesh:
+        if multi_host:
+            # every host's own programs run on its local shards, while
+            # bucket widths round to the GLOBAL shard count so the
+            # leader's fan-out batches divide every host's
+            if local.size > 1:
+                kwargs["mesh"] = local
+            mesh_fanout = True
+            kwargs["bucket_multiple"] = args.num_hosts * local.size
+        else:
+            # one host: every bucket and segment program splits over the
+            # local shards when there is more than one
+            kwargs["mesh"] = "auto"
+    if args.frontier > 0 and not multi_host:
+        # the race spans the engine's mesh, else every local shard
+        kwargs["frontier_mesh"] = "auto" if not args.no_mesh else local
     if args.frontier > 0:
-        # the race runs on the engine's own device (one host, one device)
-        kwargs["frontier_mesh"] = "auto"
         kwargs["frontier_states_per_device"] = args.frontier
         kwargs["frontier_route"] = args.frontier_route
         kwargs["frontier_escalate_iters"] = args.frontier_escalate_iters
         kwargs["frontier_handoff"] = args.frontier_handoff
     tracer, flight, slo = build_obs(args)
     engine = SolverEngine(**kwargs)
+    serving_loop = None
+    if multi_host and (args.frontier > 0 or mesh_fanout):
+        serving_loop = start_serving_loop(
+            engine, engine.mesh or local, args.frontier, mesh_fanout
+        )
     if args.profile_dir:
         engine.profile_dir = args.profile_dir
     if args.device_trace_dir:
@@ -664,7 +736,8 @@ def build_node(args: argparse.Namespace):
             flight.attach_supervisor(supervisor)
     node = P2PNode(
         args.host, args.s, anchor_node=args.a, handicap=args.h / 100,
-        engine=engine, failure_timeout=args.failure_timeout,
+        engine=engine, mesh_peer_count=args.mesh_peers,
+        failure_timeout=args.failure_timeout,
         admission=admission,
         # one recording machinery: with tracing on, the node's per-route
         # recorder IS the tracer's
@@ -674,6 +747,7 @@ def build_node(args: argparse.Namespace):
     node.tracer = tracer
     node.flight = flight
     node.slo = slo
+    node.serving_loop = serving_loop
     if not args.no_answer_cache:
         node.answer_cache = AnswerCache(
             capacity=max(1, args.answer_cache_capacity)
@@ -733,6 +807,87 @@ def build_node(args: argparse.Namespace):
     return node, httpd
 
 
+def init_hosts(args: argparse.Namespace) -> bool:
+    """With ``--coordinator``, join the torch.distributed group: NCCL on a
+    GPU host, gloo on a CPU one, ``--num-hosts`` ranks with this one
+    ``--host-id``, a rendezvous over ``tcp://<coordinator>`` and a 600 s
+    timeout on the rendezvous and on every collective. Returns whether
+    the node is one of several hosts."""
+    if not args.coordinator:
+        return False
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group(
+            backend="nccl" if args.platform == "gpu" else "gloo",
+            init_method=f"tcp://{args.coordinator}",
+            world_size=args.num_hosts,
+            rank=args.host_id,
+            timeout=timedelta(seconds=600),
+        )
+    return args.num_hosts > 1
+
+
+def platform_mesh(device: str):
+    """This host's own shards for the platform: the virtual mesh
+    SUDOKU_VIRTUAL_MESH names when it is on the platform's device type,
+    else every visible CUDA device on ``cuda``, else the one CPU."""
+    setting = virtual_mesh_setting()
+    if setting is not None and setting[1].type == device:
+        return default_mesh()
+    if device == "cuda":
+        from ..engine import resolve_device
+
+        resolve_device("cuda")  # no GPU: the usual error
+        return default_mesh()
+    return Mesh(["cpu"])
+
+
+def start_serving_loop(engine, mesh, frontier: int, fanout: bool):
+    """The multi-host serving loop on every host (parallel/serving_loop.py),
+    with the engine's resolved solver knobs: the batch lane armed on every
+    host when ``fanout``, then started. On the leader the engine's races
+    (``frontier_runner``) and bucket calls (``mesh_runner``) ride it, and
+    every fan-out width is warmed: the smallest at once, the rest in the
+    background in ladder order. Other hosts serve their own bucket path."""
+    from ..parallel import FrontierServingLoop
+
+    loop = FrontierServingLoop(
+        mesh,
+        engine.spec,
+        states_per_device=max(frontier, 1),
+        max_depth=engine.max_depth,
+        locked=engine.locked_candidates,
+        waves=engine.waves,
+        naked_pairs=engine.naked_pairs,
+    )
+    if fanout:
+        loop.enable_batch_fanout(engine)
+    loop.start(warm_race=frontier > 0)
+    if not loop.is_leader:
+        return loop
+    if frontier > 0:
+        engine.frontier_runner = loop.solve
+    engine.frontier_loop = loop
+    if fanout:
+        engine.mesh_runner = loop.solve_padded
+        loop.warm_batch_fanout(engine.buckets[0], engine.max_iters)
+
+        def _warm_remaining_widths():
+            for b in engine.buckets[1:]:
+                try:
+                    loop.warm_batch_fanout(b, engine.max_iters)
+                except Exception:  # noqa: BLE001 — warm only
+                    logger.warning("background fan-out warm failed at width "
+                                   "%d", b, exc_info=True)
+                    return
+
+        if len(engine.buckets) > 1:
+            threading.Thread(target=_warm_remaining_widths, daemon=True,
+                             name="fanout-warm").start()
+    return loop
+
+
 def _freeze_after_warmup(engine, warming: bool) -> None:
     """GC hygiene for a serving process: once the ladder is warm, the heap
     it built is long-lived, and a full collection over it every few
@@ -780,6 +935,8 @@ def main(argv=None) -> None:
         if node.autopilot is not None:
             node.autopilot.close()
         node.engine.close()  # drain the coalescer (in-flight futures resolve)
+        if node.serving_loop is not None and node.serving_loop.is_leader:
+            node.serving_loop.stop()
 
 
 if __name__ == "__main__":

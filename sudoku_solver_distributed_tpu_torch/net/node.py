@@ -9,18 +9,18 @@ engine-authoritative fallbacks), the crash detector and the anti-entropy
 loop are the JAX node's, line for line; the engine behind it is the
 port's (K1 and the K3/K3b segment kernels on the card).
 
-Deviations from the JAX node:
+As on the JAX node, ``mesh_peer_count`` (``--mesh-peers N``) surfaces N
+``{id}/tpu{k}`` pseudo-peers at ``/network``, one a mesh shard, under the
+JAX node's names byte for byte (the bodies must equal the reference's);
+and with the frontier race enabled (the engine's ``frontier_mesh``, one
+device or a mesh) ``/solve`` answers from the node's own race and does not
+farm, while per-cell tasks and the farm's closing solves pass
+``frontier=False``.
 
-  * no ``mesh_peer_count``: the ``/tpu{k}`` pseudo-peers of a multi-device
-    mesh are not in this package, so ``/network`` is the membership view;
-  * the frontier race runs on one device (the engine's
-    ``frontier_mesh``), not across a mesh: with it enabled, ``/solve``
-    answers from the node's own race and does not farm, as on the JAX
-    node; per-cell tasks and the farm's closing solves pass
-    ``frontier=False``, as there;
-  * ``shutdown`` also stops the worker thread at once (a sentinel on its
-    queue) and closes the UDP socket once ``run`` returns, or at once when
-    ``run`` never started; a second call does nothing.
+One deviation from the JAX node: ``shutdown`` also stops the worker
+thread at once (a sentinel on its queue) and closes the UDP socket once
+``run`` returns, or at once when ``run`` never started; a second call
+does nothing.
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ class P2PNode:
         anchor_node: Optional[str] = None,
         handicap: float = 0.001,
         engine: Optional[SolverEngine] = None,
+        mesh_peer_count: int = 0,
         failure_timeout: float = FAILURE_TIMEOUT_S,
         metrics=None,
         fault_injector=None,
@@ -76,6 +77,11 @@ class P2PNode:
         self.handicap = handicap
 
         self.engine = engine if engine is not None else SolverEngine()
+        # the mesh's pseudo-peers at /network (--mesh-peers): one a shard,
+        # named as the JAX node names its TPU cores
+        self.mesh_peer_ids: List[str] = [
+            f"{self.id}/tpu{k}" for k in range(mesh_peer_count)
+        ]
         self.limiter = HandicapLimiter(base_delay=handicap)
         self._solved_count = 0
         if tombstone_ttl_s is None:
@@ -300,7 +306,11 @@ class P2PNode:
         return self.stats.snapshot()
 
     def network_view(self) -> wire.Msg:
-        return self.membership.network_view()
+        view = self.membership.network_view()
+        if self.mesh_peer_ids:
+            view.setdefault(self.id, [])
+            view[self.id] = sorted(set(view[self.id]) | set(self.mesh_peer_ids))
+        return view
 
     # -- message dispatch ---------------------------------------------------
     def handle_message(self, msg: wire.Msg, source=None) -> None:

@@ -10,15 +10,19 @@ coalesced, direct or deep-retry — records ONE sample here:
   boards          real boards in the call (batch fill)
   pad_coalesce    pad rows added to reach the bucket width (the coalescer
                   fed fewer boards than the bucket)
-  pad_mesh        pad rows a mesh's rounding adds on top; always 0 in this
-                  package, which has no mesh (the key stays so the block
-                  reads as the JAX package's)
+  pad_mesh        pad rows the mesh plane's rounding added on top (a
+                  mesh engine's ladder rounds to mesh-divisible widths;
+                  the engine splits the pad between the two as the JAX
+                  engine does)
   lane_steps /    the call's loop-work counters (``LoopStats``), carried
   idle_lane_steps as two trailing packed-row columns: lane utilization =
                   1 − idle/lane. The DFS kernel runs each board on its own
-                  warp, so on the card it reports idle 0 and lane = Σ own
+                  warp, so on one card it reports idle 0 and lane = Σ own
                   steps; the plain version reports lockstep counts
-                  (ops/cuda_solver.py).
+                  (ops/cuda_solver.py). A mesh call's are the shards'
+                  lockstep counts summed (each shard's loop ends with its
+                  own boards: ``solve_stage_lockstep``), the JAX mesh
+                  program's ``psum``, on the card and off it.
 
 Every continuous-batching segment records one sample too
 (``note_segment``, from the segment digest's columns), kept as the

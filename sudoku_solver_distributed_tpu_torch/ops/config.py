@@ -106,3 +106,19 @@ def resolved_segment_shape(size: int, segment_iters=None) -> dict:
     if int(k) < 1:
         raise ValueError(f"segment_iters must be >= 1, got {k}")
     return {"k": int(k)}
+
+
+# The mesh serving policy, the JAX package's: ``SolverEngine(mesh="auto")``
+# (the CLI's serving default) shards the bucket and segment programs once
+# ``auto_min_devices`` devices are visible, and bucket widths round up to a
+# multiple of the mesh size times ``min_per_device_fill``, so every shard
+# receives at least that many rows a call.
+MESH_SERVING = dict(
+    auto_min_devices=2,
+    min_per_device_fill=1,
+)
+
+
+def mesh_serving_config() -> dict:
+    """The mesh serving policy knobs (``SolverEngine(mesh="auto")``)."""
+    return dict(MESH_SERVING)

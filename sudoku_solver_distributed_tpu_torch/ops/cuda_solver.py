@@ -59,6 +59,12 @@ owns the race's two-word scratch, one per (device, stream)
 (``race_scratch``), and allocates the guess-stack slab only for a board
 size whose stack the library does not keep on chip
 (``race_stack_in_slab``).
+
+A race across the shards of a mesh is ``dfs_race_shards`` (K4's shard
+form, a launch a shard, over the race's stop slots: ``race_slots``) and
+then ``race_fold`` (the fold kernel over every shard's run records);
+``dfs_race_shards.launches`` and ``race_fold.launches`` count their own
+launches.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
@@ -88,8 +95,10 @@ from .solver import (
     LoopStats,
     SOLVED,
     init_segment_state,
+    fold_race,
     inject_lanes_src,
     race,
+    race_runs,
     run_segment,
     segment_digest,
     solve_flat,
@@ -254,6 +263,12 @@ def load_library() -> ctypes.CDLL:
         RACE_META_COLS, RACE_ROW_EXTRA
     ):
         raise RuntimeError("dfs_solver library disagrees on the race layout")
+    lib.dfs_race_slots_alloc.argtypes = [i] + [ctypes.POINTER(ctypes.c_void_p)] * 2
+    lib.dfs_race_slots_alloc.restype = i
+    lib.dfs_race_shards_launch.argtypes = [i] + [p] * 10 + [i] * 6
+    lib.dfs_race_shards_launch.restype = i
+    lib.dfs_race_fold_launch.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.dfs_race_fold_launch.restype = i
     _LIBRARY["source"] = source
     return lib
 
@@ -746,6 +761,262 @@ def _launch_race(lib: ctypes.CDLL, states: torch.Tensor, spec: BoardSpec,
 
 
 dfs_race.launches = 0
+
+
+# -- a race across the shards of a mesh ---------------------------------------
+
+_RACE_SLOTS: dict = {}
+# a slot with no step posted
+RACE_SLOT_IDLE = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class RaceSlots:
+    """The stop slots of races across one set of shards: ``n`` words, one a
+    shard, of page-locked host memory mapped into every device, at device
+    address ``address`` and host address ``host``; idle (every word
+    0xffffffff) between races. ``lock`` is held by a race over them while
+    it enqueues its launches and its fold, so races over one set of slots
+    run one after another; the fold kernel sets them idle again."""
+
+    address: int
+    host: int
+    n: int
+    lock: threading.Lock
+
+    def idle(self) -> None:
+        """Set every slot idle from the host, for a race that never
+        enqueued its fold. The caller first waits for that race's shard
+        launches to end: a launch still running could post again."""
+        words = (ctypes.c_uint32 * self.n).from_address(self.host)
+        words[:] = [RACE_SLOT_IDLE] * self.n
+
+
+def race_slots(key, n: int) -> RaceSlots:
+    """The ``n`` stop slots of races across the shards ``key`` names (the
+    shards' (device, stream) pairs): allocated at the first race over
+    those shards, idle, and kept for the process."""
+    with _RACE_SCRATCH_LOCK:
+        entry = _RACE_SLOTS.get(key)
+        if entry is None:
+            out, host = ctypes.c_void_p(), ctypes.c_void_p()
+            err = load_library().dfs_race_slots_alloc(
+                int(n), ctypes.byref(out), ctypes.byref(host))
+            if err != 0:
+                raise KernelLaunchError(
+                    f"dfs_race_slots_alloc failed: cudaError {err}"
+                )
+            entry = _RACE_SLOTS[key] = RaceSlots(
+                int(out.value), int(host.value), int(n), threading.Lock())
+    return entry
+
+
+def dfs_race_shards(states: list, spec: BoardSpec, depth: int, max_iters: int,
+                    *, streams: Optional[list] = None, slots: Optional[int] = None,
+                    locked_candidates: bool = False, waves: int = 1,
+                    naked_pairs: bool | None = None, packed: bool | None = None):
+    """The shards' part of a race across shards: shard i's (M, C) int32
+    ``states[i]`` raced, each state stopping once it has run more steps
+    than the earliest solve any shard has posted. Returns one ``(meta,
+    grid)`` a shard, the (M, 4) run records of ``ops.solver.RACE_META_COLS``
+    and the (M, C) grids the runs stopped on; ``race_fold`` over every
+    shard's, in state order, gives the race's row and fold.
+
+    CUDA tensors (shard i's on its device, with ``streams[i]`` its stream)
+    launch the shard form of the race kernel (``dfs_race_shard_kernel``),
+    one launch a shard, all from one library call so they start together,
+    each posting to and polling the race's ``slots`` (the device address
+    of ``race_slots``); each launch counts in ``dfs_race_shards.launches``.
+    CPU tensors run the plain
+    lockstep race of each shard's own states (``ops.solver.race_runs``).
+    Nothing else is accepted."""
+    _check_library()
+    sweeps = dict(
+        locked_candidates=locked_candidates, waves=waves,
+        naked_pairs=naked_pairs, packed=packed,
+    )
+    knobs = sweep_knobs(spec, **sweeps)
+    if not states or depth < 1 or max_iters < 0:
+        raise ValueError(f"bad shards / depth {depth} / max_iters {max_iters}")
+    M = states[0].shape[0] if isinstance(states[0], torch.Tensor) else 0
+    for t in states:
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError("dfs_race_shards takes int32 states as torch.Tensors")
+        if t.dim() != 2 or t.shape != (M, spec.cells) or M < 1:
+            raise ValueError(
+                f"dfs_race_shards takes equal (M >= 1, {spec.cells}) shards, got "
+                f"{[tuple(x.shape) for x in states]}"
+            )
+    kinds = {t.device.type for t in states}
+    if kinds == {"cpu"}:
+        N = spec.size
+        return [race_runs(t.reshape(M, N, N), spec, max_iters, depth, **knobs)
+                for t in states]
+    if kinds != {"cuda"}:
+        raise ValueError(f"dfs_race_shards runs on cuda or cpu, not {kinds}")
+    if not all(t.is_contiguous() for t in states):
+        raise ValueError("dfs_race_shards takes contiguous states")
+    if slots is None or streams is None or len(streams) != len(states):
+        raise ValueError("dfs_race_shards on CUDA takes the race's slots and a "
+                         "stream a shard")
+    return _launch_race_shards(
+        load_library(), states, spec, depth, max_iters, knobs["waves"],
+        _options(knobs), slots, streams,
+    )
+
+
+def _launch_race_shards(lib: ctypes.CDLL, states: list, spec: BoardSpec,
+                        depth: int, max_iters: int, waves: int, options: int,
+                        slots: int, streams: list):
+    """Allocate each shard's run records (and its stack slab, off chip) on
+    its device and stream, then launch every shard's race kernel from one
+    library call, each on its stream with its stream's scratch
+    (``race_scratch``); counts the launches in
+    ``dfs_race_shards.launches``."""
+    n = len(states)
+    M, C = states[0].shape
+    depth = min(depth, C)
+    slab = race_stack_in_slab(lib, spec.box)
+    outs, keep = [], []
+    ptr = ctypes.c_void_p * n
+    arrays = {k: ptr() for k in ("grid", "meta", "sg", "sc", "sm", "stop", "stream")}
+    devices = (ctypes.c_int * n)()
+    for i, (t, stream) in enumerate(zip(states, streams)):
+        dev = t.device
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            grid = torch.empty((M, C), dtype=torch.int32, device=dev)
+            meta = torch.empty((M, RACE_META_COLS), dtype=torch.int32, device=dev)
+            stack = (
+                (torch.empty((M, depth, C), dtype=torch.int8, device=dev),
+                 torch.empty((M, depth), dtype=torch.int32, device=dev),
+                 torch.empty((M, depth), dtype=torch.int32, device=dev))
+                if slab else ()
+            )
+            scratch = race_scratch(dev, stream.cuda_stream)
+        outs.append((meta, grid))
+        keep.append(stack)
+        arrays["grid"][i] = grid.data_ptr()
+        arrays["meta"][i] = meta.data_ptr()
+        for k, tensor in zip(("sg", "sc", "sm"), stack):
+            arrays[k][i] = tensor.data_ptr()
+        arrays["stop"][i] = scratch.data_ptr()
+        arrays["stream"][i] = stream.cuda_stream
+        devices[i] = dev.index or 0
+    inputs = ptr(*(t.data_ptr() for t in states))
+    err = lib.dfs_race_shards_launch(
+        n, inputs, arrays["grid"], arrays["meta"], arrays["sg"], arrays["sc"],
+        arrays["sm"], arrays["stop"], slots, devices, arrays["stream"], M,
+        spec.box, depth, max_iters, waves, options,
+    )
+    if err != 0:
+        raise KernelLaunchError(f"dfs_race_shards launch failed: cudaError {err}")
+    with _LAUNCHES_LOCK:
+        dfs_race_shards.launches += n
+    return outs
+
+
+dfs_race_shards.launches = 0
+
+
+def race_fold(meta: torch.Tensor, grid: torch.Tensor, spec: BoardSpec,
+              waves: int, *, slots: Optional[int] = None, n_slots: int = 0):
+    """The fold of a race across shards over every shard's run records,
+    gathered in global state order on one device: (M, 4) ``meta`` and
+    (M, C) ``grid``. Returns ``(row, fold)`` as ``dfs_race``: the packed
+    (C + 3,) row and each state's (M, 2) [status, validations] after the
+    lockstep race.
+
+    CUDA tensors launch the fold kernel (``race_fold_kernel``, one block)
+    on the current stream, which also sets the race's ``n_slots`` slots
+    idle, and count it in ``race_fold.launches``; CPU tensors run
+    ``ops.solver.fold_race``. Nothing else is accepted."""
+    _check_library()
+    for name, t in (("meta", meta), ("grid", grid)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError(f"race_fold takes {name} as an int32 tensor")
+    M = meta.shape[0]
+    if tuple(meta.shape) != (M, RACE_META_COLS) or tuple(grid.shape) != (M, spec.cells) \
+            or M < 1:
+        raise ValueError(
+            f"race_fold takes (M, {RACE_META_COLS}) meta and (M, {spec.cells}) "
+            f"grids, got {tuple(meta.shape)} and {tuple(grid.shape)}"
+        )
+    if meta.device != grid.device:
+        raise ValueError("race_fold: meta and grid lie on different devices")
+    if meta.device.type == "cpu":
+        return fold_race(meta, grid, spec, waves)
+    if meta.device.type != "cuda":
+        raise ValueError(f"race_fold runs on cuda or cpu, not {meta.device}")
+    if not (meta.is_contiguous() and grid.is_contiguous()):
+        raise ValueError("race_fold takes contiguous tensors")
+    return _launch_race_fold(load_library(), meta, grid, spec, waves, slots, n_slots)
+
+
+def _launch_race_fold(lib: ctypes.CDLL, meta: torch.Tensor, grid: torch.Tensor,
+                      spec: BoardSpec, waves: int, slots: Optional[int],
+                      n_slots: int):
+    M, C = grid.shape
+    dev = grid.device
+    fold = torch.empty((M, 2), dtype=torch.int32, device=dev)
+    row = torch.empty((C + RACE_ROW_EXTRA,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dfs_race_fold_launch(
+            meta.data_ptr(), grid.data_ptr(), fold.data_ptr(), row.data_ptr(),
+            slots, int(n_slots) if slots else 0, M, spec.box, int(waves), stream,
+        )
+    if err != 0:
+        raise KernelLaunchError(f"race_fold launch failed: cudaError {err}")
+    with _LAUNCHES_LOCK:
+        race_fold.launches += 1
+    return row, fold
+
+
+race_fold.launches = 0
+
+
+def lockstep_stats(steps: torch.Tensor) -> LoopStats:
+    """The lockstep loop's LoopStats of one flat stage from each board's
+    own step count (K1's ``steps`` column): the loop turns max(steps)
+    times, sweeping every lane each turn, and a board is idle in the turns
+    after it stopped. 0-dim tensors on the steps' device: no sync."""
+    B = steps.shape[0]
+    if B == 0:
+        zero = steps.new_zeros((), dtype=torch.int64)
+        return LoopStats(zero, zero)
+    lane = steps.amax().to(torch.int64) * B
+    return LoopStats(lane, lane - steps.to(torch.int64).sum())
+
+
+def solve_stage_lockstep(grid: torch.Tensor, spec: BoardSpec, depth: int,
+                         max_iters: int, **sweeps):
+    """``solve_stage`` with the lockstep loop's LoopStats, as a shard of
+    the JAX package's mesh programs counts them: on a CUDA tensor K1
+    (``dfs_solver``) and ``lockstep_stats`` of its per-board steps; on a
+    CPU tensor the plain flat solve (``ops.solver.solve_flat``), whose
+    loop counts them itself. Returns (SolveResult, LoopStats); nothing is
+    read back on CUDA."""
+    if grid.device.type == "cpu":
+        _check_library()
+        return solve_flat(grid.to(torch.int32), spec, depth, max_iters,
+                          **sweep_knobs(spec, **sweeps))
+    B = grid.shape[0]
+    N = spec.size
+    out, meta = dfs_solver(
+        grid.reshape(B, spec.cells).contiguous(), spec, depth, max_iters,
+        **sweeps,
+    )
+    status = meta[:, 0]
+    steps = meta[:, 3]
+    res = SolveResult(
+        grid=out.reshape(B, N, N),
+        solved=status == SOLVED,
+        status=status,
+        guesses=meta[:, 1],
+        validations=meta[:, 2],
+        iters=steps.amax() if B else steps.new_zeros(()),
+    )
+    return res, lockstep_stats(steps)
 
 
 def solve_stage(grid: torch.Tensor, spec: BoardSpec, depth: int,

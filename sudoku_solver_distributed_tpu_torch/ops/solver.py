@@ -645,6 +645,28 @@ def race(states: torch.Tensor, spec: BoardSpec, max_iters: int,
     state's search as the lockstep loop left it (steps counted while the
     state was RUNNING, status before the closing analysis), which
     ``fold_race`` turns into the same row and fold."""
+    done, meta = _race_loop(states, spec, max_iters, max_depth, **sweeps)
+    fold = torch.stack([done.status, done.validations], dim=1)
+    return race_row(done.grid, fold, spec), fold, meta
+
+
+def race_runs(states: torch.Tensor, spec: BoardSpec, max_iters: int,
+              max_depth: int | None = None, **sweeps):
+    """One shard's part of a race across shards, as the lockstep loop runs
+    it over the shard's own (M, N, N) states (stopping at the shard's own
+    first solve): ``(meta, grid)``, the (M, 4) run record of
+    ``RACE_META_COLS`` and the (M, C) grids the runs stopped on, which
+    ``fold_race`` over every shard's, concatenated in state order, turns
+    into the race's row and fold. A shard's loop stops at or after the
+    race's t* (the earliest solve of any shard), which is all the fold
+    asks of a run."""
+    done, meta = _race_loop(states, spec, max_iters, max_depth, **sweeps)
+    return meta, done.grid.reshape(states.shape[0], spec.cells)
+
+
+def _race_loop(states, spec, max_iters, max_depth, **sweeps):
+    """The lockstep race loop: ``(done, meta)``, the finalized state and
+    each state's run record."""
     M = states.shape[0]
     st = init_state(states, spec, max_depth)
     steps = torch.zeros((M,), dtype=torch.int32, device=states.device)
@@ -659,8 +681,7 @@ def race(states: torch.Tensor, spec: BoardSpec, max_iters: int,
     done = finalize_status(st, spec)
     complete = ((st.status == RUNNING) & (done.status == SOLVED)).to(torch.int32)
     meta = torch.stack([st.status, steps, st.validations, complete], dim=1)
-    fold = torch.stack([done.status, done.validations], dim=1)
-    return race_row(done.grid, fold, spec), fold, meta
+    return done, meta
 
 
 def race_row(grid: torch.Tensor, fold: torch.Tensor, spec: BoardSpec) -> torch.Tensor:

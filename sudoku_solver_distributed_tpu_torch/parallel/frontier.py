@@ -9,18 +9,32 @@ and "not found" with no subtree left undecided is a proof that the board
 has no solution.
 
 The JAX package races in lockstep across a mesh, with a one-scalar
-``psum`` after every step for the early exit. Here the race runs on one
-CUDA device through the race kernel (ops/cuda_solver.dfs_race, K4, one
-launch: a thread block per state, each stopping once it has run more steps
-than the earliest solve posted so far, and a fold by the last block that
-rebuilds the lockstep result exactly); on the CPU
-the wrapper runs the plain lockstep race (ops/solver.race). Seeding runs
-on the host, on CPU tensors, as the JAX package seeds on its CPU backend:
-it is a handful of tiny analyze/split rounds with a host decision between
-each.
+``psum`` after every step for the early exit; the lowest-rank device's
+lowest-index solution wins. Here the race runs on a mesh of CUDA shards
+(parallel/mesh.py), each racing its slice of the padded states:
 
-Not in this slice: a race across more than one device (the multi-GPU
-slice) and the multi-host ``FrontierServingLoop``.
+  * on one shard, one launch of the race kernel (ops/cuda_solver.dfs_race,
+    K4: a thread block a state, each stopping once it has run more steps
+    than the earliest solve posted so far, and a fold by the last block
+    that rebuilds the lockstep result exactly);
+  * on several, one launch of K4's shard form a shard
+    (``dfs_race_shards``), all from one call on the shards' streams, each posting
+    its earliest solve to a slot in mapped host memory that every shard
+    polls, then the fold kernel (``race_fold``) over every shard's run
+    records in global state order on the first shard's device. The
+    winner is the global lowest index; validations and undecided sum over
+    every state, as the JAX race's.
+
+On the CPU the wrappers run the plain lockstep race (ops/solver.race, and
+per shard ``race_runs`` then ``fold_race``). Seeding runs on the host, on
+CPU tensors, as the JAX package seeds on its CPU backend: it is a handful
+of tiny analyze/split rounds with a host decision between each. The
+states are padded to ``n_shards × states_per_device × 2^k``, as the JAX
+race pads, so the port's race equals the JAX race on a mesh of the same
+size (pad states bill their validations).
+
+A race across hosts is the multi-host serving loop's
+(parallel/serving_loop.py).
 """
 
 from __future__ import annotations
@@ -32,11 +46,13 @@ import numpy as np
 import torch
 
 from ..obs.trace import current_trace
-from ..ops.cuda_solver import dfs_race
+from ..ops.cuda_solver import dfs_race, dfs_race_shards, race_fold, race_slots
 from ..ops.encode import mask_to_value
 from ..ops.propagate import analyze
 from ..ops.spec import SPEC_9, BoardSpec
 from ..serving.admission import DeadlineExceeded
+from .mesh import Mesh, default_mesh
+from .shard import to_primary
 
 # shared by frontier_solve and the engine's warm-up, as in the JAX package
 DEFAULT_MAX_ITERS = 65536
@@ -50,21 +66,27 @@ def _unsat_pad(spec: BoardSpec) -> np.ndarray:
     return board
 
 
-def race_device(mesh=None) -> torch.device:
-    """The one device a race runs on, from the engine's ``frontier_mesh``
-    or ``frontier_solve``'s ``mesh``: None means CUDA (raising without
-    one), a device or its name means that device, and a sequence must hold
-    exactly one. A race across more devices is the multi-GPU slice's."""
+def race_mesh(mesh=None) -> Mesh:
+    """The mesh a race runs on, from the engine's ``frontier_mesh`` or
+    ``frontier_solve``'s ``mesh``: a ``Mesh`` is itself, None is
+    ``default_mesh()`` (every visible CUDA device; raises without one), a
+    sequence of devices is the mesh over them (each once), and a device or
+    its name is the one-shard mesh on it."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    if mesh is None:
+        return default_mesh()
     if isinstance(mesh, (list, tuple)):
-        if len(mesh) != 1:
-            raise NotImplementedError(
-                f"a frontier race across {len(mesh)} devices is not ported "
-                "yet: the race runs on one device"
-            )
-        mesh = mesh[0]
+        return Mesh(mesh)
     from ..engine import resolve_device
 
-    return resolve_device(mesh)
+    return Mesh([resolve_device(mesh)])
+
+
+def race_device(mesh=None) -> torch.device:
+    """The first device of the race's mesh (``race_mesh``): where its
+    packed row is folded."""
+    return race_mesh(mesh).primary
 
 
 def _np(x) -> np.ndarray:
@@ -218,21 +240,128 @@ def warm_seeding(spec: BoardSpec, target: int, locked: bool = False) -> None:
 
 
 def bucket_states(states: np.ndarray, spec: BoardSpec,
-                  states_per_device: int) -> np.ndarray:
+                  states_per_device: int, n_shards: int = 1) -> np.ndarray:
     """Pad the seeded states with instantly-unsat boards up to
-    ``states_per_device × 2^k``, the smallest such count that holds them
-    all. No seeded state is ever dropped: each covers a disjoint slice of
-    the search space. The geometric rungs keep the set of race shapes
-    small (the engine warms the first three)."""
+    ``n_shards × states_per_device × 2^k``, the smallest such count whose
+    shards' equal slices hold them all (the JAX race's padding). No seeded
+    state is ever dropped: each covers a disjoint slice of the search
+    space. The geometric rungs keep the set of race shapes small (the
+    engine warms the first three)."""
+    per = -(-len(states) // n_shards)
     bucket = max(states_per_device, 1)
-    while bucket < len(states):
+    while bucket < per:
         bucket *= 2
-    if len(states) < bucket:
+    total = n_shards * bucket
+    if len(states) < total:
         pad = np.broadcast_to(
-            _unsat_pad(spec), (bucket - len(states), spec.size, spec.size)
+            _unsat_pad(spec), (total - len(states), spec.size, spec.size)
         )
         states = np.concatenate([states, pad], axis=0)
     return states
+
+
+def mesh_race_slots(mesh: Mesh):
+    """The stop slots of races across ``mesh``'s CUDA shards: ``race_slots``
+    keyed by the shards' (device, stream) pairs."""
+    key = tuple((d, s.cuda_stream) for d, s in zip(mesh.devices, mesh.streams))
+    return race_slots(key, mesh.size)
+
+
+def _idle_after(slots, ends) -> None:
+    """A race that raised before its fold was enqueued (a shard's launch
+    failed, a copy ran out of memory, ``gather`` timed out) left the steps
+    it posted in its slots, and the next race over them would stop at
+    them, short of its own first solve. Wait for its shard launches to end
+    (``ends``: an event a shard recorded after its launch, or the shards'
+    streams before any), then set the slots idle from the host."""
+    try:
+        for end in ends:
+            end.synchronize()
+    finally:
+        slots.idle()
+
+
+def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
+                 max_iters: int, *, locked_candidates: bool = False,
+                 waves: int = 1, naked_pairs: Optional[bool] = None,
+                 packed: Optional[bool] = None, gather=None) -> tuple:
+    """Race (M, N, N) (or (M, C)) states whose count divides the mesh,
+    shard ``i`` taking the ``i``-th equal slice. Returns ``(row, fold,
+    meta)`` as ``dfs_race``, on the mesh's first device: the packed (C +
+    3,) row, each state's [status, validations] after the lockstep race,
+    and each state's run record.
+
+    One shard: one launch of K4, which folds itself. Several on CUDA: the
+    shards' launches of K4's shard form, all enqueued at once on the
+    shards' streams over the race's slots (``race_slots``), then the fold
+    kernel on shard 0's stream, which sets the slots idle; every shard's
+    launch waits for the previous race's fold on that stream, and the race
+    holds the slots' lock while it enqueues, so races over one mesh never
+    share its slots. No host sync, except when the race raises before its
+    fold is enqueued: it then waits for its shard launches and sets the
+    slots idle itself. On the CPU: the plain race of each
+    shard's states (``race_runs``) and ``fold_race`` over them all.
+
+    ``gather`` (the multi-host serving loop's): a callable ``(meta, grid)
+    -> (meta, grid)`` that turns this host's run records into every
+    host's, in global state order, before the fold; with it every local
+    shard races in K4's shard form (even one), and the returned ``meta``
+    is every host's."""
+    M, C = len(states), spec.cells
+    flat = torch.from_numpy(np.ascontiguousarray(np.asarray(states, np.int32).reshape(M, C)))
+    knobs = dict(locked_candidates=locked_candidates, waves=waves,
+                 naked_pairs=naked_pairs, packed=packed)
+    n = mesh.size
+    if M % n:
+        raise ValueError(f"{M} race states do not divide the {n}-shard mesh")
+    if n == 1 and gather is None:
+        return dfs_race(flat.to(mesh.primary), spec, depth, max_iters, **knobs)
+    per = M // n
+    if mesh.primary.type == "cpu":
+        runs = dfs_race_shards(
+            [flat[i * per:(i + 1) * per].contiguous() for i in range(n)], spec,
+            depth, max_iters, **knobs,
+        )
+        meta = torch.cat([m for m, _ in runs])
+        grid = torch.cat([g for _, g in runs])
+        if gather is not None:
+            meta, grid = gather(meta, grid)
+        row, fold = race_fold(meta, grid, spec, waves)
+        return row, fold, meta
+    slots = mesh_race_slots(mesh)
+    host = flat.pin_memory()
+    s0 = mesh.streams[0]
+    with slots.lock:
+        parts = []
+        for i, (dev, stream) in enumerate(zip(mesh.devices, mesh.streams)):
+            # the previous race over these slots folded (and set them
+            # idle) on shard 0's stream
+            stream.wait_stream(s0)
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                parts.append(host[i * per:(i + 1) * per].to(dev, non_blocking=True))
+        ends = []
+        try:
+            runs = dfs_race_shards(parts, spec, depth, max_iters,
+                                   streams=list(mesh.streams), slots=slots.address,
+                                   **knobs)
+            ends = [stream.record_event() for stream in mesh.streams]
+            with torch.cuda.device(mesh.primary), torch.cuda.stream(s0):
+                meta = torch.cat([to_primary(mesh, i, m, s0)
+                                  for i, (m, _) in enumerate(runs)])
+                grid = torch.cat([to_primary(mesh, i, g, s0)
+                                  for i, (_, g) in enumerate(runs)])
+                if gather is not None:
+                    meta, grid = gather(meta, grid)
+                row, fold = race_fold(meta, grid, spec, waves, slots=slots.address,
+                                      n_slots=n)
+        except BaseException:
+            _idle_after(slots, ends or mesh.streams)
+            raise
+    caller = torch.cuda.current_stream(mesh.primary)
+    caller.wait_stream(s0)
+    for t in (row, fold, meta):
+        t.record_stream(caller)
+    return row, fold, meta
 
 
 def frontier_solve(
@@ -249,16 +378,21 @@ def frontier_solve(
     packed: Optional[bool] = None,
     initial_states: Optional[np.ndarray] = None,
     deadline_s: Optional[float] = None,
+    hosts=None,
 ) -> Tuple[Optional[list], dict]:
-    """Solve one (hard) board by racing its search subtrees on one device.
+    """Solve one (hard) board by racing its search subtrees across a mesh.
 
-    ``mesh`` names the device (``race_device``: None → CUDA). Returns
-    (solution | None, info). info carries ``validations`` (the sweeps of
-    every state), ``seeded`` (the states raced, padding included) and
-    ``handoff`` (whether ``initial_states`` seeded it), and, when no
-    solution was found, ``capped``: True when some subtree OVERFLOWed its
-    stack or was still RUNNING at ``max_iters`` (the board is NOT proven
-    unsolvable), False for a proof.
+    ``mesh`` names the shards (``race_mesh``: None → every CUDA device; a
+    device → one shard on it). The board is seeded to at least ``n_shards
+    × states_per_device`` states, padded to ``n_shards ×
+    states_per_device × 2^k`` (``bucket_states``) and raced
+    (``race_on_mesh``). Returns (solution | None, info). info carries
+    ``validations`` (the sweeps of every state), ``seeded`` (the states
+    raced, padding included) and ``handoff`` (whether ``initial_states``
+    seeded it), and, when no solution was found, ``capped``: True when
+    some subtree OVERFLOWed its stack or was still RUNNING at
+    ``max_iters`` (the board is NOT proven unsolvable), False for a
+    proof.
 
     A staged (tuple) ``max_depth`` collapses to its deepest stage: the
     race runs one flat search per subtree. ``initial_states`` seeds the
@@ -271,8 +405,16 @@ def frontier_solve(
 
     Seeding is stamped on the calling thread's request span as its
     ``coalesce`` stage (this route's batch formation), the race as its
-    ``device`` stage (dispatch → the packed row on the host)."""
-    dev = race_device(mesh)
+    ``device`` stage (dispatch → the packed row on the host).
+
+    ``hosts`` (the multi-host serving loop's): ``(rank, world, gather)``.
+    Every host seeds the same states and pads them for ``world × mesh``
+    shards; this host races its ``rank``-th slice on its mesh, and
+    ``gather`` (``race_on_mesh``'s) collects every host's run records
+    before the fold, so every host reads the same row."""
+    mesh = race_mesh(mesh)
+    rank, world, gather = hosts if hosts is not None else (0, 1, None)
+    n_shards = mesh.size * world
     if isinstance(max_depth, (tuple, list)):
         max_depth = max(max_depth)
     depth = spec.max_depth if max_depth is None else int(max_depth)
@@ -280,7 +422,7 @@ def frontier_solve(
     tr = current_trace()
     t_seed = time.monotonic()
     states, early = seed_frontier(
-        board, spec, target=states_per_device, locked=locked,
+        board, spec, target=n_shards * states_per_device, locked=locked,
         initial_states=initial_states, deadline_s=deadline_s,
     )
     if tr is not None:
@@ -291,17 +433,18 @@ def frontier_solve(
             "seeded": len(states),
             "handoff": initial_states is not None,
         }
-    states = bucket_states(states, spec, states_per_device)
+    states = bucket_states(states, spec, states_per_device, n_shards)
     if deadline_s is not None and time.monotonic() > deadline_s:
         raise DeadlineExceeded(
             "deadline expired before the frontier race dispatched"
         )
     t_dev = time.monotonic()
     M, C = len(states), spec.cells
-    flat = torch.from_numpy(np.ascontiguousarray(states.reshape(M, C)))
-    row, _, _ = dfs_race(
-        flat.to(dev), spec, depth, max_iters, locked_candidates=locked,
-        waves=waves, naked_pairs=naked_pairs, packed=packed,
+    per_host = M // world
+    row, _, _ = race_on_mesh(
+        states[rank * per_host:(rank + 1) * per_host], mesh, spec, depth,
+        max_iters, locked_candidates=locked, waves=waves,
+        naked_pairs=naked_pairs, packed=packed, gather=gather,
     )
     packed_row = row.cpu().numpy()  # the race's one device→host fetch
     if tr is not None:

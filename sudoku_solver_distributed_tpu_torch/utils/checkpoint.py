@@ -15,7 +15,8 @@ dtype for dtype (``grid`` ... ``iters``, ``__format__``, ``__box__``,
 writes resumes in the other.
 
 A chunk on a CUDA device is one launch of the segment kernels (K3 and its
-digest, ops/cuda_solver.dfs_segment) over a pool built from the state with
+digest, ops/cuda_solver.dfs_segment; one launch a shard with
+``sharding=``, the batch split across a mesh) over a pool built from the state with
 every lane kept (source map all -1): each RUNNING lane steps at most
 ``min(chunk_iters, max_iters - iters)`` steps. The JAX chunk is a lockstep
 ``while_loop``, in which every RUNNING board has stepped exactly ``iters``
@@ -48,6 +49,7 @@ from ..ops.solver import (
     state_from_numpy,
 )
 from ..ops.spec import BoardSpec, spec_for_size
+from ..parallel.shard import join_shards, on_shard, shard_bounds
 
 _FORMAT = 1
 _FIELDS = (
@@ -169,6 +171,28 @@ def _pool(state: _State, spec: BoardSpec, device) -> SegmentPool:
     return SegmentPool(SegmentState(*fields, board_iters=board_iters), spec)
 
 
+def _shard_pools(state: _State, spec: BoardSpec, mesh) -> list:
+    """One pool a shard of ``mesh``, shard ``i`` holding the ``i``-th row
+    block of ``state``, each built on its device and stream."""
+    pools = []
+    for i, sl in enumerate(shard_bounds(state.grid.shape[0], mesh)):
+        with on_shard(mesh, i):
+            part = _State(*(t[sl] for t in state[:-1]), iters=state.iters)
+            pools.append(_pool(part, spec, mesh.devices[i]))
+    return pools
+
+
+def _gathered(pools: list, iters: int, device) -> _State:
+    """The whole batch's state from its pools, on ``device`` (the shards'
+    work is done: ``join_shards`` ran)."""
+    if len(pools) == 1:
+        return _State(*pools[0].state[:-1], iters=iters)
+    return _State(
+        *(torch.cat([p.state[k].to(device) for p in pools]) for k in range(8)),
+        iters=iters,
+    )
+
+
 def solve_batch_resumable(
     grid,
     spec: Optional[BoardSpec] = None,
@@ -195,17 +219,32 @@ def solve_batch_resumable(
 
     ``device``: where the chunks run, CUDA by default (the segment
     kernels; raises without a GPU) or ``"cpu"`` (their plain version).
-    ``sharding`` (a batch split across devices) is the multi-GPU slice's
-    and raises ``NotImplementedError``. Returns the result's tensors on
-    ``device``; ``iters`` is an int."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "solve_batch_resumable(sharding=...) is not ported yet"
-        )
+    ``sharding`` (``parallel.mesh.data_sharding(mesh)``) splits the batch
+    across the mesh's shards instead: each chunk is one launch of the
+    segment kernels a shard, on the shard's device and stream, and every
+    snapshot gathers the whole batch, so a snapshot taken on a mesh
+    resumes on one device and the other way round (the chunks' steps do
+    not depend on the split). The batch must divide the mesh. Returns the
+    result's tensors on ``device`` (the mesh's first device with
+    ``sharding``); ``iters`` is an int."""
     from ..engine import resolve_device
 
-    dev = resolve_device(device)
+    mesh = None
+    if sharding is not None:
+        mesh = getattr(sharding, "mesh", None)
+        if mesh is None or not hasattr(mesh, "streams"):
+            raise TypeError(
+                "sharding= takes a parallel.mesh.data_sharding(mesh) descriptor"
+            )
+        dev = mesh.primary
+    else:
+        dev = resolve_device(device)
     grid = np.asarray(grid, np.int32)
+    if mesh is not None and grid.shape[0] % mesh.size:
+        raise ValueError(
+            f"a batch of {grid.shape[0]} boards does not divide the "
+            f"{mesh.size}-shard mesh of sharding="
+        )
     if spec is None:
         spec = spec_for_size(grid.shape[-1])
     if isinstance(max_depth, (tuple, list)):
@@ -246,23 +285,36 @@ def solve_batch_resumable(
         state = init_state(torch.from_numpy(grid), spec, max_depth)
 
     iters = int(state.iters)
-    pool = _pool(state, spec, dev)
-    keep = torch.full((pool.width,), -1, dtype=torch.int32, device=dev)
-    no_boards = torch.zeros((1, spec.cells), dtype=torch.int32, device=dev)
+    pools = _shard_pools(state, spec, mesh) if mesh is not None else [_pool(state, spec, dev)]
+    devices = mesh.devices if mesh is not None else (dev,)
+    args = []
+    for i, pool in enumerate(pools):
+        with on_shard(mesh, i):
+            d = devices[i]
+            args.append((
+                torch.zeros((1, spec.cells), dtype=torch.int32, device=d),
+                torch.full((pool.width,), -1, dtype=torch.int32, device=d),
+            ))
     sweeps = dict(locked_candidates=locked, waves=waves, naked_pairs=naked_pairs)
     while True:
         seg_iters = max(0, min(chunk_iters, max_iters - iters))
-        pool, digest, _ = dfs_segment(
-            pool, no_boards, keep, seg_iters, prefix_gather=False, **sweeps
-        )
-        digest = digest.cpu().numpy()
+        digests = []
+        for i, (no_boards, keep) in enumerate(args):
+            with on_shard(mesh, i):
+                pools[i], digest, _ = dfs_segment(
+                    pools[i], no_boards, keep, seg_iters, prefix_gather=False,
+                    **sweeps,
+                )
+            digests.append(digest)
+        join_shards(mesh)
+        digest = np.concatenate([d.cpu().numpy() for d in digests])
         if len(digest):
             iters = max(iters, int(digest[:, 4].max()))
         done = not bool((digest[:, 0] == RUNNING).any())
         if done:
             break
         save_solver_state(
-            checkpoint_path, _State(*pool.state[:-1], iters=iters), spec,
+            checkpoint_path, _gathered(pools, iters, dev), spec,
             fingerprint, config=cfg_blob,
         )
         if iters >= max_iters:
@@ -271,7 +323,7 @@ def solve_batch_resumable(
             # max_iters continues from here instead of iteration 0
             break
 
-    state = finalize_status(_State(*pool.state[:-1], iters=iters), spec)
+    state = finalize_status(_gathered(pools, iters, dev), spec)
     if done and not keep_checkpoint and os.path.exists(checkpoint_path):
         os.unlink(checkpoint_path)
 

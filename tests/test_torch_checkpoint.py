@@ -130,7 +130,9 @@ def test_keep_checkpoint_sharding_and_the_default_device(tmp_path, monkeypatch):
     res = port_run(boards, path, keep_checkpoint=True)
     assert path.exists() and path.read_bytes() == before  # done: no new save
     assert int(res.status.min()) == 1
-    with pytest.raises(NotImplementedError):
+    # sharding= takes a mesh's data sharding (the resumable batch over a
+    # mesh is tests/test_torch_mesh.py's); anything else is refused
+    with pytest.raises(TypeError, match="data_sharding"):
         tck.solve_batch_resumable(boards, checkpoint_path=str(tmp_path / "x.npz"),
                                   sharding=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -167,12 +167,14 @@ def test_serving_knobs_match_jax(kw):
 @pytest.mark.parametrize(
     "kw",
     [
-        {"mesh": "auto"},
+        {"solver_config": "default"},
         {"solver_config": "legacy"},
-        {"frontier_mesh": ["cpu", "cpu"]},  # a race across two devices
+        {"backend": "pallas"},
     ],
 )
 def test_unported_knobs_raise(kw):
+    # the mesh knobs (mesh, bucket_multiple, sharding, a race across
+    # devices) are ported: tests/test_torch_mesh.py
     with pytest.raises(NotImplementedError):
         SolverEngine(device="cpu", **kw)
 

@@ -430,8 +430,13 @@ def test_frontier_solve_deadline_and_devices():
     with pytest.raises(DeadlineExceeded):
         TF.frontier_solve(README, "cpu", states_per_device=8,
                           deadline_s=time.monotonic() - 0.001)
-    with pytest.raises(NotImplementedError):
-        TF.frontier_solve(README, ["cuda:0", "cuda:1"], states_per_device=8)
+    # a race across two CUDA devices is ported; without a card it raises
+    # as every CUDA entry point does, and a device named twice is no mesh
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TF.frontier_solve(README, ["cuda:0", "cuda:1"], states_per_device=8)
+    with pytest.raises(ValueError, match="repeat"):
+        TF.frontier_solve(README, ["cpu", "cpu"], states_per_device=8)
     assert TF.race_device(["cpu"]).type == "cpu"
 
 
@@ -545,7 +550,7 @@ def test_deep_mined_board_escalates_under_the_default_budget(mesh1):
 def test_route_validation_and_frontier_mesh_forms():
     with pytest.raises(ValueError, match="frontier_route"):
         SolverEngine(device="cpu", buckets=(1,), frontier_route="sometimes")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="repeat"):  # only virtual_mesh repeats
         SolverEngine(device="cpu", buckets=(1,), frontier_mesh=["cpu", "cpu"])
     off = SolverEngine(device="cpu", buckets=(1,))
     assert off.frontier_enabled is False and off.health()["frontier_enabled"] is False

@@ -52,6 +52,11 @@ from sudoku_solver_distributed_tpu_torch.utils import (
     render_board, render_board_highlight_zeros,
 )
 assert Sudoku is S2 and SudokuSolver is SS2
+from sudoku_solver_distributed_tpu_torch.parallel import (
+    FrontierServingLoop, Mesh, data_sharding, default_mesh, make_packed_serving_program,
+    make_sharded_solver, virtual_mesh,
+)
+from sudoku_solver_distributed_tpu_torch.parallel.sim import run_json, run_py
 leaked = [n for n in sys.modules
           if n.split(".")[0] == "sudoku_solver_distributed_tpu"]
 assert not leaked, leaked
@@ -69,6 +74,7 @@ REQUIRED = (
     "utils.render", "net.peermap", "cache.gossip", "obs.cluster",
     "serving.autopilot", "parallel.frontier", "compilecache",
     "compilecache.store", "utils.checkpoint", "native", "models.generator",
+    "parallel.mesh", "parallel.shard", "parallel.serving_loop", "parallel.sim",
 )
 
 # the default transport without JAX, on the plain solver: a /solve_batch
@@ -230,7 +236,8 @@ def test_no_import_line_names_jax_or_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "dfs_solver_ab.py"),
              os.path.join(ROOT, "tools", "serving_ab.py"),
-             os.path.join(ROOT, "tools", "profiler_edge.py")]
+             os.path.join(ROOT, "tools", "profiler_edge.py"),
+             os.path.join(ROOT, "tools", "mesh_multi_gpu.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     hits = [
@@ -245,7 +252,8 @@ def test_no_import_line_names_jax_or_the_jax_package():
 @pytest.mark.parametrize(
     "argv",
     [["chip_smoke.py"], ["tools/dfs_solver_ab.py", "_archive/parent_dfs_solver.cu"],
-     ["tools/serving_ab.py", "_archive/parent"], ["tools/profiler_edge.py"]],
+     ["tools/serving_ab.py", "_archive/parent"], ["tools/profiler_edge.py"],
+     ["tools/mesh_multi_gpu.py"]],
 )
 def test_chip_scripts_fail_without_a_card_and_print_no_result(argv):
     if torch.cuda.is_available():
@@ -322,6 +330,10 @@ class _FakeRaceLibrary:
         return int(box <= self.on_chip_max_box) if 2 <= box <= 5 else -1
 
     def dfs_race_launch(self, *args):
+        self.calls.append(args)
+        return self.error
+
+    def dfs_race_shards_launch(self, *args):
         self.calls.append(args)
         return self.error
 
@@ -411,6 +423,98 @@ def test_race_launch_error_raises_and_counts_nothing(fake_cuda_stream):
         _launch_race(_FakeRaceLibrary(error=1), torch.zeros((2, 81), dtype=torch.int32),
                      spec_for_size(9), 81, 64, 3, 1)
     assert dfs_race.launches == before
+
+
+@pytest.mark.parametrize("size, slab", [(9, False), (25, True)])
+def test_shard_race_launch_is_one_call_for_every_shard(monkeypatch, size, slab):
+    """The shard launches of a race across shards go to the library in one
+    call: each shard's states, records, slab (off chip only), its stream's
+    scratch, the race's slots, device and stream; every shard counts a
+    launch of the shard form, none of K4's one-shard form; an error raises
+    and counts none."""
+    import contextlib
+    import types
+
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        KernelLaunchError,
+        _launch_race_shards,
+        dfs_race_shards,
+        race_scratch,
+    )
+
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    spec = spec_for_size(size)
+    streams = [types.SimpleNamespace(cuda_stream=201 + i) for i in range(3)]
+    states = [torch.zeros((2, spec.cells), dtype=torch.int32) for _ in range(3)]
+    lib = _FakeRaceLibrary()
+    before, one_shard = dfs_race_shards.launches, dfs_race.launches
+    outs = _launch_race_shards(lib, states, spec, spec.cells, 64, 1, 1, 4242, streams)
+    assert dfs_race_shards.launches == before + 3 and len(lib.calls) == 1
+    assert dfs_race.launches == one_shard
+    assert [(tuple(m.shape), tuple(g.shape)) for m, g in outs] == [((2, 4), (2, spec.cells))] * 3
+    (args,) = lib.calls
+    n, inputs, grids, metas, sg, sc, sm, stop, slots = args[:9]
+    assert n == 3 and slots == 4242
+    assert list(inputs) == [t.data_ptr() for t in states]
+    assert list(metas) == [m.data_ptr() for m, _ in outs]
+    assert list(grids) == [g.data_ptr() for _, g in outs]
+    assert all(p is not None for p in list(sg) + list(sc) + list(sm)) == slab
+    assert list(stop) == [race_scratch(torch.device("cpu"), 201 + i).data_ptr()
+                          for i in range(3)]
+    assert list(args[10]) == [201, 202, 203]
+    assert args[11:13] == (2, spec.box)
+    with pytest.raises(KernelLaunchError):
+        _launch_race_shards(_FakeRaceLibrary(error=1), states, spec, spec.cells, 64, 1, 1,
+                            4242, streams)
+    assert dfs_race_shards.launches == before + 3
+
+
+def test_race_slots_idle_writes_every_word_through_the_host_address():
+    """``RaceSlots.idle`` sets each of the race's slots to the idle word
+    through their host address, and nothing past them."""
+    import ctypes
+    import threading
+
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SLOT_IDLE,
+        RaceSlots,
+    )
+
+    words = (ctypes.c_uint32 * 5)(7, 3, 40, 9, 11)
+    slots = RaceSlots(address=1, host=ctypes.addressof(words), n=4, lock=threading.Lock())
+    slots.idle()
+    assert list(words) == [RACE_SLOT_IDLE] * 4 + [11]
+
+
+@pytest.mark.parametrize("fail_sync", [False, True])
+def test_a_race_that_raised_waits_for_its_shards_then_idles_its_slots(fail_sync):
+    """``_idle_after``: every shard's end is waited for before the slots
+    go idle, and they go idle even when a wait raises (a device fault)."""
+    from sudoku_solver_distributed_tpu_torch.parallel.frontier import _idle_after
+
+    seen = []
+
+    class End:
+        def __init__(self, k):
+            self.k = k
+
+        def synchronize(self):
+            seen.append(self.k)
+            if fail_sync and self.k == 1:
+                raise RuntimeError("CUDA error: an illegal memory access")
+
+    class Slots:
+        def idle(self):
+            seen.append("idle")
+
+    if fail_sync:
+        with pytest.raises(RuntimeError):
+            _idle_after(Slots(), [End(0), End(1), End(2)])
+        assert seen == [0, 1, "idle"]
+    else:
+        _idle_after(Slots(), [End(0), End(1), End(2)])
+        assert seen == [0, 1, 2, "idle"]
 
 
 def _race_sets():
@@ -990,3 +1094,207 @@ def test_resumable_batch_on_the_card_matches_the_plain_version(tmp_path):
         for f in ("grid", "solved", "status", "guesses", "validations"):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
         assert got.iters == want.iters
+
+
+# -- the mesh plane on the card: a 4-shard virtual mesh on cuda:0 --------------
+
+
+def _mesh4():
+    from sudoku_solver_distributed_tpu_torch.parallel.mesh import virtual_mesh
+
+    return virtual_mesh("cuda:0", 4)
+
+
+@pytest.mark.cuda
+def test_virtual_mesh_bucket_program_matches_one_device_on_the_card():
+    """The bucket program over 4 shards of cuda:0 (one K1 launch a shard,
+    each on its own stream) against one K1 launch over the same batch:
+    every per-board column of the packed rows, at the serving waves; and
+    a shard's lockstep LoopStats from its boards' own steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import solve_stage_lockstep
+    from sudoku_solver_distributed_tpu_torch.parallel.shard import (
+        make_packed_serving_program,
+    )
+
+    spec = spec_for_size(9)
+    boards = torch.as_tensor(_hard(256), device="cuda")
+    program = make_packed_serving_program(_mesh4(), spec, max_depth=(32, 81),
+                                          locked_candidates=True, waves=3,
+                                          naked_pairs=False)
+    before = dfs_solver.launches
+    rows = program(boards, 4096)
+    assert dfs_solver.launches >= before + 4
+    assert program.last_split == {"devices": 4, "rows_per_device": 64}
+    res = solve_batch_cuda(boards, spec, max_depth=(32, 81), locked_candidates=True,
+                           waves=3, naked_pairs=False)
+    C = spec.cells
+    assert np.array_equal(rows[:, :C], res.grid.reshape(256, C).cpu().numpy())
+    assert np.array_equal(rows[:, C + 1], res.status.cpu().numpy())
+    assert np.array_equal(rows[:, C + 2], res.guesses.cpu().numpy())
+    assert np.array_equal(rows[:, C + 3], res.validations.cpu().numpy())
+    # the lockstep LoopStats: the shards' sums; each shard's lanes run
+    # exactly the boards' own steps
+    _, st = solve_stage_lockstep(boards[:64], spec, 32, 4096, locked_candidates=True,
+                                 waves=3, naked_pairs=False)
+    _, meta = dfs_solver(boards[:64].reshape(64, -1), spec, 32, 4096,
+                         locked_candidates=True, waves=3, naked_pairs=False)
+    steps = meta[:, 3].long()
+    assert int(st.lane_steps) == 64 * int(steps.max())
+    assert int(st.lane_steps) - int(st.idle_lane_steps) == int(steps.sum())
+
+
+@pytest.mark.cuda
+def test_virtual_mesh_segments_match_one_device_on_the_card():
+    """The segment program over a 64-lane pool split into 4 shards of
+    cuda:0 (one K3 + K3b launch a shard) against one segment launch over a
+    64-lane pool: every lane's state and digest columns, segment by
+    segment, with injections from the whole board stack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops import solver as ts
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import SegmentPool, dfs_segment
+    from sudoku_solver_distributed_tpu_torch.parallel.shard import (
+        make_segment_serving_program,
+    )
+
+    spec = spec_for_size(9)
+    sweeps = dict(locked_candidates=True, waves=3, naked_pairs=False)
+    program = make_segment_serving_program(_mesh4(), spec, max_depth=81, **sweeps)
+    mpool = program.new_pool(64)
+    pool = SegmentPool.fresh(ts.pad_board(spec, "cuda").expand(64, 9, 9), spec, 81)
+    stock = torch.as_tensor(_hard(96).reshape(96, -1), device="cuda")
+    rng = np.random.default_rng(7)
+    src = torch.arange(64, dtype=torch.int32, device="cuda")
+    before = dfs_segment.launches
+    for seg in range(24):
+        k = (3, 7, 1, 13)[seg % 4]
+        mpool, mdig, _ = program(mpool, stock, src, k, prefix_gather=False)
+        pool, dig, _ = dfs_segment(pool, stock, src, k, prefix_gather=False, **sweeps)
+        torch.cuda.synchronize()
+        got = torch.cat(mdig)
+        assert torch.equal(got[:, :5], dig[:, :5])
+        # a shard's fetch slots index its own block: lane j of shard s
+        # is the pool's lane 16 s + j
+        local = got[:, 5].clone()
+        offset = torch.arange(64, device="cuda") // 16 * 16
+        assert torch.equal(torch.where(local >= 0, local + offset, -1), dig[:, 5])
+        for f in ("grid", "status", "guesses", "validations", "board_iters"):
+            assert torch.equal(torch.cat([getattr(p.state, f) for p in mpool.shards]),
+                               getattr(pool.state, f)), f
+        src = torch.as_tensor(
+            rng.choice([-1, -1, -1, -2, 5, 50, 90], size=64).astype(np.int32),
+            device="cuda",
+        )
+    assert dfs_segment.launches == before + 24 * 5
+
+
+def _shard_race_sets():
+    """The race sets of the card tests, each padded for 4 shards."""
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    out = []
+    for spec, states, waves, max_iters in _race_sets():
+        boards = states.reshape(len(states), spec.size, spec.size)
+        out.append((spec, F.bucket_states(boards, spec, len(states) // 4, 4),
+                    waves, max_iters))
+    return out
+
+
+@pytest.mark.cuda
+def test_race_across_virtual_shards_and_its_fold_match_plain_on_the_card():
+    """The race across 4 shards of cuda:0 (K4's shard form, a launch a
+    shard on its stream, then the fold kernel) against the plain lockstep
+    race over every state: the row and every state's fold; the slots are
+    idle again after each race, and races back to back stay exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        _dfs_race_plain,
+        dfs_race_shards,
+        race_fold,
+    )
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    mesh = _mesh4()
+    for spec, states, waves, max_iters in _shard_race_sets() * 2:
+        knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
+        cpu = torch.as_tensor(states.reshape(len(states), -1))
+        row, fold, _ = _dfs_race_plain(cpu, spec, spec.max_depth, max_iters, **knobs)
+        one, races, folds = dfs_race.launches, dfs_race_shards.launches, race_fold.launches
+        krow, kfold, kmeta = F.race_on_mesh(states, mesh, spec, spec.max_depth,
+                                            max_iters, **knobs)
+        torch.cuda.synchronize()
+        assert dfs_race_shards.launches == races + 4 and race_fold.launches == folds + 1
+        assert dfs_race.launches == one
+        assert torch.equal(krow.cpu(), row) and torch.equal(kfold.cpu(), fold)
+        # the fold kernel equals the plain fold over the same records
+        prow, pfold = race_fold(kmeta.cpu(), torch.zeros((len(states), spec.cells),
+                                                         dtype=torch.int32), spec, waves)
+        assert torch.equal(pfold, kfold.cpu())
+
+
+@pytest.mark.cuda
+def test_a_one_shard_race_is_still_one_launch():
+    """A race over a one-shard mesh is one K4 launch that folds itself: no
+    shard form, no fold kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        dfs_race_shards,
+        race_fold,
+    )
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+    from sudoku_solver_distributed_tpu_torch.parallel.mesh import Mesh
+
+    spec, states, waves, max_iters = _race_sets()[0]
+    knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
+    races, shards, folds = dfs_race.launches, dfs_race_shards.launches, race_fold.launches
+    row, _, _ = F.race_on_mesh(states, Mesh(["cuda:0"]), spec, spec.max_depth,
+                               max_iters, **knobs)
+    torch.cuda.synchronize()
+    assert dfs_race.launches == races + 1 and race_fold.launches == folds
+    assert dfs_race_shards.launches == shards
+    assert int(row[spec.cells]) == 1
+
+
+@pytest.mark.cuda
+def test_a_race_that_failed_before_its_fold_leaves_the_next_race_exact():
+    """A race across 4 shards whose ``gather`` raises after the shard
+    launches (a failed collective) never enqueues its fold, which is what
+    sets the slots idle; the race sets them idle itself, so the next race
+    over the same shards, whose first solve comes later than the failed
+    race's, still equals the plain race."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import _dfs_race_plain
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    mesh = _mesh4()
+    sets = _shard_race_sets()
+    early, late = sets[0], sets[3]  # first solves at steps 7 and 44
+
+    def plain(entry):
+        spec, states, waves, max_iters = entry
+        knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
+        cpu = torch.as_tensor(states.reshape(len(states), -1))
+        return _dfs_race_plain(cpu, spec, spec.max_depth, max_iters, **knobs), knobs
+
+    (_, _, emeta), eknobs = plain(early)
+    (lrow, lfold, lmeta), lknobs = plain(late)
+    assert int(emeta[:, 1].max()) < int(lmeta[:, 1].max())
+
+    def failed_gather(meta, grid):
+        raise TimeoutError("the record gather timed out")
+
+    for _ in range(2):
+        spec, states, _, max_iters = early
+        with pytest.raises(TimeoutError):
+            F.race_on_mesh(states, mesh, spec, spec.max_depth, max_iters,
+                           gather=failed_gather, **eknobs)
+        spec, states, _, max_iters = late
+        krow, kfold, _ = F.race_on_mesh(states, mesh, spec, spec.max_depth, max_iters,
+                                        **lknobs)
+        torch.cuda.synchronize()
+        assert torch.equal(krow.cpu(), lrow) and torch.equal(kfold.cpu(), lfold)
