@@ -6,6 +6,13 @@
 boards, pool rotations). Phases, each of which fails the run (non-zero
 exit) on any error:
 
+0. The static gate: ``python -m sudoku_solver_distributed_tpu_torch.analysis
+   --strict --json`` in a child on this host whose imports of ``jax``
+   fail (the gate is pure stdlib ``ast``: it may import neither JAX, nor
+   the JAX package, nor torch). It must exit 0 (no unbaselined error, no
+   stale baseline entry) with all five dispatch shapes covering all five
+   legs of the dispatch contract; one ``{"static_gate": {...}}`` line
+   gives its counts and wall seconds.
 1. Build the kernel library from sudoku_solver_distributed_tpu_torch/csrc/
    (into its store, ``_build/``) and print ``ptxas -v``'s registers, stack
    and spills (kept in the store's record) per instance of
@@ -287,7 +294,8 @@ Every node harness waits for the CLI's background warm-up to finish
 (``fully_warmed``) before its phase measures, and sends the node's
 flight-record dumps to a temporary directory unless the phase names one.
 
-Prints a ``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
+Prints a ``{"static_gate": {...}}`` line (phase 0), a
+``{"cache_supervision": {...}}`` line (the phase 6b numbers), the
 card's name and power limit, a ``{"obs": {...}}`` line (phase 8), a
 ``{"front": {...}}`` line (phase 9), a ``{"p2p": {...}}`` line (phase
 10), a ``{"frontier": {...}}`` line (phase 11), a ``{"durability":
@@ -440,6 +448,62 @@ def boards_4x4(count: int, seed: int, conflicts: bool = False):
         r, c = rng.integers(0, 4, (2, idx.size))
         out[idx, r, c] = rng.integers(1, 5, idx.size)
     return out
+
+
+# phase 0's child: `python -m sudoku_solver_distributed_tpu_torch.analysis
+# --strict --json` with any import of jax made to fail (the card host may
+# have JAX installed), reporting on stderr which of jax, the JAX package
+# and torch it imported
+_GATE_CHILD = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv[1:] = ["--strict", "--json"]
+try:
+    runpy.run_module("sudoku_solver_distributed_tpu_torch.analysis",
+                     run_name="__main__")
+finally:
+    print("IMPORTED", sorted(
+        n for n, m in sys.modules.items() if m is not None and n.split(".")[0]
+        in ("jax", "sudoku_solver_distributed_tpu", "torch")), file=sys.stderr)
+"""
+
+
+def phase_static_gate() -> dict:
+    """Phase 0: the port's static gate, strict, in a child process that
+    cannot import JAX; its counts. Fails on a non-zero exit, on an import
+    of JAX, the JAX package or torch, or on a contract matrix that is not
+    five shapes each covering all five legs."""
+    import importlib.util
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _GATE_CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"static gate exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+          f"{proc.stderr[-4000:]}")
+    check("IMPORTED []" in proc.stderr,
+          f"the static gate imported more than the stdlib: {proc.stderr[-2000:]}")
+    body = json.loads(proc.stdout)
+    matrix = body["contract_matrix"]
+    green = [s["shape"] for s in matrix["shapes"] if all(s["covered"].values())]
+    check(len(matrix["legs"]) == 5 and len(matrix["shapes"]) == 5
+          and len(green) == 5, f"dispatch contract not all green: {matrix}")
+    check(not body["errors"] and not body["stale_baseline"],
+          f"static gate: errors {body['errors']} stale {body['stale_baseline']}")
+    return {
+        "errors": len(body["errors"]),
+        "warnings": len(body["warnings"]),
+        "baselined": len(body["suppressed"]),
+        "stale_baseline": len(body["stale_baseline"]),
+        "shapes_green": len(green),
+        "legs": len(matrix["legs"]),
+        "wire_consumers": len(body["wire_consumers"]),
+        "wall_s": round(wall_s, 3),
+        # whether this host has JAX at all; the child could not import it
+        "jax_installed": importlib.util.find_spec("jax") is not None,
+    }
 
 
 def node_config(SolverEngine, spec_for_size, serving_config):
@@ -4908,6 +4972,10 @@ def main(argv=None) -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
     )
     log(f"card: {card_name_and_power_limit()}")
+    gate = phase_static_gate()
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase_static_gate took "
+        f"{gate['wall_s']} s")
+    print(json.dumps({"static_gate": gate}), flush=True)
     t0 = time.perf_counter()
     cs.load_library()
     log(f"build: dfs_solver library built and loaded in {time.perf_counter() - t0:.2f} s")

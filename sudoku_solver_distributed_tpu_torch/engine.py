@@ -1165,9 +1165,11 @@ class SolverEngine:
                 ).astype(bool)
                 src = np.where(mask, np.arange(width, dtype=np.int32), np.int32(-1))
             if isinstance(src, torch.Tensor):
-                src_dev = src.to(self.device, torch.int32)
                 if injected is None:
-                    injected = int((src_dev >= 0).sum())
+                    # counted on the caller's tensor, not the device copy:
+                    # a host src needs no device round trip to count
+                    injected = int((src >= 0).sum())
+                src_dev = src.to(self.device, torch.int32)
             else:
                 src_np = np.asarray(src, np.int32)
                 if injected is None:

@@ -154,6 +154,13 @@ def _scalar_sum(values, device) -> torch.Tensor:
     return total
 
 
+def _host_int(v) -> int:
+    """A LoopStats scalar (an int, or a 0-dim tensor on any device) as a
+    host int, fetched explicitly; ``restage`` reads it after the stage's
+    rows came back, so the shard's stream has already finished it."""
+    return int(torch.as_tensor(v).cpu())
+
+
 def _split(B: int, mesh: Mesh) -> dict:
     """A call's split, a new dict: a program is shared between threads,
     which read its ``last_split`` whole or not at all."""
@@ -277,8 +284,8 @@ class PackedServingProgram:
                 blk[need, : C + 2] = r2[need, : C + 2]
                 blk[need, C + 2: C + 4] += r2[need, C + 2: C + 4]
                 rows[sl] = blk
-                rows[:, C + 4] += int(stats.lane_steps)
-                rows[:, C + 5] += int(stats.idle_lane_steps)
+                rows[:, C + 4] += _host_int(stats.lane_steps)
+                rows[:, C + 5] += _host_int(stats.idle_lane_steps)
         return rows
 
     def __call__(self, boards, iters: int) -> np.ndarray:

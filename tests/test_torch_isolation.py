@@ -7,6 +7,7 @@ tests/test_torch_isolation.py`` runs them (the suite's conftest imports
 JAX) and ``python3 chip_smoke.py`` runs the full comparison.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -75,6 +76,9 @@ REQUIRED = (
     "serving.autopilot", "parallel.frontier", "compilecache",
     "compilecache.store", "utils.checkpoint", "native", "models.generator",
     "parallel.mesh", "parallel.shard", "parallel.serving_loop", "parallel.sim",
+    "analysis", "analysis.__main__", "analysis.callgraph", "analysis.locks",
+    "analysis.seams", "analysis.threadctx", "analysis.torch_hygiene",
+    "analysis.wire_schema", "analysis.runner", "analysis.sarif",
 )
 
 # the default transport without JAX, on the plain solver: a /solve_batch
@@ -183,6 +187,52 @@ leaked = [n for n in sys.modules
 assert not leaked, leaked
 print("ok")
 """
+
+
+# the port's static gate without JAX: `python -m ...analysis --strict
+# --json` as the CLI runs it; the gate is pure stdlib-ast, so it imports
+# neither the JAX package nor torch
+GATE_WITHOUT_JAX = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.argv[1:] = ["--strict", "--json"]
+try:
+    runpy.run_module("sudoku_solver_distributed_tpu_torch.analysis",
+                     run_name="__main__")
+finally:
+    leaked = sorted(n for n in sys.modules if n.split(".")[0] in
+                    ("sudoku_solver_distributed_tpu", "torch", "jax"))
+    print("LEAKED", leaked, file=sys.stderr)
+"""
+
+
+def test_static_gate_runs_strict_without_jax_or_torch():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", GATE_WITHOUT_JAX], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "LEAKED ['jax']" in proc.stderr  # only the None placeholder
+    body = json.loads(proc.stdout)
+    assert body["errors"] == [] and body["stale_baseline"] == []
+    assert body["suppressed"]
+    shapes = body["contract_matrix"]["shapes"]
+    assert len(shapes) == 5 and all(all(s["covered"].values()) for s in shapes)
+
+
+def test_static_gate_cli_strict_exit_codes():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    gate = [sys.executable, "-m", "sudoku_solver_distributed_tpu_torch.analysis",
+            "--strict"]
+    ok = subprocess.run(gate, cwd=ROOT, env=env, capture_output=True,
+                        text=True, timeout=120)
+    assert ok.returncode == 0, ok.stdout + ok.stderr
+    assert "0 error(s)" in ok.stdout
+    red = subprocess.run(gate + ["--baseline", "none"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert red.returncode == 1
+    assert "LOCK102" in red.stdout
 
 
 def test_port_and_chip_smoke_import_without_jax():
