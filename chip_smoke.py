@@ -276,17 +276,33 @@ exit) on any error:
    4-shard engine's counters, one device's grids) and /solve_batch of the
    deep boards on the mesh bucket path (one device's grids and counters),
    ``/metrics`` ``engine.mesh``, the four ``/tpu{k}`` pseudo-peers at
-   ``/network``; every kernel's launches on this path. (c) The race across
-   the 4 shards (K4's shard form, then the fold kernel) against the plain
-   race on phase 11's sets: row and fold equal, every state that ended by
-   t* equal to K1's run of it; the shard launches alone and with the fold
-   (CUDA events) beside the one-shard race of the same padded states,
-   each shard's steps past t*; the shard launches of the first set and the
-   fold kernel alone, each against its plain version. (d) ``FrontierServingLoop`` in child processes: a
-   one-rank NCCL group (4 shards), then two ranks on a gloo group on this
-   card (2 shards each, gloo asked for by this script): a batch fan-out
-   with one device's grids and the plain counters, and the README race
-   equal to the plain 4-shard race. (e) A resumable batch on the mesh in a
+   ``/network``; every kernel's launches on this path (no fold kernel:
+   the race's last block folds). (c) The race across the 4 shards (K4's
+   shard form, one launch of every shard's states, stopping on the card's
+   one stop word, folded by the last block across every shard) against
+   the plain race on phase 11's sets: row and fold equal, every state that
+   ended by t* equal to K1's run of it, the stop words idle after; the
+   stop's layout (``"device"``); each shard's steps past t*, at most 2 or
+   one more than one-shard K4's own on the same states; the one call
+   alone and the whole race (CUDA events) beside the one-shard race of
+   the same padded states; the ``"host"`` layout (cards without peer
+   access: a launch a shard, mapped host slots, the fold kernel) forced on
+   the virtual mesh, two races back to back on a 9x9 and a 16x16 set
+   against the plain race, its words and slots idle after each; the same
+   for the ``"peer"`` layout (cards with peer access: a launch a shard,
+   a word set a shard, the last block folding), with each shard's steps
+   past t*, its start and the µs from the post to its last stop read from
+   the kernel's clock; the shard
+   launches of the first set against their plain version, and the fold
+   kernel (the multi-host path's) alone over the README @512 records
+   against its plain version. (d)
+   ``FrontierServingLoop`` in child processes: a one-rank NCCL group (4
+   shards), then two ranks on a gloo group on this card (2 shards each,
+   gloo asked for by this script): a batch fan-out with one device's
+   grids and the plain counters, and the README race equal to the plain
+   4-shard race, its launches counted alone (one shard-form launch of
+   this host's shards, which share the card, and one fold kernel after the
+   gather). (e) A resumable batch on the mesh in a
    child, SIGKILLed at its first snapshot and resumed on one device to the
    uninterrupted run's rows.
 
@@ -303,7 +319,8 @@ card's name and power limit, a ``{"obs": {...}}`` line (phase 8), a
 ``{"kernels": [...]}`` line (dfs_solver, dfs_segment_kernel,
 segment_digest_kernel, dfs_race_kernel, dfs_race_shard_kernel and
 race_fold_kernel, each with its launches on every path,
-``launches_mesh_path`` among them), and last
+``launches_mesh_path`` among them; the fold kernel's on the multi-host
+path of (d)), and last
 ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is available.
 Imports nothing of JAX.
@@ -4509,9 +4526,12 @@ def _mesh_node(cs, build_parser, build_node, SolverEngine, oracle_ok) -> dict:
               f"13(b): /network {network}")
         out["launches"] = {k: getattr(cs, k).launches for k in MESH_PATH_KERNELS}
         # a race across the 4 shards runs K4's shard form, never the
-        # one-shard K4 (dfs_race, counted here all the same)
-        check(all(v > 0 for k, v in out["launches"].items() if k != "dfs_race"),
-              f"13(b): the mesh path did not launch every kernel: {out['launches']}")
+        # one-shard K4 (dfs_race, counted here all the same), and its last
+        # block folds: no fold kernel on this path (the multi-host one's, 13(d))
+        check(all(v > 0 for k, v in out["launches"].items()
+                  if k not in ("dfs_race", "race_fold"))
+              and out["launches"]["race_fold"] == 0,
+              f"13(b): the mesh path's launches {out['launches']}")
         out.update(deep_race=races, batch_validations=grew, engine_mesh=mesh_block)
         log(f"phase 13 (b): mesh node: README p50 {out['readme_p50_ms']:.3f} ms at 109 "
             f"validations each; deep /solve raced across {MESH_SHARDS} shards "
@@ -4556,26 +4576,138 @@ def _fold_bound_ms(M: int, cells: int):
     return words * 4 / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+# 13(c): a shard's blocks stop this close to t*, or within a step of where
+# one-shard K4's blocks stop on the same states: on a race of two waves of
+# blocks, or of 16x16 states (a step of one sweep), K4's blocks run 2 or 3
+# past t* from one race to the next (5 races of each set), and the shards'
+# blocks, one grid on the card as K4's are, 2 or 3 as well
+MESH_MAX_STEPS_PAST_T_STAR = 2
+
+
+def _forced_layout_slots(cs, mesh, layout: str):
+    """A race's stop over the shards of a virtual mesh, whose devices would
+    choose ``"device"``, laid out as ``layout`` instead: ``"host"`` (mapped
+    host slots relayed into each shard's own words: cards without peer
+    access) or ``"peer"`` (a word set a shard, a launch a shard, solves
+    posted to every shard's words with system atomics: cards with peer
+    access). How a race across cards stops, run on one card."""
+    import ctypes
+    import threading
+
+    import torch
+
+    address = host = 0
+    if layout == "host":
+        out, hp = ctypes.c_void_p(), ctypes.c_void_p()
+        err = cs.load_library().dfs_race_slots_alloc(mesh.size, ctypes.byref(out),
+                                                      ctypes.byref(hp))
+        check(err == 0, f"13(c): dfs_race_slots_alloc failed: cudaError {err}")
+        address, host = int(out.value), int(hp.value)
+    words = tuple(torch.tensor(cs.RACE_SCRATCH_IDLE, dtype=torch.int32, device=d)
+                  for d in mesh.devices)
+    torch.cuda.synchronize()
+    return cs.RaceSlots(layout, words, threading.Lock(), address, host)
+
+
+def _forced_layout_race(cs, mesh, slots, spec, states, max_iters, sweeps, plain,
+                        t_star: int) -> dict:
+    """13(c): two races back to back over ``slots`` (``_forced_layout_slots``)
+    as ``race_on_mesh`` runs a race across cards, each against the plain
+    race ``plain`` (row, fold), with every shard's words (and under
+    ``"host"`` every slot) idle after it. Under ``"host"``: a launch a
+    shard, the records gathered on shard 0's device and the fold kernel
+    there, which sets the slots idle. Under ``"peer"``: a launch a shard,
+    the last block across every shard folding, with the kernel's clock
+    (one card's timer for every shard): each shard's steps past t*, how
+    long after the first shard's start each shard started, and the stop's
+    latency, the µs from the post (the first block that solved at t*
+    ending its search) to the last block each shard stopped on it."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    M, C = len(states), spec.cells
+    n = mesh.size
+    per = M // n
+    flat = torch.as_tensor(states.reshape(M, C), device="cuda").contiguous()
+    parts = [flat[i * per:(i + 1) * per] for i in range(n)]
+    bad = err = 0
+    out = {"layout": slots.layout}
+    for _ in range(2):
+        for st in mesh.streams:
+            st.wait_stream(torch.cuda.current_stream())
+        if slots.layout == "host":
+            runs = cs.dfs_race_shards(parts, spec, spec.max_depth, max_iters,
+                                      streams=list(mesh.streams), slots=slots, **sweeps)
+            with torch.cuda.stream(mesh.streams[0]):
+                row, fold = cs.race_fold(torch.cat([m for m, _ in runs]),
+                                         torch.cat([g for _, g in runs]), spec,
+                                         sweeps["waves"], slots=slots.address,
+                                         n_slots=slots.n)
+        else:
+            clock = torch.zeros((M, 3), dtype=torch.int64, device="cuda")
+            row, fold, meta = cs.dfs_race_shards(parts, spec, spec.max_depth, max_iters,
+                                                 streams=list(mesh.streams), slots=slots,
+                                                 fold=True, clock=clock, **sweeps)
+        torch.cuda.synchronize()
+        b, e = _race_diffs((row, fold), plain)
+        words = [w.tolist() for w in slots.words]
+        b += sum(w != list(cs.RACE_SCRATCH_IDLE) for w in words)
+        if slots.layout == "host":
+            posted = list((ctypes.c_uint32 * slots.n).from_address(slots.host))
+            b += sum(v != cs.RACE_SLOT_IDLE for v in posted)
+            out["slots_after"] = posted
+        else:
+            rec = meta.cpu().numpy().reshape(n, per, 4)
+            ns = clock.cpu().numpy().reshape(n, per, 3).astype(np.float64)
+            status, steps, end = rec[:, :, 0], rec[:, :, 1], ns[:, :, 1]
+            won = (status == 1) & (steps == t_star)
+            post = end[won].min() if won.any() else None
+            out.setdefault("steps_past_t_star_by_shard", []).append(
+                [max(0, int(steps[k].max()) - t_star) for k in range(n)])
+            out.setdefault("start_us_by_shard", []).append(
+                [round(float(ns[k, :, 0].min() - ns[:, :, 0].min()) / 1e3, 3)
+                 for k in range(n)])
+            out.setdefault("stop_latency_us_by_shard", []).append(
+                [round(float(end[k][status[k] == 0].max() - post) / 1e3, 3)
+                 if post is not None and (status[k] == 0).any() else None
+                 for k in range(n)])
+        bad, err = bad + b, max(err, e)
+    out.update(mismatches=bad, max_abs_err=err, words_after=words)
+    return out
+
+
 def _mesh_race(cs, F, spec_for_size, config, seed: int) -> dict:
-    """13(c): the race across 4 shards of cuda:0 (K4's shard form on each
-    shard's stream, the fold kernel) against the plain race on phase 11's
+    """13(c): the race across 4 shards of cuda:0 (K4's shard form, one
+    launch of every shard's states, stopping on the card's one stop word,
+    folded by the last block across every shard) against the plain race on phase 11's
     sets, and each state whose shard-form run ended by t* against K1's run
-    of it to its own end; the time of the shard launches alone and with
-    the fold against the one-shard race of the same padded states, each
-    shard's steps past t*, the shard launches of the first set against
-    their plain version (``race_runs`` a shard) and their bound, and the
-    fold kernel alone against its plain version. Restores the counters."""
+    of it to its own end; the stop's layout (``"device"`` on one card);
+    each shard's steps past t* (at most ``MESH_MAX_STEPS_PAST_T_STAR``, or
+    one more than the most one-shard K4's blocks run past it in 5 races of
+    the states); the time of the one library call alone and of the whole
+    race (``race_on_mesh``) against the one-shard race of the same padded
+    states; the ``"host"`` and ``"peer"`` layouts forced on the mesh
+    (``_forced_layout_race``) on the first 9x9 and 16x16 sets; the shard launches of the first set
+    against their plain version (``race_runs`` a shard and ``fold_race``)
+    and their bound; and the fold kernel of the multi-host path alone over
+    the README @512 records against its plain version. Restores the
+    counters."""
     import numpy as np
     import torch
     from sudoku_solver_distributed_tpu_torch.ops.solver import race_runs
 
     counts = {k: getattr(cs, k).launches for k in MESH_PATH_KERNELS}
     mesh = _mesh()
-    s0 = mesh.streams[0]
     streams = list(mesh.streams)
     slots = F.mesh_race_slots(mesh)
+    check(slots.layout == "device",
+          f"13(c): a virtual mesh of one card keeps its stop as {slots.layout!r}")
     sets = frontier_race_sets(F, spec_for_size, seed)
-    out = {"mismatches": 0, "max_abs_err": 0, "sets": {}}
+    out = {"layout": slots.layout, "mismatches": 0, "max_abs_err": 0, "sets": {},
+           "host_layout": {}, "peer_layout": {}}
+    forced = {k: _forced_layout_slots(cs, mesh, k) for k in ("host", "peer")}
     fold_rec = shard_rec = None
     for name, board, spec, states, max_iters, target in sets:
         sweeps = sweeps_of(config(spec.size))
@@ -4585,7 +4717,7 @@ def _mesh_race(cs, F, spec_for_size, config, seed: int) -> dict:
         _, own = cs.dfs_solver(flat, spec, depth, max_iters, **sweeps)
 
         def race():
-            s0.wait_stream(torch.cuda.current_stream())
+            mesh.streams[0].wait_stream(torch.cuda.current_stream())
             return F.race_on_mesh(states, mesh, spec, depth, max_iters, **sweeps)
 
         krow, kfold, kmeta = race()
@@ -4597,6 +4729,8 @@ def _mesh_race(cs, F, spec_for_size, config, seed: int) -> dict:
         t_star = int(steps[solved].min()) if solved.any() else int(steps.max())
         traj_bad, ended = race_trajectory_diffs(kmeta, own, t_star)
         bad += traj_bad
+        idle = [w.tolist() for w in dict.fromkeys(slots.words)]
+        bad += sum(w != list(cs.RACE_SCRATCH_IDLE) for w in idle)
         out["mismatches"] += bad
         out["max_abs_err"] = max(out["max_abs_err"], err)
         per = M // MESH_SHARDS
@@ -4608,39 +4742,76 @@ def _mesh_race(cs, F, spec_for_size, config, seed: int) -> dict:
             cur = torch.cuda.current_stream()
             for st in streams:
                 st.wait_stream(cur)
-            cs.dfs_race_shards(parts, spec, depth, max_iters, streams=streams,
-                               slots=slots.address, **sweeps)
-            for st in streams:
-                cur.wait_stream(st)
+            with slots.lock:
+                cs.dfs_race_shards(parts, spec, depth, max_iters, streams=streams,
+                                   slots=slots, fold=True, **sweeps)
+            cur.wait_stream(streams[0])
 
-        # no fold follows, so the slots are set idle after each call
-        with slots.lock:
-            shard_ms = _event_ms(shards, 5, after=slots.idle)
+        shard_ms = _event_ms(shards, 5)
         mesh_ms = _event_ms(race, 5)
-        one_ms = _event_ms(lambda: cs.dfs_race(flat, spec, depth, max_iters, **sweeps), 5)
+        k4_meta = []
+        one_ms = _event_ms(lambda: k4_meta.append(
+            cs.dfs_race(flat, spec, depth, max_iters, **sweeps)[2]), 5)
+        k4_past = max(int(m[:, 1].max()) - t_star for m in k4_meta)
         rec = {"states": M, "t_star": t_star, "steps_past_t_star_by_shard": past,
+               "k4_steps_past_t_star": k4_past,
                "shards_ms": float(np.median(shard_ms)),
-               "k4_and_fold_ms": float(np.median(mesh_ms)),
+               "race_ms": float(np.median(mesh_ms)),
                "one_shard_ms": float(np.median(one_ms)), "mismatches": bad,
-               "trajectory_mismatches": traj_bad, "ended_by_t_star": ended}
+               "trajectory_mismatches": traj_bad, "ended_by_t_star": ended,
+               "words_after": idle}
+        rec["race_over_one_shard"] = rec["race_ms"] / rec["one_shard_ms"]
         out["sets"][name] = rec
-        log(f"phase 13 (c) {name}: {M} states over {MESH_SHARDS} shards: {bad} mismatches "
-            f"vs the plain race ({traj_bad} of the {ended} states ended by t* differ from "
-            f"K1's run); K4's shard form x{MESH_SHARDS} {rec['shards_ms']:.4f} ms, with "
-            f"the fold {rec['k4_and_fold_ms']:.4f} ms, vs one-shard K4 "
-            f"{rec['one_shard_ms']:.4f} ms (CUDA events, medians of 5); t* {t_star}, "
-            f"steps past t* by shard {past}")
+        log(f"phase 13 (c) {name}: {M} states over {MESH_SHARDS} shards ({slots.layout} "
+            f"stop): {bad} mismatches vs the plain race ({traj_bad} of the {ended} states "
+            f"ended by t* differ from K1's run; words after {idle}); the one call "
+            f"{rec['shards_ms']:.4f} ms, the whole race {rec['race_ms']:.4f} ms vs "
+            f"one-shard K4 {rec['one_shard_ms']:.4f} ms ({rec['race_over_one_shard']:.2f}x; "
+            f"CUDA events, medians of 5); t* {t_star}, steps past t* by shard {past} "
+            f"(one-shard K4's blocks: {k4_past})")
+        check(max(past) <= max(MESH_MAX_STEPS_PAST_T_STAR, k4_past + 1),
+              f"13(c) {name}: steps past t* by shard {past}, more than "
+              f"{MESH_MAX_STEPS_PAST_T_STAR} and than one-shard K4's {k4_past} + 1")
         if shard_rec is None:
             knobs = cs.sweep_knobs(spec, **sweeps)
             N = spec.size
-            plain_ms = _cuda_ms(lambda: [race_runs(p.reshape(per, N, N), spec, max_iters,
-                                                   depth, **knobs) for p in parts], 1)
+
+            def plain():
+                runs = [race_runs(p.reshape(per, N, N), spec, max_iters, depth, **knobs)
+                        for p in parts]
+                cs.fold_race(torch.cat([m for m, _ in runs]),
+                             torch.cat([g for _, g in runs]), spec, sweeps["waves"])
+
+            plain_ms = _cuda_ms(plain, 1)
             bound, by = _race_bound_ms(flat, pfold, C, sweeps["locked_candidates"])
             shard_rec = {"set": name, "states": M, "ms": rec["shards_ms"],
                          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
-            log(f"phase 13 (c) {name}: the shard launches {rec['shards_ms']:.4f} ms vs "
-                f"their plain version (race_runs a shard, on the card) {plain_ms:.1f} ms; "
-                f"bound {bound:.6f} ms ({by})")
+            log(f"phase 13 (c) {name}: the shard launches and their fold "
+                f"{rec['shards_ms']:.4f} ms vs their plain version (race_runs a shard "
+                f"and fold_race, on the card) {plain_ms:.1f} ms; bound "
+                f"{bound:.6f} ms ({by})")
+        for layout, fslots in forced.items() if spec.size in (9, 16) else ():
+            # the layouts of races across cards, which one card never chooses
+            if spec.size in out[f"{layout}_layout"]:
+                continue
+            frec = _forced_layout_race(cs, mesh, fslots, spec, states, max_iters, sweeps,
+                                       (prow, pfold), t_star)
+            out[f"{layout}_layout"][spec.size] = dict(frec, set=name)
+            out["mismatches"] += frec["mismatches"]
+            out["max_abs_err"] = max(out["max_abs_err"], frec["max_abs_err"])
+            if layout == "host":
+                how = (f"a launch a shard, the fold kernel), twice: {frec['mismatches']} "
+                       f"mismatches vs the plain race; words after {frec['words_after']}, "
+                       f"slots after {frec['slots_after']}")
+            else:
+                how = (f"a launch a shard, system atomics, the last block folding), twice: "
+                       f"{frec['mismatches']} mismatches vs the plain race; words after "
+                       f"{frec['words_after']}; steps past t* by shard "
+                       f"{frec['steps_past_t_star_by_shard']}, the shards' starts (µs "
+                       f"after the first) {frec['start_us_by_shard']}, µs from the post "
+                       f"to each shard's last stop {frec['stop_latency_us_by_shard']} "
+                       f"(the kernel's clock)")
+            log(f"phase 13 (c) {name}: the '{layout}' layout's race ({how}")
         if name == "README @512":
             grid0 = torch.zeros((M, C), dtype=torch.int32, device="cuda")
             meta_d = kmeta.contiguous()
@@ -4658,9 +4829,9 @@ def _mesh_race(cs, F, spec_for_size, config, seed: int) -> dict:
                                                            sweeps["waves"]), 5),
                 "bound_ms": bound, "bound_by": by,
             }
-            log(f"phase 13 (c): the fold kernel alone over {M} records: "
-                f"{fold_rec['ms']:.4f} ms (CUDA events, mean of 50) vs the plain fold "
-                f"{fold_rec['plain_ms']:.4f} ms; bound {bound:.6f} ms ({by}); "
+            log(f"phase 13 (c): the fold kernel (the multi-host path's) alone over {M} "
+                f"records: {fold_rec['ms']:.4f} ms (CUDA events, mean of 50) vs the plain "
+                f"fold {fold_rec['plain_ms']:.4f} ms; bound {bound:.6f} ms ({by}); "
                 f"{fbad} mismatches")
     check(out["mismatches"] == 0, f"13(c): {out['mismatches']} race mismatches")
     check(fold_rec is not None, "13(c): the README @512 set is missing")
@@ -4704,17 +4875,20 @@ if rank == 0:
     boards = np.asarray(json.loads(sys.argv[5]), np.int32)
     t1 = time.perf_counter()
     sols, mask, info = eng.solve_batch_np(boards)
+    launches = {"dfs_solver": cs.dfs_solver.launches}
+    # the race's path (the records gathered, then the fold kernel) alone
+    for k in ("dfs_race", "dfs_race_shards", "race_fold"):
+        getattr(cs, k).launches = 0
     t2 = time.perf_counter()
     race = loop.solve(np.asarray(json.loads(sys.argv[6]), np.int32))
     t3 = time.perf_counter()
+    launches.update({k: getattr(cs, k).launches
+                     for k in ("dfs_race", "dfs_race_shards", "race_fold")})
     out = {"sols": sols.tolist(), "info": info, "race": race,
            "backend": loop.backend, "collective_device": str(loop._collective_device),
            "batch_ms": (t2 - t1) * 1e3, "race_ms": (t3 - t2) * 1e3,
            "start_s": t1 - t0, "batches": loop.health()["batches"],
-           "launches": {"dfs_solver": cs.dfs_solver.launches,
-                        "dfs_race": cs.dfs_race.launches,
-                        "dfs_race_shards": cs.dfs_race_shards.launches,
-                        "race_fold": cs.race_fold.launches}}
+           "launches": launches}
     loop.stop()
     print(json.dumps(out), flush=True)
 else:
@@ -4792,6 +4966,13 @@ def _mesh_loop(SolverEngine, oracle_ok) -> dict:
               f"13(d) {backend} x{world}: the race {lead['race'][1]} differs from "
               f"{want_race[1]}")
         check(lead["backend"] == backend, f"13(d): the loop ran on {lead['backend']}")
+        # the race across hosts: this host's shards (one card) in one launch
+        # of K4's shard form, the records gathered, then one fold kernel
+        race_launches = {k: lead["launches"][k]
+                         for k in ("dfs_race", "dfs_race_shards", "race_fold")}
+        check(race_launches == {"dfs_race": 0, "dfs_race_shards": 1,
+                                "race_fold": 1},
+              f"13(d) {backend} x{world}: the race's launches {race_launches}")
         out[f"{backend}_x{world}"] = {k: lead[k] for k in (
             "info", "backend", "collective_device", "batch_ms", "race_ms", "start_s",
             "batches", "launches")} | {"race_info": lead["race"][1], "wall_s": wall}
@@ -5254,15 +5435,17 @@ def main(argv=None) -> int:
         # the per-device body of the JAX mesh race (the shard_map'd lockstep
         # loop with its per-step psum early exit)
         "replaces": "sudoku_solver_distributed_tpu/parallel/frontier.py:337",
-        # its path is the mesh's: phase 13's node, a launch a shard a race
+        # its path is the mesh's: phase 13's node, one launch a race (the
+        # virtual mesh's 4 shards share the card, so one grid)
         "launches": on_mesh["dfs_race_shards"],
         "launches_mesh_path": on_mesh["dfs_race_shards"],
         # the folded races against the plain race, and each state ended by
         # t* against K1's run of it
         "mismatches": mesh["race"]["mismatches"],
         "max_abs_err": mesh["race"]["max_abs_err"],
-        # the 4 shard launches alone (CUDA events, median of 5) on the first
-        # phase 11 set, a 9x9 deep board at 64 (128 states)
+        # the one library call of the 4 shard launches, their last block
+        # folding (CUDA events, median of 5), on the first phase 11 set, a
+        # 9x9 deep board at 64 (128 states)
         "ms": shard["ms"],
         "plain_ms": shard["plain_ms"],
         "bound_ms": shard["bound_ms"],
@@ -5270,23 +5453,28 @@ def main(argv=None) -> int:
         "library_ms": None,
         "set": shard["set"],
         "states": shard["states"],
+        "stop_layout": mesh["race"]["layout"],
         "mesh_race_by_set": mesh["race"]["sets"],
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith(MESH_RACE_KERNELS[0])},
     }
     check(shard_kernel["launches"] > 0, "the mesh path launched no shard race kernel")
     fold = mesh["race"]["fold"]
+    on_gather = {k: v["launches"]["race_fold"] for k, v in mesh["loop"].items()}
     fold_kernel = {
         "name": "race_fold_kernel",
         "route": "cuda",
         "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
         # the cross-device all_gather + argmax of the JAX mesh race
         "replaces": "sudoku_solver_distributed_tpu/parallel/frontier.py:359",
-        # its path is the mesh's: phase 13's node, a fold a race
-        "launches": on_mesh["race_fold"],
+        # its path is the multi-host loop's (13(d): the README raced by each
+        # loop, its records gathered, then folded), a fold a race; the
+        # mesh node's races fold in their last block (0 there)
+        "launches": sum(on_gather.values()),
+        "launches_gather_path": on_gather,
         "launches_mesh_path": on_mesh["race_fold"],
         "mismatches": fold["mismatches"] + mesh["race"]["mismatches"],
         "max_abs_err": max(fold["max_abs_err"], mesh["race"]["max_abs_err"]),
-        # the fold alone over the README @512 race's 2048 records
+        # the fold kernel alone over the README @512 race's 2048 records
         "ms": fold["ms"],
         "plain_ms": fold["plain_ms"],
         "bound_ms": fold["bound_ms"],
@@ -5295,7 +5483,7 @@ def main(argv=None) -> int:
         "states": fold["states"],
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith("race_fold_kernel")},
     }
-    check(fold_kernel["launches"] > 0, "the mesh path launched no fold kernel")
+    check(fold_kernel["launches"] > 0, "the multi-host path launched no fold kernel")
     print(json.dumps({"kernels": [kernel, *segment_kernels, race_kernel, shard_kernel,
                                   fold_kernel]}), flush=True)
     print(

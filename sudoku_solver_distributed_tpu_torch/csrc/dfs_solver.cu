@@ -110,10 +110,15 @@
 // lockstep race's result, in the same launch. It replaces no Pallas kernel
 // either: the JAX package races in XLA code (parallel/frontier.py:337). Its
 // note below has the design. A race across the shards of a mesh runs K4's
-// shard form (dfs_race_shard_kernel) on every shard, the shards sharing a
-// stop through slots in mapped host memory, and folds every shard's run
-// records in race_fold_kernel (the JAX mesh race's cross-device gather and
-// extraction, parallel/frontier.py:359).
+// shard form (dfs_race_shard_kernel) from one call, one launch of every
+// shard's blocks when they share a card, else one a card: the shards
+// share a stop word in device memory (one word on one card; a word a
+// card, posted to over NVLink, across cards with peer access), and the
+// last block across all shards folds every shard's records in place, the
+// JAX mesh race's cross-device gather and extraction
+// (parallel/frontier.py:359). race_fold_kernel folds records gathered
+// from other hosts (and from cards without peer access, whose shards
+// relay the stop through mapped host memory).
 //
 // Interface: plain C, for ctypes. A launch uses the caller's stream, does
 // not synchronize and allocates nothing; it returns cudaGetLastError().
@@ -121,6 +126,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -143,6 +149,13 @@ constexpr int kRaceRowExtra = 3;  // after the solution: found, validations, und
 constexpr int kRaceThreads[6] = {0, 0, 32, 96, 256, 320};
 // the largest box edge whose race keeps its guess stack in shared memory
 constexpr int kRaceOnChipMaxBox = 4;
+constexpr int kFoldUnroll = 4;     // run records a fold thread loads before it uses any
+constexpr int kFoldThreads = 512;  // threads of race_fold_kernel's one block
+constexpr int kMaxShards = 16;     // shards of a race across shards (RaceMesh)
+// where the shards of a race across shards keep their stop (RaceMesh)
+constexpr int kLayoutDevice = 0;  // one card: one stop word, one ticket
+constexpr int kLayoutPeer = 1;    // cards with peer access: a stop word a card
+constexpr int kLayoutHost = 2;    // cards without: mapped host slots relayed
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kCellBits = 10;  // MRV key: popcount << kCellBits | cell
 constexpr unsigned kNoKey = 0xffffffffu;
@@ -1048,16 +1061,18 @@ segment_digest_kernel(const int32_t* __restrict__ lane_steps,
 //     the fold needs;
 //   * each block writes its run record (status, steps, validations, and
 //     whether a state stopped RUNNING is complete: the closing analysis)
-//     and its grid, fences, and takes a ticket from a device counter. The
-//     block that takes the last ticket rebuilds the lockstep result exactly
-//     from the records (ops/solver.py fold_race has the argument; its
+//     and its grid, raises the race's last-step word to its steps, fences,
+//     and takes a ticket from a device counter. The block that takes the
+//     last ticket knows t* already (the stop word, else the last-step
+//     word) and rebuilds the lockstep result exactly from the records in
+//     one pass (race_fold; ops/solver.py fold_race has the argument; its
 //     loads bypass L1), writes the packed row [solution (C), found,
 //     validations, undecided] and each state's [status, validations] after
 //     the race, so the host fetches one row of C + 3 words, and resets the
-//     stop word and the counter to their idle values (0xffffffff, 0) for
-//     the next race on the stream. That two-word scratch belongs to the
-//     wrapper, one per (device, stream): a race is one launch, with no
-//     memset and no second kernel.
+//     stop word, the counter and the last step to their idle values
+//     (0xffffffff, 0, 0) for the next race on the stream. That three-word
+//     scratch belongs to the wrapper, one per (device, stream): a race is
+//     one launch, with no memset and no second kernel.
 // What bounds it on an H100: like K1, the latency of the sweep chain of the
 // slowest state up to t* + 1 steps; its bytes (M * C words in and out, a
 // 25x25 stack slab touched only on branches) are far below that. A race
@@ -1094,6 +1109,19 @@ size_t race_stack_bytes(int D) {
                                    : 0;
 }
 
+// A race's loads of what other blocks wrote: past L1, and with `sys`
+// through to the memory of the card that holds it.
+__device__ __forceinline__ int4 load_record(const int4* p, bool sys) {
+  return sys ? __ldcv(p) : __ldcg(p);
+}
+__device__ __forceinline__ int load_word(const int32_t* p, bool sys) {
+  return sys ? __ldcv(p) : __ldcg(p);
+}
+
+struct RaceMesh;
+template <int BOX>
+__device__ const int32_t* race_grid(const int32_t* grid, const RaceMesh* mesh, int per, int w);
+
 // The fold of the race, by the last block: t* is the earliest step any
 // state solved at, else the last step any state ran. A state that ended at
 // or before t* keeps its status and validations; any other ran RUNNING
@@ -1102,44 +1130,66 @@ size_t race_stack_bytes(int D) {
 // stopped at t* (max_iters) and its closing analysis found it complete. The
 // winner is the lowest SOLVED index. Validations sum in unsigned (int32
 // wraparound, as the JAX psum of int32).
-template <int BOX, class G>
-__device__ __forceinline__ void race_fold(G& grp, const int32_t* meta, const int32_t* grid,
-                                          int32_t* fold, int32_t* row, int M, int waves) {
+//
+// The fold takes t* as given (the race's stop words hold it), so it is one
+// pass over the M records (meta, 16 bytes each, in global state order) by
+// the T threads of one block: a thread issues kFoldUnroll 16-byte loads
+// before it folds any of those records, and the winner, total and
+// undecided are reduced together behind one barrier (`red`: 3 T / 32
+// shared words). `sys` reads memory that another card wrote (a fold over
+// NVLink) through to its owner, else from L2. The states' grids are
+// `grid`, in state order, or with `mesh` each shard's (mesh->grid[w / per]).
+// Not inlined: inlined, it let ptxas give K4 48 registers on 9x9 where it
+// gives 59-62 without it, and K4's step body ran 12 % slower at 128 states
+// and 16 % at 2048 (tools/dfs_solver_ab.py --arms race, H100).
+template <int BOX, int T>
+__device__ __noinline__ void race_fold(int t, unsigned* red, const int32_t* meta,
+                                       const int32_t* grid, const RaceMesh* mesh, int per,
+                                       int32_t* fold, int32_t* row, int M, int waves,
+                                       int t_star, bool sys) {
   constexpr int C = Geometry<BOX>::C;
-  constexpr int T = G::kThreads;
-  const int t = grp.t;
-  unsigned first_solve = kNoKey, last_step = 0;
-  for (int i = t; i < M; i += T) {
-    const int32_t* m = meta + (size_t)i * kRaceMetaCols;
-    const int steps = __ldcg(m + 1);
-    if (__ldcg(m) == kSolved) first_solve = min(first_solve, (unsigned)steps);
-    last_step = max(last_step, (unsigned)steps);
-  }
-  first_solve = grp.template reduce<MinOp>(first_solve);
-  last_step = grp.template reduce<MaxOp>(last_step);
-  const int t_star = (int)(first_solve != kNoKey ? first_solve : last_step);
-
+  constexpr int W = T / kLanes;
+  const int4* rec = reinterpret_cast<const int4*>(meta);
   unsigned winner = kNoKey, total = 0, undecided = 0;
-  for (int i = t; i < M; i += T) {
-    const int32_t* m = meta + (size_t)i * kRaceMetaCols;
-    const int status = __ldcg(m), steps = __ldcg(m + 1);
-    const bool ended = status != kRunning && steps <= t_star;
-    const bool flip =
-        !ended && ((status == kSolved && steps == t_star + 1) ||
-                   (status == kRunning && steps == t_star && __ldcg(m + 3) != 0));
-    const int st = ended ? status : (flip ? kSolved : kRunning);
-    const int vals = ended ? __ldcg(m + 2) : t_star * waves;
-    fold[(size_t)i * 2] = st;
-    fold[(size_t)i * 2 + 1] = vals;
-    if (st == kSolved) winner = min(winner, (unsigned)i);
-    total += (unsigned)vals;
-    undecided |= st == kRunning || st == kOverflow;
+  for (int base = t; base < M; base += kFoldUnroll * T) {
+    int4 r[kFoldUnroll];
+#pragma unroll
+    for (int u = 0; u < kFoldUnroll; ++u) {
+      if (base + u * T < M) r[u] = load_record(rec + base + u * T, sys);
+    }
+#pragma unroll
+    for (int u = 0; u < kFoldUnroll; ++u) {
+      const int i = base + u * T;
+      if (i >= M) continue;
+      const int status = r[u].x, steps = r[u].y;
+      const bool ended = status != kRunning && steps <= t_star;
+      const bool flip = !ended && ((status == kSolved && steps == t_star + 1) ||
+                                   (status == kRunning && steps == t_star && r[u].w != 0));
+      const int st = ended ? status : (flip ? kSolved : kRunning);
+      const int vals = ended ? r[u].z : t_star * waves;
+      reinterpret_cast<int2*>(fold)[i] = make_int2(st, vals);
+      if (st == kSolved) winner = min(winner, (unsigned)i);
+      total += (unsigned)vals;
+      undecided |= st == kRunning || st == kOverflow;
+    }
   }
-  winner = grp.template reduce<MinOp>(winner);
-  total = grp.template reduce<AddOp>(total);
-  undecided = grp.template reduce<OrOp>(undecided);
+  const int lane = t % kLanes, w = t / kLanes;
+  winner = MinOp::warp(winner);
+  total = AddOp::warp(total);
+  undecided = OrOp::warp(undecided);
+  if (lane == 0) {
+    red[w] = winner;
+    red[W + w] = total;
+    red[2 * W + w] = undecided;
+  }
+  __syncthreads();
+  winner = MinOp::warp(lane < W ? red[lane] : kNoKey);
+  total = AddOp::warp(lane < W ? red[W + lane] : 0u);
+  undecided = OrOp::warp(lane < W ? red[2 * W + lane] : 0u);
   const bool found = winner != kNoKey;
-  for (int c = t; c < C; c += T) row[c] = found ? __ldcg(grid + (size_t)winner * C + c) : 0;
+  const int32_t* g = nullptr;
+  if (found) g = race_grid<BOX>(grid, mesh, per, (int)winner);
+  for (int c = t; c < C; c += T) row[c] = found ? load_word(g + c, sys) : 0;
   if (t == 0) {
     row[C] = found;
     row[C + 1] = (int32_t)total;
@@ -1147,55 +1197,187 @@ __device__ __forceinline__ void race_fold(G& grp, const int32_t* meta, const int
   }
 }
 
-// The stop of one shard of a race across shards (dfs_race_shard_kernel):
-// RacePoll's poll of the shard-local stop word, one a boundary, and a
-// relay from the race's slots (one a shard, in page-locked host memory
-// mapped into every device) into that word. Reads of mapped host memory
-// cross PCIe and the link serves them one after another, so a read by
-// every block at every boundary (tried first) stalled each step of a
-// 2048-state race for ~1.8 ms. Here thread 0 of a block reads the slots at
-// a boundary only in its turn: block b when steps + 8 b is a multiple of
-// 8 x the shard's blocks still running (the ticket count says how many
-// have finished), rounded up to a power of two, so the shard's running
-// blocks read about once every 8 steps between them, however many have
-// ended; the least posted step goes into the shard's stop word with
+// t* from the M records alone (race_fold_kernel's: records gathered from
+// other hosts, whose stop words no block here saw), with the fold's loads,
+// behind one barrier (`red`: 2 T / 32 shared words).
+template <int T>
+__device__ __forceinline__ int race_t_star(int t, unsigned* red, const int32_t* meta, int M) {
+  constexpr int W = T / kLanes;
+  const int4* rec = reinterpret_cast<const int4*>(meta);
+  unsigned first = kNoKey, last = 0;
+  for (int base = t; base < M; base += kFoldUnroll * T) {
+    int4 r[kFoldUnroll];
+#pragma unroll
+    for (int u = 0; u < kFoldUnroll; ++u) {
+      if (base + u * T < M) r[u] = __ldcg(rec + base + u * T);
+    }
+#pragma unroll
+    for (int u = 0; u < kFoldUnroll; ++u) {
+      if (base + u * T >= M) continue;
+      if (r[u].x == kSolved) first = min(first, (unsigned)r[u].y);
+      last = max(last, (unsigned)r[u].y);
+    }
+  }
+  const int lane = t % kLanes, w = t / kLanes;
+  first = MinOp::warp(first);
+  last = MaxOp::warp(last);
+  if (lane == 0) {
+    red[w] = first;
+    red[W + w] = last;
+  }
+  __syncthreads();
+  first = MinOp::warp(lane < W ? red[lane] : kNoKey);
+  last = MaxOp::warp(lane < W ? red[W + lane] : 0u);
+  return (int)(first != kNoKey ? first : last);
+}
+
+// A race across shards as every shard's launch sees it: one
+// __grid_constant__ kernel parameter, the same for every launch. Shard s's
+// M states are states[s] (M, C); its blocks write their grids to grid[s]
+// (M, C), their run records to meta[s] (M, 4), and keep their guess
+// stacks (where the box keeps them off chip) in stack_grid[s],
+// stack_cell[s], stack_mask[s]. word[s] is shard s's three words [stop
+// step, tickets, last step]: under kLayoutDevice (every shard on one
+// card, all launched as one grid) the one set of words on that card;
+// under kLayoutPeer a set on each card, in its own memory, the race's
+// tickets and last step in shard 0's; under
+// kLayoutHost (cards without peer access) each shard's own, its tickets
+// its own. Under the first two layouts meta[s] is rows s M.. of one
+// (n M, 4) array on shard 0's device, which the fold reads whole. fold
+// (n M, 2) and row (C + 3) lie on shard 0's device; null: no fold in the
+// launch (race_fold_kernel folds the records). slots: kLayoutHost's n
+// words of mapped host memory, else null. clock: null, or (n M, 3)
+// globaltimer readings on shard 0's device, a row a block (race_clock).
+struct RaceMesh {
+  const int32_t* states[kMaxShards];
+  unsigned* word[kMaxShards];
+  int32_t* meta[kMaxShards];
+  const int32_t* grid[kMaxShards];
+  int8_t* stack_grid[kMaxShards];
+  int32_t* stack_cell[kMaxShards];
+  int32_t* stack_mask[kMaxShards];
+  int32_t* fold;
+  int32_t* row;
+  unsigned* slots;
+  unsigned long long* clock;
+  int n;
+  int M;
+  int layout;
+};
+
+// State w's grid: grid's row w, or with `mesh` row w % per of shard w / per's.
+template <int BOX>
+__device__ const int32_t* race_grid(const int32_t* grid, const RaceMesh* mesh, int per, int w) {
+  return mesh ? mesh->grid[w / per] + (size_t)(w % per) * Geometry<BOX>::C
+              : grid + (size_t)w * Geometry<BOX>::C;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
+// When block i of shard `shard` got where, for a race whose launch was
+// given a clock: thread 0 writes its card's globaltimer (ns) into row
+// shard M + i, column k = 0 at the block's start, 1 when its search ended
+// (solved, stopped or out of steps; before a solve is posted), 2 at its
+// end (its ticket taken).
+// Each card reads its own timer, which other cards' do not agree with, so
+// the tools compare readings of one card only. Off (null) on every path
+// of the program.
+__device__ __forceinline__ void race_clock(const RaceMesh& mesh, int shard, int i, int k,
+                                           int t) {
+  if (t == 0 && mesh.clock) mesh.clock[((size_t)shard * mesh.M + i) * 3 + k] = global_ns();
+}
+
+// The stop of one shard of a race across shards: RacePoll's poll of the
+// shard's stop word at every boundary, except that a block halts once it
+// has run as many steps as the posted solve, where K4's runs one more: a
+// state still RUNNING at t* stops there, and its closing analysis
+// (`complete`) says what K4's step t* + 1 would, whether its grid was
+// complete after step t* (the fold reads either). That saves step t* + 1
+// of every block not ahead of the solving block; a block that was ahead
+// when the solve was posted still runs one step past the boundary that
+// read it, as K4's does. Under kLayoutDevice the stop word is
+// the race's one word, which every block of every shard polls (an L2 read)
+// and posts to; under kLayoutPeer it is the card's own word, which every
+// solving block posts to over NVLink, so the polls stay local. Under
+// kLayoutHost (no peer access) it is also a relay from the race's slots
+// (one a shard, in page-locked host memory mapped into every device).
+// Reads of mapped host memory cross PCIe and the link serves them one
+// after another (a read by every block at every boundary stalled each
+// step of a 2048-state race for ~1.8 ms), so thread 0 of a block reads the
+// slots at a boundary only in its turn: block b when steps + 8 b is a
+// multiple of 8 x the shard's blocks still running (the ticket count says
+// how many have finished), rounded up to a power of two, so the shard's
+// running blocks read about once every 8 steps between them, however many
+// have ended; the least posted step goes into the shard's stop word with
 // atomicMin, where every block of the shard sees it at its next boundary.
 // Every posted step is at least t*, so the stop word is too.
 struct RaceShardPoll {
   volatile unsigned* stop;  // stop[0]: the shard's stop step; stop[1]: tickets
-  const volatile unsigned* slots;
+  const volatile unsigned* slots;  // kLayoutHost's slots, else null
   int n, t, b;
   unsigned blocks;
   unsigned seen;  // thread 0: the stop word as of the previous boundary
   unsigned done;  // thread 0: the tickets as of the previous boundary
   __device__ __forceinline__ bool operator()(int steps) {
-    const bool halt = __syncthreads_or(t == 0 && (unsigned)steps > seen) != 0;
+    const bool halt = __syncthreads_or(t == 0 && (unsigned)steps >= seen) != 0;
     if (t == 0) {
-      unsigned period = 8;
-      while (period < 8u * (blocks - min(done, blocks - 1))) period <<= 1;
       seen = stop[0];
-      done = stop[1];
-      if ((((unsigned)steps + 8u * (unsigned)b) & (period - 1)) == 0) {
-        unsigned posted = kNoKey;
-        for (int k = 0; k < n; ++k) posted = min(posted, slots[k]);
-        if (posted < seen) atomicMin(const_cast<unsigned*>(stop), posted);
+      if (slots) {
+        unsigned period = 8;
+        while (period < 8u * (blocks - min(done, blocks - 1))) period <<= 1;
+        done = stop[1];
+        if ((((unsigned)steps + 8u * (unsigned)b) & (period - 1)) == 0) {
+          unsigned posted = kNoKey;
+          for (int k = 0; k < n; ++k) posted = min(posted, slots[k]);
+          if (posted < seen) atomicMin(const_cast<unsigned*>(stop), posted);
+        }
       }
     }
     return halt;
   }
 };
 
-// One state of a race, a thread block: the body of K4 (kShard false: the
-// last block folds) and of its shard form (kShard true: the block also
-// posts a solve to its shard's slot and polls every shard's; nobody folds
-// here, race_fold_kernel does once every shard has run).
+// A solve at step `steps` of a block of shard `shard`, posted to the
+// race's stop: under kLayoutDevice its one word; under kLayoutPeer every
+// card's word, its own card's first (n system-scope atomics a posted
+// solve, n - 1 of them over NVLink; solves are rare); under kLayoutHost
+// the shard's own word and, when that lowers
+// it, the shard's slot in mapped host memory (no atomic crosses devices
+// there; two posts of one shard may land out of order, which leaves a
+// later, still >= t*, step in the slot, never a wrong stop).
+__device__ __forceinline__ void post_solve(const RaceMesh& mesh, int shard, unsigned steps) {
+  if (mesh.layout == kLayoutPeer) {
+    atomicMin_system(mesh.word[shard], steps);
+    for (int k = 0; k < mesh.n; ++k) {
+      if (k != shard) atomicMin_system(mesh.word[k], steps);
+    }
+  } else if (mesh.layout == kLayoutHost) {
+    if (steps < atomicMin(mesh.word[shard], steps)) {
+      reinterpret_cast<volatile unsigned*>(mesh.slots)[shard] = steps;
+      __threadfence_system();
+    }
+  } else {
+    atomicMin(mesh.word[shard], steps);
+  }
+}
+
+// State i of M, a thread block: the body of K4 (kShard false: the race
+// is the launch's M blocks, its words `scratch`, the last block of the
+// launch folds) and of its shard form (kShard true: the race is every
+// shard's M blocks, `mesh` says where its words and records lie, and the
+// last block across all shards folds, unless the records go to
+// race_fold_kernel: under kLayoutHost, or with no fold in `mesh`).
 template <int BOX, bool kShard>
 __device__ __forceinline__ void race_block(
     const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
     int32_t* __restrict__ meta, int32_t* __restrict__ fold, int32_t* __restrict__ row,
     int8_t* __restrict__ stack_grid, int32_t* __restrict__ stack_cell,
-    int32_t* __restrict__ stack_mask, unsigned* scratch, unsigned* slots, int n_slots,
-    int shard, int M, int D, int max_iters, int waves, int options) {
+    int32_t* __restrict__ stack_mask, unsigned* scratch, const RaceMesh* mesh, int shard,
+    int i, int M, int D, int max_iters, int waves, int options) {
   constexpr int T = kRaceThreads[BOX];
   using G = BlockGroup<T>;
   using Geo = Geometry<BOX, T>;
@@ -1206,7 +1388,6 @@ __device__ __forceinline__ void race_block(
   __shared__ int last;
   extern __shared__ __align__(16) unsigned char race_stack[];
   const int t = threadIdx.x;
-  const int i = blockIdx.x;
   G grp{t, red, 0};
   const Smem sh = group_smem<BOX>(words);
   int g[CPL], pk[CPL];
@@ -1229,18 +1410,12 @@ __device__ __forceinline__ void race_block(
 
   Search s{kRunning, 0, 0, 0, 0, 0, 0};
   if constexpr (kShard) {
+    race_clock(*mesh, shard, i, 0, t);
     search<BOX>(g, pk, uw, sh, grp, sg, sc, sm, D, max_iters, waves, options, s,
-                RaceShardPoll{scratch, slots, n_slots, t, i, gridDim.x, kNoKey, 0});
-    if (s.status == kSolved && t == 0) {
-      // post the shard's earliest solve so far to its slot: no atomic
-      // crosses devices; two posts of one shard may land out of order,
-      // which leaves a later (still >= t*) step there, never a wrong stop
-      const unsigned old = atomicMin(scratch, (unsigned)s.steps);
-      if ((unsigned)s.steps < old) {
-        reinterpret_cast<volatile unsigned*>(slots)[shard] = (unsigned)s.steps;
-        __threadfence_system();
-      }
-    }
+                RaceShardPoll{scratch, mesh->layout == kLayoutHost ? mesh->slots : nullptr,
+                              mesh->n, t, i, (unsigned)M, kNoKey, 0});
+    race_clock(*mesh, shard, i, 1, t);
+    if (s.status == kSolved && t == 0) post_solve(*mesh, shard, (unsigned)s.steps);
   } else {
     search<BOX>(g, pk, uw, sh, grp, sg, sc, sm, D, max_iters, waves, options, s,
                 RacePoll{scratch, t, kNoKey});
@@ -1255,26 +1430,71 @@ __device__ __forceinline__ void race_block(
   for (int j = 0; j < CPL; ++j) {
     if (owns<BOX, T>(t, j)) out[t + j * T] = g[j];
   }
+  // the race's tickets and last step: the launch's own words (K4, and each
+  // shard under kLayoutHost), else shard 0's, over every shard's blocks
+  const bool across = kShard && mesh->layout != kLayoutHost;
+  const bool sys = kShard && mesh->layout == kLayoutPeer;
+  unsigned* race = across ? mesh->word[0] : scratch;
+  const unsigned tickets = (across ? mesh->n : 1) * M;
   if (t == 0) {
-    int32_t* m = meta + (size_t)i * kRaceMetaCols;
-    m[0] = s.status;
-    m[1] = s.steps;
-    m[2] = s.validations;
-    m[3] = complete;
+    *reinterpret_cast<int4*>(meta + (size_t)i * kRaceMetaCols) =
+        make_int4(s.status, s.steps, s.validations, complete);
+    if (sys) {
+      atomicMax_system(race + 2, (unsigned)s.steps);
+    } else {
+      atomicMax(race + 2, (unsigned)s.steps);
+    }
   }
   // the last block to finish folds: each block's writes are fenced before
-  // its ticket, and the fold reads them from L2
-  __threadfence();
+  // its ticket (system-wide when another card reads them), and the fold
+  // reads them past L1
+  if (sys) {
+    __threadfence_system();
+  } else {
+    __threadfence();
+  }
   __syncthreads();
-  if (t == 0) last = atomicAdd(scratch + 1, 1u) == (unsigned)(M - 1);
+  if (t == 0) {
+    last = (sys ? atomicAdd_system(race + 1, 1u) : atomicAdd(race + 1, 1u)) == tickets - 1;
+  }
+  if constexpr (kShard) race_clock(*mesh, shard, i, 2, t);
   __syncthreads();
   if (!last) return;  // uniform over the block
-  __threadfence();
-  if constexpr (!kShard) race_fold<BOX>(grp, meta, grid_out, fold, row, M, waves);
+  if (sys) {
+    __threadfence_system();
+  } else {
+    __threadfence();
+  }
+  if (!kShard || (across && mesh->fold)) {
+    // t*: the earliest posted solve, which every stop word of the race
+    // holds by now (every solving block posted before its ticket), else
+    // the last step any block ran
+    unsigned first = reinterpret_cast<volatile unsigned*>(scratch)[0];
+    if constexpr (kShard) {
+      for (int k = 0; k < mesh->n; ++k)
+        first = min(first, reinterpret_cast<volatile unsigned*>(mesh->word[k])[0]);
+    }
+    const unsigned ran = reinterpret_cast<volatile unsigned*>(race)[2];
+    const int t_star = (int)(first != kNoKey ? first : ran);
+    if constexpr (kShard) {
+      race_fold<BOX, T>(t, red, mesh->meta[0], nullptr, mesh, M, mesh->fold, mesh->row,
+                        mesh->n * M, waves, t_star, sys);
+    } else {
+      race_fold<BOX, T>(t, red, meta, grid_out, nullptr, M, fold, row, M, waves, t_star,
+                        false);
+    }
+  }
   if (t == 0) {
-    // every block has taken its ticket, so none reads the stop word again
-    scratch[0] = kNoKey;
-    scratch[1] = 0;
+    // every block has taken its ticket, so none reads a stop word again
+    if (sys) {
+      for (int k = 0; k < mesh->n; ++k)
+        reinterpret_cast<volatile unsigned*>(mesh->word[k])[0] = kNoKey;
+    } else {
+      scratch[0] = kNoKey;
+    }
+    race[1] = 0;
+    race[2] = 0;
+    if (sys) __threadfence_system();
   }
 }
 
@@ -1284,46 +1504,50 @@ dfs_race_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_o
                 int32_t* __restrict__ meta, int32_t* __restrict__ fold,
                 int32_t* __restrict__ row, int8_t* __restrict__ stack_grid,
                 int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
-                unsigned* scratch, int M, int D, int max_iters, int waves, int options) {
+                unsigned* scratch, int D, int max_iters, int waves, int options) {
   race_block<BOX, false>(states, grid_out, meta, fold, row, stack_grid, stack_cell,
-                         stack_mask, scratch, nullptr, 0, 0, M, D, max_iters, waves,
-                         options);
+                         stack_mask, scratch, nullptr, 0, blockIdx.x, gridDim.x, D, max_iters,
+                         waves, options);
 }
 
-// K4 over one shard's states of a race across shards: each state's run
-// record and grid, for race_fold_kernel. `slots` (n_slots words, one a
-// shard, mapped host memory) carries every shard's earliest solve; this
-// shard posts to slots[shard].
+// K4 over shards first.. of a race across shards (`mesh`), mesh.M blocks
+// a shard: every shard of the race under kLayoutDevice, one shard (a
+// card's) under the other layouts. Block b runs state b % M of shard
+// first + b / M: it polls and posts the race's stop as the layout says,
+// writes its run record to mesh.meta[shard] and its grid to
+// mesh.grid[shard], and the last block across every shard folds (or
+// leaves the records to race_fold_kernel) and sets the race's words idle.
 template <int BOX>
 __global__ void __launch_bounds__(kRaceThreads[BOX])
-dfs_race_shard_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
-                      int32_t* __restrict__ meta, int8_t* __restrict__ stack_grid,
-                      int32_t* __restrict__ stack_cell, int32_t* __restrict__ stack_mask,
-                      unsigned* scratch, unsigned* slots, int n_slots, int shard, int M,
-                      int D, int max_iters, int waves, int options) {
-  race_block<BOX, true>(states, grid_out, meta, nullptr, nullptr, stack_grid, stack_cell,
-                        stack_mask, scratch, slots, n_slots, shard, M, D, max_iters,
-                        waves, options);
+dfs_race_shard_kernel(const __grid_constant__ RaceMesh mesh, int first, int D,
+                      int max_iters, int waves, int options) {
+  const int shard = first + (int)blockIdx.x / mesh.M;
+  const int i = (int)blockIdx.x % mesh.M;
+  race_block<BOX, true>(mesh.states[shard], const_cast<int32_t*>(mesh.grid[shard]),
+                        mesh.meta[shard], nullptr, nullptr, mesh.stack_grid[shard],
+                        mesh.stack_cell[shard], mesh.stack_mask[shard], mesh.word[shard],
+                        &mesh, shard, i, mesh.M, D, max_iters, waves, options);
 }
 
-// The fold of a race across shards: one block over every shard's run
-// records, gathered in global state order on one device (race_fold, the
-// argument of ops/solver.py fold_race: each shard's blocks stopped at some
-// posted step, every one of them at least t*). It then sets the race's
-// slots idle for the next race over them; the wrapper orders every
-// shard's next launch after this kernel.
+// The fold of a race whose records no launch folded: one block of
+// kFoldThreads over every shard's run records, gathered in global state
+// order on one device (every host's, on the multi-host loop; every
+// card's, under kLayoutHost), t* found from the records themselves, then
+// race_fold's one pass. It then sets the race's slots (kLayoutHost) idle;
+// the wrapper orders every shard's next launch after this kernel.
 template <int BOX>
-__global__ void __launch_bounds__(kRaceThreads[BOX])
+__global__ void __launch_bounds__(kFoldThreads)
 race_fold_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__ grid,
                  int32_t* __restrict__ fold, int32_t* __restrict__ row, unsigned* slots,
                  int n_slots, int M, int waves) {
-  constexpr int T = kRaceThreads[BOX];
-  using G = BlockGroup<T>;
-  __shared__ unsigned red[G::kRedWords];
+  constexpr int W = kFoldThreads / kLanes;
+  __shared__ unsigned red[5 * W];
   const int t = threadIdx.x;
-  G grp{t, red, 0};
-  race_fold<BOX>(grp, meta, grid, fold, row, M, waves);
-  for (int i = t; i < n_slots; i += T) reinterpret_cast<volatile unsigned*>(slots)[i] = kNoKey;
+  const int t_star = race_t_star<kFoldThreads>(t, red + 3 * W, meta, M);
+  race_fold<BOX, kFoldThreads>(t, red, meta, grid, nullptr, M, fold, row, M, waves, t_star,
+                               false);
+  for (int i = t; i < n_slots; i += kFoldThreads)
+    reinterpret_cast<volatile unsigned*>(slots)[i] = kNoKey;
   __threadfence_system();
 }
 
@@ -1370,17 +1594,29 @@ int launch_segment(const void* boards, int n_boards, const void* src, const Pool
   return (int)cudaGetLastError();
 }
 
-// Opt the race kernel in to the dynamic shared memory of its on-chip stack
-// above 32 KB, which leaves its static arrays (under 16 KB at every size)
-// room below the default 48 KB a block.
+// Opt the race kernels in to the dynamic shared memory of their on-chip
+// stack above 32 KB, which leaves their static arrays (under 16 KB at every
+// size) room below the default 48 KB a block. Once a device for the most
+// bytes asked, so that a race across cards adds no attribute call between
+// its cards' launches (the first device ids; a later one asks every time).
 template <int BOX>
 cudaError_t race_smem_opt_in(size_t bytes) {
   if (bytes <= 32 * 1024) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      dfs_race_kernel<BOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static std::mutex lock;
+  static size_t opted[kMaxShards];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(dfs_race_shard_kernel<BOX>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const bool cached = device >= 0 && device < kMaxShards;
+  std::lock_guard<std::mutex> hold(lock);
+  if (cached && opted[device] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(dfs_race_kernel<BOX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dfs_race_shard_kernel<BOX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && cached) opted[device] = bytes;
+  return err;
 }
 
 template <int BOX>
@@ -1399,35 +1635,35 @@ int launch_race(const void* states, void* grid_out, void* meta, void* fold, void
       static_cast<const int32_t*>(states), static_cast<int32_t*>(grid_out),
       static_cast<int32_t*>(meta), static_cast<int32_t*>(fold), static_cast<int32_t*>(row),
       static_cast<int8_t*>(stack_grid), static_cast<int32_t*>(stack_cell),
-      static_cast<int32_t*>(stack_mask), static_cast<unsigned*>(scratch), M, D, max_iters,
-      waves, options);
+      static_cast<int32_t*>(stack_mask), static_cast<unsigned*>(scratch), D, max_iters, waves,
+      options);
   return (int)cudaGetLastError();
 }
 
+// One launch of the shard form over `count` shards from `first`, their
+// count * M blocks in one grid.
 template <int BOX>
-int launch_race_shard(const void* states, void* grid_out, void* meta, void* stack_grid,
-                      void* stack_cell, void* stack_mask, void* scratch, void* slots,
-                      int n_slots, int shard, int M, int D, int max_iters, int waves,
-                      int options, cudaStream_t stream) {
+int launch_race_shard(const RaceMesh& mesh, int first, int count, int D, int max_iters,
+                      int waves, int options, bool opt_in, cudaStream_t stream) {
   if (D > Geometry<BOX>::C) D = Geometry<BOX>::C;
   const size_t smem = race_stack_bytes<BOX>(D);
-  if (!kRaceOnChip<BOX> && (!stack_grid || !stack_cell || !stack_mask))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t err = race_smem_opt_in<BOX>(smem);
-  if (err != cudaSuccess) return (int)err;
-  dfs_race_shard_kernel<BOX><<<M, kRaceThreads[BOX], smem, stream>>>(
-      static_cast<const int32_t*>(states), static_cast<int32_t*>(grid_out),
-      static_cast<int32_t*>(meta), static_cast<int8_t*>(stack_grid),
-      static_cast<int32_t*>(stack_cell), static_cast<int32_t*>(stack_mask),
-      static_cast<unsigned*>(scratch), static_cast<unsigned*>(slots), n_slots, shard, M, D,
-      max_iters, waves, options);
+  for (int k = first; k < first + count; ++k) {
+    if (!kRaceOnChip<BOX> && (!mesh.stack_grid[k] || !mesh.stack_cell[k] || !mesh.stack_mask[k]))
+      return (int)cudaErrorInvalidValue;
+  }
+  if (opt_in) {
+    const cudaError_t err = race_smem_opt_in<BOX>(smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dfs_race_shard_kernel<BOX><<<count * mesh.M, kRaceThreads[BOX], smem, stream>>>(
+      mesh, first, D, max_iters, waves, options);
   return (int)cudaGetLastError();
 }
 
 template <int BOX>
 int launch_race_fold(const void* meta, const void* grid, void* fold, void* row, void* slots,
                      int n_slots, int M, int waves, cudaStream_t stream) {
-  race_fold_kernel<BOX><<<1, kRaceThreads[BOX], 0, stream>>>(
+  race_fold_kernel<BOX><<<1, kFoldThreads, 0, stream>>>(
       static_cast<const int32_t*>(meta), static_cast<const int32_t*>(grid),
       static_cast<int32_t*>(fold), static_cast<int32_t*>(row),
       static_cast<unsigned*>(slots), n_slots, M, waves);
@@ -1594,10 +1830,10 @@ int dfs_race_states_per_sm(int box) {
 // int32 in; grid_out (M, C) and meta (M, 4) int32 out (each state's run:
 // its grid and status, steps, validations, complete); fold (M, 2) int32 out
 // (status and validations after the lockstep race); row (C + 3) int32 out
-// (solution, found, validations, undecided). stop: the race's two-word
-// scratch (stop step, ticket count), idle at 0xffffffff, 0 before the
-// launch and left so after it; races on one stream may share it, races on
-// two streams may not. stack_grid (M, D', C) int8, stack_cell and
+// (solution, found, validations, undecided). stop: the race's three-word
+// scratch (stop step, ticket count, last step), idle at 0xffffffff, 0, 0
+// before the launch and left so after it; races on one stream may share
+// it, races on two streams may not. stack_grid (M, D', C) int8, stack_cell and
 // stack_mask (M, D') int32, with D' = min(D, C): the guess-stack slab,
 // scratch, for a box whose stack does not live on chip
 // (dfs_race_stack_on_chip), else ignored and may be null. box, waves and
@@ -1616,13 +1852,14 @@ int dfs_race_launch(const void* states, void* grid_out, void* meta, void* fold, 
   });
 }
 
-// The slots of races across shards: n words of page-locked host memory,
-// portable and mapped into every device, set idle (0xffffffff). Returns
-// the device address (the same on every device under unified addressing)
-// through *out, the host address through *host_out (where the wrapper
-// sets the slots idle itself after a race that never reached its fold),
-// and a cudaError_t. Never freed: the wrapper keeps one set for each set
-// of shard streams for the life of the process.
+// The slots of races across shards on cards without peer access
+// (kLayoutHost): n words of page-locked host memory, portable and mapped
+// into every device, set idle (0xffffffff). Returns the device address
+// (the same on every device under unified addressing) through *out, the
+// host address through *host_out (where the wrapper sets the slots idle
+// itself after a race that never reached its fold), and a cudaError_t.
+// Never freed: the wrapper keeps one set for each set of shard streams for
+// the life of the process.
 int dfs_race_slots_alloc(int n, void** out, void** host_out) {
   if (n <= 0 || !out || !host_out) return (int)cudaErrorInvalidValue;
   void* host = nullptr;
@@ -1639,35 +1876,108 @@ int dfs_race_slots_alloc(int n, void** out, void** host_out) {
   return (int)err;
 }
 
-// The launches of a race across n shards, all from one call, so they are
-// enqueued microseconds apart (one launch a shard from Python took tens of
-// microseconds each, and the first shards ran their states to their own
-// ends before the last was enqueued). Shard i: M states at states[i] on
-// device devices[i], launched on streams[i] with its two-word scratch
-// stop[i]; grid_out[i] (M, C) and meta[i] (M, 4) its run records for
-// dfs_race_fold_launch; stack_grid[i], stack_cell[i], stack_mask[i] its
-// slab where the box keeps the stack off chip (else null). slots: the
-// race's n words from dfs_race_slots_alloc, idle before the race. box,
-// D, max_iters, waves and options as for dfs_race_launch. Leaves the
-// caller's current device as it found it. Returns a cudaError_t.
-int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_out,
-                           void* const* meta, void* const* stack_grid,
-                           void* const* stack_cell, void* const* stack_mask,
-                           void* const* stop, void* slots, const int* devices,
-                           void* const* streams, int M, int box, int D, int max_iters,
-                           int waves, int options) {
-  if (n <= 0 || M <= 0 || D <= 0 || max_iters < 0 || waves < 1 || (options & ~7) || !slots)
-    return (int)cudaErrorInvalidValue;
+// The most shards a race across shards takes (RaceMesh).
+int dfs_race_max_shards() { return kMaxShards; }
+
+// Peer access between every two of the n devices, both ways, for a race
+// across shards under kLayoutPeer: each pair must report it
+// (cudaDeviceCanAccessPeer), else cudaErrorPeerAccessUnsupported; access
+// already enabled (by an earlier mesh, or by PyTorch's own copies) counts
+// as enabled. Leaves the caller's current device as it found it. Returns a
+// cudaError_t.
+int dfs_race_peer_enable(int n, const int* devices) {
+  if (n <= 0 || !devices) return (int)cudaErrorInvalidValue;
   int home = 0;
   cudaError_t err = cudaGetDevice(&home);
   if (err != cudaSuccess) return (int)err;
   int rc = 0;
-  for (int i = 0; i < n && rc == 0; ++i) {
-    if (!stop[i]) {
-      rc = (int)cudaErrorInvalidValue;
-      break;
+  for (int a = 0; a < n && rc == 0; ++a) {
+    for (int b = 0; b < n && rc == 0; ++b) {
+      if (devices[a] == devices[b]) continue;
+      int can = 0;
+      err = cudaDeviceCanAccessPeer(&can, devices[a], devices[b]);
+      if (err != cudaSuccess || !can) {
+        rc = (int)(err != cudaSuccess ? err : cudaErrorPeerAccessUnsupported);
+        break;
+      }
+      err = cudaSetDevice(devices[a]);
+      if (err == cudaSuccess) err = cudaDeviceEnablePeerAccess(devices[b], 0);
+      if (err == cudaErrorPeerAccessAlreadyEnabled) {
+        cudaGetLastError();  // clear it: not a fault
+        err = cudaSuccess;
+      }
+      rc = (int)err;
     }
-    if (devices[i] != home || i > 0) {
+  }
+  err = cudaSetDevice(home);
+  return rc != 0 ? rc : (int)err;
+}
+
+// The launches of a race across n <= dfs_race_max_shards() shards, all
+// from one call: under layout 0 one launch of every shard's blocks, under
+// 1 and 2 one a shard, enqueued microseconds apart (one launch a shard
+// from Python took tens of microseconds each, and the first shards ran
+// their states to their own ends before the last was enqueued). Shard i:
+// M states at states[i] on device devices[i]; streams[i] its stream (a
+// single launch goes on streams[0]); grid_out[i] (M, C) its grids; meta[i]
+// (M, 4) where its run records go; words[i] its three words [stop step,
+// tickets, last step], idle at 0xffffffff, 0, 0 before the race and left
+// so after it; stack_grid[i], stack_cell[i], stack_mask[i] its slab where
+// the box keeps the stack off chip (else null). layout (RaceMesh): 0,
+// every shard on one card, every words[i] the same three words and
+// meta[i] rows i M.. of one (n M, 4) array; 1, cards with peer access
+// between every two (dfs_race_peer_enable), each words[i] on shard i's
+// card and meta[i] as for 0, on shard 0's card; 2, cards without, each
+// shard's own words and records, with
+// slots the race's n words from dfs_race_slots_alloc, idle before the
+// race (null under 0 and 1). fold (n M, 2) and row (C + 3) on shard 0's
+// device, as dfs_race_launch's, under layouts 0 and 1: the last block
+// across every shard folds into them; null: no fold (the records go to
+// dfs_race_fold_launch, as always under 2). clock: null, or (n M, 3)
+// uint64 on shard 0's device, which the launch fills, a row a block
+// (race_clock). box, D, max_iters, waves and options as
+// for dfs_race_launch. Leaves the caller's current device as it found it.
+// Returns a cudaError_t.
+int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_out,
+                           void* const* meta, void* const* stack_grid,
+                           void* const* stack_cell, void* const* stack_mask,
+                           void* const* words, void* fold, void* row, void* slots,
+                           void* clock, int layout, const int* devices,
+                           void* const* streams, int M, int box, int D, int max_iters,
+                           int waves, int options) {
+  if (n <= 0 || n > kMaxShards || M <= 0 || D <= 0 || max_iters < 0 || waves < 1 ||
+      (options & ~7) || layout < kLayoutDevice || layout > kLayoutHost ||
+      (layout == kLayoutHost) != (slots != nullptr) || (!fold) != (!row) ||
+      (layout == kLayoutHost && fold))
+    return (int)cudaErrorInvalidValue;
+  RaceMesh mesh{};
+  for (int i = 0; i < n; ++i) {
+    if (!states[i] || !words[i] || !meta[i] || !grid_out[i] ||
+        (layout == kLayoutDevice && devices[i] != devices[0]))
+      return (int)cudaErrorInvalidValue;
+    mesh.states[i] = static_cast<const int32_t*>(states[i]);
+    mesh.word[i] = static_cast<unsigned*>(words[i]);
+    mesh.meta[i] = static_cast<int32_t*>(meta[i]);
+    mesh.grid[i] = static_cast<const int32_t*>(grid_out[i]);
+    mesh.stack_grid[i] = static_cast<int8_t*>(stack_grid[i]);
+    mesh.stack_cell[i] = static_cast<int32_t*>(stack_cell[i]);
+    mesh.stack_mask[i] = static_cast<int32_t*>(stack_mask[i]);
+  }
+  mesh.fold = static_cast<int32_t*>(fold);
+  mesh.row = static_cast<int32_t*>(row);
+  mesh.slots = static_cast<unsigned*>(slots);
+  mesh.clock = static_cast<unsigned long long*>(clock);
+  mesh.n = n;
+  mesh.M = M;
+  mesh.layout = layout;
+  int home = 0;
+  cudaError_t err = cudaGetDevice(&home);
+  if (err != cudaSuccess) return (int)err;
+  int rc = 0;
+  const int count = layout == kLayoutDevice ? n : 1;
+  for (int i = 0; i < n && rc == 0; i += count) {
+    const bool new_device = i == 0 || devices[i] != devices[i - 1];
+    if (new_device) {
       err = cudaSetDevice(devices[i]);
       if (err != cudaSuccess) {
         rc = (int)err;
@@ -1676,19 +1986,18 @@ int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_o
     }
     cudaStream_t s = static_cast<cudaStream_t>(streams[i]);
     rc = by_box(box, (int)cudaErrorInvalidValue, [&](auto b) {
-      return launch_race_shard<decltype(b)::value>(
-          states[i], grid_out[i], meta[i], stack_grid[i], stack_cell[i], stack_mask[i],
-          stop[i], slots, n, i, M, D, max_iters, waves, options, s);
+      return launch_race_shard<decltype(b)::value>(mesh, i, count, D, max_iters, waves,
+                                                   options, new_device, s);
     });
   }
   err = cudaSetDevice(home);
   return rc != 0 ? rc : (int)err;
 }
 
-// The fold of a race across shards over M = every shard's states: meta
-// (M, 4) and grid (M, C) int32 in, in global state order; fold (M, 2) and
-// row (C + 3) int32 out, as dfs_race_launch's. Sets the n_slots slots
-// idle. Returns a cudaError_t.
+// The fold of a race across shards whose launches did not fold, over M =
+// every shard's states: meta (M, 4) and grid (M, C) int32 in, in global
+// state order; fold (M, 2) and row (C + 3) int32 out, as
+// dfs_race_launch's. Sets the n_slots slots idle. Returns a cudaError_t.
 int dfs_race_fold_launch(const void* meta, const void* grid, void* fold, void* row,
                          void* slots, int n_slots, int M, int box, int waves, void* stream) {
   if (M <= 0 || waves < 1 || n_slots < 0 || (n_slots > 0 && !slots))

@@ -55,16 +55,20 @@ launches. The JAX package races in lockstep with a per-step collective
 (parallel/frontier.py ``race``); the kernel's blocks run out of step, stop
 once they have run more steps than the earliest solve any of them has
 posted, and the fold rebuilds the lockstep result exactly. The wrapper
-owns the race's two-word scratch, one per (device, stream)
+owns the race's three-word scratch, one per (device, stream)
 (``race_scratch``), and allocates the guess-stack slab only for a board
 size whose stack the library does not keep on chip
 (``race_stack_in_slab``).
 
-A race across the shards of a mesh is ``dfs_race_shards`` (K4's shard
-form, a launch a shard, over the race's stop slots: ``race_slots``) and
-then ``race_fold`` (the fold kernel over every shard's run records);
-``dfs_race_shards.launches`` and ``race_fold.launches`` count their own
-launches.
+A race across the shards of a mesh is ``dfs_race_shards``: K4's shard
+form from one library call (one launch of every shard's blocks when they
+share a card, else a launch a shard), over the race's stop words
+(``race_slots``, laid out by ``race_layout`` from the shards' devices: one
+card, cards with peer access, or cards without). On one card and across
+peers the last block across every shard folds, so the race is that one
+call; otherwise (and for records gathered from other hosts) ``race_fold``
+(the fold kernel) folds the records. ``dfs_race_shards.launches`` and
+``race_fold.launches`` count their own launches.
 """
 
 from __future__ import annotations
@@ -265,7 +269,10 @@ def load_library() -> ctypes.CDLL:
         raise RuntimeError("dfs_solver library disagrees on the race layout")
     lib.dfs_race_slots_alloc.argtypes = [i] + [ctypes.POINTER(ctypes.c_void_p)] * 2
     lib.dfs_race_slots_alloc.restype = i
-    lib.dfs_race_shards_launch.argtypes = [i] + [p] * 10 + [i] * 6
+    lib.dfs_race_max_shards.restype = i
+    lib.dfs_race_peer_enable.argtypes = [i, p]
+    lib.dfs_race_peer_enable.restype = i
+    lib.dfs_race_shards_launch.argtypes = [i] + [p] * 11 + [i] + [p] * 2 + [i] * 6
     lib.dfs_race_shards_launch.restype = i
     lib.dfs_race_fold_launch.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.dfs_race_fold_launch.restype = i
@@ -681,15 +688,16 @@ def dfs_race(states: torch.Tensor, spec: BoardSpec, depth: int,
     )
 
 
-# The race's two-word scratch when no race runs: the stop step 0xffffffff
-# (no solve posted) and the ticket count 0. A race leaves it so.
-RACE_SCRATCH_IDLE = (-1, 0)
+# The race's three-word scratch (and a race across shards' words) when no
+# race runs: the stop step 0xffffffff (no solve posted), the ticket count 0
+# and the last step 0. A race leaves it so.
+RACE_SCRATCH_IDLE = (-1, 0, 0)
 _RACE_SCRATCH: dict = {}
 _RACE_SCRATCH_LOCK = threading.Lock()
 
 
 def race_scratch(device: torch.device, stream: int) -> torch.Tensor:
-    """The race kernel's (2,) int32 scratch for the CUDA stream handle
+    """The race kernel's (3,) int32 scratch for the CUDA stream handle
     ``stream`` on ``device``: allocated and set idle (``RACE_SCRATCH_IDLE``)
     at the first race there, on that stream, and handed back to every later
     one. Races on one stream run in order, each leaving it idle for the
@@ -768,68 +776,146 @@ dfs_race.launches = 0
 _RACE_SLOTS: dict = {}
 # a slot with no step posted
 RACE_SLOT_IDLE = 0xFFFFFFFF
+# where the shards of a race keep its stop, by the library's layout number
+# (csrc/dfs_solver.cu kLayoutDevice, kLayoutPeer, kLayoutHost)
+RACE_LAYOUTS = ("device", "peer", "host")
+
+
+def race_layout(devices, can_access_peer) -> str:
+    """Where a race across shards on ``devices`` (one a shard, in shard
+    order) keeps its stop, from the topology alone: ``"device"`` when every
+    shard lies on one card (one stop word there, polled by every block);
+    ``"peer"`` when every two of the cards report peer access
+    (``can_access_peer(a, b)`` on device indices, as
+    ``torch.cuda.can_device_access_peer``): a stop word on each card, posted
+    to over NVLink; else ``"host"``: slots in mapped host memory, relayed
+    into each shard's word. Chosen once, when the race's words are
+    allocated (``race_slots``), never as a recovery from an error."""
+    cards = list(dict.fromkeys(torch.device(d).index or 0 for d in devices))
+    if len(cards) == 1:
+        return "device"
+    if all(can_access_peer(a, b) for a in cards for b in cards if a != b):
+        return "peer"
+    return "host"
 
 
 @dataclass(frozen=True)
 class RaceSlots:
-    """The stop slots of races across one set of shards: ``n`` words, one a
-    shard, of page-locked host memory mapped into every device, at device
-    address ``address`` and host address ``host``; idle (every word
-    0xffffffff) between races. ``lock`` is held by a race over them while
-    it enqueues its launches and its fold, so races over one set of slots
-    run one after another; the fold kernel sets them idle again."""
+    """The stop of races across one set of shards, laid out as ``layout``
+    says (``race_layout``). ``words``: a (3,) int32 tensor a shard, [stop
+    step, tickets, last step], idle (``RACE_SCRATCH_IDLE``)
+    between races: one tensor for every shard under ``"device"``, each on
+    its shard's card under ``"peer"`` and ``"host"``. Under ``"host"`` also
+    the race's slots, one word a shard of page-locked host memory mapped
+    into every device, at device address ``address`` and host address
+    ``host`` (0 under the other layouts). ``lock`` is held by a race over
+    them while it enqueues its launches (and the fold kernel), so races
+    over one set of words run one after another; the race's last block
+    (and the fold kernel, for the slots) sets them idle again."""
 
-    address: int
-    host: int
-    n: int
+    layout: str
+    words: tuple
     lock: threading.Lock
+    address: int = 0
+    host: int = 0
+
+    @property
+    def n(self) -> int:
+        return len(self.words)
 
     def idle(self) -> None:
-        """Set every slot idle from the host, for a race that never
-        enqueued its fold. The caller first waits for that race's shard
-        launches to end: a launch still running could post again."""
-        words = (ctypes.c_uint32 * self.n).from_address(self.host)
-        words[:] = [RACE_SLOT_IDLE] * self.n
+        """Set every word and slot idle from the host, for a race whose
+        last block or fold never ran. The caller first waits for that
+        race's shard launches to end: a launch still running could post
+        again."""
+        idle = torch.tensor(RACE_SCRATCH_IDLE, dtype=torch.int32)
+        for word in {id(w): w for w in self.words}.values():
+            word.copy_(idle)
+            if word.device.type == "cuda":
+                torch.cuda.synchronize(word.device)
+        if self.host:
+            slots = (ctypes.c_uint32 * self.n).from_address(self.host)
+            slots[:] = [RACE_SLOT_IDLE] * self.n
 
 
-def race_slots(key, n: int) -> RaceSlots:
-    """The ``n`` stop slots of races across the shards ``key`` names (the
-    shards' (device, stream) pairs): allocated at the first race over
-    those shards, idle, and kept for the process."""
+def race_slots(devices, key) -> RaceSlots:
+    """The stop of races across the shards on ``devices`` (one a shard, in
+    shard order) that ``key`` names (the shards' (device, stream) pairs):
+    allocated at the first race over those shards, idle, and kept for the
+    process. Its layout is chosen there from the topology (``race_layout``
+    over ``torch.cuda.can_device_access_peer``). Under ``"peer"`` the
+    library enables peer access between every two of the cards; a failure
+    raises ``KernelLaunchError``, and nothing falls back to host memory."""
     with _RACE_SCRATCH_LOCK:
         entry = _RACE_SLOTS.get(key)
         if entry is None:
-            out, host = ctypes.c_void_p(), ctypes.c_void_p()
-            err = load_library().dfs_race_slots_alloc(
-                int(n), ctypes.byref(out), ctypes.byref(host))
-            if err != 0:
-                raise KernelLaunchError(
-                    f"dfs_race_slots_alloc failed: cudaError {err}"
-                )
-            entry = _RACE_SLOTS[key] = RaceSlots(
-                int(out.value), int(host.value), int(n), threading.Lock())
+            entry = _RACE_SLOTS[key] = _alloc_race_slots(
+                load_library(), [torch.device(d) for d in devices],
+                torch.cuda.can_device_access_peer)
     return entry
 
 
+def _alloc_race_slots(lib, devices: list, can_access_peer) -> RaceSlots:
+    if len(devices) > lib.dfs_race_max_shards():
+        raise ValueError(f"a race across shards takes at most "
+                         f"{lib.dfs_race_max_shards()} shards, not {len(devices)}")
+    layout = race_layout(devices, can_access_peer)
+    cards = list(dict.fromkeys(devices))
+    if layout == "peer":
+        index = [d.index or 0 for d in cards]
+        err = lib.dfs_race_peer_enable(len(index), (ctypes.c_int * len(index))(*index))
+        if err != 0:
+            raise KernelLaunchError(
+                f"peer access between cards {index} was reported but could not "
+                f"be enabled: cudaError {err}"
+            )
+    own = {d: torch.tensor(RACE_SCRATCH_IDLE, dtype=torch.int32, device=d) for d in cards}
+    for d in cards:
+        if d.type == "cuda":  # the words are set before any shard's stream runs
+            torch.cuda.synchronize(d)
+    address = host = 0
+    if layout == "host":
+        out, hp = ctypes.c_void_p(), ctypes.c_void_p()
+        err = lib.dfs_race_slots_alloc(len(devices), ctypes.byref(out), ctypes.byref(hp))
+        if err != 0:
+            raise KernelLaunchError(f"dfs_race_slots_alloc failed: cudaError {err}")
+        address, host = int(out.value), int(hp.value)
+    return RaceSlots(layout, tuple(own[d] for d in devices), threading.Lock(),
+                     address, host)
+
+
 def dfs_race_shards(states: list, spec: BoardSpec, depth: int, max_iters: int,
-                    *, streams: Optional[list] = None, slots: Optional[int] = None,
+                    *, streams: Optional[list] = None, slots: Optional[RaceSlots] = None,
+                    fold: bool = False, clock: Optional[torch.Tensor] = None,
                     locked_candidates: bool = False, waves: int = 1,
                     naked_pairs: bool | None = None, packed: bool | None = None):
-    """The shards' part of a race across shards: shard i's (M, C) int32
-    ``states[i]`` raced, each state stopping once it has run more steps
-    than the earliest solve any shard has posted. Returns one ``(meta,
-    grid)`` a shard, the (M, 4) run records of ``ops.solver.RACE_META_COLS``
-    and the (M, C) grids the runs stopped on; ``race_fold`` over every
-    shard's, in state order, gives the race's row and fold.
+    """A race across shards: shard i's (M, C) int32 ``states[i]`` raced,
+    each state stopping once it has run more steps than the earliest solve
+    any shard has posted. With ``fold``, returns ``(row, fold, meta)`` as
+    ``dfs_race`` over every shard's states in state order. Without it,
+    returns one ``(meta, grid)`` a shard, the (M, 4) run records of
+    ``ops.solver.RACE_META_COLS`` and the (M, C) grids the runs stopped on,
+    which ``race_fold`` over every shard's, in state order, folds.
 
-    CUDA tensors (shard i's on its device, with ``streams[i]`` its stream)
-    launch the shard form of the race kernel (``dfs_race_shard_kernel``),
-    one launch a shard, all from one library call so they start together,
-    each posting to and polling the race's ``slots`` (the device address
-    of ``race_slots``); each launch counts in ``dfs_race_shards.launches``.
-    CPU tensors run the plain
-    lockstep race of each shard's own states (``ops.solver.race_runs``).
-    Nothing else is accepted."""
+    CUDA tensors (shard i's on its device, with ``streams[i]`` its stream
+    and ``slots`` the race's ``race_slots``) launch the shard form of the
+    race kernel (``dfs_race_shard_kernel``) from one library call, each
+    state stopping on the race's stop words: under the ``"device"``
+    layout one launch of every shard's blocks on shard 0's stream, else one
+    launch a shard on its stream, enqueued microseconds apart; each launch
+    counts in ``dfs_race_shards.launches``. Under the ``"device"`` and
+    ``"peer"`` layouts every shard writes its records into one (n M, 4)
+    tensor on shard 0's device, and with ``fold`` the last block across
+    every shard folds them there: the race is this one call, with no copy
+    and no other launch. Under ``"host"`` only the records come back
+    (``fold`` raises). Shard 0's stream waits for every shard's launch,
+    and every shard's stream for shard 0's, so what the race wrote is ready
+    on any of them. ``clock`` (a diagnostic, off on every path of the
+    program): an (n M, 3) int64 tensor on shard 0's device, which the
+    launch fills with each state's block's globaltimer readings in ns (its
+    card's timer), [start, end of its search, end]. CPU tensors run the plain lockstep race of
+    each shard's own states (``ops.solver.race_runs``), and with ``fold``
+    ``fold_race`` over every shard's records. Nothing else is accepted."""
     _check_library()
     sweeps = dict(
         locked_candidates=locked_candidates, waves=waves,
@@ -847,72 +933,110 @@ def dfs_race_shards(states: list, spec: BoardSpec, depth: int, max_iters: int,
                 f"dfs_race_shards takes equal (M >= 1, {spec.cells}) shards, got "
                 f"{[tuple(x.shape) for x in states]}"
             )
+    if fold and slots is not None and slots.layout == "host":
+        raise ValueError("under the 'host' layout no launch folds: race_fold "
+                         "folds the records")
     kinds = {t.device.type for t in states}
     if kinds == {"cpu"}:
         N = spec.size
-        return [race_runs(t.reshape(M, N, N), spec, max_iters, depth, **knobs)
+        runs = [race_runs(t.reshape(M, N, N), spec, max_iters, depth, **knobs)
                 for t in states]
+        if not fold:
+            return runs
+        meta = torch.cat([m for m, _ in runs])
+        row, folded = fold_race(meta, torch.cat([g for _, g in runs]), spec,
+                                knobs["waves"])
+        return row, folded, meta
     if kinds != {"cuda"}:
         raise ValueError(f"dfs_race_shards runs on cuda or cpu, not {kinds}")
     if not all(t.is_contiguous() for t in states):
         raise ValueError("dfs_race_shards takes contiguous states")
-    if slots is None or streams is None or len(streams) != len(states):
+    if slots is None or streams is None or len(streams) != len(states) \
+            or slots.n != len(states):
         raise ValueError("dfs_race_shards on CUDA takes the race's slots and a "
                          "stream a shard")
+    if clock is not None and (clock.dtype != torch.int64
+                              or clock.shape != (len(states) * M, 3)
+                              or clock.device != states[0].device
+                              or not clock.is_contiguous()):
+        raise ValueError("dfs_race_shards takes an (n M, 3) int64 clock on shard 0's device")
     return _launch_race_shards(
         load_library(), states, spec, depth, max_iters, knobs["waves"],
-        _options(knobs), slots, streams,
+        _options(knobs), slots, streams, fold, clock,
     )
 
 
 def _launch_race_shards(lib: ctypes.CDLL, states: list, spec: BoardSpec,
                         depth: int, max_iters: int, waves: int, options: int,
-                        slots: int, streams: list):
-    """Allocate each shard's run records (and its stack slab, off chip) on
-    its device and stream, then launch every shard's race kernel from one
-    library call, each on its stream with its stream's scratch
-    (``race_scratch``); counts the launches in
-    ``dfs_race_shards.launches``."""
+                        slots: RaceSlots, streams: list, fold: bool,
+                        clock: Optional[torch.Tensor] = None):
+    """Allocate the race's outputs (each shard's grids, and its stack slab
+    off chip, on its device and stream; under the ``"device"`` and
+    ``"peer"`` layouts the records of every shard, and with ``fold`` the
+    row and fold, on shard 0's stream), launch the shards' race kernels
+    from one library call over ``slots`` (one launch under ``"device"``,
+    else one a shard), join the shards' streams both ways and count the
+    launches in ``dfs_race_shards.launches``."""
     n = len(states)
     M, C = states[0].shape
     depth = min(depth, C)
     slab = race_stack_in_slab(lib, spec.box)
+    across = slots.layout != "host"
+    primary = states[0].device
+
+    def empty(dev, *shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    with torch.cuda.device(primary), torch.cuda.stream(streams[0]):
+        records = empty(primary, n * M, RACE_META_COLS) if across else None
+        row, folded = (empty(primary, C + RACE_ROW_EXTRA), empty(primary, n * M, 2)) \
+            if fold else (None, None)
     outs, keep = [], []
     ptr = ctypes.c_void_p * n
-    arrays = {k: ptr() for k in ("grid", "meta", "sg", "sc", "sm", "stop", "stream")}
+    arrays = {k: ptr() for k in ("grid", "meta", "sg", "sc", "sm", "words", "stream")}
     devices = (ctypes.c_int * n)()
     for i, (t, stream) in enumerate(zip(states, streams)):
         dev = t.device
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            grid = torch.empty((M, C), dtype=torch.int32, device=dev)
-            meta = torch.empty((M, RACE_META_COLS), dtype=torch.int32, device=dev)
+        # memory the one launch of the "device" layout writes, on its stream
+        own = streams[0] if slots.layout == "device" else stream
+        with torch.cuda.device(dev), torch.cuda.stream(own):
+            grid = empty(dev, M, C)
+            meta = records[i * M:(i + 1) * M] if across else empty(dev, M, RACE_META_COLS)
             stack = (
-                (torch.empty((M, depth, C), dtype=torch.int8, device=dev),
-                 torch.empty((M, depth), dtype=torch.int32, device=dev),
-                 torch.empty((M, depth), dtype=torch.int32, device=dev))
+                (empty(dev, M, depth, C, dtype=torch.int8), empty(dev, M, depth),
+                 empty(dev, M, depth))
                 if slab else ()
             )
-            scratch = race_scratch(dev, stream.cuda_stream)
         outs.append((meta, grid))
         keep.append(stack)
         arrays["grid"][i] = grid.data_ptr()
         arrays["meta"][i] = meta.data_ptr()
         for k, tensor in zip(("sg", "sc", "sm"), stack):
             arrays[k][i] = tensor.data_ptr()
-        arrays["stop"][i] = scratch.data_ptr()
+        arrays["words"][i] = slots.words[i].data_ptr()
         arrays["stream"][i] = stream.cuda_stream
         devices[i] = dev.index or 0
     inputs = ptr(*(t.data_ptr() for t in states))
     err = lib.dfs_race_shards_launch(
         n, inputs, arrays["grid"], arrays["meta"], arrays["sg"], arrays["sc"],
-        arrays["sm"], arrays["stop"], slots, devices, arrays["stream"], M,
-        spec.box, depth, max_iters, waves, options,
+        arrays["sm"], arrays["words"],
+        folded.data_ptr() if fold else None, row.data_ptr() if fold else None,
+        slots.address or None, clock.data_ptr() if clock is not None else None,
+        RACE_LAYOUTS.index(slots.layout), devices, arrays["stream"], M, spec.box, depth,
+        max_iters, waves, options,
     )
     if err != 0:
         raise KernelLaunchError(f"dfs_race_shards launch failed: cudaError {err}")
     with _LAUNCHES_LOCK:
-        dfs_race_shards.launches += n
-    return outs
+        dfs_race_shards.launches += 1 if slots.layout == "device" else n
+    # the race's last block may run on any shard's stream and read every
+    # shard's grids: each stream waits for the whole race before its
+    # memory is handed out again
+    for stream in streams[1:]:
+        streams[0].wait_stream(stream)
+    for stream in streams[1:]:
+        stream.wait_stream(streams[0])
+    return (row, folded, records) if fold else outs
 
 
 dfs_race_shards.launches = 0
@@ -920,15 +1044,17 @@ dfs_race_shards.launches = 0
 
 def race_fold(meta: torch.Tensor, grid: torch.Tensor, spec: BoardSpec,
               waves: int, *, slots: Optional[int] = None, n_slots: int = 0):
-    """The fold of a race across shards over every shard's run records,
-    gathered in global state order on one device: (M, 4) ``meta`` and
-    (M, C) ``grid``. Returns ``(row, fold)`` as ``dfs_race``: the packed
-    (C + 3,) row and each state's (M, 2) [status, validations] after the
-    lockstep race.
+    """The fold of a race across shards whose launches did not fold, over
+    every shard's run records gathered in global state order on one device
+    (every host's, on the multi-host loop; every card's, under the
+    ``"host"`` layout): (M, 4) ``meta`` and (M, C) ``grid``. Returns
+    ``(row, fold)`` as ``dfs_race``: the packed (C + 3,) row and each
+    state's (M, 2) [status, validations] after the lockstep race.
 
-    CUDA tensors launch the fold kernel (``race_fold_kernel``, one block)
-    on the current stream, which also sets the race's ``n_slots`` slots
-    idle, and count it in ``race_fold.launches``; CPU tensors run
+    CUDA tensors launch the fold kernel (``race_fold_kernel``, one block
+    that finds t* in the records, then folds them in one pass) on the
+    current stream, which also sets the race's ``n_slots`` slots idle, and
+    count it in ``race_fold.launches``; CPU tensors run
     ``ops.solver.fold_race``. Nothing else is accepted."""
     _check_library()
     for name, t in (("meta", meta), ("grid", grid)):

@@ -741,3 +741,4 @@ def fold_race(meta: torch.Tensor, grid: torch.Tensor, spec: BoardSpec,
     final_vals = torch.where(ended, vals, t_star * int(waves)).to(torch.int32)
     fold = torch.stack([final_status, final_vals], dim=1)
     return race_row(grid, fold, spec), fold
+

@@ -17,13 +17,18 @@ lowest-index solution wins. Here the race runs on a mesh of CUDA shards
     K4: a thread block a state, each stopping once it has run more steps
     than the earliest solve posted so far, and a fold by the last block
     that rebuilds the lockstep result exactly);
-  * on several, one launch of K4's shard form a shard
-    (``dfs_race_shards``), all from one call on the shards' streams, each posting
-    its earliest solve to a slot in mapped host memory that every shard
-    polls, then the fold kernel (``race_fold``) over every shard's run
-    records in global state order on the first shard's device. The
-    winner is the global lowest index; validations and undecided sum over
-    every state, as the JAX race's.
+  * on several, K4's shard form (``dfs_race_shards``) from one library
+    call: one launch of every shard's states when the shards share a
+    card, else one launch a card on its shard's stream, stopping on a stop
+    word in device memory that every state polls at every step boundary
+    (one word on one card; a word a card, posted to over NVLink, across
+    cards with peer access),
+    and folded in place by the last block across every shard: the race
+    is that one call. Across cards without peer access the shards relay
+    the stop through slots in mapped host memory, and the fold kernel
+    (``race_fold``) folds their records gathered on the first shard's
+    device. The winner is the global lowest index; validations and
+    undecided sum over every state, as the JAX race's.
 
 On the CPU the wrappers run the plain lockstep race (ops/solver.race, and
 per shard ``race_runs`` then ``fold_race``). Seeding runs on the host, on
@@ -261,19 +266,21 @@ def bucket_states(states: np.ndarray, spec: BoardSpec,
 
 
 def mesh_race_slots(mesh: Mesh):
-    """The stop slots of races across ``mesh``'s CUDA shards: ``race_slots``
-    keyed by the shards' (device, stream) pairs."""
+    """The stop of races across ``mesh``'s CUDA shards: ``race_slots`` over
+    its devices, keyed by the shards' (device, stream) pairs; its
+    ``layout`` says where the stop lives."""
     key = tuple((d, s.cuda_stream) for d, s in zip(mesh.devices, mesh.streams))
-    return race_slots(key, mesh.size)
+    return race_slots(mesh.devices, key)
 
 
 def _idle_after(slots, ends) -> None:
-    """A race that raised before its fold was enqueued (a shard's launch
-    failed, a copy ran out of memory, ``gather`` timed out) left the steps
-    it posted in its slots, and the next race over them would stop at
-    them, short of its own first solve. Wait for its shard launches to end
-    (``ends``: an event a shard recorded after its launch, or the shards'
-    streams before any), then set the slots idle from the host."""
+    """A race that raised before its last block or its fold ran (a shard's
+    launch failed, a copy ran out of memory, ``gather`` timed out) may have
+    left the steps it posted in its stop words and slots, and the next race
+    over them would stop at them, short of its own first solve. Wait for
+    its shard launches to end (``ends``: an event a shard recorded after
+    its launch, or the shards' streams before any), then set the words and
+    slots idle from the host."""
     try:
         for end in ends:
             end.synchronize()
@@ -291,22 +298,28 @@ def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
     3,) row, each state's [status, validations] after the lockstep race,
     and each state's run record.
 
-    One shard: one launch of K4, which folds itself. Several on CUDA: the
-    shards' launches of K4's shard form, all enqueued at once on the
-    shards' streams over the race's slots (``race_slots``), then the fold
-    kernel on shard 0's stream, which sets the slots idle; every shard's
-    launch waits for the previous race's fold on that stream, and the race
-    holds the slots' lock while it enqueues, so races over one mesh never
-    share its slots. No host sync, except when the race raises before its
-    fold is enqueued: it then waits for its shard launches and sets the
-    slots idle itself. On the CPU: the plain race of each
-    shard's states (``race_runs``) and ``fold_race`` over them all.
+    One shard: one launch of K4, which folds itself. Several on CUDA: K4's
+    shard form from one library call over the race's stop
+    (``mesh_race_slots``): one launch on shard 0's stream when the shards
+    share a card, else one a shard on its stream. Under its
+    ``"device"`` and ``"peer"`` layouts the last block across every shard
+    folds in place, so the race is that call: no copy of records, no
+    other launch, no host sync. Under ``"host"`` (cards without peer
+    access) each shard's records and grids are copied to shard 0's device
+    and the fold kernel runs there on shard 0's stream, setting the slots
+    idle. Every shard's launch waits for the previous race over the mesh,
+    and the race holds the stop's lock while it enqueues, so races over
+    one mesh never share its words. A race that raises before its last
+    block or fold runs waits for its shard launches and sets the words
+    idle itself. On the CPU: the plain race of each shard's states
+    (``race_runs``) and ``fold_race`` over them all.
 
     ``gather`` (the multi-host serving loop's): a callable ``(meta, grid)
     -> (meta, grid)`` that turns this host's run records into every
     host's, in global state order, before the fold; with it every local
-    shard races in K4's shard form (even one), and the returned ``meta``
-    is every host's."""
+    shard races in K4's shard form (even one), stopping on this host's
+    stop, the records go through ``gather`` and the fold kernel, and the
+    returned ``meta`` is every host's."""
     M, C = len(states), spec.cells
     flat = torch.from_numpy(np.ascontiguousarray(np.asarray(states, np.int32).reshape(M, C)))
     knobs = dict(locked_candidates=locked_candidates, waves=waves,
@@ -329,31 +342,44 @@ def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
         row, fold = race_fold(meta, grid, spec, waves)
         return row, fold, meta
     slots = mesh_race_slots(mesh)
+    fused = gather is None and slots.layout != "host"
     host = flat.pin_memory()
     s0 = mesh.streams[0]
     with slots.lock:
-        parts = []
-        for i, (dev, stream) in enumerate(zip(mesh.devices, mesh.streams)):
-            # the previous race over these slots folded (and set them
-            # idle) on shard 0's stream
-            stream.wait_stream(s0)
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-                parts.append(host[i * per:(i + 1) * per].to(dev, non_blocking=True))
+        # the previous race over this mesh has ended on shard 0's stream
+        if len(mesh.distinct_devices) == 1:
+            # shards that share a card: one copy of every state, a shard a
+            # slice of it
+            with torch.cuda.device(mesh.primary), torch.cuda.stream(s0):
+                states_dev = host.to(mesh.primary, non_blocking=True)
+            parts = [states_dev[i * per:(i + 1) * per] for i in range(n)]
+            for stream in mesh.streams[1:]:
+                stream.wait_stream(s0)
+        else:
+            parts = []
+            for i, (dev, stream) in enumerate(zip(mesh.devices, mesh.streams)):
+                stream.wait_stream(s0)
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    parts.append(host[i * per:(i + 1) * per].to(dev, non_blocking=True))
         ends = []
         try:
-            runs = dfs_race_shards(parts, spec, depth, max_iters,
-                                   streams=list(mesh.streams), slots=slots.address,
-                                   **knobs)
+            out = dfs_race_shards(parts, spec, depth, max_iters,
+                                  streams=list(mesh.streams), slots=slots,
+                                  fold=fused, **knobs)
             ends = [stream.record_event() for stream in mesh.streams]
-            with torch.cuda.device(mesh.primary), torch.cuda.stream(s0):
-                meta = torch.cat([to_primary(mesh, i, m, s0)
-                                  for i, (m, _) in enumerate(runs)])
-                grid = torch.cat([to_primary(mesh, i, g, s0)
-                                  for i, (_, g) in enumerate(runs)])
-                if gather is not None:
-                    meta, grid = gather(meta, grid)
-                row, fold = race_fold(meta, grid, spec, waves, slots=slots.address,
-                                      n_slots=n)
+            if fused:
+                row, fold, meta = out
+            else:
+                with torch.cuda.device(mesh.primary), torch.cuda.stream(s0):
+                    meta = torch.cat([to_primary(mesh, i, m, s0)
+                                      for i, (m, _) in enumerate(out)])
+                    grid = torch.cat([to_primary(mesh, i, g, s0)
+                                      for i, (_, g) in enumerate(out)])
+                    if gather is not None:
+                        meta, grid = gather(meta, grid)
+                    row, fold = race_fold(meta, grid, spec, waves,
+                                          slots=slots.address or None,
+                                          n_slots=n if slots.address else 0)
         except BaseException:
             _idle_after(slots, ends or mesh.streams)
             raise

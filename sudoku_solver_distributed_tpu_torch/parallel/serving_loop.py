@@ -35,10 +35,11 @@ exits, or ``health()`` reports it stalled after ``stall_after_s``, and a
 pending ``solve`` raises ``ServingLoopError`` instead of hanging, which
 the engine answers from its bucket path (a fault of the device path).
 
-Across hosts the race's stop slots (ops/cuda_solver.race_slots) do not
-reach: each host's shards stop on their own host's solves, and a host with
-no early solve runs its states to their own end; the fold over every
-host's records stays exact.
+Across hosts the race's stop (ops/cuda_solver.race_slots: a word in
+device memory that a host's own shards share) does not reach: each host's
+shards stop on their own host's solves, and a host with no early solve
+runs its states to their own end; the fold over every host's records
+(the fold kernel, after the gather) stays exact.
 """
 
 from __future__ import annotations

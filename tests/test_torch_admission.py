@@ -232,47 +232,61 @@ def test_adaptive_lone_request_dispatch_wait_beats_fixed_budget(boards):
     solver before the measured stream and replayed by the engine's solve
     stage, so the stream's host work is the coalescer's own. What is left
     is the host's: with the suite's workers busy, the dispatcher thread
-    wakes from its wait ~10 ms late on one request in 16 or so, in either
-    arm and whatever the policy, which moved a mean of 8 past the bound."""
-    waits = {}
-    for adaptive in (False, True):
-        eng = SolverEngine(device="cpu", buckets=(1, 8),
-                           coalesce_adaptive=adaptive, continuous=False)
-        eng.warmup()
-        solve_stage, pinned = eng._stage_rows, {}
+    wakes from its wait late, by 1 to 10 ms, on up to half the requests
+    for a second or two at a time (the fixed arm's median read 3.0 ms and
+    its upper quartile 8.0 under the suite's six workers). So the two arms
+    take turns, 8 requests at a time, 32 requests each: a spell of host
+    load falls on both arms' samples, and no spell covers a quarter of one
+    arm's stream alone."""
+    rounds, per_round = 4, 8
+    engines, pinned_rows = {}, {}
+    try:
+        for adaptive in (False, True):
+            eng = engines[adaptive] = SolverEngine(
+                device="cpu", buckets=(1, 8), coalesce_adaptive=adaptive,
+                continuous=False)
+            eng.warmup()
+            solve_stage, pinned = eng._stage_rows, pinned_rows.setdefault(adaptive, {})
 
-        def replay(dev, *args):
-            key = dev.numpy().tobytes()
-            if key not in pinned:
-                pinned[key] = solve_stage(dev, *args)
-            return pinned[key]
+            def replay(dev, *args, solve_stage=solve_stage, pinned=pinned):
+                key = dev.numpy().tobytes()
+                if key not in pinned:
+                    pinned[key] = solve_stage(dev, *args)
+                return pinned[key]
 
-        eng._stage_rows = replay
-        try:
-            stream = [boards[i % len(boards)] for i in range(16)]
+            eng._stage_rows = replay
+        stream = [boards[i % len(boards)] for i in range(per_round)]
+        for eng in engines.values():
             for board in stream:  # the rows to replay, off the coalescer
                 eng._solve_padded(board[None])
-            per_request, total = [], 0.0
-            for board in stream:
-                sol, _ = eng.solve_one(board.tolist())
-                assert sol is not None
-                st = eng.coalescer.stats()
-                per_request.append(st["avg_wait_ms"] * st["boards"] - total)
-                total = st["avg_wait_ms"] * st["boards"]
-                time.sleep(0.05)  # idle spacing: no co-riders in sight
-            assert st["boards"] == len(stream)
-            assert len(pinned) == len({b.tobytes() for b in stream})  # all replayed
-            waits[adaptive] = (statistics.median(per_request),
-                               statistics.quantiles(per_request, n=4)[2])
-        finally:
+        per_request = {False: [], True: []}
+        totals = {False: 0.0, True: 0.0}
+        for _ in range(rounds):
+            for adaptive, eng in engines.items():
+                for board in stream:
+                    sol, _ = eng.solve_one(board.tolist())
+                    assert sol is not None
+                    st = eng.coalescer.stats()
+                    total = st["avg_wait_ms"] * st["boards"]
+                    per_request[adaptive].append(total - totals[adaptive])
+                    totals[adaptive] = total
+                    time.sleep(0.05)  # idle spacing: no co-riders in sight
+        for adaptive, eng in engines.items():
+            assert eng.coalescer.stats()["boards"] == rounds * per_round
+            # every solve replayed a pinned row
+            assert len(pinned_rows[adaptive]) == len({b.tobytes() for b in stream})
+    finally:
+        for eng in engines.values():
             eng.close()
+    waits = {a: (statistics.median(w), statistics.quantiles(w, n=4)[2])
+             for a, w in per_request.items()}
     # fixed mode waits out the full 2 ms budget for co-riders that never
     # come; adaptive mode sees a ~20 Hz stream and waits a few percent of it
     fixed, adaptive_waits = waits[False][0], waits[True]
-    assert fixed >= 1.5, waits
+    assert fixed >= 1.5, (waits, per_request)
     for wait in adaptive_waits:  # median, upper quartile
-        assert wait < 1.0, waits
-        assert wait < fixed / 2, waits
+        assert wait < 1.0, (waits, per_request)
+        assert wait < fixed / 2, (waits, per_request)
 
 
 # -- HTTP surface ----------------------------------------------------------------

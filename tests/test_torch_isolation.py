@@ -475,66 +475,125 @@ def test_race_launch_error_raises_and_counts_nothing(fake_cuda_stream):
     assert dfs_race.launches == before
 
 
-@pytest.mark.parametrize("size, slab", [(9, False), (25, True)])
-def test_shard_race_launch_is_one_call_for_every_shard(monkeypatch, size, slab):
+class _FakeStream:
+    """A shard's stream for the shard launch on CPU tensors: its handle,
+    and the streams it was made to wait for, in order."""
+
+    def __init__(self, handle, log):
+        self.cuda_stream = handle
+        self.log = log
+
+    def wait_stream(self, other):
+        self.log.append((self.cuda_stream, other.cuda_stream))
+
+
+@pytest.mark.parametrize("size, slab, layout", [
+    pytest.param(size, slab, layout, id=f"{size}-{slab}" + ("" if layout == "device"
+                                                            else f"-{layout}"))
+    for layout in ("device", "peer", "host") for size, slab in ((9, False), (25, True))
+])
+def test_shard_race_launch_is_one_call_for_every_shard(monkeypatch, size, slab, layout):
     """The shard launches of a race across shards go to the library in one
-    call: each shard's states, records, slab (off chip only), its stream's
-    scratch, the race's slots, device and stream; every shard counts a
-    launch of the shard form, none of K4's one-shard form; an error raises
-    and counts none."""
+    call: each shard's states, grids, records (rows of one (n M, 4) tensor
+    on shard 0's device, except under the host layout), slab (off chip
+    only), its stop words, the layout number and, under the host layout,
+    the race's slots, device and stream; with ``fold`` the row and fold
+    the last block writes, with ``clock`` its address. The library
+    launches every shard's blocks at once under the device layout (one
+    launch counted) and a launch a shard under the others (one each),
+    none of K4's one-shard form; the streams join both ways after it; an
+    error raises and counts none."""
     import contextlib
-    import types
+    import threading
 
     from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SCRATCH_IDLE,
         KernelLaunchError,
+        RaceSlots,
         _launch_race_shards,
         dfs_race_shards,
-        race_scratch,
     )
 
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     spec = spec_for_size(size)
-    streams = [types.SimpleNamespace(cuda_stream=201 + i) for i in range(3)]
+    joins = []
+    streams = [_FakeStream(201 + i, joins) for i in range(3)]
     states = [torch.zeros((2, spec.cells), dtype=torch.int32) for _ in range(3)]
+    word = torch.tensor(RACE_SCRATCH_IDLE, dtype=torch.int32)
+    words = (word,) * 3 if layout == "device" else tuple(
+        torch.tensor(RACE_SCRATCH_IDLE, dtype=torch.int32) for _ in range(3))
+    slots = RaceSlots(layout, words, threading.Lock(),
+                      *((4242, 1) if layout == "host" else ()))
     lib = _FakeRaceLibrary()
     before, one_shard = dfs_race_shards.launches, dfs_race.launches
-    outs = _launch_race_shards(lib, states, spec, spec.cells, 64, 1, 1, 4242, streams)
-    assert dfs_race_shards.launches == before + 3 and len(lib.calls) == 1
+    outs = _launch_race_shards(lib, states, spec, spec.cells, 64, 1, 1, slots, streams,
+                               False)
+    launches = 1 if layout == "device" else 3
+    assert dfs_race_shards.launches == before + launches and len(lib.calls) == 1
     assert dfs_race.launches == one_shard
     assert [(tuple(m.shape), tuple(g.shape)) for m, g in outs] == [((2, 4), (2, spec.cells))] * 3
     (args,) = lib.calls
-    n, inputs, grids, metas, sg, sc, sm, stop, slots = args[:9]
-    assert n == 3 and slots == 4242
+    n, inputs, grids, metas, sg, sc, sm, stop, fold, row, slot_ptr, clock, code = args[:13]
+    assert n == 3 and (fold, row, clock) == (None, None, None)
+    assert code == ("device", "peer", "host").index(layout)
+    assert slot_ptr == (4242 if layout == "host" else None)
     assert list(inputs) == [t.data_ptr() for t in states]
     assert list(metas) == [m.data_ptr() for m, _ in outs]
+    if layout != "host":  # shard i's records: rows 2i.. of one tensor
+        assert [m.data_ptr() - outs[0][0].data_ptr() for m, _ in outs] == [0, 32, 64]
     assert list(grids) == [g.data_ptr() for _, g in outs]
     assert all(p is not None for p in list(sg) + list(sc) + list(sm)) == slab
-    assert list(stop) == [race_scratch(torch.device("cpu"), 201 + i).data_ptr()
-                          for i in range(3)]
-    assert list(args[10]) == [201, 202, 203]
-    assert args[11:13] == (2, spec.box)
+    assert list(stop) == [w.data_ptr() for w in words]
+    assert list(args[14]) == [201, 202, 203]
+    assert args[15:17] == (2, spec.box)
+    # shard 0's stream waits for every other, then every other for it
+    assert joins == [(201, 202), (201, 203), (202, 201), (203, 201)]
+    if layout != "host":
+        clock = torch.zeros((6, 3), dtype=torch.int64)
+        row, fold, meta = _launch_race_shards(lib, states, spec, spec.cells, 64, 1, 1,
+                                              slots, streams, True, clock)
+        assert row.shape == (spec.cells + 3,) and fold.shape == (6, 2)
+        assert meta.shape == (6, 4)
+        assert lib.calls[1][8:10] == (fold.data_ptr(), row.data_ptr())
+        assert lib.calls[1][11] == clock.data_ptr()
+        assert lib.calls[1][3][0] == meta.data_ptr()
+    else:
+        # no launch folds under the host layout: the fold kernel does
+        with pytest.raises(ValueError):
+            dfs_race_shards(states, spec, spec.cells, 64, streams=streams, slots=slots,
+                            fold=True)
+    counted = dfs_race_shards.launches
     with pytest.raises(KernelLaunchError):
         _launch_race_shards(_FakeRaceLibrary(error=1), states, spec, spec.cells, 64, 1, 1,
-                            4242, streams)
-    assert dfs_race_shards.launches == before + 3
+                            slots, streams, False)
+    assert dfs_race_shards.launches == counted
 
 
 def test_race_slots_idle_writes_every_word_through_the_host_address():
-    """``RaceSlots.idle`` sets each of the race's slots to the idle word
-    through their host address, and nothing past them."""
+    """``RaceSlots.idle`` sets each shard's stop words to the idle words
+    (the one set once when the shards share it) and each of the race's
+    slots to the idle word through their host address, and nothing past
+    them."""
     import ctypes
     import threading
 
     from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SCRATCH_IDLE,
         RACE_SLOT_IDLE,
         RaceSlots,
     )
 
-    words = (ctypes.c_uint32 * 5)(7, 3, 40, 9, 11)
-    slots = RaceSlots(address=1, host=ctypes.addressof(words), n=4, lock=threading.Lock())
+    slots_words = (ctypes.c_uint32 * 5)(7, 3, 40, 9, 11)
+    words = tuple(torch.tensor([5, 17, 9], dtype=torch.int32) for _ in range(4))
+    slots = RaceSlots("host", words, threading.Lock(), address=1,
+                      host=ctypes.addressof(slots_words))
     slots.idle()
-    assert list(words) == [RACE_SLOT_IDLE] * 4 + [11]
+    assert list(slots_words) == [RACE_SLOT_IDLE] * 4 + [11]
+    assert all(w.tolist() == list(RACE_SCRATCH_IDLE) for w in words)
+    shared = torch.tensor([2, 64, 7], dtype=torch.int32)
+    RaceSlots("device", (shared,) * 4, threading.Lock()).idle()
+    assert shared.tolist() == list(RACE_SCRATCH_IDLE)
 
 
 @pytest.mark.parametrize("fail_sync", [False, True])
@@ -1254,20 +1313,26 @@ def _shard_race_sets():
 
 @pytest.mark.cuda
 def test_race_across_virtual_shards_and_its_fold_match_plain_on_the_card():
-    """The race across 4 shards of cuda:0 (K4's shard form, a launch a
-    shard on its stream, then the fold kernel) against the plain lockstep
-    race over every state: the row and every state's fold; the slots are
-    idle again after each race, and races back to back stay exact."""
+    """The race across 4 shards of cuda:0 (K4's shard form, one launch of
+    every shard's states, stopping on the one stop word of the card, folded
+    by the last block across every shard) against the plain lockstep race
+    over every state: the row and every state's fold; no fold kernel runs;
+    the words are idle again after each race, and races back to back stay
+    exact. The fold kernel (the multi-host path's) over the same records
+    equals the plain fold."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SCRATCH_IDLE,
         _dfs_race_plain,
         dfs_race_shards,
         race_fold,
     )
+    from sudoku_solver_distributed_tpu_torch.ops.solver import fold_race
     from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
 
     mesh = _mesh4()
+    assert F.mesh_race_slots(mesh).layout == "device"
     for spec, states, waves, max_iters in _shard_race_sets() * 2:
         knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
         cpu = torch.as_tensor(states.reshape(len(states), -1))
@@ -1276,13 +1341,179 @@ def test_race_across_virtual_shards_and_its_fold_match_plain_on_the_card():
         krow, kfold, kmeta = F.race_on_mesh(states, mesh, spec, spec.max_depth,
                                             max_iters, **knobs)
         torch.cuda.synchronize()
-        assert dfs_race_shards.launches == races + 4 and race_fold.launches == folds + 1
+        assert dfs_race_shards.launches == races + 1 and race_fold.launches == folds
         assert dfs_race.launches == one
         assert torch.equal(krow.cpu(), row) and torch.equal(kfold.cpu(), fold)
-        # the fold kernel equals the plain fold over the same records
-        prow, pfold = race_fold(kmeta.cpu(), torch.zeros((len(states), spec.cells),
-                                                         dtype=torch.int32), spec, waves)
+        assert F.mesh_race_slots(mesh).words[0].tolist() == list(RACE_SCRATCH_IDLE)
+        grid = torch.zeros((len(states), spec.cells), dtype=torch.int32, device="cuda")
+        frow, ffold = race_fold(kmeta, grid, spec, waves)
+        prow, pfold = fold_race(kmeta.cpu(), grid.cpu(), spec, waves)
+        torch.cuda.synchronize()
+        assert torch.equal(frow.cpu(), prow) and torch.equal(ffold.cpu(), pfold)
         assert torch.equal(pfold, kfold.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [9, 16])
+def test_fused_race_across_virtual_shards_is_one_call_and_resets_its_words(size):
+    """``dfs_race_shards(..., fold=True)`` over 4 shards of cuda:0 on a
+    seeded 9x9 and 16x16 set: one library call, one launch of every
+    shard's states, whose last block folds, equal to the plain race; each
+    shard stopped at most 2 steps past t*, or within a step of one-shard
+    K4's blocks; races back to back on one mesh, the later first solve
+    after the earlier, stay exact (the last block set the words idle);
+    ``fold_race`` over the kernel's own records equals the kernel's fold;
+    and the race's clock holds, a state, start <= end of its search <=
+    end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SCRATCH_IDLE,
+        _dfs_race_plain,
+        dfs_race_shards,
+        race_fold,
+    )
+    from sudoku_solver_distributed_tpu_torch.ops.solver import fold_race
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    mesh = _mesh4()
+    slots = F.mesh_race_slots(mesh)
+    sets = _shard_race_sets()
+    pair = [sets[0], sets[1] if size == 9 else sets[3]]
+    plain = []
+    for spec, states, waves, max_iters in pair:
+        knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
+        cpu = torch.as_tensor(states.reshape(len(states), -1))
+        plain.append(_dfs_race_plain(cpu, spec, spec.max_depth, max_iters, **knobs))
+    # the earlier first solve, then the later one, then the earlier again
+    order = sorted(range(2), key=lambda k: int(plain[k][2][:, 1].max()))
+    for k in (order[0], order[1], order[0]):
+        spec, states, waves, max_iters = pair[k]
+        prow, pfold, pmeta = plain[k]
+        knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
+        M = len(states)
+        cpu = torch.as_tensor(states.reshape(M, -1))
+        parts = [cpu[i * M // 4:(i + 1) * M // 4].cuda() for i in range(4)]
+        torch.cuda.synchronize()
+        races, folds = dfs_race_shards.launches, race_fold.launches
+        clock = torch.zeros((M, 3), dtype=torch.int64, device="cuda")
+        row, fold, meta = dfs_race_shards(parts, spec, spec.max_depth, max_iters,
+                                          streams=list(mesh.streams), slots=slots,
+                                          fold=True, clock=clock, **knobs)
+        torch.cuda.synchronize()
+        assert dfs_race_shards.launches == races + 1 and race_fold.launches == folds
+        assert torch.equal(row.cpu(), prow) and torch.equal(fold.cpu(), pfold)
+        assert slots.words[0].tolist() == list(RACE_SCRATCH_IDLE)
+        meta = meta.cpu()
+        t_star = int(pmeta[:, 1].max())
+        past = [int(meta[i * M // 4:(i + 1) * M // 4, 1].max()) - t_star for i in range(4)]
+        # within a step of where one-shard K4's blocks stop on the same
+        # states (2 or 3 past t* on 16x16, from one race to the next)
+        k4_past = max(int(dfs_race(cpu.cuda(), spec, spec.max_depth, max_iters, **knobs)[2]
+                          [:, 1].max()) - t_star for _ in range(3))
+        assert max(past) <= max(2, k4_past + 1), (past, k4_past)
+        grids = torch.zeros((M, spec.cells), dtype=torch.int32)
+        _, pf = fold_race(meta, grids, spec, waves)
+        assert torch.equal(pf, pfold)
+        for start, searched, end in clock.cpu().tolist():
+            assert 0 < start <= searched <= end, clock
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [9, 16])
+def test_host_layout_race_across_virtual_shards_matches_plain_twice(size):
+    """The ``"host"`` layout (cards without peer access: a launch a shard,
+    each polling its own words and relaying the stop through slots in
+    mapped host memory, then the fold kernel over the gathered records)
+    forced on 4 shards of cuda:0, whose devices would choose ``"device"``:
+    two races back to back equal the plain race, and every shard's words
+    and every slot are idle after each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import ctypes
+    import threading
+
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SLOT_IDLE,
+        RACE_SCRATCH_IDLE,
+        RaceSlots,
+        _dfs_race_plain,
+        dfs_race_shards,
+        load_library,
+        race_fold,
+    )
+
+    mesh = _mesh4()
+    out, host = ctypes.c_void_p(), ctypes.c_void_p()
+    assert load_library().dfs_race_slots_alloc(4, ctypes.byref(out), ctypes.byref(host)) == 0
+    words = tuple(torch.tensor(RACE_SCRATCH_IDLE, dtype=torch.int32, device="cuda")
+                  for _ in range(4))
+    slots = RaceSlots("host", words, threading.Lock(), int(out.value), int(host.value))
+    sets = _shard_race_sets()
+    spec, states, waves, max_iters = sets[0] if size == 9 else sets[3]
+    knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
+    M = len(states)
+    cpu = torch.as_tensor(states.reshape(M, -1))
+    prow, pfold, _ = _dfs_race_plain(cpu, spec, spec.max_depth, max_iters, **knobs)
+    parts = [cpu[i * M // 4:(i + 1) * M // 4].cuda() for i in range(4)]
+    torch.cuda.synchronize()
+    for _ in range(2):
+        races, folds = dfs_race_shards.launches, race_fold.launches
+        runs = dfs_race_shards(parts, spec, spec.max_depth, max_iters,
+                               streams=list(mesh.streams), slots=slots, **knobs)
+        with torch.cuda.stream(mesh.streams[0]):
+            row, fold = race_fold(torch.cat([m for m, _ in runs]),
+                                  torch.cat([g for _, g in runs]), spec, waves,
+                                  slots=slots.address, n_slots=4)
+        torch.cuda.synchronize()
+        assert dfs_race_shards.launches == races + 4 and race_fold.launches == folds + 1
+        assert torch.equal(row.cpu(), prow) and torch.equal(fold.cpu(), pfold)
+        assert all(w.tolist() == list(RACE_SCRATCH_IDLE) for w in words)
+        assert list((ctypes.c_uint32 * 4).from_address(slots.host)) == [RACE_SLOT_IDLE] * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [9, 16])
+def test_peer_layout_race_across_virtual_shards_matches_plain_twice(size):
+    """The ``"peer"`` layout (cards with peer access: a launch a shard,
+    each polling its own words, a solve posted to every shard's words with
+    system atomics, the last block across every shard folding) forced on
+    4 shards of cuda:0, whose devices would choose ``"device"``: one
+    library call of 4 launches and no fold kernel, two races back to back
+    equal the plain race, and every shard's words are idle after each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import threading
+
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SCRATCH_IDLE,
+        RaceSlots,
+        _dfs_race_plain,
+        dfs_race_shards,
+        race_fold,
+    )
+
+    mesh = _mesh4()
+    words = tuple(torch.tensor(RACE_SCRATCH_IDLE, dtype=torch.int32, device="cuda")
+                  for _ in range(4))
+    slots = RaceSlots("peer", words, threading.Lock())
+    sets = _shard_race_sets()
+    spec, states, waves, max_iters = sets[0] if size == 9 else sets[3]
+    knobs = dict(locked_candidates=True, waves=waves, naked_pairs=False)
+    M = len(states)
+    cpu = torch.as_tensor(states.reshape(M, -1))
+    prow, pfold, _ = _dfs_race_plain(cpu, spec, spec.max_depth, max_iters, **knobs)
+    parts = [cpu[i * M // 4:(i + 1) * M // 4].cuda() for i in range(4)]
+    torch.cuda.synchronize()
+    for _ in range(2):
+        races, folds = dfs_race_shards.launches, race_fold.launches
+        row, fold, _ = dfs_race_shards(parts, spec, spec.max_depth, max_iters,
+                                       streams=list(mesh.streams), slots=slots, fold=True,
+                                       **knobs)
+        torch.cuda.synchronize()
+        assert dfs_race_shards.launches == races + 4 and race_fold.launches == folds
+        assert torch.equal(row.cpu(), prow) and torch.equal(fold.cpu(), pfold)
+        assert all(w.tolist() == list(RACE_SCRATCH_IDLE) for w in words)
 
 
 @pytest.mark.cuda

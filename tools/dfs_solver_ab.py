@@ -201,7 +201,7 @@ def _race_t_star(meta) -> int:
     return int(meta[solved, 1].min() if bool(solved.any()) else meta[:, 1].max())
 
 
-def race_sets(cs, this, other, other_log, smoke) -> dict:
+def race_sets(cs, this, other, smoke) -> dict:
     """K4 on each set of ``chip_smoke.race_timing_sets``: outputs equal,
     then the two builds in turns, race by race, and by the profiler."""
     import statistics
@@ -216,8 +216,10 @@ def race_sets(cs, this, other, other_log, smoke) -> dict:
     config = smoke.node_config(SolverEngine, spec_for_size, serving_config)
     sets = smoke.race_timing_sets(
         smoke.frontier_race_sets(F, spec_for_size, smoke.SYMMETRY_SEED))
-    other_kernels = ("dfs_race_kernel", "race_fold_kernel") if (
-        "race_fold_kernel" in other_log) else ("dfs_race_kernel",)
+    # a build of the warp-a-state design (from before the library said
+    # where its stack lives) folds in a kernel of its own after K4
+    other_kernels = ("dfs_race_kernel",) if hasattr(other, "dfs_race_stack_on_chip") \
+        else ("dfs_race_kernel", "race_fold_kernel")
     other_slab = {}
     out = {}
     for name, _, spec, states, max_iters, _ in sets:
@@ -330,7 +332,7 @@ def main(argv) -> int:
     if "k3" in arms:
         result["segments"] = segment_cases(cs, this, other, smoke)
     if "race" in arms:
-        result["races"] = race_sets(cs, this, other, other_log.read_text(), smoke)
+        result["races"] = race_sets(cs, this, other, smoke)
     card = smoke.card_name_and_power_limit()
     smoke.log(card)
     print(json.dumps({"other": str(source.relative_to(ROOT)), "card": card,

@@ -11,11 +11,27 @@ mesh of one card):
       one-card engine: the 4096 hard boards in one bucket call each, every
       row equal (grid, status, guesses, validations), one K1 launch a card,
       ``engine.mesh`` showing a shard a card;
-  (c) the race across the cards (K4's shard form on each card, the run
-      records copied to card 0, the fold kernel there) against the plain
-      race on chip_smoke.py's phase 11 sets, each timed by CUDA events
-      beside the one-card race of the same padded states, with each card's
-      steps past t*;
+  (c) the race across the cards (K4's shard form on each card, from one
+      library call) against the plain race on chip_smoke.py's phase 11
+      sets, each timed by CUDA events beside the one-card race of the same
+      padded states; first the peer-access matrix of the cards and the
+      stop's layout chosen from it: ``"peer"`` (a stop word on each card,
+      posted to over NVLink, a launch a card, the last block across every
+      card folding) where every two cards reach each other, else
+      ``"host"`` (slots in mapped host memory, the records copied to card 0
+      and folded there by the fold kernel). After one untimed race a set,
+      each card's steps past t* in the 5 timed races and in three races
+      with the kernel's clock (by card, after its first block's start: the
+      spread of its blocks' starts, their µs a step, when a block of it
+      solved at t* and at what rate, when its first block stopped on the
+      posted step, when its last search ended; ``clocked_race``) are
+      printed, and the card that solved at t* is held to chip_smoke.py's
+      bound: at most 2, or one more than the most the one-card race's
+      blocks run past t* in its 5 timed races. The other cards are not:
+      each card's launch starts a few µs after the one before, and a card
+      launched before the solving card runs that many steps further
+      before the post reaches it (phase 13(c) measures this with the
+      ``"peer"`` layout forced on one card, under one timer);
   (n) one process a card on an NCCL group (``FrontierServingLoop``): a
       coalesced batch fanned out across the cards, with one card's grids
       and the plain version's counters, and the README board raced across
@@ -217,7 +233,14 @@ def race_on_cards(cs, mesh) -> dict:
 
     import chip_smoke
 
-    out = {"mismatches": 0, "sets": {}}
+    n = mesh.size
+    peers = [[i != j and torch.cuda.can_device_access_peer(i, j) for j in range(n)]
+             for i in range(n)]
+    slots = F.mesh_race_slots(mesh)
+    layout = slots.layout
+    log(f"(c): peer access by card pair {peers}; the race's stop: {layout!r}")
+    out = {"mismatches": 0, "peer_access": peers, "layout": layout, "sets": {}}
+    over = []
     for name, board, spec, states, max_iters, _ in chip_smoke.frontier_race_sets(
             F, spec_for_size, chip_smoke.SYMMETRY_SEED):
         M, C = len(states), spec.cells
@@ -229,10 +252,16 @@ def race_on_cards(cs, mesh) -> dict:
         flat = torch.as_tensor(states.reshape(M, C), device="cuda:0").contiguous()
         prow, pfold, _ = cs._dfs_race_plain(flat, spec, spec.max_depth, max_iters, **sweeps)
 
+        metas = []
+
         def race():
             mesh.streams[0].wait_stream(torch.cuda.current_stream())
-            return F.race_on_mesh(states, mesh, spec, spec.max_depth, max_iters, **sweeps)
+            row, fold, meta = F.race_on_mesh(states, mesh, spec, spec.max_depth, max_iters,
+                                              **sweeps)
+            metas.append(meta)
+            return row, fold, meta
 
+        # the first race of a set (untimed) warms every card
         krow, kfold, kmeta = race()
         torch.cuda.synchronize()
         bad, _ = chip_smoke._race_diffs((krow, kfold), (prow, pfold))
@@ -241,18 +270,112 @@ def race_on_cards(cs, mesh) -> dict:
         solved = kmeta[:, 0].cpu().numpy() == 1
         t_star = int(steps[solved].min()) if solved.any() else int(steps.max())
         per = M // mesh.size
-        past = [max(0, int(steps[i * per:(i + 1) * per].max()) - t_star)
-                for i in range(mesh.size)]
+
+        def past_of(meta):
+            steps = meta[:, 1].cpu().numpy()
+            return [max(0, int(steps[i * per:(i + 1) * per].max()) - t_star)
+                    for i in range(mesh.size)]
+
+        def solvers_of(meta):
+            # the cards holding a block that solved at t*: their blocks
+            # started with it and read its post on their own card
+            rec = meta.cpu().numpy()
+            won = (rec[:, 0] == 1) & (rec[:, 1] == t_star)
+            return [i for i in range(mesh.size) if won[i * per:(i + 1) * per].any()]
+
+        first_past = past_of(kmeta)
         mesh_ms = float(np.median(chip_smoke._event_ms(race, 5)))
-        one_ms = float(np.median(chip_smoke._event_ms(
-            lambda: cs.dfs_race(flat, spec, spec.max_depth, max_iters, **sweeps), 5)))
+        timed_past = [past_of(m) for m in metas[1:]]
+        solvers = [solvers_of(m) for m in metas[1:]]
+        k4_metas = []
+        one_ms = float(np.median(chip_smoke._event_ms(lambda: k4_metas.append(
+            cs.dfs_race(flat, spec, spec.max_depth, max_iters, **sweeps)[2]), 5)))
+        k4_past = max(int(m[:, 1].max()) - t_star for m in k4_metas)
+        clocked = [clocked_race(cs, mesh, slots, states, spec, max_iters, t_star, sweeps)
+                   for _ in range(3)]
+        for c in clocked:
+            if "meta" in c:
+                meta = c.pop("meta")
+                c["past"] = past_of(meta)
+                timed_past.append(c["past"])
+                solvers.append(solvers_of(meta))
+        bound = max(chip_smoke.MESH_MAX_STEPS_PAST_T_STAR, k4_past + 1)
+        worst = max((p[i] for p, w in zip(timed_past, solvers) for i in w), default=0)
+        if worst > bound:
+            over.append((name, worst, bound))
         out["sets"][name] = {"states": M, "t_star": t_star, "mismatches": bad,
-                             "steps_past_t_star_by_card": past,
-                             "k4_and_fold_ms": mesh_ms, "one_card_ms": one_ms}
-        log(f"(c) {name}: {M} states over {mesh.size} cards: {bad} mismatches; "
-            f"{mesh_ms:.4f} ms vs one card {one_ms:.4f} ms (CUDA events, median of 5); "
-            f"steps past t* by card {past}")
+                             "steps_past_t_star_first_race": first_past,
+                             "steps_past_t_star_warm": timed_past,
+                             "solving_cards": solvers,
+                             "one_card_steps_past_t_star": k4_past, "bound": bound,
+                             "clock": clocked, "race_ms": mesh_ms, "one_card_ms": one_ms}
+        log(f"(c) {name}: {M} states over {mesh.size} cards ({layout} stop): {bad} "
+            f"mismatches; the race {mesh_ms:.4f} ms vs one card {one_ms:.4f} ms (CUDA "
+            f"events, median of 5); t* {t_star}; steps past t* by card: first race "
+            f"{first_past}, warm {timed_past} (the solving cards {solvers} held to "
+            f"{bound}; one card's blocks {k4_past}); the clocked race, by card (µs "
+            f"after its first block's start) {clocked}")
     check(out["mismatches"] == 0, f"(c): {out['mismatches']} mismatches")
+    # held to the bound in main, after (n) has run
+    out["over_bound"] = over
+    return out
+
+
+def clocked_race(cs, mesh, slots, states, spec, max_iters: int, t_star: int,
+                 sweeps: dict) -> dict:
+    """One race across the cards through ``dfs_race_shards`` with the
+    kernel's clock, under the ``"device"`` and ``"peer"`` layouts (its
+    last block folds; under ``"host"`` the clock is not read). Each card
+    reads its own globaltimer, and the cards' timers disagree by
+    milliseconds, so every reading is taken on its card after its first
+    block's start. By card, in µs: ``spread`` from its first block's start
+    to its last's; ``step`` the median µs a step of its blocks (their
+    search time over their steps); ``solve`` when a block of it ended its
+    search solved at t*, with that block's µs a step (``solve_step``);
+    ``first_stop`` when its first block stopped RUNNING on the posted
+    step; ``last`` when its last search ended. On the card that solved,
+    ``first_stop`` against ``solve`` is how soon its own blocks read the
+    post; a card that stopped many steps past t* while the solving card's
+    own blocks did not started early or read the post late. The race's
+    records come back as ``meta``."""
+    import numpy as np
+    import torch
+
+    if slots.layout == "host":
+        return {"layout": "host", "read": False}
+    M, C = len(states), spec.cells
+    n = mesh.size
+    per = M // n
+    flat = torch.as_tensor(np.ascontiguousarray(states.reshape(M, C)))
+    parts = [flat[i * per:(i + 1) * per].to(d).contiguous()
+             for i, d in enumerate(mesh.devices)]
+    clock = torch.zeros((M, 3), dtype=torch.int64, device=mesh.devices[0])
+    for d in mesh.distinct_devices:
+        torch.cuda.synchronize(d)
+    with slots.lock:
+        _, _, meta = cs.dfs_race_shards(parts, spec, spec.max_depth, max_iters,
+                                        streams=list(mesh.streams), slots=slots, fold=True,
+                                        clock=clock, **sweeps)
+    for d in mesh.distinct_devices:
+        torch.cuda.synchronize(d)
+    ns = clock.cpu().numpy().reshape(n, per, 3).astype(np.float64)
+    rec = meta.cpu().numpy().reshape(n, per, 4)
+    out = {k: [] for k in ("spread", "step", "solve", "solve_step", "first_stop", "last")}
+    for c in range(n):
+        start, searched = ns[c, :, 0], ns[c, :, 1]
+        status, steps = rec[c, :, 0], rec[c, :, 1]
+        t0 = start.min()
+        us = lambda x: round(float(x - t0) / 1e3, 3)  # noqa: E731
+        rate = (searched - start) / np.maximum(steps, 1) / 1e3
+        won = (status == 1) & (steps == t_star)
+        stopped = status == 0
+        out["spread"].append(us(start.max()))
+        out["step"].append(round(float(np.median(rate)), 3))
+        out["solve"].append(us(searched[won].min()) if won.any() else None)
+        out["solve_step"].append(round(float(rate[won].min()), 3) if won.any() else None)
+        out["first_stop"].append(us(searched[stopped].min()) if stopped.any() else None)
+        out["last"].append(us(searched.max()))
+    out["meta"] = meta
     return out
 
 
@@ -289,6 +412,9 @@ def main(argv=None) -> int:
     out = {"cards": cards, "engine": engine_on_cards(cs, mesh),
            "race": race_on_cards(cs, mesh), "ranks": multi_rank(n, "nccl", "cuda", cs)}
     print(json.dumps(out), flush=True)
+    over = out["race"]["over_bound"]
+    check(not over, f"(c): the solving card's steps past t* over the bound after a warm "
+                    f"race (set, most, bound): {over}")
     return 0
 
 
