@@ -2078,12 +2078,19 @@ def _phase_obs(cs, build_parser, build_node, oracle_ok, boundary_p50_ms,
             f"{out['boundary_host_ms_cost_plane']} beside phase 6's recorder p50 "
             f"{boundary_p50_ms}")
 
-        # the Prometheus rendering of the same (quiescent) body
-        status, prom, headers = _http(node.base, "/metrics.prom")
-        check(status == 200 and headers["Content-Type"].startswith("text/plain; version=0.0.4"),
-              f"/metrics.prom answered {status}")
-        check(prom == _http(node.base, "/metrics?format=prom")[1],
-              "/metrics.prom and /metrics?format=prom differ")
+        # the Prometheus rendering of the same (quiescent) body; the two
+        # routes scrape at two instants, and a gauge over a sliding window
+        # of the clock can roll over between them, so up to three pairs are
+        # taken and one must be equal byte for byte
+        for _ in range(3):
+            status, prom, headers = _http(node.base, "/metrics.prom")
+            check(status == 200
+                  and headers["Content-Type"].startswith("text/plain; version=0.0.4"),
+                  f"/metrics.prom answered {status}")
+            if prom == _http(node.base, "/metrics?format=prom")[1]:
+                break
+        else:
+            check(False, "/metrics.prom and /metrics?format=prom differ in three pairs")
         body = json.loads(_http(node.base, "/metrics")[1])
         values = {}
         for line in prom.decode().strip().splitlines():
@@ -4983,6 +4990,233 @@ def _mesh_loop(SolverEngine, oracle_ok) -> dict:
     return out
 
 
+# 13(d)'s relay sets: a deep board turned (np.rot90 k % 4 times, then
+# transposed for k >= 4) so that in a race of 2 ranks of 2 virtual shards,
+# one rank's half of the seeded states solves early and the other's runs
+# long: (name, corpus, board, k, size, states a shard). In the plain race
+# (steps): rank 1 solves at 25, rank 0 runs to 186; rank 0 at 25, rank 1
+# to 40; rank 0 at 9, rank 1 to 216; rank 0 at 137, rank 1 to 504.
+RELAY_SETS = (
+    ("9x9 #12 rt @8", "corpus_9x9_deep_128.npz", 12, 5, 9, 8),
+    ("9x9 #0 rt @8", "corpus_9x9_deep_128.npz", 0, 5, 9, 8),
+    ("16x16 #0 r @2", "corpus_16x16_deep_anneal_64.npz", 0, 1, 16, 2),
+    ("16x16 #0 r2t @1", "corpus_16x16_deep_anneal_64.npz", 0, 6, 16, 1),
+)
+RELAY_RACES = 6  # races a set, the first not counted
+
+# 13(d)'s relay races: one rank of the serving loop on this card (gloo, a
+# virtual mesh of SUDOKU_VIRTUAL_MESH shards), a loop a (size, states a
+# shard) group; rank 0 races each board of the group `races` times. Each
+# rank taps the gather (the records of every race), its relay's finish
+# (the race's posts, host monotonic ns) and race_on_mesh (host ms, from
+# the call to the folded row after a sync). It runs from any tree of the
+# port, one without a relay too (tools/race_relay_ab.py runs the parent's).
+# argv: rank, world, port, groups, races, backend
+_RELAY_CHILD = r"""
+import json, sys, time
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, port, groups, races, backend = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], json.loads(sys.argv[4]),
+    int(sys.argv[5]), sys.argv[6])
+dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank, timeout=timedelta(seconds=120))
+from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs, spec_for_size
+from sudoku_solver_distributed_tpu_torch.parallel import FrontierServingLoop, default_mesh
+from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+times = []
+race_on_mesh = F.race_on_mesh
+def timed(*args, **kw):
+    t0 = time.perf_counter()
+    out = race_on_mesh(*args, **kw)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    return out
+F.race_on_mesh = timed
+out = {"rank": rank, "groups": []}
+for size, spd, boards in groups:
+    loop = FrontierServingLoop(default_mesh(), spec_for_size(size), states_per_device=spd,
+                               locked=True, waves=3 if size == 9 else 1, naked_pairs=False,
+                               collective_timeout_s=120,
+                               allow_gloo_on_cuda=backend == "gloo")
+    records, posts = [], []
+    def tap(meta, grid, gather=loop._gather_records, records=records):
+        meta, grid = gather(meta, grid)
+        records.append(meta.cpu().tolist())
+        return meta, grid
+    loop._gather_records = tap
+    relay = getattr(loop, "relay", None)
+    if relay is not None:
+        def finish(link, *a, done=relay.finish, posts=posts, **k):
+            done(link, *a, **k)
+            posts.append(link.summary())
+        relay.finish = finish
+    del times[:]
+    cs.dfs_race_shards.launches = 0
+    loop.start(warm_race=False)
+    answers = []
+    if rank == 0:
+        for board in boards:
+            answers += [loop.solve(np.asarray(board, np.int32)) for _ in range(races)]
+        loop.stop()
+    else:
+        loop.join(timeout=600)
+    out["groups"].append({
+        "size": size, "spd": spd, "answers": answers, "records": records, "posts": posts,
+        "race_ms": list(times), "launches": cs.dfs_race_shards.launches,
+        "relay": relay.health() if relay is not None else None})
+print(json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def relay_board(corpus: str, index: int, k: int):
+    """Board ``index`` of ``benchmarks/<corpus>`` turned as RELAY_SETS says."""
+    import numpy as np
+
+    board = np.rot90(np.load(os.path.join(ROOT, "benchmarks", corpus))["boards"][index], k % 4)
+    return np.ascontiguousarray(board.T if k >= 4 else board)
+
+
+def relay_run(root: str = ROOT, timeout_s: float = 300.0, device: str = "cuda:0",
+              visible=None, backend: str = "gloo") -> dict:
+    """RELAY_SETS through two ranks of the serving loop of the tree at
+    ``root`` (``_RELAY_CHILD``): by default on ``device``, 2 virtual shards
+    a rank over gloo (the CPU rehearses it); with ``visible`` (each rank's
+    ``CUDA_VISIBLE_DEVICES``) a shard a visible card, over ``backend``. Returns, by set name, each counted race's answer, gathered
+    records' t* and each rank's steps past it, the relay's latency (µs,
+    from the sender seeing its post to the receiver's inbox written; None
+    where nothing was relayed), each rank's race ms and the ranks' relay
+    health and shard-race launches."""
+    groups = {}
+    for name, corpus, index, k, size, spd in RELAY_SETS:
+        groups.setdefault((size, spd), []).append(
+            (name, relay_board(corpus, index, k).tolist()))
+    arg = json.dumps([[size, spd, [b for _, b in sets]]
+                      for (size, spd), sets in groups.items()])
+    port = _free_port()
+    env = dict(os.environ, SUDOKU_VIRTUAL_MESH=f"2@{device}", PYTHONPATH=root)
+    envs = [env] * 2
+    if visible is not None:
+        env.pop("SUDOKU_VIRTUAL_MESH")
+        envs = [dict(env, CUDA_VISIBLE_DEVICES=v) for v in visible]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RELAY_CHILD, str(r), "2", str(port), arg, str(RELAY_RACES),
+         backend],
+        env=envs[r], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        check(p.returncode == 0, f"13(d) relay ({root}): a rank failed:\n{o[-3000:]}")
+    ranks = [json.loads([ln for ln in o.splitlines() if ln.startswith("{")][-1])
+             for o in outs]
+    out = {}
+    for g, (key, sets) in enumerate(groups.items()):
+        lead, follow = (r["groups"][g] for r in ranks)
+        for b, (name, board) in enumerate(sets):
+            races = []
+            for j in range(b * RELAY_RACES + 1, (b + 1) * RELAY_RACES):
+                meta = lead["records"][j]
+                steps = [m[1] for m in meta]
+                solved = [m[1] for m in meta if m[0] == 1]
+                t_star = min(solved) if solved else max(steps)
+                half = len(meta) // 2
+                latency = stages = None
+                if follow["posts"] and lead["posts"]:
+                    sent, got = ((lead["posts"][j], follow["posts"][j])
+                                 if lead["posts"][j]["sent_step"] is not None
+                                 else (follow["posts"][j], lead["posts"][j]))
+                    if sent["sent_ns"] is not None and got["delivered_ns"] is not None:
+                        latency = (got["delivered_ns"] - sent["sent_ns"]) / 1e3
+                        # µs: the sender's sends, the channel to the
+                        # receiver's read, its inbox write
+                        stages = [(sent["posted_ns"] - sent["sent_ns"]) / 1e3,
+                                  (got["received_ns"] - sent["posted_ns"]) / 1e3,
+                                  (got["delivered_ns"] - got["received_ns"]) / 1e3]
+                polls = [(p["left_ns"] - p["picked_ns"]) / 1e3 / max(p["polls"], 1)
+                         if p.get("polls") else None
+                         for p in (lead["posts"][j] if lead["posts"] else {},
+                                   follow["posts"][j] if follow["posts"] else {})]
+                races.append({
+                    "answer": lead["answers"][j], "t_star": t_star,
+                    "past_by_rank": [max(steps[:half]) - t_star, max(steps[half:]) - t_star],
+                    "below_t_star": sum(m[0] == 0 and m[1] < t_star for m in meta),
+                    "gathered_equal": follow["records"][j] == meta,
+                    "latency_us": latency, "latency_stages_us": stages,
+                    "us_a_poll_by_rank": polls,
+                    "race_ms": [lead["race_ms"][j], follow["race_ms"][j]]})
+            out[name] = {"board": board, "size": key[0], "states_per_shard": key[1],
+                         "races": races}
+        for name, _ in sets:
+            out[name]["relay"] = [lead["relay"], follow["relay"]]
+            out[name]["launches"] = [lead["launches"], follow["launches"]]
+    return out
+
+
+def _mesh_relay(oracle_ok, **run) -> dict:
+    """13(d), the race's relay across hosts: RELAY_SETS raced by two ranks
+    of the serving loop on this card (``relay_run``, given ``run``). Every answer equals
+    the plain race over 4 CPU shards (row, statuses and counters) and, when
+    found, the oracle's check; no state of either rank halted RUNNING
+    before t*; the ranks gathered the same records; neither relay counted
+    an error. Prints, for each set, each rank's steps past t* and the
+    relay's latency race by race, and the leader's race ms."""
+    import numpy as np
+    from sudoku_solver_distributed_tpu_torch.ops import spec_for_size
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    out = relay_run(**run)
+    # the relay's path: some rank took another's post in some race (a rank
+    # whose kernel runs to its end before the post lands takes none)
+    relayed = sum(r["latency_us"] is not None for rec in out.values() for r in rec["races"])
+    check(relayed > 0, f"13(d) relay: no post was relayed in {len(out)} sets")
+    for name, rec in out.items():
+        spec = spec_for_size(rec["size"])
+        board = np.asarray(rec["board"], np.int32)
+        want = list(F.frontier_solve(
+            board, _mesh("cpu"), spec, states_per_device=rec["states_per_shard"],
+            locked=True, waves=3 if rec["size"] == 9 else 1, naked_pairs=False))
+        for race in rec["races"]:
+            check(race["answer"] == want,
+                  f"13(d) relay {name}: {race['answer'][1]} differs from the plain "
+                  f"race's {want[1]}")
+            if want[0] is not None:
+                _check_answer(board, race["answer"][0], oracle_ok, f"13(d) relay {name}")
+            check(race["below_t_star"] == 0 and race["gathered_equal"],
+                  f"13(d) relay {name}: {race['below_t_star']} states halted before t*"
+                  f" {race['t_star']} (records equal on both ranks: "
+                  f"{race['gathered_equal']})")
+        check(all(h is not None and h["errors"] == 0 for h in rec["relay"]),
+              f"13(d) relay {name}: the relays {rec['relay']}")
+        check(rec["launches"][0] > 0, f"13(d) relay {name}: no shard race launched")
+        lat = [r["latency_us"] for r in rec["races"]]
+        lead_ms = [r["race_ms"][0] for r in rec["races"]]
+        rec["race_ms_median"] = float(np.median(lead_ms))
+        log(f"phase 13 (d) relay {name}: t* {[r['t_star'] for r in rec['races']]}, steps "
+            f"past t* by rank {[r['past_by_rank'] for r in rec['races']]}; relay latency "
+            f"{[None if x is None else round(x, 1) for x in lat]} us (host clock; "
+            f"stages: sender's sends, channel, inbox write "
+            f"{[r['latency_stages_us'] and [round(x, 1) for x in r['latency_stages_us']] for r in rec['races']]}"
+            f"; us a poll by rank "
+            f"{[[x and round(x, 1) for x in r['us_a_poll_by_rank']] for r in rec['races']]}); "
+            f"the leader's race {rec['race_ms_median']:.3f} ms (median of "
+            f"{len(lead_ms)}; {[round(x, 3) for x in lead_ms]})")
+    return out
+
+
 # 13(e): a resumable batch on the 4-shard virtual mesh, SIGKILLed by the
 # parent once its first snapshot lands
 _MESH_RESUMABLE_CHILD = r"""
@@ -5059,6 +5293,7 @@ def phase_mesh(cs, build_parser, build_node, SolverEngine, spec_for_size, config
         ("node", lambda: _mesh_node(cs, build_parser, build_node, SolverEngine, oracle_ok)),
         ("race", lambda: _mesh_race(cs, F, spec_for_size, config, seed)),
         ("loop", lambda: _mesh_loop(SolverEngine, oracle_ok)),
+        ("relay", lambda: _mesh_relay(oracle_ok)),
         ("resumable", lambda: _mesh_resumable(SolverEngine)),
     ):
         t0 = time.perf_counter()
@@ -5085,18 +5320,19 @@ def ptxas_report(build_log: str, label: str = "ptxas"):
     """Registers, stack and spill bytes per kernel instance, from the
     ``-Xptxas -v`` report in the text ``build_log``, keyed
     "dfs_solver_kernel 9x9", "dfs_segment_kernel 16x16",
-    "segment_digest_kernel 25x25", ..."""
+    "segment_digest_kernel 25x25", "dfs_race_shard_kernel 9x9 relay" (the
+    relay's instance), ..."""
     report, key = {}, None
     for line in build_log.splitlines():
         m = re.search(
             r"Compiling entry function '\S*?(dfs_solver_kernel|dfs_segment_kernel|"
             r"segment_digest_kernel|dfs_race_kernel|dfs_race_shard_kernel|race_fold_kernel)"
-            r"(?:ILi(\d)E)?",
+            r"(?:ILi(\d)E(Lb1E)?)?",
             line
         )
         if m:
             key = m.group(1) + (f" {int(m.group(2)) ** 2}x{int(m.group(2)) ** 2}"
-                                if m.group(2) else "")
+                                if m.group(2) else "") + (" relay" if m.group(3) else "")
             continue
         if key is None:
             continue
@@ -5439,6 +5675,10 @@ def main(argv=None) -> int:
         # virtual mesh's 4 shards share the card, so one grid)
         "launches": on_mesh["dfs_race_shards"],
         "launches_mesh_path": on_mesh["dfs_race_shards"],
+        # the relay's path (13(d)): each rank's launches over its relay races
+        # (counted in its own process from 0 at its loop's start)
+        "launches_relay_path": {name: rec["launches"]
+                                for name, rec in mesh["relay"].items()},
         # the folded races against the plain race, and each state ended by
         # t* against K1's run of it
         "mismatches": mesh["race"]["mismatches"],

@@ -75,6 +75,7 @@ REPO_EXTRA_ROOTS: Tuple[Tuple[str, str, str], ...] = (
 #   engine.py, net/cli.py  background warm-up of the bucket ladder
 #   net/node.py            P2PNode._worker_loop (unnamed, on self)
 #   parallel/serving_loop  FrontierServingLoop._run ("serving-loop")
+#   parallel/relay         RaceRelay._run ("race-relay")
 REPO_EXEMPT: Tuple[Tuple[str, str], ...] = (
     ("name", "coalescer-prestage"),     # host-staging offload
     ("name", "coalescer-deep-retry"),   # one-shot deep-budget retry
@@ -90,6 +91,9 @@ REPO_EXEMPT: Tuple[Tuple[str, str], ...] = (
                                              # torch.distributed: device
                                              # round trips and collectives
                                              # are its entire job
+    ("target", "RaceRelay._run"),  # the race's relay across hosts: store
+                                   # round trips and inbox copies while a
+                                   # race runs are its entire job
 )
 
 

@@ -126,6 +126,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <arpa/inet.h>
+#include <errno.h>
+#include <netinet/in.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <sys/socket.h>
+#include <time.h>
+
 #include <mutex>
 #include <type_traits>
 
@@ -1248,6 +1257,15 @@ __device__ __forceinline__ int race_t_star(int t, unsigned* red, const int32_t* 
 // launch (race_fold_kernel folds the records). slots: kLayoutHost's n
 // words of mapped host memory, else null. clock: null, or (n M, 3)
 // globaltimer readings on shard 0's device, a row a block (race_clock).
+// The relay across hosts (a race whose records are gathered from other
+// hosts, the multi-host serving loop's; null in every other race): two
+// 64-bit words of page-locked host memory mapped into every device.
+// outbox, where a block that lowers its stop word posts [race, step] for
+// the host's relay thread to send to the other hosts; inbox, where the
+// relay thread writes [race, step] of another host's post, which the
+// shards' blocks read in turns (RaceShardPoll); race: this race's
+// identity, the low half of both words (a word of another race is
+// ignored, so a late post of an earlier race never stops this one).
 struct RaceMesh {
   const int32_t* states[kMaxShards];
   unsigned* word[kMaxShards];
@@ -1263,7 +1281,15 @@ struct RaceMesh {
   int n;
   int M;
   int layout;
+  unsigned race;
+  unsigned long long* outbox;
+  const unsigned long long* inbox;
 };
+
+// A relay word: [race, step] in one 64-bit word, the race in the low half.
+__device__ __forceinline__ unsigned long long relay_word(unsigned race, unsigned steps) {
+  return (unsigned long long)steps << 32 | race;
+}
 
 // State w's grid: grid's row w, or with `mesh` row w % per of shard w / per's.
 template <int BOX>
@@ -1315,9 +1341,20 @@ __device__ __forceinline__ void race_clock(const RaceMesh& mesh, int shard, int 
 // have ended; the least posted step goes into the shard's stop word with
 // atomicMin, where every block of the shard sees it at its next boundary.
 // Every posted step is at least t*, so the stop word is too.
+// In a race with a relay across hosts (kRelay: a kernel of its own, so
+// the other races' code is the same as without a relay) the relay's
+// inbox, in mapped host memory, is read in the same turns as the slots: a
+// step that another host posted for this race goes into the stop word
+// (a system-scope atomicMin: under kLayoutPeer other cards post to it
+// too), where every block of the shard sees it at its next boundary, as
+// a step of its own host's. It is a real solve's step, so at least t* as
+// well.
+template <bool kRelay>
 struct RaceShardPoll {
   volatile unsigned* stop;  // stop[0]: the shard's stop step; stop[1]: tickets
   const volatile unsigned* slots;  // kLayoutHost's slots, else null
+  const volatile unsigned long long* inbox;  // kRelay: the relay's inbox
+  unsigned race;  // the race's identity, the low half of an inbox word
   int n, t, b;
   unsigned blocks;
   unsigned seen;  // thread 0: the stop word as of the previous boundary
@@ -1326,14 +1363,22 @@ struct RaceShardPoll {
     const bool halt = __syncthreads_or(t == 0 && (unsigned)steps >= seen) != 0;
     if (t == 0) {
       seen = stop[0];
-      if (slots) {
+      if (kRelay || slots) {
         unsigned period = 8;
         while (period < 8u * (blocks - min(done, blocks - 1))) period <<= 1;
         done = stop[1];
         if ((((unsigned)steps + 8u * (unsigned)b) & (period - 1)) == 0) {
           unsigned posted = kNoKey;
-          for (int k = 0; k < n; ++k) posted = min(posted, slots[k]);
-          if (posted < seen) atomicMin(const_cast<unsigned*>(stop), posted);
+          if (slots) {
+            for (int k = 0; k < n; ++k) posted = min(posted, slots[k]);
+          }
+          if constexpr (kRelay) {
+            const unsigned long long word = *inbox;
+            if ((unsigned)word == race) posted = min(posted, (unsigned)(word >> 32));
+            if (posted < seen) atomicMin_system(const_cast<unsigned*>(stop), posted);
+          } else {
+            if (posted < seen) atomicMin(const_cast<unsigned*>(stop), posted);
+          }
         }
       }
     }
@@ -1348,20 +1393,45 @@ struct RaceShardPoll {
 // the shard's own word and, when that lowers
 // it, the shard's slot in mapped host memory (no atomic crosses devices
 // there; two posts of one shard may land out of order, which leaves a
-// later, still >= t*, step in the slot, never a wrong stop).
+// later, still >= t*, step in the slot, never a wrong stop). In a race
+// with a relay across hosts (kRelay), a post that lowers its own word
+// also goes into the outbox, fenced system-wide, where the host's relay
+// thread reads it (two posts may land there out of order as well).
+template <bool kRelay>
 __device__ __forceinline__ void post_solve(const RaceMesh& mesh, int shard, unsigned steps) {
-  if (mesh.layout == kLayoutPeer) {
-    atomicMin_system(mesh.word[shard], steps);
-    for (int k = 0; k < mesh.n; ++k) {
-      if (k != shard) atomicMin_system(mesh.word[k], steps);
-    }
-  } else if (mesh.layout == kLayoutHost) {
-    if (steps < atomicMin(mesh.word[shard], steps)) {
-      reinterpret_cast<volatile unsigned*>(mesh.slots)[shard] = steps;
-      __threadfence_system();
+  if constexpr (!kRelay) {
+    if (mesh.layout == kLayoutPeer) {
+      atomicMin_system(mesh.word[shard], steps);
+      for (int k = 0; k < mesh.n; ++k) {
+        if (k != shard) atomicMin_system(mesh.word[k], steps);
+      }
+    } else if (mesh.layout == kLayoutHost) {
+      if (steps < atomicMin(mesh.word[shard], steps)) {
+        reinterpret_cast<volatile unsigned*>(mesh.slots)[shard] = steps;
+        __threadfence_system();
+      }
+    } else {
+      atomicMin(mesh.word[shard], steps);
     }
   } else {
-    atomicMin(mesh.word[shard], steps);
+    bool lowered;
+    if (mesh.layout == kLayoutPeer) {
+      lowered = steps < atomicMin_system(mesh.word[shard], steps);
+      for (int k = 0; k < mesh.n; ++k) {
+        if (k != shard) atomicMin_system(mesh.word[k], steps);
+      }
+    } else {
+      lowered = steps < atomicMin(mesh.word[shard], steps);
+      if (lowered && mesh.layout == kLayoutHost) {
+        reinterpret_cast<volatile unsigned*>(mesh.slots)[shard] = steps;
+        __threadfence_system();
+      }
+    }
+    if (lowered) {
+      *reinterpret_cast<volatile unsigned long long*>(mesh.outbox) =
+          relay_word(mesh.race, steps);
+      __threadfence_system();
+    }
   }
 }
 
@@ -1371,7 +1441,7 @@ __device__ __forceinline__ void post_solve(const RaceMesh& mesh, int shard, unsi
 // shard's M blocks, `mesh` says where its words and records lie, and the
 // last block across all shards folds, unless the records go to
 // race_fold_kernel: under kLayoutHost, or with no fold in `mesh`).
-template <int BOX, bool kShard>
+template <int BOX, bool kShard, bool kRelay = false>
 __device__ __forceinline__ void race_block(
     const int32_t* __restrict__ states, int32_t* __restrict__ grid_out,
     int32_t* __restrict__ meta, int32_t* __restrict__ fold, int32_t* __restrict__ row,
@@ -1412,10 +1482,12 @@ __device__ __forceinline__ void race_block(
   if constexpr (kShard) {
     race_clock(*mesh, shard, i, 0, t);
     search<BOX>(g, pk, uw, sh, grp, sg, sc, sm, D, max_iters, waves, options, s,
-                RaceShardPoll{scratch, mesh->layout == kLayoutHost ? mesh->slots : nullptr,
-                              mesh->n, t, i, (unsigned)M, kNoKey, 0});
+                RaceShardPoll<kRelay>{scratch,
+                                      mesh->layout == kLayoutHost ? mesh->slots : nullptr,
+                                      mesh->inbox, mesh->race, mesh->n, t, i,
+                                      (unsigned)M, kNoKey, 0});
     race_clock(*mesh, shard, i, 1, t);
-    if (s.status == kSolved && t == 0) post_solve(*mesh, shard, (unsigned)s.steps);
+    if (s.status == kSolved && t == 0) post_solve<kRelay>(*mesh, shard, (unsigned)s.steps);
   } else {
     search<BOX>(g, pk, uw, sh, grp, sg, sc, sm, D, max_iters, waves, options, s,
                 RacePoll{scratch, t, kNoKey});
@@ -1517,13 +1589,14 @@ dfs_race_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ grid_o
 // writes its run record to mesh.meta[shard] and its grid to
 // mesh.grid[shard], and the last block across every shard folds (or
 // leaves the records to race_fold_kernel) and sets the race's words idle.
-template <int BOX>
+// kRelay: the race has a relay across hosts (mesh.outbox, mesh.inbox).
+template <int BOX, bool kRelay>
 __global__ void __launch_bounds__(kRaceThreads[BOX])
 dfs_race_shard_kernel(const __grid_constant__ RaceMesh mesh, int first, int D,
                       int max_iters, int waves, int options) {
   const int shard = first + (int)blockIdx.x / mesh.M;
   const int i = (int)blockIdx.x % mesh.M;
-  race_block<BOX, true>(mesh.states[shard], const_cast<int32_t*>(mesh.grid[shard]),
+  race_block<BOX, true, kRelay>(mesh.states[shard], const_cast<int32_t*>(mesh.grid[shard]),
                         mesh.meta[shard], nullptr, nullptr, mesh.stack_grid[shard],
                         mesh.stack_cell[shard], mesh.stack_mask[shard], mesh.word[shard],
                         &mesh, shard, i, mesh.M, D, max_iters, waves, options);
@@ -1613,7 +1686,10 @@ cudaError_t race_smem_opt_in(size_t bytes) {
   err = cudaFuncSetAttribute(dfs_race_kernel<BOX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dfs_race_shard_kernel<BOX>,
+  err = cudaFuncSetAttribute(dfs_race_shard_kernel<BOX, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dfs_race_shard_kernel<BOX, true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess && cached) opted[device] = bytes;
   return err;
@@ -1655,8 +1731,13 @@ int launch_race_shard(const RaceMesh& mesh, int first, int count, int D, int max
     const cudaError_t err = race_smem_opt_in<BOX>(smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dfs_race_shard_kernel<BOX><<<count * mesh.M, kRaceThreads[BOX], smem, stream>>>(
-      mesh, first, D, max_iters, waves, options);
+  if (mesh.outbox) {
+    dfs_race_shard_kernel<BOX, true><<<count * mesh.M, kRaceThreads[BOX], smem, stream>>>(
+        mesh, first, D, max_iters, waves, options);
+  } else {
+    dfs_race_shard_kernel<BOX, false><<<count * mesh.M, kRaceThreads[BOX], smem, stream>>>(
+        mesh, first, D, max_iters, waves, options);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1879,6 +1960,93 @@ int dfs_race_slots_alloc(int n, void** out, void** host_out) {
 // The most shards a race across shards takes (RaceMesh).
 int dfs_race_max_shards() { return kMaxShards; }
 
+// The relay thread's service of one race on a card (parallel/relay.py),
+// for up to timeout_us microseconds, in the library: ctypes calls it
+// without the interpreter's lock, so no other thread of the process can
+// hold a post up, and nothing on the way sleeps (a timed sleep of 100 us
+// lasted about 1 ms on an H100 host). It reads the mapped outbox
+// (words[0]) with a pause between two reads and the relay's non-blocking
+// UDP socket `fd` every 16 reads:
+//  * the outbox holds a step of this race (`tag`, the low half of both
+//    words) below *sent: "<race>:<step>" goes to each of the n_peers
+//    addresses at `peers` (peer_len bytes each, a sockaddr_in or
+//    sockaddr_in6), *sent takes the step; returns 1, out = [step, when
+//    seen, when sent];
+//  * a datagram "<race>:<step>" of this race (`race`, its identity on
+//    every host) from one of the peers: the step goes into the inbox
+//    (words[1], [tag, step]) if below what it holds for this race;
+//    returns 2, out = [step, when received, when written];
+//  * a datagram of another race from a peer: copied into buf (64 bytes,
+//    NUL-terminated), its length into *len; returns 3 (the caller keeps a
+//    later race's post, drops an earlier one's);
+//  * a datagram from any other address, or not of that form: returns 4;
+// else returns 0 once the time has passed or *closed is set (the race is
+// over on this host), or -errno of a failed socket call. Times are
+// CLOCK_MONOTONIC ns, the clock of Python's time.monotonic_ns.
+static unsigned long long relay_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (unsigned long long)ts.tv_sec * 1000000000ull + (unsigned long long)ts.tv_nsec;
+}
+
+int dfs_race_relay_serve(int fd, const void* peers, int n_peers, int peer_len, void* words,
+                         unsigned tag, unsigned race, unsigned* sent, unsigned long long* out,
+                         char* buf, int* len, const int* closed, int timeout_us) {
+  volatile unsigned long long* outbox = static_cast<volatile unsigned long long*>(words);
+  volatile unsigned long long* inbox = outbox + 1;
+  const char* peer = static_cast<const char*>(peers);
+  const unsigned long long end = relay_ns() + (unsigned long long)timeout_us * 1000ull;
+  for (unsigned k = 0;; ++k) {
+    const unsigned long long posted = *outbox;
+    if ((unsigned)posted == tag && (unsigned)(posted >> 32) < *sent) {
+      const unsigned step = (unsigned)(posted >> 32);
+      out[0] = step;
+      out[1] = relay_ns();
+      char msg[32];
+      const int m = snprintf(msg, sizeof msg, "%u:%u", race, step);
+      for (int p = 0; p < n_peers; ++p) {
+        if (sendto(fd, msg, (size_t)m, 0, reinterpret_cast<const sockaddr*>(peer + p * peer_len),
+                   (socklen_t)peer_len) < 0)
+          return -errno;
+      }
+      *sent = step;
+      out[2] = relay_ns();
+      return 1;
+    }
+    if ((k & 15) == 15) {
+      sockaddr_storage addr;
+      socklen_t addr_len = sizeof addr;
+      const ssize_t r = recvfrom(fd, buf, 63, 0, reinterpret_cast<sockaddr*>(&addr), &addr_len);
+      if (r >= 0) {
+        const unsigned long long got = relay_ns();
+        buf[r] = 0;
+        *len = (int)r;
+        bool known = false;
+        for (int p = 0; p < n_peers && !known; ++p)
+          known = (int)addr_len == peer_len && memcmp(&addr, peer + p * peer_len, peer_len) == 0;
+        char* rest = nullptr;
+        const unsigned long their_race = strtoul(buf, &rest, 10);
+        const bool parsed = rest != buf && *rest == ':';
+        const unsigned long step = parsed ? strtoul(rest + 1, nullptr, 10) : 0;
+        if (!known || !parsed || step >= kNoKey) return 4;
+        if (their_race != race) return 3;
+        const unsigned long long held = *inbox;
+        const unsigned have = (unsigned)held == tag ? (unsigned)(held >> 32) : kNoKey;
+        if (step < have) *inbox = (unsigned long long)step << 32 | tag;
+        out[0] = step;
+        out[1] = got;
+        out[2] = relay_ns();
+        return 2;
+      }
+      if (errno != EAGAIN && errno != EWOULDBLOCK) return -errno;
+      if (*reinterpret_cast<const volatile int*>(closed) || relay_ns() >= end) return 0;
+    }
+#if defined(__x86_64__)
+    __asm__ __volatile__("pause");
+#endif
+  }
+}
+
 // Peer access between every two of the n devices, both ways, for a race
 // across shards under kLayoutPeer: each pair must report it
 // (cudaDeviceCanAccessPeer), else cudaErrorPeerAccessUnsupported; access
@@ -1938,17 +2106,18 @@ int dfs_race_peer_enable(int n, const int* devices) {
 // (race_clock). box, D, max_iters, waves and options as
 // for dfs_race_launch. Leaves the caller's current device as it found it.
 // Returns a cudaError_t.
-int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_out,
-                           void* const* meta, void* const* stack_grid,
-                           void* const* stack_cell, void* const* stack_mask,
-                           void* const* words, void* fold, void* row, void* slots,
-                           void* clock, int layout, const int* devices,
-                           void* const* streams, int M, int box, int D, int max_iters,
-                           int waves, int options) {
+static int race_shards_launch(int n, const void* const* states, void* const* grid_out,
+                              void* const* meta, void* const* stack_grid,
+                              void* const* stack_cell, void* const* stack_mask,
+                              void* const* words, void* fold, void* row, void* slots,
+                              void* clock, int layout, const int* devices,
+                              void* const* streams, int M, int box, int D, int max_iters,
+                              int waves, int options, const void* inbox, void* outbox,
+                              int race) {
   if (n <= 0 || n > kMaxShards || M <= 0 || D <= 0 || max_iters < 0 || waves < 1 ||
       (options & ~7) || layout < kLayoutDevice || layout > kLayoutHost ||
       (layout == kLayoutHost) != (slots != nullptr) || (!fold) != (!row) ||
-      (layout == kLayoutHost && fold))
+      (layout == kLayoutHost && fold) || (!inbox) != (!outbox) || (outbox && fold))
     return (int)cudaErrorInvalidValue;
   RaceMesh mesh{};
   for (int i = 0; i < n; ++i) {
@@ -1967,6 +2136,9 @@ int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_o
   mesh.row = static_cast<int32_t*>(row);
   mesh.slots = static_cast<unsigned*>(slots);
   mesh.clock = static_cast<unsigned long long*>(clock);
+  mesh.outbox = static_cast<unsigned long long*>(outbox);
+  mesh.inbox = static_cast<const unsigned long long*>(inbox);
+  mesh.race = (unsigned)race;
   mesh.n = n;
   mesh.M = M;
   mesh.layout = layout;
@@ -1992,6 +2164,36 @@ int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_o
   }
   err = cudaSetDevice(home);
   return rc != 0 ? rc : (int)err;
+}
+
+int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_out,
+                           void* const* meta, void* const* stack_grid,
+                           void* const* stack_cell, void* const* stack_mask,
+                           void* const* words, void* fold, void* row, void* slots,
+                           void* clock, int layout, const int* devices,
+                           void* const* streams, int M, int box, int D, int max_iters,
+                           int waves, int options) {
+  return race_shards_launch(n, states, grid_out, meta, stack_grid, stack_cell, stack_mask,
+                            words, fold, row, slots, clock, layout, devices, streams, M, box,
+                            D, max_iters, waves, options, nullptr, nullptr, 0);
+}
+
+// dfs_race_shards_launch's race with the relay across hosts (RaceMesh):
+// inbox and outbox the device addresses of the host's mapped 64-bit words
+// (dfs_race_slots_alloc), race the race's identity (the low half of both
+// words). The records are gathered from every host and folded by
+// dfs_race_fold_launch, so fold and row must be null.
+int dfs_race_shards_relay_launch(int n, const void* const* states, void* const* grid_out,
+                                 void* const* meta, void* const* stack_grid,
+                                 void* const* stack_cell, void* const* stack_mask,
+                                 void* const* words, void* slots, void* clock, int layout,
+                                 const int* devices, void* const* streams, int M, int box,
+                                 int D, int max_iters, int waves, int options,
+                                 const void* inbox, void* outbox, int race) {
+  if (!inbox || !outbox) return (int)cudaErrorInvalidValue;
+  return race_shards_launch(n, states, grid_out, meta, stack_grid, stack_cell, stack_mask,
+                            words, nullptr, nullptr, slots, clock, layout, devices, streams,
+                            M, box, D, max_iters, waves, options, inbox, outbox, race);
 }
 
 // The fold of a race across shards whose launches did not fold, over M =

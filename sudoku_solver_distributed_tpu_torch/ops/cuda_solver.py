@@ -274,6 +274,14 @@ def load_library() -> ctypes.CDLL:
     lib.dfs_race_peer_enable.restype = i
     lib.dfs_race_shards_launch.argtypes = [i] + [p] * 11 + [i] + [p] * 2 + [i] * 6
     lib.dfs_race_shards_launch.restype = i
+    lib.dfs_race_shards_relay_launch.argtypes = [i] + [p] * 9 + [i] + [p] * 2 + [i] * 6 + \
+        [p, p, i]
+    lib.dfs_race_shards_relay_launch.restype = i
+    lib.dfs_race_relay_serve.argtypes = [i, p, i, i, p, ctypes.c_uint, ctypes.c_uint,
+                                         ctypes.POINTER(ctypes.c_uint),
+                                         ctypes.POINTER(ctypes.c_ulonglong), p,
+                                         ctypes.POINTER(i), ctypes.POINTER(i), i]
+    lib.dfs_race_relay_serve.restype = i
     lib.dfs_race_fold_launch.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.dfs_race_fold_launch.restype = i
     _LIBRARY["source"] = source
@@ -855,6 +863,40 @@ def race_slots(devices, key) -> RaceSlots:
     return entry
 
 
+_RELAY_WORDS: list = []
+
+
+def race_relay_words() -> tuple:
+    """The process's words of the race's relay across hosts
+    (parallel/relay.py): two 64-bit words of page-locked host memory
+    mapped into every device, [race, step] in their halves, idle (no
+    race) at allocation: the outbox, which the race kernel posts into when
+    a solve lowers its stop word, and the inbox, which the relay thread
+    writes another host's post into and the kernel reads in turns.
+    Allocated at the first such race and kept for the process:
+    ``(device address, host address)`` of the outbox; the inbox follows
+    it, 8 bytes on."""
+    with _RACE_SCRATCH_LOCK:
+        if not _RELAY_WORDS:
+            out, hp = ctypes.c_void_p(), ctypes.c_void_p()
+            err = load_library().dfs_race_slots_alloc(4, ctypes.byref(out), ctypes.byref(hp))
+            if err != 0:
+                raise KernelLaunchError(f"the relay's words: dfs_race_slots_alloc "
+                                        f"failed: cudaError {err}")
+            _RELAY_WORDS.append((int(out.value), int(hp.value)))
+    return _RELAY_WORDS[0]
+
+
+def race_relay_serve(*args) -> int:
+    """One round of the relay thread's service of a race on a card, in
+    the library (``dfs_race_relay_serve``, without the interpreter's lock;
+    ``args`` as its C arguments, parallel/relay.py's ``RaceRelay``):
+    0 (the round's time passed), 1 (this host's post sent), 2 (another
+    host's post written into the inbox), 3 (a peer's datagram of another
+    race, for the caller), 4 (a stranger's datagram), or -errno."""
+    return int(load_library().dfs_race_relay_serve(*args))
+
+
 def _alloc_race_slots(lib, devices: list, can_access_peer) -> RaceSlots:
     if len(devices) > lib.dfs_race_max_shards():
         raise ValueError(f"a race across shards takes at most "
@@ -887,7 +929,7 @@ def _alloc_race_slots(lib, devices: list, can_access_peer) -> RaceSlots:
 def dfs_race_shards(states: list, spec: BoardSpec, depth: int, max_iters: int,
                     *, streams: Optional[list] = None, slots: Optional[RaceSlots] = None,
                     fold: bool = False, clock: Optional[torch.Tensor] = None,
-                    locked_candidates: bool = False, waves: int = 1,
+                    relay=None, locked_candidates: bool = False, waves: int = 1,
                     naked_pairs: bool | None = None, packed: bool | None = None):
     """A race across shards: shard i's (M, C) int32 ``states[i]`` raced,
     each state stopping once it has run more steps than the earliest solve
@@ -915,7 +957,17 @@ def dfs_race_shards(states: list, spec: BoardSpec, depth: int, max_iters: int,
     launch fills with each state's block's globaltimer readings in ns (its
     card's timer), [start, end of its search, end]. CPU tensors run the plain lockstep race of
     each shard's own states (``ops.solver.race_runs``), and with ``fold``
-    ``fold_race`` over every shard's records. Nothing else is accepted."""
+    ``fold_race`` over every shard's records. Nothing else is accepted.
+
+    ``relay`` (a race whose records are gathered from other hosts: the
+    multi-host serving loop's ``parallel.relay.RaceLink``; no ``fold``):
+    each state also stops at a step another host posted for this race, and
+    this host's solves are posted for the other hosts. On CUDA the launch
+    (``dfs_race_shards_relay_launch``, a kernel of its own) reads the
+    mapped word at device address ``relay.inbox`` in turns and posts into
+    the one at ``relay.outbox``, both tagged with ``relay.tag``; on the
+    CPU each shard's plain race polls ``relay.stop_step`` once a step and
+    ``relay.post``s its solve step."""
     _check_library()
     sweeps = dict(
         locked_candidates=locked_candidates, waves=waves,
@@ -936,11 +988,21 @@ def dfs_race_shards(states: list, spec: BoardSpec, depth: int, max_iters: int,
     if fold and slots is not None and slots.layout == "host":
         raise ValueError("under the 'host' layout no launch folds: race_fold "
                          "folds the records")
+    if fold and relay is not None:
+        raise ValueError("a race with a relay across hosts folds every host's "
+                         "records: race_fold folds them")
     kinds = {t.device.type for t in states}
     if kinds == {"cpu"}:
         N = spec.size
-        runs = [race_runs(t.reshape(M, N, N), spec, max_iters, depth, **knobs)
-                for t in states]
+        runs = []
+        for t in states:
+            meta, grid = race_runs(t.reshape(M, N, N), spec, max_iters, depth,
+                                   stop=relay.stop_step if relay is not None else None,
+                                   **knobs)
+            solved = meta[:, 0] == SOLVED
+            if relay is not None and bool(solved.any()):
+                relay.post(int(meta[solved, 1].min()))
+            runs.append((meta, grid))
         if not fold:
             return runs
         meta = torch.cat([m for m, _ in runs])
@@ -962,14 +1024,14 @@ def dfs_race_shards(states: list, spec: BoardSpec, depth: int, max_iters: int,
         raise ValueError("dfs_race_shards takes an (n M, 3) int64 clock on shard 0's device")
     return _launch_race_shards(
         load_library(), states, spec, depth, max_iters, knobs["waves"],
-        _options(knobs), slots, streams, fold, clock,
+        _options(knobs), slots, streams, fold, clock, relay,
     )
 
 
 def _launch_race_shards(lib: ctypes.CDLL, states: list, spec: BoardSpec,
                         depth: int, max_iters: int, waves: int, options: int,
                         slots: RaceSlots, streams: list, fold: bool,
-                        clock: Optional[torch.Tensor] = None):
+                        clock: Optional[torch.Tensor] = None, relay=None):
     """Allocate the race's outputs (each shard's grids, and its stack slab
     off chip, on its device and stream; under the ``"device"`` and
     ``"peer"`` layouts the records of every shard, and with ``fold`` the
@@ -1017,14 +1079,22 @@ def _launch_race_shards(lib: ctypes.CDLL, states: list, spec: BoardSpec,
         arrays["stream"][i] = stream.cuda_stream
         devices[i] = dev.index or 0
     inputs = ptr(*(t.data_ptr() for t in states))
-    err = lib.dfs_race_shards_launch(
-        n, inputs, arrays["grid"], arrays["meta"], arrays["sg"], arrays["sc"],
-        arrays["sm"], arrays["words"],
-        folded.data_ptr() if fold else None, row.data_ptr() if fold else None,
-        slots.address or None, clock.data_ptr() if clock is not None else None,
-        RACE_LAYOUTS.index(slots.layout), devices, arrays["stream"], M, spec.box, depth,
-        max_iters, waves, options,
-    )
+    tail = (RACE_LAYOUTS.index(slots.layout), devices, arrays["stream"], M, spec.box, depth,
+            max_iters, waves, options)
+    clock_ptr = clock.data_ptr() if clock is not None else None
+    if relay is None:
+        err = lib.dfs_race_shards_launch(
+            n, inputs, arrays["grid"], arrays["meta"], arrays["sg"], arrays["sc"],
+            arrays["sm"], arrays["words"],
+            folded.data_ptr() if fold else None, row.data_ptr() if fold else None,
+            slots.address or None, clock_ptr, *tail,
+        )
+    else:
+        err = lib.dfs_race_shards_relay_launch(
+            n, inputs, arrays["grid"], arrays["meta"], arrays["sg"], arrays["sc"],
+            arrays["sm"], arrays["words"], slots.address or None, clock_ptr, *tail,
+            relay.inbox, relay.outbox, relay.tag,
+        )
     if err != 0:
         raise KernelLaunchError(f"dfs_race_shards launch failed: cudaError {err}")
     with _LAUNCHES_LOCK:

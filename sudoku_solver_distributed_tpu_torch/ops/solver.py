@@ -651,7 +651,7 @@ def race(states: torch.Tensor, spec: BoardSpec, max_iters: int,
 
 
 def race_runs(states: torch.Tensor, spec: BoardSpec, max_iters: int,
-              max_depth: int | None = None, **sweeps):
+              max_depth: int | None = None, stop=None, **sweeps):
     """One shard's part of a race across shards, as the lockstep loop runs
     it over the shard's own (M, N, N) states (stopping at the shard's own
     first solve): ``(meta, grid)``, the (M, 4) run record of
@@ -659,18 +659,27 @@ def race_runs(states: torch.Tensor, spec: BoardSpec, max_iters: int,
     ``fold_race`` over every shard's, concatenated in state order, turns
     into the race's row and fold. A shard's loop stops at or after the
     race's t* (the earliest solve of any shard), which is all the fold
-    asks of a run."""
-    done, meta = _race_loop(states, spec, max_iters, max_depth, **sweeps)
+    asks of a run.
+
+    ``stop`` (a race whose other shards run elsewhere: the relay across
+    hosts' ``RaceLink.stop_step``): a callable polled once a step, before
+    it, returning a step another shard posted (a real solve's, so at least
+    t*) or None; the loop halts once it has run that many steps."""
+    done, meta = _race_loop(states, spec, max_iters, max_depth, stop, **sweeps)
     return meta, done.grid.reshape(states.shape[0], spec.cells)
 
 
-def _race_loop(states, spec, max_iters, max_depth, **sweeps):
+def _race_loop(states, spec, max_iters, max_depth, stop=None, **sweeps):
     """The lockstep race loop: ``(done, meta)``, the finalized state and
     each state's run record."""
     M = states.shape[0]
     st = init_state(states, spec, max_depth)
     steps = torch.zeros((M,), dtype=torch.int32, device=states.device)
     while st.iters < max_iters:
+        if stop is not None:
+            posted = stop()
+            if posted is not None and st.iters >= posted:
+                break
         running = st.status == RUNNING
         if not bool(running.any()):
             break

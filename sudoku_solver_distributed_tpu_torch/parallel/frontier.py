@@ -39,7 +39,11 @@ race pads, so the port's race equals the JAX race on a mesh of the same
 size (pad states bill their validations).
 
 A race across hosts is the multi-host serving loop's
-(parallel/serving_loop.py).
+(parallel/serving_loop.py): every host races its slice of the states on
+its own shards, the hosts' solves reach each other's shards while they
+run through the relay (parallel/relay.py: a post of any host stops every
+host's shards, as the JAX race's per-step ``psum`` does), and the fold
+runs over every host's gathered records.
 """
 
 from __future__ import annotations
@@ -273,25 +277,30 @@ def mesh_race_slots(mesh: Mesh):
     return race_slots(mesh.devices, key)
 
 
-def _idle_after(slots, ends) -> None:
+def _idle_after(slots, ends, relay=None) -> None:
     """A race that raised before its last block or its fold ran (a shard's
     launch failed, a copy ran out of memory, ``gather`` timed out) may have
     left the steps it posted in its stop words and slots, and the next race
     over them would stop at them, short of its own first solve. Wait for
     its shard launches to end (``ends``: an event a shard recorded after
     its launch, or the shards' streams before any), then set the words and
-    slots idle from the host."""
+    slots idle from the host. A race with a relay across hosts also closes
+    its link, so the relay delivers nothing more into the inbox; what the
+    inbox and outbox hold is tagged with this race, which no later race
+    honours, so they are idle for the next."""
     try:
         for end in ends:
             end.synchronize()
     finally:
         slots.idle()
+        if relay is not None:
+            relay.close()
 
 
 def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
                  max_iters: int, *, locked_candidates: bool = False,
                  waves: int = 1, naked_pairs: Optional[bool] = None,
-                 packed: Optional[bool] = None, gather=None) -> tuple:
+                 packed: Optional[bool] = None, gather=None, relay=None) -> tuple:
     """Race (M, N, N) (or (M, C)) states whose count divides the mesh,
     shard ``i`` taking the ``i``-th equal slice. Returns ``(row, fold,
     meta)`` as ``dfs_race``, on the mesh's first device: the packed (C +
@@ -318,8 +327,14 @@ def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
     -> (meta, grid)`` that turns this host's run records into every
     host's, in global state order, before the fold; with it every local
     shard races in K4's shard form (even one), stopping on this host's
-    stop, the records go through ``gather`` and the fold kernel, and the
-    returned ``meta`` is every host's."""
+    stop and (with ``relay``) on any other host's solve, the records go
+    through ``gather`` and the fold kernel, and the returned ``meta`` is
+    every host's. ``relay`` (with ``gather``; the
+    serving loop's ``parallel.relay.RaceLink``): every local shard also
+    stops at a step another host posted for this race, and this host's
+    solves are posted to the other hosts, while the race runs; the link
+    learns when this host's race ended (``local_done``), before the
+    gather."""
     M, C = len(states), spec.cells
     flat = torch.from_numpy(np.ascontiguousarray(np.asarray(states, np.int32).reshape(M, C)))
     knobs = dict(locked_candidates=locked_candidates, waves=waves,
@@ -327,14 +342,18 @@ def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
     n = mesh.size
     if M % n:
         raise ValueError(f"{M} race states do not divide the {n}-shard mesh")
+    if relay is not None and gather is None:
+        raise ValueError("a relay across hosts comes with the hosts' gather")
     if n == 1 and gather is None:
         return dfs_race(flat.to(mesh.primary), spec, depth, max_iters, **knobs)
     per = M // n
     if mesh.primary.type == "cpu":
         runs = dfs_race_shards(
             [flat[i * per:(i + 1) * per].contiguous() for i in range(n)], spec,
-            depth, max_iters, **knobs,
+            depth, max_iters, relay=relay, **knobs,
         )
+        if relay is not None:
+            relay.local_done()
         meta = torch.cat([m for m, _ in runs])
         grid = torch.cat([g for _, g in runs])
         if gather is not None:
@@ -365,8 +384,10 @@ def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
         try:
             out = dfs_race_shards(parts, spec, depth, max_iters,
                                   streams=list(mesh.streams), slots=slots,
-                                  fold=fused, **knobs)
+                                  fold=fused, relay=relay, **knobs)
             ends = [stream.record_event() for stream in mesh.streams]
+            if relay is not None:
+                relay.local_done(ends)
             if fused:
                 row, fold, meta = out
             else:
@@ -381,7 +402,7 @@ def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
                                           slots=slots.address or None,
                                           n_slots=n if slots.address else 0)
         except BaseException:
-            _idle_after(slots, ends or mesh.streams)
+            _idle_after(slots, ends or mesh.streams, relay)
             raise
     caller = torch.cuda.current_stream(mesh.primary)
     caller.wait_stream(s0)
@@ -433,13 +454,14 @@ def frontier_solve(
     ``coalesce`` stage (this route's batch formation), the race as its
     ``device`` stage (dispatch → the packed row on the host).
 
-    ``hosts`` (the multi-host serving loop's): ``(rank, world, gather)``.
-    Every host seeds the same states and pads them for ``world × mesh``
-    shards; this host races its ``rank``-th slice on its mesh, and
-    ``gather`` (``race_on_mesh``'s) collects every host's run records
-    before the fold, so every host reads the same row."""
+    ``hosts`` (the multi-host serving loop's): ``(rank, world, gather,
+    relay)``. Every host seeds the same states
+    and pads them for ``world × mesh`` shards; this host races its
+    ``rank``-th slice on its mesh, stopping on any host's solve through
+    ``relay`` (``race_on_mesh``'s), and ``gather`` collects every host's
+    run records before the fold, so every host reads the same row."""
     mesh = race_mesh(mesh)
-    rank, world, gather = hosts if hosts is not None else (0, 1, None)
+    rank, world, gather, relay = hosts if hosts is not None else (0, 1, None, None)
     n_shards = mesh.size * world
     if isinstance(max_depth, (tuple, list)):
         max_depth = max(max_depth)
@@ -470,7 +492,7 @@ def frontier_solve(
     row, _, _ = race_on_mesh(
         states[rank * per_host:(rank + 1) * per_host], mesh, spec, depth,
         max_iters, locked_candidates=locked, waves=waves,
-        naked_pairs=naked_pairs, packed=packed, gather=gather,
+        naked_pairs=naked_pairs, packed=packed, gather=gather, relay=relay,
     )
     packed_row = row.cpu().numpy()  # the race's one device→host fetch
     if tr is not None:

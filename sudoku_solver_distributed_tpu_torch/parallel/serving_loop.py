@@ -35,11 +35,16 @@ exits, or ``health()`` reports it stalled after ``stall_after_s``, and a
 pending ``solve`` raises ``ServingLoopError`` instead of hanging, which
 the engine answers from its bucket path (a fault of the device path).
 
-Across hosts the race's stop (ops/cuda_solver.race_slots: a word in
-device memory that a host's own shards share) does not reach: each host's
-shards stop on their own host's solves, and a host with no early solve
-runs its states to their own end; the fold over every host's records
-(the fold kernel, after the gather) stays exact.
+A race's stop crosses hosts through the relay (parallel/relay.py), on
+whenever the loop has more than one rank, as the JAX race's per-step
+``psum`` always is: a thread on every host sends this host's solve posts
+(the kernel's outbox) to the other hosts' relays in datagrams (their
+addresses met through the process group's store) and writes theirs into
+this host's inbox, which the shards' blocks read in turns, so every
+host's shards stop soon after the first solve on any host. The fold over every host's gathered records (the fold
+kernel) stays exact however late a post lands; a relay that fails is
+logged and counted in ``health()``, and the gather's timeout still decides
+a host that died.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import numpy as np
 import torch
 
 from ..ops.spec import SPEC_9, BoardSpec
+from .relay import RaceRelay, relay_channel
 
 logger = logging.getLogger(__name__)
 
@@ -82,6 +88,8 @@ class FrontierServingLoop:
     request and ``stop()`` at shutdown; the other ranks follow through the
     broadcasts.
     """
+
+    _made = 0  # loops made in this process: each relays on a channel of its own
 
     def __init__(
         self,
@@ -140,6 +148,14 @@ class FrontierServingLoop:
             dist.new_group(backend="gloo", timeout=self.timeout)
             if self.backend != "gloo" else None
         )
+        # the race's early exit across hosts: always on above one rank, its
+        # channel one of this loop's own (every rank makes its loops in the
+        # same order, as its groups)
+        FrontierServingLoop._made += 1
+        self.relay = None
+        if self.world > 1:
+            store, host = relay_channel(f"race-relay-{FrontierServingLoop._made}")
+            self.relay = RaceRelay(store, self.rank, self.world, host=host)
         self.restarts = 0
         self.batches = 0
         self._last_tick = time.monotonic()
@@ -198,20 +214,27 @@ class FrontierServingLoop:
             buf[4:] = np.asarray(board, np.int32).reshape(C)
         return buf
 
-    def _solve_collective(self, board: np.ndarray):
+    def _solve_collective(self, board: np.ndarray, race: int):
+        """Race one board across every host's shards; ``race`` (the
+        request id, the same on every rank) names the race to the relay."""
         from .frontier import frontier_solve
 
-        return frontier_solve(
-            board.reshape(self.spec.size, self.spec.size),
-            self.mesh,
-            self.spec,
-            states_per_device=self.states_per_device,
-            max_depth=self.max_depth,
-            locked=self.locked,
-            waves=self.waves,
-            naked_pairs=self.naked_pairs,
-            hosts=(self.rank, self.world, self._gather_records),
-        )
+        link = self.relay.begin(race) if self.relay is not None else None
+        try:
+            return frontier_solve(
+                board.reshape(self.spec.size, self.spec.size),
+                self.mesh,
+                self.spec,
+                states_per_device=self.states_per_device,
+                max_depth=self.max_depth,
+                locked=self.locked,
+                waves=self.waves,
+                naked_pairs=self.naked_pairs,
+                hosts=(self.rank, self.world, self._gather_records, link),
+            )
+        finally:
+            if link is not None:
+                self.relay.finish(link)
 
     def _solve_batch_collective(self, header: np.ndarray) -> np.ndarray:
         """The batch lane: a second broadcast carries the padded bucket
@@ -263,7 +286,7 @@ class FrontierServingLoop:
                 else:
                     logger.info("frontier serving loop: racing a board (%d clues)",
                                 int((buf[4:] > 0).sum()))
-                    result = (req_id, "ok", self._solve_collective(buf[4:]))
+                    result = (req_id, "ok", self._solve_collective(buf[4:], req_id))
             except Exception as e:  # noqa: BLE001 — surfaced to the caller
                 # a failed collective may leave the ranks out of step: leave
                 # the round rather than risk a deadlocked next broadcast
@@ -305,6 +328,8 @@ class FrontierServingLoop:
             logger.exception("frontier serving loop: broadcast failed — the "
                              "loop stops; requests fall back to the bucket path")
         finally:
+            if self.relay is not None:
+                self.relay.stop()
             self._stopped.set()
             if self.is_leader:
                 while True:
@@ -361,7 +386,9 @@ class FrontierServingLoop:
         """Liveness for operator surfaces (engine.health → /metrics):
         ``alive`` goes False when the loop stopped, or when no tick
         completed within ``stall_after_s`` while idle, or a collective has
-        run past ``collective_stall_after_s``."""
+        run past ``collective_stall_after_s``. ``relay`` (above one rank):
+        the relay thread's ``RaceRelay.health()``: alive, races, posts sent
+        and delivered, errors and the last error, the last race's posts."""
         now = time.monotonic()
         started = self._thread is not None
         stalled = False
@@ -378,13 +405,17 @@ class FrontierServingLoop:
             "last_tick_age_s": round(now - self._last_tick, 1),
             "restarts": self.restarts,
             "batches": self.batches,
+            **({"relay": self.relay.health()} if self.relay is not None else {}),
         }
 
     def start(self, warm_race: bool = True) -> None:
         """Start the loop thread (every rank). The leader warms the race
         path by racing one empty board through the loop, unless
         ``warm_race=False`` (a fan-out-only loop warms its bucket widths
-        with ``warm_batch_fanout``)."""
+        with ``warm_batch_fanout``). Above one rank the race's relay
+        thread starts first."""
+        if self.relay is not None:
+            self.relay.start()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serving-loop")
         self._thread.start()
@@ -463,6 +494,8 @@ class FrontierServingLoop:
         if self.is_leader and not self._stopped.is_set():
             self._requests.put((self._payload(_STOP), None))
         self._stopped.wait(timeout=30)
+        if self.relay is not None:
+            self.relay.stop()
 
     def join(self, timeout: Optional[float] = None) -> None:
         """The other ranks: block until the leader broadcasts STOP (or the

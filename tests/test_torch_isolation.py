@@ -76,6 +76,7 @@ REQUIRED = (
     "serving.autopilot", "parallel.frontier", "compilecache",
     "compilecache.store", "utils.checkpoint", "native", "models.generator",
     "parallel.mesh", "parallel.shard", "parallel.serving_loop", "parallel.sim",
+    "parallel.relay",
     "analysis", "analysis.__main__", "analysis.callgraph", "analysis.locks",
     "analysis.seams", "analysis.threadctx", "analysis.torch_hygiene",
     "analysis.wire_schema", "analysis.runner", "analysis.sarif",
@@ -385,6 +386,10 @@ class _FakeRaceLibrary:
 
     def dfs_race_shards_launch(self, *args):
         self.calls.append(args)
+        return self.error
+
+    def dfs_race_shards_relay_launch(self, *args):
+        self.calls.append(("relay",) + args)
         return self.error
 
 
@@ -1299,6 +1304,52 @@ def test_virtual_mesh_segments_match_one_device_on_the_card():
     assert dfs_segment.launches == before + 24 * 5
 
 
+@pytest.mark.parametrize("layout", ["device", "host"])
+def test_shard_race_launch_with_a_relay_passes_its_inbox_outbox_and_race(monkeypatch,
+                                                                         layout):
+    """A race across shards with a relay across hosts goes to the library's
+    relay entry: no fold, the inbox's and the outbox's device addresses and
+    the race's tag in them after the common arguments. A fold with a relay
+    raises: every host's records fold after the gather."""
+    import contextlib
+    import threading
+    import types
+
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SCRATCH_IDLE,
+        RaceSlots,
+        _launch_race_shards,
+        dfs_race_shards,
+    )
+
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    spec = spec_for_size(9)
+    joins = []
+    streams = [_FakeStream(301 + i, joins) for i in range(2)]
+    states = [torch.zeros((2, spec.cells), dtype=torch.int32) for _ in range(2)]
+    words = tuple(torch.tensor(RACE_SCRATCH_IDLE, dtype=torch.int32) for _ in range(2))
+    slots = RaceSlots(layout, words, threading.Lock(),
+                      *((4242, 1) if layout == "host" else ()))
+    relay = types.SimpleNamespace(race=7, tag=9, outbox=5151, inbox=6161)
+    lib = _FakeRaceLibrary()
+    before = dfs_race_shards.launches
+    outs = _launch_race_shards(lib, states, spec, spec.cells, 64, 3, 1, slots, streams,
+                               False, None, relay)
+    assert len(outs) == 2 and dfs_race_shards.launches == before + (
+        1 if layout == "device" else 2)
+    (args,) = lib.calls
+    assert args[0] == "relay"
+    n, inputs, grids, metas, sg, sc, sm, stop, slot_ptr, clock, code = args[1:12]
+    assert n == 2 and clock is None and slot_ptr == (4242 if layout == "host" else None)
+    assert code == ("device", "peer", "host").index(layout)
+    assert list(stop) == [w.data_ptr() for w in words]
+    assert list(args[13]) == [301, 302] and args[14:16] == (2, spec.box)
+    assert args[20:] == (6161, 5151, 9)
+    with pytest.raises(ValueError, match="relay"):
+        dfs_race_shards(states, spec, spec.cells, 64, relay=relay, fold=True)
+
+
 def _shard_race_sets():
     """The race sets of the card tests, each padded for 4 shards."""
     from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
@@ -1514,6 +1565,98 @@ def test_peer_layout_race_across_virtual_shards_matches_plain_twice(size):
         assert dfs_race_shards.launches == races + 4 and race_fold.launches == folds
         assert torch.equal(row.cpu(), prow) and torch.equal(fold.cpu(), pfold)
         assert all(w.tolist() == list(RACE_SCRATCH_IDLE) for w in words)
+
+
+@pytest.mark.cuda
+def test_the_relay_inbox_halts_the_shard_race_at_a_host_posted_step_on_the_card():
+    """The race across 2 shards of cuda:0 with a relay across hosts: a step
+    written into the inbox (mapped host memory) before the launch, tagged
+    with the race's tag, halts every state at exactly that step, the records
+    equal to the plain race's halted there; a post tagged with another race
+    is ignored (the records of the plain race's own runs); the words are
+    idle after each race. A solving half posts its first solve into the
+    outbox, tagged with its race, and the fold kernel over both halves'
+    records equals the plain fold. The halves are deep board 12's in a
+    2-host race of 8 states a shard: host 0's solve nothing in 106 steps,
+    host 1's solve at 59."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import ctypes
+
+    import torch.distributed as dist
+
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        RACE_SCRATCH_IDLE,
+        dfs_race_shards,
+        race_fold,
+        race_relay_words,
+        sweep_knobs,
+    )
+    from sudoku_solver_distributed_tpu_torch.ops.solver import SOLVED, fold_race, race_runs
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+    from sudoku_solver_distributed_tpu_torch.parallel.mesh import virtual_mesh
+    from sudoku_solver_distributed_tpu_torch.parallel.relay import RaceRelay
+
+    spec = spec_for_size(9)
+    deep9 = np.load(os.path.join(ROOT, "benchmarks", "corpus_9x9_deep_128.npz"))["boards"]
+    states, early = F.seed_frontier(deep9[12], spec, target=32, locked=True)
+    assert early is None
+    states = F.bucket_states(states, spec, 8, 4).reshape(-1, spec.cells)
+    half = len(states) // 2
+    quiet, solving = states[:half], states[half:]
+    knobs = dict(locked_candidates=True, waves=3, naked_pairs=False)
+    mesh = virtual_mesh("cuda:0", 2)
+    slots = F.mesh_race_slots(mesh)
+    relay = RaceRelay(dist.HashStore(), 0, 2)  # no thread: the test posts
+    host = race_relay_words()[1]
+
+    def plain(part, stop=None):
+        n = len(part) // 2
+        runs = [race_runs(torch.as_tensor(part[i * n:(i + 1) * n]).reshape(n, 9, 9), spec,
+                          65536, spec.max_depth, stop=stop, **sweep_knobs(spec, **knobs))
+                for i in (0, 1)]
+        return torch.cat([m for m, _ in runs]), torch.cat([g for _, g in runs])
+
+    def card(part, link):
+        n = len(part) // 2
+        parts = [torch.as_tensor(np.ascontiguousarray(part[i * n:(i + 1) * n])).cuda()
+                 for i in (0, 1)]
+        before = dfs_race_shards.launches
+        out = dfs_race_shards(parts, spec, spec.max_depth, 65536, streams=list(mesh.streams),
+                              slots=slots, relay=link, **knobs)
+        torch.cuda.synchronize()
+        assert dfs_race_shards.launches == before + 1
+        assert slots.words[0].tolist() == list(RACE_SCRATCH_IDLE)
+        return torch.cat([m for m, _ in out]).cpu(), torch.cat([g for _, g in out]).cpu()
+
+    smeta, sgrid = plain(solving)
+    t_star = int(smeta[smeta[:, 0] == SOLVED, 1].min())
+    halted = None
+    for race, tag, stop in ((5, 5, t_star), (6, 5, None), (8, 8, t_star + 7)):
+        link = relay.begin(race)
+        tag = link.tag if tag == race else link.tag - 1  # this race's, or another's
+        ctypes.c_uint64.from_address(host + 8).value = \
+            (t_star if stop is None else stop) << 32 | tag
+        meta, grid = card(quiet, link)
+        want = plain(quiet, None if stop is None else (lambda: stop))
+        assert torch.equal(meta, want[0]), race
+        if stop is not None:
+            assert int(meta[:, 1].max()) == stop
+        if race == 5:
+            halted = (meta, grid)
+        relay.finish(link)
+    link = relay.begin(7)
+    kmeta, kgrid = card(solving, link)
+    relay.finish(link)
+    word = ctypes.c_uint64.from_address(host).value
+    assert (word & 0xFFFFFFFF, word >> 32) == (link.tag, t_star)
+    meta = torch.cat([halted[0], kmeta]).cuda()
+    grid = torch.cat([halted[1], kgrid]).cuda()
+    row, fold = race_fold(meta, grid, spec, knobs["waves"])
+    prow, pfold = fold_race(torch.cat([halted[0], smeta]), torch.cat([halted[1], sgrid]),
+                            spec, knobs["waves"])
+    torch.cuda.synchronize()
+    assert torch.equal(row.cpu(), prow) and torch.equal(fold.cpu(), pfold)
 
 
 @pytest.mark.cuda

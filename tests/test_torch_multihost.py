@@ -7,7 +7,8 @@ a race across both ranks answer exactly as the JAX package's
 single-process 4-device mesh (JAX ``tests/test_multihost.py``'s sim
 fan-out); and a follower SIGKILLed outside any collective degrades the
 leader (its race falls back to the bucket path, its health reads dead)
-within its stall limit instead of hanging it. Every child has a
+within its stall limit instead of hanging it, its race's relay thread
+(parallel/relay.py) alive meanwhile and ended after ``stop``. Every child has a
 ``subprocess`` timeout and every collective the loop's timeout.
 """
 
@@ -99,6 +100,7 @@ loop = FrontierServingLoop(default_mesh(), states_per_device=4, max_restarts=1,
                            stall_after_s=3.0, collective_stall_after_s=5.0,
                            collective_timeout_s=10)
 loop.start()  # warm race: the follower is alive here
+assert loop.relay.alive and loop.health()["relay"]["races"] == 1, loop.health()
 open(flag, "w").close()
 deadline = time.monotonic() + 30
 while not os.path.exists(killed_flag):
@@ -120,7 +122,9 @@ while loop.health()["alive"] and time.monotonic() < deadline:
 h = loop.health()
 assert h["alive"] is False, h
 assert eng.health()["frontier_loop_alive"] is False
-print(json.dumps({"elapsed_s": elapsed, "health": h}), flush=True)
+loop.stop()
+print(json.dumps({"elapsed_s": elapsed, "health": h,
+                  "relay_alive_after_stop": loop.relay.alive}), flush=True)
 os._exit(0)  # the group cannot shut down cleanly with a killed peer
 """
 
@@ -238,3 +242,5 @@ def test_follower_death_outside_a_collective_degrades_the_leader(tmp_path):
     res = _last_json(out)
     assert res["health"]["alive"] is False
     assert res["elapsed_s"] < 10.0  # the solve's 8 s bound, never a hang
+    # the race's relay thread lived through the death and ended with the loop
+    assert res["relay_alive_after_stop"] is False

@@ -26,6 +26,7 @@ Every comparison is exact (tolerance 0).
 """
 
 import json
+import queue
 import random
 import threading
 import time
@@ -528,6 +529,37 @@ def _wire_cases():
     return [json.dumps(m).encode() for m in msgs]
 
 
+class _WorkerTasks(queue.Queue):
+    """A node's worker queue that knows when the worker is done with every
+    task it was given. Both packages' workers take a task off the queue,
+    answer or shed it, and only then ``get`` again: so with the queue empty
+    and the worker waiting in ``get``, every accepted task was answered or
+    shed. The count of waits changes under the queue's own mutex, with the
+    removal of the item the wait returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.waiting = 0
+
+    def get(self, block=True, timeout=None):
+        with self.mutex:
+            self.waiting += 1
+        try:
+            return super().get(block, timeout)
+        except queue.Empty:
+            with self.mutex:
+                self.waiting -= 1
+            raise
+
+    def _get(self):
+        self.waiting -= 1  # under self.mutex, as the item leaves the queue
+        return super()._get()
+
+    def settled(self) -> bool:
+        with self.mutex:
+            return not self.queue and self.waiting > 0
+
+
 @pytest.mark.parametrize("seed", [5, 17])
 def test_ingress_cases_leave_the_same_state(seed, clock):
     states = {}
@@ -535,6 +567,8 @@ def test_ingress_cases_leave_the_same_state(seed, clock):
         w = SIDES[side]["wire"]
         node = _attach_planes(_node(side, failure_timeout=0.0), side)
         node.autopilot = None
+        # the worker picks this queue up at its next get (within 0.5 s)
+        tasks = node._worker_tasks = _WorkerTasks()
         datagrams = _wire_cases() + _hostile_datagrams(random.Random(seed))
         solves = 0
         for payload in datagrams:
@@ -547,9 +581,9 @@ def test_ingress_cases_leave_the_same_state(seed, clock):
                 pass
         # the worker thread has answered or shed every accepted task
         deadline = time.monotonic() + 10
-        while node._worker_tasks.qsize() and time.monotonic() < deadline:
+        while not tasks.settled() and time.monotonic() < deadline:
             time.sleep(0.01)
-        time.sleep(0.2)
+        assert tasks.settled(), f"{side}: the worker is still on a task"
         states[side] = _state(node)
     assert states["port"] == states["jax"]
     # the valid cases took effect

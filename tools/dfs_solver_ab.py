@@ -10,7 +10,7 @@ sweep count and option bits included, ``dfs_solver_meta_cols`` and
 directory such as ``_archive/``, or a copy of this one with one constant
 changed. Both sources are built with ``cuda_solver.NVCC_FLAGS``, and
 ``ptxas -v``'s registers and stack are printed for each. ``--arms`` picks
-the arms (default all three).
+the arms (default all four).
 
 The DFS kernel (K1, arm ``k1``): at every width of
 ``chip_smoke.timing_widths`` the two builds must return the same grid and
@@ -37,6 +37,13 @@ slowest state, and resident states per SM where a build reports them. A build wh
 library does not say where its race keeps the guess stack
 (``dfs_race_stack_on_chip``) gets the device slab; each build races on
 a two-word scratch of its own.
+
+K4's shard form (arm ``shards``, a build that has ``dfs_race_shards_launch``): the race across 4
+virtual shards of cuda:0 without a relay, one launch whose last block
+folds (``cuda_solver._launch_race_shards`` with either library, over one
+set of stop words), on the same sets padded for 4 shards: the two builds
+must return the same row and fold; then in turns, each race alone behind
+a device spin (``chip_smoke._event_ms``).
 
 Prints one line per width, case and set, the card's name and power limit,
 and last one JSON object with the times. Exits non-zero without a result
@@ -75,6 +82,9 @@ def build_other(cs, source: Path):
     for fn in ("dfs_solver_launch", "dfs_segment_launch", "dfs_race_launch"):
         getattr(lib, fn).argtypes = getattr(this, fn).argtypes
         getattr(lib, fn).restype = ctypes.c_int
+    if hasattr(lib, "dfs_race_shards_launch"):  # a build with the shard form
+        lib.dfs_race_shards_launch.argtypes = this.dfs_race_shards_launch.argtypes
+        lib.dfs_race_shards_launch.restype = ctypes.c_int
     if lib.dfs_solver_meta_cols() != cs.META_COLS:
         raise RuntimeError(f"{source} disagrees on the meta layout")
     if lib.dfs_segment_digest_cols() != cs.SEGMENT_DIGEST_COLS:
@@ -289,7 +299,69 @@ def race_sets(cs, this, other, smoke) -> dict:
     return out
 
 
-ARMS = ("k1", "k3", "race")
+def shard_sets(cs, this, other, smoke) -> dict:
+    """K4's shard form without a relay (the race across 4 virtual shards of
+    cuda:0, the one-card layout: one launch, its last block folding) on
+    each set of ``chip_smoke.race_timing_sets``: outputs equal, then the
+    two builds in turns, race by race, over one set of stop words."""
+    import statistics
+
+    import torch
+
+    from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+    from sudoku_solver_distributed_tpu_torch.ops.config import serving_config
+    from sudoku_solver_distributed_tpu_torch.ops.spec import spec_for_size
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    config = smoke.node_config(SolverEngine, spec_for_size, serving_config)
+    sets = smoke.race_timing_sets(
+        smoke.frontier_race_sets(F, spec_for_size, smoke.SYMMETRY_SEED))
+    mesh = smoke._mesh()
+    streams = list(mesh.streams)
+    slots = F.mesh_race_slots(mesh)
+    out = {}
+    for name, _, spec, states, max_iters, _ in sets:
+        sweeps = smoke.sweeps_of(config(spec.size))
+        knobs = cs.sweep_knobs(spec, **sweeps)
+        waves, options = knobs["waves"], cs._options(knobs)
+        states = F.bucket_states(states, spec, len(states) // smoke.MESH_SHARDS,
+                                 smoke.MESH_SHARDS)
+        flat = torch.as_tensor(states.reshape(len(states), -1), device="cuda").contiguous()
+        per = len(flat) // smoke.MESH_SHARDS
+        parts = [flat[i * per:(i + 1) * per].contiguous() for i in range(smoke.MESH_SHARDS)]
+
+        def race(lib):
+            cur = torch.cuda.current_stream()
+            for st in streams:
+                st.wait_stream(cur)
+            with slots.lock:
+                out = cs._launch_race_shards(lib, parts, spec, spec.max_depth, max_iters,
+                                             waves, options, slots, streams, True)
+            cur.wait_stream(streams[0])
+            return out
+
+        (trow, tfold, _), (orow, ofold, _) = race(this), race(other)
+        torch.cuda.synchronize()
+        smoke.check(torch.equal(trow, orow) and torch.equal(tfold, ofold),
+                    f"shard race set {name}: the two builds disagree")
+        reps = 20 if spec.size < 25 else 10
+        # each race alone behind a device spin (chip_smoke._event_ms): a race
+        # across shards joins streams and takes a lock on the host, so races
+        # enqueued back to back would time the host's enqueue
+        turns = [smoke._event_ms(lambda lib=lib: race(lib), reps)
+                 for lib in (other, this, this, other)]
+        med = {"other": statistics.median(turns[0] + turns[3]),
+               "this": statistics.median(turns[1] + turns[2])}
+        out[name] = {"states": len(states), "other_ms": med["other"], "this_ms": med["this"],
+                     "turn_means_ms": [statistics.fmean(t) for t in turns]}
+        smoke.log(f"shard race {name} ({len(states)} states, {smoke.MESH_SHARDS} virtual "
+                  f"shards, one launch): median other {med['other']:.4f}, this "
+                  f"{med['this']:.4f} ms (CUDA events, {2 * reps} races each; turn means "
+                  + ", ".join(f"{x:.4f}" for x in out[name]["turn_means_ms"]) + ")")
+    return out
+
+
+ARMS = ("k1", "k3", "race", "shards")
 
 
 def main(argv) -> int:
@@ -333,6 +405,10 @@ def main(argv) -> int:
         result["segments"] = segment_cases(cs, this, other, smoke)
     if "race" in arms:
         result["races"] = race_sets(cs, this, other, smoke)
+    if "shards" in arms:
+        if not hasattr(other, "dfs_race_shards_launch"):
+            parser.error("--arms shards takes a build with dfs_race_shards_launch")
+        result["shard_races"] = shard_sets(cs, this, other, smoke)
     card = smoke.card_name_and_power_limit()
     smoke.log(card)
     print(json.dumps({"other": str(source.relative_to(ROOT)), "card": card,

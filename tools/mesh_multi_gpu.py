@@ -37,6 +37,14 @@ mesh of one card):
       and the plain version's counters, and the README board raced across
       them, equal to the plain race over as many shards.
 
+  (r) with four cards or more, two processes of half the cards each (a
+      shard a card, the peer layout inside a process) on an NCCL group:
+      ``chip_smoke.py``'s phase 13(d) relay sets through the serving loop,
+      the race's relay across hosts carrying each process's solves to the
+      other (``chip_smoke._mesh_relay``): every answer the plain race's,
+      no state halted before t*, each rank's steps past t* and the
+      relay's latency printed.
+
 ``--cpu-ranks N`` runs (n) alone with N CPU processes on a gloo group, a
 shard each: the rehearsal of the multi-process path without cards.
 
@@ -411,6 +419,14 @@ def main(argv=None) -> int:
     check(mesh.size == n and not mesh.virtual, f"default_mesh() is {mesh}")
     out = {"cards": cards, "engine": engine_on_cards(cs, mesh),
            "race": race_on_cards(cs, mesh), "ranks": multi_rank(n, "nccl", "cuda", cs)}
+    if n >= 4:
+        from sudoku_solver_distributed_tpu_torch.models import oracle_is_valid_solution
+
+        half = n // 2
+        visible = [",".join(map(str, range(half))), ",".join(map(str, range(half, n)))]
+        log(f"(r): two ranks over NCCL, cards {visible[0]} and {visible[1]}")
+        out["relay"] = chip_smoke._mesh_relay(oracle_is_valid_solution, visible=visible,
+                                              backend="nccl")
     print(json.dumps(out), flush=True)
     over = out["race"]["over_bound"]
     check(not over, f"(c): the solving card's steps past t* over the bound after a warm "
