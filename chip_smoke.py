@@ -1833,6 +1833,32 @@ def phase_segment_timing(cs, ts, spec_for_size, serving_config):
 
 STAGE_KEYS = ("cache_ms", "queue_ms", "coalesce_ms", "device_ms", "verify_ms",
               "fallback_ms")
+# the series of the /metrics body whose values follow the clock rather
+# than the node's work: gauges over a sliding window of the last seconds
+# (obs/cost.py's recent and sustained_*, obs/slo.py's burn rates), ages
+# and rates (age_s, since_s, *_rate_hz, last_tick_age_s, uptime)
+_PROM_CLOCK_SERIES = re.compile(r"age_s|since_s|_rate_hz|burn|sustained_|recent|uptime")
+
+
+def _prom_clock_moves(a: bytes, b: bytes) -> list:
+    """Two Prometheus renderings of one quiescent node, scraped an instant
+    apart: every line equal but for the value of a series that follows the
+    clock (``_PROM_CLOCK_SERIES``). Returns the names of those that moved."""
+    la, lb = a.decode().splitlines(), b.decode().splitlines()
+    check(len(la) == len(lb), f"the two prom renderings have {len(la)} and {len(lb)} lines")
+    moved = []
+    for x, y in zip(la, lb):
+        if x == y:
+            continue
+        mx, my = _PROM_LINE.match(x), _PROM_LINE.match(y)
+        name = mx.group(1) if mx is not None and mx.group(1) else None
+        check(name is not None and my is not None and my.group(1) == name
+              and _PROM_CLOCK_SERIES.search(name) is not None,
+              f"the two prom renderings differ: {x!r} against {y!r}")
+        moved.append(name)
+    return moved
+
+
 _PROM_LINE = re.compile(
     r"^(?:# (?:TYPE|HELP) .*|"
     r"([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^{}]*\})?) "
@@ -2078,19 +2104,16 @@ def _phase_obs(cs, build_parser, build_node, oracle_ok, boundary_p50_ms,
             f"{out['boundary_host_ms_cost_plane']} beside phase 6's recorder p50 "
             f"{boundary_p50_ms}")
 
-        # the Prometheus rendering of the same (quiescent) body; the two
-        # routes scrape at two instants, and a gauge over a sliding window
-        # of the clock can roll over between them, so up to three pairs are
-        # taken and one must be equal byte for byte
-        for _ in range(3):
-            status, prom, headers = _http(node.base, "/metrics.prom")
-            check(status == 200
-                  and headers["Content-Type"].startswith("text/plain; version=0.0.4"),
-                  f"/metrics.prom answered {status}")
-            if prom == _http(node.base, "/metrics?format=prom")[1]:
-                break
-        else:
-            check(False, "/metrics.prom and /metrics?format=prom differ in three pairs")
+        # the Prometheus rendering of the same (quiescent) body by both
+        # routes, one scrape each: line for line equal, but for the series
+        # that follow the clock (_PROM_CLOCK_SERIES), which may move between
+        # the two instants; those that moved are named
+        status, prom, headers = _http(node.base, "/metrics.prom")
+        check(status == 200
+              and headers["Content-Type"].startswith("text/plain; version=0.0.4"),
+              f"/metrics.prom answered {status}")
+        moved = _prom_clock_moves(prom, _http(node.base, "/metrics?format=prom")[1])
+        out["prom_clock_series_moved"] = moved
         body = json.loads(_http(node.base, "/metrics")[1])
         values = {}
         for line in prom.decode().strip().splitlines():
@@ -2104,7 +2127,8 @@ def _phase_obs(cs, build_parser, build_node, oracle_ok, boundary_p50_ms,
         check(values['sudoku_stage_latency_ms_count{stage="device"}']
               == body["obs"]["stages"]["device"]["count"], "stage histogram count differs")
         out["prom_series"] = len(values)
-        log(f"/metrics.prom: {len(values)} series, every JSON leaf equal")
+        log(f"/metrics.prom: {len(values)} series, every JSON leaf equal; against "
+            f"/metrics?format=prom every line equal but the clock's series {moved}")
 
         status, raw, _ = _http(node.base, "/debug/trace")
         doc = json.loads(raw)
@@ -4993,25 +5017,33 @@ def _mesh_loop(SolverEngine, oracle_ok) -> dict:
 # 13(d)'s relay sets: a deep board turned (np.rot90 k % 4 times, then
 # transposed for k >= 4) so that in a race of 2 ranks of 2 virtual shards,
 # one rank's half of the seeded states solves early and the other's runs
-# long: (name, corpus, board, k, size, states a shard). In the plain race
+# long: (name, corpus, board, k, size, states a device). In the plain race
 # (steps): rank 1 solves at 25, rank 0 runs to 186; rank 0 at 25, rank 1
-# to 40; rank 0 at 9, rank 1 to 216; rank 0 at 137, rank 1 to 504.
+# to 40; rank 0 at 9, rank 1 to 216; rank 0 at 137, rank 1 to 504; and at
+# the serving loop's own 64 states a device (512 states raced, 128 a
+# shard), rank 0 at 21, rank 1 to 250; rank 0 at 13, rank 1 to 127.
 RELAY_SETS = (
     ("9x9 #12 rt @8", "corpus_9x9_deep_128.npz", 12, 5, 9, 8),
     ("9x9 #0 rt @8", "corpus_9x9_deep_128.npz", 0, 5, 9, 8),
     ("16x16 #0 r @2", "corpus_16x16_deep_anneal_64.npz", 0, 1, 16, 2),
     ("16x16 #0 r2t @1", "corpus_16x16_deep_anneal_64.npz", 0, 6, 16, 1),
+    ("16x16 #17 r2 @64", "corpus_16x16_deep_anneal_64.npz", 17, 2, 16, 64),
+    ("16x16 #18 r2 @64", "corpus_16x16_deep_anneal_64.npz", 18, 2, 16, 64),
 )
 RELAY_RACES = 6  # races a set, the first not counted
 
 # 13(d)'s relay races: one rank of the serving loop on this card (gloo, a
 # virtual mesh of SUDOKU_VIRTUAL_MESH shards), a loop a (size, states a
-# shard) group; rank 0 races each board of the group `races` times. Each
+# device) group; rank 0 races each board of the group `races` times and
+# times each whole request (loop.solve: the header's broadcast, seeding,
+# the race, the gather and the fold; host ms). Each
 # rank taps the gather (the records of every race), its relay's finish
 # (the race's posts, host monotonic ns) and race_on_mesh (host ms, from
 # the call to the folded row after a sync). It runs from any tree of the
-# port, one without a relay too (tools/race_relay_ab.py runs the parent's).
-# argv: rank, world, port, groups, races, backend
+# port, one without a relay too (tools/race_relay_ab.py runs the parent's),
+# and with relay "off" drops the loop's relay before it starts (a
+# diagnostic: the same tree, the parent's race path across hosts).
+# argv: rank, world, port, groups, races, backend, relay
 _RELAY_CHILD = r"""
 import json, sys, time
 from datetime import timedelta
@@ -5019,9 +5051,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-rank, world, port, groups, races, backend = (
+rank, world, port, groups, races, backend, relay_on = (
     int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], json.loads(sys.argv[4]),
-    int(sys.argv[5]), sys.argv[6])
+    int(sys.argv[5]), sys.argv[6], sys.argv[7] == "on")
 dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                         world_size=world, rank=rank, timeout=timedelta(seconds=120))
 from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs, spec_for_size
@@ -5044,12 +5076,16 @@ for size, spd, boards in groups:
                                locked=True, waves=3 if size == 9 else 1, naked_pairs=False,
                                collective_timeout_s=120,
                                allow_gloo_on_cuda=backend == "gloo")
-    records, posts = [], []
+    records, posts, gather_ms = [], [], []
     def tap(meta, grid, gather=loop._gather_records, records=records):
+        t0 = time.perf_counter()
         meta, grid = gather(meta, grid)
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
         records.append(meta.cpu().tolist())
         return meta, grid
     loop._gather_records = tap
+    if not relay_on:
+        loop.relay = None
     relay = getattr(loop, "relay", None)
     if relay is not None:
         def finish(link, *a, done=relay.finish, posts=posts, **k):
@@ -5059,16 +5095,20 @@ for size, spd, boards in groups:
     del times[:]
     cs.dfs_race_shards.launches = 0
     loop.start(warm_race=False)
-    answers = []
+    answers, solve_ms = [], []
     if rank == 0:
         for board in boards:
-            answers += [loop.solve(np.asarray(board, np.int32)) for _ in range(races)]
+            for _ in range(races):
+                t0 = time.perf_counter()
+                answers.append(loop.solve(np.asarray(board, np.int32)))
+                solve_ms.append((time.perf_counter() - t0) * 1e3)
         loop.stop()
     else:
         loop.join(timeout=600)
     out["groups"].append({
         "size": size, "spd": spd, "answers": answers, "records": records, "posts": posts,
-        "race_ms": list(times), "launches": cs.dfs_race_shards.launches,
+        "race_ms": list(times), "gather_ms": gather_ms, "solve_ms": solve_ms,
+        "launches": cs.dfs_race_shards.launches,
         "relay": relay.health() if relay is not None else None})
 print(json.dumps(out), flush=True)
 dist.destroy_process_group()
@@ -5084,15 +5124,17 @@ def relay_board(corpus: str, index: int, k: int):
 
 
 def relay_run(root: str = ROOT, timeout_s: float = 300.0, device: str = "cuda:0",
-              visible=None, backend: str = "gloo") -> dict:
+              visible=None, backend: str = "gloo", relay: bool = True) -> dict:
     """RELAY_SETS through two ranks of the serving loop of the tree at
-    ``root`` (``_RELAY_CHILD``): by default on ``device``, 2 virtual shards
+    ``root`` (``_RELAY_CHILD``; ``relay`` False drops the loops' relay):
+    by default on ``device``, 2 virtual shards
     a rank over gloo (the CPU rehearses it); with ``visible`` (each rank's
     ``CUDA_VISIBLE_DEVICES``) a shard a visible card, over ``backend``. Returns, by set name, each counted race's answer, gathered
-    records' t* and each rank's steps past it, the relay's latency (µs,
-    from the sender seeing its post to the receiver's inbox written; None
-    where nothing was relayed), each rank's race ms and the ranks' relay
-    health and shard-race launches."""
+    records' t* and each rank's steps past it, the rank that solved at t*,
+    the relay's latency (µs, from the sender seeing its post to the
+    receiver's inbox written; None where nothing was relayed), each rank's
+    race ms, the leader's whole request ms and the ranks' relay health and
+    shard-race launches."""
     groups = {}
     for name, corpus, index, k, size, spd in RELAY_SETS:
         groups.setdefault((size, spd), []).append(
@@ -5107,7 +5149,7 @@ def relay_run(root: str = ROOT, timeout_s: float = 300.0, device: str = "cuda:0"
         envs = [dict(env, CUDA_VISIBLE_DEVICES=v) for v in visible]
     procs = [subprocess.Popen(
         [sys.executable, "-c", _RELAY_CHILD, str(r), "2", str(port), arg, str(RELAY_RACES),
-         backend],
+         backend, "on" if relay else "off"],
         env=envs[r], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     ) for r in (0, 1)]
     outs = []
@@ -5152,12 +5194,15 @@ def relay_run(root: str = ROOT, timeout_s: float = 300.0, device: str = "cuda:0"
                                    follow["posts"][j] if follow["posts"] else {})]
                 races.append({
                     "answer": lead["answers"][j], "t_star": t_star,
+                    "solver_rank": 0 if [1, t_star] in [m[:2] for m in meta[:half]] else 1,
                     "past_by_rank": [max(steps[:half]) - t_star, max(steps[half:]) - t_star],
                     "below_t_star": sum(m[0] == 0 and m[1] < t_star for m in meta),
                     "gathered_equal": follow["records"][j] == meta,
                     "latency_us": latency, "latency_stages_us": stages,
                     "us_a_poll_by_rank": polls,
-                    "race_ms": [lead["race_ms"][j], follow["race_ms"][j]]})
+                    "race_ms": [lead["race_ms"][j], follow["race_ms"][j]],
+                    "gather_ms": [lead["gather_ms"][j], follow["gather_ms"][j]],
+                    "solve_ms": lead["solve_ms"][j]})
             out[name] = {"board": board, "size": key[0], "states_per_shard": key[1],
                          "races": races}
         for name, _ in sets:
@@ -5166,14 +5211,51 @@ def relay_run(root: str = ROOT, timeout_s: float = 300.0, device: str = "cuda:0"
     return out
 
 
+def relay_us_a_step(board, size: int, spd: int, rank: int) -> float:
+    """µs a step of rank ``rank``'s half of a RELAY_SETS race on this card,
+    alone (no relay, no other process on the card): its 2 virtual shards'
+    one launch with the kernel clock, from the first block's start to the
+    last search's end, over the most steps a state ran (the second of two
+    races; the first builds and warms). Restores the launch count."""
+    import torch
+    from sudoku_solver_distributed_tpu_torch.ops import cuda_solver as cs
+    from sudoku_solver_distributed_tpu_torch.ops import spec_for_size
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+    from sudoku_solver_distributed_tpu_torch.parallel.mesh import virtual_mesh
+
+    spec = spec_for_size(size)
+    states, _ = F.seed_frontier(board, spec, target=4 * spd, locked=True)
+    states = F.bucket_states(states, spec, spd, 4).reshape(-1, spec.cells)
+    half = len(states) // 2
+    flat = torch.as_tensor(states[rank * half:(rank + 1) * half], device="cuda").contiguous()
+    mesh = virtual_mesh("cuda:0", 2)
+    slots = F.mesh_race_slots(mesh)
+    launches = cs.dfs_race_shards.launches
+    for _ in range(2):
+        clock = torch.zeros((half, 3), dtype=torch.int64, device="cuda")
+        for st in mesh.streams:
+            st.wait_stream(torch.cuda.current_stream())
+        runs = cs.dfs_race_shards([flat[:half // 2], flat[half // 2:]], spec, spec.max_depth,
+                                  F.DEFAULT_MAX_ITERS, streams=list(mesh.streams), slots=slots,
+                                  clock=clock, locked_candidates=True,
+                                  waves=3 if size == 9 else 1, naked_pairs=False)
+        torch.cuda.synchronize()
+    cs.dfs_race_shards.launches = launches
+    steps = max(int(m[:, 1].max()) for m, _ in runs)
+    ns = clock.cpu()
+    return float(ns[:, 1].max() - ns[:, 0].min()) / 1e3 / max(steps, 1)
+
+
 def _mesh_relay(oracle_ok, **run) -> dict:
     """13(d), the race's relay across hosts: RELAY_SETS raced by two ranks
     of the serving loop on this card (``relay_run``, given ``run``). Every answer equals
     the plain race over 4 CPU shards (row, statuses and counters) and, when
     found, the oracle's check; no state of either rank halted RUNNING
     before t*; the ranks gathered the same records; neither relay counted
-    an error. Prints, for each set, each rank's steps past t* and the
-    relay's latency race by race, and the leader's race ms."""
+    an error or a missed race. Prints, for each set, each rank's steps past
+    t* and the relay's latency race by race, in µs and in steps of the rank
+    that did not solve (``relay_us_a_step``), the leader's race ms and its
+    whole request ms."""
     import numpy as np
     from sudoku_solver_distributed_tpu_torch.ops import spec_for_size
     from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
@@ -5199,12 +5281,17 @@ def _mesh_relay(oracle_ok, **run) -> dict:
                   f"13(d) relay {name}: {race['below_t_star']} states halted before t*"
                   f" {race['t_star']} (records equal on both ranks: "
                   f"{race['gathered_equal']})")
-        check(all(h is not None and h["errors"] == 0 for h in rec["relay"]),
+        check(all(h is not None and h["errors"] == h["missed"] == 0 for h in rec["relay"]),
               f"13(d) relay {name}: the relays {rec['relay']}")
         check(rec["launches"][0] > 0, f"13(d) relay {name}: no shard race launched")
         lat = [r["latency_us"] for r in rec["races"]]
         lead_ms = [r["race_ms"][0] for r in rec["races"]]
         rec["race_ms_median"] = float(np.median(lead_ms))
+        rec["solve_ms_median"] = float(np.median([r["solve_ms"] for r in rec["races"]]))
+        long_rank = 1 - rec["races"][0]["solver_rank"]
+        rec["us_a_step"] = relay_us_a_step(board, rec["size"], rec["states_per_shard"],
+                                           long_rank)
+        lat_steps = [None if x is None else round(x / rec["us_a_step"], 1) for x in lat]
         log(f"phase 13 (d) relay {name}: t* {[r['t_star'] for r in rec['races']]}, steps "
             f"past t* by rank {[r['past_by_rank'] for r in rec['races']]}; relay latency "
             f"{[None if x is None else round(x, 1) for x in lat]} us (host clock; "
@@ -5213,7 +5300,10 @@ def _mesh_relay(oracle_ok, **run) -> dict:
             f"; us a poll by rank "
             f"{[[x and round(x, 1) for x in r['us_a_poll_by_rank']] for r in rec['races']]}); "
             f"the leader's race {rec['race_ms_median']:.3f} ms (median of "
-            f"{len(lead_ms)}; {[round(x, 3) for x in lead_ms]})")
+            f"{len(lead_ms)}; {[round(x, 3) for x in lead_ms]}), its whole request "
+            f"{rec['solve_ms_median']:.3f} ms; in steps of rank {long_rank} "
+            f"({rec['us_a_step']:.3f} us a step alone on the card, kernel clock) the "
+            f"latency is {lat_steps}")
     return out
 
 

@@ -91,9 +91,10 @@ REPO_EXEMPT: Tuple[Tuple[str, str], ...] = (
                                              # torch.distributed: device
                                              # round trips and collectives
                                              # are its entire job
-    ("target", "RaceRelay._run"),  # the race's relay across hosts: store
-                                   # round trips and inbox copies while a
-                                   # race runs are its entire job
+    ("target", "RaceRelay._run"),  # the race's relay across hosts:
+                                   # datagrams, the mapped outbox and
+                                   # inbox, and the shards' end events
+                                   # while a race runs are its entire job
 )
 
 

@@ -129,11 +129,13 @@
 #include <arpa/inet.h>
 #include <errno.h>
 #include <netinet/in.h>
+#include <poll.h>
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
 #include <sys/socket.h>
 #include <time.h>
+#include <unistd.h>
 
 #include <mutex>
 #include <type_traits>
@@ -1399,34 +1401,26 @@ struct RaceShardPoll {
 // thread reads it (two posts may land there out of order as well).
 template <bool kRelay>
 __device__ __forceinline__ void post_solve(const RaceMesh& mesh, int shard, unsigned steps) {
-  if constexpr (!kRelay) {
-    if (mesh.layout == kLayoutPeer) {
-      atomicMin_system(mesh.word[shard], steps);
-      for (int k = 0; k < mesh.n; ++k) {
-        if (k != shard) atomicMin_system(mesh.word[k], steps);
-      }
-    } else if (mesh.layout == kLayoutHost) {
-      if (steps < atomicMin(mesh.word[shard], steps)) {
-        reinterpret_cast<volatile unsigned*>(mesh.slots)[shard] = steps;
-        __threadfence_system();
-      }
-    } else {
-      atomicMin(mesh.word[shard], steps);
+  // Without kRelay `lowered` is dead but under kLayoutHost, so the other
+  // layouts' atomics return nothing (merged into one branch with the
+  // host's, they took the 25x25 shard form from 122 registers to 75 and
+  // made it 16 % slower on an H100)
+  bool lowered;
+  if (mesh.layout == kLayoutPeer) {
+    lowered = steps < atomicMin_system(mesh.word[shard], steps);
+    for (int k = 0; k < mesh.n; ++k) {
+      if (k != shard) atomicMin_system(mesh.word[k], steps);
+    }
+  } else if (mesh.layout == kLayoutHost) {
+    lowered = steps < atomicMin(mesh.word[shard], steps);
+    if (lowered) {
+      reinterpret_cast<volatile unsigned*>(mesh.slots)[shard] = steps;
+      __threadfence_system();
     }
   } else {
-    bool lowered;
-    if (mesh.layout == kLayoutPeer) {
-      lowered = steps < atomicMin_system(mesh.word[shard], steps);
-      for (int k = 0; k < mesh.n; ++k) {
-        if (k != shard) atomicMin_system(mesh.word[k], steps);
-      }
-    } else {
-      lowered = steps < atomicMin(mesh.word[shard], steps);
-      if (lowered && mesh.layout == kLayoutHost) {
-        reinterpret_cast<volatile unsigned*>(mesh.slots)[shard] = steps;
-        __threadfence_system();
-      }
-    }
+    lowered = steps < atomicMin(mesh.word[shard], steps);
+  }
+  if constexpr (kRelay) {
     if (lowered) {
       *reinterpret_cast<volatile unsigned long long*>(mesh.outbox) =
           relay_word(mesh.race, steps);
@@ -1964,9 +1958,13 @@ int dfs_race_max_shards() { return kMaxShards; }
 // for up to timeout_us microseconds, in the library: ctypes calls it
 // without the interpreter's lock, so no other thread of the process can
 // hold a post up, and nothing on the way sleeps (a timed sleep of 100 us
-// lasted about 1 ms on an H100 host). It reads the mapped outbox
-// (words[0]) with a pause between two reads and the relay's non-blocking
-// UDP socket `fd` every 16 reads:
+// lasted about 1 ms on an H100 host). Until *launched is set (the race's
+// launch is under way) it blocks in poll() on the relay's non-blocking
+// UDP socket `fd` and the thread's wake pipe `wake_fd` (drained when
+// readable). From then on it spins: it reads the mapped outbox
+// (words[0]) with a pause between two reads and the socket every 16
+// reads, and every 256 reads queries the n_ends shard end events at
+// `ends` (*n_ends, 0 until the launch has recorded them):
 //  * the outbox holds a step of this race (`tag`, the low half of both
 //    words) below *sent: "<race>:<step>" goes to each of the n_peers
 //    addresses at `peers` (peer_len bytes each, a sockaddr_in or
@@ -1980,23 +1978,88 @@ int dfs_race_max_shards() { return kMaxShards; }
 //    NUL-terminated), its length into *len; returns 3 (the caller keeps a
 //    later race's post, drops an earlier one's);
 //  * a datagram from any other address, or not of that form: returns 4;
+//  * every end event has completed (this host's race is over; the outbox
+//    read after that holds its last post): returns 5;
 // else returns 0 once the time has passed or *closed is set (the race is
-// over on this host), or -errno of a failed socket call. Times are
-// CLOCK_MONOTONIC ns, the clock of Python's time.monotonic_ns.
+// over on this host), or -errno of a failed socket call. An end event
+// that reports an error counts as completed: the race has failed, and its
+// caller raises. Times are CLOCK_MONOTONIC ns, the clock of Python's
+// time.monotonic_ns.
 static unsigned long long relay_ns() {
   timespec ts;
   clock_gettime(CLOCK_MONOTONIC, &ts);
   return (unsigned long long)ts.tv_sec * 1000000000ull + (unsigned long long)ts.tv_nsec;
 }
 
-int dfs_race_relay_serve(int fd, const void* peers, int n_peers, int peer_len, void* words,
-                         unsigned tag, unsigned race, unsigned* sent, unsigned long long* out,
-                         char* buf, int* len, const int* closed, int timeout_us) {
+// One datagram off the relay's socket, if one waits (dfs_race_relay_serve's
+// returns 2, 3 and 4; 0 when none waits, -errno on a failure).
+static int relay_receive(int fd, const char* peer, int n_peers, int peer_len,
+                         volatile unsigned long long* inbox, unsigned tag, unsigned race,
+                         unsigned long long* out, char* buf, int* len) {
+  sockaddr_storage addr;
+  socklen_t addr_len = sizeof addr;
+  const ssize_t r = recvfrom(fd, buf, 63, 0, reinterpret_cast<sockaddr*>(&addr), &addr_len);
+  if (r < 0) return errno == EAGAIN || errno == EWOULDBLOCK ? 0 : -errno;
+  const unsigned long long got = relay_ns();
+  buf[r] = 0;
+  *len = (int)r;
+  bool known = false;
+  for (int p = 0; p < n_peers && !known; ++p)
+    known = (int)addr_len == peer_len && memcmp(&addr, peer + p * peer_len, peer_len) == 0;
+  char* rest = nullptr;
+  const unsigned long their_race = strtoul(buf, &rest, 10);
+  const bool parsed = rest != buf && *rest == ':';
+  const unsigned long step = parsed ? strtoul(rest + 1, nullptr, 10) : 0;
+  if (!known || !parsed || step >= kNoKey) return 4;
+  if (their_race != race) return 3;
+  const unsigned long long held = *inbox;
+  const unsigned have = (unsigned)held == tag ? (unsigned)(held >> 32) : kNoKey;
+  if (step < have) *inbox = (unsigned long long)step << 32 | tag;
+  out[0] = step;
+  out[1] = got;
+  out[2] = relay_ns();
+  return 2;
+}
+
+int dfs_race_relay_serve(int fd, int wake_fd, const void* peers, int n_peers, int peer_len,
+                         void* words, unsigned tag, unsigned race, unsigned* sent,
+                         unsigned long long* out, char* buf, int* len, const int* closed,
+                         const int* launched, void* const* ends, const int* n_ends,
+                         int timeout_us) {
   volatile unsigned long long* outbox = static_cast<volatile unsigned long long*>(words);
   volatile unsigned long long* inbox = outbox + 1;
+  const volatile int* is_closed = closed;
+  const volatile int* is_launched = launched;
+  const volatile int* count = n_ends;
   const char* peer = static_cast<const char*>(peers);
   const unsigned long long end = relay_ns() + (unsigned long long)timeout_us * 1000ull;
+  while (!*is_launched) {
+    const unsigned long long now = relay_ns();
+    if (*is_closed || now >= end) return 0;
+    pollfd fds[2] = {{fd, POLLIN, 0}, {wake_fd, POLLIN, 0}};
+    const int r = poll(fds, 2, (int)((end - now + 999999ull) / 1000000ull));
+    if (r < 0) {
+      if (errno == EINTR) continue;
+      return -errno;
+    }
+    if (fds[1].revents & POLLIN) {
+      char drain[64];
+      while (read(wake_fd, drain, sizeof drain) > 0) {
+      }
+    }
+    if (fds[0].revents & POLLIN) {
+      const int rc = relay_receive(fd, peer, n_peers, peer_len, inbox, tag, race, out, buf, len);
+      if (rc != 0) return rc;
+    }
+  }
   for (unsigned k = 0;; ++k) {
+    bool over = false;
+    if ((k & 255) == 0) {
+      const int n = *count;
+      over = n > 0;
+      for (int i = 0; i < n && over; ++i)
+        over = cudaEventQuery(static_cast<cudaEvent_t>(ends[i])) != cudaErrorNotReady;
+    }
     const unsigned long long posted = *outbox;
     if ((unsigned)posted == tag && (unsigned)(posted >> 32) < *sent) {
       const unsigned step = (unsigned)(posted >> 32);
@@ -2013,33 +2076,11 @@ int dfs_race_relay_serve(int fd, const void* peers, int n_peers, int peer_len, v
       out[2] = relay_ns();
       return 1;
     }
+    if (over) return 5;
     if ((k & 15) == 15) {
-      sockaddr_storage addr;
-      socklen_t addr_len = sizeof addr;
-      const ssize_t r = recvfrom(fd, buf, 63, 0, reinterpret_cast<sockaddr*>(&addr), &addr_len);
-      if (r >= 0) {
-        const unsigned long long got = relay_ns();
-        buf[r] = 0;
-        *len = (int)r;
-        bool known = false;
-        for (int p = 0; p < n_peers && !known; ++p)
-          known = (int)addr_len == peer_len && memcmp(&addr, peer + p * peer_len, peer_len) == 0;
-        char* rest = nullptr;
-        const unsigned long their_race = strtoul(buf, &rest, 10);
-        const bool parsed = rest != buf && *rest == ':';
-        const unsigned long step = parsed ? strtoul(rest + 1, nullptr, 10) : 0;
-        if (!known || !parsed || step >= kNoKey) return 4;
-        if (their_race != race) return 3;
-        const unsigned long long held = *inbox;
-        const unsigned have = (unsigned)held == tag ? (unsigned)(held >> 32) : kNoKey;
-        if (step < have) *inbox = (unsigned long long)step << 32 | tag;
-        out[0] = step;
-        out[1] = got;
-        out[2] = relay_ns();
-        return 2;
-      }
-      if (errno != EAGAIN && errno != EWOULDBLOCK) return -errno;
-      if (*reinterpret_cast<const volatile int*>(closed) || relay_ns() >= end) return 0;
+      const int rc = relay_receive(fd, peer, n_peers, peer_len, inbox, tag, race, out, buf, len);
+      if (rc != 0) return rc;
+      if (*is_closed || relay_ns() >= end) return 0;
     }
 #if defined(__x86_64__)
     __asm__ __volatile__("pause");
@@ -2104,16 +2145,21 @@ int dfs_race_peer_enable(int n, const int* devices) {
 // dfs_race_fold_launch, as always under 2). clock: null, or (n M, 3)
 // uint64 on shard 0's device, which the launch fills, a row a block
 // (race_clock). box, D, max_iters, waves and options as
-// for dfs_race_launch. Leaves the caller's current device as it found it.
-// Returns a cudaError_t.
-static int race_shards_launch(int n, const void* const* states, void* const* grid_out,
-                              void* const* meta, void* const* stack_grid,
-                              void* const* stack_cell, void* const* stack_mask,
-                              void* const* words, void* fold, void* row, void* slots,
-                              void* clock, int layout, const int* devices,
-                              void* const* streams, int M, int box, int D, int max_iters,
-                              int waves, int options, const void* inbox, void* outbox,
-                              int race) {
+// for dfs_race_launch. inbox and outbox: null, or for a race with the
+// relay across hosts (RaceMesh; its records are gathered from every host
+// and folded by dfs_race_fold_launch, so fold and row must be null) the
+// device addresses of the host's mapped 64-bit words (dfs_race_slots_alloc),
+// race the race's tag (the low half of both words; unused without them).
+// Leaves the caller's current device as it found it. Returns a
+// cudaError_t.
+int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_out,
+                           void* const* meta, void* const* stack_grid,
+                           void* const* stack_cell, void* const* stack_mask,
+                           void* const* words, void* fold, void* row, void* slots,
+                           void* clock, int layout, const int* devices,
+                           void* const* streams, int M, int box, int D, int max_iters,
+                           int waves, int options, const void* inbox, void* outbox,
+                           int race) {
   if (n <= 0 || n > kMaxShards || M <= 0 || D <= 0 || max_iters < 0 || waves < 1 ||
       (options & ~7) || layout < kLayoutDevice || layout > kLayoutHost ||
       (layout == kLayoutHost) != (slots != nullptr) || (!fold) != (!row) ||
@@ -2164,36 +2210,6 @@ static int race_shards_launch(int n, const void* const* states, void* const* gri
   }
   err = cudaSetDevice(home);
   return rc != 0 ? rc : (int)err;
-}
-
-int dfs_race_shards_launch(int n, const void* const* states, void* const* grid_out,
-                           void* const* meta, void* const* stack_grid,
-                           void* const* stack_cell, void* const* stack_mask,
-                           void* const* words, void* fold, void* row, void* slots,
-                           void* clock, int layout, const int* devices,
-                           void* const* streams, int M, int box, int D, int max_iters,
-                           int waves, int options) {
-  return race_shards_launch(n, states, grid_out, meta, stack_grid, stack_cell, stack_mask,
-                            words, fold, row, slots, clock, layout, devices, streams, M, box,
-                            D, max_iters, waves, options, nullptr, nullptr, 0);
-}
-
-// dfs_race_shards_launch's race with the relay across hosts (RaceMesh):
-// inbox and outbox the device addresses of the host's mapped 64-bit words
-// (dfs_race_slots_alloc), race the race's identity (the low half of both
-// words). The records are gathered from every host and folded by
-// dfs_race_fold_launch, so fold and row must be null.
-int dfs_race_shards_relay_launch(int n, const void* const* states, void* const* grid_out,
-                                 void* const* meta, void* const* stack_grid,
-                                 void* const* stack_cell, void* const* stack_mask,
-                                 void* const* words, void* slots, void* clock, int layout,
-                                 const int* devices, void* const* streams, int M, int box,
-                                 int D, int max_iters, int waves, int options,
-                                 const void* inbox, void* outbox, int race) {
-  if (!inbox || !outbox) return (int)cudaErrorInvalidValue;
-  return race_shards_launch(n, states, grid_out, meta, stack_grid, stack_cell, stack_mask,
-                            words, nullptr, nullptr, slots, clock, layout, devices, streams,
-                            M, box, D, max_iters, waves, options, inbox, outbox, race);
 }
 
 // The fold of a race across shards whose launches did not fold, over M =

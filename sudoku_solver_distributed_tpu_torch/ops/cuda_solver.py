@@ -272,15 +272,14 @@ def load_library() -> ctypes.CDLL:
     lib.dfs_race_max_shards.restype = i
     lib.dfs_race_peer_enable.argtypes = [i, p]
     lib.dfs_race_peer_enable.restype = i
-    lib.dfs_race_shards_launch.argtypes = [i] + [p] * 11 + [i] + [p] * 2 + [i] * 6
-    lib.dfs_race_shards_launch.restype = i
-    lib.dfs_race_shards_relay_launch.argtypes = [i] + [p] * 9 + [i] + [p] * 2 + [i] * 6 + \
+    lib.dfs_race_shards_launch.argtypes = [i] + [p] * 11 + [i] + [p] * 2 + [i] * 6 + \
         [p, p, i]
-    lib.dfs_race_shards_relay_launch.restype = i
-    lib.dfs_race_relay_serve.argtypes = [i, p, i, i, p, ctypes.c_uint, ctypes.c_uint,
+    lib.dfs_race_shards_launch.restype = i
+    lib.dfs_race_relay_serve.argtypes = [i, i, p, i, i, p, ctypes.c_uint, ctypes.c_uint,
                                          ctypes.POINTER(ctypes.c_uint),
                                          ctypes.POINTER(ctypes.c_ulonglong), p,
-                                         ctypes.POINTER(i), ctypes.POINTER(i), i]
+                                         ctypes.POINTER(i), ctypes.POINTER(i),
+                                         ctypes.POINTER(i), p, ctypes.POINTER(i), i]
     lib.dfs_race_relay_serve.restype = i
     lib.dfs_race_fold_launch.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.dfs_race_fold_launch.restype = i
@@ -891,9 +890,10 @@ def race_relay_serve(*args) -> int:
     """One round of the relay thread's service of a race on a card, in
     the library (``dfs_race_relay_serve``, without the interpreter's lock;
     ``args`` as its C arguments, parallel/relay.py's ``RaceRelay``):
-    0 (the round's time passed), 1 (this host's post sent), 2 (another
-    host's post written into the inbox), 3 (a peer's datagram of another
-    race, for the caller), 4 (a stranger's datagram), or -errno."""
+    0 (the round's time passed, or the race was closed), 1 (this host's
+    post sent), 2 (another host's post written into the inbox), 3 (a
+    peer's datagram of another race, for the caller), 4 (a stranger's
+    datagram), 5 (every shard's end event has completed), or -errno."""
     return int(load_library().dfs_race_relay_serve(*args))
 
 
@@ -963,7 +963,7 @@ def dfs_race_shards(states: list, spec: BoardSpec, depth: int, max_iters: int,
     multi-host serving loop's ``parallel.relay.RaceLink``; no ``fold``):
     each state also stops at a step another host posted for this race, and
     this host's solves are posted for the other hosts. On CUDA the launch
-    (``dfs_race_shards_relay_launch``, a kernel of its own) reads the
+    (the kernel's relay instance) reads the
     mapped word at device address ``relay.inbox`` in turns and posts into
     the one at ``relay.outbox``, both tagged with ``relay.tag``; on the
     CPU each shard's plain race polls ``relay.stop_step`` once a step and
@@ -1079,22 +1079,15 @@ def _launch_race_shards(lib: ctypes.CDLL, states: list, spec: BoardSpec,
         arrays["stream"][i] = stream.cuda_stream
         devices[i] = dev.index or 0
     inputs = ptr(*(t.data_ptr() for t in states))
-    tail = (RACE_LAYOUTS.index(slots.layout), devices, arrays["stream"], M, spec.box, depth,
-            max_iters, waves, options)
-    clock_ptr = clock.data_ptr() if clock is not None else None
-    if relay is None:
-        err = lib.dfs_race_shards_launch(
-            n, inputs, arrays["grid"], arrays["meta"], arrays["sg"], arrays["sc"],
-            arrays["sm"], arrays["words"],
-            folded.data_ptr() if fold else None, row.data_ptr() if fold else None,
-            slots.address or None, clock_ptr, *tail,
-        )
-    else:
-        err = lib.dfs_race_shards_relay_launch(
-            n, inputs, arrays["grid"], arrays["meta"], arrays["sg"], arrays["sc"],
-            arrays["sm"], arrays["words"], slots.address or None, clock_ptr, *tail,
-            relay.inbox, relay.outbox, relay.tag,
-        )
+    err = lib.dfs_race_shards_launch(
+        n, inputs, arrays["grid"], arrays["meta"], arrays["sg"], arrays["sc"],
+        arrays["sm"], arrays["words"],
+        folded.data_ptr() if fold else None, row.data_ptr() if fold else None,
+        slots.address or None, clock.data_ptr() if clock is not None else None,
+        RACE_LAYOUTS.index(slots.layout), devices, arrays["stream"], M, spec.box, depth,
+        max_iters, waves, options,
+        *((relay.inbox, relay.outbox, relay.tag) if relay is not None else (None, None, 0)),
+    )
     if err != 0:
         raise KernelLaunchError(f"dfs_race_shards launch failed: cudaError {err}")
     with _LAUNCHES_LOCK:

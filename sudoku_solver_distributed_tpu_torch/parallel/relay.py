@@ -26,15 +26,19 @@ every host that lives with the serving loop and, for the race under way
     and honour only for their own race; on the CPU the link's ``remote``
     step, which the plain race polls once a step.
 
-While a race runs on a card the thread serves it in the library
+The thread serves a race on a card in the library
 (``dfs_race_relay_serve``, without the interpreter's lock, in rounds of
-``RELAY_ROUND_US``): it reads the outbox with a pause between two reads
-and the socket every 16 reads, sends a post and writes a peer's post of
-this race into the inbox there, and hands any other datagram back. Nothing
-on that path waits for the interpreter's lock or sleeps: on an H100
-host a timed sleep of 100 µs lasted about 1 ms, and a thread back from a
-system call waited up to milliseconds for the lock. A plain race's thread waits
-on its socket for up to ``RELAY_POLL_S`` between two reads of the link.
+``RELAY_ROUND_US``). Until the launch (seeding is most of a raced
+request) it blocks on its socket and a wake pipe, and writes a peer's post
+of this race into the inbox as it lands. From the launch until every
+shard's end event has completed it spins: it reads the outbox with a
+pause between two reads and the socket every 16 reads, sends a post and
+writes a peer's post there, and hands any other datagram back. Nothing on
+that path waits for the interpreter's lock or sleeps: on an H100 host a
+timed sleep of 100 µs lasted about 1 ms, and a thread back from a system
+call waited up to milliseconds for the lock. A plain race's thread blocks
+on its socket and the wake pipe, which a post, the race's end and
+``finish`` write to.
 
 The mapped words carry the race's ``tag``, unique in the process (every
 loop numbers its races from 1, but the words serve every loop of the
@@ -51,7 +55,11 @@ records), and delivers nothing for a race after ``finish``. A relay that
 cannot send, receive or find the other hosts is logged, counted and
 reported by ``health()``: the race then runs on without the other hosts'
 posts (never a stop of its own making), and the gather's timeout stays the
-arbiter of a host that died.
+arbiter of a host that died. A datagram that never lands (dropped, or
+filtered on the way) leaves no error on either side, so ``finish`` is told
+whether another host solved the race (the gathered records say so): if
+none of that host's posts of it came, within ``RELAY_LATE_S`` after this
+host's race ended, the race is counted ``missed`` and logged.
 """
 
 from __future__ import annotations
@@ -72,16 +80,18 @@ logger = logging.getLogger(__name__)
 RELAY_IDLE = 0xFFFFFFFF
 # an outbox with no post of any race
 _OUTBOX_IDLE = 0xFFFFFFFFFFFFFFFF
-# the thread's longest wait on its socket between two reads of a plain
-# race's posts
-RELAY_POLL_S = 1e-4
-# a round of the library's service of a race on a card: the thread looks
-# at its link between two (the round ends early once the link is closed)
+# a round of the thread's service of a race: it looks at its link between
+# two (a round ends early once the race has ended or the link is closed)
 RELAY_ROUND_US = 10000
 # how long ``finish`` waits for the thread to leave a race
 RELAY_FINISH_S = 5.0
 # how long the thread waits for the other hosts to publish their addresses
 RELAY_RESOLVE_S = 30.0
+# how long ``finish`` waits for a post of a race that another host solved,
+# when none came while the race ran here
+RELAY_LATE_S = 0.25
+# the most shard end events a race on a card hands the library
+_MAX_ENDS = 64
 
 
 def relay_channel(prefix: str = "race-relay") -> tuple:
@@ -131,20 +141,27 @@ class RaceLink:
     * the plain race polls ``stop_step()`` once a step (the least step
       posted on this host or relayed from another, None before any) and
       ``post``s a shard's solve step;
-    * the kernel gets ``inbox`` and ``outbox`` (device addresses);
+    * the kernel gets ``inbox`` and ``outbox`` (device addresses), which
+      also tell the thread that the race is launched;
     * ``local_done(ends)`` says when this host's race ends: at once (the
       plain race returned), or when every CUDA event in ``ends`` has."""
 
-    def __init__(self, relay: "RaceRelay", race: int):
+    def __init__(self, relay: "RaceRelay", race: int, card: bool = False):
         self.race = int(race)
         self.tag = next(_TAGS) & 0x7FFFFFFF  # the race in this process's mapped words
+        self.card = card          # the race runs on a card: the library serves it
         self._relay = relay
         self.local = RELAY_IDLE   # the least step this host posted (plain race)
         self.remote = RELAY_IDLE  # the least step another host posted
+        self.heard = False        # a post of this race came from another host
         self._ends: Optional[list] = None
         self._done = threading.Event()
         self.closed = False       # finish() ran: the relay delivers nothing more
-        self._closed = ctypes.c_int(0)  # the same, for the library's round
+        # the same, the launch, and the shards' end events, for the library
+        self._closed = ctypes.c_int(0)
+        self._launched = ctypes.c_int(0)
+        self._c_ends = (ctypes.c_void_p * _MAX_ENDS)()
+        self._n_ends = ctypes.c_int(0)
         self.picked = False       # the thread took this race up
         self.quiet = threading.Event()  # the thread has left this race
         self.failed: Optional[str] = None
@@ -170,6 +187,7 @@ class RaceLink:
 
     def post(self, step: int) -> None:
         self.local = min(self.local, int(step))
+        self._relay.poke()
 
     # -- the kernel's side ----------------------------------------------
     @property
@@ -191,7 +209,14 @@ class RaceLink:
         if ends is None:
             self._done.set()
         else:
-            self._ends = list(ends)
+            ends = list(ends)
+            if len(ends) > _MAX_ENDS:
+                raise ValueError(f"a race hands the relay at most {_MAX_ENDS} end events")
+            self._ends = ends
+            for k, end in enumerate(ends):
+                self._c_ends[k] = end.cuda_event
+            self._n_ends.value = len(ends)  # after the handles: the library reads it first
+        self._relay.poke()
 
     def ended(self) -> bool:
         if self._done.is_set():
@@ -207,13 +232,14 @@ class RaceLink:
         self.closed = True
         self._closed.value = 1
         self._done.set()
+        self._relay.poke()
 
     def summary(self) -> dict:
         return {"race": self.race, "picked_ns": self.picked_ns, "left_ns": self.left_ns,
                 "polls": self.polls, "sent_step": self.sent_step, "sent_ns": self.sent_ns,
                 "posted_ns": self.posted_ns, "received_step": self.received_step,
                 "received_ns": self.received_ns, "delivered_ns": self.delivered_ns,
-                "failed": self.failed}
+                "heard": self.heard, "failed": self.failed}
 
 
 class RaceRelay:
@@ -231,6 +257,7 @@ class RaceRelay:
         self.host = host
         self.address: Optional[tuple] = None
         self._sock: Optional[socket.socket] = None
+        self._pipe: Optional[tuple] = None  # the thread's wake pipe (read, write)
         self._peers: Optional[tuple] = None  # the other hosts' relay addresses
         self._early: dict = {}  # race -> least step received before it began
         self._link: Optional[RaceLink] = None
@@ -246,15 +273,21 @@ class RaceRelay:
         self.posts_delivered = 0
         self.foreign = 0
         self.errors = 0
+        self.missed = 0  # races another host solved, none of whose posts came
+        self.late = 0    # ... whose post came only after this host's race ended
         self.last_error: Optional[str] = None
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> None:
-        """Open the socket, publish its address and start the thread."""
+        """Open the socket and the wake pipe, publish the socket's address
+        and start the thread."""
         family = socket.getaddrinfo(self.host, 0, type=socket.SOCK_DGRAM)[0][0]
         self._sock = socket.socket(family, socket.SOCK_DGRAM)
         self._sock.bind((self.host, 0))
         self._sock.setblocking(False)
+        self._pipe = os.pipe()
+        for fd in self._pipe:
+            os.set_blocking(fd, False)
         self.address = self._sock.getsockname()[:2]
         self.store.set(f"addr/{self.rank}", f"{self.address[0]} {self.address[1]}")
         self._thread = threading.Thread(target=self._run, daemon=True, name="race-relay")
@@ -263,10 +296,14 @@ class RaceRelay:
     def stop(self, timeout: float = 5.0) -> None:
         self._stopping.set()
         self._wake.set()
+        self.poke()
         if self._thread is not None and self._thread is not threading.current_thread():
             self._thread.join(timeout=timeout)
         if self._sock is not None and not self.alive:
             self._sock.close()
+            pipe, self._pipe = self._pipe, None
+            for fd in pipe or ():
+                os.close(fd)
 
     @property
     def alive(self) -> bool:
@@ -275,50 +312,96 @@ class RaceRelay:
     def health(self) -> dict:
         return {"alive": self.alive, "races": self.races, "posts_sent": self.posts_sent,
                 "posts_delivered": self.posts_delivered, "foreign": self.foreign,
-                "errors": self.errors, "last_error": self.last_error, "last": self.last}
+                "errors": self.errors, "missed": self.missed, "late": self.late,
+                "last_error": self.last_error, "last": self.last}
+
+    def poke(self) -> None:
+        """Wake the thread from its wait on the socket (a post, a launch,
+        the race's end or close, ``stop``)."""
+        pipe = self._pipe
+        if pipe is not None:
+            try:
+                os.write(pipe[1], b"!")
+            except OSError:  # full (the thread has bytes to read) or closed
+                pass
 
     # -- the loop thread's side -------------------------------------------
-    def begin(self, race: int) -> RaceLink:
-        link = RaceLink(self, race)
+    def begin(self, race: int, card: bool = False) -> RaceLink:
+        """Start serving race ``race``; ``card``: it runs on a card (the
+        relay words are made now, so the library serves it from the
+        start)."""
+        link = RaceLink(self, race, card)
+        if card:
+            from ..ops.cuda_solver import race_relay_words
+
+            self._host = race_relay_words()[1]
         self._link = link
         self._wake.set()
         return link
 
-    def finish(self, link: RaceLink, timeout: float = RELAY_FINISH_S) -> None:
+    def finish(self, link: RaceLink, solved_elsewhere: bool = False,
+               timeout: float = RELAY_FINISH_S) -> None:
         """End ``link``'s race: the thread delivers nothing more for it.
-        Waits (``timeout``) for the thread to leave it."""
+        Waits (``timeout``) for the thread to leave it. ``solved_elsewhere``:
+        another host's records of this race hold a solve, so that host
+        posted it; if no post of it came here, it may still come for
+        ``RELAY_LATE_S``, else the race is counted ``missed``."""
         link.close()
         if self._link is link:
             self._link = None
-        if link.picked and self.alive and not link.quiet.wait(timeout):
+        left = not link.picked or not self.alive or link.quiet.wait(timeout)
+        if not left:
             logger.warning("race relay: still in race %d after %.1f s", link.race, timeout)
+        if solved_elsewhere and left and not link.heard and link.failed is None:
+            self._await_late(link)
         self.last = link.summary()
+
+    def _await_late(self, link: RaceLink) -> None:
+        """Another host solved ``link``'s race and none of its posts came
+        while the race ran here: read the socket for one for up to
+        ``RELAY_LATE_S`` (the thread has left the race), else count the
+        race missed."""
+        deadline = time.monotonic() + RELAY_LATE_S
+        while self._sock is not None and self._peers is not None:
+            self._receive(link)
+            if link.heard:
+                self.late += 1
+                return
+            wait = deadline - time.monotonic()
+            if wait <= 0:
+                break
+            select.select([self._sock], [], [], wait)
+        self.missed += 1
+        logger.warning("race relay: another host solved race %d, but none of its posts "
+                       "reached this host (%d races missed so far): its shards ran "
+                       "without the other hosts' stop", link.race, self.missed)
 
     # -- the outbox and inbox (CUDA) ---------------------------------------
     def words(self, link: RaceLink) -> tuple:
         """The relay words for ``link``'s launch (``cuda_solver.
         race_relay_words``): the outbox set idle, the inbox given
-        ``link``'s relayed step if one came before the launch. Returns
-        their device address and host address."""
+        ``link``'s relayed step if one came before the launch. Tells the
+        thread that the race is launched. Returns their device address and
+        host address."""
         from ..ops.cuda_solver import race_relay_words
 
         device, host = race_relay_words()
         ctypes.c_uint64.from_address(host).value = _OUTBOX_IDLE
-        if link.remote != RELAY_IDLE:
-            self._write_inbox(host, link)
         self._host = host
+        if link.remote != RELAY_IDLE:
+            self._write_inbox(host, link, link.remote)
+        link._launched.value = 1
+        self.poke()
         return device, host
 
     @staticmethod
-    def _write_inbox(host: int, link: RaceLink) -> None:
-        ctypes.c_uint64.from_address(host + 8).value = link.remote << 32 | link.tag
-
-    def _deliver(self, link: RaceLink, step: int) -> None:
-        """``step`` into ``link``'s stop: its ``remote`` step and, once a
-        race ran on a card, the inbox word."""
-        link.remote = min(link.remote, step)
-        if self._host is not None:
-            self._write_inbox(self._host, link)
+    def _write_inbox(host: int, link: RaceLink, step: int) -> None:
+        """``step`` into the inbox for ``link``'s race, unless it holds a
+        lower one of that race."""
+        word = ctypes.c_uint64.from_address(host + 8)
+        held = word.value
+        if (held & 0xFFFFFFFF) != link.tag or step < held >> 32:
+            word.value = step << 32 | link.tag
 
     # -- the thread --------------------------------------------------------
     def _run(self) -> None:
@@ -369,32 +452,45 @@ class RaceRelay:
         sent = RELAY_IDLE
         while not (link.closed or self._stopping.is_set()):
             link.polls += 1
+            if self._host is not None and (link.card or link._launched.value):
+                sent, over = self._serve_card(link, sent)
+                if over:
+                    return
+                continue
             done = link.ended()
-            if self._host is not None:
-                # a last round of no time after the race: its post, if any
-                sent = self._serve_card(link, sent, 0 if done else RELAY_ROUND_US)
-            elif link.local < sent:
+            local = link.local  # read once: the race may lower it meanwhile
+            if local < sent:
                 seen_ns = time.monotonic_ns()
-                data = f"{link.race}:{link.local}".encode()
+                data = f"{link.race}:{local}".encode()
                 for peer in self._peers:
                     self._sock.sendto(data, peer)
-                sent = link.local
+                sent = local
                 self._sent(link, sent, seen_ns, time.monotonic_ns())
             if done:
                 return
-            if self._host is None:
-                ready, _, _ = select.select([self._sock], [], [], RELAY_POLL_S)
-                if ready:
-                    self._receive(link)
+            ready, _, _ = select.select([self._sock, self._pipe[0]], [], [],
+                                        RELAY_ROUND_US / 1e6)
+            if self._pipe[0] in ready:
+                self._drain_pipe()
+            if self._sock in ready:
+                self._receive(link)
+
+    def _drain_pipe(self) -> None:
+        try:
+            while os.read(self._pipe[0], 64):
+                pass
+        except BlockingIOError:
+            pass
 
     def _sent(self, link: RaceLink, step: int, seen_ns: int, sent_ns: int) -> None:
         if link.sent_step is None:
             link.sent_step, link.sent_ns, link.posted_ns = step, seen_ns, sent_ns
         self.posts_sent += 1
 
-    def _serve_card(self, link: RaceLink, sent: int, timeout_us: int) -> int:
+    def _serve_card(self, link: RaceLink, sent: int) -> tuple:
         """One round of the library's service of ``link``'s race on a card
-        (``cuda_solver.race_relay_serve``); returns the least step sent."""
+        (``cuda_solver.race_relay_serve``); returns the least step sent and
+        whether this host's race has ended."""
         from ..ops.cuda_solver import race_relay_serve
 
         if self._c is None:
@@ -403,15 +499,17 @@ class RaceRelay:
         c_sent, out, buf, length = self._c
         c_sent.value = sent
         rc = race_relay_serve(
-            self._sock.fileno(), self._peer_addrs, len(self._peers),
+            self._sock.fileno(), self._pipe[0], self._peer_addrs, len(self._peers),
             len(self._peer_addrs) // max(len(self._peers), 1), self._host, link.tag,
             link.race, ctypes.byref(c_sent), out, buf, ctypes.byref(length),
-            ctypes.byref(link._closed), timeout_us)
+            ctypes.byref(link._closed), ctypes.byref(link._launched), link._c_ends,
+            ctypes.byref(link._n_ends), RELAY_ROUND_US)
         if rc < 0:
             raise OSError(-rc, os.strerror(-rc))
         if rc == 1:
             self._sent(link, out[0], out[1], out[2])
         elif rc == 2:
+            link.heard = True
             self._received(link, out[0], out[1], out[2])
         elif rc == 3:
             race, step = _parse(buf.raw[:length.value])
@@ -419,7 +517,7 @@ class RaceRelay:
                 self._early[race] = min(self._early.get(race, RELAY_IDLE), step)
         elif rc == 4:
             self.foreign += 1
-        return c_sent.value
+        return c_sent.value, rc == 5
 
     def _receive(self, link: RaceLink) -> None:
         """Every datagram waiting on the socket: this race's posts are
@@ -437,6 +535,7 @@ class RaceRelay:
                 self.foreign += 1
                 continue
             if race == link.race:
+                link.heard = True
                 self._take(link, step)
             elif race > link.race:
                 self._early[race] = min(self._early.get(race, RELAY_IDLE), step)
@@ -445,7 +544,9 @@ class RaceRelay:
         if step >= link.remote or link.closed:
             return
         received_ns = time.monotonic_ns()
-        self._deliver(link, step)
+        link.remote = min(link.remote, step)
+        if self._host is not None:
+            self._write_inbox(self._host, link, step)
         self._received(link, step, received_ns, time.monotonic_ns())
 
     def _received(self, link: RaceLink, step: int, received_ns: int,

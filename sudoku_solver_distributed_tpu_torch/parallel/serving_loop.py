@@ -43,8 +43,9 @@ addresses met through the process group's store) and writes theirs into
 this host's inbox, which the shards' blocks read in turns, so every
 host's shards stop soon after the first solve on any host. The fold over every host's gathered records (the fold
 kernel) stays exact however late a post lands; a relay that fails is
-logged and counted in ``health()``, and the gather's timeout still decides
-a host that died.
+logged and counted in ``health()``, as is a race another host solved
+whose posts never reached this host (``missed``: the gathered records say
+who solved), and the gather's timeout still decides a host that died.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.solver import SOLVED
 from ..ops.spec import SPEC_9, BoardSpec
 from .relay import RaceRelay, relay_channel
 
@@ -219,9 +221,18 @@ class FrontierServingLoop:
         request id, the same on every rank) names the race to the relay."""
         from .frontier import frontier_solve
 
-        link = self.relay.begin(race) if self.relay is not None else None
+        solved = []  # from the gathered records: by rank, whether it solved
+
+        def gather(meta, grid):
+            meta, grid = self._gather_records(meta, grid)
+            solved.append((meta[:, 0] == SOLVED).reshape(self.world, -1).any(1))
+            return meta, grid
+
+        link = (self.relay.begin(race, card=self.mesh.primary.type == "cuda")
+                if self.relay is not None else None)
+        elsewhere = False
         try:
-            return frontier_solve(
+            out = frontier_solve(
                 board.reshape(self.spec.size, self.spec.size),
                 self.mesh,
                 self.spec,
@@ -230,11 +241,15 @@ class FrontierServingLoop:
                 locked=self.locked,
                 waves=self.waves,
                 naked_pairs=self.naked_pairs,
-                hosts=(self.rank, self.world, self._gather_records, link),
+                hosts=(self.rank, self.world,
+                       gather if link is not None else self._gather_records, link),
             )
+            elsewhere = bool(solved) and any(
+                s for r, s in enumerate(solved[0].tolist()) if r != self.rank)
+            return out
         finally:
             if link is not None:
-                self.relay.finish(link)
+                self.relay.finish(link, elsewhere)
 
     def _solve_batch_collective(self, header: np.ndarray) -> np.ndarray:
         """The batch lane: a second broadcast carries the padded bucket
@@ -388,7 +403,9 @@ class FrontierServingLoop:
         completed within ``stall_after_s`` while idle, or a collective has
         run past ``collective_stall_after_s``. ``relay`` (above one rank):
         the relay thread's ``RaceRelay.health()``: alive, races, posts sent
-        and delivered, errors and the last error, the last race's posts."""
+        and delivered, errors and the last error, races missed (another
+        host solved, none of its posts came) and late, the last race's
+        posts."""
         now = time.monotonic()
         started = self._thread is not None
         stalled = False

@@ -388,10 +388,6 @@ class _FakeRaceLibrary:
         self.calls.append(args)
         return self.error
 
-    def dfs_race_shards_relay_launch(self, *args):
-        self.calls.append(("relay",) + args)
-        return self.error
-
 
 @pytest.fixture
 def fake_cuda_stream(monkeypatch):
@@ -1307,10 +1303,11 @@ def test_virtual_mesh_segments_match_one_device_on_the_card():
 @pytest.mark.parametrize("layout", ["device", "host"])
 def test_shard_race_launch_with_a_relay_passes_its_inbox_outbox_and_race(monkeypatch,
                                                                          layout):
-    """A race across shards with a relay across hosts goes to the library's
-    relay entry: no fold, the inbox's and the outbox's device addresses and
-    the race's tag in them after the common arguments. A fold with a relay
-    raises: every host's records fold after the gather."""
+    """A race across shards with a relay across hosts passes the library
+    no fold, and the inbox's and the outbox's device addresses and the
+    race's tag after the common arguments (a race without a relay passes
+    null, null, 0 there). A fold with a relay raises: every host's records
+    fold after the gather."""
     import contextlib
     import threading
     import types
@@ -1339,13 +1336,15 @@ def test_shard_race_launch_with_a_relay_passes_its_inbox_outbox_and_race(monkeyp
     assert len(outs) == 2 and dfs_race_shards.launches == before + (
         1 if layout == "device" else 2)
     (args,) = lib.calls
-    assert args[0] == "relay"
-    n, inputs, grids, metas, sg, sc, sm, stop, slot_ptr, clock, code = args[1:12]
-    assert n == 2 and clock is None and slot_ptr == (4242 if layout == "host" else None)
+    n, inputs, grids, metas, sg, sc, sm, stop, fold, row, slot_ptr, clock, code = args[:13]
+    assert n == 2 and (fold, row, clock) == (None, None, None)
+    assert slot_ptr == (4242 if layout == "host" else None)
     assert code == ("device", "peer", "host").index(layout)
     assert list(stop) == [w.data_ptr() for w in words]
-    assert list(args[13]) == [301, 302] and args[14:16] == (2, spec.box)
-    assert args[20:] == (6161, 5151, 9)
+    assert list(args[14]) == [301, 302] and args[15:17] == (2, spec.box)
+    assert args[21:] == (6161, 5151, 9)
+    _launch_race_shards(lib, states, spec, spec.cells, 64, 3, 1, slots, streams, False)
+    assert len(lib.calls) == 2 and lib.calls[1][21:] == (None, None, 0)
     with pytest.raises(ValueError, match="relay"):
         dfs_race_shards(states, spec, spec.cells, 64, relay=relay, fold=True)
 

@@ -239,6 +239,57 @@ def test_a_relay_that_cannot_find_the_other_hosts_reports_it_and_never_stops_a_r
     assert not relay.alive
 
 
+def test_a_race_whose_posts_are_dropped_is_counted_missed_and_a_late_one_late():
+    """A datagram lost on the way leaves no error on either side: host 1's
+    posts of race 5 go to an address host 0 never reads (a sink standing
+    in for a filtered port), host 1 counts them sent, and host 0's race
+    runs without a stop. Told at ``finish`` that another host solved the
+    race, host 0 waits ``RELAY_LATE_S`` for a post of it, counts the race
+    missed and reports it in its health, with no error. A post that lands
+    after host 0's race ended but before its ``finish`` counts late; a race
+    nobody else solved counts neither."""
+    from sudoku_solver_distributed_tpu_torch.parallel.relay import RELAY_LATE_S
+
+    store, (r0, r1) = _pair()
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sink:
+        sink.bind(("127.0.0.1", 0))
+        try:
+            # a post that lands after host 0's race ended: late
+            l0, l1 = r0.begin(4), r1.begin(4)
+            l0.local_done()
+            _wait(lambda: l0.quiet.is_set())
+            l1.post(9)
+            _wait(lambda: r1.health()["posts_sent"] == 1)
+            r0.finish(l0, solved_elsewhere=True)
+            l1.local_done()
+            r1.finish(l1)
+            assert (r0.health()["late"], r0.health()["missed"]) == (1, 0)
+            # host 1's datagrams to host 0 go to the sink from here on
+            r1._peers = (sink.getsockname(),)
+            l0, l1 = r0.begin(5), r1.begin(5)
+            l1.post(7)
+            _wait(lambda: r1.health()["posts_sent"] == 2)
+            assert l0.stop_step() is None
+            l0.local_done()
+            _wait(lambda: l0.quiet.is_set())
+            t0 = time.monotonic()
+            r0.finish(l0, solved_elsewhere=True)
+            assert time.monotonic() - t0 >= RELAY_LATE_S
+            l1.local_done()
+            r1.finish(l1)
+            h0 = r0.health()
+            assert (h0["missed"], h0["late"], h0["errors"], h0["posts_delivered"]) == (1, 1, 0, 0)
+            assert h0["last"]["race"] == 5 and not h0["last"]["heard"]
+            assert r1.health()["errors"] == 0 and sink.recv(64) == b"5:7"
+            # a race no other host solved: nothing is missed
+            l0 = r0.begin(6)
+            l0.local_done()
+            r0.finish(l0)
+            assert (r0.health()["missed"], r0.health()["late"]) == (1, 1)
+        finally:
+            _stop((r0, r1))
+
+
 # two ranks of the serving loop (2 shards each) race one deep board with
 # the relay on; each prints every race's gathered records and its relay's
 # health, the leader the answer. argv: rank, port, board

@@ -83,6 +83,9 @@ def build_other(cs, source: Path):
         getattr(lib, fn).argtypes = getattr(this, fn).argtypes
         getattr(lib, fn).restype = ctypes.c_int
     if hasattr(lib, "dfs_race_shards_launch"):  # a build with the shard form
+        # a build before the relay across hosts takes the first 21 arguments:
+        # the three trailing ones (null, null, 0 without a relay) lie past
+        # them, which the C calling convention lets it ignore
         lib.dfs_race_shards_launch.argtypes = this.dfs_race_shards_launch.argtypes
         lib.dfs_race_shards_launch.restype = ctypes.c_int
     if lib.dfs_solver_meta_cols() != cs.META_COLS:
