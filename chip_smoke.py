@@ -190,7 +190,7 @@ exit) on any error:
    a thread block a state, the fold in the last block) against the plain
    lockstep race (``_dfs_race_plain``) on seeded
    states (``parallel/frontier.seed_frontier``, locked, as the engine
-   seeds): four 9x9 deep-corpus boards picked by ``--seed`` at 64 states,
+   seeds; on the card, so K5 seeds them): four 9x9 deep-corpus boards picked by ``--seed`` at 64 states,
    the README board at 512 (2048 raced), two 16x16 deep-anneal boards at
    64 and a 25x25 one at 8 (the seeding BFS solves the rest itself,
    and two deep boards at 512 are checked to be answered that way), the
@@ -209,18 +209,34 @@ exit) on any error:
    ``--race-parent FILE``) and torch.profiler (one kernel record a race, no
    other kernel or memset), the plain race's time, the bound (the lockstep
    race's sweeps), t*, microseconds per sweep of the slowest state and the
-   host seeding time, on five sets (``race_timing_sets``).
+   seeding's time (the host rounds and ``seed_frontier`` on the card,
+   host clock, beside K5 alone by CUDA events), on five sets
+   (``race_timing_sets``).
    (d) A ``--frontier 64`` node in its default configuration, counters set
    to 0 once warm: the README board stays on the probe (no escalation);
    16 deep 9x9 boards /solve, each escalated (``frontier_escalations``),
    correct and stamped with ``coalesce`` and ``device`` in ``X-Timing``; 4
    more through the node's solve entry point, whose race validations plus
-   their probes' equal the /stats delta; the launches are read (K4 and
-   the K1 probe must have run); then ``engine.solve_one`` on 6 of the deep
-   boards, race route and ``frontier=False`` bucket path in turns (host
-   clock), a ``--frontier-handoff`` node on 4 deep boards (K3 probe
-   states seed the races), and ``--board-size 16`` and ``25`` frontier
-   nodes (``--buckets 1,8,64``) on 3 deep boards each.
+   their probes' equal the /stats delta; the launches are read (K4, K5
+   and the K1 probe must have run); then ``engine.solve_one`` on 6 of the
+   deep boards, race route and ``frontier=False`` bucket path in turns
+   (host clock), printed beside the deep /solve p50 and its ``coalesce``
+   (seeding) and ``device`` stage p50s from ``X-Timing``; a
+   ``--frontier-handoff`` node on 4 deep boards (K3 probe states seed the
+   races), and ``--board-size 16`` and ``25`` frontier nodes (``--buckets
+   1,8,64``) on 3 deep boards each. (e) The seeding kernel
+   (ops/cuda_solver.seed_frontier_cuda: ``seed_frontier_kernel``, K5, one
+   block, one launch a seeding) against its plain version (the host
+   rounds, ``_seed_frontier_plain``) exactly: the seeded states, their
+   count and the solution, on the boards of phase 11's sets at their own
+   targets, boards 0-15 of the deep 9x9 corpus at 64 and 512 (where the
+   seeding solves them), locked and unlocked, and a handoff seeding (the
+   README's probe state); the sets must reach all three ends (target,
+   solved, every state dead). Per set K5 alone (CUDA events, median of
+   20), through the wrapper (host clock), the host rounds' time, rounds,
+   states analyzed and the bound. ``seed_frontier`` on the card equals
+   ``device="cpu"``, and ``frontier_solve`` answers a board its seeding
+   solves with the CPU's ``info``.
 12. The cold-start and durability plane. (a) The compile plane: a CLI
    node in a process of its own on a fresh ``--compile-cache-dir`` builds
    the kernel library into the store (``/metrics`` ``engine.warm.aot``:
@@ -300,9 +316,9 @@ exit) on any error:
    shards), then two ranks on a gloo group on this card (2 shards each,
    gloo asked for by this script): a batch fan-out with one device's
    grids and the plain counters, and the README race equal to the plain
-   4-shard race, its launches counted alone (one shard-form launch of
-   this host's shards, which share the card, and one fold kernel after the
-   gather). (e) A resumable batch on the mesh in a
+   4-shard race, its launches counted alone (one seeding kernel launch,
+   one shard-form launch of this host's shards, which share the card, and
+   one fold kernel after the gather). (e) A resumable batch on the mesh in a
    child, SIGKILLed at its first snapshot and resumed on one device to the
    uninterrupted run's rows.
 
@@ -317,10 +333,11 @@ card's name and power limit, a ``{"obs": {...}}`` line (phase 8), a
 10), a ``{"frontier": {...}}`` line (phase 11), a ``{"durability":
 {...}}`` line (phase 12), a ``{"mesh": {...}}`` line (phase 13), one
 ``{"kernels": [...]}`` line (dfs_solver, dfs_segment_kernel,
-segment_digest_kernel, dfs_race_kernel, dfs_race_shard_kernel and
-race_fold_kernel, each with its launches on every path,
-``launches_mesh_path`` among them; the fold kernel's on the multi-host
-path of (d)), and last
+segment_digest_kernel, dfs_race_kernel, dfs_race_shard_kernel,
+race_fold_kernel and seed_frontier_kernel, each with its launches on
+every path, ``launches_mesh_path`` among them; the fold kernel's on the
+multi-host path of (d), the seeding kernel's on the frontier node, the
+mesh node and each serving loop), and last
 ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is available.
 Imports nothing of JAX.
@@ -3262,9 +3279,10 @@ def _phase_p2p(nodes, tmp, oracle_ok, random_symmetry, count_solutions,
 RACE_KERNELS = ("dfs_race_kernel",)  # K4 folds in its own launch
 # a race across shards: K4's shard form a shard, then one fold launch
 MESH_RACE_KERNELS = ("dfs_race_shard_kernel", "race_fold_kernel")
+SEED_KERNEL = "seed_frontier_kernel"  # K5: a race's seeding, one launch
 # the wrappers whose launch counts phase 13 (b) reads on the mesh node
 MESH_PATH_KERNELS = ("dfs_solver", "dfs_segment", "dfs_race", "dfs_race_shards",
-                     "race_fold")
+                     "race_fold", "seed_frontier_cuda")
 FRONTIER_STATES = 64  # --frontier of phase 11's nodes: the engine's default
 FRONTIER_BUCKET_BOARDS = 6  # deep boards timed on both routes in phase 11 (d)
 
@@ -3275,7 +3293,7 @@ def _race_states(F, board, spec, target: int):
     states, early = F.seed_frontier(board, spec, target=target, locked=True)
     if early is not None:
         return None
-    return F.bucket_states(states, spec, target)
+    return F.bucket_states(states, spec, target).numpy()
 
 
 def frontier_race_sets(F, spec_for_size, seed: int):
@@ -3399,31 +3417,41 @@ def _race_diffs(a, b) -> tuple:
     return bad, err
 
 
+RACE_PROFILE_WINDOWS = 3  # capture windows a race profile may take
+
+
 def race_profile(fn, reps: int) -> dict:
     """torch.profiler's device records over ``reps`` calls of a race:
     ``_profiled_kernel_ms`` of K4, plus every other kernel or memset in the
-    window by name (the device sleep that opens the window aside)."""
+    window by name (the device sleep that opens the window aside). The
+    profiler has lost every race record of a window once (H100, torch
+    2.11): a window with fewer than 5 records is captured again, up to
+    ``RACE_PROFILE_WINDOWS`` windows, and each loss is logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(int(5e-3 * SM_CLOCK_HZ))
-        for _ in range(reps):
-            fn()
+    for window in range(RACE_PROFILE_WINDOWS):
         torch.cuda.synchronize()
-    count, total_us, others = 0, 0.0, {}
-    for e in prof.key_averages():
-        if e.device_time_total <= 0:
-            continue
-        if RACE_KERNELS[0] in e.key:
-            count += e.count
-            total_us += e.device_time_total
-        elif "spin_kernel" not in e.key:
-            others[e.key] = others.get(e.key, 0) + e.count
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(int(5e-3 * SM_CLOCK_HZ))
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        count, total_us, others = 0, 0.0, {}
+        for e in prof.key_averages():
+            if e.device_time_total <= 0:
+                continue
+            if RACE_KERNELS[0] in e.key:
+                count += e.count
+                total_us += e.device_time_total
+            elif "spin_kernel" not in e.key:
+                others[e.key] = others.get(e.key, 0) + e.count
+        if count >= 5:
+            break
+        log(f"race profile: window {window + 1} kept {count} race records of {reps} races")
     check(5 <= count <= reps, f"the profiler recorded {count} race kernels for {reps} races")
     return {"ms": total_us / count / 1e3, "records": count, "calls": reps,
-            "other_records": others}
+            "other_records": others, "windows": window + 1}
 
 
 def _race_parent(cs, source):
@@ -3489,15 +3517,17 @@ def _race_streams(cs, sets, config) -> dict:
 
 
 def _frontier_parity(cs, F, spec_for_size, config, oracle_ok, seed: int,
-                     race_parent=None):
+                     race_parent, sets):
     """(a)-(c): K4 against its plain version on every set of
-    ``frontier_race_sets``, each ended state's run against K1's, the early
-    exit, back-to-back races and two streams, and the timing (the parent's
-    build in turns, with ``race_parent``). Restores the launch counters:
-    none of this is the main path."""
+    ``frontier_race_sets`` (``sets``), each ended state's
+    run against K1's, the early exit, back-to-back races and two streams,
+    and the timing (the parent's build in turns, with ``race_parent``).
+    Restores the launch counters: none of this is the main path."""
+    import numpy as np
     import torch
 
-    counts = (cs.dfs_race.launches, cs.dfs_solver.launches)
+    counts = (cs.dfs_race.launches, cs.dfs_solver.launches,
+              cs.seed_frontier_cuda.launches)
     out = {"mismatches": 0, "max_abs_err": 0, "sets": {}, "timing": {}}
     out["states_per_sm"] = {size: cs.race_states_per_sm(size) for size in (4, 9, 16, 25)}
     lib = cs.load_library()
@@ -3507,10 +3537,6 @@ def _frontier_parity(cs, F, spec_for_size, config, oracle_ok, seed: int,
                             for size in (4, 9, 16, 25)}
     log(f"phase 11: K4 threads a state {out['threads']}, stack in the device slab "
         f"{out['stack_in_slab']}, resident states per SM {out['states_per_sm']}")
-    t0 = time.perf_counter()
-    sets = frontier_race_sets(F, spec_for_size, seed)
-    log(f"phase 11 (a): {len(sets)} race sets seeded in "
-        f"{time.perf_counter() - t0:.2f} s (host)")
     _seeding_answers_at_512(F, spec_for_size, oracle_ok, seed)
     parent = _race_parent(cs, race_parent)
     timing_sets = race_timing_sets(sets)
@@ -3581,18 +3607,24 @@ def _frontier_parity(cs, F, spec_for_size, config, oracle_ok, seed: int,
         prof = race_profile(this_race, 10)
         check(not prof["other_records"],
               f"{name}: a race launched more than its kernel: {prof['other_records']}")
-        seed_ms = []
+        seed_ms = {"cpu": [], "cuda": []}
         for _ in range(3):
-            t0 = time.perf_counter()
-            F.seed_frontier(board, spec, target=target, locked=True)
-            seed_ms.append((time.perf_counter() - t0) * 1e3)
+            for where, times in seed_ms.items():
+                t0 = time.perf_counter()
+                F.seed_frontier(board, spec, target=target, locked=True, device=where)
+                times.append((time.perf_counter() - t0) * 1e3)
+        host_seed_ms, card_seed_ms = (sorted(seed_ms[k])[1] for k in ("cpu", "cuda"))
+        k5_ms = _seed_kernel_ms(
+            cs, torch.as_tensor(np.asarray(board, np.int32).reshape(1, C), device="cuda"),
+            spec, target, True)
         bound, by = _race_bound_ms(flat, pfold, C, sweeps["locked_candidates"])
         sweeps_slowest = int(kmeta[:, 2].max())
         out["timing"][name] = dict(
             timing, ms=this_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             kernel_ms=prof["ms"], profiler_records=prof["records"], t_star=t_star,
             us_per_sweep_slowest=this_ms * 1e3 / max(sweeps_slowest, 1),
-            seed_ms=sorted(seed_ms)[1], states=len(states),
+            seed_ms=host_seed_ms, card_seed_ms=card_seed_ms, k5_ms=k5_ms,
+            states=len(states),
         )
         parent_note = (f"; parent {timing['parent_ms']:.4f} ms (turns "
                        + ", ".join(f"{x:.4f}" for x in timing["turns_ms"]) + ")"
@@ -3602,11 +3634,13 @@ def _frontier_parity(cs, F, spec_for_size, config, oracle_ok, seed: int,
             f"records of {prof['calls']} races, no other kernel or memset; plain "
             f"{plain_ms:.1f} ms; bound {bound:.5f} ms by {by} ({bound / this_ms:.2%}); "
             f"t* {t_star}; {this_ms * 1e3 / max(sweeps_slowest, 1):.3f} us per sweep "
-            f"of the slowest state ({sweeps_slowest} sweeps); host seeding "
-            f"{sorted(seed_ms)[1]:.2f} ms (median of 3)")
+            f"of the slowest state ({sweeps_slowest} sweeps); seeding: host rounds "
+            f"{host_seed_ms:.2f} ms, seed_frontier on the card {card_seed_ms:.3f} ms "
+            f"(host clock, medians of 3), K5 alone {k5_ms:.4f} ms (CUDA events, "
+            f"median of 20)")
     out["streams"] = _race_streams(cs, sets, config)
     out["mismatches"] += out["streams"]["mismatches"]
-    cs.dfs_race.launches, cs.dfs_solver.launches = counts
+    cs.dfs_race.launches, cs.dfs_solver.launches, cs.seed_frontier_cuda.launches = counts
     check(any(r["found"] and r["k4_steps_all_blocks"] < r["steps_each_to_own_end"]
               for r in out["sets"].values()),
           "no race stopped its blocks short of their own ends: no early exit")
@@ -3645,6 +3679,7 @@ def _frontier_node(cs, build_parser, build_node, oracle_ok):
 
         eng._probe_quick = probe
         cs.dfs_race.launches = cs.dfs_solver.launches = cs.dfs_segment.launches = 0
+        cs.seed_frontier_cuda.launches = 0
         esc0, races0 = eng.frontier_escalations, eng.cost.snapshot().get(
             "frontier", {}).get("races", 0)
         _solve_timed(node.base, README_PUZZLE, oracle_ok, "README /solve on the frontier node")
@@ -3679,11 +3714,14 @@ def _frontier_node(cs, build_parser, build_node, oracle_ok):
               "/stats disagrees with the answers")
         out["launches"] = {"dfs_race": cs.dfs_race.launches,
                            "dfs_solver": cs.dfs_solver.launches,
-                           "dfs_segment": cs.dfs_segment.launches}
+                           "dfs_segment": cs.dfs_segment.launches,
+                           "seed_frontier_cuda": cs.seed_frontier_cuda.launches}
         log(f"phase 11 (d): launches on the frontier path (README, 16 deep "
             f"/solve, 4 in process): {out['launches']}")
-        check(out["launches"]["dfs_race"] > 0 and out["launches"]["dfs_solver"] > 0,
-              f"the frontier path did not launch K4 and the K1 probe: {out['launches']}")
+        check(out["launches"]["dfs_race"] > 0 and out["launches"]["dfs_solver"] > 0
+              and out["launches"]["seed_frontier_cuda"] > 0,
+              f"the frontier path did not launch K4, K5 and the K1 probe: "
+              f"{out['launches']}")
         out["escalations"] = eng.frontier_escalations - esc0
         out["races"] = eng.cost.snapshot()["frontier"]["races"] - races0
         out["race_p50_ms_http"] = _p50_ms(race_ms)
@@ -3711,6 +3749,12 @@ def _frontier_node(cs, build_parser, build_node, oracle_ok):
             f"{out['engine_race_p50_ms']:.3f} ms vs the bucket path (frontier=False) "
             f"p50 {out['engine_bucket_p50_ms']:.3f} ms "
             f"({out['engine_bucket_p50_ms'] / out['engine_race_p50_ms']:.2f}x)")
+        log(f"phase 11 (d): deep /solve p50 {out['race_p50_ms_http']:.3f} ms, its "
+            f"coalesce stage (the seeding, K5 on the card) p50 "
+            f"{out['stage_p50_ms']['coalesce_ms']:.3f} ms and device stage p50 "
+            f"{out['stage_p50_ms']['device_ms']:.3f} ms; the bucket path's p50 "
+            f"{out['engine_bucket_p50_ms']:.3f} ms beside the race route's "
+            f"{out['engine_race_p50_ms']:.3f} ms (in turns)")
     finally:
         node.stop()
     # the handoff arm: the probe's K3 segment state seeds the race
@@ -3748,6 +3792,172 @@ def _frontier_node(cs, build_parser, build_node, oracle_ok):
     return out
 
 
+def _seed_kernel_ms(cs, flat, spec, target: int, locked: bool, reps: int = 20) -> float:
+    """K5 alone: CUDA events around each of ``reps`` of the wrapper's
+    launch steps (``cs._seed_launch``: no header read), after one warm
+    launch; the median ms. Restores the launch counter: these launches
+    are a measurement, not the main path."""
+    import torch
+
+    lib = cs.load_library()
+    count0 = cs.seed_frontier_cuda.launches
+    events = []
+    for _ in range(reps + 1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        cs._seed_launch(lib, flat, spec, target, spec.cells + 16, locked)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    cs.seed_frontier_cuda.launches = count0
+    times = sorted(a.elapsed_time(b) for a, b in events[1:])
+    return times[len(times) // 2]
+
+
+def _seed_bound_ms(states_in: int, count: int, analyzed: int, cells: int,
+                   locked: bool):
+    """The least time for one seeding: the larger of its bytes (the states
+    in read once, the seeded states and the header written once) over the
+    HBM rate and its integer operations (a sweep analysis of every state
+    each round analyzed, as this seeding's header counts them) over the
+    int32 rate. The chain of dependent rounds is a latency floor beside
+    it, not a rate bound (PERF.md)."""
+    per_cell = OPS_PER_CELL_SWEEP + (OPS_PER_CELL_LOCKED if locked else 0)
+    bytes_ms = ((states_in + count) * cells + SEED_HEADER_WORDS) * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = analyzed * cells * per_cell / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+SEED_DEEP_BOARDS = 16  # 11 (e): boards 0-15 of the deep 9x9 corpus
+SEED_HEADER_WORDS = 5  # the seeding kernel's header (cuda_solver.SEED_HEADER_COLS)
+
+
+def seeding_sets(sets, spec_for_size):
+    """(name, states, spec, target, locked) of phase 11 (e): the boards of
+    phase 11's race sets at their own targets, locked as the nodes seed;
+    boards 0-15 of the deep 9x9 corpus at 64 and 512, locked and not; a
+    handoff seeding (the README's K3 probe state after 64 steps, on the
+    CPU engine, cut into its unexplored subtrees); the UNSAT root (among
+    phase 11's sets); a board that the seeding solves (deep boards at
+    512); a 4x4 one-clue board, 16x16 and 25x25 deep boards (phase 11's)."""
+    import numpy as np
+    from sudoku_solver_distributed_tpu_torch.engine import SolverEngine
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    out, seen = [], set()
+    for name, board, spec, _, _, target in sets:
+        key = (np.asarray(board).tobytes(), target)
+        if key not in seen:
+            seen.add(key)
+            out.append((f"{name.split(' @')[0]} @{target}", np.asarray(board)[None], spec,
+                        target, True))
+    spec9 = spec_for_size(9)
+    deep9 = load_corpus("corpus_9x9_deep_128.npz")
+    for k in range(SEED_DEEP_BOARDS):
+        for target in (64, 512):
+            for locked in (True, False):
+                out.append((f"9x9 deep #{k} @{target}{'' if locked else ' unlocked'}",
+                            deep9[k][None], spec9, target, locked))
+    eng = SolverEngine(device="cpu", buckets=(1,), frontier_mesh="auto",
+                       frontier_escalate_iters=64)
+    try:
+        _, pool = eng._quick_state(np.asarray(README_PUZZLE, np.int32))
+        seeds = F.state_handoff_frontier(pool.state, spec9)
+    finally:
+        eng.close()
+    out.append((f"README handoff ({len(seeds)} states) @64", seeds, spec9, 64, True))
+    return out
+
+
+def _seeding_parity(cs, F, spec_for_size, oracle_ok, sets) -> dict:
+    """(e): the seeding kernel (K5, ``seed_frontier_cuda`` on the card)
+    against its plain version (the host rounds) on every set of
+    ``seeding_sets``, exactly: the seeded states, their count and the
+    solution; ``seed_frontier`` on the card against ``device="cpu"`` and
+    ``frontier_solve``'s ``info`` (``seeded``) where the seeding solves.
+    Per set: K5 alone (CUDA events, median of 20), the wrapper (host clock,
+    median of 5: the launch, the header read and the solution row), the
+    plain version (host clock, one run), rounds, states analyzed, the
+    bound. Restores the launch counter: none of this is the main path."""
+    import numpy as np
+    import torch
+
+    count0 = cs.seed_frontier_cuda.launches
+    out = {"mismatches": 0, "max_abs_err": 0, "sets": {}}
+    outcomes = set()
+    for name, states, spec, target, locked in seeding_sets(sets, spec_for_size):
+        C, rounds_cap = spec.cells, spec.cells + 16
+        cpu = torch.as_tensor(np.ascontiguousarray(states.reshape(len(states), C)))
+        t0 = time.perf_counter()
+        pstates, psolved, _ = cs._seed_frontier_plain(cpu, spec, target, rounds_cap, locked)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        flat = cpu.cuda()
+        wrapper_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            kstates, ksolved, header = cs.seed_frontier_cuda(flat, spec, target, rounds_cap,
+                                                             locked)
+            wrapper_ms.append((time.perf_counter() - t0) * 1e3)
+        kstates = kstates.cpu()
+        same = kstates.shape == pstates.shape and torch.equal(kstates, pstates)
+        err = (int((kstates.long() - pstates.long()).abs().max())
+               if kstates.shape == pstates.shape and len(pstates) else 0)
+        same = same and (ksolved is None) == (psolved is None) and (
+            psolved is None or torch.equal(ksolved, psolved))
+        out["mismatches"] += not same
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if psolved is not None:
+            _check_answer(states[0] if len(states) == 1 else README_PUZZLE,
+                          ksolved.reshape(spec.size, spec.size).tolist(), oracle_ok,
+                          f"11 (e) {name}: the seeding's solution")
+        check(same, f"11 (e) {name}: K5 and the host rounds disagree ({len(kstates)} vs "
+                    f"{len(pstates)} states, solved {ksolved is not None} vs "
+                    f"{psolved is not None})")
+        ms = _seed_kernel_ms(cs, flat, spec, target, locked)
+        bound, by = _seed_bound_ms(len(states), header["count"], header["analyzed"], C,
+                                   locked)
+        outcomes.add(header["outcome"])
+        rec = dict(states_in=len(states), target=target, locked=locked,
+                   count=header["count"], outcome=header["outcome"],
+                   rounds=header["rounds"], analyzed=header["analyzed"], ms=ms,
+                   wrapper_ms=sorted(wrapper_ms)[2], plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=by, us_per_round=ms * 1e3 / max(header["rounds"], 1))
+        out["sets"][name] = rec
+        log(f"phase 11 (e) {name}: K5 {ms:.4f} ms (CUDA events, median of 20), through "
+            f"the wrapper {rec['wrapper_ms']:.3f} ms (host clock), the host rounds "
+            f"{plain_ms:.1f} ms; {header['rounds']} rounds, {header['analyzed']} states "
+            f"analyzed, {header['count']} seeded ({header['outcome']}); "
+            f"{rec['us_per_round']:.2f} us a round; bound {bound:.6f} ms by {by}; equal")
+    check(outcomes == {"target", "solved", "dead"},
+          f"11 (e): the sets reached outcomes {sorted(outcomes)}")
+    # the entry points: seed_frontier on the card (its default) and
+    # frontier_solve's seeded count where the seeding answers
+    spec9 = spec_for_size(9)
+    deep9 = load_corpus("corpus_9x9_deep_128.npz")
+    for k, target in ((0, 64), (1, 512)):
+        got = F.seed_frontier(deep9[k], spec9, target=target, locked=True)
+        want = F.seed_frontier(deep9[k], spec9, target=target, locked=True, device="cpu")
+        check(np.array_equal(got[0], want[0]) and (got[1] is None) == (want[1] is None),
+              f"11 (e): seed_frontier of deep #{k} @{target} differs on the card")
+    kw = dict(states_per_device=512, max_depth=(32, 81), locked=True, waves=3,
+              naked_pairs=False)
+    card = F.frontier_solve(deep9[1], "cuda", spec9, **kw)
+    host = F.frontier_solve(deep9[1], "cpu", spec9, **kw)
+    check(card == host and card[1]["validations"] == 0,
+          f"11 (e): frontier_solve of deep #1 @512: {card[1]} on the card, {host[1]} "
+          f"on the CPU")
+    out["frontier_solve_info"] = card[1]
+    cs.seed_frontier_cuda.launches = count0
+    deep = [r for n, r in out["sets"].items() if n.startswith("9x9 deep #")
+            and n.endswith("@64")]
+    out["deep64_ms_median"] = sorted(r["ms"] for r in deep)[len(deep) // 2]
+    out["deep64_plain_ms_median"] = sorted(r["plain_ms"] for r in deep)[len(deep) // 2]
+    log(f"phase 11 (e): {len(out['sets'])} seedings equal to the host rounds; deep 9x9 "
+        f"@64 locked: K5 median {out['deep64_ms_median']:.4f} ms against the host "
+        f"rounds' {out['deep64_plain_ms_median']:.1f} ms")
+    return out
+
+
 def phase_frontier(cs, build_parser, build_node, spec_for_size, config,
                    oracle_ok, seed: int, race_parent=None):
     """Phase 11: the frontier race on the card (K4 parity, early exit,
@@ -3756,11 +3966,17 @@ def phase_frontier(cs, build_parser, build_node, spec_for_size, config,
     from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
 
     t0 = time.perf_counter()
-    out = _frontier_parity(cs, F, spec_for_size, config, oracle_ok, seed, race_parent)
+    sets = frontier_race_sets(F, spec_for_size, seed)
+    log(f"phase 11 (a): {len(sets)} race sets seeded in "
+        f"{time.perf_counter() - t0:.2f} s (on the card)")
+    out = _frontier_parity(cs, F, spec_for_size, config, oracle_ok, seed, race_parent,
+                           sets)
     t1 = time.perf_counter()
     out["node"] = _frontier_node(cs, build_parser, build_node, oracle_ok)
-    out["seconds"] = {"parity_timing": round(t1 - t0, 1),
-                      "nodes": round(time.perf_counter() - t1, 1)}
+    t2 = time.perf_counter()
+    out["seeding"] = _seeding_parity(cs, F, spec_for_size, oracle_ok, sets)
+    out["seconds"] = {"parity_timing": round(t1 - t0, 1), "nodes": round(t2 - t1, 1),
+                      "seeding": round(time.perf_counter() - t2, 1)}
     log(f"phase 11 seconds by part: {out['seconds']}")
     return out
 
@@ -4907,14 +5123,16 @@ if rank == 0:
     t1 = time.perf_counter()
     sols, mask, info = eng.solve_batch_np(boards)
     launches = {"dfs_solver": cs.dfs_solver.launches}
-    # the race's path (the records gathered, then the fold kernel) alone
-    for k in ("dfs_race", "dfs_race_shards", "race_fold"):
+    # the race's path (the seeding, the records gathered, then the fold
+    # kernel) alone
+    for k in ("dfs_race", "dfs_race_shards", "race_fold", "seed_frontier_cuda"):
         getattr(cs, k).launches = 0
     t2 = time.perf_counter()
     race = loop.solve(np.asarray(json.loads(sys.argv[6]), np.int32))
     t3 = time.perf_counter()
     launches.update({k: getattr(cs, k).launches
-                     for k in ("dfs_race", "dfs_race_shards", "race_fold")})
+                     for k in ("dfs_race", "dfs_race_shards", "race_fold",
+                               "seed_frontier_cuda")})
     out = {"sols": sols.tolist(), "info": info, "race": race,
            "backend": loop.backend, "collective_device": str(loop._collective_device),
            "batch_ms": (t2 - t1) * 1e3, "race_ms": (t3 - t2) * 1e3,
@@ -5000,9 +5218,10 @@ def _mesh_loop(SolverEngine, oracle_ok) -> dict:
         # the race across hosts: this host's shards (one card) in one launch
         # of K4's shard form, the records gathered, then one fold kernel
         race_launches = {k: lead["launches"][k]
-                         for k in ("dfs_race", "dfs_race_shards", "race_fold")}
+                         for k in ("dfs_race", "dfs_race_shards", "race_fold",
+                                   "seed_frontier_cuda")}
         check(race_launches == {"dfs_race": 0, "dfs_race_shards": 1,
-                                "race_fold": 1},
+                                "race_fold": 1, "seed_frontier_cuda": 1},
               f"13(d) {backend} x{world}: the race's launches {race_launches}")
         out[f"{backend}_x{world}"] = {k: lead[k] for k in (
             "info", "backend", "collective_device", "batch_ms", "race_ms", "start_s",
@@ -5225,7 +5444,7 @@ def relay_us_a_step(board, size: int, spd: int, rank: int) -> float:
 
     spec = spec_for_size(size)
     states, _ = F.seed_frontier(board, spec, target=4 * spd, locked=True)
-    states = F.bucket_states(states, spec, spd, 4).reshape(-1, spec.cells)
+    states = F.bucket_states(states, spec, spd, 4).numpy().reshape(-1, spec.cells)
     half = len(states) // 2
     flat = torch.as_tensor(states[rank * half:(rank + 1) * half], device="cuda").contiguous()
     mesh = virtual_mesh("cuda:0", 2)
@@ -5416,7 +5635,8 @@ def ptxas_report(build_log: str, label: str = "ptxas"):
     for line in build_log.splitlines():
         m = re.search(
             r"Compiling entry function '\S*?(dfs_solver_kernel|dfs_segment_kernel|"
-            r"segment_digest_kernel|dfs_race_kernel|dfs_race_shard_kernel|race_fold_kernel)"
+            r"segment_digest_kernel|dfs_race_kernel|dfs_race_shard_kernel|race_fold_kernel|"
+            r"seed_frontier_kernel)"
             r"(?:ILi(\d)E(Lb1E)?)?",
             line
         )
@@ -5489,13 +5709,13 @@ def main(argv=None) -> int:
     build_log = cs.build_log()
     check(build_log is not None, "the kernel store kept no build log")
     ptxas = ptxas_report(build_log)
-    for kernel in ("dfs_solver_kernel", *SEGMENT_KERNELS, *RACE_KERNELS, *MESH_RACE_KERNELS):
+    for kernel in ("dfs_solver_kernel", *SEGMENT_KERNELS, *RACE_KERNELS, *MESH_RACE_KERNELS,
+                   SEED_KERNEL):
         for size in (4, 9, 16, 25):
             key = f"{kernel} {size}x{size}"
             inst = ptxas.get(key, {})
             check(inst.get("stack") == 0 and inst.get("spill_stores") == 0
                   and inst.get("spill_loads") == 0, f"{key} uses local memory: {inst}")
-
     marks = {}
     t_mark = [time.perf_counter()]
 
@@ -5814,8 +6034,40 @@ def main(argv=None) -> int:
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith("race_fold_kernel")},
     }
     check(fold_kernel["launches"] > 0, "the multi-host path launched no fold kernel")
+    seeding = frontier["seeding"]
+    main_seed = seeding["sets"][f"9x9 deep #0 @{FRONTIER_STATES}"]
+    seed_kernel = {
+        "name": SEED_KERNEL,
+        "route": "cuda",
+        "source": "sudoku_solver_distributed_tpu_torch/csrc/dfs_solver.cu",
+        # the JAX package's jitted seeding programs (_seed_jits: analyze_j,
+        # assign_j) and the host rounds that drive them (_seed_rounds, :194)
+        "replaces": "sudoku_solver_distributed_tpu/parallel/frontier.py:54",
+        # phase 11's --frontier 64 node: one seeding a raced request
+        "launches": on_frontier["seed_frontier_cuda"],
+        "launches_frontier_path": on_frontier["seed_frontier_cuda"],
+        # phase 13's mesh node (its races across 4 shards seed on the card)
+        "launches_mesh_path": on_mesh["seed_frontier_cuda"],
+        # 13(d): the README race through each loop, every host seeding alike
+        "launches_loop_path": {k: v["launches"]["seed_frontier_cuda"]
+                               for k, v in mesh["loop"].items()},
+        "mismatches": seeding["mismatches"],
+        "max_abs_err": seeding["max_abs_err"],
+        # the node's own seeding: a deep 9x9 board at 64 states, locked
+        "ms": main_seed["ms"],
+        "plain_ms": main_seed["plain_ms"],
+        "bound_ms": main_seed["bound_ms"],
+        "bound_by": main_seed["bound_by"],
+        "library_ms": None,
+        "rounds": main_seed["rounds"],
+        "analyzed": main_seed["analyzed"],
+        "by_set": seeding["sets"],
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith(SEED_KERNEL)},
+    }
+    check(seed_kernel["launches"] > 0 and seed_kernel["launches_mesh_path"] > 0,
+          "the frontier and mesh paths launched no seeding kernel")
     print(json.dumps({"kernels": [kernel, *segment_kernels, race_kernel, shard_kernel,
-                                  fold_kernel]}), flush=True)
+                                  fold_kernel, seed_kernel]}), flush=True)
     print(
         json.dumps(
             {

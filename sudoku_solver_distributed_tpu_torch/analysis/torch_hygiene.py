@@ -90,6 +90,7 @@ DEVICE_SOURCES = frozenset((
     "dfs_race",
     "dfs_race_shards",
     "race_fold",
+    "seed_frontier_cuda",
     "solve_stage",
     "solve_stage_lockstep",
     "solve_batch_cuda",

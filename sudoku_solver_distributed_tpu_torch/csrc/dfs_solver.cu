@@ -1618,6 +1618,243 @@ race_fold_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__ g
   __threadfence_system();
 }
 
+// The seeding kernel (K5): a frontier race's seeding BFS, one board's in one
+// launch. The JAX package seeds on its host with two jitted XLA programs
+// (parallel/frontier.py:54 _seed_jits: analyze_j and assign_j) and a host
+// decision between rounds (_seed_rounds, :194); the port's plain version is
+// the same rounds on CPU tensors (ops/solver.py seed_rounds). It
+// replaces no Pallas kernel. Round for round it computes what those rounds
+// do, deciding over the whole batch as they do:
+//   * every state of the batch gets one sweep analysis (K1's `sweep`, a
+//     warp a state, locked candidates with naked pairs when `locked`, as
+//     analyze(locked=True) has them);
+//   * a solved state ends the seeding: the batch as it was analyzed is
+//     returned, with the index of its first solved state;
+//   * a batch whose every state is dead ends it, padded;
+//   * when any live state has a single, every live state takes its
+//     singles, the dead are dropped and the next round starts;
+//   * otherwise the dead are dropped; at `target` states or more that is
+//     the result, else each state splits on its MRV cell (the least
+//     candidate count, the lowest cell on ties), a child a candidate in
+//     ascending order, children in their parents' order (a state with no
+//     candidate cell is kept as it is), and at `target` children or more
+//     that is the result, with no further analysis;
+//   * after max_rounds the batch is padded. Padding is the
+//     instantly-UNSAT board (two 1s in row 0) up to `target`.
+// Design (simple first): one thread block of kSeedWarps[BOX] warps. The
+// states are double-buffered in device memory (`cur`, the batch, and
+// `next`, each state's grid after its sweep, at the same index); a round
+// is (1) the sweeps, warp w taking states w, w + W, ...; (2) the round's
+// decision from the states' verdicts (`info`), reduced over the block;
+// (3) each surviving state's place in the next batch, from a block-wide
+// exclusive scan of its row count (1, or its children); (4) the rows
+// written from `next` into `cur` at those places, a warp a state. The
+// header [count, first solved index or -1, rounds, states analyzed,
+// outcome] is written last. Every step is deterministic, so every host of
+// a race across hosts seeds the same states on its own card.
+// What bounds it on an H100: the latency of its dependent rounds (~20-25
+// for a deep 9x9 board), each a sweep chain of one state (the warps' states
+// overlap) plus three block barriers and a scan; its bytes (a few hundred
+// states of C words, in L2) and operations (a sweep a state analyzed) are
+// far below that. A thread-block cluster, or a block per SM with a
+// grid-wide barrier a round, would spread a wide round over more SMs: a
+// later change.
+constexpr int kSeedWarps[6] = {0, 0, 8, 16, 8, 4};  // 25x25: 247 registers a lane
+constexpr int kSeedInfoCols = 3;    // per state: verdict | MRV cell << 4, MRV mask, row
+constexpr int kSeedTarget = 0;      // the outcomes of a seeding
+constexpr int kSeedSolved = 1;
+constexpr int kSeedDead = 2;
+constexpr int kSeedRounds = 3;
+constexpr int kSeedNone = 0x7fffffff;
+
+// Exclusive prefix sum of one value a thread over the block's W warps, in
+// thread order; the block's total in `total`. `scan`: kLanes + 1 shared
+// words, free again on return.
+template <int W>
+__device__ __forceinline__ int block_exclusive_scan(int v, int t, int* scan, int& total) {
+  const int lane = t % kLanes, warp = t / kLanes;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < kLanes; d *= 2) {
+    const int y = __shfl_up_sync(kAll, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == kLanes - 1) scan[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < W ? scan[lane] : 0;
+    int s = w;
+#pragma unroll
+    for (int d = 1; d < kLanes; d *= 2) {
+      const int y = __shfl_up_sync(kAll, s, d);
+      if (lane >= d) s += y;
+    }
+    if (lane < W) scan[lane] = s - w;
+    if (lane == kLanes - 1) scan[kLanes] = s;
+  }
+  __syncthreads();
+  const int out = scan[warp] + x - v;
+  total = scan[kLanes];
+  __syncthreads();
+  return out;
+}
+
+template <int BOX>
+__global__ void __launch_bounds__(kSeedWarps[BOX] * kLanes)
+seed_frontier_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ cur,
+                     int32_t* __restrict__ next, int32_t* __restrict__ info,
+                     int32_t* __restrict__ header, int M, int target, int max_rounds,
+                     int options) {
+  using Geo = Geometry<BOX>;
+  constexpr int W = kSeedWarps[BOX];
+  constexpr int T = W * kLanes;
+  constexpr int C = Geo::C;
+  constexpr int CPL = Geo::CPL;
+  __shared__ int32_t smem[W][Geo::WORDS];
+  __shared__ int scan[kLanes + 1];
+  __shared__ int vote[3];  // first solved index, live states, any live single
+  const int t = threadIdx.x, lane = t % kLanes, warp = t / kLanes;
+  const Smem sh = group_smem<BOX>(smem[warp]);
+  WarpGroup grp{lane};
+  int pk[CPL];
+  UnitWalk uw[Geo::UPL];
+  lane_layout<BOX, WarpGroup>(lane, pk, uw);
+  const bool locked = options & kOptLocked;
+  const bool pairs = locked && (options & kOptPairs);
+  for (size_t k = t; k < (size_t)M * C; k += T) cur[k] = states[k];
+  __syncthreads();
+
+  int outcome = kSeedRounds, first = -1, rounds = 0, analyzed = 0;
+  while (rounds < max_rounds) {
+    ++rounds;
+    analyzed += M;
+    // (1) each state's sweep: its grid (singles taken) into next, its
+    // verdict and MRV cell into info
+    for (int i = warp; i < M; i += W) {
+      int g[CPL], cand[CPL];
+      const int32_t* in = cur + (size_t)i * C;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) g[j] = owns<BOX, kLanes>(lane, j) ? in[lane + j * kLanes] : 0;
+      unsigned key;
+      const int v = sweep<BOX>(g, cand, pk, uw, sh, grp, locked, pairs, key);
+      int cell = 0, mask = 0;
+      if (v == kSweepStuck) {
+        const unsigned k = __reduce_min_sync(kAll, key);
+        if (k != kNoKey) {
+          cell = (int)(k & ((1u << kCellBits) - 1));
+          int mine = 0;
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            if (lane + j * kLanes == cell) mine = cand[j];
+          }
+          mask = (int)__reduce_or_sync(kAll, (unsigned)mine);
+        }
+      }
+      if (v >= kSweepAssigned) {
+        int32_t* out = next + (size_t)i * C;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          if (owns<BOX, kLanes>(lane, j)) out[lane + j * kLanes] = g[j];
+        }
+      }
+      if (lane == 0) {
+        info[(size_t)i * kSeedInfoCols] = v | cell << 4;
+        info[(size_t)i * kSeedInfoCols + 1] = mask;
+      }
+      __syncwarp();
+    }
+    if (t == 0) {
+      vote[0] = kSeedNone;
+      vote[1] = 0;
+      vote[2] = 0;
+    }
+    __syncthreads();
+    // (2) the round's decision over the whole batch
+    int solved = kSeedNone, live = 0, singles = 0;
+    for (int i = t; i < M; i += T) {
+      const int v = info[(size_t)i * kSeedInfoCols] & 15;
+      if (v == kSweepSolved) solved = min(solved, i);
+      live += v >= kSweepAssigned;
+      singles |= v == kSweepAssigned;
+    }
+    solved = __reduce_min_sync(kAll, solved);
+    live = __reduce_add_sync(kAll, live);
+    singles = __reduce_or_sync(kAll, singles);
+    if (lane == 0) {
+      atomicMin(&vote[0], solved);
+      atomicAdd(&vote[1], live);
+      atomicOr(&vote[2], singles);
+    }
+    __syncthreads();
+    const int b_solved = vote[0], b_live = vote[1], b_singles = vote[2];
+    if (b_solved != kSeedNone) {
+      outcome = kSeedSolved;
+      first = b_solved;
+      break;
+    }
+    if (b_live == 0) {
+      outcome = kSeedDead;
+      break;
+    }
+    const bool split = !b_singles && b_live < target;
+    // (3) each live state's first row in the next batch
+    int total = 0;
+    for (int base = 0; base < M; base += T) {
+      const int i = base + t;
+      int n = 0;
+      if (i < M) {
+        const int* f = info + (size_t)i * kSeedInfoCols;
+        if ((f[0] & 15) >= kSweepAssigned) n = split ? max(__popc(f[1]), 1) : 1;
+      }
+      int chunk;
+      const int off = block_exclusive_scan<W>(n, t, scan, chunk);
+      if (i < M) info[(size_t)i * kSeedInfoCols + 2] = total + off;
+      total += chunk;
+    }
+    __syncthreads();
+    // (4) the next batch: each live state's row, or its children
+    for (int i = warp; i < M; i += W) {
+      const int* f = info + (size_t)i * kSeedInfoCols;
+      if ((f[0] & 15) < kSweepAssigned) continue;  // uniform over the warp
+      const int32_t* src = next + (size_t)i * C;
+      const int row = f[2];
+      int mask = split ? f[1] : 0;
+      const int cell = f[0] >> 4;
+      if (mask == 0) {
+        int32_t* dst = cur + (size_t)row * C;
+        for (int c = lane; c < C; c += kLanes) dst[c] = src[c];
+        continue;
+      }
+      for (int k = 0; mask; ++k) {
+        const int bit = mask & -mask;
+        mask &= ~bit;
+        int32_t* dst = cur + (size_t)(row + k) * C;
+        for (int c = lane; c < C; c += kLanes) dst[c] = c == cell ? __ffs(bit) : src[c];
+      }
+    }
+    M = total;
+    __syncthreads();
+    if (!b_singles && M >= target) {
+      outcome = kSeedTarget;
+      break;
+    }
+  }
+  int count = M;
+  if (outcome != kSeedSolved && M < target) {
+    // the instantly-UNSAT pad board up to target
+    for (size_t k = t; k < (size_t)(target - M) * C; k += T)
+      cur[(size_t)M * C + k] = k % C < 2 ? 1 : 0;
+    count = target;
+  }
+  if (t == 0) {
+    header[0] = count;
+    header[1] = first;
+    header[2] = rounds;
+    header[3] = analyzed;
+    header[4] = outcome;
+  }
+}
+
 template <int BOX>
 int launch(const void* boards, void* grid_out, void* meta, void* stack_grid,
            void* stack_cell, void* stack_mask, int B, int D, int max_iters, int waves,
@@ -1732,6 +1969,16 @@ int launch_race_shard(const RaceMesh& mesh, int first, int count, int D, int max
     dfs_race_shard_kernel<BOX, false><<<count * mesh.M, kRaceThreads[BOX], smem, stream>>>(
         mesh, first, D, max_iters, waves, options);
   }
+  return (int)cudaGetLastError();
+}
+
+template <int BOX>
+int launch_seed(const void* states, void* cur, void* next, void* info, void* header, int M,
+                int target, int max_rounds, int options, cudaStream_t stream) {
+  seed_frontier_kernel<BOX><<<1, kSeedWarps[BOX] * kLanes, 0, stream>>>(
+      static_cast<const int32_t*>(states), static_cast<int32_t*>(cur),
+      static_cast<int32_t*>(next), static_cast<int32_t*>(info), static_cast<int32_t*>(header),
+      M, target, max_rounds, options);
   return (int)cudaGetLastError();
 }
 
@@ -2224,6 +2471,28 @@ int dfs_race_fold_launch(const void* meta, const void* grid, void* fold, void* r
   return by_box(box, (int)cudaErrorInvalidValue, [&](auto b) {
     return launch_race_fold<decltype(b)::value>(meta, grid, fold, row, slots, n_slots, M,
                                                 waves, s);
+  });
+}
+
+// One frontier seeding of M states, one launch on `stream`. states (M, C)
+// int32 in. cur (cap, C) int32 out: the seeded states, their count in the
+// header, the instantly-UNSAT pad rows included; next (cap, C) and info
+// (cap, 3) int32 scratch; header (5) int32 out: count, the first solved
+// state's index in cur (-1: none), rounds, states analyzed, outcome (0:
+// target reached, 1: solved, 2: every state dead, 3: max_rounds ran out).
+// cap must be at least max(M, target * N). options: 1 (locked candidates)
+// and 2 (naked pairs, with 1). Returns a cudaError_t.
+int seed_frontier_launch(const void* states, void* cur, void* next, void* info, void* header,
+                         int M, int cap, int box, int target, int max_rounds, int options,
+                         void* stream) {
+  if (M <= 0 || target <= 0 || max_rounds < 0 || (options & ~3) || !states || !cur ||
+      !next || !info || !header || box < 2 || box > 5 || cap < M ||
+      (long long)cap < (long long)target * box * box)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_box(box, (int)cudaErrorInvalidValue, [&](auto b) {
+    return launch_seed<decltype(b)::value>(states, cur, next, info, header, M, target,
+                                           max_rounds, options, s);
   });
 }
 

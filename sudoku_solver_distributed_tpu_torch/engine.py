@@ -136,7 +136,7 @@ from .ops.cuda_solver import (
     solve_stage,
 )
 from .ops.propagate import analyze
-from .ops.solver import OVERFLOW, RUNNING, SOLVED, pad_board, staged_depths
+from .ops.solver import OVERFLOW, RUNNING, SOLVED, pad_board, staged_depths, unsat_pad
 from .ops.spec import SPEC_9, BoardSpec
 from .serving.admission import DeadlineExceeded
 from .utils.faults import InjectedEngineFault
@@ -1810,22 +1810,25 @@ class SolverEngine:
             self._quick_state(np.zeros((N, N), np.int32))
 
     def _warm_frontier(self) -> None:
-        """The race's first rungs before serving: the seeding ops, then a
-        race over ``states_per_device × {1, 2, 4}`` instantly-unsat pad
-        states (each dies in one step, so no solution and no counter), as
-        the JAX engine warms its racer. Larger rungs launch on first use."""
+        """The race's first rungs before serving: the seeding on the race
+        mesh's first device (one seeding kernel launch on a card, the host
+        ops on the CPU), then a race over ``states_per_device × {1, 2, 4}``
+        instantly-unsat pad states (each dies in one step, so no solution
+        and no counter), as the JAX engine warms its racer. Larger rungs
+        launch on first use."""
         if self.race_mesh is None:
             return  # the multi-host loop warmed its race at its start
         from .parallel import frontier
 
         C = self.spec.cells
         target = self.race_mesh.size * self.frontier_states_per_device
-        frontier.warm_seeding(self.spec, target, self.locked_candidates)
-        pad = frontier._unsat_pad(self.spec).reshape(1, C)
+        frontier.warm_seeding(self.spec, target, self.locked_candidates,
+                              self.race_mesh.primary)
+        pad = torch.from_numpy(unsat_pad(self.spec)).reshape(1, C)
         for mult in (1, 2, 4):
             # every shard races its slice: each shard's launch is warm
             row, _, _ = frontier.race_on_mesh(
-                np.broadcast_to(pad, (target * mult, C)), self.race_mesh,
+                pad.expand(target * mult, C), self.race_mesh,
                 self.spec, self._depth_flat, frontier.DEFAULT_MAX_ITERS,
                 locked_candidates=self.locked_candidates, waves=self.waves,
                 naked_pairs=self.naked_pairs,

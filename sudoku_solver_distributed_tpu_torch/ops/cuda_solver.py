@@ -69,6 +69,16 @@ peers the last block across every shard folds, so the race is that one
 call; otherwise (and for records gathered from other hosts) ``race_fold``
 (the fold kernel) folds the records. ``dfs_race_shards.launches`` and
 ``race_fold.launches`` count their own launches.
+
+``seed_frontier_cuda`` is a race's seeding BFS (the JAX package's
+host-driven ``_seed_rounds`` over its jitted ``analyze`` and assign
+programs): the seeding kernel (K5, one block, one launch a seeding, the
+rounds and their decisions on the card) on a CUDA tensor, the port's plain
+host rounds (``ops.solver.seed_rounds``) on a CPU one;
+``seed_frontier_cuda.launches`` counts its launches. The wrapper reads
+the kernel's small header with one explicit ``.cpu()`` (and the solution
+row when a state solved); its scratch lives per (device, stream, box,
+capacity) (``seed_scratch``).
 """
 
 from __future__ import annotations
@@ -104,6 +114,7 @@ from .solver import (
     race,
     race_runs,
     run_segment,
+    seed_rounds,
     segment_digest,
     solve_flat,
     solve_staged,
@@ -283,6 +294,8 @@ def load_library() -> ctypes.CDLL:
     lib.dfs_race_relay_serve.restype = i
     lib.dfs_race_fold_launch.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.dfs_race_fold_launch.restype = i
+    lib.seed_frontier_launch.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.seed_frontier_launch.restype = i
     _LIBRARY["source"] = source
     return lib
 
@@ -1162,6 +1175,152 @@ def _launch_race_fold(lib: ctypes.CDLL, meta: torch.Tensor, grid: torch.Tensor,
 
 
 race_fold.launches = 0
+
+
+# -- the frontier race's seeding --------------------------------------------
+
+SEED_HEADER_COLS = 5  # count, first solved, rounds, analyzed, outcome
+SEED_INFO_COLS = 3    # a state's verdict and MRV cell, MRV mask, next row
+# a seeding's outcome, by the kernel's number (csrc/dfs_solver.cu kSeed*)
+SEED_OUTCOMES = ("target", "solved", "dead", "rounds")
+_SEED_SCRATCH: dict = {}
+_SEED_SCRATCH_LOCK = threading.Lock()
+
+
+def _seed_frontier_plain(states: torch.Tensor, spec: BoardSpec, target: int,
+                         max_rounds: int, locked: bool, check=None):
+    """The plain version of the seeding kernel on the same (M, C) layout:
+    the host rounds ``ops.solver.seed_rounds``, ``check`` called before
+    each. Returns ``(states, solved, None)`` as the kernel's wrapper, with
+    no header."""
+    N, C = spec.size, spec.cells
+    out, solved = seed_rounds(states.reshape(-1, N, N).numpy().copy(), spec, target,
+                              max_rounds, locked, check)
+    out = torch.from_numpy(np.ascontiguousarray(out, np.int32).reshape(len(out), C))
+    if solved is not None:
+        solved = torch.from_numpy(np.array(solved, np.int32).reshape(C))
+    return out, solved, None
+
+
+def seed_frontier_cuda(states: torch.Tensor, spec: BoardSpec, target: int,
+                       max_rounds: int, locked: bool = False, check=None):
+    """Expand (M, C) int32 states of one board into at least ``target``
+    disjoint states, round for round as ``ops.solver.seed_rounds`` (the
+    JAX package's host seeding): every state analyzed, the first
+    solved one returned, singles assigned everywhere, dead states dropped,
+    MRV splits until ``target``, padding with the instantly-UNSAT board
+    when the batch dies or ``max_rounds`` run out. ``locked`` analyzes
+    with locked candidates and naked pairs, as ``analyze(locked=True)``.
+    ``check`` (a caller's deadline, raising when it has passed) is called
+    before every round of the plain version, and before and after the
+    kernel's launch.
+
+    Returns ``(states, solved, header)``: the (K, C) int32 seeded states on
+    the input's device; the (C,) int32 solution on the host when a state
+    solved, else None; and the kernel's header as a dict (``count``,
+    ``first``: the solved state's index or -1, ``rounds``, ``analyzed``:
+    states swept in all, ``outcome``: one of ``SEED_OUTCOMES``), None from
+    the plain version.
+
+    A CUDA tensor launches the seeding kernel (K5, one block, one launch)
+    on the current stream and waits for its header (``.cpu()``, the
+    seeding's one sync; the solution row is fetched after it when a state
+    solved); a CPU tensor runs the plain version. Nothing else is accepted.
+    ``seed_frontier_cuda.launches`` counts launches. While
+    ``library_quarantine`` holds the library, it raises instead."""
+    _check_library()
+    if not isinstance(states, torch.Tensor):
+        raise TypeError("seed_frontier_cuda takes a torch.Tensor")
+    if states.dtype != torch.int32:
+        raise TypeError(f"seed_frontier_cuda takes int32 states, got {states.dtype}")
+    if states.dim() != 2 or states.shape[1] != spec.cells or states.shape[0] < 1:
+        raise ValueError(
+            f"seed_frontier_cuda takes (M >= 1, {spec.cells}) states, got "
+            f"{tuple(states.shape)}"
+        )
+    if target < 1 or max_rounds < 0:
+        raise ValueError(f"bad target {target} / max_rounds {max_rounds}")
+    if states.device.type == "cpu":
+        return _seed_frontier_plain(states, spec, target, max_rounds, locked, check)
+    if states.device.type != "cuda":
+        raise ValueError(f"seed_frontier_cuda runs on cuda or cpu, not {states.device}")
+    if not states.is_contiguous():
+        raise ValueError("seed_frontier_cuda takes contiguous states")
+    if check is not None:
+        check()
+    out = _launch_seed(load_library(), states, spec, target, max_rounds, locked)
+    if check is not None:
+        check()
+    return out
+
+
+def seed_capacity(M: int, target: int, spec: BoardSpec) -> int:
+    """Rows of the seeding's two state buffers: the input, or a split of
+    fewer than ``target`` states into at most N children each, rounded up
+    to a power of two so that seedings share their scratch."""
+    need = max(M, target * spec.size)
+    return 1 << (need - 1).bit_length()
+
+
+def seed_scratch(device: torch.device, stream: int, box: int, cap: int) -> tuple:
+    """The seeding kernel's scratch for the CUDA stream handle ``stream``
+    on ``device``: (cap, C) int32 state rows and (cap, ``SEED_INFO_COLS``)
+    int32 state records, allocated at the first seeding of that box edge and capacity
+    there and handed back to every later one. Seedings on one stream run
+    in order and read nothing of it across launches; seedings on two
+    streams may run at once, so they never share one."""
+    key = (device, stream, box, cap)
+    with _SEED_SCRATCH_LOCK:
+        scratch = _SEED_SCRATCH.get(key)
+        if scratch is None:
+            C = box ** 4
+            scratch = _SEED_SCRATCH[key] = (
+                torch.empty((cap, C), dtype=torch.int32, device=device),
+                torch.empty((cap, SEED_INFO_COLS), dtype=torch.int32, device=device),
+            )
+    return scratch
+
+
+def _seed_launch(lib: ctypes.CDLL, states: torch.Tensor, spec: BoardSpec,
+                 target: int, max_rounds: int, locked: bool) -> tuple:
+    """Launch ``lib``'s seeding kernel on (M, C) CUDA states on the current
+    stream and count it in ``seed_frontier_cuda.launches``; no sync.
+    Returns the launch's device buffers ``(out, header)``: the (cap, C)
+    seeded states and the ``SEED_HEADER_COLS`` header."""
+    M, C = states.shape
+    dev = states.device
+    cap = seed_capacity(M, target, spec)
+    out = torch.empty((cap, C), dtype=torch.int32, device=dev)
+    header = torch.empty((SEED_HEADER_COLS,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        nxt, info = seed_scratch(dev, stream, spec.box, cap)
+        err = lib.seed_frontier_launch(
+            states.data_ptr(), out.data_ptr(), nxt.data_ptr(), info.data_ptr(),
+            header.data_ptr(), M, cap, spec.box, int(target), int(max_rounds),
+            (OPT_LOCKED | OPT_PAIRS) if locked else 0, stream,
+        )
+    if err != 0:
+        raise KernelLaunchError(f"seed_frontier launch failed: cudaError {err}")
+    with _LAUNCHES_LOCK:
+        seed_frontier_cuda.launches += 1
+    return out, header
+
+
+def _launch_seed(lib: ctypes.CDLL, states: torch.Tensor, spec: BoardSpec,
+                 target: int, max_rounds: int, locked: bool):
+    """``_seed_launch``, then its header read: ``seed_frontier_cuda``'s
+    result on the card."""
+    out, header = _seed_launch(lib, states, spec, target, max_rounds, locked)
+    count, first, rounds, analyzed, outcome = header.cpu().tolist()
+    solved = out[first].cpu() if first >= 0 else None
+    return out[:count], solved, {
+        "count": count, "first": first, "rounds": rounds, "analyzed": analyzed,
+        "outcome": SEED_OUTCOMES[outcome],
+    }
+
+
+seed_frontier_cuda.launches = 0
 
 
 def lockstep_stats(steps: torch.Tensor) -> LoopStats:

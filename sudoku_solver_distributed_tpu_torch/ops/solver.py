@@ -33,12 +33,18 @@ segment kernel (csrc/dfs_solver.cu ``dfs_segment_kernel``). A board's
 trajectory and counters do not depend on how its steps are cut into
 segments or on what runs in the other lanes, since a step is
 elementwise over the board axis and a finished row is a fixed point.
+
+``race`` / ``race_runs`` / ``fold_race`` are the plain versions of the
+race kernels, and ``seed_rounds`` that of the seeding kernel: a frontier
+race's seeding BFS, round by round with a host decision between rounds,
+as the JAX package seeds.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .encode import mask_to_value, popcount
@@ -751,3 +757,78 @@ def fold_race(meta: torch.Tensor, grid: torch.Tensor, spec: BoardSpec,
     fold = torch.stack([final_status, final_vals], dim=1)
     return race_row(grid, fold, spec), fold
 
+
+
+def unsat_pad(spec: BoardSpec) -> np.ndarray:
+    """A trivially contradictory board — frontier padding that dies in one step."""
+    board = np.zeros((spec.size, spec.size), np.int32)
+    board[0, 0] = 1
+    board[0, 1] = 1
+    return board
+
+
+def seed_rounds(states: np.ndarray, spec: BoardSpec, target: int, max_rounds: int,
+                locked: bool, check: Optional[Callable[[], None]] = None):
+    """The seeding BFS of the JAX package's ``parallel/frontier.py``
+    (``_seed_rounds``) on (M, N, N) int32 states of one board, on CPU
+    tensors: each round analyzes every state; a solved state ends it
+    (``(states, solution)``, the batch as analyzed); a batch of dead states
+    ends it, padded; while any live state has a single, every live state
+    takes its singles and the dead are dropped; otherwise the dead are
+    dropped and, below ``target``, every state splits on its MRV cell, a
+    child a candidate. After ``max_rounds`` the batch is padded with
+    ``unsat_pad`` up to ``target``. ``check`` (the caller's deadline) is
+    called before every round. Returns ``(states, solved)``: numpy (K, N,
+    N) states and the solution or None."""
+    for _ in range(max_rounds):
+        if check is not None:
+            check()
+        a = analyze(torch.from_numpy(np.ascontiguousarray(states)), spec,
+                    locked=locked)
+        solved = a.solved.numpy()
+        if solved.any():
+            return states, states[int(np.argmax(solved))]
+        live = ~a.contradiction.numpy()
+        if not live.any():
+            # unsat root: hand back dead boards; the race reports UNSAT
+            break
+        assign = a.assign.numpy()
+        if (assign[live] != 0).any():
+            # propagate singles everywhere before splitting
+            filled = mask_to_value(a.assign, spec).numpy()
+            states = np.where((states == 0) & (assign != 0), filled, states)
+            states = states[live]
+            continue
+        states = states[live]
+        if len(states) >= target:
+            return states, None
+        # k-way split every state on its MRV cell
+        cand = a.cand.numpy()[live].reshape(len(states), -1)
+        pc = sum((cand >> k) & 1 for k in range(spec.size))
+        pc = np.where(cand != 0, pc, 10**6)
+        cells = pc.argmin(axis=1)
+        children = []
+        for s_idx, cell in enumerate(cells):
+            mask = int(cand[s_idx, cell])
+            if mask == 0:  # fully filled (would have been solved): keep as-is
+                children.append(states[s_idx])
+                continue
+            i, j = divmod(int(cell), spec.size)
+            while mask:
+                bit = mask & -mask
+                mask &= ~bit
+                child = states[s_idx].copy()
+                child[i, j] = bit.bit_length()
+                children.append(child)
+        states = np.stack(children)
+        if len(states) >= target:
+            # the overshoot (up to target × N children) is not analyzed
+            # again: the race propagates and solves them anyway
+            return states, None
+
+    if len(states) < target:
+        pad = np.broadcast_to(
+            unsat_pad(spec), (target - len(states), spec.size, spec.size)
+        )
+        states = np.concatenate([states, pad], axis=0)
+    return states, None

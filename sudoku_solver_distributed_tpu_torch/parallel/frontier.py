@@ -31,12 +31,16 @@ lowest-index solution wins. Here the race runs on a mesh of CUDA shards
     undecided sum over every state, as the JAX race's.
 
 On the CPU the wrappers run the plain lockstep race (ops/solver.race, and
-per shard ``race_runs`` then ``fold_race``). Seeding runs on the host, on
-CPU tensors, as the JAX package seeds on its CPU backend: it is a handful
-of tiny analyze/split rounds with a host decision between each. The
-states are padded to ``n_shards × states_per_device × 2^k``, as the JAX
-race pads, so the port's race equals the JAX race on a mesh of the same
-size (pad states bill their validations).
+per shard ``race_runs`` then ``fold_race``). Seeding runs where the race
+does, on its mesh's first device: on a card one launch of the seeding
+kernel (ops/cuda_solver.seed_frontier_cuda, K5: every round and its
+decision on the card, the host reading one small header), on the CPU its
+plain version, the host rounds (ops/solver.seed_rounds), as the JAX
+package seeds on its CPU backend with a host decision between rounds. The states are padded to
+``n_shards × states_per_device × 2^k``, as the JAX race pads, so the
+port's race equals the JAX race on a mesh of the same size (pad states
+bill their validations). On a one-card mesh the seeded states stay on the
+card from the seeding to the race.
 
 A race across hosts is the multi-host serving loop's
 (parallel/serving_loop.py): every host races its slice of the states on
@@ -55,9 +59,16 @@ import numpy as np
 import torch
 
 from ..obs.trace import current_trace
-from ..ops.cuda_solver import dfs_race, dfs_race_shards, race_fold, race_slots
+from ..ops.cuda_solver import (
+    dfs_race,
+    dfs_race_shards,
+    race_fold,
+    race_slots,
+    seed_frontier_cuda,
+)
 from ..ops.encode import mask_to_value
 from ..ops.propagate import analyze
+from ..ops.solver import unsat_pad
 from ..ops.spec import SPEC_9, BoardSpec
 from ..serving.admission import DeadlineExceeded
 from .mesh import Mesh, default_mesh
@@ -65,14 +76,6 @@ from .shard import to_primary
 
 # shared by frontier_solve and the engine's warm-up, as in the JAX package
 DEFAULT_MAX_ITERS = 65536
-
-
-def _unsat_pad(spec: BoardSpec) -> np.ndarray:
-    """A trivially contradictory board — frontier padding that dies in one step."""
-    board = np.zeros((spec.size, spec.size), np.int32)
-    board[0, 0] = 1
-    board[0, 1] = 1
-    return board
 
 
 def race_mesh(mesh=None) -> Mesh:
@@ -148,27 +151,45 @@ def seed_frontier(
     locked: bool = False,
     initial_states: Optional[np.ndarray] = None,
     deadline_s: Optional[float] = None,
+    device=None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Expand one board into ≥``target`` disjoint speculative states.
 
-    Host-driven BFS on CPU tensors: analyze all current states, drop
-    contradictions, assign every forced single, and once no single is left
-    k-way split each state on its MRV cell (one child per candidate value,
-    so the children partition the parent's solution space exactly). Stops
-    early if propagation alone solves the board.
+    A BFS in rounds: analyze all current states, drop contradictions,
+    assign every forced single, and once no single is left k-way split
+    each state on its MRV cell (one child per candidate value, so the
+    children partition the parent's solution space exactly). Stops early
+    if propagation alone solves the board.
+
+    ``device`` is where it runs (the engine's ``resolve_device``: None is
+    CUDA, and raises without a card): on a card one launch of the seeding
+    kernel, on the CPU its plain version, the host rounds (both through
+    ``seed_frontier_cuda``). Both give the same states.
 
     ``initial_states`` starts the expansion from these (M, N, N) states
     instead of the root board (the probe→race handoff,
     ``state_handoff_frontier``). ``deadline_s`` (absolute monotonic) is
-    checked at every round boundary: a request that expires mid-seeding
-    raises ``DeadlineExceeded``.
+    checked at every round boundary on the CPU, and before and after the
+    kernel's launch on a card: a request that expires mid-seeding raises
+    ``DeadlineExceeded``.
 
-    Returns (states, solved): states is (M, N, N) with M ≥ target unless
-    the search space is exhausted (then padded with instantly-unsat
-    boards); solved is the solution if one fell out during seeding, else
-    None. The JAX package pads every round's batch to a power of two so
-    its jitted analysis sees few shapes; PyTorch runs eagerly and the
-    analysis is per-board, so the port analyzes the batch as it is."""
+    Returns (states, solved) as numpy arrays: states is (M, N, N) with M ≥
+    target unless the search space is exhausted (then padded with
+    instantly-unsat boards); solved is the solution if one fell out during
+    seeding, else None. The JAX package pads every round's batch to a
+    power of two so its jitted analysis sees few shapes; the port analyzes
+    the batch as it is."""
+    from ..engine import resolve_device
+
+    states, solved = _seed(board, spec, target, max_rounds, locked, initial_states,
+                           deadline_s, resolve_device(device))
+    return states.cpu().numpy(), solved
+
+
+def _seed(board, spec, target, max_rounds, locked, initial_states, deadline_s,
+          device: torch.device):
+    """``seed_frontier`` on ``device``, its states left there: ((M, N, N)
+    int32 tensor, numpy solution or None)."""
     if max_rounds is None:
         # each round either assigns singles (≤ cells of them) or splits
         max_rounds = spec.cells + 16
@@ -176,69 +197,35 @@ def seed_frontier(
         states = np.asarray(initial_states, np.int32)
     else:
         states = np.asarray(board, np.int32)[None]
-    return _seed_rounds(states, spec, target, max_rounds, locked, deadline_s)
+    N = spec.size
+    flat = torch.from_numpy(np.ascontiguousarray(states.reshape(len(states), -1)))
+    states, solved, _ = seed_frontier_cuda(flat.to(device), spec, target, max_rounds,
+                                           locked, lambda: _check_deadline(deadline_s))
+    if solved is not None:
+        solved = solved.numpy().reshape(N, N)
+    return states.reshape(-1, N, N), solved
 
 
-def _seed_rounds(states, spec, target, max_rounds, locked, deadline_s=None):
-    for _ in range(max_rounds):
-        if deadline_s is not None and time.monotonic() > deadline_s:
-            raise DeadlineExceeded("deadline expired during frontier seeding")
-        a = analyze(torch.from_numpy(np.ascontiguousarray(states)), spec,
-                    locked=locked)
-        solved = a.solved.numpy()
-        if solved.any():
-            return states, states[int(np.argmax(solved))]
-        live = ~a.contradiction.numpy()
-        if not live.any():
-            # unsat root: hand back dead boards; the race reports UNSAT
-            break
-        assign = a.assign.numpy()
-        if (assign[live] != 0).any():
-            # propagate singles everywhere before splitting
-            filled = mask_to_value(a.assign, spec).numpy()
-            states = np.where((states == 0) & (assign != 0), filled, states)
-            states = states[live]
-            continue
-        states = states[live]
-        if len(states) >= target:
-            return states, None
-        # k-way split every state on its MRV cell
-        cand = a.cand.numpy()[live].reshape(len(states), -1)
-        pc = sum((cand >> k) & 1 for k in range(spec.size))
-        pc = np.where(cand != 0, pc, 10**6)
-        cells = pc.argmin(axis=1)
-        children = []
-        for s_idx, cell in enumerate(cells):
-            mask = int(cand[s_idx, cell])
-            if mask == 0:  # fully filled (would have been solved): keep as-is
-                children.append(states[s_idx])
-                continue
-            i, j = divmod(int(cell), spec.size)
-            while mask:
-                bit = mask & -mask
-                mask &= ~bit
-                child = states[s_idx].copy()
-                child[i, j] = bit.bit_length()
-                children.append(child)
-        states = np.stack(children)
-        if len(states) >= target:
-            # the overshoot (up to target × N children) is not analyzed
-            # again: the race propagates and solves them anyway
-            return states, None
-
-    if len(states) < target:
-        pad = np.broadcast_to(
-            _unsat_pad(spec), (target - len(states), spec.size, spec.size)
-        )
-        states = np.concatenate([states, pad], axis=0)
-    return states, None
+def _check_deadline(deadline_s: Optional[float]) -> None:
+    if deadline_s is not None and time.monotonic() > deadline_s:
+        raise DeadlineExceeded("deadline expired during frontier seeding")
 
 
-def warm_seeding(spec: BoardSpec, target: int, locked: bool = False) -> None:
-    """Run one seeding round's analysis and assignment at every power-of-two
-    batch up to ``pow2(target)``, so a server's first frontier-routed
-    request pays no first-call costs of the CPU ops (the JAX package
-    compiles its seeding programs here)."""
+def warm_seeding(spec: BoardSpec, target: int, locked: bool = False,
+                 device=None) -> None:
+    """Warm a server's first frontier-routed seeding on ``device`` (as
+    ``seed_frontier``'s): on a card one seeding kernel launch at ``target``
+    (the empty board; its scratch is allocated there); on the CPU one
+    round's analysis and assignment at every power-of-two batch up to
+    ``pow2(target)``, so the first request pays no first-call costs of the
+    CPU ops (the JAX package compiles its seeding programs here)."""
+    from ..engine import resolve_device
+
+    device = resolve_device(device)
+    if device.type != "cpu":
+        flat = torch.zeros((1, spec.cells), dtype=torch.int32, device=device)
+        seed_frontier_cuda(flat, spec, target, spec.cells + 16, locked)
+        return
     m = 1
     while True:
         z = torch.zeros((m, spec.size, spec.size), dtype=torch.int32)
@@ -248,24 +235,24 @@ def warm_seeding(spec: BoardSpec, target: int, locked: bool = False) -> None:
         m *= 2
 
 
-def bucket_states(states: np.ndarray, spec: BoardSpec,
-                  states_per_device: int, n_shards: int = 1) -> np.ndarray:
-    """Pad the seeded states with instantly-unsat boards up to
-    ``n_shards × states_per_device × 2^k``, the smallest such count whose
-    shards' equal slices hold them all (the JAX race's padding). No seeded
-    state is ever dropped: each covers a disjoint slice of the search
-    space. The geometric rungs keep the set of race shapes small (the
-    engine warms the first three)."""
+def bucket_states(states, spec: BoardSpec,
+                  states_per_device: int, n_shards: int = 1) -> torch.Tensor:
+    """Pad the seeded (M, N, N) states (a tensor, or an array) with
+    instantly-unsat boards up to ``n_shards × states_per_device × 2^k``,
+    the smallest such count whose shards' equal slices hold them all (the
+    JAX race's padding). No seeded state is ever dropped: each covers a
+    disjoint slice of the search space. The geometric rungs keep the set
+    of race shapes small (the engine warms the first three). Returns an
+    int32 tensor where the states lie."""
+    states = torch.as_tensor(states, dtype=torch.int32)
     per = -(-len(states) // n_shards)
     bucket = max(states_per_device, 1)
     while bucket < per:
         bucket *= 2
     total = n_shards * bucket
     if len(states) < total:
-        pad = np.broadcast_to(
-            _unsat_pad(spec), (total - len(states), spec.size, spec.size)
-        )
-        states = np.concatenate([states, pad], axis=0)
+        pad = torch.from_numpy(unsat_pad(spec)).to(states.device)
+        states = torch.cat([states, pad.expand(total - len(states), spec.size, spec.size)])
     return states
 
 
@@ -302,7 +289,9 @@ def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
                  waves: int = 1, naked_pairs: Optional[bool] = None,
                  packed: Optional[bool] = None, gather=None, relay=None) -> tuple:
     """Race (M, N, N) (or (M, C)) states whose count divides the mesh,
-    shard ``i`` taking the ``i``-th equal slice. Returns ``(row, fold,
+    shard ``i`` taking the ``i``-th equal slice: a tensor (on one shard
+    without ``gather`` moved to the shard's device if it lies elsewhere,
+    otherwise through the host), or an array. Returns ``(row, fold,
     meta)`` as ``dfs_race``, on the mesh's first device: the packed (C +
     3,) row, each state's [status, validations] after the lockstep race,
     and each state's run record.
@@ -336,7 +325,7 @@ def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
     learns when this host's race ended (``local_done``), before the
     gather."""
     M, C = len(states), spec.cells
-    flat = torch.from_numpy(np.ascontiguousarray(np.asarray(states, np.int32).reshape(M, C)))
+    flat = torch.as_tensor(states, dtype=torch.int32).reshape(M, C)
     knobs = dict(locked_candidates=locked_candidates, waves=waves,
                  naked_pairs=naked_pairs, packed=packed)
     n = mesh.size
@@ -345,7 +334,9 @@ def race_on_mesh(states, mesh: Mesh, spec: BoardSpec, depth: int,
     if relay is not None and gather is None:
         raise ValueError("a relay across hosts comes with the hosts' gather")
     if n == 1 and gather is None:
-        return dfs_race(flat.to(mesh.primary), spec, depth, max_iters, **knobs)
+        return dfs_race(flat.to(mesh.primary).contiguous(), spec, depth, max_iters,
+                        **knobs)
+    flat = flat.cpu().contiguous()
     per = M // n
     if mesh.primary.type == "cpu":
         runs = dfs_race_shards(
@@ -450,9 +441,11 @@ def frontier_solve(
     boundaries and once more before the race dispatches; a race already
     dispatched runs to completion.
 
-    Seeding is stamped on the calling thread's request span as its
-    ``coalesce`` stage (this route's batch formation), the race as its
-    ``device`` stage (dispatch → the packed row on the host).
+    Seeding runs on the mesh's first device (``seed_frontier``'s), and on a
+    one-shard mesh its states stay there for the race. It is stamped on
+    the calling thread's request span as its ``coalesce`` stage (this
+    route's batch formation), the race as its ``device`` stage (dispatch →
+    the packed row on the host).
 
     ``hosts`` (the multi-host serving loop's): ``(rank, world, gather,
     relay)``. Every host seeds the same states
@@ -469,9 +462,9 @@ def frontier_solve(
     board = np.asarray(board, np.int32)
     tr = current_trace()
     t_seed = time.monotonic()
-    states, early = seed_frontier(
-        board, spec, target=n_shards * states_per_device, locked=locked,
-        initial_states=initial_states, deadline_s=deadline_s,
+    states, early = _seed(
+        board, spec, n_shards * states_per_device, None, locked, initial_states,
+        deadline_s, mesh.primary,
     )
     if tr is not None:
         tr.mark("coalesce", time.monotonic() - t_seed)

@@ -7,7 +7,9 @@ host's shards needs every host in the same program at the same point.
 Every host runs the same loop:
 
     tick:    header = broadcast from rank 0 (idle | request | batch | stop)
-    request: every host seeds the board alike, races its slice of the
+    request: every host seeds the board alike on its own first device
+             (the seeding kernel on a card: deterministic and exact, so
+             every host holds the same states), races its slice of the
              padded states on its own shards, the hosts gather each
              other's run records and every host folds them
     batch:   boards = broadcast from rank 0; every host solves its row

@@ -1170,6 +1170,27 @@ def test_torch101_implicit_sync_on_kernel_result_flagged(tmp_path):
     assert f.symbol == "E.fetch" and "np.asarray" in f.message
 
 
+def test_torch101_seeding_kernel_output_flagged_explicit_transfer_clean(tmp_path):
+    # the seeding wrapper is a device source: an implicit sync on its
+    # states flags; the explicit .cpu() its callers use (and the one of
+    # its header inside the wrapper) reads as host-safe
+    findings = run_port(tmp_path, {"engine.py": KERNEL_IMPORTS + textwrap.dedent("""
+    from .ops.cuda_solver import seed_frontier_cuda
+
+    def implicit(flat, spec):
+        states, solved, header = seed_frontier_cuda(flat, spec, 64, 97)
+        return np.asarray(states)
+
+    def explicit(flat, spec):
+        states, solved, header = seed_frontier_cuda(flat, spec, 64, 97)
+        head = states.cpu()
+        return head.numpy(), solved.cpu().numpy(), int(head[0, 0])
+    """)})
+    assert rules_of(findings) == ["TORCH101"]
+    (f,) = findings
+    assert f.symbol == "implicit" and "np.asarray" in f.message
+
+
 def test_torch101_scoped_to_serving_modules(tmp_path):
     findings = run_port(tmp_path, {"offline.py": torch_mod("""
     def fetch(boards, spec):

@@ -127,10 +127,10 @@ def _port_race(states, size, max_iters, depth, cfg):
 
 def _seeded(board, size, target, locked):
     states, early = TF.seed_frontier(
-        board, spec_for_size(size), target=target, locked=locked
+        board, spec_for_size(size), target=target, locked=locked, device="cpu"
     )
     assert early is None
-    return TF.bucket_states(states, spec_for_size(size), target)
+    return TF.bucket_states(states, spec_for_size(size), target).numpy()
 
 
 # -- seeding ------------------------------------------------------------------
@@ -150,7 +150,8 @@ def test_seed_frontier_matches_jax(name, size, board, target, locked):
         np.asarray(board), jax_spec_for_size(size), target=target, locked=locked
     )
     ts, te = TF.seed_frontier(
-        np.asarray(board), spec_for_size(size), target=target, locked=locked
+        np.asarray(board), spec_for_size(size), target=target, locked=locked,
+        device="cpu",
     )
     assert ts.dtype == np.int32 and ts.shape == js.shape
     assert np.array_equal(ts, js)
@@ -168,16 +169,16 @@ def test_seed_frontier_from_initial_states_matches_jax(locked):
     js, je = JF.seed_frontier(None, JF.SPEC_9, target=32, locked=locked,
                               initial_states=seeds)
     ts, te = TF.seed_frontier(None, spec_for_size(9), target=32, locked=locked,
-                              initial_states=seeds)
+                              initial_states=seeds, device="cpu")
     assert np.array_equal(ts, js) and je is None and te is None
     eng.close()
 
 
 def test_seed_frontier_checks_the_deadline_between_rounds():
-    for seed in (JF.seed_frontier, TF.seed_frontier):
+    for seed, kw in ((JF.seed_frontier, {}), (TF.seed_frontier, {"device": "cpu"})):
         exc = JaxDeadlineExceeded if seed is JF.seed_frontier else DeadlineExceeded
         with pytest.raises(exc):
-            seed(np.asarray(README), target=32, deadline_s=time.monotonic() - 1)
+            seed(np.asarray(README), target=32, deadline_s=time.monotonic() - 1, **kw)
 
 
 # -- the handoff probe's state ------------------------------------------------
@@ -266,7 +267,7 @@ def test_plain_race_row_matches_jax_racer(mesh1, name):
 def test_unsat_race_is_a_proof_in_both(mesh1):
     board = np.zeros((9, 9), np.int32)
     board[0, 0] = board[0, 1] = 5
-    states, early = TF.seed_frontier(board, spec_for_size(9), target=8)
+    states, early = TF.seed_frontier(board, spec_for_size(9), target=8, device="cpu")
     assert early is None and len(states) == 8
     cfg = SERVING[9]
     row, _, _ = _port_race(states, 9, JF.DEFAULT_MAX_ITERS, 81, cfg)

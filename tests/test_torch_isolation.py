@@ -476,6 +476,111 @@ def test_race_launch_error_raises_and_counts_nothing(fake_cuda_stream):
     assert dfs_race.launches == before
 
 
+class _FakeSeedLibrary:
+    """Stands in for the kernel library in the seeding wrapper's launch:
+    records each launch's arguments, writes ``header`` into the header
+    buffer (and a marker row into the output), and returns ``error``."""
+
+    def __init__(self, header, error=0):
+        self.header = header
+        self.error = error
+        self.calls = []
+
+    def seed_frontier_launch(self, *args):
+        import ctypes
+
+        self.calls.append(args)
+        out, header = args[1], args[4]
+        C = args[7] ** 4
+        if self.error == 0:
+            h = torch.tensor(self.header, dtype=torch.int32)
+            ctypes.memmove(header, h.data_ptr(), h.numel() * 4)
+            row = torch.arange(C, dtype=torch.int32)
+            for k in range(self.header[0]):
+                src = row + k
+                ctypes.memmove(out + k * C * 4, src.data_ptr(), C * 4)
+        return self.error
+
+
+@pytest.mark.parametrize("solved", [False, True])
+def test_seed_launch_passes_its_buffers_and_reads_the_header(fake_cuda_stream, solved):
+    """The seeding wrapper's launch on CPU tensors against a stand-in
+    library: the state buffers hold ``max(M, target * N)`` rows rounded up
+    to a power of two, the scratch is the stream's (``seed_scratch``), the
+    options carry naked pairs with locked candidates, and the header's
+    count, solved index, rounds and states analyzed come back."""
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        OPT_LOCKED,
+        OPT_PAIRS,
+        _launch_seed,
+        seed_capacity,
+        seed_frontier_cuda,
+        seed_scratch,
+    )
+
+    spec = spec_for_size(9)
+    states = torch.zeros((3, 81), dtype=torch.int32)
+    header = [5, 2 if solved else -1, 9, 40, 1 if solved else 0]
+    lib = _FakeSeedLibrary(header)
+    before = seed_frontier_cuda.launches
+    out, solution, info = _launch_seed(lib, states, spec, 64, 97, True)
+    assert seed_frontier_cuda.launches == before + 1
+    (args,) = lib.calls
+    cap = seed_capacity(3, 64, spec)
+    assert cap == 1024 and seed_capacity(2000, 8, spec) == 2048
+    assert args[0] == states.data_ptr()
+    nxt, records = seed_scratch(states.device, 101, 3, cap)
+    assert args[2:4] == (nxt.data_ptr(), records.data_ptr())
+    assert nxt.shape == (cap, 81) and records.shape == (cap, 3)
+    assert args[5:11] == (3, cap, 3, 64, 97, OPT_LOCKED | OPT_PAIRS) and args[-1] == 101
+    assert out.shape == (5, 81) and torch.equal(out[4], torch.arange(81) + 4)
+    assert info == {"count": 5, "first": header[1], "rounds": 9, "analyzed": 40,
+                    "outcome": "solved" if solved else "target"}
+    if solved:
+        assert torch.equal(solution, torch.arange(81, dtype=torch.int32) + 2)
+    else:
+        assert solution is None
+    # unlocked: no option bit; another stream gets a scratch of its own
+    fake_cuda_stream.cuda_stream = 102
+    _launch_seed(lib, states, spec, 64, 97, False)
+    assert lib.calls[1][10] == 0
+    assert lib.calls[1][2] == seed_scratch(states.device, 102, 3, cap)[0].data_ptr()
+    assert lib.calls[1][2] != nxt.data_ptr()
+
+
+def test_seed_launch_error_raises_and_counts_nothing(fake_cuda_stream):
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        KernelLaunchError,
+        _launch_seed,
+        seed_frontier_cuda,
+    )
+
+    before = seed_frontier_cuda.launches
+    with pytest.raises(KernelLaunchError):
+        _launch_seed(_FakeSeedLibrary([0] * 5, error=1),
+                     torch.zeros((1, 81), dtype=torch.int32), spec_for_size(9), 8, 97, True)
+    assert seed_frontier_cuda.launches == before
+
+
+@pytest.mark.parametrize(
+    "states, error",
+    [
+        (np.zeros((2, 81), np.int32), TypeError),              # not a tensor
+        (torch.zeros((2, 81), dtype=torch.int64), TypeError),  # wrong dtype
+        (torch.zeros((2, 80), dtype=torch.int32), ValueError),  # wrong cells
+        (torch.zeros((0, 81), dtype=torch.int32), ValueError),  # no state
+        (torch.zeros((2, 81), dtype=torch.int32, device="meta"), ValueError),
+    ],
+)
+def test_seed_wrapper_rejects_what_the_kernel_does_not_take(states, error):
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import seed_frontier_cuda
+
+    before = seed_frontier_cuda.launches
+    with pytest.raises(error):
+        seed_frontier_cuda(states, spec_for_size(9), 8, 97)
+    assert seed_frontier_cuda.launches == before
+
+
 class _FakeStream:
     """A shard's stream for the shard launch on CPU tensors: its handle,
     and the streams it was made to wait for, in order."""
@@ -647,7 +752,7 @@ def _race_sets():
         spec = spec_for_size(size)
         states, early = F.seed_frontier(board, spec, target=target, locked=True)
         assert early is None
-        states = F.bucket_states(states, spec, target)
+        states = F.bucket_states(states, spec, target).numpy()
         out.append((spec, states.reshape(len(states), -1), waves, max_iters))
     return out
 
@@ -784,6 +889,110 @@ def test_races_back_to_back_and_on_two_streams_match_plain():
     torch.cuda.synchronize()
     for (krow, kfold, _), (row, fold, _) in zip(got, plain):
         assert torch.equal(krow.cpu(), row) and torch.equal(kfold.cpu(), fold)
+
+
+def _seeding_sets():
+    """(spec, states, target, locked) of the seeding kernel's card test:
+    deep 9x9 boards at 64 locked and not, the README board at 512, a
+    handoff-like batch of three deep boards, 16x16 and 25x25 deep boards
+    at 8, a 4x4 board with one clue, an UNSAT root, and a board the
+    seeding solves."""
+    def board(name, k):
+        return np.load(os.path.join(ROOT, "benchmarks", name))["boards"][k]
+
+    deep9 = [board("corpus_9x9_deep_128.npz", k) for k in range(6)]
+    readme = np.zeros((9, 9), np.int32)
+    readme[0, 3], readme[1, 3], readme[1, 4], readme[2, 5] = 1, 3, 2, 9
+    readme[3, 7], readme[5, 3], readme[6, 6], readme[7, 8] = 7, 9, 9, 3
+    unsat = np.zeros((9, 9), np.int32)
+    unsat[0, 0] = unsat[0, 1] = 5
+    one = np.zeros((4, 4), np.int32)
+    one[0, 0] = 1
+    sets = [(9, deep9[0][None], 64, True), (9, deep9[1][None], 64, False),
+            (9, readme[None], 512, True), (9, np.stack(deep9[:3]), 16, True),
+            (16, board("corpus_16x16_deep_anneal_64.npz", 0)[None], 8, True),
+            (25, board("corpus_25x25_deep_anneal_32.npz", 8)[None], 8, True),
+            (4, one[None], 8, True), (9, unsat[None], 64, True),
+            (9, deep9[5][None], 512, True)]
+    return [(spec_for_size(size), torch.as_tensor(states.reshape(len(states), -1)),
+             target, locked) for size, states, target, locked in sets]
+
+
+@pytest.mark.cuda
+def test_seeding_kernel_matches_plain_on_the_card():
+    """K5 (one launch a seeding) against the plain host rounds on the
+    same states: the seeded states, their count and the solution exactly;
+    then two threads seeding at once on two CUDA streams (each with a
+    scratch of its own), every result equal to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import threading
+
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        _seed_frontier_plain,
+        seed_frontier_cuda,
+    )
+
+    sets = _seeding_sets()
+    plain = [_seed_frontier_plain(s, spec, target, spec.cells + 16, locked)[:2]
+             for spec, s, target, locked in sets]
+    outcomes = set()
+    for (spec, s, target, locked), (pstates, psolved) in zip(sets, plain):
+        before = seed_frontier_cuda.launches
+        kstates, ksolved, header = seed_frontier_cuda(s.cuda(), spec, target,
+                                                      spec.cells + 16, locked)
+        assert seed_frontier_cuda.launches == before + 1
+        assert kstates.is_cuda and torch.equal(kstates.cpu(), pstates)
+        assert (ksolved is None) == (psolved is None)
+        if psolved is not None:
+            assert torch.equal(ksolved.cpu(), psolved)
+        assert header["count"] == len(pstates) and header["rounds"] >= 1
+        outcomes.add(header["outcome"])
+    assert outcomes == {"target", "solved", "dead"}
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    results, errors = {}, []
+
+    def seed_on(k):
+        try:
+            with torch.cuda.stream(streams[k]):
+                for j in range(k, len(sets), 2):
+                    spec, s, target, locked = sets[j]
+                    results[j] = seed_frontier_cuda(s.cuda(), spec, target,
+                                                    spec.cells + 16, locked)[:2]
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=seed_on, args=(k,)) for k in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for j, (pstates, psolved) in enumerate(plain):
+        kstates, ksolved = results[j]
+        assert torch.equal(kstates.cpu(), pstates)
+        assert (ksolved is None) == (psolved is None)
+
+
+@pytest.mark.cuda
+def test_seed_frontier_on_the_card_launches_the_kernel():
+    """``seed_frontier`` with no device runs on the card: one K5 launch,
+    the plain version's numpy states and solution."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import seed_frontier_cuda
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    for spec, s, target, locked in _seeding_sets()[:3]:
+        board = s[0].reshape(spec.size, spec.size).numpy()
+        before = seed_frontier_cuda.launches
+        states, solved = F.seed_frontier(board, spec, target=target, locked=locked)
+        assert seed_frontier_cuda.launches == before + 1
+        want, wsolved = F.seed_frontier(board, spec, target=target, locked=locked,
+                                        device="cpu")
+        assert isinstance(states, np.ndarray) and np.array_equal(states, want)
+        assert (solved is None) == (wsolved is None)
 
 
 @pytest.mark.cuda
@@ -1356,7 +1565,7 @@ def _shard_race_sets():
     out = []
     for spec, states, waves, max_iters in _race_sets():
         boards = states.reshape(len(states), spec.size, spec.size)
-        out.append((spec, F.bucket_states(boards, spec, len(states) // 4, 4),
+        out.append((spec, F.bucket_states(boards, spec, len(states) // 4, 4).numpy(),
                     waves, max_iters))
     return out
 
@@ -1600,7 +1809,7 @@ def test_the_relay_inbox_halts_the_shard_race_at_a_host_posted_step_on_the_card(
     deep9 = np.load(os.path.join(ROOT, "benchmarks", "corpus_9x9_deep_128.npz"))["boards"]
     states, early = F.seed_frontier(deep9[12], spec, target=32, locked=True)
     assert early is None
-    states = F.bucket_states(states, spec, 8, 4).reshape(-1, spec.cells)
+    states = F.bucket_states(states, spec, 8, 4).numpy().reshape(-1, spec.cells)
     half = len(states) // 2
     quiet, solving = states[:half], states[half:]
     knobs = dict(locked_candidates=True, waves=3, naked_pairs=False)

@@ -399,9 +399,9 @@ def test_race_across_shards_matches_jax(name, shards):
     # shards' own runs equals one lockstep race over every state
     spec = spec_for_size(size)
     states, early = TF.seed_frontier(np.asarray(board), spec, target=shards * spd,
-                                     locked=cfg["locked"])
+                                     locked=cfg["locked"], device="cpu")
     assert early is None
-    states = TF.bucket_states(states, spec, spd, shards)
+    states = TF.bucket_states(states, spec, spd, shards).numpy()
     assert len(states) % shards == 0
     depth = spec.max_depth
     knobs = dict(locked_candidates=cfg["locked"], waves=cfg["waves"],

@@ -55,9 +55,9 @@ def _board(k: int) -> np.ndarray:
 def _hosts(board):
     """The states a 2-host, 2-shards-a-host race of 8 a shard runs, and
     each host's half."""
-    states, early = TF.seed_frontier(board, SPEC_9, target=32, locked=True)
+    states, early = TF.seed_frontier(board, SPEC_9, target=32, locked=True, device="cpu")
     assert early is None
-    states = TF.bucket_states(states, SPEC_9, 8, 4)
+    states = TF.bucket_states(states, SPEC_9, 8, 4).numpy()
     half = len(states) // 2
     return states, (states[:half], states[half:])
 

@@ -121,9 +121,10 @@ def test_race_across_cpu_shards_with_its_fold_matches_jax(size, board, per_shard
     those of the plain race across the CPU mesh."""
     cfg = dict(locked_candidates=True, waves=3 if size == 9 else 1, naked_pairs=False)
     spec = spec_for_size(size)
-    states, early = TF.seed_frontier(board, spec, target=shards * per_shard, locked=True)
+    states, early = TF.seed_frontier(board, spec, target=shards * per_shard, locked=True,
+                                     device="cpu")
     assert early is None
-    states = TF.bucket_states(states, spec, per_shard, shards)
+    states = TF.bucket_states(states, spec, per_shard, shards).numpy()
     M, C = len(states), spec.cells
     flat = torch.from_numpy(np.ascontiguousarray(states.reshape(M, C)))
     per = M // shards

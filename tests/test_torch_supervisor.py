@@ -12,6 +12,7 @@ step lowers it to a fraction of a second on both supervisors while it runs.
 """
 
 import socket
+import sys
 import threading
 import time
 
@@ -53,6 +54,7 @@ UNSAT[0][0] = UNSAT[0][1] = 5  # two clashing clues
 BUDGET_S = 3.0        # watchdog budget of the script
 HANG_BUDGET_S = 0.25  # the hang step's; a pipelined segment's token gets 2x
 DELAY_S = 1.2         # injected fetch delay: past 2x HANG_BUDGET_S
+GATE_S = 30.0         # the hang step's fetch gate: the longest it holds a call
 
 ARMS = {
     "direct": dict(coalesce=False),
@@ -130,10 +132,33 @@ def engines(request):
     port_engine.close()
 
 
+class _GatedTime:
+    """``time`` in a fault injector's module while the hang step runs: the
+    injected fetch delay (``on_fetch``'s ``time.sleep``) holds the call
+    until ``release`` is set, not for its seconds. The step sets it once
+    the supervisor has declared the call hung, so the call is still in
+    flight however late a loaded host wakes the watchdog thread."""
+
+    def __init__(self, release: threading.Event):
+        self._release = release
+
+    def sleep(self, seconds):
+        self._release.wait(timeout=GATE_S)
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
 def _hang(side: Side):
     """A fetch delayed past the watchdog budget while a request is in
-    flight: declared hung (and quarantined) while it still sleeps, then it
-    finishes late and its answer is served."""
+    flight: declared hung (and quarantined) while it is still held, then it
+    finishes late and its answer is served. The hold ends when the
+    supervisor's state says the hang was declared (not after DELAY_S of
+    wall time), and the budget is back at BUDGET_S from then on, so no
+    other call is judged against the hang step's short budget."""
+    module = sys.modules[type(side.inj).__module__]
+    release = threading.Event()
+    module.time = _GatedTime(release)
     side.sup.watchdog_budget_s = HANG_BUDGET_S
     side.inj.set_delay(DELAY_S)
     out = {}
@@ -141,12 +166,16 @@ def _hang(side: Side):
                          daemon=True)
     t.start()
     try:
-        assert wait_for(lambda: side.sup.state == "degraded", timeout=5.0)
+        assert wait_for(lambda: side.sup.state == "degraded", timeout=GATE_S)
+        side.sup.watchdog_budget_s = BUDGET_S
         quarantined = sorted(side.sup.quarantined_widths())
         side.inj.set_delay(0.0)  # only the calls already in flight are slow
+        release.set()
         t.join(timeout=30)
         assert wait_for(lambda: side.sup.snapshot()["inflight_calls"] == 0)
     finally:
+        release.set()
+        module.time = time
         side.sup.watchdog_budget_s = BUDGET_S
     return (*out["r"], quarantined)
 

@@ -328,7 +328,7 @@ def shard_sets(cs, this, other, smoke) -> dict:
         knobs = cs.sweep_knobs(spec, **sweeps)
         waves, options = knobs["waves"], cs._options(knobs)
         states = F.bucket_states(states, spec, len(states) // smoke.MESH_SHARDS,
-                                 smoke.MESH_SHARDS)
+                                 smoke.MESH_SHARDS).numpy()
         flat = torch.as_tensor(states.reshape(len(states), -1), device="cuda").contiguous()
         per = len(flat) // smoke.MESH_SHARDS
         parts = [flat[i * per:(i + 1) * per].contiguous() for i in range(smoke.MESH_SHARDS)]
