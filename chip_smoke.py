@@ -226,7 +226,9 @@ exit) on any error:
    races), and ``--board-size 16`` and ``25`` frontier nodes (``--buckets
    1,8,64``) on 3 deep boards each. (e) The seeding kernel
    (ops/cuda_solver.seed_frontier_cuda: ``seed_frontier_kernel``, K5, one
-   block, one launch a seeding) against its plain version (the host
+   thread-block cluster whose blocks' parts sweep a state at a time, one
+   launch a seeding) against
+   its plain version (the host
    rounds, ``_seed_frontier_plain``) exactly: the seeded states, their
    count and the solution, on the boards of phase 11's sets at their own
    targets, boards 0-15 of the deep 9x9 corpus at 64 and 512 (where the
@@ -234,7 +236,10 @@ exit) on any error:
    README's probe state); the sets must reach all three ends (target,
    solved, every state dead). Per set K5 alone (CUDA events, median of
    20), through the wrapper (host clock), the host rounds' time, rounds,
-   states analyzed and the bound. ``seed_frontier`` on the card equals
+   states analyzed, microseconds a round, the cluster's blocks, the rate
+   bound and beside it the round-chain floor (rounds times one block
+   sweep of K4 on a board of that size, from (c)); torch.profiler sees one
+   kernel record a seeding. ``seed_frontier`` on the card equals
    ``device="cpu"``, and ``frontier_solve`` answers a board its seeding
    solves with the CPU's ``info``.
 12. The cold-start and durability plane. (a) The compile plane: a CLI
@@ -3420,10 +3425,11 @@ def _race_diffs(a, b) -> tuple:
 RACE_PROFILE_WINDOWS = 3  # capture windows a race profile may take
 
 
-def race_profile(fn, reps: int) -> dict:
-    """torch.profiler's device records over ``reps`` calls of a race:
-    ``_profiled_kernel_ms`` of K4, plus every other kernel or memset in the
-    window by name (the device sleep that opens the window aside). The
+def race_profile(fn, reps: int, kernel: str = RACE_KERNELS[0]) -> dict:
+    """torch.profiler's device records over ``reps`` calls of a race (or of
+    another one-kernel call, ``kernel`` naming its kernel): the kernel's
+    mean per record, plus every other kernel or memset in the window by
+    name (the device sleep that opens the window aside). The
     profiler has lost every race record of a window once (H100, torch
     2.11): a window with fewer than 5 records is captured again, up to
     ``RACE_PROFILE_WINDOWS`` windows, and each loss is logged."""
@@ -3441,15 +3447,15 @@ def race_profile(fn, reps: int) -> dict:
         for e in prof.key_averages():
             if e.device_time_total <= 0:
                 continue
-            if RACE_KERNELS[0] in e.key:
+            if kernel in e.key:
                 count += e.count
                 total_us += e.device_time_total
             elif "spin_kernel" not in e.key:
                 others[e.key] = others.get(e.key, 0) + e.count
         if count >= 5:
             break
-        log(f"race profile: window {window + 1} kept {count} race records of {reps} races")
-    check(5 <= count <= reps, f"the profiler recorded {count} race kernels for {reps} races")
+        log(f"profile: window {window + 1} kept {count} {kernel} records of {reps} calls")
+    check(5 <= count <= reps, f"the profiler recorded {count} {kernel} records for {reps} calls")
     return {"ms": total_us / count / 1e3, "records": count, "calls": reps,
             "other_records": others, "windows": window + 1}
 
@@ -3795,13 +3801,16 @@ def _frontier_node(cs, build_parser, build_node, oracle_ok):
 def _seed_kernel_ms(cs, flat, spec, target: int, locked: bool, reps: int = 20) -> float:
     """K5 alone: CUDA events around each of ``reps`` of the wrapper's
     launch steps (``cs._seed_launch``: no header read), after one warm
-    launch; the median ms. Restores the launch counter: these launches
+    launch, all enqueued behind a device spin so the host's enqueue is off
+    the clock; the median ms. Restores the launch counter: these launches
     are a measurement, not the main path."""
     import torch
 
     lib = cs.load_library()
     count0 = cs.seed_frontier_cuda.launches
     events = []
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((reps + 1) * 200e-6 * SM_CLOCK_HZ))
     for _ in range(reps + 1):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
@@ -3815,17 +3824,28 @@ def _seed_kernel_ms(cs, flat, spec, target: int, locked: bool, reps: int = 20) -
 
 
 def _seed_bound_ms(states_in: int, count: int, analyzed: int, cells: int,
-                   locked: bool):
+                   locked: bool, solved: bool = False):
     """The least time for one seeding: the larger of its bytes (the states
-    in read once, the seeded states and the header written once) over the
-    HBM rate and its integer operations (a sweep analysis of every state
-    each round analyzed, as this seeding's header counts them) over the
-    int32 rate. The chain of dependent rounds is a latency floor beside
-    it, not a rate bound (PERF.md)."""
+    in read once, the seeded states and the header, with the solution row
+    where one solved, written once) over the HBM rate and its integer
+    operations (a sweep analysis of every state each round analyzed, as
+    this seeding's header counts them) over the int32 rate. The chain of
+    dependent rounds is a latency floor beside it, not a rate bound
+    (``_seed_floor_ms``)."""
     per_cell = OPS_PER_CELL_SWEEP + (OPS_PER_CELL_LOCKED if locked else 0)
-    bytes_ms = ((states_in + count) * cells + SEED_HEADER_WORDS) * 4 / HBM_BYTES_PER_S * 1e3
+    words = (states_in + count) * cells + SEED_HEADER_WORDS + (cells if solved else 0)
+    bytes_ms = words * 4 / HBM_BYTES_PER_S * 1e3
     ops_ms = analyzed * cells * per_cell / INT32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def _seed_floor_ms(rounds: int, us_per_sweep):
+    """The round-chain floor of one seeding: its rounds run one after
+    another and each sweeps at least one state, so no seeding takes less
+    than its rounds times one block sweep of a board that size (K4's
+    microseconds per sweep of its slowest state, phase 11 (c)); None where
+    (c) timed no race of that size."""
+    return None if us_per_sweep is None else rounds * us_per_sweep / 1e3
 
 
 SEED_DEEP_BOARDS = 16  # 11 (e): boards 0-15 of the deep 9x9 corpus
@@ -3869,7 +3889,7 @@ def seeding_sets(sets, spec_for_size):
     return out
 
 
-def _seeding_parity(cs, F, spec_for_size, oracle_ok, sets) -> dict:
+def _seeding_parity(cs, F, spec_for_size, oracle_ok, sets, sweep_us) -> dict:
     """(e): the seeding kernel (K5, ``seed_frontier_cuda`` on the card)
     against its plain version (the host rounds) on every set of
     ``seeding_sets``, exactly: the seeded states, their count and the
@@ -3878,12 +3898,22 @@ def _seeding_parity(cs, F, spec_for_size, oracle_ok, sets) -> dict:
     Per set: K5 alone (CUDA events, median of 20), the wrapper (host clock,
     median of 5: the launch, the header read and the solution row), the
     plain version (host clock, one run), rounds, states analyzed, the
-    bound. Restores the launch counter: none of this is the main path."""
+    bound and the round-chain floor (``sweep_us``: K4's microseconds a
+    block sweep by board size, from (c)). Restores the launch counter: none
+    of this is the main path."""
     import numpy as np
     import torch
 
     count0 = cs.seed_frontier_cuda.launches
-    out = {"mismatches": 0, "max_abs_err": 0, "sets": {}}
+    lib = cs.load_library()
+    out = {"mismatches": 0, "max_abs_err": 0, "sets": {},
+           "cluster": {n: lib.seed_frontier_cluster(spec_for_size(n).box)
+                       for n in (4, 9, 16, 25)},
+           "clusters_resident": {n: lib.seed_clusters[spec_for_size(n).box]
+                                 for n in (4, 9, 16, 25)}}
+    log(f"phase 11 (e): K5's cluster, blocks by board size {out['cluster']}; clusters the "
+        f"card holds at once {out['clusters_resident']}; K4's us a block sweep from (c) "
+        f"{sweep_us}")
     outcomes = set()
     for name, states, spec, target, locked in seeding_sets(sets, spec_for_size):
         C, rounds_cap = spec.cells, spec.cells + 16
@@ -3915,24 +3945,41 @@ def _seeding_parity(cs, F, spec_for_size, oracle_ok, sets) -> dict:
                     f"{psolved is not None})")
         ms = _seed_kernel_ms(cs, flat, spec, target, locked)
         bound, by = _seed_bound_ms(len(states), header["count"], header["analyzed"], C,
-                                   locked)
+                                   locked, psolved is not None)
+        floor = _seed_floor_ms(header["rounds"], sweep_us.get(spec.size))
         outcomes.add(header["outcome"])
         rec = dict(states_in=len(states), target=target, locked=locked,
                    count=header["count"], outcome=header["outcome"],
                    rounds=header["rounds"], analyzed=header["analyzed"], ms=ms,
                    wrapper_ms=sorted(wrapper_ms)[2], plain_ms=plain_ms, bound_ms=bound,
-                   bound_by=by, us_per_round=ms * 1e3 / max(header["rounds"], 1))
+                   bound_by=by, floor_ms=floor,
+                   us_per_round=ms * 1e3 / max(header["rounds"], 1))
         out["sets"][name] = rec
-        log(f"phase 11 (e) {name}: K5 {ms:.4f} ms (CUDA events, median of 20), through "
-            f"the wrapper {rec['wrapper_ms']:.3f} ms (host clock), the host rounds "
-            f"{plain_ms:.1f} ms; {header['rounds']} rounds, {header['analyzed']} states "
-            f"analyzed, {header['count']} seeded ({header['outcome']}); "
-            f"{rec['us_per_round']:.2f} us a round; bound {bound:.6f} ms by {by}; equal")
+        floor_note = ("not measured" if floor is None else
+                      f"{floor:.4f} ms ({header['rounds']} rounds x "
+                      f"{sweep_us[spec.size]:.3f} us)")
+        log(f"phase 11 (e) {name}: K5 {ms:.4f} ms (CUDA events, median of 20; cluster of "
+            f"{out['cluster'][spec.size]}), through the wrapper {rec['wrapper_ms']:.3f} ms "
+            f"(host clock), the host rounds {plain_ms:.1f} ms; {header['rounds']} rounds, "
+            f"{header['analyzed']} states analyzed, {header['count']} seeded "
+            f"({header['outcome']}); {rec['us_per_round']:.2f} us a round; rate bound "
+            f"{bound:.6f} ms by {by}, round-chain floor {floor_note}; equal")
     check(outcomes == {"target", "solved", "dead"},
           f"11 (e): the sets reached outcomes {sorted(outcomes)}")
+    # one kernel record a seeding: the cluster launch and nothing else
+    spec9 = spec_for_size(9)
+    flat = torch.as_tensor(load_corpus("corpus_9x9_deep_128.npz")[0].reshape(1, -1),
+                           device="cuda")
+    prof = race_profile(lambda: cs._seed_launch(lib, flat, spec9, FRONTIER_STATES,
+                                                spec9.cells + 16, True), 10, SEED_KERNEL)
+    check(not prof["other_records"],
+          f"11 (e): a seeding launched more than its kernel: {prof['other_records']}")
+    out["profile"] = prof
+    log(f"phase 11 (e): torch.profiler, 9x9 deep #0 @{FRONTIER_STATES}: {prof['records']} "
+        f"{SEED_KERNEL} records of {prof['calls']} seedings, {prof['ms']:.4f} ms a record, "
+        f"no other kernel or memset")
     # the entry points: seed_frontier on the card (its default) and
     # frontier_solve's seeded count where the seeding answers
-    spec9 = spec_for_size(9)
     deep9 = load_corpus("corpus_9x9_deep_128.npz")
     for k, target in ((0, 64), (1, 512)):
         got = F.seed_frontier(deep9[k], spec9, target=target, locked=True)
@@ -3974,7 +4021,12 @@ def phase_frontier(cs, build_parser, build_node, spec_for_size, config,
     t1 = time.perf_counter()
     out["node"] = _frontier_node(cs, build_parser, build_node, oracle_ok)
     t2 = time.perf_counter()
-    out["seeding"] = _seeding_parity(cs, F, spec_for_size, oracle_ok, sets)
+    sweep_us = {}
+    for name, _, spec, *_ in sets:
+        timed = out["timing"].get(name)
+        if timed is not None and spec.size not in sweep_us:
+            sweep_us[spec.size] = timed["us_per_sweep_slowest"]
+    out["seeding"] = _seeding_parity(cs, F, spec_for_size, oracle_ok, sets, sweep_us)
     out["seconds"] = {"parity_timing": round(t1 - t0, 1), "nodes": round(t2 - t1, 1),
                       "seeding": round(time.perf_counter() - t2, 1)}
     log(f"phase 11 seconds by part: {out['seconds']}")
@@ -6043,6 +6095,11 @@ def main(argv=None) -> int:
         # the JAX package's jitted seeding programs (_seed_jits: analyze_j,
         # assign_j) and the host rounds that drive them (_seed_rounds, :194)
         "replaces": "sudoku_solver_distributed_tpu/parallel/frontier.py:54",
+        # one launch of one thread-block cluster; each block's parts sweep a
+        # state at a time with K4's block sweep; the round's decision
+        # through distributed shared memory
+        "design": "one thread-block cluster, parts of a block a state (K4's block sweep)",
+        "cluster_blocks": seeding["cluster"],
         # phase 11's --frontier 64 node: one seeding a raced request
         "launches": on_frontier["seed_frontier_cuda"],
         "launches_frontier_path": on_frontier["seed_frontier_cuda"],
@@ -6061,6 +6118,9 @@ def main(argv=None) -> int:
         "library_ms": None,
         "rounds": main_seed["rounds"],
         "analyzed": main_seed["analyzed"],
+        "us_per_round": main_seed["us_per_round"],
+        # the chain of its rounds, one K4 block sweep each (11 (c))
+        "round_chain_floor_ms": main_seed["floor_ms"],
         "by_set": seeding["sets"],
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith(SEED_KERNEL)},
     }

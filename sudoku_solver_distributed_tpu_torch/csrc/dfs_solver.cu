@@ -123,6 +123,7 @@
 // Interface: plain C, for ctypes. A launch uses the caller's stream, does
 // not synchronize and allocates nothing; it returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -141,6 +142,8 @@
 #include <type_traits>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kRunning = 0;
 constexpr int kSolved = 1;
@@ -227,6 +230,7 @@ struct AddOp {
 struct WarpGroup {
   static constexpr int kThreads = kLanes;
   static constexpr bool kBlock = false;
+  static constexpr bool kSpreadPairs = false;
   int t;  // the lane
   __device__ __forceinline__ void sync() { __syncwarp(); }
   // a warp's votes order no memory: the passes sync before one
@@ -235,25 +239,54 @@ struct WarpGroup {
   __device__ __forceinline__ unsigned reduce_or(unsigned v) { return OrOp::warp(v); }
 };
 
+// The barrier of a group of whole warps: the block's (K4's group is its
+// block), or a named barrier of T threads for a group that is one part of
+// its block (the seeding kernel's, barrier 1 + its part).
+struct BlockBarrier {
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ bool any(bool p) const { return __syncthreads_or(p) != 0; }
+};
+template <int T>
+struct PartBarrier {
+  int id;
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(T) : "memory");
+  }
+  __device__ __forceinline__ bool any(bool p) const {
+    unsigned r;
+    asm volatile(
+        "{\n\t.reg .pred q, s;\n\tsetp.ne.u32 q, %1, 0;\n\t"
+        "bar.red.or.pred s, %2, %3, q;\n\tselp.u32 %0, 1, 0, s;\n\t}"
+        : "=r"(r)
+        : "r"((unsigned)p), "r"(id), "n"(T)
+        : "memory");
+    return r != 0;
+  }
+};
+
 // K4 gives a state a block of T threads. Its votes are barriers
 // (__syncthreads_or); a reduction is one warp reduction a warp, a word a
 // warp into shared memory, a barrier and one more warp reduction over
 // those words. The words alternate between two slots, so a reduction never
 // overwrites words a slower thread has still to read: between reductions
-// k and k + 2 lies reduction k + 1's barrier.
-template <int T>
+// k and k + 2 lies reduction k + 1's barrier. kSpread: naked pairs spread
+// over the group's threads (pair_pass_spread), as the seeding kernel runs
+// them; K4 keeps a thread a unit (pair_pass). Bar: the group's barrier.
+template <int T, bool kSpread = false, class Bar = BlockBarrier>
 struct BlockGroup {
   static constexpr int kThreads = T;
   static constexpr bool kBlock = true;
+  static constexpr bool kSpreadPairs = kSpread;
   static constexpr int kWarpsIn = T / kLanes;
   static constexpr int kRedWords = 4 * kWarpsIn;  // two slots of (key, payload) a warp
   static_assert(T % kLanes == 0 && kWarpsIn <= kLanes, "one warp folds the warps' words");
   int t;
   unsigned* red;  // shared, kRedWords
   int slot;
-  __device__ __forceinline__ void sync() { __syncthreads(); }
+  Bar bar;
+  __device__ __forceinline__ void sync() { bar.sync(); }
   __device__ __forceinline__ void sync_before_vote() {}  // the vote is a barrier
-  __device__ __forceinline__ bool any(bool p) { return __syncthreads_or(p) != 0; }
+  __device__ __forceinline__ bool any(bool p) { return bar.any(p); }
   __device__ __forceinline__ unsigned* next_slot() {
     unsigned* r = red + slot * 2 * kWarpsIn;
     slot ^= 1;
@@ -265,7 +298,7 @@ struct BlockGroup {
     unsigned* r = next_slot();
     const int lane = t % kLanes;
     if (lane == 0) r[t / kLanes] = v;
-    __syncthreads();
+    sync();
     return Op::warp(lane < kWarpsIn ? r[lane] : Op::kIdentity);
   }
   __device__ __forceinline__ unsigned reduce_or(unsigned v) { return reduce<OrOp>(v); }
@@ -282,7 +315,7 @@ struct BlockGroup {
       r[t / kLanes] = wmin;
       r[kWarpsIn + t / kLanes] = wpay;
     }
-    __syncthreads();
+    sync();
     const unsigned k = lane < kWarpsIn ? r[lane] : kNoKey;
     const unsigned p = lane < kWarpsIn ? r[kWarpsIn + lane] : 0;
     const unsigned bmin = MinOp::warp(k);
@@ -434,6 +467,53 @@ __device__ __forceinline__ void pair_pass(const UnitWalk (&uw)[GeoOf<BOX, G>::UP
   }
 }
 
+// Naked pairs as pair_pass computes them, spread over the group's T
+// threads a (unit, cell) item at a time, so a unit's N cells are searched
+// at once and not by one thread in turn (a thread a unit took ~7 us a 9x9
+// sweep on an H100, the most of a locked seeding round: PERF.md). (1) Each
+// two-candidate cell looks for a twin among its unit's N masks (loaded
+// together) and, with one, ORs its bit into the unit's twins (os) and its
+// pair into the unit's pairs (hid); both are zeroed in pass C and free
+// until pass L's second phase and pass D. (2) After a barrier each cell of
+// a unit with pairs ORs its elimination into pe, as pair_pass does.
+template <int BOX, class G>
+__device__ __forceinline__ void pair_pass_spread(const Smem& sh, G& grp) {
+  using Geo = GeoOf<BOX, G>;
+  constexpr int T = G::kThreads;
+  constexpr int N = Geo::N;
+  constexpr int ITEMS = Geo::U * N;
+  constexpr int IPT = (ITEMS + T - 1) / T;  // items a thread
+#pragma unroll
+  for (int s = 0; s < IPT; ++s) {
+    const int it = grp.t + s * T;
+    if (it >= ITEMS) continue;
+    const UnitWalk w = unit_walk<BOX>(it / N);
+    const int k = it % N;
+    const int ck = sh.cm[walk_cell<BOX>(w, k)];
+    if (__popc(ck) != 2) continue;
+    bool twin = false;
+#pragma unroll
+    for (int k2 = 0; k2 < N; ++k2) twin |= k2 != k && sh.cm[walk_cell<BOX>(w, k2)] == ck;
+    if (twin) {
+      atomicOr(&sh.os[w.unit], 1 << k);
+      atomicOr(&sh.hid[w.unit], ck);
+    }
+  }
+  grp.sync();
+#pragma unroll
+  for (int s = 0; s < IPT; ++s) {
+    const int it = grp.t + s * T;
+    if (it >= ITEMS) continue;
+    const int unit = it / N, k = it % N;
+    const int pairs = sh.hid[unit];
+    if (pairs == 0) continue;
+    const int cell = walk_cell<BOX>(unit_walk<BOX>(unit), k);
+    const int ck = sh.cm[cell];
+    const int e = pairs & ~(((sh.os[unit] >> k) & 1) ? ck : 0);
+    if (e & ck) atomicOr(&sh.pe[cell], e);
+  }
+}
+
 // Pass L: the elimination of every line segment from locked candidates, into
 // seg[] (and the naked pairs into pe[] when asked). Starts after a sync that
 // published the candidates in cm; ends with one.
@@ -443,7 +523,13 @@ __device__ __forceinline__ void locked_pass(const UnitWalk (&uw)[GeoOf<BOX, G>::
   using Geo = GeoOf<BOX, G>;
   constexpr int T = G::kThreads;
   constexpr int NB = Geo::NB;
-  if (pairs) pair_pass<BOX, G>(uw, sh);
+  if (pairs) {
+    if constexpr (G::kSpreadPairs) {
+      pair_pass_spread<BOX, G>(sh, grp);
+    } else {
+      pair_pass<BOX, G>(uw, sh);
+    }
+  }
 #pragma unroll
   for (int k = 0; k < Geo::SPL; ++k) {
     const int i = grp.t + k * T;
@@ -523,6 +609,14 @@ __device__ __forceinline__ int sweep(int (&g)[GeoOf<BOX, G>::CPL],
       if (pairs) sh.pe[t + j * T] = 0;
     }
     cand[j] = c;
+  }
+  if constexpr (G::kSpreadPairs) {
+    if (pairs) {
+      for (int u = t; u < Geo::U; u += T) {
+        sh.os[u] = 0;   // the unit's twins (pair_pass_spread)
+        sh.hid[u] = 0;  // the unit's pairs
+      }
+    }
   }
 
   if (locked) {
@@ -1625,9 +1719,8 @@ race_fold_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__ g
 // the same rounds on CPU tensors (ops/solver.py seed_rounds). It
 // replaces no Pallas kernel. Round for round it computes what those rounds
 // do, deciding over the whole batch as they do:
-//   * every state of the batch gets one sweep analysis (K1's `sweep`, a
-//     warp a state, locked candidates with naked pairs when `locked`, as
-//     analyze(locked=True) has them);
+//   * every state of the batch gets one sweep analysis (locked candidates
+//     with naked pairs when `locked`, as analyze(locked=True) has them);
 //   * a solved state ends the seeding: the batch as it was analyzed is
 //     returned, with the index of its first solved state;
 //   * a batch whose every state is dead ends it, padded;
@@ -1641,152 +1734,191 @@ race_fold_kernel(const int32_t* __restrict__ meta, const int32_t* __restrict__ g
 //     that is the result, with no further analysis;
 //   * after max_rounds the batch is padded. Padding is the
 //     instantly-UNSAT board (two 1s in row 0) up to `target`.
-// Design (simple first): one thread block of kSeedWarps[BOX] warps. The
-// states are double-buffered in device memory (`cur`, the batch, and
-// `next`, each state's grid after its sweep, at the same index); a round
-// is (1) the sweeps, warp w taking states w, w + W, ...; (2) the round's
-// decision from the states' verdicts (`info`), reduced over the block;
-// (3) each surviving state's place in the next batch, from a block-wide
-// exclusive scan of its row count (1, or its children); (4) the rows
-// written from `next` into `cur` at those places, a warp a state. The
+// Design: one launch of one thread-block cluster of kSeedCluster[BOX] (K)
+// blocks; each block is kSeedParts[BOX] (P) parts of kRaceThreads[BOX]
+// threads, and a part carries one state at a time through K4's block sweep
+// (`sweep` on a BlockGroup whose barrier is the part's named barrier, the
+// MRV cell and its candidates from BlockGroup::min_key), its naked pairs
+// spread over the part's threads (pair_pass_spread: with a thread a unit
+// they were most of a locked 9x9 round). The batch lives in device memory
+// (`cur`; `next` and `info` take the states past a block's stash). A round:
+// (1) block b takes the contiguous range [b ceil(M/K), (b+1) ceil(M/K)) of
+// the batch's M states and loads its first kSeedStash states into shared
+// memory at once; each part sweeps a contiguous share of the range in
+// order, sweeping each state in place in the stash (or into `next`) and
+// writing its record (verdict and MRV cell, MRV mask, and the state's
+// first row among its part's rows both if the round keeps the live states
+// and if it splits them: the part's running counts, so no scan); (2) the
+// block folds its parts' words (first solved index, live states, any
+// single, split rows) and stores them into every block's inbox through
+// distributed shared memory, the cluster syncs, and every warp folds its
+// own inbox (a lane a block), so every block reaches the same decision and
+// its own first row (the rows of the blocks ranked below it) from local
+// shared memory; (3) each block writes its live states' rows, or their
+// children, into `cur`, a warp a state, and a cluster sync (its release and
+// acquire order those writes before the next round's loads, which read
+// `cur` past L1) ends the round. Every remote store precedes a round's
+// first barrier, so no block waits for another before it leaves. Nothing
+// is decided by an atomic, so the result is the same in every run: every
+// host of a race across hosts seeds the same states on its own card. The
 // header [count, first solved index or -1, rounds, states analyzed,
-// outcome] is written last. Every step is deterministic, so every host of
-// a race across hosts seeds the same states on its own card.
+// outcome], followed by the solved state's row when one solved, is written
+// by block 0, so the wrapper reads both in one copy.
 // What bounds it on an H100: the latency of its dependent rounds (~20-25
-// for a deep 9x9 board), each a sweep chain of one state (the warps' states
-// overlap) plus three block barriers and a scan; its bytes (a few hundred
-// states of C words, in L2) and operations (a sweep a state analyzed) are
-// far below that. A thread-block cluster, or a block per SM with a
-// grid-wide barrier a round, would spread a wide round over more SMs: a
-// later change.
-constexpr int kSeedWarps[6] = {0, 0, 8, 16, 8, 4};  // 25x25: 247 registers a lane
-constexpr int kSeedInfoCols = 3;    // per state: verdict | MRV cell << 4, MRV mask, row
+// for a deep 9x9 board), each the sweeps of the longest share (one state
+// a part while a round holds at most K P) plus two cluster barriers (~0.7
+// and ~0.6 us); its bytes (a few hundred states of C words, in L2) and
+// operations (a sweep a state analyzed) are far below that. K and P are
+// the fastest measured a box edge on an H100 (PERF.md): P as large as
+// the registers allow, K 16 where rounds are wide, 8 where they are not.
+constexpr int kSeedCluster[6] = {0, 0, 8, 16, 16, 8};  // blocks of the cluster, by box edge
+// the states of a block's range kept in its shared memory across a round,
+// by box edge (16 KB at most)
+constexpr int kSeedStash[6] = {0, 0, 16, 16, 16, 4};
+// the parts of a block, each a state at a time, by box edge (16x16: two
+// parts of 256 threads fit its registers; 25x25: one of 320)
+constexpr int kSeedParts[6] = {0, 0, 4, 4, 2, 1};
+constexpr int kSeedInfoCols = 4;    // per state: verdict | MRV cell << 4, MRV mask, kept row, split row
+constexpr int kSeedHeaderCols = 5;  // count, first solved, rounds, analyzed, outcome
 constexpr int kSeedTarget = 0;      // the outcomes of a seeding
 constexpr int kSeedSolved = 1;
 constexpr int kSeedDead = 2;
 constexpr int kSeedRounds = 3;
 constexpr int kSeedNone = 0x7fffffff;
 
-// Exclusive prefix sum of one value a thread over the block's W warps, in
-// thread order; the block's total in `total`. `scan`: kLanes + 1 shared
-// words, free again on return.
-template <int W>
-__device__ __forceinline__ int block_exclusive_scan(int v, int t, int* scan, int& total) {
-  const int lane = t % kLanes, warp = t / kLanes;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < kLanes; d *= 2) {
-    const int y = __shfl_up_sync(kAll, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == kLanes - 1) scan[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = lane < W ? scan[lane] : 0;
-    int s = w;
-#pragma unroll
-    for (int d = 1; d < kLanes; d *= 2) {
-      const int y = __shfl_up_sync(kAll, s, d);
-      if (lane >= d) s += y;
-    }
-    if (lane < W) scan[lane] = s - w;
-    if (lane == kLanes - 1) scan[kLanes] = s;
-  }
-  __syncthreads();
-  const int out = scan[warp] + x - v;
-  total = scan[kLanes];
-  __syncthreads();
-  return out;
-}
-
 template <int BOX>
-__global__ void __launch_bounds__(kSeedWarps[BOX] * kLanes)
-seed_frontier_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ cur,
-                     int32_t* __restrict__ next, int32_t* __restrict__ info,
-                     int32_t* __restrict__ header, int M, int target, int max_rounds,
-                     int options) {
-  using Geo = Geometry<BOX>;
-  constexpr int W = kSeedWarps[BOX];
-  constexpr int T = W * kLanes;
+__global__ void __launch_bounds__(kSeedParts[BOX] * kRaceThreads[BOX])
+seed_frontier_kernel(const int32_t* __restrict__ states, int32_t* cur, int32_t* next,
+                     int32_t* info, int32_t* __restrict__ header, int M, int target,
+                     int max_rounds, int options) {
+  constexpr int T = kRaceThreads[BOX];
+  constexpr int P = kSeedParts[BOX];
+  constexpr int BT = P * T;  // the block's threads
+  constexpr int K = kSeedCluster[BOX];
+  constexpr int W = BT / kLanes;
+  constexpr int R = kSeedStash[BOX];
+  using G = BlockGroup<T, true, PartBarrier<T>>;
+  using Geo = Geometry<BOX, T>;
   constexpr int C = Geo::C;
   constexpr int CPL = Geo::CPL;
-  __shared__ int32_t smem[W][Geo::WORDS];
-  __shared__ int scan[kLanes + 1];
-  __shared__ int vote[3];  // first solved index, live states, any live single
-  const int t = threadIdx.x, lane = t % kLanes, warp = t / kLanes;
-  const Smem sh = group_smem<BOX>(smem[warp]);
-  WarpGroup grp{lane};
+  static_assert(K <= kLanes, "a lane reads a block's words");
+  static_assert(P + 1 <= 16, "a named barrier a part");
+  __shared__ int32_t words[P][Geo::WORDS];
+  __shared__ unsigned red[P][G::kRedWords];
+  // the first R states of the block's range: grids (loaded at once, then
+  // swept in place) and records
+  __shared__ int32_t stash[R * C];
+  __shared__ int4 srec[R];
+  // each part's words, then every block's (each block stores its own into
+  // every block's inbox): first solved, live, any single, split rows
+  __shared__ int4 partw[P];
+  __shared__ int4 inbox[K];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid % kLanes, warp = tid / kLanes;
+  const int part = tid / T, t = tid % T;
+  const int rank = (int)cluster.block_rank();
+  G grp{t, red[part], 0, PartBarrier<T>{1 + part}};
+  const Smem sh = group_smem<BOX>(words[part]);
   int pk[CPL];
   UnitWalk uw[Geo::UPL];
-  lane_layout<BOX, WarpGroup>(lane, pk, uw);
+  lane_layout<BOX, G>(t, pk, uw);
   const bool locked = options & kOptLocked;
   const bool pairs = locked && (options & kOptPairs);
-  for (size_t k = t; k < (size_t)M * C; k += T) cur[k] = states[k];
-  __syncthreads();
+  for (size_t k = (size_t)rank * BT + tid; k < (size_t)M * C; k += (size_t)K * BT)
+    cur[k] = states[k];
+  cluster.sync();
 
   int outcome = kSeedRounds, first = -1, rounds = 0, analyzed = 0;
   while (rounds < max_rounds) {
     ++rounds;
     analyzed += M;
-    // (1) each state's sweep: its grid (singles taken) into next, its
-    // verdict and MRV cell into info
-    for (int i = warp; i < M; i += W) {
-      int g[CPL], cand[CPL];
-      const int32_t* in = cur + (size_t)i * C;
+    const int per = (M + K - 1) / K;
+    const int lo = min(rank * per, M), hi = min(lo + per, M);
+    const int sub = (hi - lo + P - 1) / P;  // states a part
+    const int plo = min(lo + part * sub, hi), phi = min(plo + sub, hi);
+    // (1) the range's sweeps, each part its contiguous share: each state's
+    // grid (singles taken) into the stash (the block's first R states,
+    // loaded together first) or next, its record into srec or info; the
+    // part's words, uniform over the part
+    const int n_stash = min(hi - lo, R);
+    for (int k0 = tid; k0 < n_stash * C; k0 += 4 * BT) {
+      int v[4];
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) g[j] = owns<BOX, kLanes>(lane, j) ? in[lane + j * kLanes] : 0;
+      for (int u = 0; u < 4; ++u)
+        v[u] = k0 + u * BT < n_stash * C ? __ldcg(cur + (size_t)lo * C + k0 + u * BT) : 0;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (k0 + u * BT < n_stash * C) stash[k0 + u * BT] = v[u];
+    }
+    __syncthreads();
+    int solved = kSeedNone, live = 0, singles = 0, split_rows = 0;
+    for (int i = plo; i < phi; ++i) {
+      int g[CPL], cand[CPL];
+      const bool on_chip = i - lo < n_stash;  // uniform over the part
+      int32_t* row = on_chip ? stash + (i - lo) * C : next + (size_t)i * C;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        g[j] = !owns<BOX, T>(t, j) ? 0
+               : on_chip ? row[t + j * T] : __ldcg(cur + (size_t)i * C + t + j * T);
+      }
       unsigned key;
       const int v = sweep<BOX>(g, cand, pk, uw, sh, grp, locked, pairs, key);
       int cell = 0, mask = 0;
       if (v == kSweepStuck) {
-        const unsigned k = __reduce_min_sync(kAll, key);
+        // the key's owner hands its cell's candidates on through the reduction
+        const int mine_cell = (int)(key & ((1u << kCellBits) - 1));
+        int mine = 0;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          if (t + j * T == mine_cell) mine = cand[j];
+        }
+        unsigned m;
+        const unsigned k = grp.min_key(key, (unsigned)mine, m);
         if (k != kNoKey) {
           cell = (int)(k & ((1u << kCellBits) - 1));
-          int mine = 0;
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            if (lane + j * kLanes == cell) mine = cand[j];
-          }
-          mask = (int)__reduce_or_sync(kAll, (unsigned)mine);
+          mask = (int)m;
         }
       }
       if (v >= kSweepAssigned) {
-        int32_t* out = next + (size_t)i * C;
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
-          if (owns<BOX, kLanes>(lane, j)) out[lane + j * kLanes] = g[j];
+          if (owns<BOX, T>(t, j)) row[t + j * T] = g[j];
         }
       }
-      if (lane == 0) {
-        info[(size_t)i * kSeedInfoCols] = v | cell << 4;
-        info[(size_t)i * kSeedInfoCols + 1] = mask;
+      if (t == 0) {
+        const int4 rec = make_int4(v | cell << 4, mask, live, split_rows);
+        if (on_chip) {
+          srec[i - lo] = rec;
+        } else {
+          *reinterpret_cast<int4*>(info + (size_t)i * kSeedInfoCols) = rec;
+        }
       }
-      __syncwarp();
-    }
-    if (t == 0) {
-      vote[0] = kSeedNone;
-      vote[1] = 0;
-      vote[2] = 0;
-    }
-    __syncthreads();
-    // (2) the round's decision over the whole batch
-    int solved = kSeedNone, live = 0, singles = 0;
-    for (int i = t; i < M; i += T) {
-      const int v = info[(size_t)i * kSeedInfoCols] & 15;
-      if (v == kSweepSolved) solved = min(solved, i);
-      live += v >= kSweepAssigned;
+      if (v == kSweepSolved && solved == kSeedNone) solved = i;
+      if (v >= kSweepAssigned) {
+        ++live;
+        split_rows += max(__popc(mask), 1);
+      }
       singles |= v == kSweepAssigned;
     }
-    solved = __reduce_min_sync(kAll, solved);
-    live = __reduce_add_sync(kAll, live);
-    singles = __reduce_or_sync(kAll, singles);
-    if (lane == 0) {
-      atomicMin(&vote[0], solved);
-      atomicAdd(&vote[1], live);
-      atomicOr(&vote[2], singles);
-    }
+    // (2) the round's decision over the whole batch: the block's words,
+    // folded from its parts', stored into every block's inbox; a cluster
+    // barrier; then every warp folds its own inbox
+    if (t == 0) partw[part] = make_int4(solved, live, singles, split_rows);
     __syncthreads();
-    const int b_solved = vote[0], b_live = vote[1], b_singles = vote[2];
+    if (warp == 0) {
+      int4 mine = make_int4(kSeedNone, 0, 0, 0);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int4 w = partw[q];
+        mine = make_int4(min(mine.x, w.x), mine.y + w.y, mine.z | w.z, mine.w + w.w);
+      }
+      if (lane < K) *cluster.map_shared_rank(&inbox[rank], lane) = mine;
+    }
+    cluster.sync();
+    const int4 w = lane < K ? inbox[lane] : make_int4(kSeedNone, 0, 0, 0);
+    const int b_solved = __reduce_min_sync(kAll, w.x);
+    const int b_live = __reduce_add_sync(kAll, w.y);
+    const int b_singles = __reduce_or_sync(kAll, w.z);
     if (b_solved != kSeedNone) {
       outcome = kSeedSolved;
       first = b_solved;
@@ -1797,29 +1929,21 @@ seed_frontier_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ c
       break;
     }
     const bool split = !b_singles && b_live < target;
-    // (3) each live state's first row in the next batch
-    int total = 0;
-    for (int base = 0; base < M; base += T) {
-      const int i = base + t;
-      int n = 0;
-      if (i < M) {
-        const int* f = info + (size_t)i * kSeedInfoCols;
-        if ((f[0] & 15) >= kSweepAssigned) n = split ? max(__popc(f[1]), 1) : 1;
-      }
-      int chunk;
-      const int off = block_exclusive_scan<W>(n, t, scan, chunk);
-      if (i < M) info[(size_t)i * kSeedInfoCols + 2] = total + off;
-      total += chunk;
-    }
-    __syncthreads();
-    // (4) the next batch: each live state's row, or its children
-    for (int i = warp; i < M; i += W) {
-      const int* f = info + (size_t)i * kSeedInfoCols;
-      if ((f[0] & 15) < kSweepAssigned) continue;  // uniform over the warp
-      const int32_t* src = next + (size_t)i * C;
-      const int row = f[2];
-      int mask = split ? f[1] : 0;
-      const int cell = f[0] >> 4;
+    const int rows = split ? w.w : w.y;  // block `lane`'s rows
+    const int offset = __reduce_add_sync(kAll, lane < rank ? rows : 0);
+    const int total = __reduce_add_sync(kAll, rows);
+    // (3) the next batch: each live state's row, or its children, a warp a
+    // state, at the block's offset plus its part's plus its own in its part
+    for (int i = lo + warp; i < hi; i += W) {
+      const bool on_chip = i - lo < n_stash;
+      const int4 f = on_chip ? srec[i - lo]
+                             : *reinterpret_cast<const int4*>(info + (size_t)i * kSeedInfoCols);
+      if ((f.x & 15) < kSweepAssigned) continue;  // uniform over the warp
+      const int32_t* src = on_chip ? stash + (i - lo) * C : next + (size_t)i * C;
+      int row = offset + (split ? f.w : f.z);
+      for (int q = 0; q < (i - lo) / sub; ++q) row += split ? partw[q].w : partw[q].y;
+      int mask = split ? f.y : 0;
+      const int cell = f.x >> 4;
       if (mask == 0) {
         int32_t* dst = cur + (size_t)row * C;
         for (int c = lane; c < C; c += kLanes) dst[c] = src[c];
@@ -1833,25 +1957,33 @@ seed_frontier_kernel(const int32_t* __restrict__ states, int32_t* __restrict__ c
       }
     }
     M = total;
-    __syncthreads();
+    cluster.sync();
     if (!b_singles && M >= target) {
       outcome = kSeedTarget;
       break;
     }
   }
+  // every block's stores into the others' inboxes were made before the
+  // round's first barrier, so a block may leave without another
   int count = M;
   if (outcome != kSeedSolved && M < target) {
-    // the instantly-UNSAT pad board up to target
-    for (size_t k = t; k < (size_t)(target - M) * C; k += T)
+    // the instantly-UNSAT pad board up to target, spread over the cluster
+    for (size_t k = (size_t)rank * BT + tid; k < (size_t)(target - M) * C; k += (size_t)K * BT)
       cur[(size_t)M * C + k] = k % C < 2 ? 1 : 0;
     count = target;
   }
-  if (t == 0) {
-    header[0] = count;
-    header[1] = first;
-    header[2] = rounds;
-    header[3] = analyzed;
-    header[4] = outcome;
+  if (rank == 0) {
+    if (tid == 0) {
+      header[0] = count;
+      header[1] = first;
+      header[2] = rounds;
+      header[3] = analyzed;
+      header[4] = outcome;
+    }
+    if (first >= 0) {
+      for (int c = tid; c < C; c += BT)
+        header[kSeedHeaderCols + c] = __ldcg(cur + (size_t)first * C + c);
+    }
   }
 }
 
@@ -1972,13 +2104,55 @@ int launch_race_shard(const RaceMesh& mesh, int first, int count, int D, int max
   return (int)cudaGetLastError();
 }
 
+// The seeding kernel's launch: one cluster of kSeedCluster[BOX] blocks.
+// A cluster of more than 8 blocks (the portable size) needs the kernel's
+// opt-in first.
+template <int BOX>
+cudaLaunchConfig_t seed_config(cudaLaunchAttribute* attr, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kSeedCluster[BOX]);
+  cfg.blockDim = dim3(kSeedParts[BOX] * kRaceThreads[BOX]);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSeedCluster[BOX];
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int BOX>
+cudaError_t seed_opt_in() {
+  if (kSeedCluster[BOX] <= 8) return cudaSuccess;
+  return cudaFuncSetAttribute(seed_frontier_kernel<BOX>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+template <int BOX>
+int seed_clusters() {
+  cudaError_t err = seed_opt_in<BOX>();
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = seed_config<BOX>(attr, 0);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, seed_frontier_kernel<BOX>, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
 template <int BOX>
 int launch_seed(const void* states, void* cur, void* next, void* info, void* header, int M,
                 int target, int max_rounds, int options, cudaStream_t stream) {
-  seed_frontier_kernel<BOX><<<1, kSeedWarps[BOX] * kLanes, 0, stream>>>(
-      static_cast<const int32_t*>(states), static_cast<int32_t*>(cur),
-      static_cast<int32_t*>(next), static_cast<int32_t*>(info), static_cast<int32_t*>(header),
-      M, target, max_rounds, options);
+  cudaError_t err = seed_opt_in<BOX>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = seed_config<BOX>(attr, stream);
+  err = cudaLaunchKernelEx(&cfg, seed_frontier_kernel<BOX>,
+                           static_cast<const int32_t*>(states), static_cast<int32_t*>(cur),
+                           static_cast<int32_t*>(next), static_cast<int32_t*>(info),
+                           static_cast<int32_t*>(header), M, target, max_rounds, options);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -2474,14 +2648,26 @@ int dfs_race_fold_launch(const void* meta, const void* grid, void* fold, void* r
   });
 }
 
+// The seeding kernel's cluster size for a box edge (0: no such box).
+int seed_frontier_cluster(int box) { return box >= 2 && box <= 5 ? kSeedCluster[box] : 0; }
+
+// Clusters of the seeding kernel for a box edge that the current device can
+// hold at once (cudaOccupancyMaxActiveClusters): at least 1 where a seeding
+// can launch; a negative number is a cudaError_t, negated.
+int seed_frontier_clusters(int box) {
+  return by_box(box, -(int)cudaErrorInvalidValue,
+                [](auto b) { return seed_clusters<decltype(b)::value>(); });
+}
+
 // One frontier seeding of M states, one launch on `stream`. states (M, C)
 // int32 in. cur (cap, C) int32 out: the seeded states, their count in the
 // header, the instantly-UNSAT pad rows included; next (cap, C) and info
-// (cap, 3) int32 scratch; header (5) int32 out: count, the first solved
+// (cap, 4) int32 scratch; header (5 + C) int32 out: count, the first solved
 // state's index in cur (-1: none), rounds, states analyzed, outcome (0:
-// target reached, 1: solved, 2: every state dead, 3: max_rounds ran out).
-// cap must be at least max(M, target * N). options: 1 (locked candidates)
-// and 2 (naked pairs, with 1). Returns a cudaError_t.
+// target reached, 1: solved, 2: every state dead, 3: max_rounds ran out),
+// then that state's row when one solved (else left as it was). cap must be
+// at least max(M, target * N). options: 1 (locked candidates) and 2 (naked
+// pairs, with 1). Returns a cudaError_t.
 int seed_frontier_launch(const void* states, void* cur, void* next, void* info, void* header,
                          int M, int cap, int box, int target, int max_rounds, int options,
                          void* stream) {

@@ -72,13 +72,15 @@ call; otherwise (and for records gathered from other hosts) ``race_fold``
 
 ``seed_frontier_cuda`` is a race's seeding BFS (the JAX package's
 host-driven ``_seed_rounds`` over its jitted ``analyze`` and assign
-programs): the seeding kernel (K5, one block, one launch a seeding, the
-rounds and their decisions on the card) on a CUDA tensor, the port's plain
-host rounds (``ops.solver.seed_rounds``) on a CPU one;
-``seed_frontier_cuda.launches`` counts its launches. The wrapper reads
-the kernel's small header with one explicit ``.cpu()`` (and the solution
-row when a state solved); its scratch lives per (device, stream, box,
-capacity) (``seed_scratch``).
+programs): the seeding kernel (K5, one launch of one thread-block cluster
+whose blocks' parts sweep a state at a time, the rounds and their
+decisions on the card) on a CUDA tensor, the port's plain host rounds (``ops.solver.seed_rounds``)
+on a CPU one; ``seed_frontier_cuda.launches`` counts its launches. The
+wrapper reads the kernel's small header, with the solution row after it
+when a state solved, in one explicit ``.cpu()``; its scratch lives per
+(device, stream, box, capacity) (``seed_scratch``). A card that cannot
+hold the kernel's cluster (``lib.seed_clusters``, queried at library
+load) raises ``KernelLaunchError`` before any launch.
 """
 
 from __future__ import annotations
@@ -296,6 +298,12 @@ def load_library() -> ctypes.CDLL:
     lib.dfs_race_fold_launch.restype = i
     lib.seed_frontier_launch.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.seed_frontier_launch.restype = i
+    for fn in ("seed_frontier_cluster", "seed_frontier_clusters"):
+        getattr(lib, fn).argtypes = [i]
+        getattr(lib, fn).restype = i
+    # the seeding kernel's clusters the current card holds at once, a box
+    # edge each (a negative number is a cudaError): a seeding checks its own
+    lib.seed_clusters = {box: lib.seed_frontier_clusters(box) for box in SEED_BOXES}
     _LIBRARY["source"] = source
     return lib
 
@@ -1179,8 +1187,12 @@ race_fold.launches = 0
 
 # -- the frontier race's seeding --------------------------------------------
 
-SEED_HEADER_COLS = 5  # count, first solved, rounds, analyzed, outcome
-SEED_INFO_COLS = 3    # a state's verdict and MRV cell, MRV mask, next row
+# count, first solved, rounds, analyzed, outcome; the solved state's row follows
+SEED_HEADER_COLS = 5
+# a state's verdict and MRV cell, MRV mask, and its first row among its
+# part's rows if the round keeps the live states and if it splits them
+SEED_INFO_COLS = 4
+SEED_BOXES = (2, 3, 4, 5)  # the box edges the seeding kernel is built for
 # a seeding's outcome, by the kernel's number (csrc/dfs_solver.cu kSeed*)
 SEED_OUTCOMES = ("target", "solved", "dead", "rounds")
 _SEED_SCRATCH: dict = {}
@@ -1222,10 +1234,10 @@ def seed_frontier_cuda(states: torch.Tensor, spec: BoardSpec, target: int,
     states swept in all, ``outcome``: one of ``SEED_OUTCOMES``), None from
     the plain version.
 
-    A CUDA tensor launches the seeding kernel (K5, one block, one launch)
-    on the current stream and waits for its header (``.cpu()``, the
-    seeding's one sync; the solution row is fetched after it when a state
-    solved); a CPU tensor runs the plain version. Nothing else is accepted.
+    A CUDA tensor launches the seeding kernel (K5, one cluster, one
+    launch) on the current stream and waits for its header and the
+    solution row after it (one ``.cpu()``, the seeding's one sync); a CPU
+    tensor runs the plain version. Nothing else is accepted.
     ``seed_frontier_cuda.launches`` counts launches. While
     ``library_quarantine`` holds the library, it raises instead."""
     _check_library()
@@ -1286,12 +1298,21 @@ def _seed_launch(lib: ctypes.CDLL, states: torch.Tensor, spec: BoardSpec,
     """Launch ``lib``'s seeding kernel on (M, C) CUDA states on the current
     stream and count it in ``seed_frontier_cuda.launches``; no sync.
     Returns the launch's device buffers ``(out, header)``: the (cap, C)
-    seeded states and the ``SEED_HEADER_COLS`` header."""
+    seeded states and the ``SEED_HEADER_COLS + C`` header (the solution
+    row after the header's words). Raises ``KernelLaunchError``, counting
+    nothing, when the card holds no cluster of the kernel for this box
+    edge (``lib.seed_clusters``, from library load) or the launch fails."""
     M, C = states.shape
+    clusters = lib.seed_clusters.get(spec.box, 0)
+    if clusters < 1:
+        raise KernelLaunchError(
+            f"seed_frontier: the card holds no cluster of the {spec.size}x{spec.size} "
+            f"seeding kernel (" + (f"cudaError {-clusters}" if clusters < 0
+                                   else "cudaOccupancyMaxActiveClusters 0") + ")")
     dev = states.device
     cap = seed_capacity(M, target, spec)
     out = torch.empty((cap, C), dtype=torch.int32, device=dev)
-    header = torch.empty((SEED_HEADER_COLS,), dtype=torch.int32, device=dev)
+    header = torch.empty((SEED_HEADER_COLS + C,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         nxt, info = seed_scratch(dev, stream, spec.box, cap)
@@ -1309,11 +1330,12 @@ def _seed_launch(lib: ctypes.CDLL, states: torch.Tensor, spec: BoardSpec,
 
 def _launch_seed(lib: ctypes.CDLL, states: torch.Tensor, spec: BoardSpec,
                  target: int, max_rounds: int, locked: bool):
-    """``_seed_launch``, then its header read: ``seed_frontier_cuda``'s
-    result on the card."""
+    """``_seed_launch``, then its header and solution row read in one
+    copy: ``seed_frontier_cuda``'s result on the card."""
     out, header = _seed_launch(lib, states, spec, target, max_rounds, locked)
-    count, first, rounds, analyzed, outcome = header.cpu().tolist()
-    solved = out[first].cpu() if first >= 0 else None
+    header = header.cpu()
+    count, first, rounds, analyzed, outcome = header[:SEED_HEADER_COLS].tolist()
+    solved = header[SEED_HEADER_COLS:] if first >= 0 else None
     return out[:count], solved, {
         "count": count, "first": first, "rounds": rounds, "analyzed": analyzed,
         "outcome": SEED_OUTCOMES[outcome],

@@ -479,12 +479,19 @@ def test_race_launch_error_raises_and_counts_nothing(fake_cuda_stream):
 class _FakeSeedLibrary:
     """Stands in for the kernel library in the seeding wrapper's launch:
     records each launch's arguments, writes ``header`` into the header
-    buffer (and a marker row into the output), and returns ``error``."""
+    buffer (a marker row into the output, and when a state solved another
+    marker, ``SOLUTION_MARK`` above the first, after the header's words, as
+    the kernel writes the solved row there), and returns ``error``.
+    ``seed_clusters``: the clusters a box edge's kernel fits on the card,
+    as ``load_library`` records them."""
 
-    def __init__(self, header, error=0):
+    SOLUTION_MARK = 1000
+
+    def __init__(self, header, error=0, clusters=1):
         self.header = header
         self.error = error
         self.calls = []
+        self.seed_clusters = {box: clusters for box in (2, 3, 4, 5)}
 
     def seed_frontier_launch(self, *args):
         import ctypes
@@ -499,6 +506,9 @@ class _FakeSeedLibrary:
             for k in range(self.header[0]):
                 src = row + k
                 ctypes.memmove(out + k * C * 4, src.data_ptr(), C * 4)
+            if self.header[1] >= 0:
+                src = row + self.header[1] + self.SOLUTION_MARK
+                ctypes.memmove(header + h.numel() * 4, src.data_ptr(), C * 4)
         return self.error
 
 
@@ -506,13 +516,17 @@ class _FakeSeedLibrary:
 def test_seed_launch_passes_its_buffers_and_reads_the_header(fake_cuda_stream, solved):
     """The seeding wrapper's launch on CPU tensors against a stand-in
     library: the state buffers hold ``max(M, target * N)`` rows rounded up
-    to a power of two, the scratch is the stream's (``seed_scratch``), the
-    options carry naked pairs with locked candidates, and the header's
-    count, solved index, rounds and states analyzed come back."""
+    to a power of two, the scratch is the stream's (``seed_scratch``: rows
+    and 4-column state records), the header buffer holds the header's words
+    and a row, the options carry naked pairs with locked candidates, and
+    the header's count, solved index, rounds and states analyzed come back
+    with the solution read from the header buffer's row (the one copy), not
+    from the seeded states."""
     from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
         OPT_LOCKED,
         OPT_PAIRS,
         _launch_seed,
+        _seed_launch,
         seed_capacity,
         seed_frontier_cuda,
         seed_scratch,
@@ -531,13 +545,14 @@ def test_seed_launch_passes_its_buffers_and_reads_the_header(fake_cuda_stream, s
     assert args[0] == states.data_ptr()
     nxt, records = seed_scratch(states.device, 101, 3, cap)
     assert args[2:4] == (nxt.data_ptr(), records.data_ptr())
-    assert nxt.shape == (cap, 81) and records.shape == (cap, 3)
+    assert nxt.shape == (cap, 81) and records.shape == (cap, 4)
     assert args[5:11] == (3, cap, 3, 64, 97, OPT_LOCKED | OPT_PAIRS) and args[-1] == 101
     assert out.shape == (5, 81) and torch.equal(out[4], torch.arange(81) + 4)
     assert info == {"count": 5, "first": header[1], "rounds": 9, "analyzed": 40,
                     "outcome": "solved" if solved else "target"}
     if solved:
-        assert torch.equal(solution, torch.arange(81, dtype=torch.int32) + 2)
+        assert torch.equal(solution, torch.arange(81, dtype=torch.int32) + 2
+                           + _FakeSeedLibrary.SOLUTION_MARK)
     else:
         assert solution is None
     # unlocked: no option bit; another stream gets a scratch of its own
@@ -546,6 +561,10 @@ def test_seed_launch_passes_its_buffers_and_reads_the_header(fake_cuda_stream, s
     assert lib.calls[1][10] == 0
     assert lib.calls[1][2] == seed_scratch(states.device, 102, 3, cap)[0].data_ptr()
     assert lib.calls[1][2] != nxt.data_ptr()
+    # the launch step alone: the header buffer holds the header's words and a row
+    seeded, head = _seed_launch(lib, states, spec, 64, 97, True)
+    assert seeded.shape == (cap, 81) and head.shape == (5 + 81,)
+    assert lib.calls[2][4] == head.data_ptr()
 
 
 def test_seed_launch_error_raises_and_counts_nothing(fake_cuda_stream):
@@ -560,6 +579,30 @@ def test_seed_launch_error_raises_and_counts_nothing(fake_cuda_stream):
         _launch_seed(_FakeSeedLibrary([0] * 5, error=1),
                      torch.zeros((1, 81), dtype=torch.int32), spec_for_size(9), 8, 97, True)
     assert seed_frontier_cuda.launches == before
+
+
+@pytest.mark.parametrize("clusters", [
+    pytest.param(0, id="no-cluster-fits"),
+    pytest.param(-2, id="occupancy-query-error"),
+])
+def test_seed_launch_without_a_cluster_raises_and_launches_nothing(fake_cuda_stream,
+                                                                   clusters):
+    """A card that holds no cluster of the seeding kernel for the box edge
+    (the occupancy recorded at library load is 0, or its query failed with
+    a cudaError) raises ``KernelLaunchError`` before any launch: nothing is
+    launched or counted, and nothing falls back to the host rounds."""
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        KernelLaunchError,
+        _launch_seed,
+        seed_frontier_cuda,
+    )
+
+    lib = _FakeSeedLibrary([1, -1, 1, 1, 0], clusters=clusters)
+    before = seed_frontier_cuda.launches
+    with pytest.raises(KernelLaunchError, match="cluster"):
+        _launch_seed(lib, torch.zeros((1, 81), dtype=torch.int32), spec_for_size(9), 8, 97,
+                     True)
+    assert seed_frontier_cuda.launches == before and lib.calls == []
 
 
 @pytest.mark.parametrize(
@@ -975,6 +1018,75 @@ def test_seeding_kernel_matches_plain_on_the_card():
         assert (ksolved is None) == (psolved is None)
 
 
+def _seed_beside_a_segment(sets):
+    """Each of ``sets`` seeded on the current stream while a K3 segment over
+    4096 hard boards (512 steps, every lane busy) runs on another stream:
+    the seeding cluster launched beside a card full of K3's warps. Returns
+    the seedings' ``(states, solved)`` and whether the segment's pool and
+    digest equal the same segment's run alone."""
+    from sudoku_solver_distributed_tpu_torch.ops.config import (
+        segment_prefix_gather, serving_config,
+    )
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        SegmentPool, dfs_segment, seed_frontier_cuda,
+    )
+
+    spec9 = spec_for_size(9)
+    sweeps = {k: serving_config(9)[k] for k in ("locked_candidates", "waves", "naked_pairs")}
+    boards = torch.as_tensor(np.tile(_hard(64), (64, 1, 1)), device="cuda")
+    keep = torch.full((len(boards),), -1, dtype=torch.int32, device="cuda")
+    stock = boards[:1].reshape(1, -1)
+    prefix = segment_prefix_gather(len(boards), spec9.cells)
+
+    def segment():
+        pool = SegmentPool.fresh(boards, spec9, 81)
+        pool, digest, _ = dfs_segment(pool, stock, keep, 512, prefix_gather=prefix, **sweeps)
+        return pool.state.grid, pool.state.status, digest
+
+    alone = segment()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        beside = segment()
+    seeded = [seed_frontier_cuda(s.cuda(), spec, target, spec.cells + 16, locked)[:2]
+              for spec, s, target, locked in sets]
+    torch.cuda.synchronize()
+    return seeded, all(torch.equal(a, b) for a, b in zip(alone, beside))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["16x16 deep @1024", "beside a K3 segment"])
+def test_seeding_kernel_matches_plain_wide_and_beside_a_segment(case):
+    """K5 against the plain host rounds, exactly, where the cluster is
+    stretched: a wide seeding (a 16x16 deep board at 1024 states, which the
+    seeding solves, its rounds' ranges many states a block), and the
+    seedings of ``_seeding_sets`` launched while a K3 segment fills the card
+    from another stream (the segment's result unchanged by them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        _seed_frontier_plain,
+        seed_frontier_cuda,
+    )
+
+    if case == "16x16 deep @1024":
+        board = np.load(os.path.join(ROOT, "benchmarks", "corpus_16x16_deep_anneal_64.npz"))
+        sets = [(spec_for_size(16), torch.as_tensor(board["boards"][0].reshape(1, -1)),
+                 1024, True)]
+        got = [seed_frontier_cuda(s.cuda(), spec, target, spec.cells + 16, locked)[:2]
+               for spec, s, target, locked in sets]
+    else:
+        sets = _seeding_sets()
+        got, segment_same = _seed_beside_a_segment(sets)
+        assert segment_same
+    for (spec, s, target, locked), (kstates, ksolved) in zip(sets, got):
+        pstates, psolved, _ = _seed_frontier_plain(s, spec, target, spec.cells + 16, locked)
+        assert kstates.is_cuda and torch.equal(kstates.cpu(), pstates)
+        assert (ksolved is None) == (psolved is None)
+        if psolved is not None:
+            assert torch.equal(ksolved.cpu(), psolved)
+
+
 @pytest.mark.cuda
 def test_seed_frontier_on_the_card_launches_the_kernel():
     """``seed_frontier`` with no device runs on the card: one K5 launch,
@@ -1015,6 +1127,33 @@ def test_a_race_is_one_kernel_record():
     names = {e.key for e in prof.key_averages() if e.device_time_total > 0}
     names = {n for n in names if "spin_kernel" not in n}
     assert len(names) == 1 and "dfs_race_kernel" in names.pop()
+
+
+@pytest.mark.cuda
+def test_a_seeding_is_one_kernel_record():
+    """torch.profiler sees one kernel a seeding, the seeding kernel's one
+    cluster launch: no copy, memset or other kernel beside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from torch.profiler import ProfilerActivity, profile
+
+    from sudoku_solver_distributed_tpu_torch.ops.cuda_solver import (
+        _seed_launch,
+        load_library,
+    )
+
+    spec, s, target, locked = _seeding_sets()[0]
+    lib, g = load_library(), s.cuda()
+    _seed_launch(lib, g, spec, target, spec.cells + 16, locked)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000_000)  # keeps the seedings clear of the window's edge
+        for _ in range(4):
+            _seed_launch(lib, g, spec, target, spec.cells + 16, locked)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_time_total > 0}
+    names = {n for n in names if "spin_kernel" not in n}
+    assert len(names) == 1 and "seed_frontier_kernel" in names.pop()
 
 
 @pytest.mark.cuda

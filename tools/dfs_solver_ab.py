@@ -1,6 +1,6 @@
 """Time another build of the DFS kernels against this checkout's, on one GPU.
 
-    python3 tools/dfs_solver_ab.py OTHER_dfs_solver.cu [--arms k1,k3,race]
+    python3 tools/dfs_solver_ab.py OTHER_dfs_solver.cu [--arms k1,k3,race,shards,seed]
 
 OTHER is a source of the same C interface (``dfs_solver_launch``,
 ``dfs_segment_launch`` and ``dfs_race_launch`` with the same arguments,
@@ -10,7 +10,7 @@ sweep count and option bits included, ``dfs_solver_meta_cols`` and
 directory such as ``_archive/``, or a copy of this one with one constant
 changed. Both sources are built with ``cuda_solver.NVCC_FLAGS``, and
 ``ptxas -v``'s registers and stack are printed for each. ``--arms`` picks
-the arms (default all four).
+the arms (default all five).
 
 The DFS kernel (K1, arm ``k1``): at every width of
 ``chip_smoke.timing_widths`` the two builds must return the same grid and
@@ -44,6 +44,23 @@ folds (``cuda_solver._launch_race_shards`` with either library, over one
 set of stop words), on the same sets padded for 4 shards: the two builds
 must return the same row and fold; then in turns, each race alone behind
 a device spin (``chip_smoke._event_ms``).
+
+The seeding kernel (K5, arm ``seed``, a build that has
+``seed_frontier_launch``), through ``cuda_solver._seed_launch`` with
+either library, on phase 11 (e)'s timed sets (``seed_timing_sets``): deep
+9x9 boards 0-15 at 64 states, locked and unlocked, the README at 512, deep
+board 0 at 512 (solved in seeding), the two 16x16 boards of phase 11 at 64
+and the first at 1024, the 25x25 board at 8, the 4x4 one-clue board at 8.
+The two builds must seed the
+same states, header and solution (a build from before the solution row
+followed the header is read at its solved state's row); then each
+build's seedings are timed one by one with CUDA events in turns (other,
+this, this, other; the median of each build), with microseconds a round.
+Then deep board 0 at 64 is timed the same way while a K3 segment over 4096
+hard boards (512 steps) runs on another stream, a fresh segment a seeding:
+a cluster launch beside a card full of K3's warps. Last, with this build,
+the wrapper's one device-to-host copy (header and solution row) against a
+header copy followed by the row's own copy, by host clock.
 
 Prints one line per width, case and set, the card's name and power limit,
 and last one JSON object with the times. Exits non-zero without a result
@@ -82,6 +99,13 @@ def build_other(cs, source: Path):
     for fn in ("dfs_solver_launch", "dfs_segment_launch", "dfs_race_launch"):
         getattr(lib, fn).argtypes = getattr(this, fn).argtypes
         getattr(lib, fn).restype = ctypes.c_int
+    if hasattr(lib, "seed_frontier_launch"):  # a build with the seeding kernel
+        lib.seed_frontier_launch.argtypes = this.seed_frontier_launch.argtypes
+        lib.seed_frontier_launch.restype = ctypes.c_int
+        # a build of one block a seeding launches on any card
+        lib.seed_clusters = ({box: 1 for box in cs.SEED_BOXES}
+                             if not hasattr(lib, "seed_frontier_clusters") else
+                             {box: lib.seed_frontier_clusters(box) for box in cs.SEED_BOXES})
     if hasattr(lib, "dfs_race_shards_launch"):  # a build with the shard form
         # a build before the relay across hosts takes the first 21 arguments:
         # the three trailing ones (null, null, 0 without a relay) lie past
@@ -364,7 +388,195 @@ def shard_sets(cs, this, other, smoke) -> dict:
     return out
 
 
-ARMS = ("k1", "k3", "race", "shards")
+def seed_timing_sets(smoke, F, spec_for_size) -> list:
+    """(name, states, spec, target, locked) of the seed arm: phase 11 (e)'s
+    timed seedings (``chip_smoke.seeding_sets`` names them alike)."""
+    import numpy as np
+
+    spec9 = spec_for_size(9)
+    deep9 = smoke.load_corpus("corpus_9x9_deep_128.npz")
+    out = [(f"9x9 deep #{k} @64{'' if locked else ' unlocked'}", deep9[k][None], spec9, 64,
+            locked) for locked in (True, False) for k in range(smoke.SEED_DEEP_BOARDS)]
+    readme = np.asarray(smoke.README_PUZZLE, np.int32)
+    out += [("README @512", readme[None], spec9, 512, True),
+            ("9x9 deep #0 @512", deep9[0][None], spec9, 512, True)]
+    race = smoke.frontier_race_sets(F, spec_for_size, smoke.SYMMETRY_SEED)
+    for name, board, spec, _, _, target in race:
+        if spec.size in (4, 16, 25):
+            out.append((f"{name.split(' @')[0]} @{target}", np.asarray(board)[None], spec,
+                        target, True))
+    name, board, spec = next((n, b, s) for n, b, s, *_ in race if s.size == 16)
+    out.append((f"{name.split(' @')[0]} @1024", np.asarray(board)[None], spec, 1024, True))
+    return out
+
+
+def _seed_result(cs, lib, flat, spec, target, locked):
+    """One seeding by ``lib`` through the wrapper's launch step: the seeded
+    states, the 5-word header and the solution (None: none solved); a
+    build whose header carries no row gives its solved state's row."""
+    import torch
+
+    out, header = cs._seed_launch(lib, flat, spec, target, spec.cells + 16, locked)
+    torch.cuda.synchronize()
+    head = header[:cs.SEED_HEADER_COLS].cpu()
+    count, first = int(head[0]), int(head[1])
+    row = None
+    if first >= 0:
+        with_row = hasattr(lib, "seed_frontier_clusters")
+        row = (header[cs.SEED_HEADER_COLS:] if with_row else out[first]).cpu()
+    return out[:count].cpu(), head, row
+
+
+def _k3_beside(cs, smoke):
+    """A function that starts a K3 segment over 4096 hard boards (512 steps,
+    9x9 serving sweeps) on a stream of its own, after the current stream's
+    work; the stream is returned so the caller can wait for it."""
+    import torch
+
+    from sudoku_solver_distributed_tpu_torch.ops import solver as ts
+    from sudoku_solver_distributed_tpu_torch.ops.config import (
+        segment_prefix_gather,
+        serving_config,
+    )
+    from sudoku_solver_distributed_tpu_torch.ops.spec import spec_for_size
+
+    spec = spec_for_size(9)
+    knobs = ts.sweep_knobs(spec, **smoke.sweeps_of(serving_config(9)))
+    waves, options = knobs["waves"], cs._options(knobs)
+    hard = torch.as_tensor(smoke.load_corpus("corpus_9x9_hard_4096.npz"), device="cuda")
+    keep = torch.full((len(hard),), -1, dtype=torch.int32, device="cuda")
+    prefix = segment_prefix_gather(len(hard), spec.cells)
+    side = torch.cuda.Stream()
+    this = cs.load_library()
+
+    def start():
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            pool = cs.SegmentPool.fresh(hard, spec, 81)
+            cs._launch_segment(this, pool, hard.reshape(len(hard), -1), keep, 512, waves,
+                               options, prefix)
+        return side
+
+    return start
+
+
+def _seed_reads(cs, lib, smoke, F, spec_for_size) -> dict:
+    """The wrapper's device-to-host reads, by host clock with this build:
+    ``cuda_solver._launch_seed`` (the header and the solution row in one
+    copy) against the launch step followed by a header copy and, when a
+    state solved, a copy of its row out of the seeded states (two copies),
+    in turns (two, one, one, two; 20 seedings each), on deep board 0 at 64
+    (not solved) and at 512 (solved). Medians in ms."""
+    import statistics
+    import time
+
+    import torch
+
+    out = {}
+    for name, states, spec, target, locked in seed_timing_sets(smoke, F, spec_for_size):
+        if name not in ("9x9 deep #0 @64", "9x9 deep #0 @512"):
+            continue
+        flat = torch.as_tensor(states.reshape(1, -1), device="cuda").contiguous()
+        rounds = spec.cells + 16
+
+        def one():
+            cs._launch_seed(lib, flat, spec, target, rounds, locked)
+
+        def two():
+            seeded, header = cs._seed_launch(lib, flat, spec, target, rounds, locked)
+            first = int(header[:cs.SEED_HEADER_COLS].cpu()[1])
+            if first >= 0:
+                seeded[first].cpu()
+
+        times = {"two": [], "one": []}
+        for label, fn in (("two", two), ("one", one), ("one", one), ("two", two)):
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times[label].append((time.perf_counter() - t0) * 1e3)
+        out[name] = {k: statistics.median(v) for k, v in times.items()}
+        smoke.log(f"seed {name} through the wrapper (host clock, medians of 40): one copy "
+                  f"{out[name]['one']:.4f} ms, two copies {out[name]['two']:.4f} ms")
+    return out
+
+
+def seed_sets(cs, this, other, smoke) -> dict:
+    """K5 on each seed timing set: the two builds' seedings equal, then in
+    turns, seeding by seeding; then deep #0 @64 beside a K3 segment."""
+    import statistics
+
+    import torch
+
+    from sudoku_solver_distributed_tpu_torch.ops.spec import spec_for_size
+    from sudoku_solver_distributed_tpu_torch.parallel import frontier as F
+
+    count0 = cs.seed_frontier_cuda.launches
+    out = {"sets": {}}
+    for name, states, spec, target, locked in seed_timing_sets(smoke, F, spec_for_size):
+        flat = torch.as_tensor(states.reshape(len(states), -1), device="cuda").contiguous()
+        (tstates, thead, trow), (ostates, ohead, orow) = (
+            _seed_result(cs, lib, flat, spec, target, locked) for lib in (this, other))
+        same = (torch.equal(tstates, ostates) and torch.equal(thead, ohead)
+                and (trow is None) == (orow is None)
+                and (trow is None or torch.equal(trow, orow)))
+        smoke.check(same, f"seed set {name}: the two builds disagree")
+        rounds = int(thead[2])
+
+        def seed(lib):
+            cs._seed_launch(lib, flat, spec, target, spec.cells + 16, locked)
+
+        reps = 20 if spec.size < 16 else 10
+        turns = [_race_times_ms(lambda lib=lib: seed(lib), reps, smoke)
+                 for lib in (other, this, this, other)]
+        med = {"other": statistics.median(turns[0] + turns[3]),
+               "this": statistics.median(turns[1] + turns[2])}
+        rec = out["sets"][name] = {
+            "rounds": rounds, "analyzed": int(thead[3]), "count": int(thead[0]),
+            "outcome": cs.SEED_OUTCOMES[int(thead[4])], "other_ms": med["other"],
+            "this_ms": med["this"], "turn_means_ms": [statistics.fmean(t) for t in turns],
+            "us_per_round": {k: v * 1e3 / max(rounds, 1) for k, v in med.items()},
+        }
+        smoke.log(f"seed {name} ({rounds} rounds, {rec['analyzed']} states analyzed, "
+                  f"{rec['outcome']}): median other {med['other']:.4f}, this "
+                  f"{med['this']:.4f} ms (CUDA events, {2 * reps} seedings each; turn means "
+                  + ", ".join(f"{x:.4f}" for x in rec["turn_means_ms"])
+                  + f"); us a round: other {rec['us_per_round']['other']:.2f}, this "
+                  f"{rec['us_per_round']['this']:.2f}")
+    deep = [r for n, r in out["sets"].items() if n.startswith("9x9 deep #") and n.endswith("@64")]
+    out["deep64_median"] = {k: statistics.median(r[f"{k}_ms"] for r in deep)
+                            for k in ("other", "this")}
+    # deep #0 @64 while a K3 segment fills the card from another stream
+    name, states, spec, target, locked = seed_timing_sets(smoke, F, spec_for_size)[0]
+    flat = torch.as_tensor(states.reshape(1, -1), device="cuda").contiguous()
+    start_k3 = _k3_beside(cs, smoke)
+    beside = {"other": [], "this": []}
+    for label, lib in (("other", other), ("this", this), ("this", this), ("other", other)):
+        for _ in range(5):
+            side = start_k3()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            # the seeding enqueued behind a spin, off the host's clock
+            torch.cuda._sleep(int(200e-6 * smoke.SM_CLOCK_HZ))
+            ev[0].record()
+            cs._seed_launch(lib, flat, spec, target, spec.cells + 16, locked)
+            ev[1].record()
+            torch.cuda.synchronize()
+            beside[label].append(ev[0].elapsed_time(ev[1]))
+            torch.cuda.current_stream().wait_stream(side)
+    out["beside_k3"] = {k: statistics.median(v) for k, v in beside.items()}
+    smoke.log(f"seed {name} beside a K3 segment (4096 hard boards, 512 steps, another "
+              f"stream): median other {out['beside_k3']['other']:.4f}, this "
+              f"{out['beside_k3']['this']:.4f} ms (CUDA events, 10 seedings each); alone "
+              f"other {out['sets'][name]['other_ms']:.4f}, this "
+              f"{out['sets'][name]['this_ms']:.4f}")
+    smoke.log(f"seed deep 9x9 #0-15 @64 locked: median other {out['deep64_median']['other']:.4f}, "
+              f"this {out['deep64_median']['this']:.4f} ms")
+    out["reads"] = _seed_reads(cs, this, smoke, F, spec_for_size)
+    cs.seed_frontier_cuda.launches = count0
+    return out
+
+
+ARMS = ("k1", "k3", "race", "shards", "seed")
 
 
 def main(argv) -> int:
@@ -412,6 +624,10 @@ def main(argv) -> int:
         if not hasattr(other, "dfs_race_shards_launch"):
             parser.error("--arms shards takes a build with dfs_race_shards_launch")
         result["shard_races"] = shard_sets(cs, this, other, smoke)
+    if "seed" in arms:
+        if not hasattr(other, "seed_frontier_launch"):
+            parser.error("--arms seed takes a build with seed_frontier_launch")
+        result["seeds"] = seed_sets(cs, this, other, smoke)
     card = smoke.card_name_and_power_limit()
     smoke.log(card)
     print(json.dumps({"other": str(source.relative_to(ROOT)), "card": card,
