@@ -132,11 +132,20 @@ from .ops.cuda_solver import (
     library_error,
     library_quarantine,
     library_source,
+    lockstep_loop,
     rebuild_library,
     solve_stage,
 )
 from .ops.propagate import analyze
-from .ops.solver import OVERFLOW, RUNNING, SOLVED, pad_board, staged_depths, unsat_pad
+from .ops.solver import (
+    OVERFLOW,
+    RUNNING,
+    SOLVED,
+    LoopStats,
+    pad_board,
+    staged_depths,
+    unsat_pad,
+)
 from .ops.spec import SPEC_9, BoardSpec
 from .serving.admission import DeadlineExceeded
 from .utils.faults import InjectedEngineFault
@@ -197,7 +206,7 @@ class _Inflight(NamedTuple):
     """A dispatched bucket: the first depth stage's rows on their way to
     the host, and what finalizing needs to run the later stages."""
 
-    host: torch.Tensor                 # (B, C+6) rows; pinned on CUDA
+    host: torch.Tensor                 # (B, C+4) rows (C+6 on a mesh); pinned on CUDA
     ready: Optional[torch.cuda.Event]  # recorded after the copy; None on CPU
     dev: torch.Tensor                  # (B, N, N) the padded boards, on device
     boards: np.ndarray                 # the padded boards, on the host
@@ -206,6 +215,14 @@ class _Inflight(NamedTuple):
     sweeps: dict                       # the call's sweep knobs
     token: Optional[int] = None        # the supervisor's token, if any
     t0: Optional[float] = None         # dispatch time (None: warm-up, deep retry)
+    # (stage, start, end) timing events of each device stage run, on the
+    # one-card CUDA path only (else None): the cost plane's ``gpu_s``
+    timed: Optional[list] = None
+    # each depth stage run's loop counts on one device, an int64 pair
+    # [the boards' own steps summed, the stage's turns] copied to the host
+    # with its rows (``_stage_rows``); None on a mesh or the multi-host
+    # fan-out, whose rows carry the shards' LoopStats
+    loops: Optional[list] = None
 
 
 class _SegmentHandle(NamedTuple):
@@ -748,10 +765,28 @@ class SolverEngine:
     def _device_batch(self, boards: np.ndarray) -> torch.Tensor:
         """Host boards → the engine's device, without a host sync on CUDA
         (a copy from pageable memory would wait for the stream)."""
+        return self._host_batch(boards).to(self.device, non_blocking=True)
+
+    def _host_batch(self, boards: np.ndarray) -> torch.Tensor:
+        """Host boards as an int32 tensor, pinned on CUDA so that their copy
+        to the card does not wait."""
         t = torch.from_numpy(np.ascontiguousarray(boards, dtype=np.int32))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _stage_event(self) -> torch.cuda.Event:
+        """A timing event recorded on the current stream: the start of a
+        device stage the cost plane times (``gpu_s``)."""
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @property
+    def _times_stages(self) -> bool:
+        """Whether bucket calls time their device stages with CUDA events:
+        on one card. The mesh's shards run on streams of their own and the
+        multi-host fan-out on other hosts, so neither records ``gpu_s``;
+        nor does the CPU."""
+        return self.device.type == "cuda" and self._mesh_program is None
 
     def _sweeps(self, width: int) -> dict:
         """The sweep knobs of a ``width``-board call: a single board sweeps
@@ -765,34 +800,45 @@ class SolverEngine:
         )
 
     def _stage_rows(self, dev: torch.Tensor, depth: int, iters: int,
-                    sweeps: dict) -> torch.Tensor:
-        """One depth stage on the device: the packed (B, C+6) int32 rows
-        [grid | solved | status | guesses | validations | lane_steps |
-        idle_lane_steps], the JAX engine's row layout. The two trailing
-        columns are the stage's LoopStats broadcast across rows (the cost
-        plane reads row 0), built on the device, so no host sync."""
+                    sweeps: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One depth stage on one device: the packed (B, C+4) int32 rows
+        [grid | solved | status | guesses | validations] and the stage's
+        loop counts, an int64 pair [Σ the boards' own steps, the most
+        steps of any board] (``solve_stage``'s LoopStats and ``iters``),
+        which ``_loop_stats`` turns into lockstep counts on the host.
+        Built on the device, so no host sync."""
         res, stats = solve_stage(dev, self.spec, depth, iters, **sweeps)
         B = dev.shape[0]
-        return torch.cat(
+        rows = torch.cat(
             [
                 res.grid.reshape(B, -1),
                 res.solved[:, None].to(torch.int32),
                 res.status[:, None],
                 res.guesses[:, None],
                 res.validations[:, None],
-                self._stat_column(stats.lane_steps, B),
-                self._stat_column(stats.idle_lane_steps, B),
             ],
             dim=1,
         )
+        own = torch.as_tensor(stats.lane_steps, device=dev.device)
+        turns = torch.as_tensor(res.iters, device=dev.device)
+        return rows, torch.stack([own, turns])
 
-    def _stat_column(self, value, B: int) -> torch.Tensor:
-        """A (B, 1) int32 column of one LoopStats counter: a 0-dim device
-        tensor stays on the device, a Python int becomes a fill."""
-        if isinstance(value, torch.Tensor):
-            return value.to(torch.int32).reshape(1, 1).expand(B, 1)
-        return torch.full((B, 1), int(value), dtype=torch.int32,
-                          device=self.device)
+    def _loop_stats(self, call: _Inflight, rows: np.ndarray) -> LoopStats:
+        """A finished call's LoopStats, lockstep counts on every path: on a
+        mesh or the multi-host fan-out the shards' sums in its rows' two
+        trailing columns (``parallel/shard.py``); on one device, from its
+        depth stages' loop counts (``call.loops``), as a lockstep loop
+        over the call's width that turned as often as its stages' longest
+        boards stepped. Python ints, which do not wrap (a 4096-wide stage
+        of 2**20 steps is 2**32 lane-steps)."""
+        if call.loops is None:
+            C = self.spec.cells
+            return LoopStats(int(rows[0, C + 4]), int(rows[0, C + 5]))
+        own = turns = 0
+        for pair in call.loops:
+            o, t = pair.tolist()
+            own, turns = own + o, turns + t
+        return lockstep_loop(own, turns, call.boards.shape[0])
 
     def _note_program(self, name: str, width: int) -> None:
         """Record a distinct (variant, width) launch shape, counted by
@@ -806,18 +852,30 @@ class SolverEngine:
                 token: Optional[int] = None,
                 t0: Optional[float] = None) -> _Inflight:
         """Enqueue the first depth stage of the padded ``boards`` and the
-        copy of its rows to the host; no host sync."""
-        self._note_program("solve", boards.shape[0])
-        dev = self._device_batch(boards)
-        sweeps = self._sweeps(boards.shape[0])
-        if self._mesh_program is not None:
-            # one K1 launch a shard, the rows gathered in global order
-            rows = self._mesh_program.dispatch(dev, iters)
-            self._note_split(self._mesh_program)
-        else:
-            rows = self._stage_rows(dev, self._depths[0], iters, sweeps)
-        host, ready = self._to_host(rows)
-        return _Inflight(host, ready, dev, boards, n, iters, sweeps, token, t0)
+        copy of its rows to the host; no host sync. On one card the stage
+        is timed by CUDA events, from just before the boards' copy to the
+        card to the rows' copy back (``ready``)."""
+        timed = [] if self._times_stages else None
+        with annotate("engine.h2d"):
+            src = self._host_batch(boards)
+            start = self._stage_event() if timed is not None else None
+            dev = src.to(self.device, non_blocking=True)
+        with annotate("engine.launch"):
+            self._note_program("solve", boards.shape[0])
+            sweeps = self._sweeps(boards.shape[0])
+            if self._mesh_program is not None:
+                # one K1 launch a shard, the rows gathered in global order
+                rows = self._mesh_program.dispatch(dev, iters)
+                self._note_split(self._mesh_program)
+                loops = None
+            else:
+                rows, loop = self._stage_rows(dev, self._depths[0], iters, sweeps)
+                loops = [self._pinned_copy(loop)]
+            host, ready = self._to_host(rows, timing=start is not None)
+        if timed is not None:
+            timed.append(("first", start, ready))
+        return _Inflight(host, ready, dev, boards, n, iters, sweeps, token, t0,
+                         timed, loops)
 
     def _note_split(self, program) -> None:
         """Count one sharded dispatch and how it landed (the mesh_info()
@@ -833,21 +891,33 @@ class SolverEngine:
                 self._mesh_min_devices = ndev
 
     @staticmethod
-    def _to_host(t: torch.Tensor):
-        """``(host, ready)``: a device tensor's copy into pinned host memory
-        enqueued on the current stream with the event recorded after it,
-        without a host sync; a CPU tensor as it is, with no event."""
+    def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+        """A device tensor's copy into pinned host memory, enqueued on the
+        current stream without a host sync (it may be read once an event
+        recorded after it has completed); a CPU tensor as it is."""
         if t.device.type == "cpu":
-            return t, None
+            return t
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
-        ready = torch.cuda.Event()
+        return host
+
+    @staticmethod
+    def _to_host(t: torch.Tensor, timing: bool = False):
+        """``(host, ready)``: ``_pinned_copy`` of a device tensor with the
+        event recorded after it (a timing event with ``timing``), without a
+        host sync; a CPU tensor as it is, with no event."""
+        if t.device.type == "cpu":
+            return t, None
+        host = SolverEngine._pinned_copy(t)
+        ready = torch.cuda.Event(enable_timing=timing)
         ready.record(torch.cuda.current_stream(t.device))
         return host, ready
 
     def _follow_up(self):
-        """Context for finalizing's device work: the engine's side stream
-        on CUDA, nothing on the CPU."""
+        """Context for finalizing's device work (a deeper depth stage, the
+        deep retry): the engine's side stream on CUDA, nothing on the CPU.
+        Entered only around that work, so a call that needs none switches
+        no stream."""
         if self._side_stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._side_stream)
@@ -857,32 +927,46 @@ class SolverEngine:
         waits for the first stage's copy, then reruns the boards that hit
         OVERFLOW at each deeper stage — every other lane a pad board, as
         ``ops.solver.solve_staged`` does — taking their grid and status and
-        accumulating their guesses and validations. The call's LoopStats
-        columns sum over the stages it ran."""
-        if call.ready is not None:
-            call.ready.synchronize()
-        rows = call.host.numpy().copy()
+        accumulating their guesses and validations, on the side stream
+        (``_follow_up``). Each rerun's loop counts join ``call.loops``; on
+        one card each rerun is timed by CUDA events into ``call.timed``,
+        read after the wait it already makes."""
+        with annotate("engine.wait"):
+            if call.ready is not None:
+                call.ready.synchronize()
+        with annotate("engine.rows"):
+            rows = call.host.numpy().copy()
         if call.dev is None:
             return rows  # the multi-host fan-out's rows, every stage run
         if self._mesh_program is not None:
             # each shard reruns its own OVERFLOW boards, as each shard of
             # the JAX program runs its staged solve
-            return self._mesh_program.restage(rows, call.dev, call.iters)
+            with annotate("engine.rerun"), self._follow_up():
+                return self._mesh_program.restage(rows, call.dev, call.iters)
         C = self.spec.cells
         for depth in self._depths[1:]:
-            need = rows[:, C + 1] == OVERFLOW
-            if not need.any():
-                continue
-            dev = call.dev
-            g2 = torch.where(
-                torch.as_tensor(need).to(dev.device)[:, None, None],
-                dev,
-                pad_board(self.spec, dev.device),
-            )
-            r2 = self._stage_rows(g2, depth, call.iters, call.sweeps).cpu().numpy()
-            rows[need, : C + 2] = r2[need, : C + 2]
-            rows[need, C + 2: C + 4] += r2[need, C + 2: C + 4]
-            rows[:, C + 4:] += r2[0, C + 4:]
+            with annotate("engine.rows"):
+                need = rows[:, C + 1] == OVERFLOW
+                if not need.any():
+                    continue
+            with annotate("engine.rerun"), self._follow_up():
+                dev = call.dev
+                start = self._stage_event() if call.timed is not None else None
+                g2 = torch.where(
+                    torch.as_tensor(need).to(dev.device)[:, None, None],
+                    dev,
+                    pad_board(self.spec, dev.device),
+                )
+                r2, loop = self._stage_rows(g2, depth, call.iters, call.sweeps)
+                call.loops.append(self._pinned_copy(loop))
+                host, done = self._to_host(r2, timing=start is not None)
+                if done is not None:
+                    done.synchronize()
+                r2 = host.numpy()
+                if start is not None:
+                    call.timed.append(("rerun", start, done))
+                rows[need, : C + 2] = r2[need, : C + 2]
+                rows[need, C + 2: C + 4] += r2[need, C + 2: C + 4]
         return rows
 
     def _dispatch_padded(self, boards: np.ndarray) -> _Inflight:
@@ -901,23 +985,26 @@ class SolverEngine:
         profile mutex is free; such a capture waits for the call's device
         work before it stops."""
         n = boards.shape[0]
-        bucket = self._bucket_for(n)
         sup = self.supervisor
-        token = sup.call_started(bucket) if sup is not None else None
+        token = None
         try:
-            # the dispatch anchor rides the handle: _finalize_padded bills
-            # the whole dispatch→fetch span to the cost plane
-            t0 = time.monotonic()
-            inj = self.fault_injector
-            if inj is not None:
-                inj.on_device_call(bucket)  # may raise (fail-next-N)
-            if n < bucket:
-                # Pad with COPIES of a real row, not empty boards: a block
-                # of boards runs until its slowest board finishes, and a
-                # copy of boards[0] adds no step to the call by
-                # construction.
-                pad = np.broadcast_to(boards[0], (bucket - n, *boards.shape[1:]))
-                boards = np.concatenate([boards, pad], axis=0)
+            with annotate("engine.pad"):
+                bucket = self._bucket_for(n)
+                if sup is not None:
+                    token = sup.call_started(bucket)
+                # the dispatch anchor rides the handle: _finalize_padded
+                # bills the whole dispatch→fetch span to the cost plane
+                t0 = time.monotonic()
+                inj = self.fault_injector
+                if inj is not None:
+                    inj.on_device_call(bucket)  # may raise (fail-next-N)
+                if n < bucket:
+                    # Pad with COPIES of a real row, not empty boards: a
+                    # block of boards runs until its slowest board
+                    # finishes, and a copy of boards[0] adds no step to the
+                    # call by construction.
+                    pad = np.broadcast_to(boards[0], (bucket - n, *boards.shape[1:]))
+                    boards = np.concatenate([boards, pad], axis=0)
             if self.mesh_runner is not None:
                 return self._run_on_mesh_runner(boards, n, self.max_iters, token, t0)
             trace_dir = self._take_trace_dir()
@@ -929,7 +1016,7 @@ class SolverEngine:
             finally:
                 self._profile_mutex.release()
         except BaseException:
-            if sup is not None:
+            if token is not None:
                 sup.call_finished(token, ok=False)
             raise
 
@@ -969,8 +1056,9 @@ class SolverEngine:
         included) and rerun the boards still RUNNING at the budget once at
         ``deep_retry_factor ×`` it, in the smallest covering bucket,
         accumulating their guesses and validations. Returns the packed
-        (n, C+6) host rows (the two trailing columns are the call's
-        LoopStats, sliced off by every result reader). The call, and the
+        (n, C+4) host rows [grid | solved | status | guesses |
+        validations]; a mesh's carry the shards' LoopStats after them, the
+        JAX layout, which every result reader slices off. The call, and the
         deep retry apart, each record one cost sample. The dispatch's
         supervision token closes here however the fetch ends."""
         sup = self.supervisor
@@ -992,58 +1080,85 @@ class SolverEngine:
             # before the event wait: an injected delay reads as a hang,
             # not as slow device time
             inj.on_fetch(call.boards.shape[0])
-        with self._follow_up():
-            rows = self._wait_rows(call)
-            if inj is not None:
-                rows = inj.corrupt(call.boards.shape[0], rows)
+        rows = self._wait_rows(call)
+        if inj is not None:
+            rows = inj.corrupt(call.boards.shape[0], rows)
+        with annotate("engine.cost"):
             # the cost sample, before the deep-retry merge can overwrite
-            # the LoopStats columns of capped rows: the whole
+            # a mesh's LoopStats columns of capped rows: the whole
             # dispatch→fetch wall, the real fill, this call's counters
             self._record_call_cost(
                 call.boards.shape[0], n, time.monotonic() - call.t0,
-                int(rows[0, C + 4]), int(rows[0, C + 5]),
+                *self._loop_stats(call, rows), gpu_s=self._gpu_s(call.timed),
             )
-            running = rows[:, C + 1] == RUNNING
-            if running[:n].any():
-                capped = np.flatnonzero(running[:n])
-                sub = call.boards[capped]
-                bucket2 = self._bucket_for(len(capped))
-                if len(capped) < bucket2:
-                    sub = np.concatenate(
-                        [
-                            sub,
-                            np.broadcast_to(
-                                sub[0], (bucket2 - len(capped), *sub.shape[1:])
-                            ),
-                        ],
-                        axis=0,
-                    )
-                t_deep = time.monotonic()
-                deep_iters = self.max_iters * self.deep_retry_factor
-                # the deep retry is a collective too on the multi-host
-                # leader: it rides the loop as the first pass did
-                deep = self._wait_rows(
-                    self._run_on_mesh_runner(sub, len(capped), deep_iters)
-                    if self.mesh_runner is not None
-                    else self._launch(sub, len(capped), deep_iters)
-                )
-                # the deep retry is its own device call: its own sample
-                self._record_call_cost(
-                    sub.shape[0], len(capped), time.monotonic() - t_deep,
-                    int(deep[0, C + 4]), int(deep[0, C + 5]), deep_retry=True,
-                )
-                first = rows[capped].copy()
-                rows[capped] = deep[: len(capped)]
-                rows[capped, C + 2] += first[:, C + 2]
-                rows[capped, C + 3] += first[:, C + 3]
+            running = rows[:n, C + 1] == RUNNING
+            capped = np.flatnonzero(running) if running.any() else None
+        if capped is not None:
+            with annotate("engine.deep_retry"), self._follow_up():
+                self._deep_retry(call, rows, capped)
         return rows[:n]
 
+    def _deep_retry(self, call: _Inflight, rows: np.ndarray,
+                    capped: np.ndarray) -> None:
+        """Rerun the ``capped`` rows of a finished call once at
+        ``deep_retry_factor ×`` its budget, in the smallest covering
+        bucket, and merge them into ``rows``, accumulating their guesses
+        and validations. The retry records its own cost sample."""
+        C = self.spec.cells
+        sub = call.boards[capped]
+        bucket2 = self._bucket_for(len(capped))
+        if len(capped) < bucket2:
+            sub = np.concatenate(
+                [
+                    sub,
+                    np.broadcast_to(
+                        sub[0], (bucket2 - len(capped), *sub.shape[1:])
+                    ),
+                ],
+                axis=0,
+            )
+        t_deep = time.monotonic()
+        deep_iters = self.max_iters * self.deep_retry_factor
+        # the deep retry is a collective too on the multi-host leader: it
+        # rides the loop as the first pass did
+        retry = (
+            self._run_on_mesh_runner(sub, len(capped), deep_iters)
+            if self.mesh_runner is not None
+            else self._launch(sub, len(capped), deep_iters)
+        )
+        deep = self._wait_rows(retry)
+        # the deep retry is its own device call: its own sample
+        gpu_s = self._gpu_s(retry.timed)
+        self._record_call_cost(
+            sub.shape[0], len(capped), time.monotonic() - t_deep,
+            *self._loop_stats(retry, deep), deep_retry=True,
+            gpu_s=None if gpu_s is None else {"deep_retry": sum(gpu_s.values())},
+        )
+        first = rows[capped].copy()
+        rows[capped] = deep[: len(capped)]
+        rows[capped, C + 2] += first[:, C + 2]
+        rows[capped, C + 3] += first[:, C + 3]
+
+    @staticmethod
+    def _gpu_s(timed: Optional[list]) -> Optional[dict]:
+        """Device-clock seconds of a call's timed stages, by stage, or None
+        where the call was not timed. Every event has completed by now
+        (the call's waits came after them), so no host sync."""
+        if timed is None:
+            return None
+        out: dict = {}
+        for stage, start, end in timed:
+            out[stage] = out.get(stage, 0.0) + 1e-3 * start.elapsed_time(end)
+        return out
+
     def _record_call_cost(self, bucket: int, n: int, device_s: float,
-                          lane: int, idle: int, deep_retry: bool = False) -> None:
+                          lane: int, idle: int, deep_retry: bool = False,
+                          gpu_s: Optional[dict] = None) -> None:
         """Fold one finalized device call into the cost plane
         (obs/cost.py), splitting the pad rows as the JAX engine does:
         those short of the requested ladder width bill the coalescer, the
-        extra width the mesh rounding added bills the mesh."""
+        extra width the mesh rounding added bills the mesh. ``gpu_s``: the
+        call's device-clock seconds by stage, on one card."""
         req_cover = next((w for w in self.requested_buckets if w >= n), None)
         if req_cover is not None and req_cover <= bucket:
             pad_coalesce, pad_mesh = req_cover - n, bucket - req_cover
@@ -1060,6 +1175,7 @@ class SolverEngine:
             lane_steps=lane,
             idle_lane_steps=idle,
             deep_retry=deep_retry,
+            gpu_s=gpu_s,
         )
 
     def _solve_padded(self, boards: np.ndarray) -> np.ndarray:
@@ -1552,15 +1668,19 @@ class SolverEngine:
         ``"xla"`` / ``"pallas"``).
 
         ``cost`` is the device cost plane (obs/cost.py). Its lane counters
-        differ from the JAX engine's by design on the closed loop: the DFS
-        kernel runs each board on its own warp, so on the card a bucket
-        call reports ``idle_lane_steps`` 0 and ``lane_steps`` = Σ the
-        boards' own steps, and ``lane_util_pct`` of the bucket calls reads
-        100; its plain version reports the call's step count times its
-        width, idle 0 (ops/cuda_solver.py). The JAX engine counts lockstep
-        lanes, idle ones included. The segment counters of the continuous
-        block (``cost.continuous``) come from the segment digest and equal
-        the JAX engine's on the same workload."""
+        are lockstep counts on every path, as the JAX engine's: a bucket
+        call's ``lane_steps`` is its width times the most steps of any of
+        its boards (summed over its depth stages) and ``idle_lane_steps``
+        that less Σ the boards' own steps (``lockstep_loop``). On the
+        card, where the DFS kernel runs each board on its own warp,
+        ``lane_util_pct`` is the straggler occupancy: the share of
+        warp-steps that did work while each call's deepest board ran. Its
+        plain version steps every board alike, so idle is 0 on the CPU.
+        ``gpu_s`` / ``gpu_s_by_stage`` are the one-card bucket calls'
+        device time by CUDA events, beside the host-clock ``device_s``.
+        The segment counters of the continuous block (``cost.continuous``)
+        come from the segment digest and equal the JAX engine's on the
+        same workload."""
         out = {
             "backend": self.backend,
             "frontier_enabled": self.frontier_enabled,
@@ -1940,23 +2060,23 @@ class SolverEngine:
             warm = self._warm_widths()
             if warm:
                 cap = warm[-1]
-        packed = np.concatenate(
-            [self._solve_padded(boards[lo: lo + cap]) for lo in range(0, B, cap)],
-            axis=0,
-        )
-        solutions = packed[:, :C].reshape(B, N, N)
-        solved_mask = packed[:, C].astype(bool)
-        validations = int(packed[:, C + 3].sum())
-        guesses = int(packed[:, C + 2].sum())
-        capped = int((packed[:, C + 1] == RUNNING).sum())
-        with self._lock:
-            self.validations += validations
-            self.solved_puzzles += int(solved_mask.sum())
-        return solutions, solved_mask, {
-            "validations": validations,
-            "guesses": guesses,
-            "capped": capped,
-        }
+        chunks = [self._solve_padded(boards[lo: lo + cap])
+                  for lo in range(0, B, cap)]
+        with annotate("engine.merge"):
+            packed = np.concatenate(chunks, axis=0)
+            solutions = packed[:, :C].reshape(B, N, N)
+            solved_mask = packed[:, C].astype(bool)
+            validations = int(packed[:, C + 3].sum())
+            guesses = int(packed[:, C + 2].sum())
+            capped = int((packed[:, C + 1] == RUNNING).sum())
+            with self._lock:
+                self.validations += validations
+                self.solved_puzzles += int(solved_mask.sum())
+            return solutions, solved_mask, {
+                "validations": validations,
+                "guesses": guesses,
+                "capped": capped,
+            }
 
     def solve_batch_resumable_np(
         self,

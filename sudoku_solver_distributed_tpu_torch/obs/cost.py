@@ -1,12 +1,22 @@
 """Per-bucket device cost accounting: where device time actually goes.
 
 A copy of ``sudoku_solver_distributed_tpu/obs/cost.py``, the ``engine.cost``
-block of ``GET /metrics``. Every bucket call the engine finalizes —
-coalesced, direct or deep-retry — records ONE sample here:
+block of ``GET /metrics``, with the card-clock ``gpu_s`` added. Every
+bucket call the engine finalizes — coalesced, direct or deep-retry —
+records ONE sample here:
 
   device_s        dispatch → rows-on-the-host wall time, host clock (the
                   same span the request tracer stamps as the ``device``
                   stage)
+  gpu_s           the call's device time on the card's clock: CUDA events
+                  around each device stage (the first depth stage from the
+                  boards' copy in to the rows' copy out, each deeper
+                  rerun, the deep retry), read after the waits the engine
+                  already makes. Kept in total, per bucket and by stage
+                  (``gpu_s_by_stage``: ``first``, ``rerun``,
+                  ``deep_retry``). One card only: a mesh call, the
+                  multi-host fan-out and the CPU record none, and the
+                  keys appear once a call recorded some
   boards          real boards in the call (batch fill)
   pad_coalesce    pad rows added to reach the bucket width (the coalescer
                   fed fewer boards than the bucket)
@@ -14,15 +24,22 @@ coalesced, direct or deep-retry — records ONE sample here:
                   mesh engine's ladder rounds to mesh-divisible widths;
                   the engine splits the pad between the two as the JAX
                   engine does)
-  lane_steps /    the call's loop-work counters (``LoopStats``), carried
-  idle_lane_steps as two trailing packed-row columns: lane utilization =
-                  1 − idle/lane. The DFS kernel runs each board on its own
-                  warp, so on one card it reports idle 0 and lane = Σ own
-                  steps; the plain version reports lockstep counts
-                  (ops/cuda_solver.py). A mesh call's are the shards'
-                  lockstep counts summed (each shard's loop ends with its
-                  own boards: ``solve_stage_lockstep``), the JAX mesh
-                  program's ``psum``, on the card and off it.
+  lane_steps /    the call's loop-work counters (``LoopStats``): lane
+  idle_lane_steps utilization = 1 − idle/lane. Every path counts a
+                  lockstep loop, as the JAX engine does: lane = width ×
+                  the turns (the most steps of any board, summed over the
+                  depth stages), idle = lane − Σ each board's own steps.
+                  On one device the engine reads each stage's summed and
+                  longest steps and counts in Python ints, which do not
+                  wrap; on the card the DFS kernel runs each board on its
+                  own warp, so the share is the call's straggler
+                  occupancy, the warp-steps that did work while its
+                  deepest board ran; the plain version on the CPU steps
+                  every board the same, so idle is 0 there. A mesh call's
+                  are the shards' lockstep counts summed (each shard's
+                  loop ends with its own boards: ``solve_stage_lockstep``),
+                  the JAX mesh program's ``psum``, carried as two trailing
+                  packed-row columns, on the card and off it.
 
 Every continuous-batching segment records one sample too
 (``note_segment``, from the segment digest's columns), kept as the
@@ -53,7 +70,7 @@ class _BucketCost:
 
     __slots__ = (
         "dispatches", "boards", "pad_coalesce", "pad_mesh", "device_s",
-        "lane_steps", "idle_lane_steps", "deep_retries", "recent",
+        "gpu_s", "lane_steps", "idle_lane_steps", "deep_retries", "recent",
     )
 
     def __init__(self, window: int):
@@ -62,6 +79,7 @@ class _BucketCost:
         self.pad_coalesce = 0
         self.pad_mesh = 0
         self.device_s = 0.0
+        self.gpu_s = 0.0
         self.lane_steps = 0
         self.idle_lane_steps = 0
         self.deep_retries = 0
@@ -112,8 +130,8 @@ class CostAccounting:
             "boundary_host_s": 0.0,
             "fetch_bytes": 0,
         }
-        # farm-route counters, fed by the task farm's merge fold (not in
-        # this package yet): cell dispatches and hedge duplicates are
+        # farm-route counters, fed by the task farm's merge fold
+        # (net/node.py): cell dispatches and hedge duplicates are
         # dispatch-plane spend, and a LATE duplicate ``solution``
         # datagram is counted here exactly once and NEVER as a
         # completion anywhere
@@ -123,6 +141,8 @@ class CostAccounting:
         # per-bucket ledger can't carry these because a race has no
         # bucket width
         self._frontier = {"races": 0, "escalations": 0, "device_s": 0.0}
+        # device-clock seconds of the one-card bucket calls, by stage
+        self._gpu_by_stage = {"first": 0.0, "rerun": 0.0, "deep_retry": 0.0}
 
     def record_call(
         self,
@@ -135,9 +155,12 @@ class CostAccounting:
         lane_steps: int = 0,
         idle_lane_steps: int = 0,
         deep_retry: bool = False,
+        gpu_s: Optional[Dict[str, float]] = None,
     ) -> None:
         """Fold one finalized device call. A few int adds and a deque
-        append under one lock — per BATCH, never per request."""
+        append under one lock — per BATCH, never per request. ``gpu_s``:
+        the call's device-clock seconds by stage (``first``, ``rerun``,
+        ``deep_retry``), where the engine timed them."""
         if device_s < 0.0:
             device_s = 0.0
         with self._lock:
@@ -149,6 +172,9 @@ class CostAccounting:
             b.pad_coalesce += pad_coalesce
             b.pad_mesh += pad_mesh
             b.device_s += device_s
+            for stage, sec in (gpu_s or {}).items():
+                self._gpu_by_stage[stage] += sec
+                b.gpu_s += sec
             b.lane_steps += lane_steps
             b.idle_lane_steps += idle_lane_steps
             if deep_retry:
@@ -254,7 +280,7 @@ class CostAccounting:
             if now - t <= self.recent_horizon_s:
                 rec_s += dev_s
                 rec_boards += boards
-        return {
+        out = {
             "dispatches": b.dispatches,
             "boards": b.boards,
             "deep_retries": b.deep_retries,
@@ -270,6 +296,9 @@ class CostAccounting:
             "lane_steps": b.lane_steps,
             "idle_lane_steps": b.idle_lane_steps,
         }
+        if b.gpu_s:
+            out["gpu_s"] = round(b.gpu_s, 6)
+        return out
 
     def snapshot(self, warm_info: Optional[dict] = None) -> dict:
         """The ``engine.cost`` block: totals + per-bucket breakdown, and
@@ -296,6 +325,7 @@ class CostAccounting:
             segments = list(self._segments)
             farm = dict(self._farm)
             frontier = dict(self._frontier)
+            gpu_by_stage = dict(self._gpu_by_stage)
         out = {
             "dispatches": dispatches,
             "boards": boards,
@@ -312,6 +342,15 @@ class CostAccounting:
             "idle_lane_steps": idle,
             "buckets": per_bucket,
         }
+        gpu_s = sum(gpu_by_stage.values())
+        if gpu_s:
+            # one-card bucket calls timed on the card's clock: present
+            # once one was, so a node that never timed one keeps its
+            # /metrics surface (the JAX engine's)
+            out["gpu_s"] = round(gpu_s, 6)
+            out["gpu_s_by_stage"] = {
+                k: round(v, 6) for k, v in gpu_by_stage.items()
+            }
         if seg_totals["segments"]:
             # the continuous-batching block: lifetime totals +
             # the SUSTAINED recent-window gauges — utilization and

@@ -1347,15 +1347,24 @@ seed_frontier_cuda.launches = 0
 
 def lockstep_stats(steps: torch.Tensor) -> LoopStats:
     """The lockstep loop's LoopStats of one flat stage from each board's
-    own step count (K1's ``steps`` column): the loop turns max(steps)
-    times, sweeping every lane each turn, and a board is idle in the turns
-    after it stopped. 0-dim tensors on the steps' device: no sync."""
+    own step count (K1's ``steps`` column), by ``lockstep_loop``. 0-dim
+    int64 tensors on the steps' device: no sync."""
     B = steps.shape[0]
     if B == 0:
         zero = steps.new_zeros((), dtype=torch.int64)
         return LoopStats(zero, zero)
-    lane = steps.amax().to(torch.int64) * B
-    return LoopStats(lane, lane - steps.to(torch.int64).sum())
+    return lockstep_loop(steps.to(torch.int64).sum(),
+                         steps.amax().to(torch.int64), B)
+
+
+def lockstep_loop(own, turns, width: int) -> LoopStats:
+    """The LoopStats of a lockstep loop over ``width`` lanes that turned
+    ``turns`` times (its longest lane's steps) while its lanes stepped
+    ``own`` times in all: the loop sweeps every lane each turn, and a lane
+    is idle in the turns after it stopped. Python ints, which do not wrap,
+    or int64 tensors alike."""
+    lane = turns * width
+    return LoopStats(lane, lane - own)
 
 
 def solve_stage_lockstep(grid: torch.Tensor, spec: BoardSpec, depth: int,
